@@ -1,0 +1,34 @@
+"""libiqo_tpu_torch: the PyTorch / CUDA port of libiqo_tpu.
+
+Lanczos, Area and Linear resampling of single-channel uint8 images,
+byte-identical to the reference's Generic fixed-point implementations and
+to the JAX package ``libiqo_tpu``, whose host layer (plans, coefficient
+tables, NumPy oracle) it imports.  The Lanczos path runs a hand-written
+CUDA kernel on Hopper (sm_90a); every other case runs the exact PyTorch
+path on the data's device.  Imports ``torch``, never ``jax``.
+
+Quick start::
+
+    import numpy as np
+    from libiqo_tpu_torch import LanczosResizer
+
+    r = LanczosResizer(degree=3, src_w=3840, src_h=2160,
+                       dst_w=1920, dst_h=1080, device="cuda")
+    out = r.resize(np.zeros((2160, 3840), np.uint8))   # (1080, 1920) u8
+"""
+
+from libiqo_tpu.core.plan import ResizePlan, build_plan
+
+from .api import AreaResizer, LanczosResizer, LinearResizer, Resizer
+
+__version__ = "0.4.0"
+
+__all__ = [
+    "AreaResizer",
+    "LanczosResizer",
+    "LinearResizer",
+    "Resizer",
+    "ResizePlan",
+    "build_plan",
+    "__version__",
+]

@@ -1,0 +1,179 @@
+// Fused separable resize for Hopper (sm_90a): Y pass, int16 wrap, Y-border
+// renormalisation, X pass and rounding epilogue in one kernel, exact to the
+// reference Generic fixed-point path (libiqo_tpu/golden/numpy_ref.py).
+//
+// Replaces: the TPU kernel libiqo_tpu/ops/pallas_resize.py
+//   _make_padless_fn (pl.pallas_call at :1687) -> kernel/_frame, in the
+//   configuration the Lanczos main path takes (s8 Y dot, int16 wrap, y_cond
+//   border rows, s8-split X dots, x_slab border columns), together with its
+//   exact truncating divide _exact_trunc_div (:79-129).
+//
+// What bounds it on the H100: one 4K->1080p YUV420 frame moves ~15.5 MB
+// (a few microseconds at 3.35 TB/s) and needs ~85 M int32 multiply-adds.
+// Both are small; the simple form below is bound by its load instructions
+// (each tap is a load of the source or the work tile) and by launch latency.
+//
+// What the design does about it:
+// * The TPU's byte planes, s8 rebasing, Karatsuba splits and corr_y/corr_x
+//   fixups exist because its matrix unit multiplies in bf16 and its vector
+//   divide is slow.  Here 32-bit integer multiply-add and `/` are exact and
+//   native, so each output is a direct tap sum, and the border divide is
+//   C++ `/` (truncation toward zero by language rule).
+// * One block computes a TH x TW output tile.  The Y pass writes the tile's
+//   work rows, over the column tile's source window only, into shared
+//   memory; the work tile never touches device memory (as VMEM on the TPU).
+// * The host computes each column tile's source window [lo, hi) from the
+//   clamped tap indices, so every read lies inside the source frame and
+//   inside the shared tile, whatever the plan's stale-iterator starts do.
+// * Intended wraps are done in uint32_t (signed overflow is undefined in
+//   C++); int16 narrowing, two's-complement reinterpretation and the
+//   arithmetic right shift are written out explicitly.
+//
+// Tensor-core (int8 mma/wgmma) versions of the two passes and a TMA-fed
+// source band are later work.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTileRows = 16;     // TH: output rows per block
+constexpr int kTileCols = 128;    // TW: output columns per block
+constexpr int kThreads = 256;
+
+// C++ int16_t narrowing of the low 16 bits, without an implementation-
+// defined conversion.
+__device__ __forceinline__ int32_t wrap16(uint32_t v) {
+  return static_cast<int32_t>(v & 0xFFFFu) -
+         static_cast<int32_t>((v & 0x8000u) << 1);
+}
+
+// Two's-complement reinterpretation of 32 bits.
+__device__ __forceinline__ int32_t as_i32(uint32_t v) {
+  return v < 0x80000000u ? static_cast<int32_t>(v)
+                         : -static_cast<int32_t>(~v) - 1;
+}
+
+// floor(v / 2^k): an arithmetic right shift on every int32.
+__device__ __forceinline__ int32_t shift_floor(int32_t v, int k) {
+  return v >= 0 ? (v >> k) : ~((~v) >> k);
+}
+
+// Tables are tap-major: coef[t * n_dst + i].  ydiv/xdiv hold the border
+// divisor of each output row/column, 0 on main outputs.  win holds [lo, hi)
+// of each column tile's source window.
+__global__ void __launch_bounds__(kThreads) resize_fused_kernel(
+    const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
+    long long src_frame_stride, long long src_row_stride,
+    int dst_h, int dst_w,
+    const int32_t* __restrict__ cy, const int32_t* __restrict__ iy,
+    const int32_t* __restrict__ ydiv, int taps_y, int y_bias,
+    const int32_t* __restrict__ cx, const int32_t* __restrict__ ix,
+    const int32_t* __restrict__ xdiv, int taps_x,
+    const int32_t* __restrict__ win, int win_max, int out_shift) {
+  extern __shared__ int32_t work[];   // [kTileRows][win_max]
+
+  const uint8_t* fsrc = src + static_cast<long long>(blockIdx.z) * src_frame_stride;
+  uint8_t* fdst = dst + static_cast<long long>(blockIdx.z) * dst_h * dst_w;
+  const int lo = win[2 * blockIdx.x];
+  const int width = win[2 * blockIdx.x + 1] - lo;
+  const int r0 = blockIdx.y * kTileRows;
+  const int rows = min(kTileRows, dst_h - r0);
+
+  // Y pass over the window: work[r][c] = wrap16(sum_t cy * src[iy, lo + c]),
+  // border rows renormalised by trunc(w * y_bias / deno_y).
+  for (int e = threadIdx.x; e < rows * width; e += kThreads) {
+    const int r = e / width;
+    const int c = e - r * width;
+    const int i = r0 + r;
+    const uint8_t* col = fsrc + lo + c;
+    uint32_t acc = 0;
+    for (int t = 0; t < taps_y; ++t) {
+      const int k = t * dst_h + i;
+      acc += static_cast<uint32_t>(__ldg(cy + k)) *
+             static_cast<uint32_t>(__ldg(col + __ldg(iy + k) * src_row_stride));
+    }
+    int32_t w = wrap16(acc);
+    const int32_t d = __ldg(ydiv + i);
+    if (d != 0) w = wrap16(static_cast<uint32_t>((w * y_bias) / d));  // |w*y_bias| < 2^31
+    work[r * win_max + c] = w;
+  }
+  __syncthreads();
+
+  // X pass and epilogue: sums wrap in int32 as the reference's C
+  // accumulator; main columns (sums + half) >> out_shift, border columns
+  // trunc((sums + half) / (deno_x * y_bias)); then int16 narrowing, clip.
+  const int c0 = blockIdx.x * kTileCols;
+  const int cols = min(kTileCols, dst_w - c0);
+  const uint32_t half = 1u << (out_shift - 1);
+  for (int e = threadIdx.x; e < rows * kTileCols; e += kThreads) {
+    const int r = e / kTileCols;
+    const int jt = e - r * kTileCols;
+    if (jt >= cols) continue;
+    const int j = c0 + jt;
+    const int32_t* wrow = work + r * win_max;
+    uint32_t acc = 0;
+    for (int t = 0; t < taps_x; ++t) {
+      const int k = t * dst_w + j;
+      acc += static_cast<uint32_t>(__ldg(cx + k)) *
+             static_cast<uint32_t>(wrow[__ldg(ix + k) - lo]);
+    }
+    const int32_t s = as_i32(acc + half);
+    const int32_t d = __ldg(xdiv + j);
+    // d is a nonzero multiple of y_bias (>= 2 in magnitude) on border
+    // columns, so s / d cannot overflow.
+    const int32_t v = wrap16(static_cast<uint32_t>(d != 0 ? s / d : shift_floor(s, out_shift)));
+    fdst[static_cast<long long>(r0 + r) * dst_w + j] =
+        static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Tile shape, read by the host to compute the column windows.
+int iqo_tile_shape(int* rows, int* cols) {
+  *rows = kTileRows;
+  *cols = kTileCols;
+  return 0;
+}
+
+const char* iqo_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Raises the kernel's dynamic shared-memory limit on the current device to
+// `bytes`; called once per device before its first launch.  Returns a
+// cudaError_t.
+int iqo_set_max_smem(int bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      resize_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+// Launches one resize of n_frames frames on `stream`.  Allocates nothing;
+// dst is contiguous (n_frames, dst_h, dst_w).  The work tile's shared memory
+// must be within the limit set by iqo_set_max_smem.  Returns a cudaError_t.
+int iqo_resize_fused(const void* src, void* dst, int n_frames,
+                     long long src_frame_stride, long long src_row_stride,
+                     int dst_h, int dst_w,
+                     const void* cy, const void* iy, const void* ydiv,
+                     int taps_y, int y_bias,
+                     const void* cx, const void* ix, const void* xdiv,
+                     int taps_x, const void* win, int win_max, int out_shift,
+                     void* stream) {
+  const int smem = kTileRows * win_max * static_cast<int>(sizeof(int32_t));
+  const dim3 grid((dst_w + kTileCols - 1) / kTileCols,
+                  (dst_h + kTileRows - 1) / kTileRows, n_frames);
+  resize_fused_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst),
+      src_frame_stride, src_row_stride, dst_h, dst_w,
+      static_cast<const int32_t*>(cy), static_cast<const int32_t*>(iy),
+      static_cast<const int32_t*>(ydiv), taps_y, y_bias,
+      static_cast<const int32_t*>(cx), static_cast<const int32_t*>(ix),
+      static_cast<const int32_t*>(xdiv), taps_x,
+      static_cast<const int32_t*>(win), win_max, out_shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,204 @@
+"""The fused resize kernel for Hopper: host-side operands, scope and wrapper.
+
+The kernel (``csrc/resize_fused.cu``) replaces the TPU's fused Pallas kernel
+(``libiqo_tpu/ops/pallas_resize.py:_make_padless_fn``) on the Lanczos path.
+This module packs a :class:`ResizePlan` into the kernel's operands, decides
+which plans the kernel takes (:func:`supports_plan`), and launches it
+(:func:`resize_fused`).  :func:`resize_plain` is the same function in plain
+PyTorch over the same operands, for the CPU and for comparison on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import threading
+
+import numpy as np
+import torch
+
+from libiqo_tpu.core.plan import AxisPlan, ResizePlan
+
+from . import _build, torch_resize
+
+__all__ = ["LAUNCHES", "KernelOperands", "KernelTables", "kernel_tables",
+           "pack_operands", "resize_fused", "resize_plain", "smem_bytes",
+           "supports_plan", "tile_windows"]
+
+# Must match kTileRows/kTileCols in csrc/resize_fused.cu (checked at load).
+TILE_ROWS = 16
+TILE_COLS = 128
+SMEM_BUDGET = 232448      # dynamic shared memory one sm_90 block may use
+_MAX_GRID_Y = 65535       # CUDA's limit on gridDim.y (row tiles)
+_I32_MAX = 2**31 - 1
+
+LAUNCHES = 0              # kernel launches in this process
+_launch_lock = threading.Lock()
+
+
+def tile_windows(ax: AxisPlan) -> np.ndarray:
+    """(n_col_tiles, 2) int32 ``[lo, hi)``: the source columns that the
+    clamped taps of each TILE_COLS-wide output tile read.  ``start`` is not
+    assumed monotonic."""
+    idx = torch_resize.clamped_taps(ax)
+    first = np.arange(0, ax.n_dst, TILE_COLS)
+    lo = np.minimum.reduceat(idx.min(axis=1), first)
+    hi = np.maximum.reduceat(idx.max(axis=1), first) + 1
+    return np.stack([lo, hi], axis=1).astype(np.int32)
+
+
+def smem_bytes(plan: ResizePlan) -> int:
+    """Shared memory of one block: the TILE_ROWS x window int32 work tile."""
+    w = tile_windows(plan.x)
+    return TILE_ROWS * int((w[:, 1] - w[:, 0]).max()) * 4
+
+
+def _x_divisors(plan: ResizePlan) -> np.ndarray:
+    deno = np.where(plan.x.deno == 0, 1, plan.x.deno).astype(np.int64)
+    return np.where(plan.x.is_border, deno * plan.y.bias, 0)
+
+
+def supports_plan(plan: ResizePlan) -> bool:
+    """True when the kernel computes this plan exactly.  A pure function of
+    the plan: wrap16 (Lanczos) plans at px_scale 1 or 2 whose border
+    divisors fit int32, whose tap tables index in int32, and whose work
+    tile fits the shared-memory budget.  Area and Linear plans go to the
+    exact ``torch`` path."""
+    if not plan.wrap16 or plan.px_scale not in (1, 2):
+        return False
+    if np.abs(_x_divisors(plan)).max() > _I32_MAX:
+        return False
+    if max(ax.num_coefs * ax.n_dst for ax in (plan.y, plan.x)) > _I32_MAX:
+        return False
+    if -(-plan.y.n_dst // TILE_ROWS) > _MAX_GRID_Y:
+        return False
+    return smem_bytes(plan) <= SMEM_BUDGET
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelTables:
+    """The kernel's int32 operands, tap-major.  Read-only once built."""
+    cy: torch.Tensor        # (taps_y, dst_h)
+    iy: torch.Tensor        # (taps_y, dst_h), clamped source rows
+    ydiv: torch.Tensor      # (dst_h,), border divisor, 0 on main rows
+    cx: torch.Tensor        # (taps_x, dst_w)
+    ix: torch.Tensor        # (taps_x, dst_w), clamped source columns
+    xdiv: torch.Tensor      # (dst_w,), deno_x * y_bias, 0 on main columns
+    win: torch.Tensor       # (n_col_tiles, 2) source window [lo, hi)
+    win_max: int
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelOperands:
+    """A plan on one device: the plain path's operands, and the kernel's
+    tables on a CUDA device when :func:`supports_plan` holds (else None)."""
+    plain: torch_resize.Operands
+    tables: KernelTables | None
+
+    @property
+    def device(self) -> torch.device:
+        return self.plain.device
+
+
+def kernel_tables(plan: ResizePlan, device="cpu") -> KernelTables:
+    """The kernel's tables for a plan that :func:`supports_plan` takes."""
+    win = tile_windows(plan.x)
+    ydeno = np.where(plan.y.deno == 0, 1, plan.y.deno)
+
+    def t(a):
+        a = np.ascontiguousarray(np.asarray(a).astype(np.int32))
+        return torch.from_numpy(a).to(device)
+
+    return KernelTables(
+        cy=t(plan.y.coef.T), iy=t(torch_resize.clamped_taps(plan.y).T),
+        ydiv=t(np.where(plan.y.is_border, ydeno, 0)),
+        cx=t(plan.x.coef.T), ix=t(torch_resize.clamped_taps(plan.x).T),
+        xdiv=t(_x_divisors(plan)), win=t(win),
+        win_max=int((win[:, 1] - win[:, 0]).max()))
+
+
+def pack_operands(plan: ResizePlan, device="cpu") -> KernelOperands:
+    """Turn the JAX package's :class:`ResizePlan` into tensors on
+    ``device``.  The kernel's tables are built only where it can launch: on
+    a CUDA device, for plans inside :func:`supports_plan`."""
+    device = torch.device(device)
+    launchable = device.type == "cuda" and supports_plan(plan)
+    return KernelOperands(
+        plain=torch_resize.pack_operands(plan, device),
+        tables=kernel_tables(plan, device) if launchable else None)
+
+
+def resize_plain(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (``torch_resize``), on the
+    same operands and on src's device."""
+    return torch_resize.resize(ops.plain, src)
+
+
+@functools.cache
+def _lib():
+    """The kernel library, checked once against the host's tile shape."""
+    lib = _build.load()
+    rows, cols = ctypes.c_int(), ctypes.c_int()
+    lib.iqo_tile_shape(ctypes.byref(rows), ctypes.byref(cols))
+    if (rows.value, cols.value) != (TILE_ROWS, TILE_COLS):
+        raise RuntimeError(f"kernel tile {rows.value}x{cols.value} != host "
+                           f"tile {TILE_ROWS}x{TILE_COLS}")
+    return lib
+
+
+@functools.cache
+def _lib_for(device: torch.device):
+    """The kernel library with the kernel's shared-memory limit raised to
+    the budget on ``device``, once per device."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        rc = lib.iqo_set_max_smem(SMEM_BUDGET)
+    if rc != 0:
+        raise RuntimeError(f"resize_fused setup failed on {device}: "
+                           f"{lib.iqo_error_string(rc).decode()} ({rc})")
+    return lib
+
+
+def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
+    """(B, src_h, src_w) uint8 -> (B, dst_h, dst_w) uint8.
+
+    A CPU tensor goes through :func:`resize_plain`.  A CUDA tensor launches
+    the kernel, or raises: there is no fallback.  Rows may be strided; the
+    last dimension must be contiguous."""
+    global LAUNCHES
+    if src.device.type == "cpu":
+        return resize_plain(ops, src)
+    if src.device.type != "cuda":
+        raise ValueError(f"unsupported device {src.device}")
+    k = ops.tables
+    if k is None:
+        raise ValueError("plan is outside the kernel's scope (supports_plan)")
+    if src.device != ops.device:
+        raise ValueError(f"source on {src.device}, operands on {ops.device}")
+    if src.dtype != torch.uint8:
+        raise TypeError(f"source must be uint8, got {src.dtype}")
+    (h, w), (dh, dw) = ops.plain.src_shape, ops.plain.dst_shape
+    if src.ndim != 3 or tuple(src.shape[1:]) != (h, w):
+        raise ValueError(f"source shape {tuple(src.shape)} != (B, {h}, {w})")
+    if src.stride(-1) != 1:
+        raise ValueError("source rows must be contiguous (last stride 1)")
+    lib = _lib_for(src.device)
+    out = torch.empty((src.shape[0], dh, dw), dtype=torch.uint8,
+                      device=src.device)
+    if out.numel() == 0:
+        return out
+    rc = lib.iqo_resize_fused(
+        src.data_ptr(), out.data_ptr(), src.shape[0],
+        src.stride(0), src.stride(1), dh, dw,
+        k.cy.data_ptr(), k.iy.data_ptr(), k.ydiv.data_ptr(),
+        k.cy.shape[0], ops.plain.y_bias,
+        k.cx.data_ptr(), k.ix.data_ptr(), k.xdiv.data_ptr(),
+        k.cx.shape[0], k.win.data_ptr(), k.win_max,
+        ops.plain.out_shift, torch.cuda.current_stream(src.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"resize_fused launch failed: "
+                           f"{lib.iqo_error_string(rc).decode()} ({rc})")
+    with _launch_lock:
+        LAUNCHES += 1
+    return out

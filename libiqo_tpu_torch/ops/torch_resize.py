@@ -1,0 +1,126 @@
+"""The plain exact resize in PyTorch: banded taps, integer arithmetic.
+
+This is the port of ``libiqo_tpu/ops/xla_resize.py`` and the executable form
+of ``libiqo_tpu/golden/numpy_ref.py`` on tensors.  It serves three roles:
+
+* the ``torch`` backend, on CPU and CUDA alike;
+* the plain version that the hand-written CUDA kernel
+  (``ops/cuda_resize.py``) is compared with;
+* the route for plans the kernel does not take.
+
+Each pass is a banded tap form over the plan's ``(coef, start)`` tables: for
+every tap, an ``index_select`` of clamped source indices, a multiply and an
+accumulate.  Out-of-range taps are zero in the plan, so the clamped indices
+are inert (as ``xla_resize._pack_banded``).  Everything runs in int64, where
+the sums are exact, and the reference's intended wraps are then applied
+explicitly: int16 on the work rows and the final narrowing, int32 on the X
+accumulator (``numpy_ref.py:32-45``).  No matmul is used: CUDA has no general
+integer matmul, and the tap form needs none.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from libiqo_tpu.core.plan import AxisPlan, ResizePlan
+
+__all__ = ["AxisOperands", "Operands", "pack_operands", "resize"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisOperands:
+    """One axis of a plan as device tensors, tap-major."""
+    coef: torch.Tensor      # int64 (taps, n_dst)
+    idx: torch.Tensor       # int64 (taps, n_dst), clamped to [0, n_src)
+    deno: torch.Tensor      # int64 (n_dst,), border divisor (0 -> 1)
+    border: torch.Tensor    # bool (n_dst,)
+    has_border: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class Operands:
+    """A whole plan on one device.  Read-only once built."""
+    y: AxisOperands
+    x: AxisOperands
+    wrap16: bool
+    y_bias: int
+    out_shift: int
+    src_shape: tuple[int, int]
+    dst_shape: tuple[int, int]
+    device: torch.device
+
+
+def clamped_taps(ax: AxisPlan) -> np.ndarray:
+    """(n_dst, taps) source index of every tap, clipped into [0, n_src)."""
+    taps = ax.start[:, None] + np.arange(ax.num_coefs, dtype=np.int64)
+    return np.clip(taps, 0, ax.n_src - 1)
+
+
+def _axis(ax: AxisPlan, deno_scale: int, device) -> AxisOperands:
+    deno = np.where(ax.deno == 0, 1, ax.deno).astype(np.int64) * deno_scale
+
+    def t(a, dtype=torch.int64):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    return AxisOperands(
+        coef=t(ax.coef.T), idx=t(clamped_taps(ax).T), deno=t(deno),
+        border=t(ax.is_border, torch.bool), has_border=bool(ax.is_border.any()))
+
+
+def pack_operands(plan: ResizePlan, device="cpu") -> Operands:
+    """Turn the JAX package's :class:`ResizePlan` into tensors on ``device``.
+
+    The X divisor carries the Y bias (``deno_x * bias_y``), as in
+    ``numpy_ref._x_pass``."""
+    y = _axis(plan.y, 1, device)
+    return Operands(
+        y=y, x=_axis(plan.x, plan.y.bias, device),
+        wrap16=plan.wrap16, y_bias=plan.y.bias, out_shift=plan.out_shift,
+        src_shape=(plan.y.n_src, plan.x.n_src),
+        dst_shape=(plan.y.n_dst, plan.x.n_dst), device=y.coef.device)
+
+
+def _wrap16(v: torch.Tensor) -> torch.Tensor:
+    return ((v + 32768) & 65535) - 32768
+
+
+def _wrap32(v: torch.Tensor) -> torch.Tensor:
+    return ((v + 2**31) & (2**32 - 1)) - 2**31
+
+
+def _taps(s: torch.Tensor, ax: AxisOperands, dim: int) -> torch.Tensor:
+    """sum_t coef[t] * s[..., idx[t], ...] along ``dim`` (-2 or -1), exact."""
+    acc = None
+    for c, i in zip(ax.coef, ax.idx):
+        term = s.index_select(dim, i) * (c[:, None] if dim == -2 else c)
+        acc = term if acc is None else acc.add_(term)
+    return acc
+
+
+def resize(ops: Operands, src: torch.Tensor) -> torch.Tensor:
+    """(..., src_h, src_w) uint8 -> (..., dst_h, dst_w) uint8 on src's device,
+    byte-identical to ``numpy_ref.resize_u8`` on every frame."""
+    if tuple(src.shape[-2:]) != ops.src_shape:
+        raise ValueError(f"source spatial shape {tuple(src.shape[-2:])} != "
+                         f"plan geometry {ops.src_shape}")
+    if src.dtype != torch.uint8:
+        raise TypeError(f"source must be uint8, got {src.dtype}")
+    nume = _taps(src.to(torch.int64), ops.y, -2)
+    if ops.wrap16:
+        nume = _wrap16(nume)
+        if ops.y.has_border:
+            border = _wrap16(torch.div(nume * ops.y_bias, ops.y.deno[:, None],
+                                       rounding_mode="trunc"))
+            nume = torch.where(ops.y.border[:, None], border, nume)
+    sums = _taps(nume, ops.x, -1)
+    rounded = sums + (1 << (ops.out_shift - 1))
+    if ops.wrap16:
+        rounded = _wrap32(rounded)      # the reference's C int32 accumulator
+    v = rounded >> ops.out_shift
+    if ops.x.has_border:
+        v = torch.where(ops.x.border,
+                        torch.div(rounded, ops.x.deno, rounding_mode="trunc"), v)
+    return _wrap16(v).clamp_(0, 255).to(torch.uint8)
