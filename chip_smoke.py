@@ -1,34 +1,60 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch / CUDA port's main paths once on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-The main path is one YUV420 frame, 3840x2160 -> 1920x1080, Lanczos3, exact:
-luma at px_scale 1, U and V as one batch-of-2 call at px_scale 2.  Phases:
+Two main paths, each through the entry points a user calls:
+
+* Lanczos: one YUV420 frame, 3840x2160 -> 1920x1080, Lanczos3, exact; luma
+  at px_scale 1, U and V as one batch-of-2 call at px_scale 2.  It runs the
+  kernel's ``wrap16`` instantiation.
+* Area: ``YUV420Resizer("area", 1920, 1080, 640, 360)``, the benchmark
+  CLI's default (``python -m libiqo_tpu_torch.cli.benchmark``).  It runs
+  the kernel's ``u16`` instantiation, as Linear does.
+
+Phases:
 
 1. Device: ``nvidia-smi`` name and power limit, capability, and the build of
    the kernel library from ``libiqo_tpu_torch/csrc`` (nvcc, sm_90a).
-2. Kernel vs plain: ``resize_fused`` against ``resize_plain`` on the card at
-   the main path's plane shapes, byte for byte, then a seeded fuzz set of
-   small Lanczos geometries, each also against the NumPy oracle.
-3. Main path through the user's entry points: ``YUV420Resizer`` on
-   ``device="cuda"``, ``resize`` on 4 frames and ``resize_batch`` on 4;
-   the kernel's launch count over that run must equal its plane calls;
-   every plane must equal the plain path; the CLI on a 3-frame file must
-   write the API's bytes.
-4. Times: CUDA events, minimum over repeats of the mean over back-to-back
-   calls on inputs that each differ by one byte, for the kernel and the
-   plain version: luma, chroma and the whole frame.
+2. Kernel vs plain, wrap16: ``resize_fused`` against ``resize_plain`` on the
+   card at the Lanczos main path's plane shapes, byte for byte, then a
+   seeded fuzz set of Lanczos geometries at px_scale 1-2 and a set at
+   px_scale 3-4, each also against the NumPy oracle.
+3. Kernel vs plain, u16, byte for byte: Area 1080p -> 360p, Area
+   4K -> 1080p and Linear 1080p -> 4K, luma and chroma at full size; then a
+   seeded fuzz set of 20 Area/Linear geometries, each also against the
+   NumPy oracle.
+4. The Lanczos main path: ``YUV420Resizer(..., device="cuda")``, ``resize``
+   on 4 frames and ``resize_batch`` on 4; the wrap16 launch count over that
+   run must equal its plane calls; every plane must equal the plain path;
+   the resize CLI on a 3-frame file must write the API's bytes.
+5. The Area main path: ``YUV420Resizer("area", ...)`` with no ``device``
+   argument must resolve to the kernel on the card; over 4 frames and one
+   ``resize_batch(4)`` the u16 launch count must be 2 per call; every plane
+   must equal the plain path; the benchmark CLI's default mode, run in this
+   process, must launch the u16 kernel twice per cycle.
+6. The benchmark CLI as a user runs it: default mode, ``--amortized``,
+   ``--batch 16`` and ``--stream 64 --batch 16``, each must exit 0 and
+   print its elapsed time.
+7. Times: CUDA events, minimum over repeats of the mean over back-to-back
+   calls on inputs that each differ by one byte, for the kernel, the plain
+   version and, for Area/Linear, ``torch.nn.functional.interpolate`` on a
+   float32 copy as a yardstick (not the same function: not byte-equal);
+   per plane and per frame, beside each instantiation's memory bound.
+   Device times are taken with the card first held busy while the host
+   queues every call; the kernel's and the frame's times are also given
+   unprimed, at the pace the host issues them.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 2
-and prints no result.  Imports no JAX.
+and prints no result.  Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -37,13 +63,25 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.modules["jax"] = None  # the port must not need JAX; any import fails
+sys.modules["jax"] = None         # the port must not need JAX; any import fails
+sys.modules["libiqo_tpu"] = None  # nor the JAX package
 
 ROOT = Path(__file__).resolve().parent
-SRC_W, SRC_H, DST_W, DST_H = 3840, 2160, 1920, 1080
+SRC_W, SRC_H, DST_W, DST_H = 3840, 2160, 1920, 1080     # the Lanczos main path
+AREA_MAIN = ("area", 1920, 1080, 640, 360)             # the Area main path
+U16_FRAMES = {                    # name: (method, src_w, src_h, dst_w, dst_h)
+    "area 1080p->360p": AREA_MAIN,
+    "area 4K->1080p": ("area", 3840, 2160, 1920, 1080),
+    "linear 1080p->4K": ("linear", 1920, 1080, 3840, 2160),
+}
 SEED = 20261016
 FUZZ_CASES = 20
-TOLERANCE = 0  # LSB: the contract is byte-exact
+TOLERANCE = 0          # LSB: the contract is byte-exact
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
+SPIN_CYCLES_PER_CALL = 2_000_000   # ~1 ms of the card's clock per call queued
+CLI_RUNS = (["--cycles", "32"], ["--amortized"], ["--batch", "16"],
+            ["--stream", "64", "--batch", "16"])
 
 
 class SmokeFailure(RuntimeError):
@@ -83,7 +121,22 @@ def random_u8(rng, shape) -> np.ndarray:
     return rng.integers(0, 256, shape, dtype=np.uint8)
 
 
-def fuzz_geometries(rng):
+def yuv_planes(build_plan, method, sw, sh, dw, dh):
+    """[(plane, plan, batch)] of one YUV420 frame, as ``YUV420Resizer``
+    builds them for even sizes: luma at full size, U and V as one batch-of-2
+    call at half size (Lanczos chroma at px_scale 2)."""
+    if method.startswith("lanczos"):
+        degree = int(method[len("lanczos"):] or 3)
+        kw, ckw = dict(degree=degree), dict(degree=degree, px_scale=2)
+        algo = "lanczos"
+    else:
+        kw, ckw, algo = {}, {}, method
+    return [("luma", build_plan(algo, sw, sh, dw, dh, **kw), 1),
+            ("chroma", build_plan(algo, sw // 2, sh // 2, dw // 2, dh // 2,
+                                  **ckw), 2)]
+
+
+def lanczos_fuzz(rng):
     """Lanczos degree 2-5, px_scale 1 and 2, up and down, odd sizes."""
     for i in range(FUZZ_CASES):
         degree, px = 2 + i % 4, 1 + (i // 4) % 2
@@ -92,7 +145,48 @@ def fuzz_geometries(rng):
             dst = src * rng.integers(1, 3, 2) + rng.integers(1, 7, 2)
         else:
             dst = np.maximum(1, src // rng.integers(2, 6, 2))
-        yield (degree, px, *map(int, src), *map(int, dst))
+        yield "lanczos", dict(degree=degree, px_scale=px), src, dst
+
+
+def lanczos_px34(rng):
+    """K5's plans: Lanczos degree 2-9 at px_scale 3 and 4, whose X taps
+    fall outside the s8 gate; up and down, odd sizes."""
+    for i in range(8):
+        src = rng.integers(9, 300, 2) | (i % 3 == 0)
+        if i % 2:
+            dst = np.maximum(1, src // rng.integers(2, 5, 2))
+        else:
+            dst = src * rng.integers(1, 3, 2) + rng.integers(1, 7, 2)
+        yield "lanczos", dict(degree=2 + i, px_scale=3 + i % 2), src, dst
+
+
+def area_linear_fuzz(rng):
+    """Area and Linear, up and down, odd sizes, and three extremes: an
+    Area ratio with 40/44 taps and two reference_oob Linear upscales."""
+    for i in range(FUZZ_CASES - 3):
+        src = rng.integers(9, 400, 2) | (i % 3 == 0)
+        if i % 4 < 2:
+            dst = np.maximum(1, src // rng.integers(2, 9, 2))
+        else:
+            dst = src * rng.integers(1, 3, 2) + rng.integers(1, 7, 2)
+        yield ("area", "linear")[i % 2], {}, src, dst
+    yield "area", {}, (300, 200), (7, 5)
+    yield "linear", {}, (16, 12), (80, 60)
+    yield "linear", {}, (5, 3), (300, 200)
+
+
+def hold(cr, tag: str, plan, host: np.ndarray, oracle=None) -> int:
+    """Kernel == plain on the card, byte for byte, for one plan and a
+    (B, h, w) source; also == the NumPy oracle when one is given."""
+    check(cr.supports_plan(plan), f"{tag}: kernel refuses the plan")
+    ops = cr.pack_operands(plan, "cuda")
+    src = torch.from_numpy(host).cuda()
+    got = cr.resize_fused(ops, src)
+    err = compare(tag, got, cr.resize_plain(ops, src))
+    if oracle is not None:
+        want = torch.from_numpy(np.stack([oracle.resize_u8(plan, f) for f in host]))
+        err = max(err, compare(f"{tag} vs numpy_ref", got.cpu(), want))
+    return err
 
 
 def phase_device(build, device):
@@ -106,94 +200,96 @@ def phase_device(build, device):
     print(f"kernel library: {build.build_dir()} built in "
           f"{build.build_seconds!r} s (None = already built)")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
     return smi, name
 
 
-def phase_kernel_vs_plain(cr, api, build_plan, rng):
+def phase_kernel_vs_plain(cr, build_plan, numpy_ref, rng, variant, frames,
+                          fuzz_sets):
+    """Kernel == plain at full-size planes, then kernel == plain ==
+    numpy_ref on each fuzz set; every plan must take ``variant``."""
     max_err = 0
-    planes = [("luma", build_plan("lanczos", SRC_W, SRC_H, DST_W, DST_H,
-                                  degree=3), 1),
-              ("chroma", build_plan("lanczos", SRC_W // 2, SRC_H // 2,
-                                    DST_W // 2, DST_H // 2, degree=3,
-                                    px_scale=2), 2)]
-    for name, plan, batch in planes:
-        check(cr.supports_plan(plan), f"{name}: kernel refuses the plan")
-        ops = cr.pack_operands(plan, "cuda")
-        src = torch.from_numpy(random_u8(rng, (batch, plan.y.n_src,
-                                               plan.x.n_src))).cuda()
-        got = cr.resize_fused(ops, src)
-        want = cr.resize_plain(ops, src)
-        torch.cuda.synchronize()
-        max_err = max(max_err, compare(f"{name} {tuple(src.shape)}", got, want))
-        print(f"kernel == plain: {name} {tuple(src.shape)} -> "
-              f"{tuple(got.shape)}, max abs err 0")
-    for degree, px, sw, sh, dw, dh in fuzz_geometries(rng):
-        plan = build_plan("lanczos", sw, sh, dw, dh, degree=degree,
-                          px_scale=px)
-        tag = f"fuzz lanczos{degree} px{px} {sw}x{sh}->{dw}x{dh}"
-        check(cr.supports_plan(plan), f"{tag}: kernel refuses the plan")
-        ops = cr.pack_operands(plan, "cuda")
-        host = random_u8(rng, (2, sh, sw))
-        src = torch.from_numpy(host).cuda()
-        got = cr.resize_fused(ops, src)
-        max_err = max(max_err, compare(tag, got, cr.resize_plain(ops, src)))
-        oracle = torch.from_numpy(
-            api.Resizer.from_plan(plan, backend="numpy").resize(host))
-        max_err = max(max_err, compare(f"{tag} vs numpy_ref", got.cpu(), oracle))
-    print(f"kernel == plain == numpy_ref on {FUZZ_CASES} fuzz geometries")
+    for frame in frames:
+        for plane, plan, batch in yuv_planes(build_plan, *frame):
+            check(cr.variant(plan) == variant, f"{frame} {plane}: variant "
+                  f"{cr.variant(plan)}, expected {variant}")
+            host = random_u8(rng, (batch, plan.y.n_src, plan.x.n_src))
+            tag = f"{frame[0]} {plane} {tuple(host.shape)}"
+            max_err = max(max_err, hold(cr, tag, plan, host))
+            print(f"kernel[{variant}] == plain: {tag} -> "
+                  f"({batch}, {plan.y.n_dst}, {plan.x.n_dst}), max abs err 0")
+    for name, cases in fuzz_sets:
+        n = 0
+        for algo, kw, src, dst in cases:
+            (sw, sh), (dw, dh) = map(int, src), map(int, dst)
+            plan = build_plan(algo, sw, sh, dw, dh, **kw)
+            check(cr.variant(plan) == variant, f"{name}: variant mismatch")
+            tag = f"{name} {algo}{kw or ''} {sw}x{sh}->{dw}x{dh}"
+            max_err = max(max_err, hold(cr, tag, plan,
+                                        random_u8(rng, (2, sh, sw)), numpy_ref))
+            n += 1
+        print(f"kernel[{variant}] == plain == numpy_ref on {n} {name} geometries")
     return max_err
 
 
-def phase_main_path(cr, yuv, build_plan, rng, tmp: Path):
-    r = yuv.YUV420Resizer("lanczos3", SRC_W, SRC_H, DST_W, DST_H,
-                          device="cuda")
+def drive_yuv(cr, yuv, build_plan, rng, frame, variant, **kwargs):
+    """``YUV420Resizer(*frame, **kwargs)`` on 4 frames and one
+    ``resize_batch(4)`` with every launch count set to 0 just before;
+    the launch counts must be 2 per call, all of ``variant``; every plane
+    must equal the plain path.  Returns (launches, max_err, frames, outs)."""
+    method, sw, sh, dw, dh = frame
+    r = yuv.YUV420Resizer(method, sw, sh, dw, dh, **kwargs)
     check(r.resolved_backend() == "cuda",
-          f"main path resolved to {r.resolved_backend()!r}, not 'cuda'")
-    frames = [yuv.YUV420Frame(random_u8(rng, (SRC_H, SRC_W)),
-                              random_u8(rng, (SRC_H // 2, SRC_W // 2)),
-                              random_u8(rng, (SRC_H // 2, SRC_W // 2)))
+          f"{method} path resolved to {r.resolved_backend()!r}, not 'cuda'")
+    frames = [yuv.YUV420Frame(random_u8(rng, (sh, sw)),
+                              random_u8(rng, (sh // 2, sw // 2)),
+                              random_u8(rng, (sh // 2, sw // 2)))
               for _ in range(4)]
-    batch = [random_u8(rng, (4, SRC_H, SRC_W)),
-             random_u8(rng, (4, SRC_H // 2, SRC_W // 2)),
-             random_u8(rng, (4, SRC_H // 2, SRC_W // 2))]
+    batch = [random_u8(rng, (4, sh, sw)), random_u8(rng, (4, sh // 2, sw // 2)),
+             random_u8(rng, (4, sh // 2, sw // 2))]
 
-    cr.LAUNCHES = 0
+    cr.reset_launches()
     outs = [r.resize(f) for f in frames]
     bout = r.resize_batch(*batch)
     torch.cuda.synchronize()
-    launches = cr.LAUNCHES
+    launches, by_variant = cr.LAUNCHES, dict(cr.LAUNCHES_BY_VARIANT)
     expected = 2 * len(frames) + 2
-    check(launches == expected, f"kernel launched {launches} times on the "
-          f"main path, expected {expected} (2 per resize, 2 per batch)")
-    print(f"main path: {len(frames)} x resize + 1 x resize_batch(4) -> "
-          f"{launches} kernel launches (expected {expected})")
+    check(launches == expected and by_variant[variant] == expected,
+          f"{method} path: {launches} kernel launches {by_variant}, expected "
+          f"{expected} of {variant} (2 per resize, 2 per batch)")
+    print(f"{method} path ({r.resolved_backend()} on {r._luma.device}): "
+          f"{len(frames)} x resize + 1 x resize_batch(4) -> launches "
+          f"{by_variant} (expected {expected} {variant})")
 
-    luma = cr.pack_operands(build_plan("lanczos", SRC_W, SRC_H, DST_W, DST_H,
-                                       degree=3), "cuda")
-    chroma = cr.pack_operands(build_plan(
-        "lanczos", SRC_W // 2, SRC_H // 2, DST_W // 2, DST_H // 2, degree=3,
-        px_scale=2), "cuda")
+    (_, luma, _), (_, chroma, _) = yuv_planes(build_plan, *frame)
+    luma, chroma = cr.pack_operands(luma, "cuda"), cr.pack_operands(chroma, "cuda")
 
     def plain(ops, planes):
         return cr.resize_plain(ops, torch.from_numpy(planes).cuda()).cpu()
 
     max_err = 0
     for i, (f, o) in enumerate(zip(frames, outs)):
-        check(o.y.shape == (DST_H, DST_W) and o.u.shape == (DST_H // 2, DST_W // 2),
+        check(o.y.shape == (dh, dw) and o.u.shape == (dh // 2, dw // 2),
               f"frame {i}: output shapes {o.y.shape} {o.u.shape}")
         uv = plain(chroma, np.stack([f.u, f.v]))
         for name, got, want in (("y", o.y, plain(luma, f.y[None])[0]),
                                 ("u", o.u, uv[0]), ("v", o.v, uv[1])):
-            max_err = max(max_err, compare(f"frame {i} {name}",
+            max_err = max(max_err, compare(f"{method} frame {i} {name}",
                                            torch.from_numpy(got), want))
     buv = plain(chroma, np.concatenate(batch[1:]))
     for name, got, want in (("y", bout[0], plain(luma, batch[0])),
                             ("u", bout[1], buv[:4]), ("v", bout[2], buv[4:])):
-        max_err = max(max_err, compare(f"batch {name}", torch.from_numpy(got),
-                                       want))
-    print("main path == plain path on every plane of every frame")
+        max_err = max(max_err, compare(f"{method} batch {name}",
+                                       torch.from_numpy(got), want))
+    print(f"{method} path == plain path on every plane of every frame")
+    return by_variant[variant], max_err, frames, outs
+
+
+def phase_lanczos_path(cr, yuv, build_plan, rng, tmp: Path):
+    frame = ("lanczos3", SRC_W, SRC_H, DST_W, DST_H)
+    launches, max_err, frames, outs = drive_yuv(
+        cr, yuv, build_plan, rng, frame, "wrap16", device="cuda")
 
     src_file, dst_file = tmp / "in.yuv", tmp / "out.yuv"
     yuv.write_yuv420(src_file, frames[:3])
@@ -216,15 +312,49 @@ def phase_main_path(cr, yuv, build_plan, rng, tmp: Path):
     return launches, max_err
 
 
-def time_ms(fn, inputs, repeats: int = 5) -> float:
+def phase_area_path(cr, yuv, build_plan, benchmark, rng):
+    # no device argument: the user's default, which is the card
+    launches, max_err, _, _ = drive_yuv(cr, yuv, build_plan, rng, AREA_MAIN,
+                                        "u16")
+    cycles = 8
+    cr.reset_launches()
+    check(benchmark.main(["--cycles", str(cycles)]) == 0, "benchmark CLI failed")
+    torch.cuda.synchronize()
+    by_variant = dict(cr.LAUNCHES_BY_VARIANT)
+    check(by_variant == {"wrap16": 0, "u16": 2 * cycles},
+          f"benchmark CLI launched {by_variant}, expected {2 * cycles} u16")
+    print(f"benchmark CLI in process, {cycles} cycles -> launches {by_variant}")
+    return launches, max_err
+
+
+def phase_benchmark_cli(card: str):
+    for extra in CLI_RUNS:
+        cmd = [sys.executable, "-m", "libiqo_tpu_torch.cli.benchmark", *extra]
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                              timeout=600)
+        check(proc.returncode == 0, f"{' '.join(cmd[1:])} failed "
+              f"({proc.returncode}): {proc.stderr[-2000:]}")
+        lines = proc.stdout.splitlines()
+        elapsed = [ln.strip() for ln in lines if "elapsed time:" in ln]
+        check(len(elapsed) == 1, f"{' '.join(cmd[1:])}: no elapsed time line")
+        mode = next((ln for ln in lines if ln.startswith("benchmark (")), "?")
+        print(f"benchmark CLI {' '.join(extra)}: {mode}: {elapsed[0]} ({card})")
+
+
+def time_ms(fn, inputs, repeats: int = 5, primed: bool = True) -> float:
     """Min over repeats of the mean time of back-to-back calls, by CUDA
-    events; every call has its own input."""
+    events; every call has its own input.  Primed, the card first spins
+    long enough for the host to enqueue every call, so the events time the
+    device alone; unprimed, a call that the host issues more slowly than the
+    card runs it is timed at the host's pace."""
     fn(inputs[0])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     best = float("inf")
     for _ in range(repeats):
+        if primed:
+            torch.cuda._sleep(SPIN_CYCLES_PER_CALL * len(inputs))
         start.record()
         for x in inputs:
             fn(x)
@@ -244,37 +374,75 @@ def perturbed(base: torch.Tensor, n: int) -> list[torch.Tensor]:
     return out
 
 
-def phase_times(cr, yuv, build_plan, rng, card: str):
-    n = 8   # 8 luma inputs (66 MB) exceed the 50 MB L2
-    rows = {}
-    for name, plan, batch in (
-            ("luma", build_plan("lanczos", SRC_W, SRC_H, DST_W, DST_H,
-                                degree=3), 1),
-            ("chroma", build_plan("lanczos", SRC_W // 2, SRC_H // 2,
-                                  DST_W // 2, DST_H // 2, degree=3,
-                                  px_scale=2), 2)):
+def n_inputs(nbytes: int) -> int:
+    """Enough distinct inputs (>= 8) that they exceed the 50 MB L2 together."""
+    return max(8, math.ceil(64e6 / nbytes))
+
+
+def bound(planes) -> tuple[float, float]:
+    """The two lower bounds (ms) on the card's time for these (plan, batch)
+    planes: each source byte read once and each output byte written once at
+    the memory rate; and the tap multiply-adds (two operations each) that
+    the separable form needs (Y over every source column, X over every
+    output) at the int8 tensor-core rate."""
+    nbytes = macs = 0
+    for plan, batch in planes:
+        (sh, sw, dh, dw) = (plan.y.n_src, plan.x.n_src, plan.y.n_dst, plan.x.n_dst)
+        nbytes += batch * (sh * sw + dh * dw)
+        macs += batch * (plan.y.num_coefs * dh * sw + plan.x.num_coefs * dh * dw)
+    return nbytes / HBM_BYTES_PER_S * 1e3, 2 * macs / INT8_OPS_PER_S * 1e3
+
+
+def phase_times(cr, yuv, build_plan, rng, card: str, frame) -> dict:
+    """Kernel, plain and (Area/Linear) yardstick ms per plane and per frame,
+    and the frame's bound."""
+    method, sw, sh, dw, dh = frame
+    mode = {"area": "area", "linear": "bilinear"}.get(method)
+    F = torch.nn.functional
+    rows, planes = {}, []
+    for name, plan, batch in yuv_planes(build_plan, *frame):
+        planes.append((plan, batch))
         ops = cr.pack_operands(plan, "cuda")
-        xs = perturbed(torch.from_numpy(random_u8(
-            rng, (batch, plan.y.n_src, plan.x.n_src))).cuda(), n)
-        rows[name] = (time_ms(lambda x: cr.resize_fused(ops, x), xs),
-                      time_ms(lambda x: cr.resize_plain(ops, x), xs))
+        shape = (batch, plan.y.n_src, plan.x.n_src)
+        xs = perturbed(torch.from_numpy(random_u8(rng, shape)).cuda(),
+                       n_inputs(math.prod(shape)))
+        size = (plan.y.n_dst, plan.x.n_dst)
+        yard = None
+        if mode:
+            fs = [x.float()[:, None] for x in xs]
+            kw = {} if mode == "area" else dict(align_corners=False)
+            yard = time_ms(lambda x: F.interpolate(x, size=size, mode=mode, **kw), fs)
+            del fs
+        fused = lambda x: cr.resize_fused(ops, x)      # noqa: E731
+        rows[name] = (time_ms(fused, xs), time_ms(fused, xs, primed=False),
+                      time_ms(lambda x: cr.resize_plain(ops, x), xs), yard)
 
-    def frames():
-        planes = [perturbed(torch.from_numpy(random_u8(rng, s)).cuda(), n)
-                  for s in ((SRC_H, SRC_W), (SRC_H // 2, SRC_W // 2),
-                            (SRC_H // 2, SRC_W // 2))]
-        return [yuv.YUV420Frame(*p) for p in zip(*planes)]
-
-    fs = frames()
-    kernel = yuv.YUV420Resizer("lanczos3", SRC_W, SRC_H, DST_W, DST_H,
-                               backend="cuda", device="cuda")
-    plain = yuv.YUV420Resizer("lanczos3", SRC_W, SRC_H, DST_W, DST_H,
-                              backend="torch", device="cuda")
-    rows["frame"] = (time_ms(kernel.resize, fs), time_ms(plain.resize, fs))
-    for name, (k, p) in rows.items():
-        print(f"time {name}: kernel {k!r} ms/frame, plain {p!r} ms/frame, "
-              f"plain/kernel {p / k!r} ({card})")
-    return rows
+    shapes = ((sh, sw), (sh // 2, sw // 2), (sh // 2, sw // 2))
+    n = n_inputs(sum(map(math.prod, shapes)))
+    fs = [yuv.YUV420Frame(*p) for p in zip(*(
+        perturbed(torch.from_numpy(random_u8(rng, s)).cuda(), n) for s in shapes))]
+    kernel = yuv.YUV420Resizer(method, sw, sh, dw, dh, backend="cuda")
+    plain = yuv.YUV420Resizer(method, sw, sh, dw, dh, backend="torch")
+    rows["frame (YUV420Resizer)"] = (
+        time_ms(kernel.resize, fs), time_ms(kernel.resize, fs, primed=False),
+        time_ms(plain.resize, fs), None)
+    bytes_ms, ops_ms = bound(planes)
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    tag = f"{method} {sw}x{sh}->{dw}x{dh}"
+    for name, (k, ku, p, y) in rows.items():
+        yard = (f", yardstick F.interpolate({mode}) on float32 {y!r} ms "
+                "(not byte-equal)" if y is not None else "")
+        print(f"time {tag} {name}: kernel {k!r} ms (unprimed {ku!r}), plain "
+              f"{p!r} ms, plain/kernel {p / k!r}{yard} ({card})")
+    k, p = (rows["luma"][i] + rows["chroma"][i] for i in (0, 2))
+    y = rows["luma"][3] + rows["chroma"][3] if mode else None
+    print(f"time {tag} planes per frame: kernel {k!r} ms, plain {p!r} ms, "
+          f"yardstick {y!r} ms, bound {bound_ms!r} ms ({bound_by}; bytes "
+          f"{bytes_ms!r} ms, operations {ops_ms!r} ms), kernel/bound "
+          f"{k / bound_ms!r} ({card})")
+    return {"ms": k, "plain_ms": p, "bound_ms": bound_ms, "bound_by": bound_by,
+            "yardstick_ms": y}
 
 
 def main() -> int:
@@ -282,25 +450,47 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from libiqo_tpu_torch import api, build_plan, yuv
+    from libiqo_tpu_torch import build_plan, yuv
+    from libiqo_tpu_torch.cli import benchmark
+    from libiqo_tpu_torch.golden import numpy_ref
     from libiqo_tpu_torch.ops import _build, cuda_resize
     from libiqo_tpu_torch.utils import device
 
     rng = np.random.default_rng(SEED)
     smi, name = phase_device(_build, device)
-    err = phase_kernel_vs_plain(cuda_resize, api, build_plan, rng)
+    err16 = phase_kernel_vs_plain(
+        cuda_resize, build_plan, numpy_ref, rng, "wrap16",
+        [("lanczos3", SRC_W, SRC_H, DST_W, DST_H)],
+        [("lanczos px1-2 fuzz", lanczos_fuzz(rng)),
+         ("lanczos px3-4", lanczos_px34(rng))])
+    erru = phase_kernel_vs_plain(
+        cuda_resize, build_plan, numpy_ref, rng, "u16", U16_FRAMES.values(),
+        [("area/linear fuzz", area_linear_fuzz(rng))])
     with tempfile.TemporaryDirectory() as tmp:
-        launches, err2 = phase_main_path(cuda_resize, yuv, build_plan, rng,
-                                         Path(tmp))
-    rows = phase_times(cuda_resize, yuv, build_plan, rng, smi)
-    kernel_ms = rows["luma"][0] + rows["chroma"][0]
-    plain_ms = rows["luma"][1] + rows["chroma"][1]
-    print(json.dumps({"kernels": [{
-        "name": "resize_fused", "route": "cuda",
-        "source": "libiqo_tpu_torch/csrc/resize_fused.cu",
-        "replaces": "libiqo_tpu/ops/pallas_resize.py:1687",
-        "launches": launches, "max_abs_err": max(err, err2),
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+        launches16, e = phase_lanczos_path(cuda_resize, yuv, build_plan, rng,
+                                           Path(tmp))
+    err16 = max(err16, e)
+    launchesu, e = phase_area_path(cuda_resize, yuv, build_plan, benchmark, rng)
+    erru = max(erru, e)
+    phase_benchmark_cli(smi)
+
+    t16 = phase_times(cuda_resize, yuv, build_plan, rng, smi,
+                      ("lanczos3", SRC_W, SRC_H, DST_W, DST_H))
+    tu = [phase_times(cuda_resize, yuv, build_plan, rng, smi, f)
+          for f in U16_FRAMES.values()][0]          # AREA_MAIN comes first
+    src = "libiqo_tpu_torch/csrc/resize_fused.cu"
+    replaces = "libiqo_tpu/ops/pallas_resize.py:1687"
+    print(json.dumps({"kernels": [
+        {"name": "resize_fused[wrap16]", "route": "cuda", "source": src,
+         "replaces": replaces, "launches": launches16, "max_abs_err": err16,
+         "ms": t16["ms"], "plain_ms": t16["plain_ms"],
+         "bound_ms": t16["bound_ms"], "bound_by": t16["bound_by"],
+         "library_ms": None},
+        {"name": "resize_fused[u16]", "route": "cuda", "source": src,
+         "replaces": replaces, "launches": launchesu, "max_abs_err": erru,
+         "ms": tu["ms"], "plain_ms": tu["plain_ms"],
+         "bound_ms": tu["bound_ms"], "bound_by": tu["bound_by"],
+         "library_ms": None, "yardstick_ms": tu["yardstick_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,10 +2,12 @@
 
 Lanczos, Area and Linear resampling of single-channel uint8 images,
 byte-identical to the reference's Generic fixed-point implementations and
-to the JAX package ``libiqo_tpu``, whose host layer (plans, coefficient
-tables, NumPy oracle) it imports.  The Lanczos path runs a hand-written
-CUDA kernel on Hopper (sm_90a); every other case runs the exact PyTorch
-path on the data's device.  Imports ``torch``, never ``jax``.
+to the JAX package ``libiqo_tpu``.  The port keeps its own copy of the host
+layer (plans, coefficient tables, NumPy oracle) and imports nothing of the
+JAX package.  On a CUDA device, the plans a hand-written Hopper kernel
+(sm_90a) takes run it; every other plan runs the exact PyTorch path on the
+data's device.  Resizers run on the card unless ``device="cpu"`` is asked
+for.  Imports ``torch``, never ``jax``.
 
 Quick start::
 
@@ -13,11 +15,11 @@ Quick start::
     from libiqo_tpu_torch import LanczosResizer
 
     r = LanczosResizer(degree=3, src_w=3840, src_h=2160,
-                       dst_w=1920, dst_h=1080, device="cuda")
+                       dst_w=1920, dst_h=1080)      # device="cuda"
     out = r.resize(np.zeros((2160, 3840), np.uint8))   # (1080, 1920) u8
 """
 
-from libiqo_tpu.core.plan import ResizePlan, build_plan
+from .core.plan import ResizePlan, build_plan, plan_from_arrays
 
 from .api import AreaResizer, LanczosResizer, LinearResizer, Resizer
 
@@ -30,5 +32,6 @@ __all__ = [
     "Resizer",
     "ResizePlan",
     "build_plan",
+    "plan_from_arrays",
     "__version__",
 ]

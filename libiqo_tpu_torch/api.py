@@ -6,9 +6,11 @@ constructor builds the plan, ``resize`` is pure compute over cached device
 operands.
 
 * Computation runs on the input tensor's device.  NumPy input runs on the
-  resizer's ``device=`` (default ``"cpu"``, as in PyTorch) and comes back as
+  resizer's ``device=`` (default ``"cuda"``: the card) and comes back as
   NumPy; a tensor in gives a tensor out on the same device.
-* ``device="cuda"`` with no card raises; nothing falls back to the CPU.
+* ``device="cuda"`` with no card raises, so constructing a resizer without
+  ``device="cpu"`` on a machine with no card raises; nothing falls back to
+  the CPU.
 * ``backend=``: ``"auto"`` takes the hand-written CUDA kernel when the data
   is on a CUDA device and the kernel takes the plan
   (:func:`~libiqo_tpu_torch.ops.cuda_resize.supports_plan`), the exact
@@ -34,9 +36,8 @@ import threading
 import numpy as np
 import torch
 
-from libiqo_tpu.core.plan import ResizePlan, build_plan
-from libiqo_tpu.golden import numpy_ref
-
+from .core.plan import ResizePlan, build_plan, plan_from_arrays
+from .golden import numpy_ref
 from .ops import cuda_resize, torch_resize
 from .utils.device import resolve_device
 
@@ -116,7 +117,7 @@ class Resizer:
     """Base resizer bound to one geometry and one algorithm."""
 
     def __init__(self, plan: ResizePlan, backend: str = "auto",
-                 precision: str = "exact", device="cpu"):
+                 precision: str = "exact", device="cuda"):
         if backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
         if precision not in _PRECISIONS:
@@ -130,10 +131,14 @@ class Resizer:
         self._digest = _plan_digest(plan)
 
     @classmethod
-    def from_plan(cls, plan: ResizePlan, backend: str = "auto",
-                  precision: str = "exact", device="cpu") -> "Resizer":
-        """A resizer over a plan built elsewhere, e.g. by the JAX package,
-        so that both packages compute from the same plan object."""
+    def from_plan(cls, plan, backend: str = "auto",
+                  precision: str = "exact", device="cuda") -> "Resizer":
+        """A resizer over a plan built elsewhere.  A :class:`ResizePlan` of
+        this package is taken as it is; any other plan object with the same
+        fields (e.g. the JAX package's) is copied by
+        :func:`~libiqo_tpu_torch.core.plan.plan_from_arrays`."""
+        if not isinstance(plan, ResizePlan):
+            plan = plan_from_arrays(plan)
         return Resizer(plan, backend=backend, precision=precision,
                        device=device)
 
@@ -238,7 +243,7 @@ class LanczosResizer(Resizer):
     def __init__(self, degree: int, src_w: int, src_h: int,
                  dst_w: int, dst_h: int, px_scale: int = 1,
                  backend: str = "auto", precision: str = "exact",
-                 device="cpu"):
+                 device="cuda"):
         super().__init__(
             build_plan("lanczos", src_w, src_h, dst_w, dst_h,
                        degree=degree, px_scale=px_scale),
@@ -251,7 +256,7 @@ class AreaResizer(Resizer):
 
     def __init__(self, src_w: int, src_h: int, dst_w: int, dst_h: int,
                  backend: str = "auto", precision: str = "exact",
-                 device="cpu"):
+                 device="cuda"):
         super().__init__(build_plan("area", src_w, src_h, dst_w, dst_h),
                          backend, precision, device)
 
@@ -261,6 +266,6 @@ class LinearResizer(Resizer):
 
     def __init__(self, src_w: int, src_h: int, dst_w: int, dst_h: int,
                  backend: str = "auto", precision: str = "exact",
-                 device="cpu"):
+                 device="cuda"):
         super().__init__(build_plan("linear", src_w, src_h, dst_w, dst_h),
                          backend, precision, device)

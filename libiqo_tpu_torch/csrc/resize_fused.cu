@@ -1,24 +1,41 @@
-// Fused separable resize for Hopper (sm_90a): Y pass, int16 wrap, Y-border
-// renormalisation, X pass and rounding epilogue in one kernel, exact to the
-// reference Generic fixed-point path (libiqo_tpu/golden/numpy_ref.py).
+// Fused separable resize for Hopper (sm_90a): Y pass, X pass and rounding
+// epilogue in one kernel, exact to the reference Generic fixed-point path
+// (libiqo_tpu_torch/golden/numpy_ref.py).  Two instantiations:
+// * kWrap16 = true (Lanczos): int16 wrap of the work rows, Y-border
+//   renormalisation, int32-wrapping X sums, border-column divide;
+// * kWrap16 = false (Area, Linear): u16 work rows kept as they are, no
+//   border divides, (sums + half) >> out_shift.
 //
-// Replaces: the TPU kernel libiqo_tpu/ops/pallas_resize.py
-//   _make_padless_fn (pl.pallas_call at :1687) -> kernel/_frame, in the
-//   configuration the Lanczos main path takes (s8 Y dot, int16 wrap, y_cond
-//   border rows, s8-split X dots, x_slab border columns), together with its
-//   exact truncating divide _exact_trunc_div (:79-129).
+// Replaces the TPU kernel libiqo_tpu/ops/pallas_resize.py _make_padless_fn
+// (pl.pallas_call at :1687) -> kernel/_frame in these configurations:
+// * K1+K2, the Lanczos main path (s8 Y dot, int16 wrap, y_cond border rows,
+//   s8-split X dots, x_slab border columns) with its exact truncating
+//   divide _exact_trunc_div (:79-129);
+// * K3, the Y pass on bf16 byte planes for taps outside s8 (:843-847,
+//   1374-1396), and K4, the X pass over u16 work rows, x_u8work (:956-962,
+//   1448-1456): the Area/Linear plans, here kWrap16 = false;
+// * K5, the exact X schemes for 16-bit taps outside the s8 gate, x_single,
+//   x_kara and hi/lo bf16 (:954,1043-1052,1506-1548): Lanczos at px_scale
+//   >= 3, here kWrap16 = true, whose uint32 sums take taps of any width.
 //
-// What bounds it on the H100: one 4K->1080p YUV420 frame moves ~15.5 MB
-// (a few microseconds at 3.35 TB/s) and needs ~85 M int32 multiply-adds.
-// Both are small; the simple form below is bound by its load instructions
-// (each tap is a load of the source or the work tile) and by launch latency.
+// What bounds it on the H100: the bytes of one YUV420 frame, each source
+// byte read once and each output byte written once: 15.55 MB for 4K->1080p
+// and for 1080p->4K (4.6 us at 3.35 TB/s), 3.46 MB for 1080p->360p.  The
+// int32 multiply-adds (~85 M for Lanczos3 4K->1080p) are far below the
+// card's integer rate.  The simple form below is bound by its load
+// instructions (each tap is a load of the source or the work tile) and by
+// launch latency, not by either.
 //
 // What the design does about it:
-// * The TPU's byte planes, s8 rebasing, Karatsuba splits and corr_y/corr_x
-//   fixups exist because its matrix unit multiplies in bf16 and its vector
-//   divide is slow.  Here 32-bit integer multiply-add and `/` are exact and
-//   native, so each output is a direct tap sum, and the border divide is
+// * The TPU's byte planes, s8 rebasing, Karatsuba splits, hi/lo planes and
+//   corr_y/corr_x fixups exist because its matrix unit multiplies in bf16
+//   and its vector divide is slow.  On Hopper 32-bit integer multiply-add
+//   and `/` are exact and native, so one direct-tap integer form covers
+//   every scheme: each output is a direct tap sum, and the border divide is
 //   C++ `/` (truncation toward zero by language rule).
+// * Area/Linear work rows are <= 255 * 256 = 65280 and their X sums plus
+//   the half stay below 2^31 (the host's supports_plan checks both), so the
+//   kWrap16 = false path needs no wrap anywhere.
 // * One block computes a TH x TW output tile.  The Y pass writes the tile's
 //   work rows, over the column tile's source window only, into shared
 //   memory; the work tile never touches device memory (as VMEM on the TPU).
@@ -60,8 +77,10 @@ __device__ __forceinline__ int32_t shift_floor(int32_t v, int k) {
 }
 
 // Tables are tap-major: coef[t * n_dst + i].  ydiv/xdiv hold the border
-// divisor of each output row/column, 0 on main outputs.  win holds [lo, hi)
-// of each column tile's source window.
+// divisor of each output row/column, 0 on main outputs (unread when
+// kWrap16 is false).  win holds [lo, hi) of each column tile's source
+// window.
+template <bool kWrap16>
 __global__ void __launch_bounds__(kThreads) resize_fused_kernel(
     const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     long long src_frame_stride, long long src_row_stride,
@@ -80,8 +99,9 @@ __global__ void __launch_bounds__(kThreads) resize_fused_kernel(
   const int r0 = blockIdx.y * kTileRows;
   const int rows = min(kTileRows, dst_h - r0);
 
-  // Y pass over the window: work[r][c] = wrap16(sum_t cy * src[iy, lo + c]),
-  // border rows renormalised by trunc(w * y_bias / deno_y).
+  // Y pass over the window: work[r][c] = sum_t cy * src[iy, lo + c]; with
+  // kWrap16 it is narrowed to int16 and border rows are renormalised by
+  // trunc(w * y_bias / deno_y).
   for (int e = threadIdx.x; e < rows * width; e += kThreads) {
     const int r = e / width;
     const int c = e - r * width;
@@ -93,16 +113,22 @@ __global__ void __launch_bounds__(kThreads) resize_fused_kernel(
       acc += static_cast<uint32_t>(__ldg(cy + k)) *
              static_cast<uint32_t>(__ldg(col + __ldg(iy + k) * src_row_stride));
     }
-    int32_t w = wrap16(acc);
-    const int32_t d = __ldg(ydiv + i);
-    if (d != 0) w = wrap16(static_cast<uint32_t>((w * y_bias) / d));  // |w*y_bias| < 2^31
+    int32_t w;
+    if constexpr (kWrap16) {
+      w = wrap16(acc);
+      const int32_t d = __ldg(ydiv + i);
+      if (d != 0) w = wrap16(static_cast<uint32_t>((w * y_bias) / d));  // |w*y_bias| < 2^31
+    } else {
+      w = static_cast<int32_t>(acc);   // <= 65280: taps >= 0, row sums <= 256
+    }
     work[r * win_max + c] = w;
   }
   __syncthreads();
 
-  // X pass and epilogue: sums wrap in int32 as the reference's C
+  // X pass and epilogue.  kWrap16: sums wrap in int32 as the reference's C
   // accumulator; main columns (sums + half) >> out_shift, border columns
   // trunc((sums + half) / (deno_x * y_bias)); then int16 narrowing, clip.
+  // Otherwise sums + half < 2^31, so (sums + half) >> out_shift, clip.
   const int c0 = blockIdx.x * kTileCols;
   const int cols = min(kTileCols, dst_w - c0);
   const uint32_t half = 1u << (out_shift - 1);
@@ -118,11 +144,16 @@ __global__ void __launch_bounds__(kThreads) resize_fused_kernel(
       acc += static_cast<uint32_t>(__ldg(cx + k)) *
              static_cast<uint32_t>(wrow[__ldg(ix + k) - lo]);
     }
-    const int32_t s = as_i32(acc + half);
-    const int32_t d = __ldg(xdiv + j);
-    // d is a nonzero multiple of y_bias (>= 2 in magnitude) on border
-    // columns, so s / d cannot overflow.
-    const int32_t v = wrap16(static_cast<uint32_t>(d != 0 ? s / d : shift_floor(s, out_shift)));
+    int32_t v;
+    if constexpr (kWrap16) {
+      const int32_t s = as_i32(acc + half);
+      const int32_t d = __ldg(xdiv + j);
+      // d is a nonzero multiple of y_bias (>= 2 in magnitude) on border
+      // columns, so s / d cannot overflow.
+      v = wrap16(static_cast<uint32_t>(d != 0 ? s / d : shift_floor(s, out_shift)));
+    } else {
+      v = static_cast<int32_t>((acc + half) >> out_shift);
+    }
     fdst[static_cast<long long>(r0 + r) * dst_w + j] =
         static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
   }
@@ -143,18 +174,22 @@ const char* iqo_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Raises the kernel's dynamic shared-memory limit on the current device to
-// `bytes`; called once per device before its first launch.  Returns a
-// cudaError_t.
+// Raises both instantiations' dynamic shared-memory limit on the current
+// device to `bytes`; called once per device before its first launch.
+// Returns a cudaError_t.
 int iqo_set_max_smem(int bytes) {
+  cudaError_t rc = cudaFuncSetAttribute(
+      resize_fused_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaFuncSetAttribute(
-      resize_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+      resize_fused_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-// Launches one resize of n_frames frames on `stream`.  Allocates nothing;
-// dst is contiguous (n_frames, dst_h, dst_w).  The work tile's shared memory
-// must be within the limit set by iqo_set_max_smem.  Returns a cudaError_t.
-int iqo_resize_fused(const void* src, void* dst, int n_frames,
+// Launches one resize of n_frames frames on `stream`, the kWrap16
+// instantiation when wrap16 is nonzero.  Allocates nothing; dst is
+// contiguous (n_frames, dst_h, dst_w).  The work tile's shared memory must
+// be within the limit set by iqo_set_max_smem.  Returns a cudaError_t.
+int iqo_resize_fused(int wrap16, const void* src, void* dst, int n_frames,
                      long long src_frame_stride, long long src_row_stride,
                      int dst_h, int dst_w,
                      const void* cy, const void* iy, const void* ydiv,
@@ -165,7 +200,8 @@ int iqo_resize_fused(const void* src, void* dst, int n_frames,
   const int smem = kTileRows * win_max * static_cast<int>(sizeof(int32_t));
   const dim3 grid((dst_w + kTileCols - 1) / kTileCols,
                   (dst_h + kTileRows - 1) / kTileRows, n_frames);
-  resize_fused_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = wrap16 ? &resize_fused_kernel<true> : &resize_fused_kernel<false>;
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst),
       src_frame_stride, src_row_stride, dst_h, dst_w,
       static_cast<const int32_t*>(cy), static_cast<const int32_t*>(iy),

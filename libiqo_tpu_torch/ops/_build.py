@@ -96,6 +96,7 @@ def _build(so: Path) -> None:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.iqo_resize_fused.argtypes = [
+        i,                              # wrap16: which instantiation
         p, p, i, ll, ll, i, i,          # src, dst, frames, strides, dst shape
         p, p, p, i, i,                  # cy, iy, ydiv, taps_y, y_bias
         p, p, p, i,                     # cx, ix, xdiv, taps_x

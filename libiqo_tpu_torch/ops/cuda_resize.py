@@ -1,11 +1,13 @@
 """The fused resize kernel for Hopper: host-side operands, scope and wrapper.
 
 The kernel (``csrc/resize_fused.cu``) replaces the TPU's fused Pallas kernel
-(``libiqo_tpu/ops/pallas_resize.py:_make_padless_fn``) on the Lanczos path.
-This module packs a :class:`ResizePlan` into the kernel's operands, decides
-which plans the kernel takes (:func:`supports_plan`), and launches it
-(:func:`resize_fused`).  :func:`resize_plain` is the same function in plain
-PyTorch over the same operands, for the CPU and for comparison on the card.
+(``libiqo_tpu/ops/pallas_resize.py:_make_padless_fn``) in two instantiations:
+``wrap16`` for Lanczos plans (int16 work rows, border divides) and ``u16``
+for Area and Linear plans (u16 work rows, no borders).  This module packs a
+:class:`ResizePlan` into the kernel's operands, decides which plans the
+kernel takes (:func:`supports_plan`), and launches it (:func:`resize_fused`).
+:func:`resize_plain` is the same function in plain PyTorch over the same
+operands, for the CPU and for comparison on the card.
 """
 
 from __future__ import annotations
@@ -18,23 +20,39 @@ import threading
 import numpy as np
 import torch
 
-from libiqo_tpu.core.plan import AxisPlan, ResizePlan
-
+from ..core.plan import AxisPlan, ResizePlan
 from . import _build, torch_resize
 
-__all__ = ["LAUNCHES", "KernelOperands", "KernelTables", "kernel_tables",
-           "pack_operands", "resize_fused", "resize_plain", "smem_bytes",
-           "supports_plan", "tile_windows"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "KernelOperands",
+           "KernelTables", "kernel_tables", "pack_operands", "reset_launches",
+           "resize_fused", "resize_plain", "smem_bytes", "supports_plan",
+           "tile_windows", "variant"]
 
 # Must match kTileRows/kTileCols in csrc/resize_fused.cu (checked at load).
 TILE_ROWS = 16
 TILE_COLS = 128
 SMEM_BUDGET = 232448      # dynamic shared memory one sm_90 block may use
-_MAX_GRID_Y = 65535       # CUDA's limit on gridDim.y (row tiles)
+_MAX_GRID_YZ = 65535      # CUDA's limit on gridDim.y (row tiles) and .z (frames)
 _I32_MAX = 2**31 - 1
 
 LAUNCHES = 0              # kernel launches in this process
+LAUNCHES_BY_VARIANT = {"wrap16": 0, "u16": 0}   # the same, by instantiation
 _launch_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    global LAUNCHES
+    with _launch_lock:
+        LAUNCHES = 0
+        for k in LAUNCHES_BY_VARIANT:
+            LAUNCHES_BY_VARIANT[k] = 0
+
+
+def variant(plan) -> str:
+    """The kernel instantiation that a plan (or its :class:`KernelTables`)
+    takes: "wrap16" or "u16"."""
+    return "wrap16" if plan.wrap16 else "u16"
 
 
 def tile_windows(ax: AxisPlan) -> np.ndarray:
@@ -59,19 +77,40 @@ def _x_divisors(plan: ResizePlan) -> np.ndarray:
     return np.where(plan.x.is_border, deno * plan.y.bias, 0)
 
 
+def _u16_exact(plan: ResizePlan) -> bool:
+    """Whether the u16 instantiation is exact for a non-wrap16 plan: no
+    border outputs, Y taps >= 0 with row sums <= 256 (so work rows are
+    <= 65280, the JAX package's ``_u16_work_ok``), X taps >= 0, and
+    ``255 * max_row_sum_y * max_row_sum_x + half < 2^31`` (so the X sums
+    plus the half fit the kernel's int32 epilogue)."""
+    y, x = plan.y, plan.x
+    if y.is_border.any() or x.is_border.any():
+        return False
+    cy, cx = y.coef.astype(np.int64), x.coef.astype(np.int64)
+    if cy.min() < 0 or cx.min() < 0:
+        return False
+    sum_y, sum_x = int(cy.sum(axis=1).max()), int(cx.sum(axis=1).max())
+    return (sum_y <= 256
+            and 255 * sum_y * sum_x + (1 << (plan.out_shift - 1)) <= _I32_MAX)
+
+
 def supports_plan(plan: ResizePlan) -> bool:
     """True when the kernel computes this plan exactly.  A pure function of
-    the plan: wrap16 (Lanczos) plans at px_scale 1 or 2 whose border
-    divisors fit int32, whose tap tables index in int32, and whose work
-    tile fits the shared-memory budget.  Area and Linear plans go to the
-    exact ``torch`` path."""
-    if not plan.wrap16 or plan.px_scale not in (1, 2):
-        return False
-    if np.abs(_x_divisors(plan)).max() > _I32_MAX:
+    the plan.  wrap16 (Lanczos) plans at any px_scale: the kernel's uint32
+    sums wrap as the reference's C accumulators, so 16-bit taps of any value
+    are exact, provided the border divisors fit int32.  Other (Area,
+    Linear) plans when :func:`_u16_exact` holds.  Either way the tap tables
+    must index in int32, the row tiles fit the grid, and the work tile fits
+    the shared-memory budget.  Every other plan goes to the exact ``torch``
+    path."""
+    if plan.wrap16:
+        if np.abs(_x_divisors(plan)).max() > _I32_MAX:
+            return False
+    elif not _u16_exact(plan):
         return False
     if max(ax.num_coefs * ax.n_dst for ax in (plan.y, plan.x)) > _I32_MAX:
         return False
-    if -(-plan.y.n_dst // TILE_ROWS) > _MAX_GRID_Y:
+    if -(-plan.y.n_dst // TILE_ROWS) > _MAX_GRID_YZ:
         return False
     return smem_bytes(plan) <= SMEM_BUDGET
 
@@ -87,6 +126,7 @@ class KernelTables:
     xdiv: torch.Tensor      # (dst_w,), deno_x * y_bias, 0 on main columns
     win: torch.Tensor       # (n_col_tiles, 2) source window [lo, hi)
     win_max: int
+    wrap16: bool            # which instantiation: see :func:`variant`
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,13 +155,13 @@ def kernel_tables(plan: ResizePlan, device="cpu") -> KernelTables:
         ydiv=t(np.where(plan.y.is_border, ydeno, 0)),
         cx=t(plan.x.coef.T), ix=t(torch_resize.clamped_taps(plan.x).T),
         xdiv=t(_x_divisors(plan)), win=t(win),
-        win_max=int((win[:, 1] - win[:, 0]).max()))
+        win_max=int((win[:, 1] - win[:, 0]).max()), wrap16=plan.wrap16)
 
 
 def pack_operands(plan: ResizePlan, device="cpu") -> KernelOperands:
-    """Turn the JAX package's :class:`ResizePlan` into tensors on
-    ``device``.  The kernel's tables are built only where it can launch: on
-    a CUDA device, for plans inside :func:`supports_plan`."""
+    """Turn a :class:`ResizePlan` into tensors on ``device``.  The
+    kernel's tables are built only where it can launch: on a CUDA device,
+    for plans inside :func:`supports_plan`."""
     device = torch.device(device)
     launchable = device.type == "cuda" and supports_plan(plan)
     return KernelOperands(
@@ -183,13 +223,16 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"source shape {tuple(src.shape)} != (B, {h}, {w})")
     if src.stride(-1) != 1:
         raise ValueError("source rows must be contiguous (last stride 1)")
+    if src.shape[0] > _MAX_GRID_YZ:
+        raise ValueError(f"{src.shape[0]} frames in one call; at most "
+                         f"{_MAX_GRID_YZ}")
     lib = _lib_for(src.device)
     out = torch.empty((src.shape[0], dh, dw), dtype=torch.uint8,
                       device=src.device)
     if out.numel() == 0:
         return out
     rc = lib.iqo_resize_fused(
-        src.data_ptr(), out.data_ptr(), src.shape[0],
+        int(k.wrap16), src.data_ptr(), out.data_ptr(), src.shape[0],
         src.stride(0), src.stride(1), dh, dw,
         k.cy.data_ptr(), k.iy.data_ptr(), k.ydiv.data_ptr(),
         k.cy.shape[0], ops.plain.y_bias,
@@ -201,4 +244,5 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
                            f"{lib.iqo_error_string(rc).decode()} ({rc})")
     with _launch_lock:
         LAUNCHES += 1
+        LAUNCHES_BY_VARIANT[variant(k)] += 1
     return out

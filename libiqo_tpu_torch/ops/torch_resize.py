@@ -1,7 +1,7 @@
 """The plain exact resize in PyTorch: banded taps, integer arithmetic.
 
 This is the port of ``libiqo_tpu/ops/xla_resize.py`` and the executable form
-of ``libiqo_tpu/golden/numpy_ref.py`` on tensors.  It serves three roles:
+of ``golden/numpy_ref.py`` on tensors.  It serves three roles:
 
 * the ``torch`` backend, on CPU and CUDA alike;
 * the plain version that the hand-written CUDA kernel
@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from libiqo_tpu.core.plan import AxisPlan, ResizePlan
+from ..core.plan import AxisPlan, ResizePlan
 
 __all__ = ["AxisOperands", "Operands", "pack_operands", "resize"]
 
@@ -71,7 +71,7 @@ def _axis(ax: AxisPlan, deno_scale: int, device) -> AxisOperands:
 
 
 def pack_operands(plan: ResizePlan, device="cpu") -> Operands:
-    """Turn the JAX package's :class:`ResizePlan` into tensors on ``device``.
+    """Turn a :class:`ResizePlan` into tensors on ``device``.
 
     The X divisor carries the Y bias (``deno_x * bias_y``), as in
     ``numpy_ref._x_pass``."""

@@ -1,11 +1,14 @@
 """Where the time goes on the YUV420 main path, on one CUDA device.
 
-    python -m libiqo_tpu_torch.tools.profile_yuv [--out FILE]
+    python -m libiqo_tpu_torch.tools.profile_yuv [-m METHOD -iw W -ih H
+        -ow W -oh H] [--out FILE]
 
-One YUV420 frame, 3840x2160 -> 1920x1080, Lanczos3, through
-``YUV420Resizer(..., device="cuda")``.  For the kernel (``backend="cuda"``)
-and the plain path (``backend="torch"``), with frames already on the card
-(tensor in / tensor out) and as NumPy frames (the CLI's form), it measures:
+One YUV420 frame, by default 3840x2160 -> 1920x1080, Lanczos3 (the
+Lanczos main path; ``-m area -iw 1920 -ih 1080 -ow 640 -oh 360`` is the
+benchmark CLI's default), through ``YUV420Resizer(..., device="cuda")``.
+For the kernel (``backend="cuda"``) and the plain path
+(``backend="torch"``), with frames already on the card (tensor in / tensor
+out) and as NumPy frames (the CLI's form), it measures:
 
 * latency: host clock around one ``resize`` ended by
   ``torch.cuda.synchronize()``, median and p90 over 120 frames;
@@ -36,7 +39,6 @@ import torch
 
 from .. import yuv
 
-SRC_W, SRC_H, DST_W, DST_H = 3840, 2160, 1920, 1080
 N_SYNC, N_STREAM, N_PROFILED = 120, 64, 32
 N_FRAMES = 16          # distinct seeded frames, cycled through
 SEED = 1
@@ -103,7 +105,7 @@ def _device_profile(resize, frames, n: int) -> dict:
     }
 
 
-def measure(resizer, frames) -> dict:
+def measure(resizer, frames, luma_pixels: int) -> dict:
     for f in frames[:3]:
         resizer.resize(f)
     torch.cuda.synchronize()
@@ -124,15 +126,21 @@ def measure(resizer, frames) -> dict:
     return {"sync_median_ms": float(np.median(lat)),
             "sync_p90_ms": lat[int(0.9 * len(lat))], "sync_n": N_SYNC,
             "stream_ms_per_frame": stream_ms, "stream_n": N_STREAM,
-            "luma_mpix_per_s_streamed": SRC_W * SRC_H / stream_ms / 1e3,
+            "luma_mpix_per_s_streamed": luma_pixels / stream_ms / 1e3,
             **prof,
             "busy_share_of_streamed": None if busy is None else busy / stream_ms}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("-m", default="lanczos3", help="linear | area | lanczos[1-9]")
+    ap.add_argument("-iw", type=int, default=3840)
+    ap.add_argument("-ih", type=int, default=2160)
+    ap.add_argument("-ow", type=int, default=1920)
+    ap.add_argument("-oh", type=int, default=1080)
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
+    sw, sh = args.iw, args.ih
     if not torch.cuda.is_available():
         ap.error("needs a CUDA device")
 
@@ -142,20 +150,21 @@ def main(argv=None) -> int:
     print(card, flush=True)
     rng = np.random.default_rng(SEED)
     host = [yuv.YUV420Frame(
-        rng.integers(0, 256, (SRC_H, SRC_W), np.uint8),
-        rng.integers(0, 256, (SRC_H // 2, SRC_W // 2), np.uint8),
-        rng.integers(0, 256, (SRC_H // 2, SRC_W // 2), np.uint8))
+        rng.integers(0, 256, (sh, sw), np.uint8),
+        rng.integers(0, 256, (sh // 2, sw // 2), np.uint8),
+        rng.integers(0, 256, (sh // 2, sw // 2), np.uint8))
         for _ in range(N_FRAMES)]
     dev = [yuv.YUV420Frame(*(torch.from_numpy(p).cuda()
                              for p in (f.y, f.u, f.v))) for f in host]
     result = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "forms": {}}
+              "cuda": torch.version.cuda,
+              "frame": f"{args.m} {sw}x{sh}->{args.ow}x{args.oh}", "forms": {}}
     for backend in ("cuda", "torch"):
-        r = yuv.YUV420Resizer("lanczos3", SRC_W, SRC_H, DST_W, DST_H,
+        r = yuv.YUV420Resizer(args.m, sw, sh, args.ow, args.oh,
                               backend=backend, device="cuda")
         for form, frames in (("device", dev), ("numpy", host)):
             key = f"{backend}/{form}"
-            result["forms"][key] = m = measure(r, frames)
+            result["forms"][key] = m = measure(r, frames, sw * sh)
             print(key, json.dumps(m), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

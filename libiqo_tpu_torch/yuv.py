@@ -85,12 +85,13 @@ class YUV420Resizer:
     """Three-plane resizer bound to one geometry.
 
     :param method: "linear" | "area" | "lanczosN" (N = degree 1..9)
-    :param device: where NumPy planes are computed (tensors stay on theirs)
+    :param device: where NumPy planes are computed (tensors stay on theirs);
+        the card by default
     """
 
     def __init__(self, method: str, src_w: int, src_h: int,
                  dst_w: int, dst_h: int, backend: str = "auto",
-                 precision: str = "exact", device="cpu"):
+                 precision: str = "exact", device="cuda"):
         # The reference sample resizes the Y plane at its TRUE (possibly
         # odd) dimensions and evens only the buffer strides; chroma
         # resizers are built from the evened strides, so the padding

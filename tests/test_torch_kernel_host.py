@@ -3,11 +3,13 @@
 The kernel itself compiles and runs only on an NVIDIA card; here the tests
 pin what surrounds it: the column windows and shared-memory size at the
 main path's full size, the scope predicate, the nvcc command, the launch
-counter, importing without nvcc or JAX, and a NumPy model of the kernel's
-tile loop over the very tables it is handed.  Tests marked ``cuda`` run the
-kernel and skip without a card.
+counters, importing without nvcc, JAX or the JAX package, and a NumPy model
+of the kernel's tile loop over the very tables it is handed, in both
+instantiations (wrap16 for Lanczos, u16 for Area and Linear).  Tests marked
+``cuda`` run the kernel and skip without a card.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -17,9 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from libiqo_tpu.coeffs.engine import trunc_div
-from libiqo_tpu.core.plan import build_plan
-from libiqo_tpu.golden import numpy_ref
+from libiqo_tpu_torch.coeffs.engine import trunc_div
+from libiqo_tpu_torch.core.plan import build_plan
+from libiqo_tpu_torch.golden import numpy_ref
 from libiqo_tpu_torch.ops import _build, cuda_resize, torch_resize
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -29,6 +31,19 @@ MAIN_PLANS = {
                  dst_h=1080, degree=3),
     "chroma": dict(algorithm="lanczos", src_w=1920, src_h=1080, dst_w=960,
                    dst_h=540, degree=3, px_scale=2),
+}
+# the u16 instantiation's full-width planes (luma, and chroma at half size)
+U16_PLANS = {
+    "area360p_luma": dict(algorithm="area", src_w=1920, src_h=1080, dst_w=640,
+                          dst_h=360),
+    "area360p_chroma": dict(algorithm="area", src_w=960, src_h=540, dst_w=320,
+                            dst_h=180),
+    "area1080p": dict(algorithm="area", src_w=3840, src_h=2160, dst_w=1920,
+                      dst_h=1080),
+    "linear4k_luma": dict(algorithm="linear", src_w=1920, src_h=1080,
+                          dst_w=3840, dst_h=2160),
+    "linear4k_chroma": dict(algorithm="linear", src_w=960, src_h=540,
+                            dst_w=1920, dst_h=1080),
 }
 
 
@@ -67,16 +82,40 @@ def test_smem_within_budget(name):
     assert tables.win_max <= 2 * cuda_resize.TILE_COLS + plan.x.num_coefs
 
 
+def _with_axis(plan, axis, **fields):
+    """plan with some fields of one axis replaced."""
+    ax = dataclasses.replace(getattr(plan, axis), **fields)
+    return dataclasses.replace(plan, **{axis: ax})
+
+
 def test_supports_plan_scope():
-    for kw in MAIN_PLANS.values():
-        assert cuda_resize.supports_plan(build_plan(**kw))
-    assert not cuda_resize.supports_plan(build_plan("area", 3840, 2160, 1920, 1080))
-    assert not cuda_resize.supports_plan(build_plan("linear", 3840, 2160, 1920, 1080))
-    assert not cuda_resize.supports_plan(
-        build_plan("lanczos", 64, 48, 32, 24, degree=3, px_scale=3))
+    for kw in (*MAIN_PLANS.values(), *U16_PLANS.values()):
+        plan = build_plan(**kw)
+        assert cuda_resize.supports_plan(plan), kw
+        assert cuda_resize.variant(plan) == ("wrap16" if plan.wrap16 else "u16")
+    for kw in (dict(degree=3, px_scale=3), dict(degree=5, px_scale=4)):
+        assert cuda_resize.supports_plan(build_plan("lanczos", 64, 48, 32, 24, **kw))
+    # an extreme Area ratio (40/44 taps) whose windows still fit
+    assert cuda_resize.supports_plan(build_plan("area", 300, 200, 7, 5))
+
+    area = build_plan("area", 123, 77, 41, 19)
+    border = area.y.is_border.copy()
+    border[0] = True
+    assert not cuda_resize.supports_plan(_with_axis(area, "y", is_border=border))
+    border = area.x.is_border.copy()
+    border[-1] = True
+    assert not cuda_resize.supports_plan(_with_axis(area, "x", is_border=border))
+    neg = area.y.coef.copy()
+    neg[3, 0], neg[3, 1] = -1, neg[3, 1] + 1       # row sum unchanged
+    assert not cuda_resize.supports_plan(_with_axis(area, "y", coef=neg))
+    # Y rows summing to 256 and X rows to 33000: 255*256*33000 + 2^22 >= 2^31
+    wide = area.x.coef.copy()
+    wide[0, 0] += 33000 - wide[0].sum()
+    assert not cuda_resize.supports_plan(_with_axis(area, "x", coef=wide))
     # a 40:1 downscale needs a work tile wider than shared memory holds
     assert not cuda_resize.supports_plan(
         build_plan("lanczos", 40960, 8, 1024, 8, degree=3))
+    assert not cuda_resize.supports_plan(build_plan("area", 40960, 8, 1024, 8))
 
 
 def test_nvcc_command_targets_sm90a():
@@ -124,23 +163,29 @@ def test_launches_stay_zero_on_cpu():
 
 
 def test_port_runs_without_jax():
+    """The port's YUV path and its numpy backend run with both ``jax`` and
+    the JAX package blocked: every import of either fails."""
     code = """
 import sys
 sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["libiqo_tpu"] = None   # and any import of the JAX package
 import numpy as np
 import libiqo_tpu_torch
+from libiqo_tpu_torch import AreaResizer, build_plan
+from libiqo_tpu_torch.golden import numpy_ref
 from libiqo_tpu_torch.yuv import YUV420Frame, YUV420Resizer
-from libiqo_tpu.core.plan import build_plan
-from libiqo_tpu.golden import numpy_ref
 rng = np.random.default_rng(3)
 f = YUV420Frame(rng.integers(0, 256, (48, 64), np.uint8),
                 rng.integers(0, 256, (24, 32), np.uint8),
                 rng.integers(0, 256, (24, 32), np.uint8))
-out = YUV420Resizer("lanczos3", 64, 48, 32, 24).resize(f)
-want = numpy_ref.resize_u8(build_plan("lanczos", 64, 48, 32, 24), f.y)
-assert np.array_equal(out.y, want)
-assert sys.modules["jax"] is None
-assert not [m for m in sys.modules if m.startswith("jax.")]
+for m, algo in (("lanczos3", "lanczos"), ("area", "area"), ("linear", "linear")):
+    out = YUV420Resizer(m, 64, 48, 32, 24, device="cpu").resize(f)
+    want = numpy_ref.resize_u8(build_plan(algo, 64, 48, 32, 24), f.y)
+    assert np.array_equal(out.y, want), m
+oracle = AreaResizer(64, 48, 32, 24, backend="numpy", device="cpu").resize(f.y)
+assert np.array_equal(oracle, numpy_ref.resize_u8(build_plan("area", 64, 48, 32, 24), f.y))
+assert sys.modules["jax"] is None and sys.modules["libiqo_tpu"] is None
+assert not [m for m in sys.modules if m.startswith(("jax.", "libiqo_tpu."))]
 print("ok")
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -159,8 +204,10 @@ def _wrap16(v):
 
 def _kernel_model(plan, k: cuda_resize.KernelTables, src):
     """What resize_fused.cu computes for one frame, column tile by column
-    tile: uint32 accumulation, int16 narrowing, C truncating divides, the
-    arithmetic shift, and reads confined to each tile's window."""
+    tile: uint32 accumulation and reads confined to each tile's window; in
+    the wrap16 instantiation int16 narrowing, C truncating divides and the
+    arithmetic shift; in the u16 one unwrapped work rows and an unsigned
+    shift of sums + half."""
     cy, iy, ydiv, cx, ix, xdiv, win = (
         t.numpy() for t in (k.cy, k.iy, k.ydiv, k.cx, k.ix, k.xdiv, k.win))
     dst_h, dst_w = plan.y.n_dst, plan.x.n_dst
@@ -171,10 +218,14 @@ def _kernel_model(plan, k: cuda_resize.KernelTables, src):
         acc = np.zeros((dst_h, hi - lo), np.uint32)
         for c, i in zip(cy, iy):
             acc += c.astype(np.uint32)[:, None] * src[i, lo:hi].astype(np.uint32)
-        work = _wrap16(acc)
-        b = ydiv != 0
-        work[b] = _wrap16(trunc_div(work[b].astype(np.int64) * plan.y.bias,
-                                    ydiv[b, None].astype(np.int64)))
+        if k.wrap16:
+            work = _wrap16(acc)
+            b = ydiv != 0
+            work[b] = _wrap16(trunc_div(work[b].astype(np.int64) * plan.y.bias,
+                                        ydiv[b, None].astype(np.int64)))
+        else:
+            assert acc.max(initial=0) <= 65280        # u16 work rows
+            work = acc.astype(np.int32)
         cols = slice(tile * cuda_resize.TILE_COLS,
                      min(dst_w, (tile + 1) * cuda_resize.TILE_COLS))
         sums = np.zeros((dst_h, cols.stop - cols.start), np.uint32)
@@ -182,28 +233,55 @@ def _kernel_model(plan, k: cuda_resize.KernelTables, src):
             j = i - lo
             assert ((j >= 0) & (j < hi - lo)).all()
             sums += c.astype(np.uint32) * work[:, j].astype(np.uint32)
-        s = (sums + half).view(np.int32)
-        d = xdiv[cols]
-        v = np.where(d != 0, trunc_div(s.astype(np.int64), np.where(d, d, 1)),
-                     s >> plan.out_shift)
-        out[:, cols] = np.clip(_wrap16(v), 0, 255)
+        if k.wrap16:
+            s = (sums + half).view(np.int32)
+            d = xdiv[cols]
+            v = _wrap16(np.where(d != 0, trunc_div(s.astype(np.int64),
+                                                   np.where(d, d, 1)),
+                                 s >> plan.out_shift))
+        else:
+            assert (sums.astype(np.int64) + int(half)).max(initial=0) < 2**31
+            v = (sums + half) >> np.uint32(plan.out_shift)
+        out[:, cols] = np.clip(v, 0, 255)
     return out
 
 
-@pytest.mark.parametrize("kw,sw,sh,dw,dh", [
-    (dict(degree=3), 480, 270, 240, 135),
-    (dict(degree=3, px_scale=2), 240, 135, 120, 67),
-    (dict(degree=2), 75, 41, 300, 97),
-    (dict(degree=5, px_scale=2), 333, 91, 61, 200),
-    (dict(degree=3), 300, 40, 150, 3),    # Y stale-iterator rows
+@pytest.mark.parametrize("algo,kw,sw,sh,dw,dh", [
+    ("lanczos", dict(degree=3), 480, 270, 240, 135),
+    ("lanczos", dict(degree=3, px_scale=2), 240, 135, 120, 67),
+    ("lanczos", dict(degree=2), 75, 41, 300, 97),
+    ("lanczos", dict(degree=5, px_scale=2), 333, 91, 61, 200),
+    ("lanczos", dict(degree=3), 300, 40, 150, 3),    # Y stale-iterator rows
+    # K5's plans: taps outside the s8 gate, at px_scale 3 and 4
+    ("lanczos", dict(degree=3, px_scale=3), 64, 48, 32, 24),
+    ("lanczos", dict(degree=5, px_scale=4), 100, 70, 37, 90),
+    ("lanczos", dict(degree=2, px_scale=3), 90, 60, 200, 130),
+    ("lanczos", dict(degree=9, px_scale=4), 75, 41, 30, 100),
+    # the u16 instantiation (K3+K4)
+    ("area", {}, 480, 270, 160, 90),            # 3:1, as 1080p -> 360p
+    ("area", {}, 960, 540, 480, 270),           # 2:1, as 4K -> 1080p
+    ("linear", {}, 240, 135, 480, 270),         # 1:2, as 1080p -> 4K
+    ("area", {}, 300, 200, 7, 5),               # 40/44 taps
+    ("linear", {}, 16, 12, 80, 60),             # reference_oob
+    ("linear", {}, 5, 3, 300, 200),             # reference_oob, 60x
+    ("area", {}, 123, 77, 41, 19),              # odd, non-integer ratio
+    ("linear", {}, 97, 61, 40, 150),            # mixed, odd
+    ("area", {}, 400, 300, 80, 60),             # 5:1
 ])
-def test_kernel_model_matches_oracle(kw, sw, sh, dw, dh):
-    plan = build_plan("lanczos", sw, sh, dw, dh, **kw)
+def test_kernel_model_matches_oracle(algo, kw, sw, sh, dw, dh):
+    plan = build_plan(algo, sw, sh, dw, dh, **kw)
     assert cuda_resize.supports_plan(plan)
     tables = cuda_resize.kernel_tables(plan)
+    assert tables.wrap16 == (algo == "lanczos")
     src = np.random.default_rng(sw * dh).integers(0, 256, (sh, sw), np.uint8)
     np.testing.assert_array_equal(_kernel_model(plan, tables, src),
                                   numpy_ref.resize_u8(plan, src))
+
+
+def test_launch_counts_by_variant_reset():
+    cuda_resize.reset_launches()
+    assert cuda_resize.LAUNCHES == 0
+    assert cuda_resize.LAUNCHES_BY_VARIANT == {"wrap16": 0, "u16": 0}
 
 
 # -- on the card ------------------------------------------------------------
@@ -223,9 +301,23 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(U16_PLANS))
+def test_u16_kernel_matches_plain_on_card(cuda_device, name):
+    plan = build_plan(**U16_PLANS[name])
+    ops = cuda_resize.pack_operands(plan, cuda_device)
+    rng = np.random.default_rng(8)
+    src = torch.from_numpy(rng.integers(0, 256, (2, plan.y.n_src, plan.x.n_src),
+                                        np.uint8)).to(cuda_device)
+    before = cuda_resize.LAUNCHES_BY_VARIANT["u16"]
+    got = cuda_resize.resize_fused(ops, src)
+    assert cuda_resize.LAUNCHES_BY_VARIANT["u16"] == before + 1
+    assert torch.equal(got, cuda_resize.resize_plain(ops, src))
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_unsupported_plan_on_card(cuda_device):
-    plan = build_plan("area", 64, 48, 32, 24)
+    plan = build_plan("area", 40960, 8, 1024, 8)     # work tile > shared memory
     ops = cuda_resize.pack_operands(plan, cuda_device)
     with pytest.raises(ValueError):
-        cuda_resize.resize_fused(ops, torch.zeros((1, 48, 64), dtype=torch.uint8,
+        cuda_resize.resize_fused(ops, torch.zeros((1, 8, 40960), dtype=torch.uint8,
                                                   device=cuda_device))

@@ -4,8 +4,9 @@ JAX package, on the CPU, where the wrapper runs the kernel's plain version.
 Every geometry goes through four implementations that must agree byte for
 byte (tolerance 0 LSB: the contract is byte-exact):
 
-1. ``cuda_resize.resize_fused`` on CPU tensors (-> ``resize_plain``);
-2. the NumPy oracle ``numpy_ref.resize_u8``;
+1. ``cuda_resize.resize_fused`` on CPU tensors (-> ``resize_plain``), over
+   the port's own plan;
+2. the NumPy oracle ``numpy_ref.resize_u8`` of the JAX package;
 3. ``xla_resize.make_resize_fn`` under ``jax.jit`` on the CPU;
 4. where ``pallas_resize.supports_plan``, the Pallas kernel in interpret
    mode, as tests/test_pallas.py runs it.
@@ -16,9 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from libiqo_tpu.core.plan import build_plan
+from libiqo_tpu.core.plan import build_plan as jax_build_plan
 from libiqo_tpu.golden import numpy_ref
 from libiqo_tpu.ops import pallas_resize, xla_resize
+from libiqo_tpu_torch.core.plan import build_plan
 from libiqo_tpu_torch.ops import cuda_resize, torch_resize
 
 CASES = [
@@ -51,11 +53,11 @@ def _oracle(plan, src):
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_port_matches_jax_and_oracle(case):
     algo, kw, sw, sh, dw, dh = case
-    plan = build_plan(algo, sw, sh, dw, dh, **kw)
+    plan = jax_build_plan(algo, sw, sh, dw, dh, **kw)
     src = _src(sw * sh + dw, (2, sh, sw))
     want = _oracle(plan, src)
 
-    ops = cuda_resize.pack_operands(plan)
+    ops = cuda_resize.pack_operands(build_plan(algo, sw, sh, dw, dh, **kw))
     got = cuda_resize.resize_fused(ops, torch.from_numpy(src))
     assert got.dtype == torch.uint8 and got.device.type == "cpu"
     np.testing.assert_array_equal(got.numpy(), want, err_msg="port")
@@ -84,15 +86,18 @@ def test_reference_oob_case_is_one():
     ("linear", 97, 61, 40, 150),           # mixed, odd
 ])
 def test_area_linear_plain_path(algo, sw, sh, dw, dh):
-    """Area and Linear plans stay outside the kernel's scope and run the
-    plain exact path, byte-equal to the oracle."""
+    """Area and Linear plans are inside the kernel's scope (its u16
+    instantiation); on CPU tensors the wrapper runs the kernel's plain
+    version, byte-equal to the JAX package's oracle."""
     plan = build_plan(algo, sw, sh, dw, dh)
-    assert not cuda_resize.supports_plan(plan)
+    assert cuda_resize.supports_plan(plan)
+    assert cuda_resize.variant(plan) == "u16"
     src = _src(sw + sh, (2, sh, sw))
     ops = cuda_resize.pack_operands(plan)
-    assert ops.tables is None
+    assert ops.tables is None           # the kernel's tables are CUDA-only
     got = cuda_resize.resize_fused(ops, torch.from_numpy(src))
-    np.testing.assert_array_equal(got.numpy(), _oracle(plan, src))
+    want = _oracle(jax_build_plan(algo, sw, sh, dw, dh), src)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_plain_path_strided_and_leading_dims():
