@@ -6,7 +6,8 @@ to the JAX package ``libiqo_tpu``.  The port keeps its own copy of the host
 layer (plans, coefficient tables, NumPy oracle) and imports nothing of the
 JAX package.  On a CUDA device, the plans a hand-written Hopper kernel
 (sm_90a) takes run it; every other plan runs the exact PyTorch path on the
-data's device.  Resizers run on the card unless ``device="cpu"`` is asked
+data's device.  ``precision="relaxed"`` runs the kernel's relaxed form
+(within 2 LSB, flat fields exact), as the JAX package's relaxed kernel.  Resizers run on the card unless ``device="cpu"`` is asked
 for.  Imports ``torch``, never ``jax``.
 
 Quick start::

@@ -20,9 +20,14 @@ operands.
   path.  ``"cuda"`` asks for the kernel on every plan it takes (a CPU
   tensor then runs the kernel's plain version).  ``"numpy"`` is the golden
   oracle.
-* ``precision="relaxed"`` is accepted and computed exactly, as the JAX
-  package's non-Pallas backends do (exact output is within relaxed's
-  <= 2 LSB bound).
+* ``precision="relaxed"`` (<= 2 LSB, flat fields exact) runs the
+  kernel's relaxed form on the kernel backends (``"auto"`` on a CUDA
+  device, and ``"cuda"``), as the JAX package runs its relaxed Pallas
+  kernel.  The route is picked by predicates of the plan, in this order:
+  the relaxed kernel when ``supports_plan(plan, relaxed=True)``, else the
+  exact kernel when ``supports_plan(plan)``, else the exact ``torch``
+  path.  ``"torch"`` and ``"numpy"`` always compute exactly, as the JAX
+  package's ``"xla"`` and ``"numpy"`` do.
 * ``resize`` takes leading batch dimensions; one launch serves the batch.
 """
 
@@ -49,7 +54,7 @@ _PRECISIONS = ("exact", "relaxed")
 
 
 class _OperandCache:
-    """LRU of packed plan operands by (plan content, device).
+    """LRU of packed plan operands by (plan content, precision, device).
 
     The reference's benchmark builds a fresh resizer every cycle
     (ref: benchmark/benchmark.cpp:1019-1031); with this cache a fresh
@@ -128,6 +133,8 @@ class Resizer:
         self._precision = precision
         self._device = resolve_device(device)
         self._kernel_ok = cuda_resize.supports_plan(plan)
+        self._relaxed_ok = (precision == "relaxed"
+                            and cuda_resize.supports_plan(plan, relaxed=True))
         self._digest = _plan_digest(plan)
 
     @classmethod
@@ -161,19 +168,25 @@ class Resizer:
         return (self._plan.y.n_dst, self._plan.x.n_dst)
 
     def resolved_backend(self) -> str:
-        """The backend that data on this resizer's device takes."""
+        """The route that data on this resizer's device takes: "cuda" (the
+        exact kernel), "cuda-relaxed" (its relaxed form), "torch" or
+        "numpy"."""
         return self._backend_for(self._device)
 
     def _backend_for(self, dev: torch.device) -> str:
         if self._backend in ("torch", "numpy"):
             return self._backend
         if self._backend == "cuda" or dev.type == "cuda":
+            if self._relaxed_ok:
+                return "cuda-relaxed"
             return "cuda" if self._kernel_ok else "torch"
         return "torch"
 
-    def _operands(self, dev: torch.device) -> cuda_resize.KernelOperands:
-        return _CACHE.get((self._digest, str(dev)),
-                          lambda: cuda_resize.pack_operands(self._plan, dev))
+    def _operands(self, dev: torch.device,
+                  relaxed: bool = False) -> cuda_resize.KernelOperands:
+        return _CACHE.get(
+            (self._digest, "relaxed" if relaxed else "exact", str(dev)),
+            lambda: cuda_resize.pack_operands(self._plan, dev, relaxed=relaxed))
 
     # -- compute ----------------------------------------------------------
 
@@ -203,9 +216,10 @@ class Resizer:
             t = torch.from_numpy(arr).to(self._device)
         else:
             t = src
-        ops = self._operands(t.device)
+        route = self._backend_for(t.device)
+        ops = self._operands(t.device, relaxed=route == "cuda-relaxed")
         flat = t.reshape((-1,) + self.src_shape)
-        if self._backend_for(t.device) == "cuda":
+        if route.startswith("cuda"):
             out = cuda_resize.resize_fused(ops, flat)
         else:
             out = torch_resize.resize(ops.plain, flat)

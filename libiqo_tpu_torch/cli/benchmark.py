@@ -101,7 +101,7 @@ def main(argv=None) -> int:
                          "transfers overlapped with compute")
     ap.add_argument("--precision", default="exact",
                     choices=["exact", "relaxed"],
-                    help="relaxed is accepted and computed exactly")
+                    help="relaxed: ≤ 2 LSB, flat fields exact")
     ap.add_argument("--oracle", choices=["cv", "pil"], default=None)
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="write a torch.profiler trace of the timed region")

@@ -38,7 +38,7 @@ def main(argv=None) -> int:
                     help="torch device to compute on (default cuda)")
     ap.add_argument("--precision", default="exact",
                     choices=["exact", "relaxed"],
-                    help="relaxed is accepted and computed exactly")
+                    help="relaxed: ≤ 2 LSB, flat fields exact")
     ap.add_argument("--frames", type=int, default=None,
                     help="max frames to process (default: all)")
     args = ap.parse_args(argv)

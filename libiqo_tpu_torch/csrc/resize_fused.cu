@@ -1,10 +1,12 @@
 // Fused separable resize for Hopper (sm_90a): Y pass, X pass and rounding
 // epilogue in one kernel, exact to the reference Generic fixed-point path
-// (libiqo_tpu_torch/golden/numpy_ref.py).  Two instantiations:
+// (libiqo_tpu_torch/golden/numpy_ref.py).  Two exact instantiations:
 // * kWrap16 = true (Lanczos): int16 wrap of the work rows, Y-border
 //   renormalisation, int32-wrapping X sums, border-column divide;
 // * kWrap16 = false (Area, Linear): u16 work rows kept as they are, no
-//   border divides, (sums + half) >> out_shift.
+//   border divides, (sums + half) >> out_shift;
+// and the relaxed form of each (kRelaxed = true, precision="relaxed"),
+// within 2 LSB of the exact output with flat fields exact.
 //
 // Replaces the TPU kernel libiqo_tpu/ops/pallas_resize.py _make_padless_fn
 // (pl.pallas_call at :1687) -> kernel/_frame in these configurations:
@@ -48,8 +50,29 @@
 //
 // Tensor-core (int8 mma/wgmma) versions of the two passes and a TMA-fed
 // source band are later work.
+//
+// kRelaxed replaces the TPU's relaxed X scheme (K7): the relaxed build of
+// libiqo_tpu/ops/pallas_resize.py:943-1024 with _bf16_relaxed_plane
+// (:163-197), and its X pass (:1486-1505).  The Y pass is unchanged and
+// exact.  The work row w is rounded to bf16 (8 significant bits) and kept
+// as a float in the same 4 bytes of the work tile; each output's X sum is
+// sum_t cxr[t] * w, in float32, tap by tap in order, each product and add
+// rounded on its own (__fmul_rn/__fadd_rn: no contraction), then truncated
+// to int32.  cxr is the bf16 coefficient plane whose column sums the host
+// repaired (cuda_resize.relaxed_plane); where a column could not be
+// repaired, the same sum over the residual plane cxd is added.  bf16 x bf16
+// products are exact in float32, so the order of the adds is the only
+// freedom, and fixing it makes the kernel byte-equal to its plain version
+// (torch_resize.resize_relaxed).  The shared epilogue follows, as on the
+// TPU: int32-wrapping sums + half, the shift or the truncating border
+// divide, int16 narrowing, clip.  On the TPU relaxed bought one bf16 MXU
+// dot instead of four s8 ones.  Here the direct-tap form does the same
+// number of multiply-adds in float instead of integer, so no speed-up is
+// expected from it; a bf16 mma.sync/wgmma X pass, where relaxed can pay on
+// this card, is later work.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -76,11 +99,26 @@ __device__ __forceinline__ int32_t shift_floor(int32_t v, int k) {
   return v >= 0 ? (v >> k) : ~((~v) >> k);
 }
 
+// sum_t plane[t * dst_w + j] * work[ix - lo] in float32, in tap order,
+// without contraction, truncated toward zero.
+__device__ __forceinline__ uint32_t float_taps(
+    const float* __restrict__ plane, const int32_t* __restrict__ ix,
+    const int32_t* wrow, int taps, int dst_w, int j, int lo) {
+  float acc = 0.0f;
+  for (int t = 0; t < taps; ++t) {
+    const int k = t * dst_w + j;
+    acc = __fadd_rn(acc, __fmul_rn(__ldg(plane + k),
+                                   __int_as_float(wrow[__ldg(ix + k) - lo])));
+  }
+  return static_cast<uint32_t>(__float2int_rz(acc));
+}
+
 // Tables are tap-major: coef[t * n_dst + i].  ydiv/xdiv hold the border
 // divisor of each output row/column, 0 on main outputs (unread when
-// kWrap16 is false).  win holds [lo, hi) of each column tile's source
-// window.
-template <bool kWrap16>
+// kWrap16 is false).  cxr/cxd are the relaxed coefficient planes, read
+// only when kRelaxed; cxd may be null.  win holds [lo, hi) of each column
+// tile's source window.
+template <bool kWrap16, bool kRelaxed>
 __global__ void __launch_bounds__(kThreads) resize_fused_kernel(
     const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     long long src_frame_stride, long long src_row_stride,
@@ -89,8 +127,11 @@ __global__ void __launch_bounds__(kThreads) resize_fused_kernel(
     const int32_t* __restrict__ ydiv, int taps_y, int y_bias,
     const int32_t* __restrict__ cx, const int32_t* __restrict__ ix,
     const int32_t* __restrict__ xdiv, int taps_x,
+    const float* __restrict__ cxr, const float* __restrict__ cxd,
     const int32_t* __restrict__ win, int win_max, int out_shift) {
-  extern __shared__ int32_t work[];   // [kTileRows][win_max]
+  // [kTileRows][win_max]: int32 work rows, or with kRelaxed the bits of
+  // their bf16-rounded float values
+  extern __shared__ int32_t work[];
 
   const uint8_t* fsrc = src + static_cast<long long>(blockIdx.z) * src_frame_stride;
   uint8_t* fdst = dst + static_cast<long long>(blockIdx.z) * dst_h * dst_w;
@@ -121,14 +162,21 @@ __global__ void __launch_bounds__(kThreads) resize_fused_kernel(
     } else {
       w = static_cast<int32_t>(acc);   // <= 65280: taps >= 0, row sums <= 256
     }
-    work[r * win_max + c] = w;
+    if constexpr (kRelaxed) {
+      // |w| <= 65280 is exact in float32 before the rounding
+      work[r * win_max + c] = __float_as_int(
+          __bfloat162float(__float2bfloat16_rn(static_cast<float>(w))));
+    } else {
+      work[r * win_max + c] = w;
+    }
   }
   __syncthreads();
 
-  // X pass and epilogue.  kWrap16: sums wrap in int32 as the reference's C
-  // accumulator; main columns (sums + half) >> out_shift, border columns
-  // trunc((sums + half) / (deno_x * y_bias)); then int16 narrowing, clip.
-  // Otherwise sums + half < 2^31, so (sums + half) >> out_shift, clip.
+  // X pass and epilogue.  kWrap16 or kRelaxed: sums wrap in int32 as the
+  // reference's C accumulator; main columns (sums + half) >> out_shift,
+  // border columns trunc((sums + half) / (deno_x * y_bias)); then int16
+  // narrowing, clip.  Otherwise sums + half < 2^31, so
+  // (sums + half) >> out_shift, clip.
   const int c0 = blockIdx.x * kTileCols;
   const int cols = min(kTileCols, dst_w - c0);
   const uint32_t half = 1u << (out_shift - 1);
@@ -139,13 +187,18 @@ __global__ void __launch_bounds__(kThreads) resize_fused_kernel(
     const int j = c0 + jt;
     const int32_t* wrow = work + r * win_max;
     uint32_t acc = 0;
-    for (int t = 0; t < taps_x; ++t) {
-      const int k = t * dst_w + j;
-      acc += static_cast<uint32_t>(__ldg(cx + k)) *
-             static_cast<uint32_t>(wrow[__ldg(ix + k) - lo]);
+    if constexpr (kRelaxed) {
+      acc = float_taps(cxr, ix, wrow, taps_x, dst_w, j, lo);
+      if (cxd != nullptr) acc += float_taps(cxd, ix, wrow, taps_x, dst_w, j, lo);
+    } else {
+      for (int t = 0; t < taps_x; ++t) {
+        const int k = t * dst_w + j;
+        acc += static_cast<uint32_t>(__ldg(cx + k)) *
+               static_cast<uint32_t>(wrow[__ldg(ix + k) - lo]);
+      }
     }
     int32_t v;
-    if constexpr (kWrap16) {
+    if constexpr (kWrap16 || kRelaxed) {
       const int32_t s = as_i32(acc + half);
       const int32_t d = __ldg(xdiv + j);
       // d is a nonzero multiple of y_bias (>= 2 in magnitude) on border
@@ -174,33 +227,45 @@ const char* iqo_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Raises both instantiations' dynamic shared-memory limit on the current
-// device to `bytes`; called once per device before its first launch.
-// Returns a cudaError_t.
+// Raises the four instantiations' dynamic shared-memory limit on the
+// current device to `bytes`; called once per device before its first
+// launch.  Returns a cudaError_t.
 int iqo_set_max_smem(int bytes) {
-  cudaError_t rc = cudaFuncSetAttribute(
-      resize_fused_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  return static_cast<int>(cudaFuncSetAttribute(
-      resize_fused_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(&resize_fused_kernel<true, false>),
+      reinterpret_cast<const void*>(&resize_fused_kernel<false, false>),
+      reinterpret_cast<const void*>(&resize_fused_kernel<true, true>),
+      reinterpret_cast<const void*>(&resize_fused_kernel<false, true>)};
+  for (const void* k : kernels) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  return 0;
 }
 
-// Launches one resize of n_frames frames on `stream`, the kWrap16
-// instantiation when wrap16 is nonzero.  Allocates nothing; dst is
-// contiguous (n_frames, dst_h, dst_w).  The work tile's shared memory must
-// be within the limit set by iqo_set_max_smem.  Returns a cudaError_t.
-int iqo_resize_fused(int wrap16, const void* src, void* dst, int n_frames,
-                     long long src_frame_stride, long long src_row_stride,
-                     int dst_h, int dst_w,
+// Launches one resize of n_frames frames on `stream`: the kWrap16
+// instantiation when wrap16 is nonzero, its relaxed form when relaxed is
+// nonzero (cxr then holds the bf16 plane; cxd the residual plane or
+// null).  Allocates nothing; dst is contiguous (n_frames, dst_h, dst_w).
+// The work tile's shared memory must be within the limit set by
+// iqo_set_max_smem.  Returns a cudaError_t.
+int iqo_resize_fused(int wrap16, int relaxed, const void* src, void* dst,
+                     int n_frames, long long src_frame_stride,
+                     long long src_row_stride, int dst_h, int dst_w,
                      const void* cy, const void* iy, const void* ydiv,
                      int taps_y, int y_bias,
                      const void* cx, const void* ix, const void* xdiv,
-                     int taps_x, const void* win, int win_max, int out_shift,
+                     int taps_x, const void* cxr, const void* cxd,
+                     const void* win, int win_max, int out_shift,
                      void* stream) {
   const int smem = kTileRows * win_max * static_cast<int>(sizeof(int32_t));
   const dim3 grid((dst_w + kTileCols - 1) / kTileCols,
                   (dst_h + kTileRows - 1) / kTileRows, n_frames);
-  auto kernel = wrap16 ? &resize_fused_kernel<true> : &resize_fused_kernel<false>;
+  auto kernel = wrap16 ? (relaxed ? &resize_fused_kernel<true, true>
+                                  : &resize_fused_kernel<true, false>)
+                       : (relaxed ? &resize_fused_kernel<false, true>
+                                  : &resize_fused_kernel<false, false>);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst),
       src_frame_stride, src_row_stride, dst_h, dst_w,
@@ -208,6 +273,7 @@ int iqo_resize_fused(int wrap16, const void* src, void* dst, int n_frames,
       static_cast<const int32_t*>(ydiv), taps_y, y_bias,
       static_cast<const int32_t*>(cx), static_cast<const int32_t*>(ix),
       static_cast<const int32_t*>(xdiv), taps_x,
+      static_cast<const float*>(cxr), static_cast<const float*>(cxd),
       static_cast<const int32_t*>(win), win_max, out_shift);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,12 @@
 """The fused resize kernel for Hopper: host-side operands, scope and wrapper.
 
 The kernel (``csrc/resize_fused.cu``) replaces the TPU's fused Pallas kernel
-(``libiqo_tpu/ops/pallas_resize.py:_make_padless_fn``) in two instantiations:
-``wrap16`` for Lanczos plans (int16 work rows, border divides) and ``u16``
-for Area and Linear plans (u16 work rows, no borders).  This module packs a
+(``libiqo_tpu/ops/pallas_resize.py:_make_padless_fn``) in two exact
+instantiations, ``wrap16`` for Lanczos plans (int16 work rows, border
+divides) and ``u16`` for Area and Linear plans (u16 work rows, no borders),
+and in a relaxed form of each (``wrap16_relaxed``, ``u16_relaxed``: the X
+pass over bf16-rounded work rows and coefficient planes in float32, within
+2 LSB of the exact output, flat fields exact).  This module packs a
 :class:`ResizePlan` into the kernel's operands, decides which plans the
 kernel takes (:func:`supports_plan`), and launches it (:func:`resize_fused`).
 :func:`resize_plain` is the same function in plain PyTorch over the same
@@ -24,9 +27,9 @@ from ..core.plan import AxisPlan, ResizePlan
 from . import _build, torch_resize
 
 __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "KernelOperands",
-           "KernelTables", "kernel_tables", "pack_operands", "reset_launches",
-           "resize_fused", "resize_plain", "smem_bytes", "supports_plan",
-           "tile_windows", "variant"]
+           "KernelTables", "kernel_tables", "pack_operands", "relaxed_plane",
+           "reset_launches", "resize_fused", "resize_plain", "smem_bytes",
+           "supports_plan", "tile_windows", "variant"]
 
 # Must match kTileRows/kTileCols in csrc/resize_fused.cu (checked at load).
 TILE_ROWS = 16
@@ -34,9 +37,12 @@ TILE_COLS = 128
 SMEM_BUDGET = 232448      # dynamic shared memory one sm_90 block may use
 _MAX_GRID_YZ = 65535      # CUDA's limit on gridDim.y (row tiles) and .z (frames)
 _I32_MAX = 2**31 - 1
+_F32_EXACT_COEF_SUM = 65535   # the JAX package's per-row sum(|coef|) bound
+_RELAXED_WALK = 24            # most taps the column-sum repair nudges
 
 LAUNCHES = 0              # kernel launches in this process
-LAUNCHES_BY_VARIANT = {"wrap16": 0, "u16": 0}   # the same, by instantiation
+LAUNCHES_BY_VARIANT = {      # the same, by instantiation
+    "wrap16": 0, "u16": 0, "wrap16_relaxed": 0, "u16_relaxed": 0}
 _launch_lock = threading.Lock()
 
 
@@ -49,10 +55,12 @@ def reset_launches() -> None:
             LAUNCHES_BY_VARIANT[k] = 0
 
 
-def variant(plan) -> str:
-    """The kernel instantiation that a plan (or its :class:`KernelTables`)
-    takes: "wrap16" or "u16"."""
-    return "wrap16" if plan.wrap16 else "u16"
+def variant(plan, relaxed: bool = False) -> str:
+    """The kernel instantiation that a plan takes, exact or ``relaxed``
+    ("wrap16", "u16", "wrap16_relaxed" or "u16_relaxed"); given its
+    :class:`KernelTables`, the one they were built for."""
+    name = "wrap16" if plan.wrap16 else "u16"
+    return name + "_relaxed" if getattr(plan, "relaxed", relaxed) else name
 
 
 def tile_windows(ax: AxisPlan) -> np.ndarray:
@@ -94,15 +102,119 @@ def _u16_exact(plan: ResizePlan) -> bool:
             and 255 * sum_y * sum_x + (1 << (plan.out_shift - 1)) <= _I32_MAX)
 
 
-def supports_plan(plan: ResizePlan) -> bool:
-    """True when the kernel computes this plan exactly.  A pure function of
-    the plan.  wrap16 (Lanczos) plans at any px_scale: the kernel's uint32
-    sums wrap as the reference's C accumulators, so 16-bit taps of any value
-    are exact, provided the border divisors fit int32.  Other (Area,
-    Linear) plans when :func:`_u16_exact` holds.  Either way the tap tables
-    must index in int32, the row tiles fit the grid, and the work tile fits
-    the shared-memory budget.  Every other plan goes to the exact ``torch``
-    path."""
+def _exact_f32_ok(plan: ResizePlan) -> bool:
+    """The JAX package's bounds for its exact bf16 schemes
+    (``pallas_resize._exact_f32_ok``): per-row sum(|coef|) <= 65535 and at
+    most 258 taps, on both axes."""
+    return all(
+        int(np.abs(ax.coef.astype(np.int64)).sum(axis=1).max()) <= _F32_EXACT_COEF_SUM
+        and ax.num_coefs <= 258 for ax in (plan.y, plan.x))
+
+
+def _bf16(a) -> np.ndarray:
+    """Values rounded to bfloat16 through float32, each step to nearest
+    even (as ``astype`` does in the JAX package), returned as float64."""
+    f32 = torch.from_numpy(np.asarray(a, dtype=np.float64).astype(np.float32))
+    return f32.to(torch.bfloat16).to(torch.float64).numpy()
+
+
+def _repaired_bf16(c: np.ndarray) -> np.ndarray:
+    """(taps, n_dst) integer taps -> one bf16 plane (as float64) whose
+    column sums are repaired toward the exact integer sums: walking each
+    column's taps by stable descending |c|, for at most min(taps, 24)
+    steps, each step adds the column's remaining residual to one tap and
+    rounds it to bf16 again."""
+    target = c.sum(axis=0).astype(np.float64)
+    plane = _bf16(c)
+    order = np.argsort(-np.abs(c), axis=0, kind="stable")
+    for k in range(min(c.shape[0], _RELAXED_WALK)):
+        resid = target - plane.sum(axis=0)
+        if not resid.any():
+            break
+        idx = order[k:k + 1]
+        np.put_along_axis(plane, idx, np.take_along_axis(plane, idx, axis=0)
+                          + resid[None], axis=0)
+        plane = _bf16(plane)
+    return plane
+
+
+def _relaxed_planes(ax: AxisPlan):
+    """(plane, residual or None, ok), tap-major float64: the repaired plane,
+    the residual plane ``c - plane`` where some column's sum is still not
+    exact, and whether that residual is bf16-exact."""
+    c = ax.coef.T.astype(np.int64)
+    plane = _repaired_bf16(c)
+    if (plane.sum(axis=0) == c.sum(axis=0)).all():
+        return plane, None, True
+    resid = c - plane
+    return plane, resid, bool((_bf16(resid) == resid).all())
+
+
+def relaxed_plane(ax: AxisPlan) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The relaxed X coefficient planes of an axis: float32 tensors holding
+    bf16 values, tap-major (taps, n_dst) like the kernel's ``cx``.
+
+    The port of ``pallas_resize._bf16_relaxed_plane`` (``:163-197``) and
+    of the residual-plane rule of the relaxed build (``:994-1021``): the
+    taps are rounded to bf16 and each output's column sum is repaired
+    toward its exact sum (:func:`_repaired_bf16`); if some column's sum is
+    still off, the second plane ``c - plane`` is returned too (else None),
+    and it must be bf16-exact, or this raises ValueError.  The walk runs
+    over each output's own taps.  The JAX package's padless build walks
+    the column tile's slab window instead, so where an output's nonzero
+    taps cannot absorb the residual (px2 chroma, a few columns in a
+    thousand) it nudges a source position outside the filter, and the port
+    nudges a zero tap inside the output's tap list.  Both end with exact
+    column sums, so flat fields stay exact."""
+    plane, resid, ok = _relaxed_planes(ax)
+    if not ok:
+        raise ValueError("the residual of the bf16 coefficient plane is not "
+                         "bf16-exact; the plan is outside the relaxed scheme")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+    return t(plane), None if resid is None else t(resid)
+
+
+def _relaxed_ok(plan: ResizePlan) -> bool:
+    """The relaxed scheme's own conditions (see :func:`supports_plan`)."""
+    if not _exact_f32_ok(plan):
+        return False
+    plane, resid, ok = _relaxed_planes(plan.x)
+    if not ok:
+        return False
+    wmax = 32768 if plan.wrap16 else 65280    # wrapped w reaches -32768
+    planes = [plan.x.coef.T.astype(np.int64), plane]
+    if resid is not None:
+        planes.append(resid)
+    csum = max(int(np.abs(p).sum(axis=0).max()) for p in planes)
+    return wmax * csum < 2**31
+
+
+def supports_plan(plan: ResizePlan, relaxed: bool = False) -> bool:
+    """True when the kernel computes this plan exactly, or with
+    ``relaxed=True``, when its relaxed form takes the plan.  A pure
+    function of the plan.
+
+    Exact: wrap16 (Lanczos) plans at any px_scale: the kernel's uint32 sums
+    wrap as the reference's C accumulators, so 16-bit taps of any value are
+    exact, provided the border divisors fit int32.  Other (Area, Linear)
+    plans when :func:`_u16_exact` holds.  Either way the tap tables must
+    index in int32, the row tiles fit the grid, and the work tile fits the
+    shared-memory budget.
+
+    Relaxed: all of that, and the JAX package's relaxed guards
+    (``pallas_resize.py:943-1024``): ``wmax * max_j sum|cx| < 2^31``, with
+    wmax 32768 for wrap16 plans and 65280 for u16 ones (the sum is also
+    taken over the rounded planes, so the float32 sums stay inside int32),
+    and :func:`relaxed_plane` must succeed.  Plans outside
+    :func:`_exact_f32_ok` are refused as well: the port's Y pass is exact
+    integer arithmetic for every plan, so the JAX package's Y-exactness
+    refusal has nothing to guard here, but the port's relaxed scope does
+    not exceed the JAX package's.
+
+    Every plan the kernel refuses goes to the exact ``torch`` path."""
     if plan.wrap16:
         if np.abs(_x_divisors(plan)).max() > _I32_MAX:
             return False
@@ -112,12 +224,16 @@ def supports_plan(plan: ResizePlan) -> bool:
         return False
     if -(-plan.y.n_dst // TILE_ROWS) > _MAX_GRID_YZ:
         return False
-    return smem_bytes(plan) <= SMEM_BUDGET
+    if smem_bytes(plan) > SMEM_BUDGET:
+        return False
+    return not relaxed or _relaxed_ok(plan)
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelTables:
-    """The kernel's int32 operands, tap-major.  Read-only once built."""
+    """The kernel's operands, tap-major: int32 tables, and in the relaxed
+    form float32 coefficient planes of bf16 values.  Read-only once
+    built."""
     cy: torch.Tensor        # (taps_y, dst_h)
     iy: torch.Tensor        # (taps_y, dst_h), clamped source rows
     ydiv: torch.Tensor      # (dst_h,), border divisor, 0 on main rows
@@ -127,12 +243,17 @@ class KernelTables:
     win: torch.Tensor       # (n_col_tiles, 2) source window [lo, hi)
     win_max: int
     wrap16: bool            # which instantiation: see :func:`variant`
+    cxr: torch.Tensor       # (taps_x, dst_w) relaxed plane; empty when exact
+    cxd: torch.Tensor       # (taps_x, dst_w) residual plane, or empty
+    relaxed: bool
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelOperands:
     """A plan on one device: the plain path's operands, and the kernel's
-    tables on a CUDA device when :func:`supports_plan` holds (else None)."""
+    tables (else None): exact ones on a CUDA device when
+    :func:`supports_plan` holds, relaxed ones on any device, since the
+    relaxed plain version reads its planes from them."""
     plain: torch_resize.Operands
     tables: KernelTables | None
 
@@ -140,9 +261,15 @@ class KernelOperands:
     def device(self) -> torch.device:
         return self.plain.device
 
+    @property
+    def relaxed(self) -> bool:
+        return self.tables is not None and self.tables.relaxed
 
-def kernel_tables(plan: ResizePlan, device="cpu") -> KernelTables:
-    """The kernel's tables for a plan that :func:`supports_plan` takes."""
+
+def kernel_tables(plan: ResizePlan, device="cpu",
+                  relaxed: bool = False) -> KernelTables:
+    """The kernel's tables for a plan that :func:`supports_plan` takes
+    (with the same ``relaxed``)."""
     win = tile_windows(plan.x)
     ydeno = np.where(plan.y.deno == 0, 1, plan.y.deno)
 
@@ -150,28 +277,49 @@ def kernel_tables(plan: ResizePlan, device="cpu") -> KernelTables:
         a = np.ascontiguousarray(np.asarray(a).astype(np.int32))
         return torch.from_numpy(a).to(device)
 
+    empty = torch.empty((0, plan.x.n_dst), dtype=torch.float32, device=device)
+    cxr = cxd = empty
+    if relaxed:
+        cxr, resid = relaxed_plane(plan.x)
+        cxr = cxr.to(device)
+        cxd = empty if resid is None else resid.to(device)
     return KernelTables(
         cy=t(plan.y.coef.T), iy=t(torch_resize.clamped_taps(plan.y).T),
         ydiv=t(np.where(plan.y.is_border, ydeno, 0)),
         cx=t(plan.x.coef.T), ix=t(torch_resize.clamped_taps(plan.x).T),
         xdiv=t(_x_divisors(plan)), win=t(win),
-        win_max=int((win[:, 1] - win[:, 0]).max()), wrap16=plan.wrap16)
+        win_max=int((win[:, 1] - win[:, 0]).max()), wrap16=plan.wrap16,
+        cxr=cxr, cxd=cxd, relaxed=relaxed)
 
 
-def pack_operands(plan: ResizePlan, device="cpu") -> KernelOperands:
-    """Turn a :class:`ResizePlan` into tensors on ``device``.  The
-    kernel's tables are built only where it can launch: on a CUDA device,
-    for plans inside :func:`supports_plan`."""
+def pack_operands(plan: ResizePlan, device="cpu",
+                  relaxed: bool = False) -> KernelOperands:
+    """Turn a :class:`ResizePlan` into tensors on ``device``.  Exact: the
+    kernel's tables are built only where it can launch, on a CUDA device
+    for plans inside :func:`supports_plan`.  ``relaxed=True`` needs
+    ``supports_plan(plan, relaxed=True)`` (else ValueError) and builds the
+    relaxed tables on any device."""
     device = torch.device(device)
-    launchable = device.type == "cuda" and supports_plan(plan)
-    return KernelOperands(
-        plain=torch_resize.pack_operands(plan, device),
-        tables=kernel_tables(plan, device) if launchable else None)
+    if relaxed:
+        if not supports_plan(plan, relaxed=True):
+            raise ValueError("plan is outside the relaxed kernel's scope "
+                             "(supports_plan(relaxed=True))")
+        tables = kernel_tables(plan, device, relaxed=True)
+    elif device.type == "cuda" and supports_plan(plan):
+        tables = kernel_tables(plan, device)
+    else:
+        tables = None
+    return KernelOperands(plain=torch_resize.pack_operands(plan, device),
+                          tables=tables)
 
 
 def resize_plain(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch (``torch_resize``), on the
-    same operands and on src's device."""
+    same operands and on src's device: the relaxed one when the tables are
+    relaxed."""
+    if ops.relaxed:
+        k = ops.tables
+        return torch_resize.resize_relaxed(ops.plain, k.cxr, k.cxd, src)
     return torch_resize.resize(ops.plain, src)
 
 
@@ -232,12 +380,15 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     rc = lib.iqo_resize_fused(
-        int(k.wrap16), src.data_ptr(), out.data_ptr(), src.shape[0],
-        src.stride(0), src.stride(1), dh, dw,
+        int(k.wrap16), int(k.relaxed), src.data_ptr(), out.data_ptr(),
+        src.shape[0], src.stride(0), src.stride(1), dh, dw,
         k.cy.data_ptr(), k.iy.data_ptr(), k.ydiv.data_ptr(),
         k.cy.shape[0], ops.plain.y_bias,
         k.cx.data_ptr(), k.ix.data_ptr(), k.xdiv.data_ptr(),
-        k.cx.shape[0], k.win.data_ptr(), k.win_max,
+        k.cx.shape[0],
+        k.cxr.data_ptr() if k.relaxed else None,
+        k.cxd.data_ptr() if k.cxd.numel() else None,
+        k.win.data_ptr(), k.win_max,
         ops.plain.out_shift, torch.cuda.current_stream(src.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"resize_fused launch failed: "

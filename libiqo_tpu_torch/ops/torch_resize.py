@@ -8,6 +8,9 @@ of ``golden/numpy_ref.py`` on tensors.  It serves three roles:
   (``ops/cuda_resize.py``) is compared with;
 * the route for plans the kernel does not take.
 
+:func:`resize_relaxed` is the plain version of the kernel's relaxed form
+(``precision="relaxed"``), which shares the Y pass and the epilogue.
+
 Each pass is a banded tap form over the plan's ``(coef, start)`` tables: for
 every tap, an ``index_select`` of clamped source indices, a multiply and an
 accumulate.  Out-of-range taps are zero in the plan, so the clamped indices
@@ -27,7 +30,8 @@ import torch
 
 from ..core.plan import AxisPlan, ResizePlan
 
-__all__ = ["AxisOperands", "Operands", "pack_operands", "resize"]
+__all__ = ["AxisOperands", "Operands", "pack_operands", "resize",
+           "resize_relaxed"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,14 +104,17 @@ def _taps(s: torch.Tensor, ax: AxisOperands, dim: int) -> torch.Tensor:
     return acc
 
 
-def resize(ops: Operands, src: torch.Tensor) -> torch.Tensor:
-    """(..., src_h, src_w) uint8 -> (..., dst_h, dst_w) uint8 on src's device,
-    byte-identical to ``numpy_ref.resize_u8`` on every frame."""
+def _check(ops: Operands, src: torch.Tensor) -> None:
     if tuple(src.shape[-2:]) != ops.src_shape:
         raise ValueError(f"source spatial shape {tuple(src.shape[-2:])} != "
                          f"plan geometry {ops.src_shape}")
     if src.dtype != torch.uint8:
         raise TypeError(f"source must be uint8, got {src.dtype}")
+
+
+def _y_pass(ops: Operands, src: torch.Tensor) -> torch.Tensor:
+    """The work rows, int64: the Y tap sums, with int16 narrowing and
+    border-row renormalisation in wrap16 plans."""
     nume = _taps(src.to(torch.int64), ops.y, -2)
     if ops.wrap16:
         nume = _wrap16(nume)
@@ -115,12 +122,58 @@ def resize(ops: Operands, src: torch.Tensor) -> torch.Tensor:
             border = _wrap16(torch.div(nume * ops.y_bias, ops.y.deno[:, None],
                                        rounding_mode="trunc"))
             nume = torch.where(ops.y.border[:, None], border, nume)
-    sums = _taps(nume, ops.x, -1)
+    return nume
+
+
+def _epilogue(ops: Operands, sums: torch.Tensor, wrap32: bool) -> torch.Tensor:
+    """(sums + half) >> out_shift, the truncating border-column divide,
+    int16 narrowing and the clip to uint8; ``wrap32`` wraps sums + half as
+    the reference's C int32 accumulator."""
     rounded = sums + (1 << (ops.out_shift - 1))
-    if ops.wrap16:
-        rounded = _wrap32(rounded)      # the reference's C int32 accumulator
+    if wrap32:
+        rounded = _wrap32(rounded)
     v = rounded >> ops.out_shift
     if ops.x.has_border:
         v = torch.where(ops.x.border,
                         torch.div(rounded, ops.x.deno, rounding_mode="trunc"), v)
     return _wrap16(v).clamp_(0, 255).to(torch.uint8)
+
+
+def resize(ops: Operands, src: torch.Tensor) -> torch.Tensor:
+    """(..., src_h, src_w) uint8 -> (..., dst_h, dst_w) uint8 on src's device,
+    byte-identical to ``numpy_ref.resize_u8`` on every frame."""
+    _check(ops, src)
+    return _epilogue(ops, _taps(_y_pass(ops, src), ops.x, -1), ops.wrap16)
+
+
+def _float_taps(w: torch.Tensor, plane: torch.Tensor,
+                idx: torch.Tensor) -> torch.Tensor:
+    """sum_t plane[t] * w[..., idx[t]] in float32, tap by tap in order,
+    truncated toward zero to int32 (returned as int64)."""
+    acc = torch.zeros(w.shape[:-1] + idx.shape[1:], dtype=torch.float32,
+                      device=w.device)
+    for c, i in zip(plane, idx):
+        acc = acc + w.index_select(-1, i) * c
+    return acc.to(torch.int32).to(torch.int64)
+
+
+def resize_relaxed(ops: Operands, cxr: torch.Tensor, cxd: torch.Tensor,
+                   src: torch.Tensor) -> torch.Tensor:
+    """The relaxed resize (``precision="relaxed"``), the plain version of
+    the kernel's relaxed instantiations: the exact Y pass; the work rows
+    rounded to bf16; the X pass against the bf16 coefficient plane ``cxr``
+    (taps, dst_w), a float32 sum taken tap by tap in order and truncated to
+    int32, plus the same over the residual plane ``cxd`` where it is not
+    empty; then the exact epilogue on the int32-wrapping sums.  Within
+    2 LSB of ``resize``; flat fields exact.
+
+    The port of the TPU's relaxed X scheme
+    (``libiqo_tpu/ops/pallas_resize.py:1486-1505``), which rounds ``w``
+    to bf16 on the chip too; its planes come from
+    ``cuda_resize.relaxed_plane``."""
+    _check(ops, src)
+    w = _y_pass(ops, src).to(torch.float32).to(torch.bfloat16).to(torch.float32)
+    sums = _float_taps(w, cxr, ops.x.idx)
+    if cxd.numel():
+        sums = sums + _float_taps(w, cxd, ops.x.idx)
+    return _epilogue(ops, sums, wrap32=True)

@@ -25,6 +25,7 @@ from libiqo_tpu.core.plan import build_plan
 from libiqo_tpu.golden import numpy_ref
 from libiqo_tpu_torch import api, yuv
 from libiqo_tpu_torch.cli import benchmark, resize_yuv420p
+from libiqo_tpu_torch.ops import cuda_resize
 from libiqo_tpu_torch.tools import profile_yuv
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -120,13 +121,26 @@ def test_leading_batch_dims():
     lambda b, **kw: api.LinearResizer(70, 50, 35, 25, backend=b, device="cpu", **kw),
 ], ids=["lanczos", "area", "linear"])
 def test_facades_all_backends(factory):
+    """Exact, and relaxed through "torch" and "numpy" (and "auto", which on
+    the CPU takes "torch"), give the oracle's bytes.  Relaxed through
+    "cuda" runs the kernel's relaxed plain version: within 2 LSB of the
+    oracle and equal to that version."""
     src = np.random.default_rng(4).integers(0, 256, (50, 70), np.uint8)
     want = numpy_ref.resize_u8(factory("numpy").plan, src)
     for backend in ("auto", "cuda", "torch", "numpy"):
         for precision in ("exact", "relaxed"):
             r = factory(backend, precision=precision)
-            np.testing.assert_array_equal(r.resize(src), want,
-                                          err_msg=f"{backend} {precision}")
+            got = r.resize(src)
+            msg = f"{backend} {precision}"
+            if precision == "relaxed" and backend == "cuda":
+                assert r.resolved_backend() == "cuda-relaxed", msg
+                assert np.abs(got.astype(int) - want).max() <= 2, msg
+                ops = cuda_resize.pack_operands(r.plan, "cpu", relaxed=True)
+                plain = cuda_resize.resize_plain(ops, torch.from_numpy(src))
+                np.testing.assert_array_equal(got, plain.numpy(), err_msg=msg)
+            else:
+                assert r.resolved_backend() != "cuda-relaxed", msg
+                np.testing.assert_array_equal(got, want, err_msg=msg)
 
 
 def test_resolved_backend():

@@ -5,8 +5,9 @@ pin what surrounds it: the column windows and shared-memory size at the
 main path's full size, the scope predicate, the nvcc command, the launch
 counters, importing without nvcc, JAX or the JAX package, and a NumPy model
 of the kernel's tile loop over the very tables it is handed, in both
-instantiations (wrap16 for Lanczos, u16 for Area and Linear).  Tests marked
-``cuda`` run the kernel and skip without a card.
+instantiations (wrap16 for Lanczos, u16 for Area and Linear) and in the
+relaxed form of each.  Tests marked ``cuda`` run the kernel and skip
+without a card.
 """
 
 import dataclasses
@@ -202,14 +203,31 @@ def _wrap16(v):
     return (low - ((low & 0x8000) << 1)).astype(np.int32)
 
 
+def _bf16(a):
+    """float32 values rounded to bfloat16 (to nearest even), as float32."""
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _float_taps(plane, ix, wf, lo):
+    """The relaxed kernel's float_taps: sum_t plane[t] * wf[:, ix[t] - lo] in
+    float32, tap by tap in order, truncated toward zero, as uint32."""
+    acc = np.zeros((wf.shape[0], plane.shape[1]), np.float32)
+    for c, i in zip(plane, ix):
+        acc = acc + c * wf[:, i - lo]          # float32 product, float32 add
+    return acc.astype(np.int32).astype(np.uint32)
+
+
 def _kernel_model(plan, k: cuda_resize.KernelTables, src):
     """What resize_fused.cu computes for one frame, column tile by column
     tile: uint32 accumulation and reads confined to each tile's window; in
     the wrap16 instantiation int16 narrowing, C truncating divides and the
     arithmetic shift; in the u16 one unwrapped work rows and an unsigned
-    shift of sums + half."""
-    cy, iy, ydiv, cx, ix, xdiv, win = (
-        t.numpy() for t in (k.cy, k.iy, k.ydiv, k.cx, k.ix, k.xdiv, k.win))
+    shift of sums + half.  Relaxed: the work rows rounded to bf16, the X
+    sums in float32 over the plane (and the residual plane) truncated to
+    int32, then the wrap16 instantiation's signed epilogue."""
+    cy, iy, ydiv, cx, ix, xdiv, win, cxr, cxd = (
+        t.numpy() for t in (k.cy, k.iy, k.ydiv, k.cx, k.ix, k.xdiv, k.win,
+                            k.cxr, k.cxd))
     dst_h, dst_w = plan.y.n_dst, plan.x.n_dst
     half = np.uint32(1 << (plan.out_shift - 1))
     out = np.empty((dst_h, dst_w), np.uint8)
@@ -229,11 +247,16 @@ def _kernel_model(plan, k: cuda_resize.KernelTables, src):
         cols = slice(tile * cuda_resize.TILE_COLS,
                      min(dst_w, (tile + 1) * cuda_resize.TILE_COLS))
         sums = np.zeros((dst_h, cols.stop - cols.start), np.uint32)
-        for c, i in zip(cx[:, cols], ix[:, cols]):
-            j = i - lo
-            assert ((j >= 0) & (j < hi - lo)).all()
-            sums += c.astype(np.uint32) * work[:, j].astype(np.uint32)
-        if k.wrap16:
+        if k.relaxed:
+            wf = _bf16(work.astype(np.float32))
+            for plane in (cxr, cxd) if cxd.size else (cxr,):
+                sums += _float_taps(plane[:, cols], ix[:, cols], wf, lo)
+        else:
+            for c, i in zip(cx[:, cols], ix[:, cols]):
+                j = i - lo
+                assert ((j >= 0) & (j < hi - lo)).all()
+                sums += c.astype(np.uint32) * work[:, j].astype(np.uint32)
+        if k.wrap16 or k.relaxed:
             s = (sums + half).view(np.int32)
             d = xdiv[cols]
             v = _wrap16(np.where(d != 0, trunc_div(s.astype(np.int64),
@@ -246,7 +269,7 @@ def _kernel_model(plan, k: cuda_resize.KernelTables, src):
     return out
 
 
-@pytest.mark.parametrize("algo,kw,sw,sh,dw,dh", [
+MODEL_PLANS = [
     ("lanczos", dict(degree=3), 480, 270, 240, 135),
     ("lanczos", dict(degree=3, px_scale=2), 240, 135, 120, 67),
     ("lanczos", dict(degree=2), 75, 41, 300, 97),
@@ -267,7 +290,10 @@ def _kernel_model(plan, k: cuda_resize.KernelTables, src):
     ("area", {}, 123, 77, 41, 19),              # odd, non-integer ratio
     ("linear", {}, 97, 61, 40, 150),            # mixed, odd
     ("area", {}, 400, 300, 80, 60),             # 5:1
-])
+]
+
+
+@pytest.mark.parametrize("algo,kw,sw,sh,dw,dh", MODEL_PLANS)
 def test_kernel_model_matches_oracle(algo, kw, sw, sh, dw, dh):
     plan = build_plan(algo, sw, sh, dw, dh, **kw)
     assert cuda_resize.supports_plan(plan)
@@ -278,10 +304,50 @@ def test_kernel_model_matches_oracle(algo, kw, sw, sh, dw, dh):
                                   numpy_ref.resize_u8(plan, src))
 
 
+@pytest.mark.parametrize("algo,kw,sw,sh,dw,dh", MODEL_PLANS)
+def test_relaxed_kernel_model_matches_plain(algo, kw, sw, sh, dw, dh):
+    """The relaxed kernel's model, over its own tables, is byte-equal to the
+    relaxed plain version (``torch_resize.resize_relaxed``): the equality
+    the CUDA kernel is held to on the card."""
+    plan = build_plan(algo, sw, sh, dw, dh, **kw)
+    assert cuda_resize.supports_plan(plan, relaxed=True)
+    ops = cuda_resize.pack_operands(plan, relaxed=True)
+    assert ops.tables.relaxed
+    assert cuda_resize.variant(ops.tables) == (
+        "wrap16_relaxed" if algo == "lanczos" else "u16_relaxed")
+    src = np.random.default_rng(sw + dh).integers(0, 256, (sh, sw), np.uint8)
+    got = _kernel_model(plan, ops.tables, src)
+    np.testing.assert_array_equal(
+        got, cuda_resize.resize_plain(ops, torch.from_numpy(src)).numpy())
+    want = numpy_ref.resize_u8(plan, src)
+    assert np.abs(got.astype(int) - want).max() <= 2
+
+
+@pytest.mark.parametrize("algo,kw,sw,sh,dw,dh", [
+    ("lanczos", dict(degree=3), 320, 96, 160, 48),
+    ("area", {}, 123, 77, 41, 19),
+    ("linear", {}, 97, 61, 200, 150),
+])
+def test_relaxed_kernel_model_residual_plane(monkeypatch, algo, kw, sw, sh,
+                                             dw, dh):
+    """With the column-sum repair stubbed to plain rounding, the tables get
+    a residual plane, and the model with it is still byte-equal to the
+    relaxed plain version."""
+    monkeypatch.setattr(cuda_resize, "_repaired_bf16", cuda_resize._bf16)
+    plan = build_plan(algo, sw, sh, dw, dh, **kw)
+    ops = cuda_resize.pack_operands(plan, relaxed=True)
+    assert ops.tables.cxd.shape == ops.tables.cxr.shape
+    src = np.random.default_rng(5).integers(0, 256, (sh, sw), np.uint8)
+    np.testing.assert_array_equal(
+        _kernel_model(plan, ops.tables, src),
+        cuda_resize.resize_plain(ops, torch.from_numpy(src)).numpy())
+
+
 def test_launch_counts_by_variant_reset():
     cuda_resize.reset_launches()
     assert cuda_resize.LAUNCHES == 0
-    assert cuda_resize.LAUNCHES_BY_VARIANT == {"wrap16": 0, "u16": 0}
+    assert cuda_resize.LAUNCHES_BY_VARIANT == {
+        "wrap16": 0, "u16": 0, "wrap16_relaxed": 0, "u16_relaxed": 0}
 
 
 # -- on the card ------------------------------------------------------------
@@ -311,6 +377,21 @@ def test_u16_kernel_matches_plain_on_card(cuda_device, name):
     before = cuda_resize.LAUNCHES_BY_VARIANT["u16"]
     got = cuda_resize.resize_fused(ops, src)
     assert cuda_resize.LAUNCHES_BY_VARIANT["u16"] == before + 1
+    assert torch.equal(got, cuda_resize.resize_plain(ops, src))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MAIN_PLANS) + sorted(U16_PLANS))
+def test_relaxed_kernel_matches_plain_on_card(cuda_device, name):
+    plan = build_plan(**{**MAIN_PLANS, **U16_PLANS}[name])
+    ops = cuda_resize.pack_operands(plan, cuda_device, relaxed=True)
+    rng = np.random.default_rng(9)
+    src = torch.from_numpy(rng.integers(0, 256, (2, plan.y.n_src, plan.x.n_src),
+                                        np.uint8)).to(cuda_device)
+    v = cuda_resize.variant(ops.tables)
+    before = cuda_resize.LAUNCHES_BY_VARIANT[v]
+    got = cuda_resize.resize_fused(ops, src)
+    assert cuda_resize.LAUNCHES_BY_VARIANT[v] == before + 1
     assert torch.equal(got, cuda_resize.resize_plain(ops, src))
 
 

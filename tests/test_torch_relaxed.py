@@ -1,0 +1,314 @@
+"""Relaxed precision in the port (``precision="relaxed"``), on the CPU.
+
+The port runs the TPU's relaxed X scheme (``libiqo_tpu/ops/pallas_resize.py``
+K7) as the relaxed form of its CUDA kernel; on a CPU tensor the wrapper runs
+that form's plain version (``torch_resize.resize_relaxed``), which the
+tests here reach.  The contract is the JAX package's: at most 2 LSB from the
+exact output, flat fields exact (``scripts/check_relaxed_result.json`` on
+the TPU: 1/2/2/1/1 LSB on the five graded configs).  Oracle comparisons
+allow 3 LSB, as ``tests/test_relaxed.py`` does, for headroom; on these
+inputs the port's largest error against the oracle was 1 LSB.  Comparisons
+with the JAX package's relaxed kernel allow 2 LSB: see
+:func:`test_within_bound_of_jax_interpret` for why they are not byte
+equality.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import libiqo_tpu.yuv as jax_yuv
+from libiqo_tpu.core.plan import build_plan as jax_build_plan
+from libiqo_tpu.ops import pallas_resize
+from libiqo_tpu_torch import api, yuv
+from libiqo_tpu_torch.cli import benchmark, resize_yuv420p
+from libiqo_tpu_torch.core.plan import build_plan
+from libiqo_tpu_torch.golden import numpy_ref
+from libiqo_tpu_torch.ops import cuda_resize
+
+MAX_LSB = 3        # against the oracle, as tests/test_relaxed.py
+JAX_LSB = 2        # against the JAX package's relaxed kernel
+
+# tests/test_relaxed.py's CASES, then a px2 chroma and a px4 plan
+CASES = [
+    ("lanczos", dict(degree=3), 320, 96, 160, 48),
+    ("lanczos", dict(degree=2, px_scale=2), 160, 64, 80, 32),
+    ("lanczos", dict(degree=2), 160, 64, 320, 128),
+    ("area", {}, 320, 96, 150, 40),
+    ("linear", {}, 160, 64, 320, 128),
+]
+PLANE_CASES = CASES + [
+    ("lanczos", dict(degree=3, px_scale=2), 480, 270, 240, 135),
+    ("lanczos", dict(degree=3, px_scale=4), 240, 136, 120, 68),
+]
+
+
+def _ids(c):
+    algo, kw, sw, sh, dw, dh = c
+    return f"{algo}{kw.get('degree', '')}px{kw.get('px_scale', 1)}-{sw}x{sh}-{dw}x{dh}"
+
+
+def _relaxed(plan):
+    return api.Resizer.from_plan(plan, backend="cuda", precision="relaxed",
+                                 device="cpu")
+
+
+def _src(seed, sh, sw):
+    return np.random.default_rng(seed).integers(0, 256, (sh, sw), np.uint8)
+
+
+def _max_err(a, b):
+    return int(np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int)).max())
+
+
+@pytest.mark.parametrize("case", PLANE_CASES, ids=_ids)
+def test_plane_matches_jax(case):
+    """``relaxed_plane`` equals the JAX package's ``_bf16_relaxed_plane``
+    over the same per-output tap table, element for element; every column
+    sum converges, so no residual plane."""
+    algo, kw, sw, sh, dw, dh = case
+    plan = build_plan(algo, sw, sh, dw, dh, **kw)
+    jplan = jax_build_plan(algo, sw, sh, dw, dh, **kw)
+    plane, resid = cuda_resize.relaxed_plane(plan.x)
+    want = np.asarray(pallas_resize._bf16_relaxed_plane(jplan.x.coef.T[None]),
+                      np.float32)[0]
+    assert plane.dtype == torch.float32 and plane.shape == want.shape
+    np.testing.assert_array_equal(plane.numpy(), want)
+    assert resid is None
+    assert cuda_resize.supports_plan(plan, relaxed=True)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_within_bound_of_oracle(case):
+    algo, kw, sw, sh, dw, dh = case
+    plan = build_plan(algo, sw, sh, dw, dh, **kw)
+    r = _relaxed(plan)
+    assert r.resolved_backend() == "cuda-relaxed"
+    src = _src(sw * sh, sh, sw)
+    want = numpy_ref.resize_u8(plan, src)
+    got = r.resize(src)
+    assert _max_err(got, want) <= MAX_LSB
+    assert not np.array_equal(got, want)       # relaxed is not the exact path
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_flat_fields_exact(case):
+    algo, kw, sw, sh, dw, dh = case
+    plan = build_plan(algo, sw, sh, dw, dh, **kw)
+    r = _relaxed(plan)
+    for v in (0, 128, 255):
+        flat = np.full((sh, sw), v, np.uint8)
+        np.testing.assert_array_equal(r.resize(flat),
+                                      numpy_ref.resize_u8(plan, flat),
+                                      err_msg=f"flat {v}")
+
+
+def test_residual_plane_path(monkeypatch):
+    """When the column-sum repair cannot converge, the tables carry the
+    residual plane and the output stays within the bound with flat fields
+    exact.  No real plan needs it, so the repair is stubbed with plain
+    rounding, as ``tests/test_relaxed.py`` does for the JAX package."""
+    monkeypatch.setattr(cuda_resize, "_repaired_bf16", cuda_resize._bf16)
+    plan = build_plan("lanczos", 320, 96, 160, 48, degree=3)
+    plane, resid = cuda_resize.relaxed_plane(plan.x)
+    assert resid is not None
+    coef = plan.x.coef.T.astype(np.float64)
+    np.testing.assert_array_equal(plane.double() + resid.double(), coef)
+    ops = cuda_resize.pack_operands(plan, relaxed=True)
+    assert ops.tables.cxd.shape == ops.tables.cxr.shape
+    r = _relaxed(plan)
+    src = _src(29, 96, 320)
+    assert _max_err(r.resize(src), numpy_ref.resize_u8(plan, src)) <= MAX_LSB
+    flat = np.full((96, 320), 128, np.uint8)
+    np.testing.assert_array_equal(r.resize(flat), numpy_ref.resize_u8(plan, flat))
+
+
+def _with_axis(plan, axis, **fields):
+    ax = dataclasses.replace(getattr(plan, axis), **fields)
+    return dataclasses.replace(plan, **{axis: ax})
+
+
+def _overflow_plan(build):
+    """An Area plan whose Y rows sum to <= 128 and whose X rows sum to
+    40,960: inside the exact u16 kernel's bound (255 * 128 * 40960 + half <
+    2^31) but not the relaxed guard's (65280 * 40960 >= 2^31)."""
+    plan = build("area", 96, 64, 40, 30)
+    plan = _with_axis(plan, "y", coef=plan.y.coef // 2)
+    return _with_axis(plan, "x", coef=plan.x.coef * 5 // 4)
+
+
+def test_overflow_guard_refuses_and_routes_exact():
+    plan = _overflow_plan(build_plan)
+    csum = int(plan.x.coef.astype(np.int64).sum(axis=1).max())
+    assert 65280 * csum >= 2**31
+    assert cuda_resize.supports_plan(plan)
+    assert not cuda_resize.supports_plan(plan, relaxed=True)
+    with pytest.raises(ValueError):      # the JAX package's guard refuses too
+        pallas_resize.make_resize_fn(_overflow_plan(jax_build_plan),
+                                     interpret=True, relaxed=True)
+    with pytest.raises(ValueError):
+        cuda_resize.pack_operands(plan, relaxed=True)
+    r = _relaxed(plan)
+    assert r.resolved_backend() == "cuda"      # the exact kernel
+    assert r._backend_for(torch.device("cuda", 0)) == "cuda"
+    src = _src(3, 64, 96)
+    np.testing.assert_array_equal(r.resize(src), numpy_ref.resize_u8(plan, src))
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_within_bound_of_jax_interpret(case):
+    """Within 2 LSB of ``make_resize_fn(plan, interpret=True, relaxed=True)``,
+    one plane at a time.  Not byte equality: in interpret mode the JAX
+    kernel's dots run in float32, so it rounds only the coefficients and
+    not the work rows, while the TPU (and the port, following the chip)
+    also rounds ``w`` to bf16; and the JAX package's padless build repairs
+    column sums over its slab window, where the port repairs over the
+    output's taps."""
+    algo, kw, sw, sh, dw, dh = case
+    jplan = jax_build_plan(algo, sw, sh, dw, dh, **kw)
+    fn, ops = pallas_resize.make_resize_fn(jplan, interpret=True, relaxed=True)
+    src = _src(dw + dh, sh, sw)
+    want = np.asarray(jax.jit(fn)(*ops, src))
+    got = _relaxed(build_plan(algo, sw, sh, dw, dh, **kw)).resize(src)
+    assert got.shape == want.shape
+    assert _max_err(got, want) <= JAX_LSB
+
+
+def test_yuv_frame_matches_jax_relaxed():
+    """A whole small frame through both packages' relaxed YUV420 paths,
+    plane by plane, within 2 LSB; flat frames exact."""
+    sw, sh, dw, dh = 128, 96, 64, 48
+    port = yuv.YUV420Resizer("lanczos3", sw, sh, dw, dh, backend="cuda",
+                             precision="relaxed", device="cpu")
+    assert port.resolved_backend() == "cuda-relaxed"
+    assert port._chroma.resolved_backend() == "cuda-relaxed"
+    ref = jax_yuv.YUV420Resizer("lanczos3", sw, sh, dw, dh, backend="pallas",
+                                precision="relaxed")
+    exact = yuv.YUV420Resizer("lanczos3", sw, sh, dw, dh, device="cpu")
+    rng = np.random.default_rng(12)
+    f = yuv.YUV420Frame(rng.integers(0, 256, (sh, sw), np.uint8),
+                        rng.integers(0, 256, (sh // 2, sw // 2), np.uint8),
+                        rng.integers(0, 256, (sh // 2, sw // 2), np.uint8))
+    got = port.resize(f)
+    want = ref.resize(jax_yuv.YUV420Frame(f.y, f.u, f.v))
+    ex = exact.resize(f)
+    for name in "yuv":
+        g = getattr(got, name)
+        assert _max_err(g, getattr(want, name)) <= JAX_LSB, name
+        assert _max_err(g, getattr(ex, name)) <= 2, name
+    by, bu, bv = port.resize_batch(f.y[None], f.u[None], f.v[None])
+    for g, w in ((by[0], got.y), (bu[0], got.u), (bv[0], got.v)):
+        np.testing.assert_array_equal(g, w)
+    flat = yuv.YUV420Frame(*(np.full_like(p, 128) for p in (f.y, f.u, f.v)))
+    for name, g, w in zip("yuv", vars(port.resize(flat)).values(),
+                          vars(exact.resize(flat)).values()):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+@pytest.mark.parametrize("geometry,columns", [
+    ((1920, 1080, 960, 540), 1),          # the chroma of 4K -> 1080p
+    ((960, 540, 1920, 1080), 4),          # the chroma of 1080p -> 4K
+], ids=["down", "up"])
+def test_px2_walk_over_taps_not_slab(geometry, columns):
+    """The one recorded difference from the JAX package's TPU build, on
+    full-size px2 chroma plans.  The port repairs each output's column sum
+    over that output's own taps; the JAX package's padless build repairs
+    over the column tile's slab window.  Over the per-output tap table the
+    two walks are the same function (the planes are equal) and both
+    converge.  Where an output's nonzero taps cannot absorb the residual,
+    the port's walk reaches a zero tap of the output's tap list (in
+    ``columns`` outputs here), where the slab walk nudges a slab position
+    outside the filter instead.  Either way the column sums are exact, so
+    flat fields stay exact."""
+    plan = build_plan("lanczos", *geometry, degree=3, px_scale=2)
+    jplan = jax_build_plan("lanczos", *geometry, degree=3, px_scale=2)
+    plane, resid = cuda_resize.relaxed_plane(plan.x)
+    plane = plane.double().numpy()
+    want = np.asarray(pallas_resize._bf16_relaxed_plane(jplan.x.coef.T[None]),
+                      np.float64)[0]
+    np.testing.assert_array_equal(plane, want)
+    coef = plan.x.coef.T.astype(np.int64)
+    assert resid is None
+    np.testing.assert_array_equal(plane.sum(axis=0), coef.sum(axis=0))
+    np.testing.assert_array_equal(want.sum(axis=0), coef.sum(axis=0))
+    assert ((coef == 0) & (plane != 0)).any(axis=0).sum() == columns
+
+
+@pytest.mark.parametrize("first", ["exact", "relaxed"])
+def test_exact_and_relaxed_never_share_operands(first):
+    """One geometry, exact and relaxed, built in either order through
+    ``backend="cuda"`` on the CPU: each gets its own operands and its own
+    result."""
+    api.clear_operand_cache()
+    plan = build_plan("lanczos", 96, 64, 48, 32, degree=3)
+    src = _src(21, 64, 96)
+    order = [first, "relaxed" if first == "exact" else "exact"]
+    rs = {p: api.Resizer.from_plan(plan, backend="cuda", precision=p,
+                                   device="cpu") for p in order}
+    outs = {p: rs[p].resize(src) for p in order}
+    np.testing.assert_array_equal(outs["exact"], numpy_ref.resize_u8(plan, src))
+    relaxed_ops = cuda_resize.pack_operands(plan, relaxed=True)
+    np.testing.assert_array_equal(
+        outs["relaxed"],
+        cuda_resize.resize_plain(relaxed_ops, torch.from_numpy(src)).numpy())
+    assert not np.array_equal(outs["exact"], outs["relaxed"])
+    ops = {p: rs[p]._operands(torch.device("cpu"), relaxed=p == "relaxed")
+           for p in order}
+    assert ops["relaxed"] is not ops["exact"]
+    assert ops["relaxed"].relaxed and not ops["exact"].relaxed
+
+
+def test_routes():
+    """The relaxed kernel where ``supports_plan(relaxed=True)`` holds, else
+    the exact kernel, else the exact ``torch`` path; ``torch`` and
+    ``numpy`` stay exact; ``auto`` takes the kernel routes on a CUDA
+    device only."""
+    cpu, card = dict(device="cpu"), torch.device("cuda", 0)
+    rel = dict(precision="relaxed", **cpu)
+    assert api.LanczosResizer(3, 64, 48, 32, 24, **rel).resolved_backend() == "torch"
+    assert api.LanczosResizer(3, 64, 48, 32, 24, **rel)._backend_for(card) == "cuda-relaxed"
+    assert api.AreaResizer(64, 48, 32, 24, **rel)._backend_for(card) == "cuda-relaxed"
+    assert api.LinearResizer(64, 48, 32, 24, backend="cuda",
+                             **rel).resolved_backend() == "cuda-relaxed"
+    for b in ("torch", "numpy"):
+        assert api.LanczosResizer(3, 64, 48, 32, 24, backend=b,
+                                  **rel)._backend_for(card) == b
+    assert api.LanczosResizer(3, 64, 48, 32, 24, **cpu)._backend_for(card) == "cuda"
+    # outside the kernel's shared-memory budget: the plain exact path
+    assert api.AreaResizer(40960, 8, 1024, 8, backend="cuda",
+                           **rel).resolved_backend() == "torch"
+    plan = build_plan("area", 64, 48, 32, 24)
+    assert cuda_resize.variant(plan) == "u16"
+    assert cuda_resize.variant(plan, relaxed=True) == "u16_relaxed"
+    assert cuda_resize.variant(cuda_resize.kernel_tables(plan, relaxed=True)) == "u16_relaxed"
+
+
+def test_clis_relaxed(tmp_path, capsys):
+    """Both CLIs take ``--precision relaxed``; the resize CLI writes the
+    API's bytes."""
+    sw, sh, dw, dh = 64, 48, 32, 24
+    rng = np.random.default_rng(8)
+    frames = [yuv.YUV420Frame(rng.integers(0, 256, (sh, sw), np.uint8),
+                              rng.integers(0, 256, (sh // 2, sw // 2), np.uint8),
+                              rng.integers(0, 256, (sh // 2, sw // 2), np.uint8))
+              for _ in range(2)]
+    src, dst = tmp_path / "in.yuv", tmp_path / "out.yuv"
+    yuv.write_yuv420(src, frames)
+    assert resize_yuv420p.main(
+        ["-m", "lanczos3", "-i", str(src), "-iw", str(sw), "-ih", str(sh),
+         "-o", str(dst), "-ow", str(dw), "-oh", str(dh), "--backend", "cuda",
+         "--device", "cpu", "--precision", "relaxed"]) == 0
+    assert "backend=cuda-relaxed" in capsys.readouterr().out
+    r = yuv.YUV420Resizer("lanczos3", sw, sh, dw, dh, backend="cuda",
+                          precision="relaxed", device="cpu")
+    for got, f in zip(yuv.read_yuv420(dst, dw, dh), frames):
+        want = r.resize(f)
+        for name in "yuv":
+            np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    assert benchmark.main(["-iw", "64", "-ih", "48", "-ow", "32", "-oh", "24",
+                           "--device", "cpu", "--cycles", "2", "--backend",
+                           "cuda", "--precision", "relaxed"]) == 0
+    assert "  backend: cuda-relaxed" in capsys.readouterr().out.splitlines()
