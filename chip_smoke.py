@@ -65,6 +65,29 @@ Phases:
    version and the bound, per plane and per frame, on both main paths; and
    the exact wrap16 kernel on a px_scale-4 plane (Lanczos3 960x540 ->
    480x270, the chroma of a 4K -> 1080p YUV410 frame).
+11. Sharding (``libiqo_tpu_torch.parallel.sharding``) on the one card, over
+   meshes that name ``cuda:0`` several times: the sharded main path, with
+   every count set to 0 just before, is Lanczos3 4K -> 1080p luma, its px2
+   chroma and Area 1080p -> 360p luma, each row-sharded over 4 shards,
+   ``make_yuv_step_fn`` at 4K -> 1080p on 4 frames over dp 4, and
+   ``make_batch_row_sharded_fn`` on a 2x2 mesh with 3 frames and 1081
+   output rows; one launch per shard per plane call.  Each output equals
+   the unsharded kernel or the plain path byte for byte; then small
+   row-sharded geometries (tests/test_sharding.py's, the multi-hop Area
+   cases and 237 -> 119 rows among them, and a seeded fuzz set) equal
+   ``numpy_ref``, and ``dryrun(8, "cuda")`` passes.  Times: the 4-shard call
+   against the unsharded call, device-only and host-paced, beside the
+   bound; one card running 4 shards, not a multi-card figure.
+12. The row-halo carry form (``LIBIQO_TPU_CARRY=1``): carry kernel ==
+   windowed kernel byte for byte, exact and relaxed, on every full-width
+   plane where ``carry_ok`` holds (Lanczos3 4K luma, Linear 1080p -> 4K luma
+   and chroma, Lanczos3 8K -> 1080p, Lanczos2 720p -> 1080p), on
+   scripts/tpu_check.py's carry_sweep cases and on a small fuzz set, batch 4,
+   also == ``numpy_ref`` at small sizes; ``YUV420Resizer`` with no device
+   argument and the opt-in, Lanczos3 4K (carry on luma, windowed on chroma,
+   where ``carry_ok`` refuses) and Linear 1080p -> 4K (carry on both), exact
+   and relaxed, with launch counts by variant; carry beside windowed times,
+   and on 4K luma against the run length (``CARRY_RUN_SWEEP``).
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 2
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -74,9 +97,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -114,6 +139,57 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 SPIN_CYCLES_PER_CALL = 2_000_000   # ~1 ms of the card's clock per call queued
 CLI_RUNS = (["--cycles", "32"], ["--amortized"], ["--batch", "16"],
             ["--stream", "64", "--batch", "16"])
+SHARDS = 4                      # row (or data) shards, all on the one card
+SHARDED_PLANES = {              # name: (algo, kwargs, sw, sh, dw, dh, batch)
+    "lanczos3 4K->1080p luma": ("lanczos", dict(degree=3), 3840, 2160, 1920, 1080, 1),
+    "lanczos3 4K->1080p px2 chroma": ("lanczos", dict(degree=3, px_scale=2),
+                                      1920, 1080, 960, 540, 2),
+    "area 1080p->360p luma": ("area", {}, 1920, 1080, 640, 360, 1),
+}
+# dp x sp on a 2x2 mesh: 3 frames, 1081 output rows over 2 row shards
+DP_SP_FRAME = ("lanczos", dict(degree=3), 3840, 2160, 1920, 1081, 3)
+SHARDED_SMALL = (               # (shards, algo, kwargs, (sw, sh), (dw, dh))
+    (8, "lanczos", dict(degree=3), (320, 240), (160, 120)),
+    (8, "area", {}, (320, 240), (160, 120)),
+    (8, "linear", {}, (320, 240), (160, 120)),
+    (4, "lanczos", dict(degree=2), (64, 64), (128, 128)),
+    (8, "lanczos", dict(degree=3), (320, 237), (160, 119)),   # odd heights
+    (8, "area", {}, (128, 512), (64, 16)),                    # multi-hop Area
+    (8, "area", {}, (64, 256), (32, 4)),      # halo taller than a shard
+)
+SHARDED_FUZZ = 8
+CARRY_PLANES = {                # full-width planes where carry_ok holds
+    "lanczos3 4K->1080p luma": ("lanczos", dict(degree=3), 3840, 2160, 1920, 1080, 1),
+    "linear 1080p->4K luma": ("linear", {}, 1920, 1080, 3840, 2160, 1),
+    "linear 1080p->4K chroma": ("linear", {}, 960, 540, 1920, 1080, 2),
+    "lanczos3 8K->1080p": ("lanczos", dict(degree=3), 7680, 4320, 1920, 1080, 1),
+    "lanczos2 720p->1080p": ("lanczos", dict(degree=2), 1280, 720, 1920, 1080, 1),
+}
+# scripts/tpu_check.py:carry_sweep's cases: GRADED, two more, and
+# fuzz_cases(6, seed=20260819) (drawn by tpu_fuzz_cases)
+CARRY_SWEEP = [
+    ("linear", 640, 480, 320, 240, {}),
+    ("area", 1920, 1080, 480, 270, {}),
+    ("lanczos", 1280, 720, 1920, 1080, dict(degree=2)),
+    ("lanczos", 3840, 2160, 1920, 1080, dict(degree=3)),
+    ("lanczos", 1920, 1080, 960, 540, dict(degree=3, px_scale=2)),
+    ("lanczos", 512, 520, 256, 130, dict(degree=4)),      # clamped tail
+    ("lanczos", 7680, 4320, 1920, 1080, dict(degree=3)),
+]
+CARRY_SWEEP_FUZZ = (6, 20260819)
+CARRY_FUZZ = 10
+# CARRY_BLOCKS values for the run-length sweep on 4K luma: runs of 2, 3, 7,
+# 13, 34 and 68 row tiles (510 down to 15 blocks)
+CARRY_RUN_SWEEP = (1020, 264, 132, 66, 16, 1)
+ORACLE_MAX_PIXELS = 400_000     # numpy_ref only on sources this small
+CARRY_PATHS = (                 # (frame, luma variant, chroma variant, precision)
+    (("lanczos3", 3840, 2160, 1920, 1080), "wrap16_carry", "wrap16", "exact"),
+    (("linear", 1920, 1080, 3840, 2160), "u16_carry", "u16_carry", "exact"),
+    (("lanczos3", 3840, 2160, 1920, 1080), "wrap16_relaxed_carry",
+     "wrap16_relaxed", "relaxed"),
+    (("linear", 1920, 1080, 3840, 2160), "u16_relaxed_carry",
+     "u16_relaxed_carry", "relaxed"),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -266,14 +342,16 @@ def phase_kernel_vs_plain(cr, build_plan, numpy_ref, rng, variant, frames,
     return max_err
 
 
-def drive_yuv(cr, yuv, build_plan, rng, frame, variant, **kwargs):
+def drive_yuv(cr, yuv, build_plan, rng, frame, variant, chroma_variant=None,
+              **kwargs):
     """``YUV420Resizer(*frame, **kwargs)`` on 4 frames and one
     ``resize_batch(4)`` with every launch count set to 0 just before;
-    the launch counts must be 2 per call, all of ``variant``; every plane
-    must equal the plain path (the relaxed one for a relaxed variant).
-    Returns (launches, max_err, frames, outs)."""
+    the launch counts must be 2 per call, all of ``variant``, or one of
+    ``variant`` (luma) and one of ``chroma_variant``; every plane must
+    equal the plain path (the relaxed one for a relaxed variant).
+    Returns (launches by variant, max_err, frames, outs)."""
     method, sw, sh, dw, dh = frame
-    relaxed = variant.endswith("_relaxed")
+    relaxed = "_relaxed" in variant
     route = "cuda-relaxed" if relaxed else "cuda"
     r = yuv.YUV420Resizer(method, sw, sh, dw, dh, **kwargs)
     check(r.resolved_backend() == route,
@@ -290,13 +368,16 @@ def drive_yuv(cr, yuv, build_plan, rng, frame, variant, **kwargs):
     bout = r.resize_batch(*batch)
     torch.cuda.synchronize()
     launches, by_variant = cr.LAUNCHES, dict(cr.LAUNCHES_BY_VARIANT)
-    expected = 2 * len(frames) + 2
-    check(launches == expected and by_variant[variant] == expected,
+    calls = len(frames) + 1
+    want = {variant: 2 * calls} if chroma_variant in (None, variant) else {
+        variant: calls, chroma_variant: calls}
+    check(launches == 2 * calls
+          and all(by_variant[v] == n for v, n in want.items()),
           f"{method} path: {launches} kernel launches {by_variant}, expected "
-          f"{expected} of {variant} (2 per resize, 2 per batch)")
+          f"{want} (2 per resize, 2 per batch)")
     print(f"{method} path ({r.resolved_backend()} on {r._luma.device}): "
           f"{len(frames)} x resize + 1 x resize_batch(4) -> launches "
-          f"{by_variant} (expected {expected} {variant})")
+          f"{ {v: n for v, n in by_variant.items() if n} } (expected {want})")
 
     (_, luma, _), (_, chroma, _) = yuv_planes(build_plan, *frame)
     luma, chroma = (cr.pack_operands(p, "cuda", relaxed=relaxed)
@@ -320,16 +401,17 @@ def drive_yuv(cr, yuv, build_plan, rng, frame, variant, **kwargs):
         max_err = max(max_err, compare(f"{method} batch {name}",
                                        torch.from_numpy(got), want))
     print(f"{method} path == plain path on every plane of every frame")
-    return by_variant[variant], max_err, frames, outs
+    return by_variant, max_err, frames, outs
 
 
 def phase_lanczos_path(cr, yuv, build_plan, rng, tmp: Path,
                        variant="wrap16", **kwargs):
     frame = ("lanczos3", SRC_W, SRC_H, DST_W, DST_H)
     precision = "relaxed" if variant.endswith("_relaxed") else "exact"
-    launches, max_err, frames, outs = drive_yuv(
+    by_variant, max_err, frames, outs = drive_yuv(
         cr, yuv, build_plan, rng, frame, variant, precision=precision,
         **kwargs)
+    launches = by_variant[variant]
 
     src_file, dst_file = tmp / "in.yuv", tmp / "out.yuv"
     yuv.write_yuv420(src_file, frames[:3])
@@ -355,8 +437,9 @@ def phase_lanczos_path(cr, yuv, build_plan, rng, tmp: Path,
 def phase_area_path(cr, yuv, build_plan, benchmark, rng, variant="u16"):
     # no device argument: the user's default, which is the card
     precision = "relaxed" if variant.endswith("_relaxed") else "exact"
-    launches, max_err, _, _ = drive_yuv(cr, yuv, build_plan, rng, AREA_MAIN,
-                                        variant, precision=precision)
+    by_variant, max_err, _, _ = drive_yuv(cr, yuv, build_plan, rng, AREA_MAIN,
+                                          variant, precision=precision)
+    launches = by_variant[variant]
     cycles = 8
     cr.reset_launches()
     check(benchmark.main(["--cycles", str(cycles), "--precision", precision]) == 0,
@@ -629,6 +712,350 @@ def phase_px4_time(cr, build_plan, rng, card: str) -> None:
           f" bytes {bytes_ms!r}, operations {ops_ms!r}) ({card})")
 
 
+def halo_rows(sharding, plan, shards: int) -> int:
+    """Halo rows that a row-sharded call of ``plan`` writes into its bands
+    (each is read once more by the kernel)."""
+    padded = sharding._pad_rows_plan(plan, shards)[0]
+    lay = sharding._row_shard_layout(padded, shards)
+    return shards * (lay.halo_up + lay.halo_dn)
+
+
+def sharded_small(rng):
+    """tests/test_sharding.py's row-sharded geometries (the two multi-hop
+    Area cases and the 237 -> 119-row odd height among them), then a seeded
+    fuzz set: (shards, algo, kwargs, (sw, sh), (dw, dh))."""
+    yield from SHARDED_SMALL
+    for i in range(SHARDED_FUZZ):
+        algo = ("lanczos", "area", "linear")[i % 3]
+        src = rng.integers(16, 400, 2) | (i % 2)
+        dst = (np.maximum(4, src // rng.integers(1, 5, 2)) if i % 4 < 2
+               else src * 2 - rng.integers(0, 3, 2))
+        kw = dict(degree=int(2 + i % 3)) if algo == "lanczos" else {}
+        yield int(2 + i % 7), algo, kw, tuple(map(int, src)), tuple(map(int, dst))
+
+
+def phase_sharded(cr, sharding, build_plan, numpy_ref, rng, card: str) -> dict:
+    """Phase 11, sharding on one card: a mesh that names ``cuda:0``
+    SHARDS times.  Returns the sharded entries of the kernels line."""
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda", 0)
+    rows = sharding.Mesh([cuda] * SHARDS, ("row",))
+    data = sharding.Mesh([cuda] * SHARDS, ("data",))
+    grid = sharding.Mesh([[cuda] * 2] * 2, ("data", "row"))
+    planes = {}
+    for name, (algo, kw, sw, sh, dw, dh, batch) in SHARDED_PLANES.items():
+        plan = build_plan(algo, sw, sh, dw, dh, **kw)
+        fn, ops = sharding.make_row_sharded_fn(plan, rows)
+        check(fn.routes == ("cuda",) * SHARDS, f"sharded {name}: routes {fn.routes}")
+        shape = (sh, sw) if batch == 1 else (batch, sh, sw)
+        planes[name] = (plan, fn, ops, torch.from_numpy(random_u8(rng, shape)).cuda())
+    step, step_ops = sharding.make_yuv_step_fn(data, SRC_W, SRC_H, DST_W, DST_H)
+    check(step.routes == ("cuda",) * 2 * SHARDS, f"yuv step routes {step.routes}")
+    yuv_in = [torch.from_numpy(random_u8(rng, (SHARDS, h, w))).cuda()
+              for h, w in ((SRC_H, SRC_W),) + ((SRC_H // 2, SRC_W // 2),) * 2]
+    algo, kw, sw, sh, dw, dh, nb = DP_SP_FRAME
+    dpsp_plan = build_plan(algo, sw, sh, dw, dh, **kw)
+    dpsp, dpsp_ops = sharding.make_batch_row_sharded_fn(dpsp_plan, grid)
+    check(dpsp.routes == ("cuda",) * 4, f"dp x sp routes {dpsp.routes}")
+    dpsp_in = torch.from_numpy(random_u8(rng, (nb, sh, sw))).cuda()
+
+    # the sharded main path: every count set to 0 just before, read after
+    def launched(what: str, n: int, call):
+        before = cr.LAUNCHES
+        out = call()
+        check(cr.LAUNCHES - before == n, f"{what}: {cr.LAUNCHES - before} "
+              f"launches, expected {n} (one per shard per plane call)")
+        return out
+
+    cr.reset_launches()
+    outs = {name: launched(f"sharded {name}", SHARDS, lambda: fn(*ops, x))
+            for name, (_, fn, ops, x) in planes.items()}
+    yuv_out = launched("yuv step", 3 * SHARDS, lambda: step(*step_ops, *yuv_in))
+    dpsp_out = launched("dp x sp", 4, lambda: dpsp(*dpsp_ops, dpsp_in))
+    torch.cuda.synchronize()
+    by_variant = dict(cr.LAUNCHES_BY_VARIANT)
+    want = {**dict.fromkeys(by_variant, 0),
+            "wrap16": 2 * SHARDS + 3 * SHARDS + 4, "u16": SHARDS}
+    check(by_variant == want, f"sharded main path launched {by_variant}, "
+          f"expected {want}: one per shard per plane call")
+    print(f"sharded main path on {SHARDS} x {cuda}: 4K luma, px2 chroma and "
+          f"Area 360p row-sharded, YUV step 4K->1080p batch {SHARDS} over dp "
+          f"{SHARDS}, dp x sp 2x2 -> launches "
+          f"{ {v: n for v, n in by_variant.items() if n} }")
+
+    max_err = {"wrap16": 0, "u16": 0}
+    for name, (plan, fn, ops, x) in planes.items():
+        got = sharding.gather(outs[name])
+        x3 = x if x.ndim == 3 else x[None]
+        ops_u = cr.pack_operands(plan, "cuda")
+        whole = cr.resize_fused(ops_u, x3).reshape(got.shape)
+        v = cr.variant(plan)
+        err = max(compare(f"sharded {name} vs unsharded kernel", got, whole),
+                  compare(f"sharded {name} vs plain",
+                          got, cr.resize_plain(ops_u, x3).reshape(got.shape)))
+        max_err[v] = max(max_err[v], err)
+        print(f"sharded {name} {tuple(x.shape)} over {SHARDS} shards == "
+              f"unsharded kernel == plain, byte for byte ({v})")
+    luma = build_plan("lanczos", SRC_W, SRC_H, DST_W, DST_H, degree=3)
+    chroma = build_plan("lanczos", SRC_W // 2, SRC_H // 2, DST_W // 2,
+                        DST_H // 2, degree=3, px_scale=2)
+    for plane, plan, got, x in zip("yuv", (luma, chroma, chroma),
+                                   sharding.gather(yuv_out), yuv_in):
+        max_err["wrap16"] = max(max_err["wrap16"], compare(
+            f"yuv step {plane}", got,
+            cr.resize_plain(cr.pack_operands(plan, "cuda"), x)))
+    print(f"yuv step 4K->1080p, {SHARDS} frames over dp {SHARDS}: every plane "
+          "== plain path")
+    got = sharding.gather(dpsp_out)
+    check(got.shape == (nb, dh, dw), f"dp x sp shape {tuple(got.shape)}")
+    max_err["wrap16"] = max(max_err["wrap16"], compare(
+        "dp x sp", got, cr.resize_plain(cr.pack_operands(dpsp_plan, "cuda"),
+                                        dpsp_in)))
+    print(f"dp x sp 2x2: {nb} frames {sw}x{sh}->{dw}x{dh} ({dh} rows over 2 "
+          "row shards) == plain path")
+
+    n_small = 0
+    for shards, algo, kw, (sw, sh), (dw, dh) in sharded_small(rng):
+        plan = build_plan(algo, sw, sh, dw, dh, **kw)
+        fn, ops = sharding.make_row_sharded_fn(
+            plan, sharding.Mesh([cuda] * shards, ("row",)))
+        host = random_u8(rng, (sh, sw))
+        before = cr.LAUNCHES
+        got = sharding.gather(fn(*ops, torch.from_numpy(host).cuda())).cpu()
+        kernel_shards = fn.routes.count("cuda")
+        check(cr.LAUNCHES - before == kernel_shards,
+              f"sharded {algo} {sw}x{sh}->{dw}x{dh}: {cr.LAUNCHES - before} "
+              f"launches, {kernel_shards} kernel shards")
+        compare(f"sharded {algo}{kw or ''} {sw}x{sh}->{dw}x{dh} on {shards} "
+                "vs numpy_ref", got,
+                torch.from_numpy(numpy_ref.resize_u8(plan, host)))
+        n_small += 1
+    print(f"row-sharded == numpy_ref on {n_small} small geometries "
+          "(multi-hop Area and odd heights among them)")
+    before = cr.LAUNCHES
+    summary = sharding.dryrun(8, "cuda")
+    check(cr.LAUNCHES > before, "dryrun launched no kernel")
+    print(f"dryrun(8, 'cuda') == numpy_ref: {summary}, "
+          f"{cr.LAUNCHES - before} launches")
+
+    entries = {}
+    for name, v in (("lanczos3 4K->1080p luma", "wrap16"),
+                    ("area 1080p->360p luma", "u16")):
+        plan, fn, ops, x = planes[name]
+        ops_u = cr.pack_operands(plan, "cuda")
+        fn_t, ops_t = sharding.make_row_sharded_fn(plan, rows, backend="torch")
+        xs = perturbed(x, n_inputs(x.numel()))
+        sharded = lambda t: fn(*ops, t)                          # noqa: E731
+        whole = lambda t: cr.resize_fused(ops_u, t[None])        # noqa: E731
+        # in turns, unsharded, sharded, sharded, unsharded
+        times = [time_ms(f, xs) for f in (whole, sharded, sharded, whole)]
+        k, u = min(times[1:3]), min(times[0], times[3])
+        ku = time_ms(sharded, xs, primed=False)
+        uu = time_ms(whole, xs, primed=False)
+        p = time_ms(lambda t: fn_t(*ops_t, t), xs)
+        halo = halo_rows(sharding, plan, SHARDS) * plan.x.n_src
+        nbytes = (plan.y.n_src * plan.x.n_src + 2 * halo
+                  + plan.y.n_dst * plan.x.n_dst)
+        b = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"time sharded {name}, {SHARDS} shards on one card (not a "
+              f"multi-card figure): sharded {k!r} ms (host-paced {ku!r}), "
+              f"unsharded kernel {u!r} ms (host-paced {uu!r}), sharded plain "
+              f"{p!r} ms, sharded/unsharded {k / u!r}, bound {b!r} ms (bytes: "
+              f"source, {halo} halo bytes read and written once more, output)"
+              f" ({card})")
+        entries[v] = {
+            "name": f"resize_fused[{v},sharded]", "route": "cuda",
+            "source": "libiqo_tpu_torch/csrc/resize_fused.cu",
+            "replaces": "libiqo_tpu/parallel/sharding.py:197",
+            "launches": by_variant[v], "max_abs_err": max_err[v], "ms": k,
+            "plain_ms": p, "bound_ms": b, "bound_by": "bytes",
+            "library_ms": None, "unsharded_ms": u, "host_paced_ms": ku,
+            "shards_on_one_card": SHARDS}
+    print(f"phase sharded: {time.perf_counter() - t_phase!r} s")
+    return entries
+
+
+def tpu_fuzz_cases(n: int, seed: int):
+    """scripts/tpu_check.py:fuzz_cases, the same seeded draws."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    while len(cases) < n:
+        alg = rng.choice(["lanczos", "area", "linear"])
+        sw, sh = int(rng.integers(16, 1200)), int(rng.integers(16, 900))
+        if alg == "area":
+            dw = int(rng.integers(4, max(5, sw)))
+            dh = int(rng.integers(4, max(5, sh)))
+        elif alg == "linear":
+            dw = int(rng.integers(max(4, sw // 3 + 1), sw * 3))
+            dh = int(rng.integers(max(4, sh // 3 + 1), sh * 3))
+        else:
+            dw, dh = int(rng.integers(4, sw * 2)), int(rng.integers(4, sh * 2))
+        kw = dict(degree=int(rng.integers(1, 10))) if alg == "lanczos" else {}
+        cases.append((str(alg), sw, sh, dw, dh, kw))
+    return cases
+
+
+def carry_small(rng, cr, build_plan):
+    """A seeded fuzz set of small plans on which carry_ok holds."""
+    n = tries = 0
+    while n < CARRY_FUZZ and tries < 400:
+        tries += 1
+        algo = ("lanczos", "linear")[tries % 2]
+        sw, sh = (int(v) for v in rng.integers(64, 400, 2))
+        dw, dh = ((sw // 2, sh // 2) if tries % 4 < 2
+                  else (sw * 3 // 2 + tries % 3, sh * 3 // 2 + tries % 5))
+        kw = dict(degree=int(2 + tries % 3)) if algo == "lanczos" else {}
+        plan = build_plan(algo, sw, sh, dw, dh, **kw)
+        if cr.supports_plan(plan) and cr.carry_ok(plan):
+            n += 1
+            yield algo, kw, sw, sh, dw, dh, plan
+
+
+def hold_carry(cr, tag: str, plan, host: np.ndarray, oracle=None) -> int:
+    """Carry kernel == windowed kernel on the card, byte for byte, exact and
+    (where the relaxed form takes the plan) relaxed; exact also == the
+    NumPy oracle when one is given.  Returns the largest error."""
+    check(cr.carry_ok(plan), f"{tag}: carry_ok refuses")
+    src = torch.from_numpy(host).cuda()
+    err = 0
+    for relaxed in (False, True):
+        if relaxed and not cr.supports_plan(plan, relaxed=True):
+            continue
+        carry = cr.pack_operands(plan, "cuda", relaxed, carry=True)
+        windowed = cr.pack_operands(plan, "cuda", relaxed)
+        check(cr.variant(carry.tables) == cr.variant(plan, relaxed, carry=True),
+              f"{tag}: carry tables are {cr.variant(carry.tables)}")
+        got = cr.resize_fused(carry, src)
+        err = max(err, compare(f"{tag} {cr.variant(carry.tables)} vs windowed",
+                               got, cr.resize_fused(windowed, src)))
+        if oracle is not None and not relaxed:
+            want = np.stack([oracle.resize_u8(plan, f) for f in host])
+            err = max(err, compare(f"{tag} carry vs numpy_ref", got.cpu(),
+                                   torch.from_numpy(want)))
+    return err
+
+
+def phase_carry(cr, yuv, build_plan, numpy_ref, rng, card: str) -> dict:
+    """Phase 12, the carry form.  Returns its entries of the kernels line."""
+    t_phase = time.perf_counter()
+    max_err = dict.fromkeys(("wrap16_carry", "u16_carry", "wrap16_relaxed_carry",
+                             "u16_relaxed_carry"), 0)
+
+    def note(plan, err):
+        for relaxed in (False, True):
+            max_err[cr.variant(plan, relaxed, carry=True)] = max(
+                max_err[cr.variant(plan, relaxed, carry=True)], err)
+
+    plans = {}
+    for name, (algo, kw, sw, sh, dw, dh, batch) in CARRY_PLANES.items():
+        plan = plans[name] = build_plan(algo, sw, sh, dw, dh, **kw)
+        lay = cr.carry_layout(plan)
+        check(lay is not None, f"carry_ok refuses {name}")
+        note(plan, hold_carry(cr, name, plan, random_u8(rng, (batch, sh, sw))))
+        print(f"carry == windowed, exact and relaxed: {name} ({batch}, {sh}, "
+              f"{sw}); run {lay.run} row tiles, ring {lay.ring_rows} rows x "
+              f"{lay.ring_pitch} B, fetch/band {lay.fetch / lay.band!r}")
+    n = skipped = 0
+    for algo, sw, sh, dw, dh, kw in CARRY_SWEEP + tpu_fuzz_cases(*CARRY_SWEEP_FUZZ):
+        plan = build_plan(algo, sw, sh, dw, dh, **kw)
+        if not (cr.supports_plan(plan) and cr.carry_ok(plan)):
+            skipped += 1
+            continue
+        small = sw * sh <= ORACLE_MAX_PIXELS
+        note(plan, hold_carry(cr, f"carry sweep {algo}{kw or ''} {sw}x{sh}->"
+                              f"{dw}x{dh}", plan, random_u8(rng, (4, sh, sw)),
+                              numpy_ref if small else None))
+        n += 1
+    print(f"carry == windowed (batch 4, exact and relaxed) on {n} "
+          f"scripts/tpu_check.py:carry_sweep cases ({skipped} where carry_ok "
+          f"or supports_plan refuses: the windowed form serves them)")
+    n = 0
+    for algo, kw, sw, sh, dw, dh, plan in carry_small(rng, cr, build_plan):
+        note(plan, hold_carry(cr, f"carry fuzz {algo}{kw or ''} {sw}x{sh}->"
+                              f"{dw}x{dh}", plan, random_u8(rng, (4, sh, sw)),
+                              numpy_ref))
+        n += 1
+    print(f"carry == windowed == numpy_ref (batch 4) on {n} small fuzz plans")
+
+    launches = {}
+    for frame, luma_v, chroma_v, precision in CARRY_PATHS:
+        by_variant, err, _, _ = drive_yuv(cr, yuv, build_plan, rng, frame,
+                                          luma_v, chroma_v, precision=precision)
+        launches[luma_v] = by_variant[luma_v]
+        max_err[luma_v] = max(max_err[luma_v], err)
+    print(f"carry main paths with LIBIQO_TPU_CARRY=1 -> launches {launches}")
+
+    entries = {}
+    for v, name in (("wrap16_carry", "lanczos3 4K->1080p luma"),
+                    ("u16_carry", "linear 1080p->4K luma"),
+                    ("wrap16_relaxed_carry", "lanczos3 4K->1080p luma"),
+                    ("u16_relaxed_carry", "linear 1080p->4K luma")):
+        relaxed = "_relaxed" in v
+        plan = plans[name]
+        carry = cr.pack_operands(plan, "cuda", relaxed, carry=True)
+        windowed = cr.pack_operands(plan, "cuda", relaxed)
+        x = torch.from_numpy(random_u8(rng, (1, plan.y.n_src, plan.x.n_src))).cuda()
+        xs = perturbed(x, n_inputs(x.numel()))
+        run_c = lambda t: cr.resize_fused(carry, t)              # noqa: E731
+        run_w = lambda t: cr.resize_fused(windowed, t)           # noqa: E731
+        times = [time_ms(f, xs) for f in (run_w, run_c, run_c, run_w)]
+        k, w = min(times[1:3]), min(times[0], times[3])
+        ku = time_ms(run_c, xs, primed=False)
+        p = time_ms(lambda t: cr.resize_plain(carry, t), xs)
+        bytes_ms, ops_ms = bound([(plan, 1)], BF16_OPS_PER_S if relaxed
+                                 else INT8_OPS_PER_S)
+        b = max(bytes_ms, ops_ms)
+        print(f"time carry {v} {name}: carry {k!r} ms (unprimed {ku!r}), "
+              f"windowed {w!r} ms, carry/windowed {k / w!r}, plain {p!r} ms, "
+              f"bound {b!r} ms ({card})")
+        entries[v] = {
+            "name": f"resize_fused[{v.replace('_', ',')}]", "route": "cuda",
+            "source": "libiqo_tpu_torch/csrc/resize_fused.cu",
+            "replaces": "libiqo_tpu/ops/pallas_resize.py:1242",
+            "launches": launches[v], "max_abs_err": max_err[v], "ms": k,
+            "plain_ms": p, "bound_ms": b,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "windowed_ms": w, "plane": name}
+    for name in ("lanczos3 8K->1080p", "lanczos2 720p->1080p",
+                 "linear 1080p->4K chroma"):
+        plan, batch = plans[name], CARRY_PLANES[name][-1]
+        carry = cr.pack_operands(plan, "cuda", carry=True)
+        windowed = cr.pack_operands(plan, "cuda")
+        x = torch.from_numpy(random_u8(rng, (batch, plan.y.n_src, plan.x.n_src))).cuda()
+        xs = perturbed(x, n_inputs(x.numel()))
+        times = [time_ms(lambda t, o=o: cr.resize_fused(o, t), xs)
+                 for o in (windowed, carry, carry, windowed)]
+        k, w = min(times[1:3]), min(times[0], times[3])
+        print(f"time carry {cr.variant(carry.tables)} {name} {tuple(x.shape)}: "
+              f"carry {k!r} ms, windowed {w!r} ms, carry/windowed {k / w!r}, "
+              f"bound {bound([(plan, batch)])[0]!r} ms ({card})")
+    # the run length against the grid's size, on 4K luma
+    plan = plans["lanczos3 4K->1080p luma"]
+    windowed = cr.pack_operands(plan, "cuda")
+    x = torch.from_numpy(random_u8(rng, (1, plan.y.n_src, plan.x.n_src))).cuda()
+    xs = perturbed(x, n_inputs(x.numel()))
+    n_ct = -(-plan.x.n_dst // cr.TILE_COLS)
+    saved = cr.CARRY_BLOCKS
+    try:
+        for blocks in CARRY_RUN_SWEEP:
+            cr.CARRY_BLOCKS = blocks
+            lay = cr.carry_layout(plan)
+            carry = cr.pack_operands(plan, "cuda", carry=True)
+            compare(f"carry run {lay.run} vs windowed", cr.resize_fused(carry, x),
+                    cr.resize_fused(windowed, x))
+            times = [time_ms(lambda t, o=o: cr.resize_fused(o, t), xs)
+                     for o in (windowed, carry, carry, windowed)]
+            k, w = min(times[1:3]), min(times[0], times[3])
+            print(f"time carry run sweep, lanczos3 4K luma: run {lay.run} row "
+                  f"tiles, {n_ct * -(-len(lay.rwin) // lay.run)} blocks, "
+                  f"fetch/band {lay.fetch / lay.band!r}: carry {k!r} ms, "
+                  f"windowed {w!r} ms, carry/windowed {k / w!r} ({card})")
+    finally:
+        cr.CARRY_BLOCKS = saved
+    print(f"phase carry: {time.perf_counter() - t_phase!r} s")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -638,6 +1065,7 @@ def main() -> int:
     from libiqo_tpu_torch.cli import benchmark
     from libiqo_tpu_torch.golden import numpy_ref
     from libiqo_tpu_torch.ops import _build, cuda_resize
+    from libiqo_tpu_torch.parallel import sharding
     from libiqo_tpu_torch.utils import device
 
     rng = np.random.default_rng(SEED)
@@ -680,6 +1108,12 @@ def main() -> int:
     tur = phase_relaxed_times(cuda_resize, build_plan, rrng, smi, AREA_MAIN)
     phase_px4_time(cuda_resize, build_plan, rrng, smi)
 
+    sharded = phase_sharded(cuda_resize, sharding, build_plan, numpy_ref,
+                            np.random.default_rng(SEED + 3), smi)
+    os.environ["LIBIQO_TPU_CARRY"] = "1"          # the opt-in, from here on
+    carry = phase_carry(cuda_resize, yuv, build_plan, numpy_ref,
+                        np.random.default_rng(SEED + 4), smi)
+
     src = "libiqo_tpu_torch/csrc/resize_fused.cu"
     replaces = "libiqo_tpu/ops/pallas_resize.py:1687"
     replaces_relaxed = "libiqo_tpu/ops/pallas_resize.py:1486"
@@ -708,7 +1142,10 @@ def main() -> int:
          "ms": tur["ms"], "plain_ms": tur["plain_ms"],
          "bound_ms": tur["bound_ms"], "bound_by": tur["bound_by"],
          "library_ms": None, "yardstick_ms": tu["yardstick_ms"],
-         "exact_kernel_ms": tur["exact_ms"]}]}))
+         "exact_kernel_ms": tur["exact_ms"]},
+        sharded["wrap16"], sharded["u16"], carry["wrap16_carry"],
+        carry["u16_carry"], carry["wrap16_relaxed_carry"],
+        carry["u16_relaxed_carry"]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1}}))     # the one card driven

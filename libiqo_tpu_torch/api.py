@@ -29,6 +29,10 @@ operands.
   path.  ``"torch"`` and ``"numpy"`` always compute exactly, as the JAX
   package's ``"xla"`` and ``"numpy"`` do.
 * ``resize`` takes leading batch dimensions; one launch serves the batch.
+* ``LIBIQO_TPU_CARRY=1`` (or ``2``), the JAX package's opt-in, runs the
+  kernel's row-halo carry form wherever ``cuda_resize.carry_ok`` holds;
+  it is read where operands are packed, so it takes effect for operands
+  not yet cached.
 """
 
 from __future__ import annotations
@@ -47,14 +51,15 @@ from .ops import cuda_resize, torch_resize
 from .utils.device import resolve_device
 
 __all__ = ["Resizer", "LanczosResizer", "AreaResizer", "LinearResizer",
-           "clear_operand_cache"]
+           "clear_operand_cache", "operands_for"]
 
 _BACKENDS = ("auto", "cuda", "torch", "numpy")
 _PRECISIONS = ("exact", "relaxed")
 
 
 class _OperandCache:
-    """LRU of packed plan operands by (plan content, precision, device).
+    """LRU of packed plan operands by (plan content, precision, carry,
+    device).
 
     The reference's benchmark builds a fresh resizer every cycle
     (ref: benchmark/benchmark.cpp:1019-1031); with this cache a fresh
@@ -98,6 +103,20 @@ def _plan_digest(plan: ResizePlan) -> str:
         for a in (ax.coef, ax.start, ax.deno, ax.is_border):
             h.update(np.ascontiguousarray(a).tobytes())
     return h.hexdigest()
+
+
+def operands_for(plan: ResizePlan, dev: torch.device, relaxed: bool = False,
+                 digest: str | None = None) -> cuda_resize.KernelOperands:
+    """The plan's operands on ``dev``, through the operand cache, keyed by
+    the plan's content (``digest``, computed when not given), the precision
+    route, the carry choice read from ``LIBIQO_TPU_CARRY`` now, and the
+    device: operands of different routes or carry choices are never
+    shared."""
+    carry = cuda_resize.carry_requested()
+    key = (digest or _plan_digest(plan), "relaxed" if relaxed else "exact",
+           "carry" if carry else "windowed", str(dev))
+    return _CACHE.get(key, lambda: cuda_resize.pack_operands(
+        plan, dev, relaxed=relaxed, carry=carry))
 
 
 def _spawn_warmup(fn, *args) -> concurrent.futures.Future:
@@ -184,9 +203,7 @@ class Resizer:
 
     def _operands(self, dev: torch.device,
                   relaxed: bool = False) -> cuda_resize.KernelOperands:
-        return _CACHE.get(
-            (self._digest, "relaxed" if relaxed else "exact", str(dev)),
-            lambda: cuda_resize.pack_operands(self._plan, dev, relaxed=relaxed))
+        return operands_for(self._plan, dev, relaxed, self._digest)
 
     # -- compute ----------------------------------------------------------
 

@@ -5,8 +5,9 @@
 //   renormalisation, int32-wrapping X sums, border-column divide;
 // * kWrap16 = false (Area, Linear): u16 work rows kept as they are, no
 //   border divides, (sums + half) >> out_shift;
-// and the relaxed form of each (kRelaxed = true, precision="relaxed"),
-// within 2 LSB of the exact output with flat fields exact.
+// the relaxed form of each (kRelaxed = true, precision="relaxed"), within
+// 2 LSB of the exact output with flat fields exact; and a row-halo carry
+// form of all four (kCarry = true, below), byte-equal to the windowed one.
 //
 // Replaces the TPU kernel libiqo_tpu/ops/pallas_resize.py _make_padless_fn
 // (pl.pallas_call at :1687) -> kernel/_frame in these configurations:
@@ -18,7 +19,12 @@
 //   1448-1456): the Area/Linear plans, here kWrap16 = false;
 // * K5, the exact X schemes for 16-bit taps outside the s8 gate, x_single,
 //   x_kara and hi/lo bf16 (:954,1043-1052,1506-1548): Lanczos at px_scale
-//   >= 3, here kWrap16 = true, whose uint32 sums take taps of any width.
+//   >= 3, here kWrap16 = true, whose uint32 sums take taps of any width;
+// * K8, the streamed-Y build that libiqo_tpu/parallel/sharding.py:197 asks
+//   for (force_streamed_y, :766-781,808-812) so that every device of a row
+//   mesh runs one program on its own Y values: here each row shard simply
+//   launches this kernel on its own local Y tables over its halo-extended
+//   band (libiqo_tpu_torch/parallel/sharding.py).
 //
 // What bounds it on the H100: the bytes of one YUV420 frame, each source
 // byte read once and each output byte written once: 15.55 MB for 4K->1080p
@@ -70,6 +76,32 @@
 // number of multiply-adds in float instead of integer, so no speed-up is
 // expected from it; a bf16 mma.sync/wgmma X pass, where relaxed can pay on
 // this card, is later work.
+//
+// kCarry replaces the TPU's row-halo carry mode (K9, LIBIQO_TPU_CARRY):
+// _Carry/_carry_layout at libiqo_tpu/ops/pallas_resize.py:542-591, engaged
+// at :689-703,803-812, its prologue at :1242-1310.  Consecutive row tiles
+// of one column tile read overlapping source row windows; the windowed form
+// re-reads the source 1.31x on Lanczos3 4K->1080p luma, 8K->1080p and
+// Lanczos2 720p->1080p, 1.25x on Linear 1080p->4K, 1.06x on px2 chroma and
+// 1.0x on Area.  What bounds carry is the same bytes as above; what it
+// saves is the re-read (carry fetches 76-80 % of the band rows where it
+// engages) and, more on this card, the Y pass's dependent global loads,
+// which now hit shared memory.  Blocks run in no order on Hopper, so the
+// carry lives inside a block: a block owns one column tile and walks a run
+// of `run` consecutive row tiles in order, keeping the run's source rows of
+// its column window in a ring of `ring_rows` u8 rows in shared memory
+// (16-byte-aligned pitch, beside the int32 work tile).  Source row s sits
+// in ring slot s % ring_rows; the host turns the Y taps' row indices into
+// slots (iyr) and gives each row tile's source rows [lo, hi) (rwin), which
+// are non-decreasing in both ends across a run (cuda_resize.carry_ok).  At
+// step t the block first loads tile t+1's fresh rows [max(hi_t, lo_t+1),
+// hi_t+1) into slots that no row of tile t occupies (ring_rows >= hi_t+1 -
+// lo_t), then runs tile t's Y pass from the ring, as the JAX schedule
+// issues the next fetch before computing.  The loads are plain loads: warps
+// that finish theirs go on to tile t's Y pass while others still wait, and
+// no barrier separates the two because they touch disjoint slots.  The
+// host picks `run` so the grid still holds about two blocks per SM.
+// Where carry_ok refuses a plan the windowed instantiation runs.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -113,46 +145,58 @@ __device__ __forceinline__ uint32_t float_taps(
   return static_cast<uint32_t>(__float2int_rz(acc));
 }
 
-// Tables are tap-major: coef[t * n_dst + i].  ydiv/xdiv hold the border
-// divisor of each output row/column, 0 on main outputs (unread when
-// kWrap16 is false).  cxr/cxd are the relaxed coefficient planes, read
-// only when kRelaxed; cxd may be null.  win holds [lo, hi) of each column
-// tile's source window.
-template <bool kWrap16, bool kRelaxed>
-__global__ void __launch_bounds__(kThreads) resize_fused_kernel(
-    const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
-    long long src_frame_stride, long long src_row_stride,
-    int dst_h, int dst_w,
-    const int32_t* __restrict__ cy, const int32_t* __restrict__ iy,
-    const int32_t* __restrict__ ydiv, int taps_y, int y_bias,
-    const int32_t* __restrict__ cx, const int32_t* __restrict__ ix,
-    const int32_t* __restrict__ xdiv, int taps_x,
-    const float* __restrict__ cxr, const float* __restrict__ cxd,
-    const int32_t* __restrict__ win, int win_max, int out_shift) {
-  // [kTileRows][win_max]: int32 work rows, or with kRelaxed the bits of
-  // their bf16-rounded float values
-  extern __shared__ int32_t work[];
+// Source rows of the column window read from device memory: column(c)
+// reads column c of the window in the row it is given.
+struct GlobalRows {
+  const uint8_t* __restrict__ base;   // frame + window start
+  long long stride;
+  struct Column {
+    const uint8_t* __restrict__ p;
+    long long stride;
+    __device__ __forceinline__ uint32_t operator()(int row) const {
+      return __ldg(p + row * stride);
+    }
+  };
+  __device__ __forceinline__ Column column(int c) const {
+    return Column{base + c, stride};
+  }
+};
 
-  const uint8_t* fsrc = src + static_cast<long long>(blockIdx.z) * src_frame_stride;
-  uint8_t* fdst = dst + static_cast<long long>(blockIdx.z) * dst_h * dst_w;
-  const int lo = win[2 * blockIdx.x];
-  const int width = win[2 * blockIdx.x + 1] - lo;
-  const int r0 = blockIdx.y * kTileRows;
-  const int rows = min(kTileRows, dst_h - r0);
+// The same rows read from the shared-memory ring, by ring slot.
+struct RingRows {
+  const uint8_t* ring;
+  int pitch;
+  struct Column {
+    const uint8_t* p;
+    int pitch;
+    __device__ __forceinline__ uint32_t operator()(int slot) const {
+      return p[slot * pitch];
+    }
+  };
+  __device__ __forceinline__ Column column(int c) const {
+    return Column{ring + c, pitch};
+  }
+};
 
-  // Y pass over the window: work[r][c] = sum_t cy * src[iy, lo + c]; with
-  // kWrap16 it is narrowed to int16 and border rows are renormalised by
-  // trunc(w * y_bias / deno_y).
+// Y pass of the output rows [r0, r0 + rows) over the window's `width`
+// columns: work[r][c] = sum_t cy * source(rix[t, i], c); with kWrap16 it is
+// narrowed to int16 and border rows are renormalised by
+// trunc(w * y_bias / deno_y); with kRelaxed it is stored as its bf16
+// rounding.  rix holds source rows (GlobalRows) or ring slots (RingRows).
+template <bool kWrap16, bool kRelaxed, typename Rows>
+__device__ __forceinline__ void y_pass(
+    int32_t* work, int win_max, int r0, int rows, int width, int dst_h,
+    const int32_t* __restrict__ cy, const int32_t* __restrict__ rix,
+    const int32_t* __restrict__ ydiv, int taps_y, int y_bias, Rows rows_of) {
   for (int e = threadIdx.x; e < rows * width; e += kThreads) {
     const int r = e / width;
     const int c = e - r * width;
     const int i = r0 + r;
-    const uint8_t* col = fsrc + lo + c;
+    const auto col = rows_of.column(c);
     uint32_t acc = 0;
     for (int t = 0; t < taps_y; ++t) {
       const int k = t * dst_h + i;
-      acc += static_cast<uint32_t>(__ldg(cy + k)) *
-             static_cast<uint32_t>(__ldg(col + __ldg(iy + k) * src_row_stride));
+      acc += static_cast<uint32_t>(__ldg(cy + k)) * col(__ldg(rix + k));
     }
     int32_t w;
     if constexpr (kWrap16) {
@@ -170,14 +214,22 @@ __global__ void __launch_bounds__(kThreads) resize_fused_kernel(
       work[r * win_max + c] = w;
     }
   }
-  __syncthreads();
+}
 
-  // X pass and epilogue.  kWrap16 or kRelaxed: sums wrap in int32 as the
-  // reference's C accumulator; main columns (sums + half) >> out_shift,
-  // border columns trunc((sums + half) / (deno_x * y_bias)); then int16
-  // narrowing, clip.  Otherwise sums + half < 2^31, so
-  // (sums + half) >> out_shift, clip.
-  const int c0 = blockIdx.x * kTileCols;
+// X pass and epilogue of the output rows [r0, r0 + rows), columns
+// [c0, c0 + kTileCols).  kWrap16 or kRelaxed: sums wrap in int32 as the
+// reference's C accumulator; main columns (sums + half) >> out_shift,
+// border columns trunc((sums + half) / (deno_x * y_bias)); then int16
+// narrowing, clip.  Otherwise sums + half < 2^31, so
+// (sums + half) >> out_shift, clip.
+template <bool kWrap16, bool kRelaxed>
+__device__ __forceinline__ void x_pass(
+    const int32_t* work, int win_max, uint8_t* __restrict__ fdst, int r0,
+    int rows, int c0, int dst_w, int lo,
+    const int32_t* __restrict__ cx, const int32_t* __restrict__ ix,
+    const int32_t* __restrict__ xdiv, int taps_x,
+    const float* __restrict__ cxr, const float* __restrict__ cxd,
+    int out_shift) {
   const int cols = min(kTileCols, dst_w - c0);
   const uint32_t half = 1u << (out_shift - 1);
   for (int e = threadIdx.x; e < rows * kTileCols; e += kThreads) {
@@ -212,6 +264,104 @@ __global__ void __launch_bounds__(kThreads) resize_fused_kernel(
   }
 }
 
+// Copies source rows [s0, s1) of the column window into their ring slots.
+__device__ __forceinline__ void load_rows(
+    uint8_t* ring, int pitch, int ring_rows, const uint8_t* __restrict__ base,
+    long long stride, int width, int s0, int s1) {
+  for (int e = threadIdx.x; e < (s1 - s0) * width; e += kThreads) {
+    const int k = e / width;
+    const int c = e - k * width;
+    const int s = s0 + k;
+    ring[(s % ring_rows) * pitch + c] = __ldg(base + s * stride + c);
+  }
+}
+
+// Tables are tap-major: coef[t * n_dst + i].  ydiv/xdiv hold the border
+// divisor of each output row/column, 0 on main outputs (unread when
+// kWrap16 is false).  cxr/cxd are the relaxed coefficient planes, read
+// only when kRelaxed; cxd may be null.  win holds [lo, hi) of each column
+// tile's source window.  With kCarry, rwin holds [lo, hi) of each row
+// tile's source rows, iyr the ring slot of every Y tap (tap-major, as iy),
+// and blockIdx.y indexes runs of `run` row tiles; otherwise they are
+// unread and blockIdx.y is the row tile.
+template <bool kWrap16, bool kRelaxed, bool kCarry>
+__global__ void __launch_bounds__(kThreads) resize_fused_kernel(
+    const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
+    long long src_frame_stride, long long src_row_stride,
+    int dst_h, int dst_w,
+    const int32_t* __restrict__ cy, const int32_t* __restrict__ iy,
+    const int32_t* __restrict__ ydiv, int taps_y, int y_bias,
+    const int32_t* __restrict__ cx, const int32_t* __restrict__ ix,
+    const int32_t* __restrict__ xdiv, int taps_x,
+    const float* __restrict__ cxr, const float* __restrict__ cxd,
+    const int32_t* __restrict__ win, int win_max, int out_shift,
+    const int32_t* __restrict__ rwin, const int32_t* __restrict__ iyr,
+    int ring_rows, int ring_pitch, int run) {
+  // [kTileRows][win_max]: int32 work rows, or with kRelaxed the bits of
+  // their bf16-rounded float values; with kCarry the u8 ring
+  // [ring_rows][ring_pitch] follows
+  extern __shared__ int32_t work[];
+
+  const uint8_t* fsrc = src + static_cast<long long>(blockIdx.z) * src_frame_stride;
+  uint8_t* fdst = dst + static_cast<long long>(blockIdx.z) * dst_h * dst_w;
+  const int lo = win[2 * blockIdx.x];
+  const int width = win[2 * blockIdx.x + 1] - lo;
+  const int c0 = blockIdx.x * kTileCols;
+
+  if constexpr (!kCarry) {
+    const int r0 = blockIdx.y * kTileRows;
+    const int rows = min(kTileRows, dst_h - r0);
+    y_pass<kWrap16, kRelaxed>(work, win_max, r0, rows, width, dst_h, cy, iy,
+                              ydiv, taps_y, y_bias,
+                              GlobalRows{fsrc + lo, src_row_stride});
+    __syncthreads();
+    x_pass<kWrap16, kRelaxed>(work, win_max, fdst, r0, rows, c0, dst_w, lo,
+                              cx, ix, xdiv, taps_x, cxr, cxd, out_shift);
+  } else {
+    uint8_t* ring = reinterpret_cast<uint8_t*>(work + kTileRows * win_max);
+    const uint8_t* base = fsrc + lo;
+    const int n_tiles = (dst_h + kTileRows - 1) / kTileRows;
+    const int t0 = blockIdx.y * run;
+    const int t1 = min(t0 + run, n_tiles);
+    load_rows(ring, ring_pitch, ring_rows, base, src_row_stride, width,
+              __ldg(rwin + 2 * t0), __ldg(rwin + 2 * t0 + 1));
+    __syncthreads();
+    for (int t = t0; t < t1; ++t) {
+      if (t + 1 < t1) {
+        // tile t+1's fresh rows, into slots tile t does not read
+        load_rows(ring, ring_pitch, ring_rows, base, src_row_stride, width,
+                  max(__ldg(rwin + 2 * t + 1), __ldg(rwin + 2 * t + 2)),
+                  __ldg(rwin + 2 * t + 3));
+      }
+      const int r0 = t * kTileRows;
+      const int rows = min(kTileRows, dst_h - r0);
+      y_pass<kWrap16, kRelaxed>(work, win_max, r0, rows, width, dst_h, cy, iyr,
+                                ydiv, taps_y, y_bias,
+                                RingRows{ring, ring_pitch});
+      __syncthreads();   // work rows complete; tile t+1's rows landed
+      x_pass<kWrap16, kRelaxed>(work, win_max, fdst, r0, rows, c0, dst_w, lo,
+                                cx, ix, xdiv, taps_x, cxr, cxd, out_shift);
+      __syncthreads();   // work rows read before tile t+1 rewrites them
+    }
+  }
+}
+
+using Kernel = decltype(&resize_fused_kernel<true, false, false>);
+
+// The instantiation for (wrap16, relaxed, carry).
+Kernel pick(int wrap16, int relaxed, int carry) {
+  static const Kernel kernels[8] = {
+      &resize_fused_kernel<false, false, false>,
+      &resize_fused_kernel<false, false, true>,
+      &resize_fused_kernel<false, true, false>,
+      &resize_fused_kernel<false, true, true>,
+      &resize_fused_kernel<true, false, false>,
+      &resize_fused_kernel<true, false, true>,
+      &resize_fused_kernel<true, true, false>,
+      &resize_fused_kernel<true, true, true>};
+  return kernels[(wrap16 ? 4 : 0) | (relaxed ? 2 : 0) | (carry ? 1 : 0)];
+}
+
 }  // namespace
 
 extern "C" {
@@ -227,18 +377,14 @@ const char* iqo_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Raises the four instantiations' dynamic shared-memory limit on the
+// Raises the eight instantiations' dynamic shared-memory limit on the
 // current device to `bytes`; called once per device before its first
 // launch.  Returns a cudaError_t.
 int iqo_set_max_smem(int bytes) {
-  const void* kernels[] = {
-      reinterpret_cast<const void*>(&resize_fused_kernel<true, false>),
-      reinterpret_cast<const void*>(&resize_fused_kernel<false, false>),
-      reinterpret_cast<const void*>(&resize_fused_kernel<true, true>),
-      reinterpret_cast<const void*>(&resize_fused_kernel<false, true>)};
-  for (const void* k : kernels) {
+  for (int k = 0; k < 8; ++k) {
     cudaError_t rc = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        reinterpret_cast<const void*>(pick(k & 4, k & 2, k & 1)),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   return 0;
@@ -247,26 +393,31 @@ int iqo_set_max_smem(int bytes) {
 // Launches one resize of n_frames frames on `stream`: the kWrap16
 // instantiation when wrap16 is nonzero, its relaxed form when relaxed is
 // nonzero (cxr then holds the bf16 plane; cxd the residual plane or
-// null).  Allocates nothing; dst is contiguous (n_frames, dst_h, dst_w).
-// The work tile's shared memory must be within the limit set by
-// iqo_set_max_smem.  Returns a cudaError_t.
-int iqo_resize_fused(int wrap16, int relaxed, const void* src, void* dst,
-                     int n_frames, long long src_frame_stride,
+// null), and its carry form when carry is nonzero (rwin, iyr, ring_rows,
+// ring_pitch and run then describe the ring; otherwise they are unread).
+// Allocates nothing; dst is contiguous (n_frames, dst_h, dst_w).  The
+// shared memory (work tile, and the ring with carry) must be within the
+// limit set by iqo_set_max_smem.  Returns a cudaError_t.
+int iqo_resize_fused(int wrap16, int relaxed, int carry, const void* src,
+                     void* dst, int n_frames, long long src_frame_stride,
                      long long src_row_stride, int dst_h, int dst_w,
                      const void* cy, const void* iy, const void* ydiv,
                      int taps_y, int y_bias,
                      const void* cx, const void* ix, const void* xdiv,
                      int taps_x, const void* cxr, const void* cxd,
                      const void* win, int win_max, int out_shift,
-                     void* stream) {
-  const int smem = kTileRows * win_max * static_cast<int>(sizeof(int32_t));
-  const dim3 grid((dst_w + kTileCols - 1) / kTileCols,
-                  (dst_h + kTileRows - 1) / kTileRows, n_frames);
-  auto kernel = wrap16 ? (relaxed ? &resize_fused_kernel<true, true>
-                                  : &resize_fused_kernel<true, false>)
-                       : (relaxed ? &resize_fused_kernel<false, true>
-                                  : &resize_fused_kernel<false, false>);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+                     const void* rwin, const void* iyr, int ring_rows,
+                     int ring_pitch, int run, void* stream) {
+  int smem = kTileRows * win_max * static_cast<int>(sizeof(int32_t));
+  const int row_tiles = (dst_h + kTileRows - 1) / kTileRows;
+  int grid_y = row_tiles;
+  if (carry) {
+    smem += ring_rows * ring_pitch;
+    grid_y = (row_tiles + run - 1) / run;
+  }
+  const dim3 grid((dst_w + kTileCols - 1) / kTileCols, grid_y, n_frames);
+  pick(wrap16, relaxed, carry)<<<grid, kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst),
       src_frame_stride, src_row_stride, dst_h, dst_w,
       static_cast<const int32_t*>(cy), static_cast<const int32_t*>(iy),
@@ -274,7 +425,9 @@ int iqo_resize_fused(int wrap16, int relaxed, const void* src, void* dst,
       static_cast<const int32_t*>(cx), static_cast<const int32_t*>(ix),
       static_cast<const int32_t*>(xdiv), taps_x,
       static_cast<const float*>(cxr), static_cast<const float*>(cxd),
-      static_cast<const int32_t*>(win), win_max, out_shift);
+      static_cast<const int32_t*>(win), win_max, out_shift,
+      static_cast<const int32_t*>(rwin), static_cast<const int32_t*>(iyr),
+      ring_rows, ring_pitch, run);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -96,12 +96,13 @@ def _build(so: Path) -> None:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.iqo_resize_fused.argtypes = [
-        i, i,                           # wrap16, relaxed: which instantiation
+        i, i, i,                        # wrap16, relaxed, carry: which instantiation
         p, p, i, ll, ll, i, i,          # src, dst, frames, strides, dst shape
         p, p, p, i, i,                  # cy, iy, ydiv, taps_y, y_bias
         p, p, p, i,                     # cx, ix, xdiv, taps_x
         p, p,                           # cxr, cxd (relaxed planes; cxd may be NULL)
         p, i, i,                        # win, win_max, out_shift
+        p, p, i, i, i,                  # rwin, iyr, ring_rows, ring_pitch, run (carry)
         p]                              # stream
     lib.iqo_resize_fused.restype = i
     lib.iqo_set_max_smem.argtypes = [i]

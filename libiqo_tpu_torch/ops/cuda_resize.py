@@ -6,11 +6,15 @@ instantiations, ``wrap16`` for Lanczos plans (int16 work rows, border
 divides) and ``u16`` for Area and Linear plans (u16 work rows, no borders),
 and in a relaxed form of each (``wrap16_relaxed``, ``u16_relaxed``: the X
 pass over bf16-rounded work rows and coefficient planes in float32, within
-2 LSB of the exact output, flat fields exact).  This module packs a
-:class:`ResizePlan` into the kernel's operands, decides which plans the
-kernel takes (:func:`supports_plan`), and launches it (:func:`resize_fused`).
-:func:`resize_plain` is the same function in plain PyTorch over the same
-operands, for the CPU and for comparison on the card.
+2 LSB of the exact output, flat fields exact).  Each of the four has a
+row-halo carry form (``*_carry``, the TPU's ``LIBIQO_TPU_CARRY`` mode): a
+block walks a run of row tiles and keeps their source rows in a ring in
+shared memory, byte-equal to the windowed form; it is opted into with
+``LIBIQO_TPU_CARRY=1`` (or ``2``) and engages where :func:`carry_ok` holds.
+This module packs a :class:`ResizePlan` into the kernel's operands, decides
+which plans the kernel takes (:func:`supports_plan`), and launches it
+(:func:`resize_fused`).  :func:`resize_plain` is the same function in plain
+PyTorch over the same operands, for the CPU and for comparison on the card.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import os
 import threading
 
 import numpy as np
@@ -26,10 +31,11 @@ import torch
 from ..core.plan import AxisPlan, ResizePlan
 from . import _build, torch_resize
 
-__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "KernelOperands",
-           "KernelTables", "kernel_tables", "pack_operands", "relaxed_plane",
-           "reset_launches", "resize_fused", "resize_plain", "smem_bytes",
-           "supports_plan", "tile_windows", "variant"]
+__all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "VARIANTS", "CarryLayout",
+           "KernelOperands", "KernelTables", "carry_layout", "carry_ok",
+           "carry_requested", "kernel_tables", "pack_operands",
+           "relaxed_plane", "reset_launches", "resize_fused", "resize_plain",
+           "smem_bytes", "supports_plan", "tile_windows", "variant"]
 
 # Must match kTileRows/kTileCols in csrc/resize_fused.cu (checked at load).
 TILE_ROWS = 16
@@ -39,10 +45,15 @@ _MAX_GRID_YZ = 65535      # CUDA's limit on gridDim.y (row tiles) and .z (frames
 _I32_MAX = 2**31 - 1
 _F32_EXACT_COEF_SUM = 65535   # the JAX package's per-row sum(|coef|) bound
 _RELAXED_WALK = 24            # most taps the column-sum repair nudges
+CARRY_BLOCKS = 264        # blocks a carry grid aims for: two per SM of 132
+CARRY_MIN_SAVING = 0.1    # carry must fetch <= 90 % of the windowed rows
+RING_ALIGN = 16           # bytes: the ring's row pitch is a multiple
 
+VARIANTS = ("wrap16", "u16", "wrap16_relaxed", "u16_relaxed",
+            "wrap16_carry", "u16_carry", "wrap16_relaxed_carry",
+            "u16_relaxed_carry")
 LAUNCHES = 0              # kernel launches in this process
-LAUNCHES_BY_VARIANT = {      # the same, by instantiation
-    "wrap16": 0, "u16": 0, "wrap16_relaxed": 0, "u16_relaxed": 0}
+LAUNCHES_BY_VARIANT = dict.fromkeys(VARIANTS, 0)   # the same, by instantiation
 _launch_lock = threading.Lock()
 
 
@@ -55,20 +66,23 @@ def reset_launches() -> None:
             LAUNCHES_BY_VARIANT[k] = 0
 
 
-def variant(plan, relaxed: bool = False) -> str:
-    """The kernel instantiation that a plan takes, exact or ``relaxed``
-    ("wrap16", "u16", "wrap16_relaxed" or "u16_relaxed"); given its
+def variant(plan, relaxed: bool = False, carry: bool = False) -> str:
+    """The kernel instantiation that a plan takes, exact or ``relaxed``,
+    windowed or ``carry`` (one of :data:`VARIANTS`); given its
     :class:`KernelTables`, the one they were built for."""
     name = "wrap16" if plan.wrap16 else "u16"
-    return name + "_relaxed" if getattr(plan, "relaxed", relaxed) else name
+    if getattr(plan, "relaxed", relaxed):
+        name += "_relaxed"
+    return name + "_carry" if getattr(plan, "carry", carry) else name
 
 
-def tile_windows(ax: AxisPlan) -> np.ndarray:
-    """(n_col_tiles, 2) int32 ``[lo, hi)``: the source columns that the
-    clamped taps of each TILE_COLS-wide output tile read.  ``start`` is not
-    assumed monotonic."""
+def tile_windows(ax: AxisPlan, tile: int = TILE_COLS) -> np.ndarray:
+    """(n_tiles, 2) int32 ``[lo, hi)``: the source indices that the clamped
+    taps of each ``tile``-long run of outputs read (column tiles by
+    default; ``TILE_ROWS`` on the Y axis gives the row tiles' source rows).
+    ``start`` is not assumed monotonic."""
     idx = torch_resize.clamped_taps(ax)
-    first = np.arange(0, ax.n_dst, TILE_COLS)
+    first = np.arange(0, ax.n_dst, tile)
     lo = np.minimum.reduceat(idx.min(axis=1), first)
     hi = np.maximum.reduceat(idx.max(axis=1), first) + 1
     return np.stack([lo, hi], axis=1).astype(np.int32)
@@ -229,6 +243,69 @@ def supports_plan(plan: ResizePlan, relaxed: bool = False) -> bool:
     return not relaxed or _relaxed_ok(plan)
 
 
+def carry_requested() -> bool:
+    """Whether the row-halo carry form is asked for: ``LIBIQO_TPU_CARRY``
+    is "1" or "2", the JAX package's own opt-in
+    (``libiqo_tpu/ops/pallas_resize.py:689,809``)."""
+    return os.environ.get("LIBIQO_TPU_CARRY", "") in ("1", "2")
+
+
+@dataclasses.dataclass(frozen=True)
+class CarryLayout:
+    """How the carry form walks a plan: each block owns one column tile
+    and ``run`` consecutive row tiles, whose source rows it keeps in a ring
+    of ``ring_rows`` rows of ``ring_pitch`` bytes."""
+    run: int
+    ring_rows: int
+    ring_pitch: int
+    rwin: np.ndarray        # (n_row_tiles, 2) int32 [lo, hi) source rows
+    fetch: int              # source rows one column tile loads with carry
+    band: int               # ... and without: the sum of the row windows
+
+
+def carry_layout(plan: ResizePlan) -> CarryLayout | None:
+    """The carry form's layout of a plan, or None where it does not apply.
+
+    ``run`` is the most row tiles per block that still leaves about
+    CARRY_BLOCKS blocks per frame (two per SM of an H100), and at least 2.
+    Carry applies when, inside every run, each row tile's source window
+    ``[lo, hi)`` (its clamped taps) is non-decreasing in both ends; when the
+    ring (the largest ``hi[t+1] - lo[t]`` of a run, so tile t+1's rows can
+    land while tile t is computed) and the work tile fit SMEM_BUDGET; and
+    when carry fetches at most 90 % of the rows the windowed form reads
+    (the JAX package refuses at ``fetch >= 0.9 * band``,
+    ``pallas_resize.py:589``)."""
+    rwin = tile_windows(plan.y, TILE_ROWS).astype(np.int64)
+    lo, hi = rwin[:, 0], rwin[:, 1]
+    n_rt = len(rwin)
+    n_ct = -(-plan.x.n_dst // TILE_COLS)
+    run = max(2, n_rt // -(-CARRY_BLOCKS // n_ct))
+    inner = np.arange(1, n_rt) % run != 0        # pairs (t, t+1) in one run
+    if not ((lo[1:] >= lo[:-1]) & (hi[1:] >= hi[:-1]))[inner].all():
+        return None
+    fresh = hi[1:] - np.maximum(hi[:-1], lo[1:])
+    starts = np.arange(0, n_rt, run)
+    fetch = int((hi - lo)[starts].sum() + fresh[inner].sum())
+    band = int((hi - lo).sum())
+    if fetch >= (1 - CARRY_MIN_SAVING) * band:
+        return None
+    ring_rows = int(max((hi - lo).max(),
+                        (hi[1:] - lo[:-1])[inner].max(initial=0)))
+    win = tile_windows(plan.x)
+    pitch = -(-int((win[:, 1] - win[:, 0]).max()) // RING_ALIGN) * RING_ALIGN
+    if smem_bytes(plan) + ring_rows * pitch > SMEM_BUDGET:
+        return None
+    return CarryLayout(run=run, ring_rows=ring_rows, ring_pitch=pitch,
+                       rwin=rwin.astype(np.int32), fetch=fetch, band=band)
+
+
+def carry_ok(plan: ResizePlan) -> bool:
+    """True when the carry form applies to the plan (:func:`carry_layout`).
+    A pure function of the plan; where it is False the windowed form runs
+    and is counted under its own name."""
+    return carry_layout(plan) is not None
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelTables:
     """The kernel's operands, tap-major: int32 tables, and in the relaxed
@@ -246,6 +323,12 @@ class KernelTables:
     cxr: torch.Tensor       # (taps_x, dst_w) relaxed plane; empty when exact
     cxd: torch.Tensor       # (taps_x, dst_w) residual plane, or empty
     relaxed: bool
+    carry: bool             # the carry form; the fields below are read only then
+    rwin: torch.Tensor      # (n_row_tiles, 2) source rows [lo, hi), or empty
+    iyr: torch.Tensor       # (taps_y, dst_h) ring slot of each Y tap, or empty
+    ring_rows: int = 0
+    ring_pitch: int = 0
+    run: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,10 +349,11 @@ class KernelOperands:
         return self.tables is not None and self.tables.relaxed
 
 
-def kernel_tables(plan: ResizePlan, device="cpu",
-                  relaxed: bool = False) -> KernelTables:
+def kernel_tables(plan: ResizePlan, device="cpu", relaxed: bool = False,
+                  carry: bool = False) -> KernelTables:
     """The kernel's tables for a plan that :func:`supports_plan` takes
-    (with the same ``relaxed``)."""
+    (with the same ``relaxed``); with ``carry``, those of the carry form
+    where :func:`carry_ok` holds, else the windowed form's."""
     win = tile_windows(plan.x)
     ydeno = np.where(plan.y.deno == 0, 1, plan.y.deno)
 
@@ -283,30 +367,39 @@ def kernel_tables(plan: ResizePlan, device="cpu",
         cxr, resid = relaxed_plane(plan.x)
         cxr = cxr.to(device)
         cxd = empty if resid is None else resid.to(device)
+    iy = torch_resize.clamped_taps(plan.y).T
+    layout = carry_layout(plan) if carry else None
+    if layout is None:
+        ring = dict(rwin=t(np.empty((0, 2))), iyr=t(np.empty((0, 2))))
+    else:
+        ring = dict(rwin=t(layout.rwin), iyr=t(iy % layout.ring_rows),
+                    ring_rows=layout.ring_rows, ring_pitch=layout.ring_pitch,
+                    run=layout.run)
     return KernelTables(
-        cy=t(plan.y.coef.T), iy=t(torch_resize.clamped_taps(plan.y).T),
+        cy=t(plan.y.coef.T), iy=t(iy),
         ydiv=t(np.where(plan.y.is_border, ydeno, 0)),
         cx=t(plan.x.coef.T), ix=t(torch_resize.clamped_taps(plan.x).T),
         xdiv=t(_x_divisors(plan)), win=t(win),
         win_max=int((win[:, 1] - win[:, 0]).max()), wrap16=plan.wrap16,
-        cxr=cxr, cxd=cxd, relaxed=relaxed)
+        cxr=cxr, cxd=cxd, relaxed=relaxed, carry=layout is not None, **ring)
 
 
-def pack_operands(plan: ResizePlan, device="cpu",
-                  relaxed: bool = False) -> KernelOperands:
+def pack_operands(plan: ResizePlan, device="cpu", relaxed: bool = False,
+                  carry: bool = False) -> KernelOperands:
     """Turn a :class:`ResizePlan` into tensors on ``device``.  Exact: the
     kernel's tables are built only where it can launch, on a CUDA device
     for plans inside :func:`supports_plan`.  ``relaxed=True`` needs
     ``supports_plan(plan, relaxed=True)`` (else ValueError) and builds the
-    relaxed tables on any device."""
+    relaxed tables on any device.  ``carry=True`` builds the carry form's
+    tables where :func:`carry_ok` holds (the windowed form's elsewhere)."""
     device = torch.device(device)
     if relaxed:
         if not supports_plan(plan, relaxed=True):
             raise ValueError("plan is outside the relaxed kernel's scope "
                              "(supports_plan(relaxed=True))")
-        tables = kernel_tables(plan, device, relaxed=True)
+        tables = kernel_tables(plan, device, relaxed=True, carry=carry)
     elif device.type == "cuda" and supports_plan(plan):
-        tables = kernel_tables(plan, device)
+        tables = kernel_tables(plan, device, carry=carry)
     else:
         tables = None
     return KernelOperands(plain=torch_resize.pack_operands(plan, device),
@@ -380,7 +473,8 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     rc = lib.iqo_resize_fused(
-        int(k.wrap16), int(k.relaxed), src.data_ptr(), out.data_ptr(),
+        int(k.wrap16), int(k.relaxed), int(k.carry), src.data_ptr(),
+        out.data_ptr(),
         src.shape[0], src.stride(0), src.stride(1), dh, dw,
         k.cy.data_ptr(), k.iy.data_ptr(), k.ydiv.data_ptr(),
         k.cy.shape[0], ops.plain.y_bias,
@@ -388,8 +482,11 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
         k.cx.shape[0],
         k.cxr.data_ptr() if k.relaxed else None,
         k.cxd.data_ptr() if k.cxd.numel() else None,
-        k.win.data_ptr(), k.win_max,
-        ops.plain.out_shift, torch.cuda.current_stream(src.device).cuda_stream)
+        k.win.data_ptr(), k.win_max, ops.plain.out_shift,
+        k.rwin.data_ptr() if k.carry else None,
+        k.iyr.data_ptr() if k.carry else None,
+        k.ring_rows, k.ring_pitch, k.run,
+        torch.cuda.current_stream(src.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"resize_fused launch failed: "
                            f"{lib.iqo_error_string(rc).decode()} ({rc})")

@@ -347,7 +347,9 @@ def test_launch_counts_by_variant_reset():
     cuda_resize.reset_launches()
     assert cuda_resize.LAUNCHES == 0
     assert cuda_resize.LAUNCHES_BY_VARIANT == {
-        "wrap16": 0, "u16": 0, "wrap16_relaxed": 0, "u16_relaxed": 0}
+        "wrap16": 0, "u16": 0, "wrap16_relaxed": 0, "u16_relaxed": 0,
+        "wrap16_carry": 0, "u16_carry": 0, "wrap16_relaxed_carry": 0,
+        "u16_relaxed_carry": 0}
 
 
 # -- on the card ------------------------------------------------------------
