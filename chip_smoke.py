@@ -88,6 +88,20 @@ Phases:
    where ``carry_ok`` refuses) and Linear 1080p -> 4K (carry on both), exact
    and relaxed, with launch counts by variant; carry beside windowed times,
    and on 4K luma against the run length (``CARRY_RUN_SWEEP``).
+13. The probes (``libiqo_tpu_torch/experiments``, the H100 ports of
+   ``scripts/exp_dma_ceiling.py``, ``exp_int8_mxu.py`` and
+   ``exp_banded_dots.py``): each of their four kernels == its plain version
+   bit for bit at the TPU scripts' full shapes in every variant (the
+   ``stream_map`` rows and ``readsum``, the four ``mma_steps`` rows at
+   STEPS 64, the nine ``banded_tile`` modes at GRID 35); then each script's
+   ``main()``, with every count set to 0 just before, which asserts every
+   chain checksum and holds one output of each other row to the plain
+   version; every variant must have launched.  Times beside the bound and
+   the library call, timed under the kernel's own protocol
+   (``torch.add(out=)`` and ``Tensor.copy_`` in the same chain for kernel
+   A, a ``uint8`` ``sum`` fold for B, ``torch._int_mm`` for C, with bf16
+   ``torch.matmul`` as a yardstick; none for D), and the measured streaming
+   ceilings beside the data sheet's.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 2
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -102,6 +116,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -111,6 +126,11 @@ sys.modules["jax"] = None         # the port must not need JAX; any import fails
 sys.modules["libiqo_tpu"] = None  # nor the JAX package
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+# the H100 SXM data sheet's rates, kept in one place
+from libiqo_tpu_torch.experiments._harness import (  # noqa: E402
+    BF16_OPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S)
+
 SRC_W, SRC_H, DST_W, DST_H = 3840, 2160, 1920, 1080     # the Lanczos main path
 AREA_MAIN = ("area", 1920, 1080, 640, 360)             # the Area main path
 U16_FRAMES = {                    # name: (method, src_w, src_h, dst_w, dst_h)
@@ -133,9 +153,6 @@ RELAXED_GRADED = {
     "linear 640x480->320x240": ("linear", {}, 640, 480, 320, 240),
 }
 PX4_PLANE = ("lanczos", dict(degree=3, px_scale=4), 960, 540, 480, 270)
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
-BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 SPIN_CYCLES_PER_CALL = 2_000_000   # ~1 ms of the card's clock per call queued
 CLI_RUNS = (["--cycles", "32"], ["--amortized"], ["--batch", "16"],
             ["--stream", "64", "--batch", "16"])
@@ -305,12 +322,18 @@ def phase_device(build, device):
     print(f"device: {name}, capability {torch.cuda.get_device_capability(0)},"
           f" torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"{device.describe()}")
-    build.load()
-    print(f"kernel library: {build.build_dir()} built in "
-          f"{build.build_seconds!r} s (None = already built)")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:     # the two libraries' nvcc run together
+        list(pool.map(lambda load: load(), (build.load, build.load_experiments)))
+    print(f"kernel libraries built or loaded in {time.perf_counter() - t0!r} s")
+    for what, where, secs, log in (
+            ("kernel library", build.build_dir(), build.build_seconds, build.build_log),
+            ("probe library", build.exp_build_dir(), build.exp_build_seconds,
+             build.exp_build_log)):
+        print(f"{what}: {where} built in {secs!r} s (None = already built)")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}")
     return smi, name
 
 
@@ -1056,11 +1079,201 @@ def phase_carry(cr, yuv, build_plan, numpy_ref, rng, card: str) -> dict:
     return entries
 
 
+def probe_err(tag: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Kernel == plain, bit for bit (shape, dtype, every element); returns
+    the largest absolute difference, 0.0."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{tag}: {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
+    if not torch.equal(got, want):
+        d = (got.double() - want.double()).abs()
+        raise SmokeFailure(f"{tag}: kernel != plain, max abs err "
+                           f"{d.max().item()!r}; " + first_diff(got, want))
+    return 0.0
+
+
+def probe_inputs(dma, gen):
+    """Kernel A and B's inputs at the TPU script's full shapes, drawn on the
+    card: {row: (op, tensor)}; i32 rows take the whole int32 range."""
+    h, w, dev = dma.H, dma.W, torch.device("cuda", 0)
+
+    def u8(rows):
+        return torch.randint(0, 256, (rows, w), dtype=torch.uint8, device=dev,
+                             generator=gen)
+
+    def i32(rows):
+        return torch.randint(-2**31, 2**31, (rows, w // 4), dtype=torch.int32,
+                             device=dev, generator=gen)
+    return {"inc": ("inc_u8", u8(h)), "inc_i32": ("inc_i32", i32(h)),
+            "inc33MB": ("inc_u8", u8(4 * h)), "inc33MB32": ("inc_i32", i32(4 * h)),
+            "mix33MB32": ("mix_i32", i32(4 * h)), "copy33MB": ("copy", u8(4 * h)),
+            "inc133MB": ("inc_u8", u8(16 * h)), "copy133MB": ("copy", u8(16 * h)),
+            "readsum": ("readsum", u8(h))}
+
+
+def phase_probes(card: str) -> list:
+    """Phase 13, the H100 probes (``libiqo_tpu_torch/experiments``): each
+    of the four kernels == its plain version at the TPU scripts' full shapes
+    in every variant; each script's ``main()`` with every count set to 0
+    just before (chain checksums asserted inside); plain and library times.
+    Returns the four entries of the kernels line."""
+    from libiqo_tpu_torch.experiments import (_harness, exp_banded_dots as bd,
+                                              exp_dma_ceiling as dma,
+                                              exp_int8_mxu as mxu)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+
+    # 1. kernel == plain, every variant, full shapes
+    err = dict.fromkeys(("stream_map", "readsum", "mma_steps", "banded_tile"), 0.0)
+    dma_in = probe_inputs(dma, gen)
+    for row, (op, x) in dma_in.items():
+        if op == "readsum":
+            got, want = dma.readsum(x), dma.readsum_plain(x)
+        else:
+            got, want = dma.stream_map(x, op), dma.stream_map_plain(x, op)
+        kernel = "readsum" if op == "readsum" else "stream_map"
+        err[kernel] = max(err[kernel], probe_err(f"{row} {op}", got, want))
+    print(f"stream_map == plain on {len(dma_in) - 1} exp_dma_ceiling rows, "
+          f"readsum == plain on {tuple(dma_in['readsum'][1].shape)}, bit for bit")
+    for row, (in_dt, acc) in mxu.ROWS.items():
+        a, b = mxu.inputs(in_dt, dev)
+        bt = mxu.k_major(b)
+        err["mma_steps"] = max(err["mma_steps"], probe_err(
+            row, mxu.mma_steps(a, bt, acc), mxu.mma_steps_plain(a, bt, acc)))
+    print(f"mma_steps == plain on all {len(mxu.ROWS)} exp_int8_mxu rows at "
+          f"STEPS={mxu.STEPS}, ({mxu.M}, {mxu.K}) @ ({mxu.K}, {mxu.N})")
+    band, cy, cxs = bd.inputs(dev)
+    ops = bd.pack(cy, *cxs)
+    for ym, xm in bd.PAIRS:
+        err["banded_tile"] = max(err["banded_tile"], probe_err(
+            f"banded y={ym} x={xm}", bd.banded_tile(ops, band, ym, xm),
+            bd.banded_tile_plain(ops, band, ym, xm)))
+    print(f"banded_tile == plain in all {len(bd.PAIRS)} (Y, X) modes at "
+          f"GRID={bd.GRID}")
+
+    # 2. the probes' main paths, every count set to 0 just before
+    for mod in (dma, mxu, bd):
+        mod.reset_launches()
+    rows = {"dma": dma.main(), "mxu": mxu.main(), "bd": bd.main()}
+    torch.cuda.synchronize()
+    launches = {"stream_map": sum(dma.LAUNCHES[op] for op in dma.OPS),
+                "readsum": dma.LAUNCHES["readsum"],
+                "mma_steps": mxu.LAUNCHES.total(), "banded_tile": bd.LAUNCHES.total()}
+    idle = [f"{mod.__name__.rsplit('.', 1)[-1]}:{v}" for mod in (dma, mxu, bd)
+            for v, n in mod.LAUNCHES.items() if n == 0]
+    check(not idle, f"probe variants never launched by main(): {idle}")
+    print(f"probe main() runs -> launches {launches}; by variant "
+          f"{dict(dma.LAUNCHES)} {dict(mxu.LAUNCHES)} {dict(bd.LAUNCHES)}")
+
+    # 3. plain times, host-paced (they synchronise); library yardsticks
+    # under their kernel's own protocol: a serial chain into preallocated
+    # buffers for A, the kernel's perturbed inputs back to back for B and C,
+    # each first held equal to the plain version where it is the same function
+    def plain_ms(fn, x, n=2):
+        return _harness.launches_ms(fn, _harness.perturbed(x, n), repeats=2,
+                                    primed=False)
+
+    xb = dma_in["inc33MB"][1]
+    lib_add = _harness.chain_ms(lambda a, b: torch.add(a, 1, out=b), xb,
+                                dma.INNER[4], dma.expect_inc(torch.uint8))
+    lib_copy = _harness.chain_ms(lambda a, b: b.copy_(a), dma_in["copy33MB"][1],
+                                 dma.INNER[4], dma.expect_copy)
+    p_inc = plain_ms(lambda t: dma.stream_map_plain(t, "inc_u8"), xb)
+    rs = dma_in["readsum"][1]
+
+    def lib_fold(t):
+        return t.view(t.shape[0], -1, dma.LANES).sum(1, dtype=torch.uint8)
+    check(torch.equal(lib_fold(rs), dma.readsum_plain(rs)),
+          "the library fold != readsum_plain")
+    lib_rs = _harness.launches_ms(lib_fold, _harness.perturbed(rs, dma.READS))
+    p_readsum = plain_ms(dma.readsum_plain, rs)
+    a8, b8 = mxu.inputs(torch.int8, dev)
+    a16, b16 = mxu.inputs(torch.bfloat16, dev)
+    bt8, bt16 = mxu.k_major(b8), mxu.k_major(b16)
+    a8s = _harness.perturbed(a8, mxu.ITERS)
+
+    def lib_int_mm(t):      # b column-major, the layout cuBLASLt's s8 path takes
+        return torch._int_mm(t.view(-1, mxu.K), bt8.t()).view(mxu.STEPS, mxu.M, mxu.N)
+    check(torch.equal(lib_int_mm(a8s[-1]),
+                      mxu.mma_steps_plain(a8s[-1], bt8, torch.int32)),
+          "torch._int_mm != mma_steps_plain")
+    lib_int_mm_ms = _harness.launches_ms(lib_int_mm, a8s)
+    lib_matmul = _harness.launches_ms(lambda t: torch.matmul(t, bt16.t()),
+                                      _harness.perturbed(a16, mxu.ITERS))
+    del a8s
+    p_mma = plain_ms(lambda t: mxu.mma_steps_plain(t, bt8, torch.int32), a8)
+    p_banded = plain_ms(lambda t: bd.banded_tile_plain(ops, t, "mono", "mono"), band)
+    del dma_in, xb, rs
+
+    d, m, b = rows["dma"], rows["mxu"], rows["bd"]
+    inc_bytes = d["inc33MB"]["bytes"]
+    print(f"probe inc33MB (u8): kernel {d['inc33MB']['ms']!r} ms, plain {p_inc!r} "
+          f"ms, library torch.add(a, 1, out=b) on uint8, same chain, "
+          f"{lib_add!r} ms, bound {inc_bytes / HBM_BYTES_PER_S * 1e3!r} ms "
+          f"(bytes) ({card})")
+    print(f"probe copy33MB: kernel {d['copy33MB']['ms']!r} ms, library "
+          f"b.copy_(a), same chain, {lib_copy!r} ms ({card})")
+    print(f"probe readsum: kernel {d['readsum']['ms']!r} ms, plain {p_readsum!r} "
+          f"ms, library x.view(h, -1, 128).sum(1, dtype=uint8) {lib_rs!r} ms "
+          f"({card})")
+    for row in ("inc", "copy33MB", "inc133MB", "copy133MB", "readsum"):
+        print(f"probe ceiling {row}: {d[row]['gbs']!r} GB/s against the data "
+              f"sheet's {HBM_BYTES_PER_S / 1e9!r} GB/s ({card})")
+    print(f"probe mma_steps s8xs8->i32: kernel {m['s8xs8->i32']['ms']!r} ms, "
+          f"plain {p_mma!r} ms, library torch._int_mm (b column-major) "
+          f"{lib_int_mm_ms!r} ms; bf16: kernel {m['bf16xbf16->f32']['ms']!r} ms, "
+          f"yardstick torch.matmul (bf16 out) {lib_matmul!r} ms ({card})")
+    mm = b["y=mono x=mono"]
+    print(f"probe banded_tile mono/mono: kernel {mm['ms']!r} ms, plain "
+          f"{p_banded!r} ms, bound {mm['bound_ms']!r} ms ({mm['bound_by']}), "
+          f"library none ({card})")
+    h, w = dma.H, dma.W
+    rs_bytes = h * w + h * dma.LANES
+    entries = [
+        {"name": "stream_map", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_stream.cu",
+         "replaces": "scripts/exp_dma_ceiling.py:57",
+         "launches": launches["stream_map"], "max_abs_err": err["stream_map"],
+         "ms": d["inc33MB"]["ms"], "plain_ms": p_inc,
+         "bound_ms": inc_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": lib_add, "row": "inc33MB",
+         "copy33MB_ms": d["copy33MB"]["ms"], "copy33MB_library_ms": lib_copy,
+         "gbs": {r: d[r]["gbs"] for r in d if r not in ("readsum", "resize4k")}},
+        {"name": "readsum", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_stream.cu",
+         "replaces": "scripts/exp_dma_ceiling.py:73",
+         "launches": launches["readsum"], "max_abs_err": err["readsum"],
+         "ms": d["readsum"]["ms"], "plain_ms": p_readsum,
+         "bound_ms": rs_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": lib_rs, "gbs": d["readsum"]["gbs"],
+         "resize4k_ms": d["resize4k"]["ms"]},
+        {"name": "mma_steps", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_mma.cu",
+         "replaces": "scripts/exp_int8_mxu.py:29",
+         "launches": launches["mma_steps"], "max_abs_err": err["mma_steps"],
+         "ms": m["s8xs8->i32"]["ms"], "plain_ms": p_mma,
+         "bound_ms": m["s8xs8->i32"]["bound_ms"],
+         "bound_by": m["s8xs8->i32"]["bound_by"], "library_ms": lib_int_mm_ms,
+         "row": "s8xs8->i32", "bf16_library_ms": lib_matmul,
+         "rows": {r: {k: v[k] for k in ("ms", "tmacs", "bound_ms", "bound_by")}
+                  for r, v in m.items()}},
+        {"name": "banded_tile", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_banded.cu",
+         "replaces": "scripts/exp_banded_dots.py:92",
+         "launches": launches["banded_tile"], "max_abs_err": err["banded_tile"],
+         "ms": mm["ms"], "plain_ms": p_banded, "bound_ms": mm["bound_ms"],
+         "bound_by": mm["bound_by"], "library_ms": None, "row": "y=mono x=mono",
+         "rows": {r: v["ms"] for r, v in b.items()}},
+    ]
+    print(f"phase probes: {time.perf_counter() - t_phase!r} s")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
     from libiqo_tpu_torch import build_plan, yuv
     from libiqo_tpu_torch.cli import benchmark
     from libiqo_tpu_torch.golden import numpy_ref
@@ -1113,6 +1326,7 @@ def main() -> int:
     os.environ["LIBIQO_TPU_CARRY"] = "1"          # the opt-in, from here on
     carry = phase_carry(cuda_resize, yuv, build_plan, numpy_ref,
                         np.random.default_rng(SEED + 4), smi)
+    probes = phase_probes(smi)
 
     src = "libiqo_tpu_torch/csrc/resize_fused.cu"
     replaces = "libiqo_tpu/ops/pallas_resize.py:1687"
@@ -1145,7 +1359,7 @@ def main() -> int:
          "exact_kernel_ms": tur["exact_ms"]},
         sharded["wrap16"], sharded["u16"], carry["wrap16_carry"],
         carry["u16_carry"], carry["wrap16_relaxed_carry"],
-        carry["u16_relaxed_carry"]]}))
+        carry["u16_relaxed_carry"], *probes]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1}}))     # the one card driven

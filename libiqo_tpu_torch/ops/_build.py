@@ -1,12 +1,17 @@
-"""Build and load the port's CUDA kernels: nvcc into a shared library with a
+"""Build and load the port's CUDA kernels: nvcc into shared libraries with a
 plain C interface, bound with ctypes.
 
-The library is built from ``libiqo_tpu_torch/csrc/*.cu`` on first use, into
-``build/libiqo_tpu_torch/<hash of the sources>/`` beside the package, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  Nothing is
-built when this module is imported, and nothing is built from outside the
-repository.  If ``nvcc`` is missing or fails, :func:`load` raises with its
-output: there is no fallback.
+Two libraries, each built on first use by one ``nvcc -shared`` into
+``build/libiqo_tpu_torch/<hash of its sources>/`` beside the package, so an
+edited source is rebuilt and an unchanged one is loaded as it is:
+
+* the resize kernel, from ``libiqo_tpu_torch/csrc/*.cu`` (:func:`load`);
+* the measurement probes of ``libiqo_tpu_torch/experiments``, from
+  ``libiqo_tpu_torch/csrc/exp/*.cu`` (:func:`load_experiments`).
+
+Nothing is built when this module is imported, and nothing is built from
+outside the repository.  If ``nvcc`` is missing or fails, loading raises with
+its output: there is no fallback.
 """
 
 from __future__ import annotations
@@ -21,16 +26,22 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["BuildError", "build_dir", "find_nvcc", "load", "nvcc_command"]
+__all__ = ["BuildError", "build_dir", "exp_build_dir", "find_nvcc", "load",
+           "load_experiments", "nvcc_command"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+EXP_CSRC = CSRC / "exp"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _lock = threading.Lock()
 _lib = None
 build_seconds: float | None = None   # wall time of this process's build, if it built
 build_log: str = ""                  # nvcc's output (ptxas register/smem report)
+_exp_lock = threading.Lock()
+_exp_lib = None
+exp_build_seconds: float | None = None   # the same for the probes' library
+exp_build_log: str = ""
 
 
 class BuildError(RuntimeError):
@@ -41,9 +52,13 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest() -> str:
+def exp_sources() -> list[Path]:
+    return sorted(EXP_CSRC.glob("*.cu"))
+
+
+def _digest(csrc: Path = CSRC) -> str:
     h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted(csrc.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS).encode())
@@ -52,6 +67,10 @@ def _digest() -> str:
 
 def build_dir() -> Path:
     return _PKG.parent / "build" / "libiqo_tpu_torch" / _digest()
+
+
+def exp_build_dir() -> Path:
+    return _PKG.parent / "build" / "libiqo_tpu_torch" / f"exp-{_digest(EXP_CSRC)}"
 
 
 def find_nvcc() -> str | None:
@@ -65,14 +84,15 @@ def find_nvcc() -> str | None:
     return None
 
 
-def nvcc_command(nvcc: str, out: Path) -> list[str]:
+def nvcc_command(nvcc: str, out: Path, srcs: list[Path] | None = None) -> list[str]:
+    """One ``nvcc -shared`` of ``srcs`` (the resize kernel's by default)."""
     return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(out), *map(str, sources())]
+            "-o", str(out), *map(str, sources() if srcs is None else srcs)]
 
 
-def _build(so: Path) -> None:
-    global build_seconds, build_log
+def _build(so: Path, srcs: list[Path]) -> tuple[float, str]:
+    """Build ``srcs`` into ``so``; returns nvcc's wall time and output."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise BuildError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda); "
@@ -83,14 +103,14 @@ def _build(so: Path) -> None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run(nvcc_command(nvcc, Path(tmp)), capture_output=True,
+    proc = subprocess.run(nvcc_command(nvcc, Path(tmp), srcs), capture_output=True,
                           text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    seconds, log = time.perf_counter() - t0, proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise BuildError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise BuildError(f"nvcc failed ({proc.returncode}):\n{log}")
     os.replace(tmp, so)
+    return seconds, log
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -116,11 +136,41 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use.  Thread-safe."""
-    global _lib
+    global _lib, build_seconds, build_log
     with _lock:
         if _lib is None:
             so = build_dir() / "libiqo_tpu_torch.so"
             if not so.exists():
-                _build(so)
+                build_seconds, build_log = _build(so, sources())
             _lib = _bind(ctypes.CDLL(str(so)))
         return _lib
+
+
+def _bind_experiments(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, args in (
+            ("iqo_exp_stream_map", [i, p, p, ll, p]),    # op, src, dst, bytes, stream
+            ("iqo_exp_readsum", [p, p, i, i, p]),        # src, dst, h, w, stream
+            # kind, a, b (K-major), out, steps, m, n, k, stream
+            ("iqo_exp_mma_steps", [i, p, p, p, i, i, i, i, p]),
+            # ymode, xmode, band, cy, cx0t, cx1t, cx2t, out, tiles, stream
+            ("iqo_exp_banded", [i, i, p, p, p, p, p, p, i, p]),
+            ("iqo_exp_banded_setup", []),
+            ("iqo_exp_banded_shape", [ctypes.POINTER(i)] * 4)):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i
+    lib.iqo_exp_error_string.argtypes = [i]
+    lib.iqo_exp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_experiments() -> ctypes.CDLL:
+    """The probes' kernel library, built on first use.  Thread-safe."""
+    global _exp_lib, exp_build_seconds, exp_build_log
+    with _exp_lock:
+        if _exp_lib is None:
+            so = exp_build_dir() / "libiqo_tpu_torch_exp.so"
+            if not so.exists():
+                exp_build_seconds, exp_build_log = _build(so, exp_sources())
+            _exp_lib = _bind_experiments(ctypes.CDLL(str(so)))
+        return _exp_lib
