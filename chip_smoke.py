@@ -102,6 +102,18 @@ Phases:
    A, a ``uint8`` ``sum`` fold for B, ``torch._int_mm`` for C, with bf16
    ``torch.matmul`` as a yardstick; none for D), and the measured streaming
    ceilings beside the data sheet's.
+14. The band-fetch probes (the H100 ports of ``scripts/exp_band_shape.py``,
+   ``exp_i32_band.py``, ``exp_overlap.py`` and ``exp_blocked_halo.py``):
+   kernels E, G and H == their plain versions bit for bit at the scripts'
+   full shapes in every form and variant (the seven ``band_ydot`` forms with
+   nonzero streamed operands and its word-load form, whose output must be the
+   byte form's permuted; ``overlap_dots`` in 4 variants x P in 0, 1, 2, 4, 8;
+   ``band_colsum`` in 3 configs x 3 variants); then the four scripts'
+   ``main()``, with every count set to 0 just before; every variant must have
+   launched.  Plain times at the host's pace and library yardsticks under
+   the kernels' own protocol: ``torch._int_mm`` of the dots alone for E and
+   G, over operands laid out outside the timed region, and a strided-view
+   ``sum`` for H, its 8-row broadcast left as an ``expand``.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 2
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -109,6 +121,7 @@ and prints no result.  Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -1270,6 +1283,169 @@ def phase_probes(card: str) -> list:
     return entries
 
 
+def _int8_windows(src: torch.Tensor, offs, rows: int, cols: int, flip: bool) -> torch.Tensor:
+    """The windows ``src[o : o + rows, :cols]`` as int8 (``^ 0x80`` when
+    ``flip``), one after another along N and held column-major:
+    (len(offs) * cols, rows) contiguous, for ``torch._int_mm``'s B."""
+    win = torch.stack([src[o:o + rows, :cols] for o in offs])
+    win = (win ^ 0x80 if flip else win).view(torch.int8)
+    return win.permute(0, 2, 1).reshape(len(offs) * cols, rows).contiguous()
+
+
+def phase_band_fetch(card: str) -> list:
+    """Phase 14, the band-fetch probes: kernels E, G and H == their plain
+    versions at the TPU scripts' full shapes in every form and variant; the
+    four scripts' ``main()`` with every count set to 0 just before; plain and
+    library times.  Returns the three entries of the kernels line."""
+    from libiqo_tpu_torch.experiments import (_harness, exp_band_shape as bs,
+                                              exp_blocked_halo as bh,
+                                              exp_i32_band as ib, exp_overlap as ov)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+
+    # 1. kernel == plain, every form and variant, full shapes
+    err = dict.fromkeys(("band_ydot", "overlap_dots", "band_colsum"), 0.0)
+    coef, src = bs.inputs(dev)
+    ops = bs.operands(dev, seed=SEED + 6)
+    scratch = torch.zeros_like(ops.slab)
+    for form in bs.FORMS:
+        x = src if form in ("base", "arb") else src[None]
+        o = ops if form in ("streams", "vmem") else None
+        err["band_ydot"] = max(err["band_ydot"], probe_err(
+            f"band_ydot {form}", bs.band_ydot(coef, x, form, o,
+                                              scratch if form == "vmem" else None),
+            bs.band_ydot_plain(coef, x, form, o)))
+    check(torch.equal(scratch, ops.slab), "band_ydot vmem: scratch != the slab")
+    words = ib.to_words(src)
+    err["band_ydot"] = max(err["band_ydot"], probe_err(
+        "band_ydot i32", bs.band_ydot(coef, words, "i32"),
+        bs.band_ydot_plain(coef, words, "i32")))
+    ib.rows(coef, src)                      # the i32 output is the u8 output permuted
+    print(f"band_ydot == plain in all {len(bs.FORMS)} forms and the word form at "
+          f"{tuple(src.shape)}, N_T={bs.N_T}; i32 == u8 permuted")
+    osrc, ocoef = ov.inputs(dev)
+    for variant in ov.VARIANTS:
+        for p in ov.PS:
+            err["overlap_dots"] = max(err["overlap_dots"], probe_err(
+                f"overlap_dots {variant} P={p}", ov.overlap_dots(osrc, ocoef, variant, p),
+                ov.overlap_dots_plain(osrc, ocoef, variant, p)))
+    print(f"overlap_dots == plain in all {len(ov.VARIANTS)} variants x P {ov.PS} at "
+          f"{tuple(osrc.shape)}, ND={ov.ND}, N_TY={ov.N_TY}")
+    for name, n_t, step, halo, w, variant, x in bh.sources(dev):
+        err["band_colsum"] = max(err["band_colsum"], probe_err(
+            f"band_colsum {name} {variant}", bh.band_colsum(x, variant, n_t, step, halo),
+            bh.band_colsum_plain(x, variant, n_t, step, halo)))
+        if (name, variant) == ("luma-like", "element"):
+            hx = x
+    print(f"band_colsum == plain in all {len(bh.CONFIGS)} configs x "
+          f"{len(bh.VARIANTS)} variants")
+
+    # 2. the probes' main paths, every count set to 0 just before
+    for mod in (bs, ov, bh):
+        mod.reset_launches()
+    rows = {"bs": bs.main(), "ib": ib.main(), "ov": ov.main(), "bh": bh.main()}
+    torch.cuda.synchronize()
+    launches = {"band_ydot": bs.LAUNCHES.total(), "overlap_dots": ov.LAUNCHES.total(),
+                "band_colsum": bh.LAUNCHES.total()}
+    idle = [f"{mod.__name__.rsplit('.', 1)[-1]}:{v}" for mod in (bs, ov, bh)
+            for v, n in mod.LAUNCHES.items() if n == 0]
+    check(not idle, f"band-fetch variants never launched by main(): {idle}")
+    print(f"band-fetch main() runs -> launches {launches}; by variant "
+          f"{dict(bs.LAUNCHES)} {dict(ov.LAUNCHES)} {dict(bh.LAUNCHES)}")
+
+    # 3. plain times, host-paced; library yardsticks under the kernels' own
+    # protocol (8 perturbed operands back to back), each first held equal to
+    # the plain version
+    def plain_ms(fn, x, n=2):
+        return _harness.launches_ms(fn, _harness.perturbed(x, n), repeats=2,
+                                    primed=False)
+
+    p_ydot = {form: plain_ms(functools.partial(
+        lambda t, f: bs.band_ydot_plain(coef, t, f, ops if f in ("streams", "vmem") else None),
+        f=form), src if form in ("base", "arb") else src[None]) for form in bs.FORMS}
+    p_ydot["i32"] = plain_ms(lambda t: bs.band_ydot_plain(coef, t, "i32"), words)
+    p_overlap = {f"{v} P={p}": plain_ms(functools.partial(
+        lambda t, v, p: ov.overlap_dots_plain(t, ocoef, v, p), v=v, p=p), osrc)
+        for v in ov.VARIANTS for p in (0, 8)}
+    p_colsum = {v: plain_ms(functools.partial(
+        lambda t, v: bh.band_colsum_plain(t, v, 64, 64, 64), v=v), hx) for v in bh.VARIANTS}
+    print(f"plain ms, host-paced: band_ydot {p_ydot}; overlap_dots {p_overlap}; "
+          f"band_colsum luma-like {p_colsum} ({card})")
+
+    # E: C (32, 96) @ the 33 windows side by side, (96, 33 * 3840), column-major
+    e_offs = [bs.STEP * t for t in range(bs.N_T)]
+    wt = _int8_windows(src, e_offs, bs.BAND, bs.W, True)
+    got = torch._int_mm(coef, wt.t()).view(bs.TH, bs.N_T, bs.W).transpose(0, 1)
+    check(torch.equal(got.reshape(bs.N_T * bs.TH, bs.W), bs.band_ydot_plain(coef, src, "base")),
+          "torch._int_mm over the windows != band_ydot_plain base")
+    wts = _harness.perturbed(wt, bs.ITERS)
+    lib_ydot = _harness.launches_ms(lambda t: torch._int_mm(coef, t.t()), wts)
+    del wt, wts
+    # G at P = 8 (elem): [C ... C] (96, 1024) @ the 8 slices of each window
+    # stacked along K, the 12 windows side by side along N
+    clamp_hi = (ov.H - ov.BAND_H) // 32 * 32
+    g_offs = [max(0, min(clamp_hi, ov.STEP * t)) for t in range(ov.N_TY)]
+    st = torch.cat([_int8_windows(osrc, [o + 8 * i for o in g_offs], ov.KD, ov.ND, False)
+                    for i in range(8)], dim=1).contiguous()
+    c8 = torch.cat([ocoef] * 8, dim=1).contiguous()
+    got = (torch._int_mm(c8, st.t()) & 255).to(torch.uint8)
+    got = got.view(ov.TH, ov.N_TY, ov.ND).transpose(0, 1).reshape(ov.N_TY * ov.TH, ov.ND)
+    check(torch.equal(got, ov.overlap_dots_plain(osrc, ocoef, "elem", 8)),
+          "torch._int_mm over the stacked slices != overlap_dots_plain elem P=8")
+    sts = _harness.perturbed(st, ov.ITERS)
+    lib_overlap = _harness.launches_ms(lambda t: torch._int_mm(c8, t.t()), sts)
+    del st, sts
+
+    # H: one sum over a strided view of the overlapping windows
+    def lib_colsum(t):
+        v = t.as_strided((64, 128, t.shape[1]), (64 * t.shape[1], t.shape[1], 1))
+        return v.sum(1, dtype=torch.int32)[:, None].expand(64, 8, t.shape[1])
+    check(torch.equal(lib_colsum(hx).reshape(8 * 64, -1),
+                      bh.band_colsum_plain(hx, "element", 64, 64, 64)),
+          "the strided-view sum != band_colsum_plain element")
+    lib_colsum_ms = _harness.launches_ms(lib_colsum, _harness.perturbed(hx, bh.ITERS))
+
+    e, g, h = rows["bs"]["base"], rows["ov"]["elem P=8"], rows["bh"]["luma-like element"]
+    print(f"probe band_ydot base: kernel {e['ms']!r} ms, plain {p_ydot['base']!r} ms, library "
+          f"torch._int_mm over laid-out windows (the dot alone) {lib_ydot!r} ms, bound "
+          f"{e['bound_ms']!r} ms ({e['bound_by']}) ({card})")
+    print(f"probe overlap_dots elem P=8: kernel {g['ms']!r} ms, plain {p_overlap['elem P=8']!r} ms, "
+          f"library torch._int_mm of [C]*8 over the stacked slices (the dots alone) "
+          f"{lib_overlap!r} ms, bound {g['bound_ms']!r} ms ({g['bound_by']}) ({card})")
+    print(f"probe band_colsum luma-like element: kernel {h['ms']!r} ms, plain "
+          f"{p_colsum['element']!r} ms, library as_strided(...).sum(1, dtype=int32) + expand "
+          f"{lib_colsum_ms!r} ms, bound {h['bound_ms']!r} ms ({h['bound_by']}) ({card})")
+    src_file = "libiqo_tpu_torch/csrc/exp/exp_band.cu"
+    entries = [
+        {"name": "band_ydot", "route": "cuda", "source": src_file,
+         "replaces": "scripts/exp_band_shape.py:65",
+         "also_replaces": ["scripts/exp_band_shape.py:124", "scripts/exp_band_shape.py:147",
+                           "scripts/exp_i32_band.py:65", "scripts/exp_i32_band.py:94"],
+         "launches": launches["band_ydot"], "max_abs_err": err["band_ydot"],
+         "ms": e["ms"], "plain_ms": p_ydot["base"], "bound_ms": e["bound_ms"],
+         "bound_by": e["bound_by"], "library_ms": lib_ydot, "row": "base",
+         "rows": {**{f: v["ms"] for f, v in rows["bs"].items()},
+                  "i32": rows["ib"]["i32"]["ms"], "u8": rows["ib"]["u8"]["ms"]},
+         "plain_rows": p_ydot},
+        {"name": "overlap_dots", "route": "cuda", "source": src_file,
+         "replaces": "scripts/exp_overlap.py:82",
+         "launches": launches["overlap_dots"], "max_abs_err": err["overlap_dots"],
+         "ms": g["ms"], "plain_ms": p_overlap["elem P=8"], "bound_ms": g["bound_ms"],
+         "bound_by": g["bound_by"], "library_ms": lib_overlap, "row": "elem P=8",
+         "rows": {r: v["ms"] for r, v in rows["ov"].items()}, "plain_rows": p_overlap},
+        {"name": "band_colsum", "route": "cuda", "source": src_file,
+         "replaces": "scripts/exp_blocked_halo.py:82",
+         "launches": launches["band_colsum"], "max_abs_err": err["band_colsum"],
+         "ms": h["ms"], "plain_ms": p_colsum["element"], "bound_ms": h["bound_ms"],
+         "bound_by": h["bound_by"], "library_ms": lib_colsum_ms,
+         "row": "luma-like element",
+         "rows": {r: v["ms"] for r, v in rows["bh"].items()},
+         "plain_rows": {f"luma-like {v}": t for v, t in p_colsum.items()}},
+    ]
+    print(f"phase band fetch: {time.perf_counter() - t_phase!r} s")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -1327,6 +1503,7 @@ def main() -> int:
     carry = phase_carry(cuda_resize, yuv, build_plan, numpy_ref,
                         np.random.default_rng(SEED + 4), smi)
     probes = phase_probes(smi)
+    band_fetch = phase_band_fetch(smi)
 
     src = "libiqo_tpu_torch/csrc/resize_fused.cu"
     replaces = "libiqo_tpu/ops/pallas_resize.py:1687"
@@ -1359,7 +1536,7 @@ def main() -> int:
          "exact_kernel_ms": tur["exact_ms"]},
         sharded["wrap16"], sharded["u16"], carry["wrap16_carry"],
         carry["u16_carry"], carry["wrap16_relaxed_carry"],
-        carry["u16_relaxed_carry"], *probes]}))
+        carry["u16_relaxed_carry"], *probes, *band_fetch]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1}}))     # the one card driven

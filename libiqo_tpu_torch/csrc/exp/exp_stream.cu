@@ -113,6 +113,8 @@ const char* iqo_exp_error_string(int code) {
     case 1004: return "unknown mma kind";
     case 1005: return "mma shape not a multiple of the block tile";
     case 1006: return "unknown banded mode";
+    case 1007: return "unknown band-fetch form or variant";
+    case 1008: return "band-fetch geometry not supported";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -7,7 +7,17 @@ one NVIDIA H100, each with a kernel written by hand for Hopper
 * ``exp_int8_mxu``: tensor-core products in f32 (TF32), bf16, s8 -> s32 and
   s8 -> f32 (kernel ``mma_steps``);
 * ``exp_banded_dots``: the Y and X dots of a 4K Lanczos3 tile, monolithic,
-  block-banded or skipped (kernel ``banded_tile``).
+  block-banded or skipped (kernel ``banded_tile``);
+* ``exp_band_shape``: the Y pass of a 2:1 tile in seven launch forms, each
+  adding one ingredient of the resize kernel's band fetch (kernel
+  ``band_ydot``);
+* ``exp_i32_band``: the same Y pass with its band fetched as bytes or as
+  4-byte words unpacked in registers (``band_ydot``'s two load forms);
+* ``exp_overlap``: whether the band fetch overlaps P s8 dots, with
+  synchronous loads or a ``cp.async`` double buffer (kernel
+  ``overlap_dots``);
+* ``exp_blocked_halo``: one overlapping band window against a disjoint step
+  plus a halo, on a column sum (kernel ``band_colsum``).
 
 Each runs on the card as ``python -m libiqo_tpu_torch.experiments.<name>``
 and raises without one.  None of it is on the resize path.

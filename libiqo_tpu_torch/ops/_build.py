@@ -156,7 +156,17 @@ def _bind_experiments(lib: ctypes.CDLL) -> ctypes.CDLL:
             # ymode, xmode, band, cy, cx0t, cx1t, cx2t, out, tiles, stream
             ("iqo_exp_banded", [i, i, p, p, p, p, p, p, i, p]),
             ("iqo_exp_banded_setup", []),
-            ("iqo_exp_banded_shape", [ctypes.POINTER(i)] * 4)):
+            ("iqo_exp_banded_shape", [ctypes.POINTER(i)] * 4),
+            # form, words, src, frame stride, frames, h, w, coef, out,
+            # r0..r2, c0..c2, slab, scratch, slab bytes, stream
+            ("iqo_exp_band_ydot", [i, i, p, ll, i, i, i, p, p, p, p, p, p, p, p, p, p,
+                                   ll, p]),
+            # variant, P, src, h, w, coef, out, nd, n_ty, stream
+            ("iqo_exp_overlap", [i, i, p, i, i, p, p, i, i, p]),
+            ("iqo_exp_overlap_setup", []),
+            # variant, a, b, out, w, n_t, step, halo, stream
+            ("iqo_exp_band_colsum", [i, p, p, p, i, i, i, i, p]),
+            ("iqo_exp_band_shape", [ctypes.POINTER(i)])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i
     lib.iqo_exp_error_string.argtypes = [i]
