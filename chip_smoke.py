@@ -114,6 +114,22 @@ Phases:
    the kernels' own protocol: ``torch._int_mm`` of the dots alone for E and
    G, over operands laid out outside the timed region, and a strided-view
    ``sum`` for H, its 8-row broadcast left as an ``expand``.
+15. The X-pass and legality probes (the H100 ports of
+   ``scripts/exp_x_schemes.py``, ``exp_vpu_xpass.py``, ``exp_vpu_rate.py``,
+   ``exp_slice_align.py`` and ``exp_element_clamp.py``): kernels I-M == their
+   plain versions at the scripts' full shapes and repeat counts in every
+   variant, bit for bit except ``bf16_1dot``, which is held within the f32
+   summation bound ``(K + 1) 2^-24 sum |a c|`` per application (its LSB
+   error against the exact product printed beside the script's);
+   ``slice_groups`` in its u8 form and its int32-sum check form; the TMA
+   window probes X1 (2-D and batch 3), X2 and X3.  Then the five scripts'
+   ``main()``, with every count set to 0 just before; every variant must
+   have launched, the window probes must be OK, and the exactness checks
+   must give the scripts' answers.  Plain times at the host's pace and
+   library yardsticks under the kernels' own protocol (``torch._int_mm`` of
+   the s8 dots alone, ``torch.bmm`` in f32 with TF32 off, bf16 ``torch.bmm``
+   with ``out_dtype=torch.float32``, an int32 chain of elementwise calls, one
+   corner-gathering index).
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 2
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -1446,6 +1462,273 @@ def phase_band_fetch(card: str) -> list:
     return entries
 
 
+def phase_xpass(card: str) -> list:
+    """Phase 15, the X-pass and legality probes: kernels I-M == their plain
+    versions at the TPU scripts' full shapes and full repeat counts in every
+    variant (``bf16_1dot`` within its f32 summation bound; ``slice_groups``
+    in both output forms); the five scripts' ``main()`` with every count set
+    to 0 just before; plain times at the host's pace and library yardsticks.
+    Returns the five entries of the kernels line."""
+    from libiqo_tpu_torch.experiments import (_harness, exp_element_clamp as ec,
+                                              exp_slice_align as sa, exp_vpu_rate as vr,
+                                              exp_vpu_xpass as vx, exp_x_schemes as xs)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    names = ("xscheme_tile", "vpu_xpass_tile", "op_mix", "slice_groups", "window_probe")
+    err = dict.fromkeys(names, 0.0)
+
+    # 1. kernel == plain, every variant, full shapes and repeats
+    w, c = xs.inputs(dev)
+    for v in xs.VARIANTS:
+        cv = xs.build_cvals(v, c)
+        got, want = xs.x_scheme(v, w, cv, xs.R), xs.x_scheme_plain(v, w, cv, xs.R)
+        if v == "bf16_1dot":
+            d = (got.to(torch.int64) - want.to(torch.int64)).abs().to(torch.float64)
+            b = xs.bf16_bound(w, cv, xs.R)
+            check(bool((d <= b).all()), f"x_scheme bf16_1dot: |kernel - plain| exceeds the f32 "
+                  f"summation bound at {int((d > b).sum())} outputs")
+            bf16_err, bf16_share = float(d.max()), float((d / b).max())
+        else:
+            err["xscheme_tile"] = max(err["xscheme_tile"], probe_err(f"x_scheme {v}", got, want))
+    cv = xs.build_cvals("bf16_1dot", c)
+    lsb = xs.lsb_error(xs.x_scheme("bf16_1dot", w, cv, 1), xs.gold(w, c))
+    lsb_plain = xs.lsb_error(xs.x_scheme_plain("bf16_1dot", w, cv, 1), xs.gold(w, c))
+    print(f"x_scheme == plain in all {len(xs.VARIANTS)} variants at R={xs.R}, bit for bit but "
+          f"bf16_1dot: max |kernel - plain| {bf16_err!r} over R={xs.R} ({bf16_share!r} of its "
+          f"bound (K+1) 2^-24 sum|a c| per application); bf16_1dot against gold at R=1: kernel "
+          f"{lsb[0]!r} LSB max, {lsb[1]!r} mean; plain (the f32 rounding of the exact sum) "
+          f"{lsb_plain[0]!r} / {lsb_plain[1]!r}; the script in interpret mode 2.153 / 0.352")
+    ops = vx.operands(dev)
+    for v in vx.VARIANTS:
+        err["vpu_xpass_tile"] = max(err["vpu_xpass_tile"], probe_err(
+            f"vpu_xpass {v}", vx.vpu_xpass(v, ops, vx.R), vx.vpu_xpass_plain(v, ops, vx.R)))
+    print(f"vpu_xpass == plain in all {len(vx.VARIANTS)} variants at R={vx.R}, bit for bit")
+    src = vr.inputs(dev)
+    for mix in vr.MIXES:
+        for p in vr.PS:
+            err["op_mix"] = max(err["op_mix"], probe_err(
+                f"op_mix {mix} P={p}", vr.op_mix(src, mix, p), vr.op_mix_plain(src, mix, p)))
+    print(f"op_mix == plain in all {len(vr.MIXES)} mixes x P {vr.PS} at {tuple(src.shape)}")
+    sw, sops = sa.inputs(dev)
+    for align, kl in sa.CONFIGS:
+        for ck in (False, True):
+            err["slice_groups"] = max(err["slice_groups"], probe_err(
+                f"slice_groups {align},{kl} check={ck}", sa.slice_groups(sw, sops, align, kl, ck),
+                sa.slice_groups_plain(sw, sops, align, kl, ck)))
+    print(f"slice_groups == plain at {sa.CONFIGS} on {tuple(sw.shape)}, u8 and int32 sums")
+    srcs = ec.inputs(dev)
+    for row, fn, plain in (("x1", ec.window_x1, ec.window_x1_plain),
+                           ("x1_batch", ec.window_x1, ec.window_x1_plain),
+                           ("x2", ec.window_x2, ec.window_x2_plain),
+                           ("x3", ec.window_x3, ec.window_x3_plain)):
+        err["window_probe"] = max(err["window_probe"], probe_err(
+            f"window {row}", fn(srcs[row]), plain(srcs[row])))
+    print("window_x1 (2-D and batch 3), window_x2, window_x3 == plain")
+
+    # 2. the probes' main paths, every count set to 0 just before
+    mods = (xs, vx, vr, sa, ec)
+    for mod in mods:
+        mod.reset_launches()
+    rows = {"xs": xs.main(), "vx": vx.main(), "vr": vr.main(), "sa": sa.main(), "ec": ec.main()}
+    torch.cuda.synchronize()
+    launches = {n: mod.LAUNCHES.total() for n, mod in zip(names, mods)}
+    idle = [f"{mod.__name__.rsplit('.', 1)[-1]}:{v}" for mod in mods
+            for v, n in mod.LAUNCHES.items() if n == 0]
+    check(not idle, f"X-pass probe variants never launched by main(): {idle}")
+    bad = [r for r, v in rows["ec"].items() if r in ec.ROWS and not v["ok"]]
+    check(not bad, f"window probes not OK: {bad}")
+    check(all(rows["xs"]["checks"][k] for k in ("f32_exact", "s16_exact")) and
+          not rows["xs"]["checks"]["s8_4dot_gold"] and rows["vx"]["checks"]["corr_i32_exact"],
+          f"x_scheme / vpu_xpass checks: {rows['xs']['checks']} {rows['vx']['checks']}")
+    print(f"X-pass main() runs -> launches {launches}; by variant " +
+          " ".join(str(dict(mod.LAUNCHES)) for mod in mods))
+
+    # 3. plain times, host-paced; library yardsticks under the kernels' own
+    # protocol, each first held equal to the plain version's function
+    def plain_ms(fn, x, n=2):
+        return _harness.launches_ms(fn, _harness.perturbed(x, n), repeats=2, primed=False)
+
+    cv8 = xs.build_cvals("s8_4dot", c)
+    p_xs = plain_ms(lambda t: xs.x_scheme_plain("s8_4dot", t, cv8, xs.R), w)
+    p_vx = _harness.launches_ms(lambda o: vx.vpu_xpass_plain("dense4", o, vx.R),
+                                [ops.perturbed(i) for i in range(2)], repeats=2, primed=False)
+    p_vr = plain_ms(lambda t: vr.op_mix_plain(t, "epi", 8), src)
+    p_sa = plain_ms(lambda t: sa.slice_groups_plain(t, sops, 128, 512), sw)
+    p_ec = plain_ms(ec.window_x1_plain, srcs["x1"])
+    print(f"plain ms, host-paced: x_scheme s8_4dot R={xs.R} {p_xs!r}; vpu_xpass dense4 "
+          f"R={vx.R} {p_vx!r}; op_mix epi P=8 {p_vr!r}; slice_groups 128,512 {p_sa!r}; "
+          f"window_x1 {p_ec!r} ({card})")
+
+    # I: per group, the work planes of 64 applications stacked by rows over
+    # the group's window, (64 x planes x 160, K); the s8 dots alone are
+    # torch._int_mm of the a/b planes (M = 64 x 320) against [e | f]
+    reps = xs.R // 8
+
+    def window_rows(variant, t, dtype):
+        planes = xs.split(variant, xs.repeats(t, 0, reps))
+        return [torch.cat([p[..., k0:k1] for p in planes], dim=1).reshape(-1, xs.K)
+                .to(dtype).contiguous() for k0, k1 in xs.WINDOWS]
+
+    def s8_planes(t):
+        return window_rows("s8_4dot", t, torch.int8)
+
+    eft = [torch.cat([cv8["e"][g], cv8["f"][g]], dim=1).t().contiguous() for g in range(xs.N_G)]
+
+    def lib_s8(planes):
+        return [torch._int_mm(p, e.t()) for p, e in zip(planes, eft)]
+
+    got = lib_s8(s8_planes(w))
+    rec = torch.cat([(d[:xs.TH, :xs.GN].to(torch.int64) * 65536 +
+                      (d[:xs.TH, xs.GN:] + d[xs.TH:2 * xs.TH, :xs.GN]).to(torch.int64) * 256 +
+                      d[xs.TH:2 * xs.TH, xs.GN:].to(torch.int64)) for d in got], dim=1)
+    check(torch.equal(_harness.wrap(rec, 32).to(torch.int32),
+                      xs.x_scheme_plain("s8_4dot", w, cv8, 1)),
+          "torch._int_mm over the stacked planes != x_scheme_plain s8_4dot")
+    lib_xs = _harness.launches_ms(lib_s8, [s8_planes(t) for t in _harness.perturbed(w, 4)]) \
+        * (xs.R // reps)
+    # I f32_2dot: torch.bmm in float32 with TF32 off, the same exact dots
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cf = xs.build_cvals("f32_2dot", c)["cf32"]
+
+    def f32_planes(t):
+        return torch.stack(window_rows("f32_2dot", t, torch.float32))
+
+    fp = f32_planes(w)
+    d = torch.bmm(fp, cf).to(torch.int64)[:, :2 * xs.TH]
+    rec = torch.cat([d[g, :xs.TH] * 256 + d[g, xs.TH:] for g in range(xs.N_G)], dim=1)
+    check(torch.equal(_harness.wrap(rec, 32).to(torch.int32),
+                      xs.x_scheme_plain("f32_2dot", w, {"cf32": cf}, 1)),
+          "torch.bmm f32 != x_scheme_plain f32_2dot")
+    lib_f32 = _harness.launches_ms(lambda t: torch.bmm(t, cf),
+                                   [f32_planes(t) for t in _harness.perturbed(w, 4)]) \
+        * (xs.R // reps)
+    # I bf16_1dot: its dots as one bf16 torch.bmm with float32 output; the
+    # sums' order is cuBLAS's, so it is held within bf16_1dot's bound
+    cb = xs.build_cvals("bf16_1dot", c)["cbf"]
+
+    def bf16_planes(t):
+        return torch.stack(window_rows("bf16_1dot", t, torch.bfloat16))
+
+    d = torch.bmm(bf16_planes(w), cb, out_dtype=torch.float32)[:, :xs.TH]
+    got = torch.cat(list(d), dim=1).to(torch.int32)      # truncated: integer-valued sums
+    want = xs.x_scheme_plain("bf16_1dot", w, {"cbf": cb}, 1)
+    check(bool(((got.to(torch.int64) - want.to(torch.int64)).abs().to(torch.float64)
+                <= xs.bf16_bound(w, {"cbf": cb}, 1)).all()),
+          "torch.bmm bf16 outside bf16_1dot's bound from x_scheme_plain")
+    lib_bf16 = _harness.launches_ms(lambda t: torch.bmm(t, cb, out_dtype=torch.float32),
+                                    [bf16_planes(t) for t in _harness.perturbed(w, 4)]) \
+        * (xs.R // reps)
+    # J dense4: the four bf16 dots of 24 applications as one product
+    cx = torch.cat([ops.cxh, ops.cxl], dim=1)
+
+    def dense_planes(o):
+        hi, lo = vx.split_dense(o.wd, torch.arange(vx.R, device=dev))
+        return torch.cat([hi, lo], dim=1).reshape(1, -1, vx.BAND).to(torch.bfloat16)
+
+    dp = dense_planes(ops)
+    s = torch.bmm(dp, cx[None], out_dtype=torch.float32)[0, :2 * vx.TH].to(torch.int64)
+    rec = (s[:vx.TH, :vx.TW] + s[:vx.TH, vx.TW:]) * 256 + s[vx.TH:, :vx.TW] + s[vx.TH:, vx.TW:]
+    check(torch.equal(_harness.wrap(rec, 32).to(torch.int32), vx.vpu_xpass_plain("dense4", ops, 1)),
+          "torch.bmm(out_dtype=float32) != vpu_xpass_plain dense4")
+    lib_vx = _harness.launches_ms(lambda t: torch.bmm(t, cx[None], out_dtype=torch.float32),
+                                  [dense_planes(ops.perturbed(i)) for i in range(4)])
+    # K: the epi mix as a chain of int32 elementwise calls
+    def lib_epi(x):
+        v, acc = x.clone(), torch.zeros_like(x)
+        for _ in range(8):
+            m = torch.bitwise_right_shift(v + 32, 6)
+            acc ^= (((m + 32768) & 65535) - 32768).clamp_(0, 255)
+            v += 1
+        return acc
+    check(torch.equal(lib_epi(src), vr.op_mix_plain(src, "epi", 8)),
+          "the int32 chain != op_mix_plain epi P=8")
+    lib_vr = _harness.launches_ms(lib_epi, _harness.perturbed(src, vr.ITERS))
+    # L: the banded dots alone, 15 groups as one batched product per plane,
+    # timed over ITERS perturbed tile stacks as the kernel
+    gk = sa.groups(128, 512)
+
+    def slice_windows(t):
+        return [torch.stack([p.reshape(-1, sa.BW)[:, k0:k0 + 512] for _, k0 in gk])
+                .to(torch.bfloat16).contiguous() for p in sa.split(t)]
+
+    lhs = slice_windows(sw)
+    rhs = [torch.stack([cc[k0:k0 + 512, o0:o0 + sa.GN] for o0, k0 in gk]).contiguous()
+           for cc in sops.c]
+    d = [torch.bmm(x, y, out_dtype=torch.float32).to(torch.int64) for x, y in zip(lhs, rhs)]
+    s = _harness.wrap(d[0] * 65280 - d[1] * 255 + d[2] * 256, 32)
+    s = s.permute(1, 0, 2).reshape(sw.shape[0], sa.TH, sa.TWF).to(torch.int32)
+    check(torch.equal(s, sa.slice_groups_plain(sw, sops, 128, 512, check=True)),
+          "torch.bmm(out_dtype=float32) over the windows != slice_groups_plain sums")
+    lib_sa = _harness.launches_ms(
+        lambda ls: [torch.bmm(x, y, out_dtype=torch.float32) for x, y in zip(ls, rhs)],
+        [slice_windows(t) for t in _harness.perturbed(sw, sa.ITERS)])
+    del lhs, d
+    # M: one indexing call gathering the 16 corners
+    rows_i, cols_i = ec._corner_index(dev)
+    flat = (rows_i[:, None] * ec.W + cols_i[None, :]).contiguous()
+    check(torch.equal(srcs["x1"].view(-1)[flat], ec.window_x1_plain(srcs["x1"])),
+          "the corner gather != window_x1_plain")
+    lib_ec = _harness.launches_ms(lambda t: t.view(-1)[flat],
+                                  _harness.perturbed(srcs["x1"], ec.ITERS))
+    print(f"library: torch._int_mm of the s8 dots alone {lib_xs!r} ms per {xs.R} applications; "
+          f"torch.bmm f32 (TF32 off) {lib_f32!r}; bf16_1dot's dots as one bf16 torch.bmm with "
+          f"float32 out {lib_bf16!r}; dense4's dots as one bf16 torch.bmm with "
+          f"float32 out {lib_vx!r} ms per {vx.R}; int32 epi chain {lib_vr!r}; slice dots as 3 "
+          f"bf16 torch.bmm with float32 out {lib_sa!r}; corner gather {lib_ec!r} ({card})")
+
+    x, j, k, l_, m = (rows["xs"]["s8_4dot"], rows["vx"]["dense4"], rows["vr"]["epi P=8"],
+                      rows["sa"]["k0%128, kl=512"], rows["ec"]["x1"])
+    entries = [
+        {"name": "xscheme_tile", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_xpass.cu",
+         "replaces": "scripts/exp_x_schemes.py:156",
+         "also_replaces": ["scripts/exp_x_schemes.py:230", "scripts/exp_x_schemes.py:248",
+                           "scripts/exp_x_schemes.py:271"],
+         "launches": launches["xscheme_tile"], "max_abs_err": err["xscheme_tile"],
+         "bf16_1dot_max_abs_err": bf16_err, "bf16_1dot_bound_share": bf16_share,
+         "bf16_1dot_lsb_vs_gold": lsb, "ms": x["ms"], "plain_ms": p_xs,
+         "bound_ms": x["bound_ms"], "bound_by": x["bound_by"], "library_ms": lib_xs,
+         "row": f"s8_4dot R={xs.R}", "f32_library_ms": lib_f32,
+         "bf16_library_ms": lib_bf16,
+         "us_per_app": {v: rows["xs"][v]["us_per_app"] for v in xs.VARIANTS},
+         "rows": {v: rows["xs"][v]["ms"] for v in xs.VARIANTS}},
+        {"name": "vpu_xpass_tile", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_xpass.cu",
+         "replaces": "scripts/exp_vpu_xpass.py:156",
+         "also_replaces": ["scripts/exp_vpu_xpass.py:191"],
+         "launches": launches["vpu_xpass_tile"], "max_abs_err": err["vpu_xpass_tile"],
+         "ms": j["ms"], "plain_ms": p_vx, "bound_ms": j["bound_ms"], "bound_by": j["bound_by"],
+         "library_ms": lib_vx, "row": f"dense4 R={vx.R}",
+         "us_per_app": {v: rows["vx"][v]["us_per_app"] for v in vx.VARIANTS},
+         "rows": {v: rows["vx"][v]["ms"] for v in vx.VARIANTS}},
+        {"name": "op_mix", "route": "cuda", "source": "libiqo_tpu_torch/csrc/exp/exp_vpu.cu",
+         "replaces": "scripts/exp_vpu_rate.py:50",
+         "launches": launches["op_mix"], "max_abs_err": err["op_mix"],
+         "ms": k["ms"], "plain_ms": p_vr, "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+         "library_ms": lib_vr, "row": "epi P=8",
+         "rows": {r: v["ms"] for r, v in rows["vr"].items() if "P=" in r},
+         "per_rep": {mx: rows["vr"][mx] for mx in vr.MIXES}},
+        {"name": "slice_groups", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_slice.cu",
+         "replaces": "scripts/exp_slice_align.py:56",
+         "launches": launches["slice_groups"], "max_abs_err": err["slice_groups"],
+         "ms": l_["ms"], "plain_ms": p_sa, "bound_ms": l_["bound_ms"],
+         "bound_by": l_["bound_by"], "library_ms": lib_sa, "row": "k0%128, kl=512",
+         "rows": {r: v["ms"] for r, v in rows["sa"].items()}},
+        {"name": "window_probe", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_clamp.cu",
+         "replaces": "scripts/exp_element_clamp.py:44",
+         "also_replaces": ["scripts/exp_element_clamp.py:83", "scripts/exp_element_clamp.py:127"],
+         "launches": launches["window_probe"], "max_abs_err": err["window_probe"],
+         "ms": m["ms"], "plain_ms": p_ec, "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+         "library_ms": lib_ec, "row": "x1",
+         "rows": {r: v["ms"] for r, v in rows["ec"].items() if r in ec.ROWS},
+         "x2_past_end_zeros": rows["ec"]["x2_past_end"]["all_zeros"]},
+    ]
+    print(f"phase xpass: {time.perf_counter() - t_phase!r} s")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -1504,6 +1787,7 @@ def main() -> int:
                         np.random.default_rng(SEED + 4), smi)
     probes = phase_probes(smi)
     band_fetch = phase_band_fetch(smi)
+    xpass = phase_xpass(smi)
 
     src = "libiqo_tpu_torch/csrc/resize_fused.cu"
     replaces = "libiqo_tpu/ops/pallas_resize.py:1687"
@@ -1536,7 +1820,7 @@ def main() -> int:
          "exact_kernel_ms": tur["exact_ms"]},
         sharded["wrap16"], sharded["u16"], carry["wrap16_carry"],
         carry["u16_carry"], carry["wrap16_relaxed_carry"],
-        carry["u16_relaxed_carry"], *probes, *band_fetch]}))
+        carry["u16_relaxed_carry"], *probes, *band_fetch, *xpass]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1}}))     # the one card driven

@@ -1,0 +1,270 @@
+// Window legality probes for Hopper (sm_90a), kernel M: the port's first TMA
+// and bulk copies.
+//
+// window_x1: on a (160, 640) i32 source, or a batch of them, tile (ty, tx)
+//   of a (4, 4) grid loads a (64, 256) window at (clamp(32 ty - 32, 0, 96),
+//   clamp(128 tx - 128, 0, 384)) as one TMA box (cp.async.bulk.tensor.2d, or
+//   .3d for the batch, completing on an mbarrier; the coordinates clamped in
+//   the kernel from blockIdx, as the TPU index map clamps them) and writes the
+//   window's top-left (32, 128) to out tile (ty, tx): out (128, 512) i32 per
+//   plane.  One block of 256 threads per (tx, ty, plane).
+// window_x2: one (64, 256) box at row 128 of the (160, 640) source: its last
+//   32 rows lie past the end, and TMA fills them with zeros
+//   (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE).  Rows 0-31, columns 0-127 (inside the
+//   source) go to out (32, 128); `spill`, if given, takes the whole box, so
+//   that the caller can see what the rows past the end held.
+// window_x3: the TPU's sequential grid of 4 with its scratch carried from
+//   step 0, as one block looping over t: at t = 0 one 1-D bulk copy
+//   (cp.async.bulk global -> shared on an mbarrier, the counterpart of
+//   make_async_copy and its DMA semaphore) of var (3, 64, 256) f32, 192 KB of
+//   dynamic shared memory; step t writes scratch[v(t)], v = 0, 1, 1, 2
+//   computed at run time (the loop is not unrolled), to out[t].
+//
+// Replaces the TPU kernels of scripts/exp_element_clamp.py: run_x1
+// (pl.pallas_call at :44), run_x2 (:83) and run_x3 (:127).  The Python side
+// is libiqo_tpu_torch/experiments/exp_element_clamp.py.
+//
+// The tensor maps are encoded on the host by cuTensorMapEncodeTiled, fetched
+// through cudaGetDriverEntryPoint, so the library keeps its one nvcc -shared
+// command and links no libcuda; each map is a __grid_constant__
+// parameter.
+//
+// What bounds them on the H100: launch latency.  X1 moves 262 KB (786 KB
+// for the batch of 3), X2 32 KB, X3 448 KB: under a microsecond at 3.35
+// TB/s.  The probes ask whether the copies are legal and right, not how fast.
+
+#include <cstdint>
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kH = 160, kW = 640;
+constexpr int kTH = 32, kTW = 128, kBandH = 64, kBandW = 256;
+constexpr int kNTy = 4, kNTx = 4;
+constexpr int kHiH = (kH - kBandH) / 32 * 32, kHiW = (kW - kBandW) / 128 * 128;
+constexpr int kOutH = kNTy * kTH, kOutW = kNTx * kTW;
+constexpr int kBoxBytes = kBandH * kBandW * 4;
+constexpr int kNVar = 3, kA = 64, kB = 256;
+constexpr int kVarBytes = kNVar * kA * kB * 4;
+constexpr int kAlign = 128;                 // TMA's shared-memory destination alignment
+constexpr int kThreads = 256;
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint8_t* aligned(uint8_t* p) {
+  const uint32_t s = smem_u32(p);
+  return p + ((kAlign - s % kAlign) % kAlign);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_u32(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(smem_u32(bar)), "r"(phase) : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int x, int y,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+         "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int x, int y, int z,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
+         "r"(smem_u32(bar)) : "memory");
+}
+
+// rows x cols i32 from box (256 wide) to dst (pitch wide), 16 bytes a thread
+__device__ __forceinline__ void copy_out(const int32_t* box, int32_t* dst, int rows, int cols,
+                                         int pitch) {
+  for (int i = threadIdx.x; i < rows * cols / 4; i += kThreads) {
+    const int r = i / (cols / 4), c = 4 * (i % (cols / 4));
+    *reinterpret_cast<int4*>(dst + (long long)r * pitch + c) =
+        *reinterpret_cast<const int4*>(box + r * kBandW + c);
+  }
+}
+
+template <bool kBatched>
+__global__ void __launch_bounds__(kThreads)
+window_x1_kernel(const __grid_constant__ CUtensorMap map, int32_t* __restrict__ out) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar;
+  int32_t* box = reinterpret_cast<int32_t*>(aligned(smem_raw));
+  const int tx = blockIdx.x, ty = blockIdx.y, plane = blockIdx.z;
+  const int oy = max(0, min(kHiH, ty * kTH - 32)), ox = max(0, min(kHiW, tx * kTW - 128));
+  if (threadIdx.x == 0) mbar_init(&bar);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect(&bar, kBoxBytes);
+    if constexpr (kBatched)
+      tma_3d(box, &map, ox, oy, plane, &bar);
+    else
+      tma_2d(box, &map, ox, oy, &bar);
+  }
+  mbar_wait(&bar, 0);
+  copy_out(box, out + (long long)plane * kOutH * kOutW + (long long)ty * kTH * kOutW + tx * kTW,
+           kTH, kTW, kOutW);
+}
+
+__global__ void __launch_bounds__(kThreads)
+window_x2_kernel(const __grid_constant__ CUtensorMap map, int32_t* __restrict__ out,
+                 int32_t* __restrict__ spill) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar;
+  int32_t* box = reinterpret_cast<int32_t*>(aligned(smem_raw));
+  if (threadIdx.x == 0) mbar_init(&bar);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect(&bar, kBoxBytes);                 // the whole box, zeros included
+    tma_2d(box, &map, 0, (kH - 32) / 32 * 32, &bar);
+  }
+  mbar_wait(&bar, 0);
+  copy_out(box, out, 32, kTW, kTW);
+  if (spill != nullptr) copy_out(box, spill, kBandH, kBandW, kBandW);
+}
+
+__global__ void __launch_bounds__(kThreads)
+window_x3_kernel(const float* __restrict__ var, float* __restrict__ out, int steps) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar;
+  float* scratch = reinterpret_cast<float*>(aligned(smem_raw));
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    if (t == 0) {
+      if (threadIdx.x == 0) {
+        mbar_init(&bar);
+        mbar_expect(&bar, kVarBytes);
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];\n"
+            :: "r"(smem_u32(scratch)), "l"(reinterpret_cast<uint64_t>(var)), "r"(kVarBytes), "r"(smem_u32(&bar))
+            : "memory");
+      }
+      __syncthreads();                            // the barrier is initialised
+      mbar_wait(&bar, 0);
+    }
+    const int v = t == 0 ? 0 : (t == 3 ? 2 : 1);
+    const float* src = scratch + v * kA * kB;
+    float* dst = out + (long long)t * kA * kB;
+    for (int i = threadIdx.x; i < kA * kB / 4; i += kThreads)
+      reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
+  }
+}
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess || q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A map of `planes` (160, 640) i32 planes (2-D when planes == 0) with a
+// (64, 256) box, out-of-bounds elements read as zeros.
+int encode(CUtensorMap* map, const void* src, int planes) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return 1010;
+  const cuuint64_t dims[3] = {kW, kH, static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {kW * 4ull, kW * kH * 4ull};
+  const cuuint32_t box[3] = {kBandW, kBandH, 1};
+  const cuuint32_t estrides[3] = {1, 1, 1};
+  const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_INT32, planes ? 3 : 2,
+                         const_cast<void*>(src), dims, strides, box, estrides,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : 1009;
+}
+
+constexpr int kBoxSmem = kBoxBytes + kAlign;
+constexpr int kVarSmem = kVarBytes + kAlign;
+
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
+
+}  // namespace
+
+extern "C" {
+
+// Raise kernel M's dynamic shared-memory limits on the current device.
+int iqo_exp_window_setup() {
+  int rc = static_cast<int>(cudaFuncSetAttribute(
+      window_x1_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBoxSmem));
+  if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
+      window_x1_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBoxSmem));
+  if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
+      window_x2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBoxSmem));
+  if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
+      window_x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kVarSmem));
+  return rc;
+}
+
+// X1: src (160, 640) i32, or (planes, 160, 640) when planes > 0 -> out
+// (128, 512), or (planes, 128, 512).
+int iqo_exp_window_x1(const void* src, void* out, int planes, void* stream) {
+  if (planes < 0) return 1008;
+  if (misaligned(src) || misaligned(out)) return 1002;
+  CUtensorMap map;
+  if (const int rc = encode(&map, src, planes)) return rc;
+  auto s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(kNTx, kNTy, planes ? planes : 1);
+  if (planes)
+    window_x1_kernel<true><<<grid, kThreads, kBoxSmem, s>>>(map, static_cast<int32_t*>(out));
+  else
+    window_x1_kernel<false><<<grid, kThreads, kBoxSmem, s>>>(map, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// X2: src (160, 640) i32 -> out (32, 128); spill (64, 256) or NULL.
+int iqo_exp_window_x2(const void* src, void* out, void* spill, void* stream) {
+  if (misaligned(src) || misaligned(out) || (spill != nullptr && misaligned(spill))) return 1002;
+  CUtensorMap map;
+  if (const int rc = encode(&map, src, 0)) return rc;
+  window_x2_kernel<<<1, kThreads, kBoxSmem, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<int32_t*>(out), static_cast<int32_t*>(spill));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// X3: var (3, 64, 256) f32 -> out (steps, 64, 256), steps <= 4.
+int iqo_exp_window_x3(const void* var, void* out, int steps, void* stream) {
+  if (steps < 1 || steps > 4) return 1008;
+  if (misaligned(var) || misaligned(out)) return 1002;
+  window_x3_kernel<<<1, kThreads, kVarSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(var), static_cast<float*>(out), steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -113,8 +113,10 @@ const char* iqo_exp_error_string(int code) {
     case 1004: return "unknown mma kind";
     case 1005: return "mma shape not a multiple of the block tile";
     case 1006: return "unknown banded mode";
-    case 1007: return "unknown band-fetch form or variant";
-    case 1008: return "band-fetch geometry not supported";
+    case 1007: return "unknown probe form or variant";
+    case 1008: return "probe geometry not supported";
+    case 1009: return "cuTensorMapEncodeTiled refused the tensor map";
+    case 1010: return "cuTensorMapEncodeTiled is not available";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -17,7 +17,18 @@ one NVIDIA H100, each with a kernel written by hand for Hopper
   synchronous loads or a ``cp.async`` double buffer (kernel
   ``overlap_dots``);
 * ``exp_blocked_halo``: one overlapping band window against a disjoint step
-  plus a halo, on a column sum (kernel ``band_colsum``).
+  plus a halo, on a column sum (kernel ``band_colsum``);
+* ``exp_x_schemes``: the X pass of one resize work tile as four s8 dots, two
+  f32 dots, an int32 IMAD dot (the substitute for an s16 product) or one bf16
+  dot, repeated in the kernel (kernel ``xscheme_tile``);
+* ``exp_vpu_xpass``: a 12-tap stride-2 correlation on CUDA cores against the
+  dense X pass of four bf16 dots (kernel ``vpu_xpass_tile``);
+* ``exp_vpu_rate``: the cost per element of the resize's elementwise op
+  mixes, P repeats (kernel ``op_mix``);
+* ``exp_slice_align``: 15 grouped Karatsuba bf16 dot triples per 4K row tile
+  with K windows aligned to 128, 64 or 32 (kernel ``slice_groups``);
+* ``exp_element_clamp``: clamped windows, a window past the array's end and a
+  dynamic scratch index, as TMA boxes and a bulk copy (the window probes).
 
 Each runs on the card as ``python -m libiqo_tpu_torch.experiments.<name>``
 and raises without one.  None of it is on the resize path.

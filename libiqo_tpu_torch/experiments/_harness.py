@@ -21,6 +21,7 @@ card, and every result line carries the card's name and power limit.
 
 from __future__ import annotations
 
+import functools
 import subprocess
 import threading
 import time
@@ -30,9 +31,9 @@ import torch
 
 from ..ops import _build
 
-__all__ = ["BF16_OPS_PER_S", "HBM_BYTES_PER_S", "INT8_OPS_PER_S", "Launches",
-           "TF32_OPS_PER_S", "card", "chain_ms", "check_rc",
-           "checksum", "lib", "launches_ms", "on_card", "perturbed",
+__all__ = ["BF16_OPS_PER_S", "FP32_OPS_PER_S", "HBM_BYTES_PER_S", "INT32_OPS_PER_S",
+           "INT8_OPS_PER_S", "Launches", "TF32_OPS_PER_S", "card", "chain_ms", "check_rc",
+           "checksum", "lib", "lib_with_setup", "launches_ms", "on_card", "perturbed",
            "require_card", "run_chain", "signed32", "wrap"]
 
 # the H100 SXM data sheet: memory rate, bytes/s, and dense tensor-core
@@ -41,6 +42,13 @@ HBM_BYTES_PER_S = 3.35e12
 TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
+# CUDA cores: the data sheet's FP32 rate (two operations per FMA), and 32-bit
+# integer operations (multiply-add, add, shift, logic, min/max) at 64 per
+# clock per SM (the CUDA C++ Programming Guide's throughput table, compute
+# capability 9.0) on 132 SMs at the 1,980 MHz boost clock that gives the
+# data sheet's FP32 rate
+FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 _SPIN_MARGIN = 2.0              # spin this much longer than the host's enqueue
 
 
@@ -86,6 +94,16 @@ def on_card(*tensors: torch.Tensor) -> bool:
 def lib():
     """The probes' kernel library (built on first use; raises without nvcc)."""
     return _build.load_experiments()
+
+
+@functools.cache
+def lib_with_setup(symbol: str, device: torch.device):
+    """The probes' library with the setup ``symbol`` (a kernel's shared-memory
+    opt-in) run once on ``device``."""
+    lib_ = lib()
+    with torch.cuda.device(device):
+        check_rc(getattr(lib_, symbol)(), symbol)
+    return lib_
 
 
 def check_rc(rc: int, what: str) -> None:

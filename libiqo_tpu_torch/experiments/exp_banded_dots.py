@@ -146,9 +146,7 @@ def _lib_for(device: torch.device):
     if tuple(d.value for d in dims) != (TH, BH, BW, TW):
         raise RuntimeError(f"kernel D's tile {[d.value for d in dims]} != "
                            f"{(TH, BH, BW, TW)}")
-    with torch.cuda.device(device):
-        _harness.check_rc(lib.iqo_exp_banded_setup(), "banded_tile setup")
-    return lib
+    return _harness.lib_with_setup("iqo_exp_banded_setup", device)
 
 
 def banded_tile(ops: BandedOperands, band: torch.Tensor, ymode: str,

@@ -1,0 +1,232 @@
+"""Whether the band windows the padless resize design wants are legal on the
+card: clamped windows, a window past the array's end, and a dynamic index
+into a scratch filled by one copy.
+
+Port of ``scripts/exp_element_clamp.py`` to one NVIDIA H100.  Kernel M
+(``libiqo_tpu_torch/csrc/exp/exp_clamp.cu``), the port's first TMA and bulk
+copies, replaces the three ``pl.pallas_call`` sites:
+
+* ``window_x1(src)`` for ``run_x1`` (``:44``): on a (160, 640) int32 source,
+  or a batch of 3, a grid of (4, 4) tiles; tile (ty, tx) loads a (64, 256)
+  window at ``(clamp(32 ty - 32, 0, 96), clamp(128 tx - 128, 0, 384))`` as
+  **one TMA box** (``cp.async.bulk.tensor.2d``, 3-D for the batch, on an
+  mbarrier; the coordinates clamped in the kernel from ``blockIdx``, as the
+  index map does) and writes its top-left (32, 128) to out tile (ty, tx):
+  (128, 512), or (3, 128, 512);
+* ``window_x2(src)`` for ``run_x2`` (``:83``): one (64, 256) box at row 128 of
+  the (160, 640) source, so 32 of its rows lie past the end; TMA fills them
+  with zeros.  Rows 0-31, columns 0-127 (all inside the source) are written,
+  (32, 128); ``spill`` takes the whole box, for :func:`main` to report what
+  the rows past the end held (not gated);
+* ``window_x3(var)`` for ``run_x3`` (``:127``): the TPU's sequential grid of 4
+  with its scratch carried: one block loops over t = 0..3; at t = 0 it makes
+  one 1-D bulk copy (``cp.async.bulk``) of ``var`` (3, 64, 256) float32 (192
+  KB) into dynamic shared memory on an mbarrier, the counterpart of
+  ``make_async_copy`` and its semaphore; step t writes ``scratch[v(t)]``,
+  ``v = 0, 1, 1, 2`` computed at run time, to ``out[t]``: (4, 64, 256).
+
+The tensor maps are encoded on the host by ``cuTensorMapEncodeTiled``,
+fetched through ``cudaGetDriverEntryPoint`` (the one ``nvcc -shared`` links
+no ``libcuda``), and passed as ``__grid_constant__`` parameters.
+
+Run on a card: ``python -m libiqo_tpu_torch.experiments.exp_element_clamp``.
+"""
+
+from __future__ import annotations
+
+
+import numpy as np
+import torch
+
+from . import _harness
+from ._harness import HBM_BYTES_PER_S, Launches
+
+__all__ = ["LAUNCHES", "ROWS", "bound", "inputs", "main", "window_x1", "window_x1_plain",
+           "window_x2", "window_x2_plain", "window_x3", "window_x3_plain"]
+
+H, W = 160, 640
+TH, TW = 32, 128
+BAND_H, BAND_W = 64, 256
+STEP_H, STEP_W = 32, 128
+PAD_LO_H, PAD_LO_W = 32, 128
+N_TY, N_TX = 4, 4
+BATCH = 3
+N_VAR, A, B = 3, 64, 256
+X3_STEPS = 4
+ROWS = ("x1", "x1_batch", "x2", "x3")
+ITERS = 8
+LAUNCHES = Launches(ROWS)
+
+
+def reset_launches() -> None:
+    LAUNCHES.reset()
+
+
+def inputs(device) -> dict[str, torch.Tensor]:
+    """The scripts' sources: ``x1`` and ``x1_batch`` each from a fresh seed 0
+    (``:67-72``), in [0, 2^20) int32; ``x2`` ``arange`` (160, 640) int32
+    (``:96``); ``x3`` ``arange`` (3, 64, 256) float32 (``:149``)."""
+    def draw(shape):
+        rng = np.random.default_rng(0)
+        return torch.from_numpy(rng.integers(0, 1 << 20, shape).astype(np.int32)).to(device)
+    return {"x1": draw((H, W)), "x1_batch": draw((BATCH, H, W)),
+            "x2": torch.arange(H * W, dtype=torch.int32, device=device).reshape(H, W),
+            "x3": torch.arange(N_VAR * A * B, dtype=torch.float32,
+                               device=device).reshape(N_VAR, A, B)}
+
+
+def _offsets(n: int, step: int, pad: int, hi: int) -> list[int]:
+    return [min(max(0, t * step - pad), hi) for t in range(n)]
+
+
+def _corner_index(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Source row of each output row and source column of each output column."""
+    hi_h, hi_w = (H - BAND_H) // 32 * 32, (W - BAND_W) // 128 * 128
+    rows = torch.tensor([o + i for o in _offsets(N_TY, STEP_H, PAD_LO_H, hi_h)
+                         for i in range(TH)], device=device)
+    cols = torch.tensor([o + j for o in _offsets(N_TX, STEP_W, PAD_LO_W, hi_w)
+                         for j in range(TW)], device=device)
+    return rows, cols
+
+
+def _check_src(src: torch.Tensor, batched: bool) -> None:
+    shape = (src.shape[0], H, W) if batched else (H, W)
+    if src.dtype != torch.int32 or tuple(src.shape) != shape or (batched and src.shape[0] < 1):
+        raise ValueError(f"src must be {'(B, ' if batched else '('}{H}, {W}) int32, got "
+                         f"{tuple(src.shape)} {src.dtype}")
+
+
+def window_x1_plain(src: torch.Tensor) -> torch.Tensor:
+    """``run_x1``'s function: each tile's clamped window corner, (..., 128, 512)."""
+    _check_src(src, src.ndim == 3)
+    rows, cols = _corner_index(src.device)
+    return src[..., rows, :][..., cols].contiguous()
+
+
+def window_x2_plain(src: torch.Tensor) -> torch.Tensor:
+    """``run_x2``'s function: rows 128-159, columns 0-127, (32, 128)."""
+    _check_src(src, False)
+    r0 = (H - 32) // 32 * 32
+    return src[r0:r0 + 32, :TW].clone()
+
+
+def window_x3_plain(var: torch.Tensor) -> torch.Tensor:
+    """``run_x3``'s function: ``var[[0, 1, 1, 2]]``, (4, 64, 256)."""
+    if var.dtype != torch.float32 or tuple(var.shape) != (N_VAR, A, B):
+        raise ValueError(f"var must be ({N_VAR}, {A}, {B}) float32, got "
+                         f"{tuple(var.shape)} {var.dtype}")
+    return var[[0, 1, 1, 2]].clone()
+
+
+def window_x1(src: torch.Tensor) -> torch.Tensor:
+    """Kernel M, X1: src (160, 640) or (B, 160, 640) int32 -> (..., 128, 512).
+    A CPU tensor takes :func:`window_x1_plain`; a CUDA tensor launches the
+    kernel or raises."""
+    batched = src.ndim == 3
+    _check_src(src, batched)
+    if not _harness.on_card(src):
+        return window_x1_plain(src)
+    if not src.is_contiguous():
+        raise ValueError("window_x1 takes a contiguous source")
+    out = torch.empty((*src.shape[:-2], N_TY * TH, N_TX * TW), dtype=torch.int32,
+                      device=src.device)
+    lib = _harness.lib_with_setup("iqo_exp_window_setup", src.device)
+    _harness.check_rc(lib.iqo_exp_window_x1(
+        src.data_ptr(), out.data_ptr(), src.shape[0] if batched else 0, _harness.stream(src)),
+        "window_x1")
+    LAUNCHES.add("x1_batch" if batched else "x1")
+    return out
+
+
+def window_x2(src: torch.Tensor, spill: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel M, X2: src (160, 640) int32 -> (32, 128); ``spill`` (64, 256)
+    int32, if given, takes the whole box (the card only).  A CPU tensor takes
+    :func:`window_x2_plain`; a CUDA tensor launches the kernel or raises."""
+    _check_src(src, False)
+    if spill is not None and (spill.dtype != torch.int32 or
+                              tuple(spill.shape) != (BAND_H, BAND_W)):
+        raise ValueError(f"spill must be ({BAND_H}, {BAND_W}) int32")
+    if not _harness.on_card(src, *(() if spill is None else (spill,))):
+        return window_x2_plain(src)
+    if not src.is_contiguous() or (spill is not None and not spill.is_contiguous()):
+        raise ValueError("window_x2 takes contiguous tensors")
+    out = torch.empty((32, TW), dtype=torch.int32, device=src.device)
+    lib = _harness.lib_with_setup("iqo_exp_window_setup", src.device)
+    _harness.check_rc(lib.iqo_exp_window_x2(
+        src.data_ptr(), out.data_ptr(), None if spill is None else spill.data_ptr(),
+        _harness.stream(src)), "window_x2")
+    LAUNCHES.add("x2")
+    return out
+
+
+def window_x3(var: torch.Tensor) -> torch.Tensor:
+    """Kernel M, X3: var (3, 64, 256) float32 -> (4, 64, 256).  A CPU tensor
+    takes :func:`window_x3_plain`; a CUDA tensor launches the kernel or
+    raises."""
+    if var.dtype != torch.float32 or tuple(var.shape) != (N_VAR, A, B):
+        raise ValueError(f"var must be ({N_VAR}, {A}, {B}) float32, got "
+                         f"{tuple(var.shape)} {var.dtype}")
+    if not _harness.on_card(var):
+        return window_x3_plain(var)
+    if not var.is_contiguous():
+        raise ValueError("window_x3 takes a contiguous var")
+    out = torch.empty((X3_STEPS, A, B), dtype=torch.float32, device=var.device)
+    lib = _harness.lib_with_setup("iqo_exp_window_setup", var.device)
+    _harness.check_rc(lib.iqo_exp_window_x3(
+        var.data_ptr(), out.data_ptr(), X3_STEPS, _harness.stream(var)), "window_x3")
+    LAUNCHES.add("x3")
+    return out
+
+
+def bound(row: str) -> tuple[float, str, int]:
+    """(ms, 'bytes', bytes) of one launch: what the function reads and writes,
+    once each, at 3.35 TB/s (a launch's latency is far longer)."""
+    corners = N_TY * N_TX * TH * TW * 4
+    nbytes = {"x1": 2 * corners, "x1_batch": 2 * BATCH * corners,
+              "x2": 2 * 32 * TW * 4, "x3": (N_VAR + X3_STEPS) * A * B * 4}[row]
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def main() -> dict:
+    """The script's four runs on card 0, each held to its plain version, with
+    the script's OK / WRONG / REJECTED lines; returns {row: {ok, ms, ...},
+    "x2_past_end": ...}."""
+    _harness.require_card()
+    card = _harness.card()
+    srcs = inputs(torch.device("cuda", 0))
+    calls = {"x1": (window_x1, window_x1_plain), "x1_batch": (window_x1, window_x1_plain),
+             "x2": (window_x2, window_x2_plain), "x3": (window_x3, window_x3_plain)}
+    label = {"x1": "X1 batch=None", "x1_batch": f"X1 batch={BATCH}",
+             "x2": "X2 (OOB-high Element window)", "x3": "X3 (dynamic scratch leading index)"}
+    rows = {}
+    for row, (fn, plain) in calls.items():
+        x = srcs[row]
+        try:
+            ok = torch.equal(fn(x), plain(x))
+        except RuntimeError as e:        # a refused launch or tensor map: the script's REJECTED
+            print(f"{label[row]}: REJECTED: {type(e).__name__}: {str(e)[:300]}", flush=True)
+            rows[row] = {"ok": False, "rejected": True}
+            continue
+        verdict = ("OK" if ok else "VALUE MISMATCH") if row.startswith("x1") else \
+            ("ran, in-bounds part " + ("OK" if ok else "WRONG")) if row == "x2" else \
+            ("ran, " + ("OK" if ok else "WRONG VALUES"))
+        ms = _harness.launches_ms(fn, _harness.perturbed(x, ITERS))
+        b_ms, by, nbytes = bound(row)
+        print(f"{label[row]}: {verdict}; {ms * 1e3!r} us per launch, {nbytes} bytes, bound "
+              f"{b_ms * 1e3!r} us ({by}) ({card})", flush=True)
+        rows[row] = {"ok": ok, "rejected": False, "ms": ms, "bound_ms": b_ms, "bound_by": by,
+                     "bytes": nbytes}
+    spill = torch.full((BAND_H, BAND_W), -1, dtype=torch.int32, device=srcs["x2"].device)
+    window_x2(srcs["x2"], spill)
+    past = spill[H - (H - 32) // 32 * 32:]
+    zeros = bool((past == 0).all())
+    print(f"X2 box rows past the end (32 x {BAND_W}): "
+          f"{'all zeros' if zeros else 'not all zeros: ' + str(past.unique()[:8].tolist())}; "
+          f"rows inside == src: {torch.equal(spill[:32], srcs['x2'][128:, :BAND_W])} ({card})",
+          flush=True)
+    rows["x2_past_end"] = {"all_zeros": zeros, "rows": past.shape[0]}
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -119,10 +119,7 @@ def _lib_for(device: torch.device):
     if (dims["G_TH"], dims["G_STEP"], dims["G_BAND"], dims["G_KD"], dims["CHUNK"]) != \
             (TH, STEP, BAND_H, KD, CHUNK):
         raise RuntimeError(f"kernel G's tile {dims} != {(TH, STEP, BAND_H, KD, CHUNK)}")
-    lib = _harness.lib()
-    with torch.cuda.device(device):
-        _harness.check_rc(lib.iqo_exp_overlap_setup(), "overlap_dots setup")
-    return lib
+    return _harness.lib_with_setup("iqo_exp_overlap_setup", device)
 
 
 def overlap_dots(src: torch.Tensor, coef: torch.Tensor, variant: str, p: int,

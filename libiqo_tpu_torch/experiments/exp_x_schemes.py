@@ -1,0 +1,355 @@
+"""Which X-pass arithmetic the card should use: four s8 dots, two f32 dots,
+one int16 dot or one bf16 dot, on one resize work tile repeated in the kernel.
+
+Port of ``scripts/exp_x_schemes.py`` to one NVIDIA H100.  Kernel I,
+``x_scheme(variant, w, cvals, reps)`` (``libiqo_tpu_torch/csrc/exp/
+exp_xpass.cu``, ``xscheme_tile<Variant>``), replaces ``make``
+(``pl.pallas_call`` at ``:156``) and the three checks ``check_f32_exact``
+(``:230``), ``check_s16_exact`` (``:248``) and ``check_bf16_error``
+(``:271``), which are one application (``reps = 1``).  On a work tile ``w``
+(160, 896) i32 and taps ``C`` (3, 384, 128) (Q14, 12 nonzero per column),
+``out = sum_{r < reps} body(w + r)`` with int32 wraps, (160, 384) i32, where
+``body`` runs group ``g`` of 128 outputs over the work columns
+``[256 g, 256 g + 384)``:
+
+* ``empty``: ``w[:, :384]``, the loop alone;
+* ``s8_4dot``: ``a = int8(w >> 8)``, ``b = int8((w & 255) - 128)`` against
+  ``e = int8(C >> 8)``, ``f = int8(C & 255)``: ``65536 ae + 256 (af + be) +
+  bf + corr``;
+* ``s8_2dot_cat``: the same with ``[e | f]`` as one (384, 256) plane;
+* ``f32_2dot``: ``int(a @ C) * 256 + int(b @ C)`` with ``a = w >> 8``,
+  ``b = w & 255`` and ``C`` in f32, exact (every sum of |terms| < 2^24);
+* ``s16_1dot``: ``int16(w) @ int16(C)`` summed in int32;
+* ``bf16_1dot``: ``int(bf16(w) @ bf16(C))`` with f32 sums (relaxed).
+
+**Facts of the script, left unedited.**  ``s8_4dot`` and ``s8_2dot_cat`` pass
+a zero ``corr`` (``:163-172``) while ``f`` is the low byte wrapped to s8
+and ``b`` is rebased by -128, so neither equals :func:`gold`; this probe
+holds them to their own formula.  ``bf16_1dot``'s sums reach ~1.3e9, far
+past 2^24, so its f32 result depends on the order of summation: it errs by
+up to ~2.2 LSB against :func:`gold` (the script's docstring expects about
+1.5), and the kernel is held to the plain version within the f32 summation
+bound of :func:`bf16_bound`.
+
+**On Hopper.**  The s8 variants run ``mma.sync`` m16n8k32 s8 -> s32 (the two
+issue the same four m16n8 products per 32 of K; only the coefficient planes'
+layout differs, as the TPU's per-dot overhead has no counterpart);
+``bf16_1dot`` ``mma.sync`` m16n8k16 bf16 -> f32; ``f32_2dot`` FP32 FMA on
+CUDA cores (TF32 would round ``C``); ``s16_1dot`` **an int32 multiply-add
+(IMAD) dot on CUDA cores, the substitute for an s16 product, which Hopper's
+tensor cores do not have** (``__dp2a`` cannot serve: ``C`` does not fit s8).
+The TPU keeps the whole tile and every coefficient plane in VMEM across the
+repeats: 573 KB of work rows and 295-590 KB of planes, more than an SM's
+227 KB.  The kernel splits the output over 120 blocks, (10 row blocks of
+16) x (3 groups) x (4 chunks of 32 columns); each block keeps its 16 work
+rows of the group's window and its coefficient slice on chip (registers,
+or shared memory for the CUDA-core variants) for all ``reps`` repeats, so
+12 SMs idle.  The repeat loop stays in the kernel, the ``+ r`` applied to
+the work values and the split redone in every repeat, as the script's
+``body_of``.
+
+Times: per launch by back-to-back launches on 8 tiles that each differ in
+``w[0, 0]``, at ``reps = R`` and ``R / 8``; per application is the slope
+between the two, the script's ``us/application``.
+
+Run on a card: ``python -m libiqo_tpu_torch.experiments.exp_x_schemes``.
+"""
+
+from __future__ import annotations
+
+
+import numpy as np
+import torch
+
+from . import _harness
+from ._harness import (BF16_OPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S,
+                       INT8_OPS_PER_S, Launches, wrap)
+
+__all__ = ["LAUNCHES", "VARIANTS", "bf16_bound", "bound", "build_cvals", "gold", "inputs",
+           "lsb_error", "main", "repeats", "split", "x_scheme", "x_scheme_plain"]
+
+TH, TW = 160, 384
+N_G, GN = 3, 128
+K = 384
+BAND = 896
+R = 512
+WINDOWS = ((0, 384), (256, 640), (512, 896))
+NTAPS = 12
+VARIANTS = ("empty", "s8_4dot", "s8_2dot_cat", "f32_2dot", "s16_1dot", "bf16_1dot")
+ITERS = 8                  # work tiles per timed run
+LSB = 2**20                # one u8 output LSB in the pre-shift i32 sum domain
+LAUNCHES = Launches(VARIANTS)
+_F32_EXACT = 2**24
+_CHUNK_REPS = 32           # repeats per batched product in the plain version
+# the operand planes each variant takes, in the kernel's argument order
+_PLANES = {"empty": (), "s8_4dot": ("e", "f"), "s8_2dot_cat": ("ef",),
+           "f32_2dot": ("cf32",), "s16_1dot": ("c16",), "bf16_1dot": ("cbf",)}
+_DTYPES = {"e": torch.int8, "f": torch.int8, "ef": torch.int8, "cf32": torch.float32,
+           "c16": torch.int16, "cbf": torch.bfloat16, "corr": torch.int32}
+
+
+def reset_launches() -> None:
+    LAUNCHES.reset()
+
+
+def inputs(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The script's draws (``:52-66``), from seed 0, in its order: ``W16``
+    (160, 896) int32, then per group and output column 12 taps and their
+    scale: ``C`` (3, 384, 128) int32."""
+    rng = np.random.default_rng(0)
+    w16 = rng.integers(-21930, 21931, (TH, BAND)).astype(np.int32)
+    c = np.zeros((N_G, K, GN), np.int32)
+    for g in range(N_G):
+        for col in range(GN):
+            base = min(2 * col, K - NTAPS)
+            taps = rng.integers(-8192, 8193, NTAPS)
+            scale = min(1.0, 60000.0 / max(1, int(np.abs(taps).sum())))
+            c[g, base:base + NTAPS, col] = (taps * scale).astype(np.int32)
+    return torch.from_numpy(w16).to(device), torch.from_numpy(c).to(device)
+
+
+def build_cvals(variant: str, c: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The script's operands of ``variant`` (``build_cvals``, ``:163-187``),
+    each stacked over the 3 groups: ``e``, ``f`` (3, 384, 128) int8 and
+    ``corr`` (3, 128) int32 zeros; ``ef`` (3, 384, 256) int8; ``cf32``
+    float32; ``c16`` int16; ``cbf`` bfloat16 (rounded from float32)."""
+    _check_variant(variant)
+    e = wrap(c.to(torch.int64) >> 8, 8).to(torch.int8)
+    f = wrap(c.to(torch.int64) & 255, 8).to(torch.int8)
+    corr = torch.zeros((N_G, GN), dtype=torch.int32, device=c.device)
+    if variant == "s8_4dot":
+        return {"e": e, "f": f, "corr": corr}
+    if variant == "s8_2dot_cat":
+        return {"ef": torch.cat([e, f], dim=2).contiguous(), "corr": corr}
+    if variant == "s16_1dot":
+        return {"c16": c.to(torch.int16)}
+    if variant == "bf16_1dot":
+        return {"cbf": c.to(torch.float32).to(torch.bfloat16)}
+    return {"cf32": c.to(torch.float32)}          # f32_2dot, empty (unused there)
+
+
+def gold(w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The script's ``gold`` (``:69-74``): the banded product in int64,
+    wrapped to int32, (160, 384)."""
+    wf, cf = w.to(torch.float64), c.to(torch.float64)
+    out = torch.cat([torch.matmul(wf[:, k0:k1], cf[g]) for g, (k0, k1) in enumerate(WINDOWS)],
+                    dim=1)
+    return wrap(out.to(torch.int64), 32).to(torch.int32)
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"variants are {VARIANTS}, got {variant!r}")
+
+
+def _check(variant: str, w: torch.Tensor, cvals: dict, reps: int) -> None:
+    _check_variant(variant)
+    if tuple(w.shape) != (TH, BAND) or w.dtype != torch.int32:
+        raise ValueError(f"w must be ({TH}, {BAND}) int32, got {tuple(w.shape)} {w.dtype}")
+    for name in _PLANES[variant] + (("corr",) if variant.startswith("s8") else ()):
+        t = cvals.get(name)
+        shape = (N_G, GN) if name == "corr" else (N_G, K, 2 * GN if name == "ef" else GN)
+        if t is None or tuple(t.shape) != shape or t.dtype != _DTYPES[name]:
+            raise ValueError(f"{variant} takes cvals[{name!r}] {shape} {_DTYPES[name]}, got "
+                             f"{None if t is None else (tuple(t.shape), t.dtype)}")
+    if reps < 1:
+        raise ValueError(f"reps must be >= 1, got {reps}")
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, f32_exact: bool = False) -> torch.Tensor:
+    """a @ b in float64 on integer values (exact: every sum stays far below
+    2^53), as int64; with ``f32_exact``, every output's sum of |terms| is
+    asserted below 2^24, so that f32 sums in any order equal it."""
+    if f32_exact and (worst := float(torch.matmul(a.abs(), b.abs()).max())) >= _F32_EXACT:
+        raise ValueError(f"f32_2dot: a sum of |terms| reaches {worst}, not below 2^24")
+    return torch.matmul(a, b).to(torch.int64)
+
+
+def repeats(w: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
+    """The int64 work values ``w + r`` of repeats ``r0 <= r < r1``, (r1 - r0,
+    160, 896)."""
+    return w.to(torch.int64) + torch.arange(r0, r1, device=w.device)[:, None, None]
+
+
+def split(variant: str, wr: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The work planes ``variant``'s dots take from the int64 work values
+    ``wr``: the s8 variants ``(a, b)``, f32_2dot ``(w >> 8, w & 255)``, both
+    int64; s16_1dot the int16 wrap, int64; bf16_1dot ``w`` rounded to bf16."""
+    if variant.startswith("s8"):
+        return wrap(wr >> 8, 8), wrap((wr & 255) - 128, 8)
+    if variant == "f32_2dot":
+        return wr >> 8, wr & 255
+    if variant == "s16_1dot":
+        return (wrap(wr, 16),)
+    if variant == "bf16_1dot":
+        return (wr.to(torch.float32).to(torch.bfloat16),)
+    raise ValueError(f"{variant!r} takes no work planes")
+
+
+def _body(variant: str, wr: torch.Tensor, cvals: dict) -> torch.Tensor:
+    """One application on the int64 work values ``wr`` (reps, 160, 896):
+    the int64 result before the int32 wrap, (reps, 160, 384)."""
+    if variant == "empty":
+        return wr[..., :TW]
+    outs = []
+    planes = [p.to(torch.float64) for p in split(variant, wr)]
+    if variant.startswith("s8"):
+        a, b = planes
+        for g, (k0, k1) in enumerate(WINDOWS):
+            if variant == "s8_4dot":
+                e, f = (cvals[n][g].to(torch.float64) for n in ("e", "f"))
+            else:
+                e, f = cvals["ef"][g].to(torch.float64).split(GN, dim=1)
+            aw, bw = a[..., k0:k1], b[..., k0:k1]
+            ae, af, be, bf = (_dot(x, y) for x, y in ((aw, e), (aw, f), (bw, e), (bw, f)))
+            outs.append(ae * 65536 + (af + be) * 256 + bf + cvals["corr"][g].to(torch.int64))
+    elif variant == "f32_2dot":
+        a, b = planes
+        for g, (k0, k1) in enumerate(WINDOWS):
+            c = cvals["cf32"][g].to(torch.float64)
+            outs.append(_dot(a[..., k0:k1], c, True) * 256 + _dot(b[..., k0:k1], c, True))
+    elif variant == "s16_1dot":
+        a, = planes
+        for g, (k0, k1) in enumerate(WINDOWS):
+            outs.append(_dot(a[..., k0:k1], cvals["c16"][g].to(torch.float64)))
+    else:                                          # bf16_1dot
+        a, = planes
+        for g, (k0, k1) in enumerate(WINDOWS):
+            exact = _dot(a[..., k0:k1], cvals["cbf"][g].to(torch.float64))
+            # the float32 rounding of the exact sum, truncated (an integer)
+            outs.append(exact.to(torch.float64).to(torch.float32).to(torch.int64))
+    return torch.cat(outs, dim=-1)
+
+
+def x_scheme_plain(variant: str, w: torch.Tensor, cvals: dict,
+                   reps: int = R) -> torch.Tensor:
+    """Kernel I's function in plain PyTorch: int64 (products of integers in
+    float64, exact) wrapped to int32; ``bf16_1dot`` takes the float32
+    rounding of the exact float64 sum of the bf16-rounded operands, the
+    result every summation order approximates."""
+    _check(variant, w, cvals, reps)
+    acc = torch.zeros((TH, TW), dtype=torch.int64, device=w.device)
+    for r0 in range(0, reps, _CHUNK_REPS):
+        acc += wrap(_body(variant, repeats(w, r0, min(reps, r0 + _CHUNK_REPS)), cvals),
+                    32).sum(0)
+    return wrap(acc, 32).to(torch.int32)
+
+
+def bf16_bound(w: torch.Tensor, cvals: dict, reps: int = R) -> torch.Tensor:
+    """Per output, the most by which any f32 summation of ``bf16_1dot``'s
+    dots can differ from :func:`x_scheme_plain`, summed over ``reps``:
+    ``(K + 1) 2^-24 sum |a c|`` per application (K additions in f32, and the
+    plain version's one rounding), float64 (160, 384)."""
+    _check("bf16_1dot", w, cvals, reps)
+    out = torch.zeros((TH, TW), dtype=torch.float64, device=w.device)
+    for r0 in range(0, reps, _CHUNK_REPS):
+        a, = split("bf16_1dot", repeats(w, r0, min(reps, r0 + _CHUNK_REPS)))
+        a = a.to(torch.float64).abs()
+        out += torch.cat([torch.matmul(a[..., k0:k1], cvals["cbf"][g].to(torch.float64).abs())
+                          for g, (k0, k1) in enumerate(WINDOWS)], dim=-1).sum(0)
+    return out * (K + 1) * 2.0**-24
+
+
+def lsb_error(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max, mean) |got - want| in output LSB (2^20), as ``check_bf16_error``."""
+    err = (got.to(torch.int64) - want.to(torch.int64)).abs().to(torch.float64)
+    return float(err.max()) / LSB, float(err.mean()) / LSB
+
+
+def x_scheme(variant: str, w: torch.Tensor, cvals: dict, reps: int = R) -> torch.Tensor:
+    """Kernel I: (160, 384) int32 from ``w`` (160, 896) int32 and the
+    variant's :func:`build_cvals` planes.  CPU tensors take
+    :func:`x_scheme_plain`; CUDA tensors launch the kernel or raise."""
+    _check(variant, w, cvals, reps)
+    planes = [cvals[n] for n in _PLANES[variant]]
+    corr = cvals["corr"] if variant.startswith("s8") else None
+    if not _harness.on_card(w, *planes, *([] if corr is None else [corr])):
+        return x_scheme_plain(variant, w, cvals, reps)
+    if not all(t.is_contiguous() for t in (w, *planes)):
+        raise ValueError("x_scheme takes contiguous tensors")
+    lib = _harness.lib_with_setup("iqo_exp_xpass_setup", w.device)
+    out = torch.empty((TH, TW), dtype=torch.int32, device=w.device)
+    ptrs = [t.data_ptr() for t in planes] + [None] * (2 - len(planes))
+    _harness.check_rc(lib.iqo_exp_xscheme(VARIANTS.index(variant), w.data_ptr(), *ptrs,
+                                          None if corr is None else corr.data_ptr(),
+                                          out.data_ptr(), reps, _harness.stream(w)),
+                      f"xscheme_tile[{variant}]")
+    LAUNCHES.add(variant)
+    return out
+
+
+def macs(variant: str) -> tuple[int, str]:
+    """(multiply-adds of one application, the unit that runs them)."""
+    per_dot = TH * K * GN * N_G                      # 23.6 M
+    return {"empty": (0, "none"), "s8_4dot": (4 * per_dot, "int8"),
+            "s8_2dot_cat": (4 * per_dot, "int8"), "f32_2dot": (2 * per_dot, "fp32"),
+            "s16_1dot": (per_dot, "int32"), "bf16_1dot": (per_dot, "bf16")}[variant]
+
+
+def bound(variant: str, reps: int = R) -> tuple[float, str, float, int]:
+    """(ms of one launch, 'bytes' or 'operations', µs of one application's
+    operations, bytes): the work tile, the variant's planes and the output
+    once each at 3.35 TB/s, against the multiply-adds at the unit's peak
+    (s8 1,979 TOP/s and bf16 989 TFLOP/s on the tensor cores, FP32 67
+    TFLOP/s, int32 multiply-adds :data:`INT32_OPS_PER_S`)."""
+    _check_variant(variant)
+    m, unit = macs(variant)
+    per_s = {"int8": INT8_OPS_PER_S / 2, "bf16": BF16_OPS_PER_S / 2, "fp32": FP32_OPS_PER_S / 2,
+             "int32": INT32_OPS_PER_S, "none": float("inf")}[unit]
+    planes = {"empty": 0, "s8_4dot": 2 * N_G * K * GN + 4 * N_G * GN,
+              "s8_2dot_cat": 2 * N_G * K * GN + 4 * N_G * GN, "f32_2dot": 4 * N_G * K * GN,
+              "s16_1dot": 2 * N_G * K * GN, "bf16_1dot": 2 * N_G * K * GN}[variant]
+    nbytes = TH * BAND * 4 + planes + TH * TW * 4
+    app_us = m / per_s * 1e6
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, reps * app_us * 1e-3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations", app_us, nbytes
+
+
+def _hold(variant: str, got: torch.Tensor, w: torch.Tensor, cvals: dict, reps: int) -> None:
+    want = x_scheme_plain(variant, w, cvals, reps)
+    if variant == "bf16_1dot":
+        err = (got.to(torch.int64) - want.to(torch.int64)).abs().to(torch.float64)
+        if bool((err > bf16_bound(w, cvals, reps)).any()):
+            raise AssertionError(f"{variant}: kernel outside the f32 summation bound")
+    elif not torch.equal(got, want):
+        raise AssertionError(f"{variant}: kernel differs from its plain version")
+
+
+def main() -> dict:
+    """Every variant and the three checks on card 0; returns
+    {variant: {ms, ms_r8, us_per_app, ...}, "checks": {...}}."""
+    _harness.require_card()
+    card = _harness.card()
+    w, c = inputs(torch.device("cuda", 0))
+    ws = _harness.perturbed(w, ITERS)
+    rows = {}
+    for variant in VARIANTS:
+        cv = build_cvals(variant, c)
+        _hold(variant, x_scheme(variant, ws[-1], cv, R // 8), ws[-1], cv, R // 8)
+        t = {reps: _harness.launches_ms(lambda x: x_scheme(variant, x, cv, reps), ws)
+             for reps in (R // 8, R)}
+        us = (t[R] - t[R // 8]) / (R - R // 8) * 1e3
+        b_ms, by, app_us, nbytes = bound(variant)
+        print(f"{variant:12s}: {us!r} us/application (bound {app_us!r}); per launch "
+              f"{t[R]!r} ms at R={R}, {t[R // 8]!r} ms at R={R // 8}; launch bound "
+              f"{b_ms!r} ms ({by}) ({card})", flush=True)
+        rows[variant] = {"ms": t[R], "ms_r8": t[R // 8], "us_per_app": us,
+                         "bound_us_per_app": app_us, "bound_ms": b_ms, "bound_by": by,
+                         "bytes": nbytes}
+    want = gold(w, c)
+    f32 = torch.equal(x_scheme("f32_2dot", w, build_cvals("f32_2dot", c), 1), want)
+    s16 = torch.equal(x_scheme("s16_1dot", w, build_cvals("s16_1dot", c), 1), want)
+    s8 = torch.equal(x_scheme("s8_4dot", w, build_cvals("s8_4dot", c), 1), want)
+    mx, mean = lsb_error(x_scheme("bf16_1dot", w, build_cvals("bf16_1dot", c), 1), want)
+    print(f"f32_2dot exact vs numpy i32-wrap: {f32}", flush=True)
+    print(f"s16_1dot exact vs numpy i32-wrap: {s16} (int32 IMAD dot on CUDA cores)", flush=True)
+    print(f"s8_4dot == gold: {s8} (zero corr: the script's formula, not the banded product)",
+          flush=True)
+    print(f"bf16_1dot max err: {mx!r} LSB (mean {mean!r}) ({card})", flush=True)
+    rows["checks"] = {"f32_exact": f32, "s16_exact": s16, "s8_4dot_gold": s8,
+                      "bf16_max_lsb": mx, "bf16_mean_lsb": mean}
+    return rows
+
+
+if __name__ == "__main__":
+    main()

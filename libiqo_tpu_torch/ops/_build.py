@@ -166,7 +166,21 @@ def _bind_experiments(lib: ctypes.CDLL) -> ctypes.CDLL:
             ("iqo_exp_overlap_setup", []),
             # variant, a, b, out, w, n_t, step, halo, stream
             ("iqo_exp_band_colsum", [i, p, p, p, i, i, i, i, p]),
-            ("iqo_exp_band_shape", [ctypes.POINTER(i)])):
+            ("iqo_exp_band_shape", [ctypes.POINTER(i)]),
+            # variant, w, c0, c1, corr, out, reps, stream
+            ("iqo_exp_xscheme", [i, p, p, p, p, p, i, p]),
+            # variant, we, wo, wd, cxt, taps (host int[12]), out, reps, stream
+            ("iqo_exp_vpu_xpass", [i, p, p, p, p, ctypes.POINTER(i), p, i, p]),
+            ("iqo_exp_xpass_setup", []),
+            # mix, P, src, out, n, stream
+            ("iqo_exp_op_mix", [i, i, p, p, ll, p]),
+            # align, kl, check, w, ct, out, steps, stream
+            ("iqo_exp_slice_groups", [i, i, i, p, p, p, i, p]),
+            ("iqo_exp_slice_setup", []),
+            ("iqo_exp_window_x1", [p, p, i, p]),         # src, out, planes, stream
+            ("iqo_exp_window_x2", [p, p, p, p]),         # src, out, spill, stream
+            ("iqo_exp_window_x3", [p, p, i, p]),         # var, out, steps, stream
+            ("iqo_exp_window_setup", [])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i
     lib.iqo_exp_error_string.argtypes = [i]

@@ -24,12 +24,13 @@ from pathlib import Path
 
 from ..ops import _build
 
-__all__ = ["load_depths", "main"]
+__all__ = ["instruction_counts", "load_depths", "main"]
 
 _PRED = re.compile(r"^@!?U?P\w+\s+")
 _INSN = re.compile(r"/\*[0-9a-f]{4}\*/\s+(.*?);")
 # a global load into a register; LDGSTS (cp.async) writes shared memory instead
 _LOAD = re.compile(r"LDG(?!STS)\S*\s+(R\d+)")
+_FUNCTION = re.compile(r"^\s*Function : (\S+)")
 
 
 def load_depths(sass: str) -> list[int]:
@@ -63,20 +64,37 @@ def _cuobjdump() -> str:
     return str(Path(nvcc).with_name("cuobjdump"))
 
 
+def _listings(names: list[str]) -> dict[str, str]:
+    """The SASS of every probe-library kernel whose mangled name contains one
+    of ``names``, from one ``cuobjdump -sass`` of the library."""
+    _build.load_experiments()
+    so = str(_build.exp_build_dir() / "libiqo_tpu_torch_exp.so")
+    sass = subprocess.run([_cuobjdump(), "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    found, name = {}, None
+    for line in sass.splitlines(keepends=True):
+        if m := _FUNCTION.match(line):
+            name = m.group(1) if any(n in m.group(1) for n in names) else None
+            if name:
+                found[name] = ""
+        elif name:
+            found[name] += line
+    return found
+
+
+def instruction_counts(names: list[str]) -> dict[str, int]:
+    """SASS instructions (NOPs not counted) of each kernel whose mangled name
+    contains one of ``names``; raises without ``cuobjdump``."""
+    return {sym: sum(1 for m in _INSN.finditer(sass)
+                     if not _PRED.sub("", m.group(1).strip()).startswith("NOP"))
+            for sym, sass in _listings(names).items()}
+
+
 def main(argv: list[str] | None = None) -> dict:
     names = (argv if argv is not None else sys.argv[1:]) or [
         "band_ydot_kernel", "overlap_kernel", "band_colsum_kernel"]
-    _build.load_experiments()
-    so = str(_build.exp_build_dir() / "libiqo_tpu_torch_exp.so")
-    tool = _cuobjdump()
-    symbols = subprocess.run([tool, "-symbols", so], capture_output=True, text=True,
-                             check=True).stdout
     found = {}
-    for sym in sorted(set(re.findall(r"(_ZN\S+)", symbols))):
-        if not any(n in sym for n in names):
-            continue
-        sass = subprocess.run([tool, "-sass", "-fun", sym, so], capture_output=True,
-                              text=True, check=True).stdout
+    for sym, sass in _listings(names).items():
         found[sym] = load_depths(sass)
         print(f"{sym}: {len(found[sym])} LDG; loads issued after each before its "
               f"first use: {found[sym]}", flush=True)
