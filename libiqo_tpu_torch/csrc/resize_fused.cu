@@ -54,8 +54,10 @@
 //   C++); int16 narrowing, two's-complement reinterpretation and the
 //   arithmetic right shift are written out explicitly.
 //
-// Tensor-core (int8 mma/wgmma) versions of the two passes and a TMA-fed
-// source band are later work.
+// The main path's exact plans now run on csrc/resize_tiled.cu, which
+// stages the source band with cp.async, runs the Y pass on s8 mma.sync and
+// keeps a 16-bit work tile; this kernel serves the exact plans outside
+// cuda_resize.tiled_ok (bands taller than shared memory), relaxed and carry.
 //
 // kRelaxed replaces the TPU's relaxed X scheme (K7): the relaxed build of
 // libiqo_tpu/ops/pallas_resize.py:943-1024 with _bf16_relaxed_plane

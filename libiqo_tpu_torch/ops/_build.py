@@ -5,7 +5,8 @@ Two libraries, each built on first use by one ``nvcc -shared`` into
 ``build/libiqo_tpu_torch/<hash of its sources>/`` beside the package, so an
 edited source is rebuilt and an unchanged one is loaded as it is:
 
-* the resize kernel, from ``libiqo_tpu_torch/csrc/*.cu`` (:func:`load`);
+* the resize kernels, ``resize_fused`` and ``resize_tiled``, from
+  ``libiqo_tpu_torch/csrc/*.cu`` (:func:`load`);
 * the measurement probes of ``libiqo_tpu_torch/experiments``, from
   ``libiqo_tpu_torch/csrc/exp/*.cu`` (:func:`load_experiments`).
 
@@ -26,8 +27,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["BuildError", "build_dir", "exp_build_dir", "find_nvcc", "load",
-           "load_experiments", "nvcc_command"]
+__all__ = ["BuildError", "bind_tiled", "build_dir", "exp_build_dir",
+           "find_nvcc", "load", "load_experiments", "nvcc_command"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -125,12 +126,32 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, i, i, i,                  # rwin, iyr, ring_rows, ring_pitch, run (carry)
         p]                              # stream
     lib.iqo_resize_fused.restype = i
+    bind_tiled(lib)
     lib.iqo_set_max_smem.argtypes = [i]
     lib.iqo_set_max_smem.restype = i
     lib.iqo_tile_shape.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.iqo_tile_shape.restype = i
     lib.iqo_error_string.argtypes = [i]
     lib.iqo_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bind_tiled(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The argument types of the tiled kernel's C entry points
+    (``csrc/resize_tiled.cu``)."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.iqo_resize_tiled.argtypes = [
+        i, i, i,                        # wrap16, s8y, tw: which instantiation
+        p, p, i, ll, ll, i, i, i,       # src, dst, frames, strides, src_w, dst shape
+        p, i, p, i,                     # row records, words; column records, words
+        i, i, i, i, i, i, i,            # taps_y, taps_x, k_rows, pitch, margin,
+                                        # work_pitch, max_phases
+        i, i, p]                        # y_bias, out_shift, stream
+    lib.iqo_resize_tiled.restype = i
+    lib.iqo_tiled_set_max_smem.argtypes = [i]
+    lib.iqo_tiled_set_max_smem.restype = i
+    lib.iqo_tiled_shape.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i), i]
+    lib.iqo_tiled_shape.restype = i
     return lib
 
 

@@ -1,20 +1,29 @@
-"""The fused resize kernel for Hopper: host-side operands, scope and wrapper.
+"""The fused resize kernels for Hopper: host-side operands, scope, routes and
+wrapper.
 
-The kernel (``csrc/resize_fused.cu``) replaces the TPU's fused Pallas kernel
-(``libiqo_tpu/ops/pallas_resize.py:_make_padless_fn``) in two exact
-instantiations, ``wrap16`` for Lanczos plans (int16 work rows, border
-divides) and ``u16`` for Area and Linear plans (u16 work rows, no borders),
-and in a relaxed form of each (``wrap16_relaxed``, ``u16_relaxed``: the X
-pass over bf16-rounded work rows and coefficient planes in float32, within
-2 LSB of the exact output, flat fields exact).  Each of the four has a
+Two kernels replace the TPU's fused Pallas kernel
+(``libiqo_tpu/ops/pallas_resize.py:_make_padless_fn``).  The main path's
+exact plans run on the tiled kernel (``csrc/resize_tiled.cu``, variants
+``wrap16_tiled`` and ``u16_tiled``) wherever :func:`tiled_ok` holds: one
+block stages its source band and tile records (:func:`tiled_layout`) in
+shared memory, runs the Y pass on s8 ``mma.sync`` where the merged Y taps
+fit s8 (else integer multiply-adds), keeps a 16-bit work tile and runs the
+X pass on CUDA cores.  The windowed kernel (``csrc/resize_fused.cu``)
+serves the rest, in two exact instantiations, ``wrap16`` for Lanczos plans
+(int16 work rows, border divides) and ``u16`` for Area and Linear plans
+(u16 work rows, no borders), and in a relaxed form of each
+(``wrap16_relaxed``, ``u16_relaxed``: the X pass over bf16-rounded work
+rows and coefficient planes in float32, within 2 LSB of the exact output,
+flat fields exact).  Each of the four has a
 row-halo carry form (``*_carry``, the TPU's ``LIBIQO_TPU_CARRY`` mode): a
 block walks a run of row tiles and keeps their source rows in a ring in
 shared memory, byte-equal to the windowed form; it is opted into with
 ``LIBIQO_TPU_CARRY=1`` (or ``2``) and engages where :func:`carry_ok` holds.
-This module packs a :class:`ResizePlan` into the kernel's operands, decides
-which plans the kernel takes (:func:`supports_plan`), and launches it
-(:func:`resize_fused`).  :func:`resize_plain` is the same function in plain
-PyTorch over the same operands, for the CPU and for comparison on the card.
+This module packs a :class:`ResizePlan` into the kernels' operands, decides
+which plans they take (:func:`supports_plan`, :func:`tiled_ok`), and
+launches the one the operands were built for (:func:`resize_fused`).
+:func:`resize_plain` is the same function in plain PyTorch over the same
+operands, for the CPU and for comparison on the card.
 """
 
 from __future__ import annotations
@@ -32,10 +41,12 @@ from ..core.plan import AxisPlan, ResizePlan
 from . import _build, torch_resize
 
 __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "VARIANTS", "CarryLayout",
-           "KernelOperands", "KernelTables", "carry_layout", "carry_ok",
-           "carry_requested", "kernel_tables", "pack_operands",
-           "relaxed_plane", "reset_launches", "resize_fused", "resize_plain",
-           "smem_bytes", "supports_plan", "tile_windows", "variant"]
+           "KernelOperands", "KernelTables", "TiledLayout", "TiledTables",
+           "carry_layout", "carry_ok", "carry_requested", "kernel_tables",
+           "pack_operands", "relaxed_plane", "reset_launches",
+           "resize_fused", "resize_plain", "smem_bytes", "supports_plan",
+           "tile_windows", "tiled_layout", "tiled_ok", "tiled_tables",
+           "tiled_width", "variant"]
 
 # Must match kTileRows/kTileCols in csrc/resize_fused.cu (checked at load).
 TILE_ROWS = 16
@@ -48,10 +59,14 @@ _RELAXED_WALK = 24            # most taps the column-sum repair nudges
 CARRY_BLOCKS = 264        # blocks a carry grid aims for: two per SM of 132
 CARRY_MIN_SAVING = 0.1    # carry must fetch <= 90 % of the windowed rows
 RING_ALIGN = 16           # bytes: the ring's row pitch is a multiple
+# Must match kWidths in csrc/resize_tiled.cu (checked at load).
+TILED_WIDTHS = (128, 64, 32)   # output columns per block of the tiled kernel
+TILED_BLOCKS = 264        # blocks a tiled grid aims for: two per SM of 132
+BAND_ALIGN = 128          # bytes: the staged band's row pitch is a multiple
 
 VARIANTS = ("wrap16", "u16", "wrap16_relaxed", "u16_relaxed",
             "wrap16_carry", "u16_carry", "wrap16_relaxed_carry",
-            "u16_relaxed_carry")
+            "u16_relaxed_carry", "wrap16_tiled", "u16_tiled")
 LAUNCHES = 0              # kernel launches in this process
 LAUNCHES_BY_VARIANT = dict.fromkeys(VARIANTS, 0)   # the same, by instantiation
 _launch_lock = threading.Lock()
@@ -67,10 +82,13 @@ def reset_launches() -> None:
 
 
 def variant(plan, relaxed: bool = False, carry: bool = False) -> str:
-    """The kernel instantiation that a plan takes, exact or ``relaxed``,
-    windowed or ``carry`` (one of :data:`VARIANTS`); given its
-    :class:`KernelTables`, the one they were built for."""
+    """The kernel instantiation that a plan takes on ``resize_fused``,
+    exact or ``relaxed``, windowed or ``carry`` (one of :data:`VARIANTS`);
+    given its :class:`KernelTables` or :class:`TiledTables`, the one they
+    were built for, which names the tiled kernel's for the latter."""
     name = "wrap16" if plan.wrap16 else "u16"
+    if getattr(plan, "tiled", False):
+        return name + "_tiled"
     if getattr(plan, "relaxed", relaxed):
         name += "_relaxed"
     return name + "_carry" if getattr(plan, "carry", carry) else name
@@ -306,6 +324,197 @@ def carry_ok(plan: ResizePlan) -> bool:
     return carry_layout(plan) is not None
 
 
+def tiled_width(plan: ResizePlan) -> int:
+    """The tiled kernel's output columns per block for a plan: the largest
+    of TILED_WIDTHS whose grid for one frame still holds TILED_BLOCKS
+    blocks (two per SM of an H100), else the smallest.  Batches only add
+    blocks, so a one-frame grid is the floor."""
+    row_tiles = -(-plan.y.n_dst // TILE_ROWS)
+    for tw in TILED_WIDTHS:
+        if -(-plan.x.n_dst // tw) * row_tiles >= TILED_BLOCKS:
+            return tw
+    return TILED_WIDTHS[-1]
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledLayout:
+    """How the tiled kernel (``csrc/resize_tiled.cu``) walks a plan.  One
+    block computes TILE_ROWS x ``tw`` outputs.  It stages its source band
+    (``k_rows`` rows at a ``pitch``-byte pitch, 16-byte pieces swizzled by
+    row) and its row and column tile records in shared memory, runs the Y
+    pass into a 16-bit work tile of ``work_pitch`` columns (band column c
+    at ``margin + c``), then the X pass.
+
+    Row record, int32 words, one per row tile: [rlo, band rows, 0, 0],
+    corr (16: ``128 * sum cy`` per output row, the s8 rebase), ydiv (16:
+    border divisors, 0 on main rows), then with ``s8y`` the merged Y
+    matrix A (16 rows of ``k_rows + 16`` s8 bytes), else cy and iyr (taps_y
+    x 16 each, tap-major, iyr relative to rlo).  Column record, one per
+    column tile: [lo, width, phases, whether any column has a border
+    divisor], xs (tw: each output's first tap
+    ``start - lo``, unclamped), ph (tw: its phase), xdiv (tw), then cxu
+    (taps_x x ``max_phases``, tap-major: the tile's distinct X rows)."""
+    tw: int
+    s8y: bool
+    k_rows: int             # band rows staged: max rows of a tile, to 32
+    pitch: int              # band bytes per row: window + 15, to 128
+    margin: int             # work columns left of band column 0
+    work_pitch: int         # work tile columns per row (= 32 mod 64)
+    max_phases: int
+    rrec: np.ndarray        # (n_row_tiles, rrec_words) int32
+    crec: np.ndarray        # (n_col_tiles, crec_words) int32
+
+    @property
+    def smem(self) -> int:
+        return (self.k_rows * self.pitch + TILE_ROWS * self.work_pitch * 2
+                + 4 * (self.rrec.shape[1] + self.crec.shape[1]))
+
+
+_REC_HEAD = 4               # header words of each record
+_Y_TABLES = _REC_HEAD + 2 * TILE_ROWS     # where A (or cy, iyr) starts
+
+
+def _merged_y(plan: ResizePlan, rwin: np.ndarray, k_rows: int) -> np.ndarray:
+    """(n_row_tiles, TILE_ROWS, k_rows) int64: the Y matrix of each row
+    tile over its band, A[i, k] = sum of the taps of output row r0 + i
+    that read band row k (clamped taps that repeat a row add); zero rows
+    past dst_h and zero columns past the band."""
+    y = plan.y
+    n_rt = len(rwin)
+    rows = np.arange(n_rt * TILE_ROWS)
+    valid = rows < y.n_dst
+    idx = torch_resize.clamped_taps(y)
+    a = np.zeros((n_rt * TILE_ROWS, k_rows), np.int64)
+    r = rows[valid]
+    k = idx - rwin[r // TILE_ROWS, 0][:, None]
+    np.add.at(a, (np.repeat(r, y.num_coefs), k.ravel()),
+              y.coef.astype(np.int64).ravel())
+    return a.reshape(n_rt, TILE_ROWS, k_rows)
+
+
+def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
+    """a (n_dst, ...) padded with zero rows to n rows."""
+    out = np.zeros((n,) + a.shape[1:], np.int64)
+    out[:len(a)] = a
+    return out
+
+
+def tiled_layout(plan: ResizePlan) -> TiledLayout:
+    """The tiled kernel's layout and tile records for a plan (see
+    :class:`TiledLayout`); whether it fits is :func:`tiled_ok`'s
+    question."""
+    y, x = plan.y, plan.x
+    tw = tiled_width(plan)
+    rwin = tile_windows(y, TILE_ROWS).astype(np.int64)
+    n_rt = len(rwin)
+    k_rows = _round_up(int((rwin[:, 1] - rwin[:, 0]).max()), 32)
+    a = _merged_y(plan, rwin, k_rows)
+    s8y = bool(a.min() >= -128 and a.max() <= 127)
+    cy = _pad_rows(y.coef, n_rt * TILE_ROWS)
+    corr = (128 * cy.sum(axis=1)).reshape(n_rt, TILE_ROWS)
+    ydiv = np.where(y.is_border, np.where(y.deno == 0, 1, y.deno), 0) \
+        if plan.wrap16 else np.zeros(y.n_dst, np.int64)
+    ydiv = _pad_rows(ydiv, n_rt * TILE_ROWS).reshape(n_rt, TILE_ROWS)
+    head = np.zeros((n_rt, _REC_HEAD), np.int64)
+    head[:, 0], head[:, 1] = rwin[:, 0], rwin[:, 1] - rwin[:, 0]
+    if s8y:
+        pad = np.zeros((n_rt, TILE_ROWS, k_rows + 16), np.uint8)
+        pad[:, :, :k_rows] = (a & 0xFF).astype(np.uint8)
+        ytab = pad.reshape(n_rt, -1).view("<u4").astype(np.int64)
+    else:
+        idx = _pad_rows(torch_resize.clamped_taps(y), n_rt * TILE_ROWS)
+        idx = idx.reshape(n_rt, TILE_ROWS, -1) - rwin[:, :1, None]
+        idx[np.arange(n_rt * TILE_ROWS).reshape(n_rt, TILE_ROWS)
+            >= y.n_dst] = 0
+        ytab = np.concatenate([
+            cy.reshape(n_rt, TILE_ROWS, -1).transpose(0, 2, 1).reshape(n_rt, -1),
+            idx.transpose(0, 2, 1).reshape(n_rt, -1)], axis=1)
+    rrec = np.concatenate([head, corr, ydiv, ytab], axis=1)
+
+    win = tile_windows(x, tw).astype(np.int64)
+    n_ct = len(win)
+    cols = np.arange(n_ct * tw)
+    valid = cols < x.n_dst
+    xs = np.zeros(n_ct * tw, np.int64)
+    xs[valid] = x.start - win[cols[valid] // tw, 0]
+    xdiv = np.zeros(n_ct * tw, np.int64)
+    if plan.wrap16:
+        xdiv[valid] = _x_divisors(plan)
+    cx = _pad_rows(x.coef, n_ct * tw).reshape(n_ct, tw, -1)
+    phases = [np.unique(cx[t][:min(tw, x.n_dst - t * tw)], axis=0,
+                        return_inverse=True) for t in range(n_ct)]
+    max_phases = max(len(u) for u, _ in phases)
+    ph = np.zeros((n_ct, tw), np.int64)
+    cxu = np.zeros((n_ct, x.num_coefs, max_phases), np.int64)
+    for t, (u, inv) in enumerate(phases):
+        ph[t, :len(inv)] = inv.ravel()
+        cxu[t, :, :len(u)] = u.T
+    head = np.zeros((n_ct, _REC_HEAD), np.int64)
+    head[:, 0], head[:, 1] = win[:, 0], win[:, 1] - win[:, 0]
+    head[:, 2] = [len(u) for u, _ in phases]
+    head[:, 3] = (xdiv.reshape(n_ct, tw) != 0).any(axis=1)
+    crec = np.concatenate([head, xs.reshape(n_ct, tw), ph,
+                           xdiv.reshape(n_ct, tw), cxu.reshape(n_ct, -1)],
+                          axis=1)
+
+    pitch = _round_up(int((win[:, 1] - win[:, 0]).max()) + 15, BAND_ALIGN)
+    margin = _round_up(max(0, -int(xs.min())), 8)
+    need = margin + max(pitch, 15 + max(0, int(xs.max())) + x.num_coefs)
+    work_pitch = _round_up(max(need - 32, 0), 64) + 32
+
+    def words(rec):
+        rec = np.pad(rec, ((0, 0), (0, -rec.shape[1] % 4)))
+        return ((rec + 2**31) % 2**32 - 2**31).astype(np.int32)   # uint32 bits
+
+    return TiledLayout(tw=tw, s8y=s8y, k_rows=k_rows, pitch=pitch,
+                       margin=margin, work_pitch=work_pitch,
+                       max_phases=max_phases, rrec=words(rrec),
+                       crec=words(crec))
+
+
+def _fits(layout: TiledLayout) -> bool:
+    return layout.smem <= SMEM_BUDGET
+
+
+def tiled_ok(plan: ResizePlan) -> bool:
+    """True when the tiled kernel takes an exact plan: inside
+    :func:`supports_plan`, and its band, work tile and tile records fit
+    SMEM_BUDGET at the chosen width (:func:`tiled_layout`).  A pure
+    function of the plan; exact plans where it is False keep the windowed
+    ``resize_fused`` route."""
+    return supports_plan(plan) and _fits(tiled_layout(plan))
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledTables:
+    """The tiled kernel's operands: its layout's scalars and the two
+    record tables on the device.  Read-only once built."""
+    rrec: torch.Tensor      # (n_row_tiles, rrec_words) int32
+    crec: torch.Tensor      # (n_col_tiles, crec_words) int32
+    layout: TiledLayout
+    taps_y: int
+    taps_x: int
+    wrap16: bool
+    relaxed: bool = False
+    carry: bool = False
+    tiled: bool = True
+
+
+def tiled_tables(plan: ResizePlan, device="cpu",
+                 layout: TiledLayout | None = None) -> TiledTables:
+    """The tiled kernel's tables for a plan where :func:`tiled_ok` holds,
+    from its ``layout`` where the caller has built it."""
+    lay = tiled_layout(plan) if layout is None else layout
+    return TiledTables(
+        rrec=torch.from_numpy(lay.rrec).to(device),
+        crec=torch.from_numpy(lay.crec).to(device), layout=lay,
+        taps_y=plan.y.num_coefs, taps_x=plan.x.num_coefs, wrap16=plan.wrap16)
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelTables:
     """The kernel's operands, tap-major: int32 tables, and in the relaxed
@@ -329,16 +538,18 @@ class KernelTables:
     ring_rows: int = 0
     ring_pitch: int = 0
     run: int = 0
+    tiled: bool = False     # these are resize_fused's tables, not the tiled kernel's
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelOperands:
     """A plan on one device: the plain path's operands, and the kernel's
     tables (else None): exact ones on a CUDA device when
-    :func:`supports_plan` holds, relaxed ones on any device, since the
-    relaxed plain version reads its planes from them."""
+    :func:`supports_plan` holds (the tiled kernel's where :func:`tiled_ok`
+    holds), relaxed ones on any device, since the relaxed plain version
+    reads its planes from them."""
     plain: torch_resize.Operands
-    tables: KernelTables | None
+    tables: KernelTables | TiledTables | None
 
     @property
     def device(self) -> torch.device:
@@ -350,10 +561,17 @@ class KernelOperands:
 
 
 def kernel_tables(plan: ResizePlan, device="cpu", relaxed: bool = False,
-                  carry: bool = False) -> KernelTables:
+                  carry: bool = False, tiled: bool = True
+                  ) -> KernelTables | TiledTables:
     """The kernel's tables for a plan that :func:`supports_plan` takes
     (with the same ``relaxed``); with ``carry``, those of the carry form
-    where :func:`carry_ok` holds, else the windowed form's."""
+    where :func:`carry_ok` holds; else, exact with ``tiled``, the tiled
+    kernel's (:func:`tiled_tables`) where :func:`tiled_ok` holds; else the
+    windowed form's (every plan's with ``tiled=False``)."""
+    if tiled and not relaxed and not (carry and carry_ok(plan)):
+        lay = tiled_layout(plan)
+        if _fits(lay):
+            return tiled_tables(plan, device, lay)
     win = tile_windows(plan.x)
     ydeno = np.where(plan.y.deno == 0, 1, plan.y.deno)
 
@@ -385,13 +603,16 @@ def kernel_tables(plan: ResizePlan, device="cpu", relaxed: bool = False,
 
 
 def pack_operands(plan: ResizePlan, device="cpu", relaxed: bool = False,
-                  carry: bool = False) -> KernelOperands:
+                  carry: bool = False, tiled: bool = True) -> KernelOperands:
     """Turn a :class:`ResizePlan` into tensors on ``device``.  Exact: the
     kernel's tables are built only where it can launch, on a CUDA device
-    for plans inside :func:`supports_plan`.  ``relaxed=True`` needs
+    for plans inside :func:`supports_plan`: the tiled kernel's where
+    :func:`tiled_ok` holds, else the windowed ``resize_fused`` form's;
+    ``tiled=False`` builds the windowed form's for every plan (to run the
+    two kernels side by side).  ``relaxed=True`` needs
     ``supports_plan(plan, relaxed=True)`` (else ValueError) and builds the
     relaxed tables on any device.  ``carry=True`` builds the carry form's
-    tables where :func:`carry_ok` holds (the windowed form's elsewhere)."""
+    tables where :func:`carry_ok` holds."""
     device = torch.device(device)
     if relaxed:
         if not supports_plan(plan, relaxed=True):
@@ -399,7 +620,7 @@ def pack_operands(plan: ResizePlan, device="cpu", relaxed: bool = False,
                              "(supports_plan(relaxed=True))")
         tables = kernel_tables(plan, device, relaxed=True, carry=carry)
     elif device.type == "cuda" and supports_plan(plan):
-        tables = kernel_tables(plan, device, carry=carry)
+        tables = kernel_tables(plan, device, carry=carry, tiled=tiled)
     else:
         tables = None
     return KernelOperands(plain=torch_resize.pack_operands(plan, device),
@@ -425,6 +646,12 @@ def _lib():
     if (rows.value, cols.value) != (TILE_ROWS, TILE_COLS):
         raise RuntimeError(f"kernel tile {rows.value}x{cols.value} != host "
                            f"tile {TILE_ROWS}x{TILE_COLS}")
+    widths = (ctypes.c_int * 8)()
+    n = lib.iqo_tiled_shape(ctypes.byref(rows), widths, len(widths))
+    if (rows.value, tuple(widths[:n])) != (TILE_ROWS, TILED_WIDTHS):
+        raise RuntimeError(f"tiled kernel rows {rows.value}, widths "
+                           f"{tuple(widths[:n])} != host {TILE_ROWS}, "
+                           f"{TILED_WIDTHS}")
     return lib
 
 
@@ -434,7 +661,8 @@ def _lib_for(device: torch.device):
     the budget on ``device``, once per device."""
     lib = _lib()
     with torch.cuda.device(device):
-        rc = lib.iqo_set_max_smem(SMEM_BUDGET)
+        rc = lib.iqo_set_max_smem(SMEM_BUDGET) or lib.iqo_tiled_set_max_smem(
+            SMEM_BUDGET)
     if rc != 0:
         raise RuntimeError(f"resize_fused setup failed on {device}: "
                            f"{lib.iqo_error_string(rc).decode()} ({rc})")
@@ -444,10 +672,12 @@ def _lib_for(device: torch.device):
 def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
     """(B, src_h, src_w) uint8 -> (B, dst_h, dst_w) uint8.
 
-    A CPU tensor goes through :func:`resize_plain`.  A CUDA tensor launches
+    Launches the kernel the tables were built for: the tiled kernel
+    (``csrc/resize_tiled.cu``) for :class:`TiledTables`, else
+    ``resize_fused`` in its instantiation.  A CPU tensor goes through
+    :func:`resize_plain`.  A CUDA tensor launches
     the kernel, or raises: there is no fallback.  Rows may be strided; the
     last dimension must be contiguous."""
-    global LAUNCHES
     if src.device.type == "cpu":
         return resize_plain(ops, src)
     if src.device.type != "cuda":
@@ -472,6 +702,17 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
                       device=src.device)
     if out.numel() == 0:
         return out
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    if k.tiled:
+        lay = k.layout
+        rc = lib.iqo_resize_tiled(
+            int(k.wrap16), int(lay.s8y), lay.tw, src.data_ptr(),
+            out.data_ptr(), src.shape[0], src.stride(0), src.stride(1), w,
+            dh, dw, k.rrec.data_ptr(), k.rrec.shape[1], k.crec.data_ptr(),
+            k.crec.shape[1], k.taps_y, k.taps_x, lay.k_rows, lay.pitch,
+            lay.margin, lay.work_pitch, lay.max_phases, ops.plain.y_bias,
+            ops.plain.out_shift, stream)
+        return _launched(lib, rc, k, out, "resize_tiled")
     rc = lib.iqo_resize_fused(
         int(k.wrap16), int(k.relaxed), int(k.carry), src.data_ptr(),
         out.data_ptr(),
@@ -485,10 +726,15 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
         k.win.data_ptr(), k.win_max, ops.plain.out_shift,
         k.rwin.data_ptr() if k.carry else None,
         k.iyr.data_ptr() if k.carry else None,
-        k.ring_rows, k.ring_pitch, k.run,
-        torch.cuda.current_stream(src.device).cuda_stream)
+        k.ring_rows, k.ring_pitch, k.run, stream)
+    return _launched(lib, rc, k, out, "resize_fused")
+
+
+def _launched(lib, rc: int, k, out: torch.Tensor, name: str) -> torch.Tensor:
+    """Raise if a launch returned an error, else count it and return out."""
+    global LAUNCHES
     if rc != 0:
-        raise RuntimeError(f"resize_fused launch failed: "
+        raise RuntimeError(f"{name} launch failed: "
                            f"{lib.iqo_error_string(rc).decode()} ({rc})")
     with _launch_lock:
         LAUNCHES += 1

@@ -1,0 +1,191 @@
+"""Where the tiled resize kernel's time goes: ``csrc/resize_tiled.cu`` and
+variants of it with one stage removed or its registers capped, built side by
+side and timed in turns on the main path's planes.
+
+Each variant is the kernel source with text substitutions (:data:`VARIANTS`):
+
+* ``kernel``: the source as it is, held byte-equal to the plain path;
+* ``no_x``, ``no_y``, ``no_xy``: the X pass's tap loop, the Y pass's (the s8
+  dot's K loop and the IMAD taps), or both, run zero times;
+* ``no_band``: the band is not staged (the passes read whatever shared
+  memory holds);
+* ``no_store``: the outputs are computed and not written;
+* ``band_only``: no X, no Y, no store: the launch, the records, the band and
+  the barriers;
+* ``regs40``, ``regs32``: ``__launch_bounds__`` of 6 and 8 blocks of 256
+  threads per SM, so ptxas keeps to 40 or 32 registers.
+
+The stage variants compute garbage: they are measurements, never outputs.
+Run on a card, from the repository root::
+
+    python3 -m libiqo_tpu_torch.tools.tiled_ablate [variant ...]
+
+Builds go to ``build/libiqo_tpu_torch/ablate-<hash>/`` (one ``nvcc -shared``
+per variant, all started together).  Times: CUDA events, the card spinning
+while the host queues, min over 5 repeats of back-to-back calls on > 64 MB of
+distinct inputs, and each variant timed twice in the order kernel, variants,
+variants reversed, kernel (min of its two).  Prints one line per plane with
+the card's name and power limit.  Raises without a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..core.plan import build_plan
+from ..ops import _build, cuda_resize
+
+__all__ = ["PLANES", "VARIANTS", "main", "variant_source"]
+
+SOURCE = _build.CSRC / "resize_tiled.cu"
+_X_LOOP = "for (int t = 0; t < a.taps_x; ++t)"
+_NO_X = [(_X_LOOP, "for (int t = 0; t < 0; ++t)")]
+_NO_Y = [("for (int kb = 0; kb < a.k_rows; kb += 32)", "for (int kb = 0; kb < 0; kb += 32)"),
+         ("for (int t = 0; t < a.taps_y; ++t)", "for (int t = 0; t < 0; ++t)")]
+_NO_STORE = [("out[j] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));",
+              "if (v == 0x7FFFFFFF) out[j] = 0;")]
+_BOUNDS = "__global__ void __launch_bounds__(kThreads) resize_tiled_kernel"
+# variant: [(text, replacement)], each text found in the source
+VARIANTS = {
+    "kernel": [],
+    "no_x": _NO_X,
+    "no_y": _NO_Y,
+    "no_xy": _NO_X + _NO_Y,
+    "no_band": [("for (int e = tid; e < bh * nchunk; e += kThreads)",
+                 "for (int e = tid; e < 0; e += kThreads)")],
+    "no_store": _NO_STORE,
+    "band_only": _NO_X + _NO_Y + _NO_STORE,
+    "regs40": [(_BOUNDS, _BOUNDS.replace("(kThreads)", "(kThreads, 6)"))],
+    "regs32": [(_BOUNDS, _BOUNDS.replace("(kThreads)", "(kThreads, 8)"))],
+}
+# (name, algorithm, kwargs, src_w, src_h, dst_w, dst_h, batch): the main
+# paths' planes (U and V as one batch-of-2 call), and the IMAD Y pass's
+PLANES = (
+    ("lanczos3 4K->1080p luma", "lanczos", dict(degree=3), 3840, 2160, 1920, 1080, 1),
+    ("lanczos3 4K->1080p px2 chroma", "lanczos", dict(degree=3, px_scale=2),
+     1920, 1080, 960, 540, 2),
+    ("area 1080p->360p luma", "area", {}, 1920, 1080, 640, 360, 1),
+    ("area 1080p->360p chroma", "area", {}, 960, 540, 320, 180, 2),
+    ("area 4K->1080p luma", "area", {}, 3840, 2160, 1920, 1080, 1),
+    ("linear 1080p->4K luma", "linear", {}, 1920, 1080, 3840, 2160, 1),
+)
+
+
+def variant_source(name: str, source: str | None = None) -> str:
+    """The kernel source with variant ``name``'s substitutions; raises
+    ValueError if one of its texts is not in the source as often as
+    expected (once; the X tap loop twice, in its one-phase and per-output
+    forms)."""
+    text = SOURCE.read_text() if source is None else source
+    for old, new in VARIANTS[name]:
+        if text.count(old) != (2 if old == _X_LOOP else 1):
+            raise ValueError(f"variant {name}: {old!r} is not in the kernel "
+                             "source where expected")
+        text = text.replace(old, new)
+    return text
+
+
+def _build_variant(name: str, out: Path) -> tuple[str, ctypes.CDLL, list[int]]:
+    cu = out / f"{name}.cu"
+    cu.write_text(variant_source(name))
+    so = out / f"{name}.so"
+    nvcc = _build.find_nvcc()
+    if nvcc is None:
+        raise _build.BuildError("nvcc not found")
+    proc = subprocess.run(_build.nvcc_command(nvcc, so, [cu]), capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise _build.BuildError(f"nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
+    regs = [int(w) for w in
+            (line.split("Used ")[1].split()[0]
+             for line in (proc.stdout + proc.stderr).splitlines() if "Used " in line)]
+    lib = ctypes.CDLL(str(so))
+    _build.bind_tiled(lib)
+    if lib.iqo_tiled_set_max_smem(cuda_resize.SMEM_BUDGET) != 0:
+        raise RuntimeError(f"{name}: shared-memory limit refused")
+    return name, lib, regs
+
+
+def _launch(lib, ops, src: torch.Tensor) -> torch.Tensor:
+    k, lay = ops.tables, ops.tables.layout
+    (_, w), (dh, dw) = ops.plain.src_shape, ops.plain.dst_shape
+    out = torch.empty((src.shape[0], dh, dw), dtype=torch.uint8, device=src.device)
+    rc = lib.iqo_resize_tiled(
+        int(k.wrap16), int(lay.s8y), lay.tw, src.data_ptr(), out.data_ptr(),
+        src.shape[0], src.stride(0), src.stride(1), w, dh, dw,
+        k.rrec.data_ptr(), k.rrec.shape[1], k.crec.data_ptr(), k.crec.shape[1],
+        k.taps_y, k.taps_x, lay.k_rows, lay.pitch, lay.margin, lay.work_pitch,
+        lay.max_phases, ops.plain.y_bias, ops.plain.out_shift,
+        torch.cuda.current_stream(src.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"launch failed ({rc})")
+    return out
+
+
+def _time_ms(fn, inputs, repeats: int = 5) -> float:
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda._sleep(2_000_000 * len(inputs))
+        start.record()
+        for x in inputs:
+            fn(x)
+        stop.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(stop) / len(inputs))
+    return best
+
+
+def main(argv: list[str] | None = None) -> int:
+    asked = sys.argv[1:] if argv is None else argv
+    names = ["kernel", *(v for v in (asked or VARIANTS) if v != "kernel")]
+    unknown = sorted(set(names) - set(VARIANTS))
+    if unknown:
+        raise SystemExit(f"unknown variants {unknown}; choose from {sorted(VARIANTS)}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("tiled_ablate needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    out = _build.build_dir().parent / f"ablate-{digest}"
+    out.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(lambda n: _build_variant(n, out), names))
+    libs = {name: lib for name, lib, _ in built}
+    for name, _, regs in built:
+        print(f"{name}: registers of the 12 instantiations {regs}")
+    rng = np.random.default_rng(8)
+    for tag, algo, kw, sw, sh, dw, dh, batch in PLANES:
+        plan = build_plan(algo, sw, sh, dw, dh, **kw)
+        ops = cuda_resize.pack_operands(plan, "cuda")
+        x = torch.from_numpy(rng.integers(0, 256, (batch, sh, sw), np.uint8)).cuda()
+        if not torch.equal(_launch(libs["kernel"], ops, x),
+                           cuda_resize.resize_plain(ops, x)):
+            raise RuntimeError(f"{tag}: kernel != plain")
+        xs = [x.clone() for _ in range(max(8, math.ceil(64e6 / x.numel())))]
+        for i, t in enumerate(xs):
+            t.view(-1)[i] += i
+        times = {n: [] for n in names}
+        for n in names + names[::-1]:
+            times[n].append(_time_ms(lambda t, n=n: _launch(libs[n], ops, t), xs))
+        ms = {n: min(t) for n, t in times.items()}
+        print(f"{tag} ({batch}, {sh}, {sw}): " + ", ".join(
+            f"{n} {ms[n]!r} ms ({ms[n] / ms['kernel']!r})" for n in names) + f" ({card})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

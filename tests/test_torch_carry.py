@@ -133,7 +133,7 @@ def test_ring_schedule_rebuilds_windowed_band(monkeypatch, case, blocks):
     plan = _plan(case)
     layout = cuda_resize.carry_layout(plan)
     if layout is None:      # the windowed tables, which the other tests hold
-        assert not cuda_resize.kernel_tables(plan, carry=True).carry
+        assert not cuda_resize.kernel_tables(plan, carry=True, tiled=False).carry
         return
     k = cuda_resize.kernel_tables(plan, carry=True)
     assert k.carry and k.run == layout.run and k.ring_rows == layout.ring_rows
@@ -214,18 +214,18 @@ def test_variants_and_tables():
     k = cuda_resize.kernel_tables(plan, carry=True)
     assert cuda_resize.variant(k) == "wrap16_carry"
     assert k.iyr.shape == k.iy.shape and int(k.iyr.max()) < k.ring_rows
-    windowed = cuda_resize.kernel_tables(plan)
+    windowed = cuda_resize.kernel_tables(plan, tiled=False)
     assert not windowed.carry and cuda_resize.variant(windowed) == "wrap16"
     assert windowed.rwin.numel() == windowed.iyr.numel() == 0
     # where carry_ok refuses, carry=True builds the windowed tables
     chroma = _plan(FULL["lanczos3 4K->1080p px2 chroma"])
-    assert not cuda_resize.kernel_tables(chroma, carry=True).carry
+    assert not cuda_resize.kernel_tables(chroma, carry=True, tiled=False).carry
     area = _plan(SMALL[4])
     rel = cuda_resize.kernel_tables(area, relaxed=True, carry=True)
     assert cuda_resize.variant(rel) == ("u16_relaxed_carry" if rel.carry
                                         else "u16_relaxed")
     assert set(cuda_resize.VARIANTS) == set(cuda_resize.LAUNCHES_BY_VARIANT)
-    assert len(cuda_resize.VARIANTS) == 8
+    assert len(cuda_resize.VARIANTS) == 10     # and the tiled kernel's two
 
 
 def test_opt_in_is_the_jax_packages(monkeypatch):

@@ -75,7 +75,7 @@ def test_windows_cover_every_tap(name):
 @pytest.mark.parametrize("name", sorted(MAIN_PLANS))
 def test_smem_within_budget(name):
     plan = build_plan(**MAIN_PLANS[name])
-    tables = cuda_resize.kernel_tables(plan)
+    tables = cuda_resize.kernel_tables(plan, tiled=False)
     nbytes = cuda_resize.smem_bytes(plan)
     assert nbytes == cuda_resize.TILE_ROWS * tables.win_max * 4
     assert nbytes <= cuda_resize.SMEM_BUDGET
@@ -297,7 +297,7 @@ MODEL_PLANS = [
 def test_kernel_model_matches_oracle(algo, kw, sw, sh, dw, dh):
     plan = build_plan(algo, sw, sh, dw, dh, **kw)
     assert cuda_resize.supports_plan(plan)
-    tables = cuda_resize.kernel_tables(plan)
+    tables = cuda_resize.kernel_tables(plan, tiled=False)
     assert tables.wrap16 == (algo == "lanczos")
     src = np.random.default_rng(sw * dh).integers(0, 256, (sh, sw), np.uint8)
     np.testing.assert_array_equal(_kernel_model(plan, tables, src),
@@ -349,7 +349,7 @@ def test_launch_counts_by_variant_reset():
     assert cuda_resize.LAUNCHES_BY_VARIANT == {
         "wrap16": 0, "u16": 0, "wrap16_relaxed": 0, "u16_relaxed": 0,
         "wrap16_carry": 0, "u16_carry": 0, "wrap16_relaxed_carry": 0,
-        "u16_relaxed_carry": 0}
+        "u16_relaxed_carry": 0, "wrap16_tiled": 0, "u16_tiled": 0}
 
 
 # -- on the card ------------------------------------------------------------
@@ -372,7 +372,7 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
 @pytest.mark.parametrize("name", sorted(U16_PLANS))
 def test_u16_kernel_matches_plain_on_card(cuda_device, name):
     plan = build_plan(**U16_PLANS[name])
-    ops = cuda_resize.pack_operands(plan, cuda_device)
+    ops = cuda_resize.pack_operands(plan, cuda_device, tiled=False)
     rng = np.random.default_rng(8)
     src = torch.from_numpy(rng.integers(0, 256, (2, plan.y.n_src, plan.x.n_src),
                                         np.uint8)).to(cuda_device)
