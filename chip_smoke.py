@@ -14,15 +14,19 @@ Two main paths, each through the entry points a user calls:
   CLI's default (``python -m libiqo_tpu_torch.cli.benchmark``).  It runs
   the tiled kernel's ``u16_tiled`` form, as Linear does.
 * Both again with ``precision="relaxed"`` (<= 2 LSB, flat fields exact):
-  the windowed kernel ``resize_fused``'s ``wrap16_relaxed`` and
-  ``u16_relaxed`` instantiations.  Exact plans outside ``tiled_ok`` keep
-  ``resize_fused``'s ``wrap16`` and ``u16`` (phase 5b).
+  the tiled kernel's relaxed form, ``wrap16_relaxed_tiled`` and
+  ``u16_relaxed_tiled``; and with ``LIBIQO_TPU_CARRY=1`` its row-halo
+  carry form (``*_carry_tiled``, ``*_relaxed_carry_tiled``) where the ring
+  fits.  Plans whose band or ring does not fit the tiled kernel's shared
+  memory keep the windowed ``resize_fused`` in the same forms (phases 5b
+  and 12: thumbnail strips and column thumbnails).
 
 Phases:
 
 1. Device: ``nvidia-smi`` name and power limit, capability, and the build of
-   the kernel library from ``libiqo_tpu_torch/csrc`` (nvcc, sm_90a), with
-   ptxas's registers, spills and static shared memory of each
+   the kernel library from ``libiqo_tpu_torch/csrc`` (one nvcc per source,
+   all started together, sm_90a), with each tiled form's instantiation
+   count and ptxas's registers, spills and static shared memory of each
    ``resize_tiled_kernel`` instantiation.
 2. Kernels vs plain, wrap16: the tiled kernel and the windowed
    ``resize_fused`` (``pack_operands(..., tiled=False)``) against
@@ -48,7 +52,9 @@ Phases:
    5b. The windowed route: ``YUV420Resizer`` on 4K -> 1920x16 strips
    (Lanczos3 and Area), whose luma band exceeds the tiled kernel's shared
    memory: luma launches ``resize_fused``'s wrap16 / u16, chroma the tiled
-   kernel.
+   kernel; then relaxed on a Lanczos3 4K -> 256x144 thumbnail and the Area
+   strip: luma ``wrap16_relaxed`` / ``u16_relaxed``, chroma the tiled
+   relaxed form.
 6. The benchmark CLI as a user runs it: default mode, ``--amortized``,
    ``--batch 16`` and ``--stream 64 --batch 16``, each must exit 0 and
    print its elapsed time.
@@ -62,23 +68,28 @@ Phases:
    Device times are taken with the card first held busy while the host
    queues every call; the kernel's and the frame's times are also given
    unprimed, at the pace the host issues them.
-8. Relaxed kernel == relaxed plain, byte for byte, on the full-width planes
-   of both main paths and of every ``U16_FRAMES`` frame, then on fuzz sets
-   like phases 2-3 (every plan the relaxed form takes), each also within
-   3 LSB of the NumPy oracle; within 2 LSB of the exact kernel on the
-   full-width planes and on the five configs of
-   ``scripts/check_relaxed_tpu.py``, whose max and mean error are printed
-   beside the TPU's (``scripts/check_relaxed_result.json``); flat fields
-   0/128/255 equal to the exact output.
+8. Both relaxed kernels (the tiled kernel's relaxed form and the windowed
+   ``resize_fused``'s) == relaxed plain, byte for byte, on the full-width
+   planes of both main paths and of every ``U16_FRAMES`` frame, then on
+   fuzz sets like phases 2-3 (every plan the relaxed form takes) and a plan
+   with a residual plane, each also within 3 LSB of the NumPy oracle;
+   within 2 LSB of the exact kernel on the full-width planes and on the
+   five configs of ``scripts/check_relaxed_tpu.py`` (Lanczos2 720p -> 1080p,
+   whose relaxed plane has nonzero taps outside the plane, among them),
+   whose max and mean error are printed beside the TPU's
+   (``scripts/check_relaxed_result.json``); flat fields 0/128/255 equal to
+   the exact output.
 9. The relaxed main paths: ``YUV420Resizer(..., precision="relaxed")`` with
    no ``device`` argument, Lanczos 4K and Area 360p, as phases 4-5, with
-   the launch counts all of the relaxed variant; the resize CLI with
-   ``--precision relaxed`` must write the API's bytes; the benchmark CLI
-   with ``--precision relaxed`` in its default and ``--batch 16`` modes.
-10. Times of the relaxed kernel beside the exact kernel, the relaxed plain
-   version and the bound, per plane and per frame, on both main paths; and
-   the exact wrap16 kernel on a px_scale-4 plane (Lanczos3 960x540 ->
-   480x270, the chroma of a 4K -> 1080p YUV410 frame).
+   the launch counts all of ``wrap16_relaxed_tiled`` / ``u16_relaxed_tiled``;
+   the resize CLI with ``--precision relaxed`` must write the API's bytes;
+   the benchmark CLI with ``--precision relaxed`` in its default and
+   ``--batch 16`` modes.
+10. Times of the tiled relaxed kernel, the windowed relaxed kernel
+   (``tiled=False``) and the exact tiled kernel in turns, beside the
+   relaxed plain version and the bound, per plane and per frame, on both
+   main paths; and the exact kernel on a px_scale-4 plane (Lanczos3
+   960x540 -> 480x270, the chroma of a 4K -> 1080p YUV410 frame).
 11. Sharding (``libiqo_tpu_torch.parallel.sharding``) on the one card, over
    meshes that name ``cuda:0`` several times: the sharded main path, with
    every count set to 0 just before, is Lanczos3 4K -> 1080p luma, its px2
@@ -92,16 +103,20 @@ Phases:
    ``numpy_ref``, and ``dryrun(8, "cuda")`` passes.  Times: the 4-shard call
    against the unsharded call, device-only and host-paced, beside the
    bound; one card running 4 shards, not a multi-card figure.
-12. The row-halo carry form (``LIBIQO_TPU_CARRY=1``): carry kernel ==
-   windowed ``resize_fused`` byte for byte, exact and relaxed, on every full-width
-   plane where ``carry_ok`` holds (Lanczos3 4K luma, Linear 1080p -> 4K luma
-   and chroma, Lanczos3 8K -> 1080p, Lanczos2 720p -> 1080p), on
-   scripts/tpu_check.py's carry_sweep cases and on a small fuzz set, batch 4,
-   also == ``numpy_ref`` at small sizes; ``YUV420Resizer`` with no device
-   argument and the opt-in, Lanczos3 4K (carry on luma, windowed on chroma,
-   where ``carry_ok`` refuses) and Linear 1080p -> 4K (carry on both), exact
-   and relaxed, with launch counts by variant; carry beside windowed times,
-   and on 4K luma against the run length (``CARRY_RUN_SWEEP``).
+12. The row-halo carry form (``LIBIQO_TPU_CARRY=1``): the tiled kernel's
+   carry form == its form without carry == the windowed ``resize_fused``
+   carry form, byte for byte, exact and relaxed, on every full-width plane
+   where carry applies (Lanczos3 4K luma, Linear 1080p -> 4K luma and
+   chroma, Lanczos3 8K -> 1080p, Lanczos2 720p -> 1080p), on
+   scripts/tpu_check.py's carry_sweep cases and on a small fuzz set, batch
+   4, also == ``numpy_ref`` at small sizes; ``YUV420Resizer`` with no device
+   argument and the opt-in, Lanczos3 4K (carry on luma, tiled on chroma,
+   where carry refuses) and Linear 1080p -> 4K (carry on both), exact and
+   relaxed, with launch counts by variant (``*_carry_tiled``), then the
+   column thumbnails whose tiled ring does not fit (``WINDOWED_CARRY_PATHS``:
+   the windowed ``*_carry`` forms on luma); times of the tiled carry form,
+   the tiled form and the windowed carry form in turns, and on 4K luma
+   against the run and the width (``CARRY_TILED_SWEEP``).
 13. The probes (``libiqo_tpu_torch/experiments``, the H100 ports of
    ``scripts/exp_dma_ceiling.py``, ``exp_int8_mxu.py`` and
    ``exp_banded_dots.py``): each of their four kernels == its plain version
@@ -239,24 +254,48 @@ CARRY_SWEEP = [
 ]
 CARRY_SWEEP_FUZZ = (6, 20260819)
 CARRY_FUZZ = 10
-# CARRY_BLOCKS values for the run-length sweep on 4K luma: runs of 2, 3, 7,
-# 13, 34 and 68 row tiles (510 down to 15 blocks)
+# CARRY_BLOCKS values for the windowed carry form's run-length sweep on 4K
+# luma: runs of 2, 3, 7, 13, 34 and 68 row tiles (510 down to 15 blocks)
 CARRY_RUN_SWEEP = (1020, 264, 132, 66, 16, 1)
+# (TW, run) of the tiled carry form's sweep on 4K luma: 510 down to 15
+# blocks at TW 128, and the narrower widths
+CARRY_TILED_SWEEP = ((128, 2), (128, 3), (128, 7), (128, 17), (128, 68),
+                     (64, 3), (64, 7), (32, 7), (32, 13))
 ORACLE_MAX_PIXELS = 400_000     # numpy_ref only on sources this small
-# (frame, luma variant, chroma variant): YUV420 thumbnail strips whose luma
-# plane is outside tiled_ok, so it keeps the windowed resize_fused kernel
+# (frame, luma variant, chroma variant, precision): YUV420 thumbnails whose
+# luma plane is outside tiled_ok (exact) or tiled_ok(relaxed=True), so it
+# keeps the windowed resize_fused kernel; chroma fits the tiled one
 WINDOWED_FRAMES = (
-    (("lanczos3", 3840, 2160, 1920, 16), "wrap16", "wrap16_tiled"),
-    (("area", 3840, 2160, 1920, 16), "u16", "u16_tiled"),
+    (("lanczos3", 3840, 2160, 1920, 16), "wrap16", "wrap16_tiled", "exact"),
+    (("area", 3840, 2160, 1920, 16), "u16", "u16_tiled", "exact"),
+    (("lanczos3", 3840, 2160, 256, 144), "wrap16_relaxed", "wrap16_relaxed_tiled",
+     "relaxed"),
+    (("area", 3840, 2160, 1920, 16), "u16_relaxed", "u16_relaxed_tiled", "relaxed"),
 )
 CARRY_PATHS = (                 # (frame, luma variant, chroma variant, precision)
-    (("lanczos3", 3840, 2160, 1920, 1080), "wrap16_carry", "wrap16_tiled", "exact"),
-    (("linear", 1920, 1080, 3840, 2160), "u16_carry", "u16_carry", "exact"),
-    (("lanczos3", 3840, 2160, 1920, 1080), "wrap16_relaxed_carry",
-     "wrap16_relaxed", "relaxed"),
-    (("linear", 1920, 1080, 3840, 2160), "u16_relaxed_carry",
-     "u16_relaxed_carry", "relaxed"),
+    (("lanczos3", 3840, 2160, 1920, 1080), "wrap16_carry_tiled", "wrap16_tiled",
+     "exact"),
+    (("linear", 1920, 1080, 3840, 2160), "u16_carry_tiled", "u16_carry_tiled",
+     "exact"),
+    (("lanczos3", 3840, 2160, 1920, 1080), "wrap16_relaxed_carry_tiled",
+     "wrap16_relaxed_tiled", "relaxed"),
+    (("linear", 1920, 1080, 3840, 2160), "u16_relaxed_carry_tiled",
+     "u16_relaxed_carry_tiled", "relaxed"),
 )
+# column thumbnails whose luma ring does not fit the tiled kernel's shared
+# memory (tiled_carry_layout refuses) while the windowed carry form's does
+# (carry_ok): luma keeps resize_fused's carry forms, chroma the tiled kernel
+WINDOWED_CARRY_PATHS = (
+    (("lanczos3", 640, 2160, 32, 270), "wrap16_carry", "wrap16_tiled", "exact"),
+    (("linear", 2712, 428, 54, 1712), "u16_carry", "u16_carry_tiled", "exact"),
+    (("lanczos3", 640, 2160, 32, 270), "wrap16_relaxed_carry", "wrap16_relaxed_tiled",
+     "relaxed"),
+    (("linear", 2712, 428, 54, 1712), "u16_relaxed_carry", "u16_relaxed_carry_tiled",
+     "relaxed"),
+)
+# a px2 plan whose relaxed column-sum repair does not converge: the relaxed
+# forms add the residual plane's sums
+RELAXED_RESIDUAL = ("lanczos", dict(degree=4, px_scale=2), 552, 40, 15, 30)
 
 
 class SmokeFailure(RuntimeError):
@@ -380,24 +419,44 @@ def hold(cr, tag: str, plan, host, oracle=None) -> int:
     return err
 
 
+TILED_FORMS = {(False, False): "exact", (True, False): "relaxed",
+               (False, True): "carry", (True, True): "relaxed carry"}
+
+
 def tiled_ptxas(log: str) -> list[str]:
     """ptxas -v's report for each resize_tiled_kernel instantiation:
-    registers, spills and static shared memory (its band, work tile and
-    records are dynamic shared memory, sized per plan at launch)."""
-    out, name = [], None
+    registers, spills and static shared memory (its band or ring, work tile
+    and records are dynamic shared memory, sized per plan at launch); then,
+    per form, its instantiation count, its source's nvcc wall time and the
+    range of registers and spills."""
+    out, name, forms = [], None, {}
+    secs = dict(re.findall(r"nvcc -c (\S+): (\S+) s", log))
     for line in log.splitlines():
-        m = re.search(r"resize_tiled_kernelILb(\d)ELb(\d)ELi(\d+)E", line)
+        m = re.search(r"resize_tiled_kernelILb(\d)ELb(\d)ELi(\d+)ELb(\d)ELb(\d)E", line)
         if "Compiling entry function" in line:
-            name = (f"resize_tiled_kernel<{'true' if m[1] == '1' else 'false'}, "
-                    f"{'true' if m[2] == '1' else 'false'}, {m[3]}>") if m else None
+            name = m and tuple(int(v) for v in m.groups())
         elif name and "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif name and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line)[1]
+            regs = int(re.search(r"Used (\d+) registers", line)[1])
             smem = re.search(r"(\d+) bytes smem", line)
-            out.append(f"ptxas {name} (kWrap16, kS8Y, TW): {regs} registers, "
-                       f"{spill}, {smem[1] if smem else 0} bytes static smem")
+            w16, s8, tw, rel, car = name
+            form = TILED_FORMS[bool(rel), bool(car)]
+            out.append(f"ptxas resize_tiled_kernel<{bool(w16)}, {bool(s8)}, {tw}, "
+                       f"{bool(rel)}, {bool(car)}> (kWrap16, kS8Y, TW, kRelaxed, "
+                       f"kCarry; {form}): {regs} registers, {spill}, "
+                       f"{smem[1] if smem else 0} bytes static smem")
+            forms.setdefault(form, []).append((regs, spill))
             name = None
+    source = {"exact": "resize_tiled.cu", "relaxed": "resize_tiled_relaxed.cu",
+              "carry": "resize_tiled_carry.cu",
+              "relaxed carry": "resize_tiled_relaxed_carry.cu"}
+    for form, rows in forms.items():
+        regs = [r for r, _ in rows]
+        spills = sorted({sp for _, sp in rows})
+        out.append(f"tiled form {form}: {len(rows)} instantiations, nvcc -c "
+                   f"{source[form]} {secs.get(source[form])} s, registers "
+                   f"{min(regs)}-{max(regs)}, {' / '.join(spills)}")
     return out
 
 
@@ -557,7 +616,7 @@ def drive_yuv(cr, yuv, build_plan, rng, frame, variant, chroma_variant=None,
 def phase_lanczos_path(cr, yuv, build_plan, rng, tmp: Path,
                        variant="wrap16_tiled", **kwargs):
     frame = ("lanczos3", SRC_W, SRC_H, DST_W, DST_H)
-    precision = "relaxed" if variant.endswith("_relaxed") else "exact"
+    precision = "relaxed" if "_relaxed" in variant else "exact"
     by_variant, max_err, frames, outs = drive_yuv(
         cr, yuv, build_plan, rng, frame, variant, precision=precision,
         **kwargs)
@@ -586,7 +645,7 @@ def phase_lanczos_path(cr, yuv, build_plan, rng, tmp: Path,
 
 def phase_area_path(cr, yuv, build_plan, benchmark, rng, variant="u16_tiled"):
     # no device argument: the user's default, which is the card
-    precision = "relaxed" if variant.endswith("_relaxed") else "exact"
+    precision = "relaxed" if "_relaxed" in variant else "exact"
     by_variant, max_err, _, _ = drive_yuv(cr, yuv, build_plan, rng, AREA_MAIN,
                                           variant, precision=precision)
     launches = by_variant[variant]
@@ -606,18 +665,19 @@ def phase_area_path(cr, yuv, build_plan, benchmark, rng, variant="u16_tiled"):
 
 def phase_windowed_path(cr, yuv, build_plan, rng) -> dict:
     """The windowed ``resize_fused`` route on a user path: YUV420Resizer on
-    WINDOWED_FRAMES, thumbnail strips whose luma band is taller than the
-    tiled kernel's shared memory (``tiled_ok`` refuses it, so the plan
-    keeps the windowed kernel); chroma fits and runs tiled.  Counts set to
-    0 just before each; returns the windowed launches by variant."""
+    WINDOWED_FRAMES, exact and relaxed thumbnails whose luma band is taller
+    than the tiled kernel's shared memory (``tiled_ok`` refuses it, so the
+    plan keeps the windowed kernel); chroma fits and runs tiled.  Counts
+    set to 0 just before each; returns the windowed launches by variant."""
     launches = {}
-    for frame, luma_v, chroma_v in WINDOWED_FRAMES:
+    for frame, luma_v, chroma_v, precision in WINDOWED_FRAMES:
+        relaxed = precision == "relaxed"
         (_, luma, _), (_, chroma, _) = yuv_planes(build_plan, *frame)
-        check(not cr.tiled_ok(luma) and cr.tiled_ok(chroma),
-              f"{frame}: tiled_ok luma {cr.tiled_ok(luma)}, chroma "
-              f"{cr.tiled_ok(chroma)}; expected False, True")
+        fits = [cr.tiled_ok(p, relaxed) for p in (luma, chroma)]
+        check(fits == [False, True], f"{frame} {precision}: tiled_ok luma, "
+              f"chroma {fits}; expected False, True")
         by_variant, err, _, _ = drive_yuv(cr, yuv, build_plan, rng, frame,
-                                          luma_v, chroma_v)
+                                          luma_v, chroma_v, precision=precision)
         launches[luma_v] = by_variant[luma_v]
         MAX_ERR[luma_v] = max(MAX_ERR.get(luma_v, 0), err)
     return launches
@@ -766,17 +826,28 @@ def err_stats(got: torch.Tensor, want: torch.Tensor) -> tuple[int, float]:
 
 
 def hold_relaxed(cr, tag: str, plan, host: np.ndarray, oracle=None):
-    """Relaxed kernel == relaxed plain on the card, byte for byte, for one
-    plan and a (B, h, w) source; within RELAXED_LSB of the exact kernel, or
-    with an oracle within RELAXED_ORACLE_LSB of it; flat fields 0/128/255
-    equal to the exact output.  Returns the error against the relaxed plain
-    version and the (max, mean) error against the exact output."""
+    """Relaxed kernels == relaxed plain on the card, byte for byte, for one
+    plan and a (B, h, w) source: the plan's own route (the tiled kernel's
+    relaxed form where ``tiled_ok(plan, relaxed=True)``) and the windowed
+    ``resize_fused`` (``tiled=False``); the first within RELAXED_LSB of the
+    exact kernel, or with an oracle within RELAXED_ORACLE_LSB of it; flat
+    fields 0/128/255 equal to the exact output.  Errors against the plain
+    version are noted by variant in MAX_ERR.  Returns the route's variant,
+    its error against the relaxed plain version and the (max, mean) error
+    against the exact output."""
     check(cr.supports_plan(plan, relaxed=True), f"{tag}: relaxed form refuses")
     rel = cr.pack_operands(plan, "cuda", relaxed=True)
     ex = cr.pack_operands(plan, "cuda")
     src = torch.from_numpy(host).cuda()
     got = cr.resize_fused(rel, src)
-    plain_err = compare(f"{tag} relaxed", got, cr.resize_plain(rel, src))
+    v = cr.variant(rel.tables)
+    plain = cr.resize_plain(rel, src)
+    plain_err = compare(f"{tag} {v}", got, plain)
+    windowed = cr.pack_operands(plan, "cuda", relaxed=True, tiled=False)
+    w = cr.variant(windowed.tables)
+    MAX_ERR[w] = max(MAX_ERR.get(w, 0), compare(
+        f"{tag} {w}", cr.resize_fused(windowed, src), plain))
+    MAX_ERR[v] = max(MAX_ERR.get(v, 0), plain_err)
     if oracle is None:
         want = cr.resize_fused(ex, src)
         compare(f"{tag} relaxed vs exact", got, want, RELAXED_LSB)
@@ -784,21 +855,23 @@ def hold_relaxed(cr, tag: str, plan, host: np.ndarray, oracle=None):
         want = torch.from_numpy(np.stack([oracle.resize_u8(plan, f) for f in host]))
         compare(f"{tag} relaxed vs numpy_ref", got.cpu(), want, RELAXED_ORACLE_LSB)
         want = want.cuda()
-    for v in (0, 128, 255):
-        flat = torch.full_like(src, v)
-        compare(f"{tag} relaxed flat {v}", cr.resize_fused(rel, flat),
+    for level in (0, 128, 255):
+        flat = torch.full_like(src, level)
+        compare(f"{tag} relaxed flat {level}", cr.resize_fused(rel, flat),
                 cr.resize_fused(ex, flat))
-    return (plain_err, *err_stats(got, want))
+    return (v, plain_err, *err_stats(got, want))
 
 
 def phase_relaxed_vs_plain(cr, build_plan, numpy_ref, rng):
-    """Phase 8.  Returns, per relaxed variant, the largest error against
-    the relaxed plain version and against the exact output."""
-    worst = {"wrap16_relaxed": [0, 0], "u16_relaxed": [0, 0]}
+    """Phase 8.  Returns, per relaxed variant of the plans' own routes, the
+    largest error against the relaxed plain version and against the exact
+    output."""
+    worst = {}
 
-    def note(plan, stats):
-        v = cr.variant(plan, relaxed=True)
-        worst[v] = [max(worst[v][0], stats[0]), max(worst[v][1], stats[1])]
+    def note(stats):
+        v, plain_err, lsb = stats[:3]
+        old = worst.get(v, [0, 0])
+        worst[v] = [max(old[0], plain_err), max(old[1], lsb)]
         return v
 
     frames = [("lanczos3", SRC_W, SRC_H, DST_W, DST_H), *U16_FRAMES.values()]
@@ -807,19 +880,29 @@ def phase_relaxed_vs_plain(cr, build_plan, numpy_ref, rng):
             host = random_u8(rng, (batch, plan.y.n_src, plan.x.n_src))
             tag = f"{frame[0]} {plane} {tuple(host.shape)}"
             stats = hold_relaxed(cr, tag, plan, host)
-            v = note(plan, stats)
-            print(f"kernel[{v}] == plain: {tag}, flat fields exact; vs exact "
-                  f"max {stats[1]} mean {stats[2]!r} LSB")
+            v = note(stats)
+            check(v.endswith("_relaxed_tiled"), f"{tag}: relaxed route {v}")
+            print(f"kernel[{v}] and the windowed relaxed kernel == plain: {tag}, "
+                  f"flat fields exact; vs exact max {stats[2]} mean {stats[3]!r} LSB")
     tpu = {row["case"]: row for row in json.loads(
         (ROOT / "scripts" / "check_relaxed_result.json").read_text())}
     for name, (algo, kw, sw, sh, dw, dh) in RELAXED_GRADED.items():
         plan = build_plan(algo, sw, sh, dw, dh, **kw)
         stats = hold_relaxed(cr, name, plan, random_u8(rng, (1, sh, sw)))
-        note(plan, stats)
+        note(stats)
         t = tpu[name]
-        print(f"relaxed graded {name}: vs exact max {stats[1]} mean "
-              f"{stats[2]!r} LSB (TPU vs oracle: max {t['max_lsb']} mean "
+        print(f"relaxed graded {name} ({stats[0]}): vs exact max {stats[2]} mean "
+              f"{stats[3]!r} LSB (TPU vs oracle: max {t['max_lsb']} mean "
               f"{t['mean_lsb']}, scripts/check_relaxed_result.json)")
+    algo, kw, sw, sh, dw, dh = RELAXED_RESIDUAL
+    plan = build_plan(algo, sw, sh, dw, dh, **kw)
+    check(cr.relaxed_plane(plan.x)[1] is not None, "residual plan has no residual")
+    stats = hold_relaxed(cr, "residual plane", plan, random_u8(rng, (4, sh, sw)),
+                         numpy_ref)
+    note(stats)
+    print(f"relaxed residual-plane plan {algo}{kw} {sw}x{sh}->{dw}x{dh} "
+          f"({stats[0]}, two X planes): == plain, within {RELAXED_ORACLE_LSB} "
+          "LSB of numpy_ref, flat fields exact")
     fuzz = np.random.default_rng(SEED + 1)
     for name, cases in (("lanczos px1-2 fuzz", lanczos_fuzz(fuzz)),
                         ("lanczos px3-4", lanczos_px34(fuzz)),
@@ -832,49 +915,63 @@ def phase_relaxed_vs_plain(cr, build_plan, numpy_ref, rng):
                 refused += 1
                 continue
             tag = f"{name} {algo}{kw or ''} {sw}x{sh}->{dw}x{dh}"
-            note(plan, hold_relaxed(cr, tag, plan, random_u8(fuzz, (2, sh, sw)),
-                                    numpy_ref))
+            note(hold_relaxed(cr, tag, plan, random_u8(fuzz, (2, sh, sw)),
+                              numpy_ref))
             n += 1
-        print(f"relaxed kernel == relaxed plain, within {RELAXED_ORACLE_LSB} "
-              f"LSB of numpy_ref, flat fields exact, on {n} {name} geometries "
-              f"({refused} refused by supports_plan(relaxed=True))")
+        print(f"both relaxed kernels == relaxed plain, within "
+              f"{RELAXED_ORACLE_LSB} LSB of numpy_ref, flat fields exact, on {n} "
+              f"{name} geometries ({refused} refused by "
+              f"supports_plan(relaxed=True))")
+    print(f"phase 8 routes (largest error vs plain, vs exact): {worst}")
     return worst
 
 
 def phase_relaxed_times(cr, build_plan, rng, card: str, frame) -> dict:
-    """Phase 10: relaxed kernel, exact kernel and relaxed plain per plane
-    and per frame, beside the frame's bound (the same bytes as exact)."""
+    """Phase 10: the tiled relaxed kernel, the windowed relaxed kernel
+    (``tiled=False``) and the exact tiled kernel in turns (windowed, tiled,
+    exact, exact, tiled, windowed: min of each pair), the relaxed plain
+    version, per plane and per frame, beside the frame's bound (the same
+    bytes as exact)."""
     method, sw, sh, dw, dh = frame
     rows, planes = {}, []
     for name, plan, batch in yuv_planes(build_plan, *frame):
         planes.append((plan, batch))
         rel = cr.pack_operands(plan, "cuda", relaxed=True)
+        win = cr.pack_operands(plan, "cuda", relaxed=True, tiled=False)
         ex = cr.pack_operands(plan, "cuda")
+        check(rel.tables.tiled and not win.tables.tiled and ex.tables.tiled,
+              f"relaxed {name}: routes")
         shape = (batch, plan.y.n_src, plan.x.n_src)
         xs = perturbed(torch.from_numpy(random_u8(rng, shape)).cuda(),
                        n_inputs(math.prod(shape)))
-        # in turns, exact, relaxed, relaxed, exact: min of each pair
         times = [time_ms(lambda x, o=o: cr.resize_fused(o, x), xs)
-                 for o in (ex, rel, rel, ex)]
-        rows[name] = (min(times[1:3]),
+                 for o in (win, rel, ex, ex, rel, win)]
+        rows[name] = (min(times[1], times[4]),
                       time_ms(lambda x: cr.resize_fused(rel, x), xs, primed=False),
-                      min(times[0], times[3]),
-                      time_ms(lambda x: cr.resize_plain(rel, x), xs))
-        exact = cr.variant(ex.tables)
+                      min(times[2], times[3]),
+                      time_ms(lambda x: cr.resize_plain(rel, x), xs),
+                      min(times[0], times[5]))
+        variants = (cr.variant(rel.tables), cr.variant(win.tables),
+                    cr.variant(ex.tables))
     bytes_ms, ops_ms = bound(planes, BF16_OPS_PER_S)
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     tag = f"{method} {sw}x{sh}->{dw}x{dh}"
-    for name, (r, ru, e, p) in rows.items():
-        print(f"time relaxed {tag} {name}: relaxed kernel {r!r} ms (unprimed "
-              f"{ru!r}), exact kernel ({exact}) {e!r} ms, relaxed plain {p!r} ms, "
-              f"relaxed/exact {r / e!r} ({card})")
-    r, e, p = (rows["luma"][i] + rows["chroma"][i] for i in (0, 2, 3))
-    print(f"time relaxed {tag} planes per frame: relaxed kernel {r!r} ms, "
-          f"exact kernel ({exact}) {e!r} ms, relaxed plain {p!r} ms, bound {bound_ms!r} "
-          f"ms ({bound_by}), relaxed/bound {r / bound_ms!r} ({card})")
-    return {"ms": r, "exact_ms": e, "exact_kernel": exact, "plain_ms": p,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    for name, (r, ru, e, p, w) in rows.items():
+        print(f"time relaxed {tag} {name}: relaxed tiled kernel ({variants[0]}) "
+              f"{r!r} ms (unprimed {ru!r}), windowed relaxed ({variants[1]}) {w!r} "
+              f"ms, exact tiled ({variants[2]}) {e!r} ms, relaxed plain {p!r} ms, "
+              f"relaxed/exact {r / e!r}, tiled/windowed {r / w!r} ({card})")
+    r, e, p, w = (rows["luma"][i] + rows["chroma"][i] for i in (0, 2, 3, 4))
+    print(f"time relaxed {tag} planes per frame: relaxed tiled kernel {r!r} ms, "
+          f"windowed relaxed {w!r} ms, exact tiled {e!r} ms (same call, in "
+          f"turns), relaxed/exact {r / e!r}, tiled/windowed {r / w!r}, relaxed "
+          f"plain {p!r} ms, bound {bound_ms!r} ms ({bound_by}), relaxed/bound "
+          f"{r / bound_ms!r} ({card})")
+    return {"ms": r, "windowed_ms": w, "exact_ms": e, "exact_kernel": variants[2],
+            "plain_ms": p, "bound_ms": bound_ms, "bound_by": bound_by,
+            "planes": {n: {"tiled_ms": v[0], "windowed_ms": v[4]}
+                       for n, v in rows.items()}}
 
 
 def phase_px4_time(cr, build_plan, rng, card: str) -> None:
@@ -1085,7 +1182,7 @@ def tpu_fuzz_cases(n: int, seed: int):
 
 
 def carry_small(rng, cr, build_plan):
-    """A seeded fuzz set of small plans on which carry_ok holds."""
+    """A seeded fuzz set of small plans that the tiled carry form takes."""
     n = tries = 0
     while n < CARRY_FUZZ and tries < 400:
         tries += 1
@@ -1095,83 +1192,106 @@ def carry_small(rng, cr, build_plan):
                   else (sw * 3 // 2 + tries % 3, sh * 3 // 2 + tries % 5))
         kw = dict(degree=int(2 + tries % 3)) if algo == "lanczos" else {}
         plan = build_plan(algo, sw, sh, dw, dh, **kw)
-        if cr.supports_plan(plan) and cr.carry_ok(plan):
+        if cr.supports_plan(plan) and cr.tiled_carry_layout(plan) is not None:
             n += 1
             yield algo, kw, sw, sh, dw, dh, plan
 
 
-def hold_carry(cr, tag: str, plan, host: np.ndarray, oracle=None) -> int:
-    """Carry kernel == windowed kernel on the card, byte for byte, exact and
-    (where the relaxed form takes the plan) relaxed; exact also == the
-    NumPy oracle when one is given.  Returns the largest error."""
-    check(cr.carry_ok(plan), f"{tag}: carry_ok refuses")
+def hold_carry(cr, tag: str, plan, host: np.ndarray, oracle=None) -> dict:
+    """The tiled carry kernel == the tiled kernel without carry on the card,
+    byte for byte, and == the windowed carry kernel where ``carry_ok``
+    holds, exact and (where the relaxed form takes the plan) relaxed; exact
+    also == the NumPy oracle when one is given.  Returns the largest error
+    by variant."""
+    check(cr.tiled_carry_layout(plan) is not None, f"{tag}: tiled carry refuses")
     src = torch.from_numpy(host).cuda()
-    err = 0
+    errs = {}
     for relaxed in (False, True):
         if relaxed and not cr.supports_plan(plan, relaxed=True):
             continue
         carry = cr.pack_operands(plan, "cuda", relaxed, carry=True)
-        windowed = cr.pack_operands(plan, "cuda", relaxed, tiled=False)
-        check(cr.variant(carry.tables) == cr.variant(plan, relaxed, carry=True),
-              f"{tag}: carry tables are {cr.variant(carry.tables)}")
+        tiled = cr.pack_operands(plan, "cuda", relaxed)
+        v = cr.variant(carry.tables)
+        check(v == cr.variant(plan, relaxed, carry=True) + "_tiled",
+              f"{tag}: carry tables are {v}")
         got = cr.resize_fused(carry, src)
-        err = max(err, compare(f"{tag} {cr.variant(carry.tables)} vs windowed",
-                               got, cr.resize_fused(windowed, src)))
+        err = compare(f"{tag} {v} vs {cr.variant(tiled.tables)}", got,
+                      cr.resize_fused(tiled, src))
         if oracle is not None and not relaxed:
             want = np.stack([oracle.resize_u8(plan, f) for f in host])
-            err = max(err, compare(f"{tag} carry vs numpy_ref", got.cpu(),
+            err = max(err, compare(f"{tag} {v} vs numpy_ref", got.cpu(),
                                    torch.from_numpy(want)))
-    return err
+        errs[v] = max(errs.get(v, 0), err)
+        if cr.carry_ok(plan):
+            windowed = cr.pack_operands(plan, "cuda", relaxed, carry=True, tiled=False)
+            w = cr.variant(windowed.tables)
+            errs[w] = max(errs.get(w, 0), compare(
+                f"{tag} {w} vs {v}", cr.resize_fused(windowed, src), got))
+    return errs
+
+
+def in_turns(fns: dict, xs) -> dict:
+    """Each of ``fns`` timed twice, in the order given and then reversed
+    (min of its two): {name: ms}."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n].append(time_ms(fns[n], xs))
+    return {n: min(t) for n, t in times.items()}
 
 
 def phase_carry(cr, yuv, build_plan, numpy_ref, rng, card: str) -> dict:
-    """Phase 12, the carry form.  Returns its entries of the kernels line."""
+    """Phase 12, the carry forms.  Returns their entries of the kernels
+    line, the tiled carry form's and the windowed ``resize_fused``'s."""
     t_phase = time.perf_counter()
-    max_err = dict.fromkeys(("wrap16_carry", "u16_carry", "wrap16_relaxed_carry",
-                             "u16_relaxed_carry"), 0)
+    max_err = {}
 
-    def note(plan, err):
-        for relaxed in (False, True):
-            max_err[cr.variant(plan, relaxed, carry=True)] = max(
-                max_err[cr.variant(plan, relaxed, carry=True)], err)
+    def note(errs):
+        for v, e in errs.items():
+            max_err[v] = max(max_err.get(v, 0), e)
 
     plans = {}
     for name, (algo, kw, sw, sh, dw, dh, batch) in CARRY_PLANES.items():
         plan = plans[name] = build_plan(algo, sw, sh, dw, dh, **kw)
-        lay = cr.carry_layout(plan)
-        check(lay is not None, f"carry_ok refuses {name}")
-        note(plan, hold_carry(cr, name, plan, random_u8(rng, (batch, sh, sw))))
-        print(f"carry == windowed, exact and relaxed: {name} ({batch}, {sh}, "
-              f"{sw}); run {lay.run} row tiles, ring {lay.ring_rows} rows x "
-              f"{lay.ring_pitch} B, fetch/band {lay.fetch / lay.band!r}")
+        lay, win = cr.tiled_carry_layout(plan), cr.carry_layout(plan)
+        check(lay is not None and win is not None, f"carry refuses {name}")
+        note(hold_carry(cr, name, plan, random_u8(rng, (batch, sh, sw))))
+        print(f"tiled carry == tiled == windowed carry, exact and relaxed: "
+              f"{name} ({batch}, {sh}, {sw}); tiled: TW {lay.tw}, run {lay.run}, "
+              f"ring {lay.slots} rows x {lay.pitch} B, {lay.smem} B of shared "
+              f"memory, fetch/band {lay.fetch / lay.band!r}; windowed: run "
+              f"{win.run}, fetch/band {win.fetch / win.band!r}")
     n = skipped = 0
     for algo, sw, sh, dw, dh, kw in CARRY_SWEEP + tpu_fuzz_cases(*CARRY_SWEEP_FUZZ):
         plan = build_plan(algo, sw, sh, dw, dh, **kw)
-        if not (cr.supports_plan(plan) and cr.carry_ok(plan)):
+        if not (cr.supports_plan(plan) and cr.tiled_carry_layout(plan) is not None):
             skipped += 1
             continue
         small = sw * sh <= ORACLE_MAX_PIXELS
-        note(plan, hold_carry(cr, f"carry sweep {algo}{kw or ''} {sw}x{sh}->"
-                              f"{dw}x{dh}", plan, random_u8(rng, (4, sh, sw)),
-                              numpy_ref if small else None))
+        note(hold_carry(cr, f"carry sweep {algo}{kw or ''} {sw}x{sh}->{dw}x{dh}",
+                        plan, random_u8(rng, (4, sh, sw)),
+                        numpy_ref if small else None))
         n += 1
-    print(f"carry == windowed (batch 4, exact and relaxed) on {n} "
-          f"scripts/tpu_check.py:carry_sweep cases ({skipped} where carry_ok "
-          f"or supports_plan refuses: the tiled or windowed form serves them)")
+    print(f"tiled carry == tiled (== windowed carry where carry_ok) (batch 4, "
+          f"exact and relaxed) on {n} scripts/tpu_check.py:carry_sweep cases "
+          f"({skipped} where carry or supports_plan refuses)")
     n = 0
     for algo, kw, sw, sh, dw, dh, plan in carry_small(rng, cr, build_plan):
-        note(plan, hold_carry(cr, f"carry fuzz {algo}{kw or ''} {sw}x{sh}->"
-                              f"{dw}x{dh}", plan, random_u8(rng, (4, sh, sw)),
-                              numpy_ref))
+        note(hold_carry(cr, f"carry fuzz {algo}{kw or ''} {sw}x{sh}->{dw}x{dh}",
+                        plan, random_u8(rng, (4, sh, sw)), numpy_ref))
         n += 1
-    print(f"carry == windowed == numpy_ref (batch 4) on {n} small fuzz plans")
+    print(f"tiled carry == tiled == numpy_ref (batch 4) on {n} small fuzz plans")
 
     launches = {}
-    for frame, luma_v, chroma_v, precision in CARRY_PATHS:
+    for frame, luma_v, chroma_v, precision in CARRY_PATHS + WINDOWED_CARRY_PATHS:
+        if not luma_v.endswith("_tiled"):
+            (_, luma, _), _ = yuv_planes(build_plan, *frame)
+            check(cr.tiled_carry_layout(luma) is None and cr.carry_ok(luma),
+                  f"{frame}: luma takes the tiled carry form")
         by_variant, err, _, _ = drive_yuv(cr, yuv, build_plan, rng, frame,
                                           luma_v, chroma_v, precision=precision)
         launches[luma_v] = by_variant[luma_v]
-        max_err[luma_v] = max(max_err[luma_v], err)
+        max_err[luma_v] = max(max_err.get(luma_v, 0), err)
     print(f"carry main paths with LIBIQO_TPU_CARRY=1 -> launches {launches}")
 
     entries = {}
@@ -1182,63 +1302,101 @@ def phase_carry(cr, yuv, build_plan, numpy_ref, rng, card: str) -> dict:
         relaxed = "_relaxed" in v
         plan = plans[name]
         carry = cr.pack_operands(plan, "cuda", relaxed, carry=True)
-        windowed = cr.pack_operands(plan, "cuda", relaxed, tiled=False)
+        tiled = cr.pack_operands(plan, "cuda", relaxed)
+        windowed = cr.pack_operands(plan, "cuda", relaxed, carry=True, tiled=False)
+        check(cr.variant(carry.tables) == v + "_tiled"
+              and cr.variant(windowed.tables) == v, f"{name}: carry routes")
         x = torch.from_numpy(random_u8(rng, (1, plan.y.n_src, plan.x.n_src))).cuda()
         xs = perturbed(x, n_inputs(x.numel()))
-        run_c = lambda t: cr.resize_fused(carry, t)              # noqa: E731
-        run_w = lambda t: cr.resize_fused(windowed, t)           # noqa: E731
-        times = [time_ms(f, xs) for f in (run_w, run_c, run_c, run_w)]
-        k, w = min(times[1:3]), min(times[0], times[3])
-        ku = time_ms(run_c, xs, primed=False)
+        ms = in_turns({"windowed": lambda t: cr.resize_fused(windowed, t),
+                       "tiled": lambda t: cr.resize_fused(tiled, t),
+                       "carry": lambda t: cr.resize_fused(carry, t)}, xs)
+        ku = time_ms(lambda t: cr.resize_fused(carry, t), xs, primed=False)
         p = time_ms(lambda t: cr.resize_plain(carry, t), xs)
         bytes_ms, ops_ms = bound([(plan, 1)], BF16_OPS_PER_S if relaxed
                                  else INT8_OPS_PER_S)
         b = max(bytes_ms, ops_ms)
-        print(f"time carry {v} {name}: carry {k!r} ms (unprimed {ku!r}), "
-              f"windowed {w!r} ms, carry/windowed {k / w!r}, plain {p!r} ms, "
-              f"bound {b!r} ms ({card})")
+        lay = carry.tables.layout
+        print(f"time carry {v}_tiled {name} (TW {lay.tw}, run {lay.run}): tiled "
+              f"carry {ms['carry']!r} ms (unprimed {ku!r}), tiled {ms['tiled']!r} "
+              f"ms, windowed carry {ms['windowed']!r} ms (same call, in turns), "
+              f"carry/tiled {ms['carry'] / ms['tiled']!r}, tiled carry/windowed "
+              f"carry {ms['carry'] / ms['windowed']!r}, plain {p!r} ms, bound "
+              f"{b!r} ms ({card})")
+        common = {"route": "cuda", "replaces": "libiqo_tpu/ops/pallas_resize.py:1242",
+                  "plain_ms": p, "bound_ms": b,
+                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                  "library_ms": None, "plane": name}
+        entries[v + "_tiled"] = {
+            "name": f"resize_tiled[{v.replace('_', ',')}]",
+            "source": "libiqo_tpu_torch/csrc/resize_tiled.cuh",
+            "launches": launches[v + "_tiled"], "max_abs_err": max_err[v + "_tiled"],
+            "ms": ms["carry"], **common, "windowed_ms": ms["windowed"],
+            "tiled_ms": ms["tiled"], "tw": lay.tw, "run": lay.run}
+        # the windowed carry form: launched by the column thumbnails whose
+        # tiled ring does not fit, timed on the same plane in the same turns
         entries[v] = {
-            "name": f"resize_fused[{v.replace('_', ',')}]", "route": "cuda",
+            "name": f"resize_fused[{v.replace('_', ',')}]",
+            "was": "the carry route of every plan that carry_ok takes; now of "
+                   "those whose tiled ring does not fit",
             "source": "libiqo_tpu_torch/csrc/resize_fused.cu",
-            "replaces": "libiqo_tpu/ops/pallas_resize.py:1242",
-            "launches": launches[v], "max_abs_err": max_err[v], "ms": k,
-            "plain_ms": p, "bound_ms": b,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "windowed_ms": w, "plane": name}
+            "launches": launches[v], "max_abs_err": max_err[v],
+            "ms": ms["windowed"], **common, "tiled_carry_ms": ms["carry"]}
     for name in ("lanczos3 8K->1080p", "lanczos2 720p->1080p",
                  "linear 1080p->4K chroma"):
         plan, batch = plans[name], CARRY_PLANES[name][-1]
         carry = cr.pack_operands(plan, "cuda", carry=True)
-        windowed = cr.pack_operands(plan, "cuda", tiled=False)
+        tiled = cr.pack_operands(plan, "cuda")
+        windowed = cr.pack_operands(plan, "cuda", carry=True, tiled=False)
         x = torch.from_numpy(random_u8(rng, (batch, plan.y.n_src, plan.x.n_src))).cuda()
         xs = perturbed(x, n_inputs(x.numel()))
-        times = [time_ms(lambda t, o=o: cr.resize_fused(o, t), xs)
-                 for o in (windowed, carry, carry, windowed)]
-        k, w = min(times[1:3]), min(times[0], times[3])
-        print(f"time carry {cr.variant(carry.tables)} {name} {tuple(x.shape)}: "
-              f"carry {k!r} ms, windowed {w!r} ms, carry/windowed {k / w!r}, "
-              f"bound {bound([(plan, batch)])[0]!r} ms ({card})")
-    # the run length against the grid's size, on 4K luma
+        ms = in_turns({"windowed": lambda t: cr.resize_fused(windowed, t),
+                       "tiled": lambda t: cr.resize_fused(tiled, t),
+                       "carry": lambda t: cr.resize_fused(carry, t)}, xs)
+        lay = carry.tables.layout
+        print(f"time carry {cr.variant(carry.tables)} {name} {tuple(x.shape)} (TW "
+              f"{lay.tw}, run {lay.run}): tiled carry {ms['carry']!r} ms, tiled "
+              f"{ms['tiled']!r} ms, windowed carry {ms['windowed']!r} ms, "
+              f"carry/tiled {ms['carry'] / ms['tiled']!r}, bound "
+              f"{bound([(plan, batch)])[0]!r} ms ({card})")
+    # the run and the width against the grid's size, on 4K luma
     plan = plans["lanczos3 4K->1080p luma"]
+    tiled = cr.pack_operands(plan, "cuda")
     windowed = cr.pack_operands(plan, "cuda", tiled=False)
     x = torch.from_numpy(random_u8(rng, (1, plan.y.n_src, plan.x.n_src))).cuda()
     xs = perturbed(x, n_inputs(x.numel()))
+    want = cr.resize_fused(tiled, x)
+    for tw, run in CARRY_TILED_SWEEP:
+        lay = cr.tiled_carry_layout(plan, tw=tw, run=run)
+        check(lay is not None, f"tiled carry refuses TW {tw}, run {run}")
+        carry = cr.KernelOperands(plain=tiled.plain,
+                                  tables=cr.tiled_tables(plan, "cuda", lay))
+        compare(f"tiled carry TW {tw} run {run} vs tiled", cr.resize_fused(carry, x),
+                want)
+        ms = in_turns({"tiled": lambda t: cr.resize_fused(tiled, t),
+                       "carry": lambda t: cr.resize_fused(carry, t)}, xs)
+        blocks = -(-plan.x.n_dst // tw) * -(-len(lay.rrec) // run)
+        print(f"time tiled carry sweep, lanczos3 4K luma: TW {tw}, run {run} "
+              f"row tiles, {blocks} blocks, ring {lay.slots} rows, {lay.smem} B, "
+              f"fetch/band {lay.fetch / lay.band!r}: carry {ms['carry']!r} ms, "
+              f"tiled {ms['tiled']!r} ms, carry/tiled "
+              f"{ms['carry'] / ms['tiled']!r} ({card})")
     n_ct = -(-plan.x.n_dst // cr.TILE_COLS)
     saved = cr.CARRY_BLOCKS
     try:
         for blocks in CARRY_RUN_SWEEP:
             cr.CARRY_BLOCKS = blocks
             lay = cr.carry_layout(plan)
-            carry = cr.pack_operands(plan, "cuda", carry=True)
-            compare(f"carry run {lay.run} vs windowed", cr.resize_fused(carry, x),
-                    cr.resize_fused(windowed, x))
-            times = [time_ms(lambda t, o=o: cr.resize_fused(o, t), xs)
-                     for o in (windowed, carry, carry, windowed)]
-            k, w = min(times[1:3]), min(times[0], times[3])
-            print(f"time carry run sweep, lanczos3 4K luma: run {lay.run} row "
-                  f"tiles, {n_ct * -(-len(lay.rwin) // lay.run)} blocks, "
-                  f"fetch/band {lay.fetch / lay.band!r}: carry {k!r} ms, "
-                  f"windowed {w!r} ms, carry/windowed {k / w!r} ({card})")
+            carry = cr.pack_operands(plan, "cuda", carry=True, tiled=False)
+            compare(f"windowed carry run {lay.run} vs tiled", cr.resize_fused(carry, x),
+                    want)
+            ms = in_turns({"windowed": lambda t: cr.resize_fused(windowed, t),
+                           "carry": lambda t: cr.resize_fused(carry, t)}, xs)
+            print(f"time windowed carry run sweep, lanczos3 4K luma: run "
+                  f"{lay.run} row tiles, {n_ct * -(-len(lay.rwin) // lay.run)} "
+                  f"blocks, fetch/band {lay.fetch / lay.band!r}: carry "
+                  f"{ms['carry']!r} ms, windowed {ms['windowed']!r} ms, "
+                  f"carry/windowed {ms['carry'] / ms['windowed']!r} ({card})")
     finally:
         cr.CARRY_BLOCKS = saved
     print(f"phase carry: {time.perf_counter() - t_phase!r} s")
@@ -1906,11 +2064,12 @@ def main() -> int:
     rerr = phase_relaxed_vs_plain(cuda_resize, build_plan, numpy_ref, rrng)
     with tempfile.TemporaryDirectory() as tmp:
         launches16r, e = phase_lanczos_path(cuda_resize, yuv, build_plan, rrng,
-                                            Path(tmp), "wrap16_relaxed")
-    plain16r, err16r = max(rerr["wrap16_relaxed"][0], e), rerr["wrap16_relaxed"][1]
+                                            Path(tmp), "wrap16_relaxed_tiled")
+    plain16r = max(rerr["wrap16_relaxed_tiled"][0], e)
+    err16r = rerr["wrap16_relaxed_tiled"][1]
     launchesur, e = phase_area_path(cuda_resize, yuv, build_plan, benchmark,
-                                    rrng, "u16_relaxed")
-    plainur, errur = max(rerr["u16_relaxed"][0], e), rerr["u16_relaxed"][1]
+                                    rrng, "u16_relaxed_tiled")
+    plainur, errur = max(rerr["u16_relaxed_tiled"][0], e), rerr["u16_relaxed_tiled"][1]
     phase_benchmark_cli(smi, [["--cycles", "32", "--precision", "relaxed"],
                               ["--batch", "16", "--precision", "relaxed"]],
                         route="cuda-relaxed")
@@ -1929,9 +2088,32 @@ def main() -> int:
     xpass = phase_xpass(smi)
 
     src = "libiqo_tpu_torch/csrc/resize_fused.cu"
-    tiled_src = "libiqo_tpu_torch/csrc/resize_tiled.cu"
+    tiled_src = "libiqo_tpu_torch/csrc/resize_tiled.cuh"
     replaces = "libiqo_tpu/ops/pallas_resize.py:1687"
     replaces_relaxed = "libiqo_tpu/ops/pallas_resize.py:1486"
+
+    def relaxed_entries(v, launches, plain_err, lsb, t):
+        """The tiled relaxed form's entry (launches from its main path) and
+        the windowed one's (launches from the thumbnail path, timed on the
+        main frame in the same turns).  max_abs_err: against the relaxed
+        plain version; max_lsb_vs_exact: against the exact output, the
+        relaxed contract's <= 2 LSB."""
+        common = {"route": "cuda", "replaces": replaces_relaxed,
+                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                  "bound_by": t["bound_by"], "library_ms": None,
+                  "exact_kernel_ms": t["exact_ms"], "exact_kernel": t["exact_kernel"]}
+        return [
+            {"name": f"resize_tiled[{v},relaxed]", "source": tiled_src,
+             "launches": launches, "max_abs_err": plain_err,
+             "max_lsb_vs_exact": lsb, "ms": t["ms"], **common,
+             "windowed_ms": t["windowed_ms"], "planes": t["planes"]},
+            {"name": f"resize_fused[{v},relaxed]", "source": src,
+             "was": "the relaxed route of every plan; now of the plans "
+                    "outside tiled_ok(relaxed=True)",
+             "launches": windowed[f"{v}_relaxed"],
+             "max_abs_err": MAX_ERR[f"{v}_relaxed"], "ms": t["windowed_ms"],
+             **common, "tiled_relaxed_ms": t["ms"]}]
+
     print(json.dumps({"kernels": [
         # the main path's kernel: launches from the Lanczos and Area main
         # paths; fused_ms is the windowed resize_fused in the same call
@@ -1961,25 +2143,13 @@ def main() -> int:
          "plain_ms": tu["plain_ms"], "bound_ms": tu["bound_ms"],
          "bound_by": tu["bound_by"], "library_ms": None,
          "yardstick_ms": tu["yardstick_ms"]},
-        # max_abs_err: against the relaxed plain version; max_lsb_vs_exact:
-        # against the exact output, the relaxed contract's <= 2 LSB
-        {"name": "resize_fused[wrap16,relaxed]", "route": "cuda", "source": src,
-         "replaces": replaces_relaxed, "launches": launches16r,
-         "max_abs_err": plain16r, "max_lsb_vs_exact": err16r,
-         "ms": t16r["ms"], "plain_ms": t16r["plain_ms"],
-         "bound_ms": t16r["bound_ms"], "bound_by": t16r["bound_by"],
-         "library_ms": None, "exact_kernel_ms": t16r["exact_ms"],
-         "exact_kernel": t16r["exact_kernel"]},
-        {"name": "resize_fused[u16,relaxed]", "route": "cuda", "source": src,
-         "replaces": replaces_relaxed, "launches": launchesur,
-         "max_abs_err": plainur, "max_lsb_vs_exact": errur,
-         "ms": tur["ms"], "plain_ms": tur["plain_ms"],
-         "bound_ms": tur["bound_ms"], "bound_by": tur["bound_by"],
-         "library_ms": None, "yardstick_ms": tu["yardstick_ms"],
-         "exact_kernel_ms": tur["exact_ms"], "exact_kernel": tur["exact_kernel"]},
-        sharded["wrap16"], sharded["u16"], carry["wrap16_carry"],
-        carry["u16_carry"], carry["wrap16_relaxed_carry"],
-        carry["u16_relaxed_carry"], *probes, *band_fetch, *xpass]}))
+        *relaxed_entries("wrap16", launches16r, plain16r, err16r, t16r),
+        *relaxed_entries("u16", launchesur, plainur, errur, tur),
+        sharded["wrap16"], sharded["u16"],
+        *(carry[v + suffix] for v in ("wrap16_carry", "u16_carry",
+                                      "wrap16_relaxed_carry", "u16_relaxed_carry")
+          for suffix in ("_tiled", "")),
+        *probes, *band_fetch, *xpass]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1}}))     # the one card driven

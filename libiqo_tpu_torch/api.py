@@ -30,9 +30,10 @@ operands.
   package's ``"xla"`` and ``"numpy"`` do.
 * ``resize`` takes leading batch dimensions; one launch serves the batch.
 * ``LIBIQO_TPU_CARRY=1`` (or ``2``), the JAX package's opt-in, runs the
-  kernel's row-halo carry form wherever ``cuda_resize.carry_ok`` holds;
-  it is read where operands are packed, so it takes effect for operands
-  not yet cached.
+  kernel's row-halo carry form wherever one applies
+  (``cuda_resize.tiled_carry_layout``, else ``cuda_resize.carry_ok``); it
+  is read where operands are packed, so it takes effect for operands not
+  yet cached.
 """
 
 from __future__ import annotations

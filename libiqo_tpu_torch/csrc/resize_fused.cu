@@ -54,10 +54,12 @@
 //   C++); int16 narrowing, two's-complement reinterpretation and the
 //   arithmetic right shift are written out explicitly.
 //
-// The main path's exact plans now run on csrc/resize_tiled.cu, which
-// stages the source band with cp.async, runs the Y pass on s8 mma.sync and
-// keeps a 16-bit work tile; this kernel serves the exact plans outside
-// cuda_resize.tiled_ok (bands taller than shared memory), relaxed and carry.
+// Every plan whose band (or carry ring) fits shared memory now runs on the
+// tiled kernel, csrc/resize_tiled.cuh, which stages the source band with
+// cp.async, runs the Y pass on s8 mma.sync and keeps a 16-bit work tile, in
+// exact, relaxed and carry forms; this kernel serves the rest in all eight
+// instantiations (cuda_resize.tiled_ok and tiled_carry_layout refuse them:
+// bands taller than shared memory).
 //
 // kRelaxed replaces the TPU's relaxed X scheme (K7): the relaxed build of
 // libiqo_tpu/ops/pallas_resize.py:943-1024 with _bf16_relaxed_plane
@@ -76,8 +78,8 @@
 // divide, int16 narrowing, clip.  On the TPU relaxed bought one bf16 MXU
 // dot instead of four s8 ones.  Here the direct-tap form does the same
 // number of multiply-adds in float instead of integer, so no speed-up is
-// expected from it; a bf16 mma.sync/wgmma X pass, where relaxed can pay on
-// this card, is later work.
+// expected from it; the tiled kernel's relaxed form keeps the same float32
+// tap order (a tensor-core X pass would sum in the unit's own order).
 //
 // kCarry replaces the TPU's row-halo carry mode (K9, LIBIQO_TPU_CARRY):
 // _Carry/_carry_layout at libiqo_tpu/ops/pallas_resize.py:542-591, engaged

@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels: nvcc into shared libraries with a
 plain C interface, bound with ctypes.
 
-Two libraries, each built on first use by one ``nvcc -shared`` into
+Two libraries, each built on first use into
 ``build/libiqo_tpu_torch/<hash of its sources>/`` beside the package, so an
-edited source is rebuilt and an unchanged one is loaded as it is:
+edited source is rebuilt and an unchanged one is loaded as it is.  Each
+source is compiled by its own ``nvcc -c``, all started together, and the
+objects are linked by one ``nvcc -shared``:
 
-* the resize kernels, ``resize_fused`` and ``resize_tiled``, from
-  ``libiqo_tpu_torch/csrc/*.cu`` (:func:`load`);
+* the resize kernels, ``resize_fused`` and the four forms of
+  ``resize_tiled`` (one source each, the kernel in ``resize_tiled.cuh``),
+  from ``libiqo_tpu_torch/csrc/*.cu`` (:func:`load`);
 * the measurement probes of ``libiqo_tpu_torch/experiments``, from
   ``libiqo_tpu_torch/csrc/exp/*.cu`` (:func:`load_experiments`).
 
@@ -25,10 +28,12 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["BuildError", "bind_tiled", "build_dir", "exp_build_dir",
-           "find_nvcc", "load", "load_experiments", "nvcc_command"]
+__all__ = ["BuildError", "bind_tiled", "build_dir", "build_library",
+           "compile_command", "exp_build_dir", "find_nvcc", "load",
+           "load_experiments", "nvcc_command"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -92,26 +97,49 @@ def nvcc_command(nvcc: str, out: Path, srcs: list[Path] | None = None) -> list[s
             "-o", str(out), *map(str, sources() if srcs is None else srcs)]
 
 
-def _build(so: Path, srcs: list[Path]) -> tuple[float, str]:
-    """Build ``srcs`` into ``so``; returns nvcc's wall time and output."""
+def compile_command(nvcc: str, obj: Path, src: Path) -> list[str]:
+    """One ``nvcc -c`` of ``src`` into the object ``obj``, for a shared
+    library."""
+    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+
+
+def _run(cmd: list[str], what: str) -> str:
+    """Run one nvcc command; returns its output after a line with its wall
+    time (``nvcc <what>: <seconds> s``)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    return f"nvcc {what}: {time.perf_counter() - t0!r} s\n{log}"
+
+
+def build_library(so: Path, srcs: list[Path]) -> tuple[float, str]:
+    """Build ``srcs`` into the shared library ``so``: one ``nvcc -c`` per
+    source, all started together, then one link.  Returns the wall time
+    and nvcc's output: for each source in the order of ``srcs`` a line
+    ``nvcc -c <name>: <seconds> s`` and its ptxas report, then the
+    link's."""
     nvcc = find_nvcc()
     if nvcc is None:
         raise BuildError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda); "
                          "the CUDA kernels cannot be built")
     so.parent.mkdir(parents=True, exist_ok=True)
-    # build to a private name, then rename: a concurrent process never loads
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
-    os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run(nvcc_command(nvcc, Path(tmp), srcs), capture_output=True,
-                          text=True)
-    seconds, log = time.perf_counter() - t0, proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise BuildError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, so)
-    return seconds, log
+    # build under private names, then rename: a concurrent process never
+    # loads a half-written library
+    with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
+        objs = [Path(tmp) / f"{i}-{src.stem}.o" for i, src in enumerate(srcs)]
+        with ThreadPoolExecutor(max(1, len(srcs))) as pool:
+            logs = list(pool.map(
+                lambda job: _run(compile_command(nvcc, *job), f"-c {job[1].name}"),
+                zip(objs, srcs)))
+        lib = Path(tmp) / so.name
+        logs.append(_run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
+                          *map(str, objs)], "-shared"))
+        os.replace(lib, so)
+    return time.perf_counter() - t0, "".join(logs)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -141,12 +169,14 @@ def bind_tiled(lib: ctypes.CDLL) -> ctypes.CDLL:
     (``csrc/resize_tiled.cu``)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.iqo_resize_tiled.argtypes = [
-        i, i, i,                        # wrap16, s8y, tw: which instantiation
+        i, i, i, i, i,                  # wrap16, s8y, tw, relaxed, carry: which instantiation
         p, p, i, ll, ll, i, i, i,       # src, dst, frames, strides, src_w, dst shape
         p, i, p, i,                     # row records, words; column records, words
         i, i, i, i, i, i, i,            # taps_y, taps_x, k_rows, pitch, margin,
                                         # work_pitch, max_phases
-        i, i, p]                        # y_bias, out_shift, stream
+        i, i,                           # y_bias, out_shift
+        i, i, i,                        # planes (relaxed); run, slots (carry)
+        p]                              # stream
     lib.iqo_resize_tiled.restype = i
     lib.iqo_tiled_set_max_smem.argtypes = [i]
     lib.iqo_tiled_set_max_smem.restype = i
@@ -162,7 +192,7 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             so = build_dir() / "libiqo_tpu_torch.so"
             if not so.exists():
-                build_seconds, build_log = _build(so, sources())
+                build_seconds, build_log = build_library(so, sources())
             _lib = _bind(ctypes.CDLL(str(so)))
         return _lib
 
@@ -216,6 +246,6 @@ def load_experiments() -> ctypes.CDLL:
         if _exp_lib is None:
             so = exp_build_dir() / "libiqo_tpu_torch_exp.so"
             if not so.exists():
-                exp_build_seconds, exp_build_log = _build(so, exp_sources())
+                exp_build_seconds, exp_build_log = build_library(so, exp_sources())
             _exp_lib = _bind_experiments(ctypes.CDLL(str(so)))
         return _exp_lib

@@ -2,24 +2,26 @@
 wrapper.
 
 Two kernels replace the TPU's fused Pallas kernel
-(``libiqo_tpu/ops/pallas_resize.py:_make_padless_fn``).  The main path's
-exact plans run on the tiled kernel (``csrc/resize_tiled.cu``, variants
-``wrap16_tiled`` and ``u16_tiled``) wherever :func:`tiled_ok` holds: one
-block stages its source band and tile records (:func:`tiled_layout`) in
-shared memory, runs the Y pass on s8 ``mma.sync`` where the merged Y taps
-fit s8 (else integer multiply-adds), keeps a 16-bit work tile and runs the
-X pass on CUDA cores.  The windowed kernel (``csrc/resize_fused.cu``)
-serves the rest, in two exact instantiations, ``wrap16`` for Lanczos plans
-(int16 work rows, border divides) and ``u16`` for Area and Linear plans
-(u16 work rows, no borders), and in a relaxed form of each
-(``wrap16_relaxed``, ``u16_relaxed``: the X pass over bf16-rounded work
-rows and coefficient planes in float32, within 2 LSB of the exact output,
-flat fields exact).  Each of the four has a
-row-halo carry form (``*_carry``, the TPU's ``LIBIQO_TPU_CARRY`` mode): a
-block walks a run of row tiles and keeps their source rows in a ring in
-shared memory, byte-equal to the windowed form; it is opted into with
-``LIBIQO_TPU_CARRY=1`` (or ``2``) and engages where :func:`carry_ok` holds.
-This module packs a :class:`ResizePlan` into the kernels' operands, decides
+(``libiqo_tpu/ops/pallas_resize.py:_make_padless_fn``).  The tiled kernel
+(``csrc/resize_tiled.cuh``) runs every plan whose band fits its shared
+memory: one block stages its source band and tile records
+(:func:`tiled_layout`) in shared memory, runs the Y pass on s8 ``mma.sync``
+where the merged Y taps fit s8 (else integer multiply-adds), keeps a 16-bit
+work tile and runs the X pass on CUDA cores.  It has four forms, each in a
+``wrap16`` (Lanczos: int16 work rows, border divides) and a ``u16`` (Area,
+Linear: u16 work rows, no borders) instantiation: exact (``*_tiled``, where
+:func:`tiled_ok` holds); relaxed (``*_relaxed_tiled``, ``precision=
+"relaxed"``: the X pass over bf16-rounded work rows and coefficient planes
+in float32, within 2 LSB of the exact output, flat fields exact); the
+row-halo carry form (``*_carry_tiled``, the TPU's ``LIBIQO_TPU_CARRY`` mode,
+opted into with ``LIBIQO_TPU_CARRY=1`` or ``2``: a block walks a run of row
+tiles and keeps their band rows in a ring in shared memory, byte-equal to
+the tiled form, where :func:`tiled_carry_layout` takes the plan); and the
+relaxed carry form (``*_relaxed_carry_tiled``).  The windowed kernel
+(``csrc/resize_fused.cu``) serves the plans whose band does not fit, in the
+same forms (``wrap16``, ``u16``, ``*_relaxed``, ``*_carry`` where
+:func:`carry_ok` holds, ``*_relaxed_carry``), and every plan with
+``tiled=False``.  This module packs a :class:`ResizePlan` into the kernels' operands, decides
 which plans they take (:func:`supports_plan`, :func:`tiled_ok`), and
 launches the one the operands were built for (:func:`resize_fused`).
 :func:`resize_plain` is the same function in plain PyTorch over the same
@@ -45,8 +47,8 @@ __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "VARIANTS", "CarryLayout",
            "carry_layout", "carry_ok", "carry_requested", "kernel_tables",
            "pack_operands", "relaxed_plane", "reset_launches",
            "resize_fused", "resize_plain", "smem_bytes", "supports_plan",
-           "tile_windows", "tiled_layout", "tiled_ok", "tiled_tables",
-           "tiled_width", "variant"]
+           "tile_windows", "tiled_carry_layout", "tiled_layout", "tiled_ok",
+           "tiled_tables", "tiled_width", "variant"]
 
 # Must match kTileRows/kTileCols in csrc/resize_fused.cu (checked at load).
 TILE_ROWS = 16
@@ -66,7 +68,10 @@ BAND_ALIGN = 128          # bytes: the staged band's row pitch is a multiple
 
 VARIANTS = ("wrap16", "u16", "wrap16_relaxed", "u16_relaxed",
             "wrap16_carry", "u16_carry", "wrap16_relaxed_carry",
-            "u16_relaxed_carry", "wrap16_tiled", "u16_tiled")
+            "u16_relaxed_carry", "wrap16_tiled", "u16_tiled",
+            "wrap16_relaxed_tiled", "u16_relaxed_tiled", "wrap16_carry_tiled",
+            "u16_carry_tiled", "wrap16_relaxed_carry_tiled",
+            "u16_relaxed_carry_tiled")
 LAUNCHES = 0              # kernel launches in this process
 LAUNCHES_BY_VARIANT = dict.fromkeys(VARIANTS, 0)   # the same, by instantiation
 _launch_lock = threading.Lock()
@@ -82,16 +87,17 @@ def reset_launches() -> None:
 
 
 def variant(plan, relaxed: bool = False, carry: bool = False) -> str:
-    """The kernel instantiation that a plan takes on ``resize_fused``,
-    exact or ``relaxed``, windowed or ``carry`` (one of :data:`VARIANTS`);
-    given its :class:`KernelTables` or :class:`TiledTables`, the one they
-    were built for, which names the tiled kernel's for the latter."""
+    """The kernel instantiation that a plan takes on the windowed
+    ``resize_fused``, exact or ``relaxed``, without or with ``carry`` (one
+    of :data:`VARIANTS`); given its :class:`KernelTables` or
+    :class:`TiledTables`, the one they were built for, whose name ends in
+    ``_tiled`` for the tiled kernel's."""
     name = "wrap16" if plan.wrap16 else "u16"
-    if getattr(plan, "tiled", False):
-        return name + "_tiled"
     if getattr(plan, "relaxed", relaxed):
         name += "_relaxed"
-    return name + "_carry" if getattr(plan, "carry", carry) else name
+    if getattr(plan, "carry", carry):
+        name += "_carry"
+    return name + "_tiled" if getattr(plan, "tiled", False) else name
 
 
 def tile_windows(ax: AxisPlan, tile: int = TILE_COLS) -> np.ndarray:
@@ -281,8 +287,24 @@ class CarryLayout:
     band: int               # ... and without: the sum of the row windows
 
 
+def _carry_runs(rwin: np.ndarray, run: int) -> tuple[bool, int, int]:
+    """For row tiles' source windows ``rwin`` walked in runs of ``run``:
+    whether each window is non-decreasing in both ends inside every run,
+    the source rows a column tile fetches with carry (each run's first
+    window, then each next tile's fresh rows) and without (the sum of the
+    windows)."""
+    lo, hi = rwin[:, 0].astype(np.int64), rwin[:, 1].astype(np.int64)
+    inner = np.arange(1, len(rwin)) % run != 0     # pairs (t, t+1) in one run
+    monotone = bool(((lo[1:] >= lo[:-1]) & (hi[1:] >= hi[:-1]))[inner].all())
+    fresh = hi[1:] - np.maximum(hi[:-1], lo[1:])
+    starts = np.arange(0, len(rwin), run)
+    fetch = int((hi - lo)[starts].sum() + fresh[inner].sum())
+    return monotone, fetch, int((hi - lo).sum())
+
+
 def carry_layout(plan: ResizePlan) -> CarryLayout | None:
-    """The carry form's layout of a plan, or None where it does not apply.
+    """The windowed kernel's carry form's layout of a plan, or None where
+    it does not apply.
 
     ``run`` is the most row tiles per block that still leaves about
     CARRY_BLOCKS blocks per frame (two per SM of an H100), and at least 2.
@@ -299,13 +321,8 @@ def carry_layout(plan: ResizePlan) -> CarryLayout | None:
     n_ct = -(-plan.x.n_dst // TILE_COLS)
     run = max(2, n_rt // -(-CARRY_BLOCKS // n_ct))
     inner = np.arange(1, n_rt) % run != 0        # pairs (t, t+1) in one run
-    if not ((lo[1:] >= lo[:-1]) & (hi[1:] >= hi[:-1]))[inner].all():
-        return None
-    fresh = hi[1:] - np.maximum(hi[:-1], lo[1:])
-    starts = np.arange(0, n_rt, run)
-    fetch = int((hi - lo)[starts].sum() + fresh[inner].sum())
-    band = int((hi - lo).sum())
-    if fetch >= (1 - CARRY_MIN_SAVING) * band:
+    monotone, fetch, band = _carry_runs(rwin, run)
+    if not monotone or fetch >= (1 - CARRY_MIN_SAVING) * band:
         return None
     ring_rows = int(max((hi - lo).max(),
                         (hi[1:] - lo[:-1])[inner].max(initial=0)))
@@ -318,9 +335,10 @@ def carry_layout(plan: ResizePlan) -> CarryLayout | None:
 
 
 def carry_ok(plan: ResizePlan) -> bool:
-    """True when the carry form applies to the plan (:func:`carry_layout`).
-    A pure function of the plan; where it is False the windowed form runs
-    and is counted under its own name."""
+    """True when the windowed kernel's carry form applies to the plan
+    (:func:`carry_layout`).  A pure function of the plan; the tiled
+    kernel's carry form (:func:`tiled_carry_layout`) takes the plan first
+    where its ring fits."""
     return carry_layout(plan) is not None
 
 
@@ -342,22 +360,28 @@ def _round_up(v: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TiledLayout:
-    """How the tiled kernel (``csrc/resize_tiled.cu``) walks a plan.  One
+    """How the tiled kernel (``csrc/resize_tiled.cuh``) walks a plan.  One
     block computes TILE_ROWS x ``tw`` outputs.  It stages its source band
     (``k_rows`` rows at a ``pitch``-byte pitch, 16-byte pieces swizzled by
     row) and its row and column tile records in shared memory, runs the Y
     pass into a 16-bit work tile of ``work_pitch`` columns (band column c
-    at ``margin + c``), then the X pass.
+    at ``margin + c``), then the X pass.  In the carry form (``run`` > 1) a
+    block walks ``run`` row tiles of one column tile and keeps their band
+    rows in a ring of ``slots`` rows instead.
 
-    Row record, int32 words, one per row tile: [rlo, band rows, 0, 0],
-    corr (16: ``128 * sum cy`` per output row, the s8 rebase), ydiv (16:
-    border divisors, 0 on main rows), then with ``s8y`` the merged Y
-    matrix A (16 rows of ``k_rows + 16`` s8 bytes), else cy and iyr (taps_y
-    x 16 each, tap-major, iyr relative to rlo).  Column record, one per
-    column tile: [lo, width, phases, whether any column has a border
-    divisor], xs (tw: each output's first tap
-    ``start - lo``, unclamped), ph (tw: its phase), xdiv (tw), then cxu
-    (taps_x x ``max_phases``, tap-major: the tile's distinct X rows)."""
+    Row record, int32 words, one per row tile: [origin, band rows, first
+    row, end row] (the tile reads source rows [first, end); origin is the
+    source row of A's column 0 and of iyr 0: first, or in the carry form
+    ``end - k_rows``), corr (16: ``128 * sum cy`` per output row, the s8
+    rebase), ydiv (16: border divisors, 0 on main rows), then with ``s8y``
+    the merged Y matrix A (16 rows of ``k_rows + 16`` s8 bytes), else cy
+    and iyr (taps_y x 16 each, tap-major).  Column record, one per column
+    tile: [lo, width, phases, whether any column has a border divisor], xs
+    (tw: each output's first tap ``start - lo``, unclamped), ph (tw: its
+    phase), xdiv (tw), then cxu (taps_x x ``max_phases``, tap-major: the
+    tile's distinct X rows), or in the relaxed form ``planes`` such tables
+    of float32 bits (the relaxed plane, and the residual plane where the
+    plan has one)."""
     tw: int
     s8y: bool
     k_rows: int             # band rows staged: max rows of a tile, to 32
@@ -367,30 +391,45 @@ class TiledLayout:
     max_phases: int
     rrec: np.ndarray        # (n_row_tiles, rrec_words) int32
     crec: np.ndarray        # (n_col_tiles, crec_words) int32
+    relaxed: bool = False
+    planes: int = 1         # X coefficient planes per phase in crec
+    run: int = 1            # row tiles per block; > 1 in the carry form
+    slots: int = 0          # ring rows of the carry form
+    fetch: int = 0          # carry: source rows a column tile fetches
+    band: int = 0           # ... and without carry
+
+    @property
+    def carry(self) -> bool:
+        return self.run > 1
 
     @property
     def smem(self) -> int:
-        return (self.k_rows * self.pitch + TILE_ROWS * self.work_pitch * 2
-                + 4 * (self.rrec.shape[1] + self.crec.shape[1]))
+        rows = self.slots if self.carry else self.k_rows
+        return (rows * self.pitch + TILE_ROWS * self.work_pitch * 2
+                + 4 * ((2 if self.carry else 1) * self.rrec.shape[1]
+                       + self.crec.shape[1]))
 
 
 _REC_HEAD = 4               # header words of each record
 _Y_TABLES = _REC_HEAD + 2 * TILE_ROWS     # where A (or cy, iyr) starts
 
 
-def _merged_y(plan: ResizePlan, rwin: np.ndarray, k_rows: int) -> np.ndarray:
+def _merged_y(plan: ResizePlan, rwin: np.ndarray, k_rows: int,
+              origin: np.ndarray | None = None) -> np.ndarray:
     """(n_row_tiles, TILE_ROWS, k_rows) int64: the Y matrix of each row
     tile over its band, A[i, k] = sum of the taps of output row r0 + i
-    that read band row k (clamped taps that repeat a row add); zero rows
-    past dst_h and zero columns past the band."""
+    that read source row origin + k (clamped taps that repeat a row add;
+    origin is the window's first row by default); zero rows past dst_h and
+    zero columns outside the band."""
     y = plan.y
     n_rt = len(rwin)
+    origin = rwin[:, 0] if origin is None else origin
     rows = np.arange(n_rt * TILE_ROWS)
     valid = rows < y.n_dst
     idx = torch_resize.clamped_taps(y)
     a = np.zeros((n_rt * TILE_ROWS, k_rows), np.int64)
     r = rows[valid]
-    k = idx - rwin[r // TILE_ROWS, 0][:, None]
+    k = idx - origin[r // TILE_ROWS][:, None]
     np.add.at(a, (np.repeat(r, y.num_coefs), k.ravel()),
               y.coef.astype(np.int64).ravel())
     return a.reshape(n_rt, TILE_ROWS, k_rows)
@@ -403,31 +442,51 @@ def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
     return out
 
 
-def tiled_layout(plan: ResizePlan) -> TiledLayout:
+def _x_values(plan: ResizePlan, relaxed: bool) -> tuple[np.ndarray, np.ndarray, int]:
+    """(key, values, planes), one row per output column: the X taps, or in
+    the relaxed form the float32 bits of each relaxed plane's column
+    (``planes`` of them, taps each); phases are the distinct keys of a
+    column tile (the integer taps, and the relaxed values besides)."""
+    cx = plan.x.coef.astype(np.int64)
+    if not relaxed:
+        return cx, cx, 1
+    plane, resid = relaxed_plane(plan.x)
+    planes = [plane] + ([] if resid is None else [resid])
+    bits = np.concatenate([np.ascontiguousarray(p.numpy().T).view(np.int32)
+                           for p in planes], axis=1).astype(np.int64)
+    return np.concatenate([cx, bits], axis=1), bits, len(planes)
+
+
+def tiled_layout(plan: ResizePlan, relaxed: bool = False, tw: int | None = None,
+                 run: int = 1) -> TiledLayout:
     """The tiled kernel's layout and tile records for a plan (see
-    :class:`TiledLayout`); whether it fits is :func:`tiled_ok`'s
-    question."""
+    :class:`TiledLayout`), exact or ``relaxed``, at ``tw`` output columns
+    per block (:func:`tiled_width` by default), and with ``run`` > 1 in the
+    carry form; whether it fits is :func:`tiled_ok`'s question, and
+    whether carry applies :func:`tiled_carry_layout`'s."""
     y, x = plan.y, plan.x
-    tw = tiled_width(plan)
+    tw = tiled_width(plan) if tw is None else tw
     rwin = tile_windows(y, TILE_ROWS).astype(np.int64)
     n_rt = len(rwin)
     k_rows = _round_up(int((rwin[:, 1] - rwin[:, 0]).max()), 32)
-    a = _merged_y(plan, rwin, k_rows)
+    # carry: each tile's K window ends at its band's last row
+    origin = rwin[:, 0] if run == 1 else rwin[:, 1] - k_rows
+    a = _merged_y(plan, rwin, k_rows, origin)
     s8y = bool(a.min() >= -128 and a.max() <= 127)
     cy = _pad_rows(y.coef, n_rt * TILE_ROWS)
     corr = (128 * cy.sum(axis=1)).reshape(n_rt, TILE_ROWS)
     ydiv = np.where(y.is_border, np.where(y.deno == 0, 1, y.deno), 0) \
         if plan.wrap16 else np.zeros(y.n_dst, np.int64)
     ydiv = _pad_rows(ydiv, n_rt * TILE_ROWS).reshape(n_rt, TILE_ROWS)
-    head = np.zeros((n_rt, _REC_HEAD), np.int64)
-    head[:, 0], head[:, 1] = rwin[:, 0], rwin[:, 1] - rwin[:, 0]
+    head = np.stack([origin, rwin[:, 1] - rwin[:, 0], rwin[:, 0], rwin[:, 1]],
+                    axis=1)
     if s8y:
         pad = np.zeros((n_rt, TILE_ROWS, k_rows + 16), np.uint8)
         pad[:, :, :k_rows] = (a & 0xFF).astype(np.uint8)
         ytab = pad.reshape(n_rt, -1).view("<u4").astype(np.int64)
     else:
         idx = _pad_rows(torch_resize.clamped_taps(y), n_rt * TILE_ROWS)
-        idx = idx.reshape(n_rt, TILE_ROWS, -1) - rwin[:, :1, None]
+        idx = idx.reshape(n_rt, TILE_ROWS, -1) - origin[:, None, None]
         idx[np.arange(n_rt * TILE_ROWS).reshape(n_rt, TILE_ROWS)
             >= y.n_dst] = 0
         ytab = np.concatenate([
@@ -444,21 +503,25 @@ def tiled_layout(plan: ResizePlan) -> TiledLayout:
     xdiv = np.zeros(n_ct * tw, np.int64)
     if plan.wrap16:
         xdiv[valid] = _x_divisors(plan)
-    cx = _pad_rows(x.coef, n_ct * tw).reshape(n_ct, tw, -1)
-    phases = [np.unique(cx[t][:min(tw, x.n_dst - t * tw)], axis=0,
-                        return_inverse=True) for t in range(n_ct)]
-    max_phases = max(len(u) for u, _ in phases)
+    key, vals, planes = _x_values(plan, relaxed)
+    key = _pad_rows(key, n_ct * tw).reshape(n_ct, tw, -1)
+    vals = _pad_rows(vals, n_ct * tw).reshape(n_ct, tw, -1)
+    phases = [np.unique(key[t][:min(tw, x.n_dst - t * tw)], axis=0,
+                        return_index=True, return_inverse=True)
+              for t in range(n_ct)]
+    max_phases = max(len(u) for u, _, _ in phases)
     ph = np.zeros((n_ct, tw), np.int64)
-    cxu = np.zeros((n_ct, x.num_coefs, max_phases), np.int64)
-    for t, (u, inv) in enumerate(phases):
+    tab = np.zeros((n_ct, planes, x.num_coefs, max_phases), np.int64)
+    for t, (u, first, inv) in enumerate(phases):
         ph[t, :len(inv)] = inv.ravel()
-        cxu[t, :, :len(u)] = u.T
+        tab[t, :, :, :len(u)] = vals[t][first].reshape(
+            len(u), planes, x.num_coefs).transpose(1, 2, 0)
     head = np.zeros((n_ct, _REC_HEAD), np.int64)
     head[:, 0], head[:, 1] = win[:, 0], win[:, 1] - win[:, 0]
-    head[:, 2] = [len(u) for u, _ in phases]
+    head[:, 2] = [len(u) for u, _, _ in phases]
     head[:, 3] = (xdiv.reshape(n_ct, tw) != 0).any(axis=1)
     crec = np.concatenate([head, xs.reshape(n_ct, tw), ph,
-                           xdiv.reshape(n_ct, tw), cxu.reshape(n_ct, -1)],
+                           xdiv.reshape(n_ct, tw), tab.reshape(n_ct, -1)],
                           axis=1)
 
     pitch = _round_up(int((win[:, 1] - win[:, 0]).max()) + 15, BAND_ALIGN)
@@ -470,49 +533,112 @@ def tiled_layout(plan: ResizePlan) -> TiledLayout:
         rec = np.pad(rec, ((0, 0), (0, -rec.shape[1] % 4)))
         return ((rec + 2**31) % 2**32 - 2**31).astype(np.int32)   # uint32 bits
 
+    carry = {}
+    if run > 1:
+        _, fetch, band = _carry_runs(rwin, run)
+        hi = rwin[:, 1]
+        inner = np.arange(1, n_rt) % run != 0
+        # tile t + 1's fresh rows land while tile t reads its K window
+        # [hi_t - k_rows, hi_t): both fit the ring apart
+        need_slots = k_rows + int((hi[1:] - hi[:-1])[inner].max(initial=0))
+        carry = dict(run=run, slots=_round_up(need_slots, 32), fetch=fetch,
+                     band=band)
     return TiledLayout(tw=tw, s8y=s8y, k_rows=k_rows, pitch=pitch,
                        margin=margin, work_pitch=work_pitch,
                        max_phases=max_phases, rrec=words(rrec),
-                       crec=words(crec))
+                       crec=words(crec), relaxed=relaxed, planes=planes,
+                       **carry)
 
 
 def _fits(layout: TiledLayout) -> bool:
     return layout.smem <= SMEM_BUDGET
 
 
-def tiled_ok(plan: ResizePlan) -> bool:
-    """True when the tiled kernel takes an exact plan: inside
-    :func:`supports_plan`, and its band, work tile and tile records fit
-    SMEM_BUDGET at the chosen width (:func:`tiled_layout`).  A pure
-    function of the plan; exact plans where it is False keep the windowed
+def tiled_ok(plan: ResizePlan, relaxed: bool = False) -> bool:
+    """True when the tiled kernel takes a plan, exact or ``relaxed``:
+    inside :func:`supports_plan`, and its band, work tile and tile records
+    fit SMEM_BUDGET at the chosen width (:func:`tiled_layout`).  A pure
+    function of the plan; plans where it is False keep the windowed
     ``resize_fused`` route."""
-    return supports_plan(plan) and _fits(tiled_layout(plan))
+    return supports_plan(plan, relaxed) and _fits(tiled_layout(plan, relaxed))
+
+
+def tiled_carry_layout(plan: ResizePlan, relaxed: bool = False,
+                       tw: int | None = None, run: int | None = None
+                       ) -> TiledLayout | None:
+    """The tiled kernel's carry form for a plan (see
+    :class:`TiledLayout`), or None where it does not apply.
+
+    TW and the run are chosen together: from the exact form's width
+    (:func:`tiled_width`) down, the run is the most row tiles per block
+    that still leaves about TILED_BLOCKS blocks per frame (two per SM of an
+    H100), and at least 2; the first width whose layout applies is taken
+    (``tw`` and ``run`` fix either).  Carry applies, as the JAX package's
+    does (``pallas_resize.py:542-591``), when inside every run each row
+    tile's source window ``[lo, hi)`` is non-decreasing in both ends and
+    carry fetches less than 90 % of the rows the tiled form reads; and when
+    the ring (a tile's K window and the next tile's fresh rows, apart) fits
+    SMEM_BUDGET beside the work tile and two row records."""
+    rwin = tile_windows(plan.y, TILE_ROWS)
+    n_rt = len(rwin)
+    if n_rt < 2:
+        return None
+    widths = TILED_WIDTHS[TILED_WIDTHS.index(tiled_width(plan)):] \
+        if tw is None else (tw,)
+    for w in widths:
+        n_ct = -(-plan.x.n_dst // w)
+        r = min(n_rt, max(2, n_rt // -(-TILED_BLOCKS // n_ct))) \
+            if run is None else run
+        monotone, fetch, band = _carry_runs(rwin, r)
+        if not monotone or fetch >= (1 - CARRY_MIN_SAVING) * band:
+            continue
+        layout = tiled_layout(plan, relaxed, w, r)
+        if _fits(layout):
+            return layout
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
 class TiledTables:
     """The tiled kernel's operands: its layout's scalars and the two
-    record tables on the device.  Read-only once built."""
+    record tables on the device; in the relaxed form also the relaxed
+    planes per output (tap-major, as :class:`KernelTables`), which the
+    relaxed plain version reads.  Read-only once built."""
     rrec: torch.Tensor      # (n_row_tiles, rrec_words) int32
     crec: torch.Tensor      # (n_col_tiles, crec_words) int32
     layout: TiledLayout
     taps_y: int
     taps_x: int
     wrap16: bool
+    cxr: torch.Tensor       # (taps_x, dst_w) relaxed plane; empty when exact
+    cxd: torch.Tensor       # (taps_x, dst_w) residual plane, or empty
     relaxed: bool = False
     carry: bool = False
     tiled: bool = True
 
 
+def _relaxed_tensors(plan: ResizePlan, relaxed: bool, device):
+    """(cxr, cxd) on ``device``: the relaxed planes, the residual empty
+    where there is none; both empty when not ``relaxed``."""
+    empty = torch.empty((0, plan.x.n_dst), dtype=torch.float32, device=device)
+    if not relaxed:
+        return empty, empty
+    cxr, resid = relaxed_plane(plan.x)
+    return cxr.to(device), empty if resid is None else resid.to(device)
+
+
 def tiled_tables(plan: ResizePlan, device="cpu",
                  layout: TiledLayout | None = None) -> TiledTables:
     """The tiled kernel's tables for a plan where :func:`tiled_ok` holds,
-    from its ``layout`` where the caller has built it."""
+    from its ``layout`` where the caller has built it (the relaxed or carry
+    form's, from :func:`tiled_layout` or :func:`tiled_carry_layout`)."""
     lay = tiled_layout(plan) if layout is None else layout
+    cxr, cxd = _relaxed_tensors(plan, lay.relaxed, device)
     return TiledTables(
         rrec=torch.from_numpy(lay.rrec).to(device),
         crec=torch.from_numpy(lay.crec).to(device), layout=lay,
-        taps_y=plan.y.num_coefs, taps_x=plan.x.num_coefs, wrap16=plan.wrap16)
+        taps_y=plan.y.num_coefs, taps_x=plan.x.num_coefs, wrap16=plan.wrap16,
+        cxr=cxr, cxd=cxd, relaxed=lay.relaxed, carry=lay.carry)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -564,13 +690,19 @@ def kernel_tables(plan: ResizePlan, device="cpu", relaxed: bool = False,
                   carry: bool = False, tiled: bool = True
                   ) -> KernelTables | TiledTables:
     """The kernel's tables for a plan that :func:`supports_plan` takes
-    (with the same ``relaxed``); with ``carry``, those of the carry form
-    where :func:`carry_ok` holds; else, exact with ``tiled``, the tiled
-    kernel's (:func:`tiled_tables`) where :func:`tiled_ok` holds; else the
-    windowed form's (every plan's with ``tiled=False``)."""
-    if tiled and not relaxed and not (carry and carry_ok(plan)):
-        lay = tiled_layout(plan)
-        if _fits(lay):
+    (with the same ``relaxed``), exact or relaxed.  With ``tiled`` (the
+    default), the tiled kernel's (:func:`tiled_tables`): with ``carry`` its
+    carry form's where :func:`tiled_carry_layout` takes the plan; else,
+    without a windowed carry (:func:`carry_ok`) to take its place, its
+    plain form's where that layout fits (:func:`tiled_ok`).  Else the
+    windowed ``resize_fused`` form's: the carry form where ``carry`` and
+    :func:`carry_ok` hold, the plain one otherwise (every plan's with
+    ``tiled=False``)."""
+    if tiled:
+        lay = tiled_carry_layout(plan, relaxed) if carry else None
+        if lay is None and not (carry and carry_ok(plan)):
+            lay = tiled_layout(plan, relaxed)
+        if lay is not None and _fits(lay):
             return tiled_tables(plan, device, lay)
     win = tile_windows(plan.x)
     ydeno = np.where(plan.y.deno == 0, 1, plan.y.deno)
@@ -579,12 +711,7 @@ def kernel_tables(plan: ResizePlan, device="cpu", relaxed: bool = False,
         a = np.ascontiguousarray(np.asarray(a).astype(np.int32))
         return torch.from_numpy(a).to(device)
 
-    empty = torch.empty((0, plan.x.n_dst), dtype=torch.float32, device=device)
-    cxr = cxd = empty
-    if relaxed:
-        cxr, resid = relaxed_plane(plan.x)
-        cxr = cxr.to(device)
-        cxd = empty if resid is None else resid.to(device)
+    cxr, cxd = _relaxed_tensors(plan, relaxed, device)
     iy = torch_resize.clamped_taps(plan.y).T
     layout = carry_layout(plan) if carry else None
     if layout is None:
@@ -611,14 +738,16 @@ def pack_operands(plan: ResizePlan, device="cpu", relaxed: bool = False,
     ``tiled=False`` builds the windowed form's for every plan (to run the
     two kernels side by side).  ``relaxed=True`` needs
     ``supports_plan(plan, relaxed=True)`` (else ValueError) and builds the
-    relaxed tables on any device.  ``carry=True`` builds the carry form's
-    tables where :func:`carry_ok` holds."""
+    relaxed tables, by the same routes, on any device.  ``carry=True``
+    builds a carry form's tables where one takes the plan
+    (:func:`kernel_tables`)."""
     device = torch.device(device)
     if relaxed:
         if not supports_plan(plan, relaxed=True):
             raise ValueError("plan is outside the relaxed kernel's scope "
                              "(supports_plan(relaxed=True))")
-        tables = kernel_tables(plan, device, relaxed=True, carry=carry)
+        tables = kernel_tables(plan, device, relaxed=True, carry=carry,
+                               tiled=tiled)
     elif device.type == "cuda" and supports_plan(plan):
         tables = kernel_tables(plan, device, carry=carry, tiled=tiled)
     else:
@@ -673,7 +802,7 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
     """(B, src_h, src_w) uint8 -> (B, dst_h, dst_w) uint8.
 
     Launches the kernel the tables were built for: the tiled kernel
-    (``csrc/resize_tiled.cu``) for :class:`TiledTables`, else
+    (``csrc/resize_tiled.cuh``) in its form for :class:`TiledTables`, else
     ``resize_fused`` in its instantiation.  A CPU tensor goes through
     :func:`resize_plain`.  A CUDA tensor launches
     the kernel, or raises: there is no fallback.  Rows may be strided; the
@@ -706,12 +835,13 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
     if k.tiled:
         lay = k.layout
         rc = lib.iqo_resize_tiled(
-            int(k.wrap16), int(lay.s8y), lay.tw, src.data_ptr(),
-            out.data_ptr(), src.shape[0], src.stride(0), src.stride(1), w,
-            dh, dw, k.rrec.data_ptr(), k.rrec.shape[1], k.crec.data_ptr(),
-            k.crec.shape[1], k.taps_y, k.taps_x, lay.k_rows, lay.pitch,
-            lay.margin, lay.work_pitch, lay.max_phases, ops.plain.y_bias,
-            ops.plain.out_shift, stream)
+            int(k.wrap16), int(lay.s8y), lay.tw, int(lay.relaxed),
+            int(lay.carry), src.data_ptr(), out.data_ptr(), src.shape[0],
+            src.stride(0), src.stride(1), w, dh, dw, k.rrec.data_ptr(),
+            k.rrec.shape[1], k.crec.data_ptr(), k.crec.shape[1], k.taps_y,
+            k.taps_x, lay.k_rows, lay.pitch, lay.margin, lay.work_pitch,
+            lay.max_phases, ops.plain.y_bias, ops.plain.out_shift, lay.planes,
+            lay.run, lay.slots, stream)
         return _launched(lib, rc, k, out, "resize_tiled")
     rc = lib.iqo_resize_fused(
         int(k.wrap16), int(k.relaxed), int(k.carry), src.data_ptr(),

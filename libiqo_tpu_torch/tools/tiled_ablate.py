@@ -1,14 +1,16 @@
-"""Where the tiled resize kernel's time goes: ``csrc/resize_tiled.cu`` and
+"""Where the tiled resize kernel's time goes: ``csrc/resize_tiled.cuh`` and
 variants of it with one stage removed or its registers capped, built side by
-side and timed in turns on the main path's planes.
+side and timed in turns on the main path's planes, in each of the kernel's
+forms (exact, relaxed, carry: :data:`PLANES`).
 
-Each variant is the kernel source with text substitutions (:data:`VARIANTS`):
+Each variant is the kernel source with text substitutions (:data:`VARIANTS`),
+applied to every form:
 
 * ``kernel``: the source as it is, held byte-equal to the plain path;
 * ``no_x``, ``no_y``, ``no_xy``: the X pass's tap loop, the Y pass's (the s8
   dot's K loop and the IMAD taps), or both, run zero times;
-* ``no_band``: the band is not staged (the passes read whatever shared
-  memory holds);
+* ``no_band``: the band is not staged, nor the carry form's fresh rows (the
+  passes read whatever shared memory holds);
 * ``no_store``: the outputs are computed and not written;
 * ``band_only``: no X, no Y, no store: the launch, the records, the band and
   the barriers;
@@ -20,8 +22,9 @@ Run on a card, from the repository root::
 
     python3 -m libiqo_tpu_torch.tools.tiled_ablate [variant ...]
 
-Builds go to ``build/libiqo_tpu_torch/ablate-<hash>/`` (one ``nvcc -shared``
-per variant, all started together).  Times: CUDA events, the card spinning
+Builds go to ``build/libiqo_tpu_torch/ablate-<hash>/<variant>/`` (the
+variant's header beside copies of the four ``resize_tiled*.cu`` sources; one
+``nvcc -c`` per source and variant, all started together).  Times: CUDA events, the card spinning
 while the host queues, min over 5 repeats of back-to-back calls on > 64 MB of
 distinct inputs, and each variant timed twice in the order kernel, variants,
 variants reversed, kernel (min of its two).  Prints one line per plane with
@@ -46,8 +49,14 @@ from ..ops import _build, cuda_resize
 
 __all__ = ["PLANES", "VARIANTS", "main", "variant_source"]
 
-SOURCE = _build.CSRC / "resize_tiled.cu"
+SOURCE = _build.CSRC / "resize_tiled.cuh"
+# the translation units that include it: the exact form and the C entry
+# points, then the relaxed, carry and relaxed carry forms
+UNITS = ("resize_tiled.cu", "resize_tiled_relaxed.cu", "resize_tiled_carry.cu",
+         "resize_tiled_relaxed_carry.cu")
 _X_LOOP = "for (int t = 0; t < a.taps_x; ++t)"
+# the X tap loop's one-phase and per-output forms, integer and float32
+_COUNTS = {_X_LOOP: 4}
 _NO_X = [(_X_LOOP, "for (int t = 0; t < 0; ++t)")]
 _NO_Y = [("for (int kb = 0; kb < a.k_rows; kb += 32)", "for (int kb = 0; kb < 0; kb += 32)"),
          ("for (int t = 0; t < a.taps_y; ++t)", "for (int t = 0; t < 0; ++t)")]
@@ -60,59 +69,71 @@ VARIANTS = {
     "no_x": _NO_X,
     "no_y": _NO_Y,
     "no_xy": _NO_X + _NO_Y,
-    "no_band": [("for (int e = tid; e < bh * nchunk; e += kThreads)",
-                 "for (int e = tid; e < 0; e += kThreads)")],
+    "no_band": [("for (int e = threadIdx.x; e < n * nchunk; e += kThreads)",
+                 "for (int e = threadIdx.x; e < 0; e += kThreads)")],
     "no_store": _NO_STORE,
     "band_only": _NO_X + _NO_Y + _NO_STORE,
     "regs40": [(_BOUNDS, _BOUNDS.replace("(kThreads)", "(kThreads, 6)"))],
     "regs32": [(_BOUNDS, _BOUNDS.replace("(kThreads)", "(kThreads, 8)"))],
 }
-# (name, algorithm, kwargs, src_w, src_h, dst_w, dst_h, batch): the main
-# paths' planes (U and V as one batch-of-2 call), and the IMAD Y pass's
+# (name, algorithm, kwargs, src_w, src_h, dst_w, dst_h, batch, form): the
+# main paths' planes (U and V as one batch-of-2 call), the IMAD Y pass's,
+# and the relaxed and carry forms on the planes that take them
 PLANES = (
-    ("lanczos3 4K->1080p luma", "lanczos", dict(degree=3), 3840, 2160, 1920, 1080, 1),
+    ("lanczos3 4K->1080p luma", "lanczos", dict(degree=3), 3840, 2160, 1920, 1080, 1,
+     "exact"),
     ("lanczos3 4K->1080p px2 chroma", "lanczos", dict(degree=3, px_scale=2),
-     1920, 1080, 960, 540, 2),
-    ("area 1080p->360p luma", "area", {}, 1920, 1080, 640, 360, 1),
-    ("area 1080p->360p chroma", "area", {}, 960, 540, 320, 180, 2),
-    ("area 4K->1080p luma", "area", {}, 3840, 2160, 1920, 1080, 1),
-    ("linear 1080p->4K luma", "linear", {}, 1920, 1080, 3840, 2160, 1),
+     1920, 1080, 960, 540, 2, "exact"),
+    ("area 1080p->360p luma", "area", {}, 1920, 1080, 640, 360, 1, "exact"),
+    ("area 1080p->360p chroma", "area", {}, 960, 540, 320, 180, 2, "exact"),
+    ("area 4K->1080p luma", "area", {}, 3840, 2160, 1920, 1080, 1, "exact"),
+    ("linear 1080p->4K luma", "linear", {}, 1920, 1080, 3840, 2160, 1, "exact"),
+    ("lanczos3 4K->1080p luma", "lanczos", dict(degree=3), 3840, 2160, 1920, 1080, 1,
+     "relaxed"),
+    ("area 1080p->360p luma", "area", {}, 1920, 1080, 640, 360, 1, "relaxed"),
+    ("lanczos3 4K->1080p luma", "lanczos", dict(degree=3), 3840, 2160, 1920, 1080, 1,
+     "carry"),
+    ("linear 1080p->4K luma", "linear", {}, 1920, 1080, 3840, 2160, 1, "carry"),
 )
 
 
 def variant_source(name: str, source: str | None = None) -> str:
     """The kernel source with variant ``name``'s substitutions; raises
     ValueError if one of its texts is not in the source as often as
-    expected (once; the X tap loop twice, in its one-phase and per-output
-    forms)."""
+    expected (once; the X tap loop four times, in its one-phase and
+    per-output forms, integer and relaxed)."""
     text = SOURCE.read_text() if source is None else source
     for old, new in VARIANTS[name]:
-        if text.count(old) != (2 if old == _X_LOOP else 1):
+        if text.count(old) != _COUNTS.get(old, 1):
             raise ValueError(f"variant {name}: {old!r} is not in the kernel "
                              "source where expected")
         text = text.replace(old, new)
     return text
 
 
-def _build_variant(name: str, out: Path) -> tuple[str, ctypes.CDLL, list[int]]:
-    cu = out / f"{name}.cu"
-    cu.write_text(variant_source(name))
-    so = out / f"{name}.so"
-    nvcc = _build.find_nvcc()
-    if nvcc is None:
-        raise _build.BuildError("nvcc not found")
-    proc = subprocess.run(_build.nvcc_command(nvcc, so, [cu]), capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise _build.BuildError(f"nvcc failed on {name}:\n{proc.stdout}{proc.stderr}")
-    regs = [int(w) for w in
-            (line.split("Used ")[1].split()[0]
-             for line in (proc.stdout + proc.stderr).splitlines() if "Used " in line)]
-    lib = ctypes.CDLL(str(so))
-    _build.bind_tiled(lib)
-    if lib.iqo_tiled_set_max_smem(cuda_resize.SMEM_BUDGET) != 0:
-        raise RuntimeError(f"{name}: shared-memory limit refused")
-    return name, lib, regs
+def _build_variant(name: str, out: Path) -> tuple[str, Path, list[int]]:
+    """Build variant ``name`` into its own directory; returns the library's
+    path and the registers of its instantiations."""
+    where = out / name
+    where.mkdir(parents=True, exist_ok=True)
+    (where / SOURCE.name).write_text(variant_source(name))
+    for unit in UNITS:
+        (where / unit).write_text((_build.CSRC / unit).read_text())
+    so = where / f"{name}.so"
+    _, log = _build.build_library(so, [where / unit for unit in UNITS])
+    regs = [int(line.split("Used ")[1].split()[0])
+            for line in log.splitlines() if "Used " in line]
+    return name, so, regs
+
+
+def _load(name: str, so: Path) -> ctypes.CDLL:
+    """Load a variant's library on the current device (which torch has
+    initialised) and raise its kernels' shared-memory limit."""
+    lib = _build.bind_tiled(ctypes.CDLL(str(so)))
+    rc = lib.iqo_tiled_set_max_smem(cuda_resize.SMEM_BUDGET)
+    if rc != 0:
+        raise RuntimeError(f"{name}: shared-memory limit refused (cudaError_t {rc})")
+    return lib
 
 
 def _launch(lib, ops, src: torch.Tensor) -> torch.Tensor:
@@ -120,11 +141,12 @@ def _launch(lib, ops, src: torch.Tensor) -> torch.Tensor:
     (_, w), (dh, dw) = ops.plain.src_shape, ops.plain.dst_shape
     out = torch.empty((src.shape[0], dh, dw), dtype=torch.uint8, device=src.device)
     rc = lib.iqo_resize_tiled(
-        int(k.wrap16), int(lay.s8y), lay.tw, src.data_ptr(), out.data_ptr(),
-        src.shape[0], src.stride(0), src.stride(1), w, dh, dw,
-        k.rrec.data_ptr(), k.rrec.shape[1], k.crec.data_ptr(), k.crec.shape[1],
-        k.taps_y, k.taps_x, lay.k_rows, lay.pitch, lay.margin, lay.work_pitch,
-        lay.max_phases, ops.plain.y_bias, ops.plain.out_shift,
+        int(k.wrap16), int(lay.s8y), lay.tw, int(lay.relaxed), int(lay.carry),
+        src.data_ptr(), out.data_ptr(), src.shape[0], src.stride(0), src.stride(1),
+        w, dh, dw, k.rrec.data_ptr(), k.rrec.shape[1], k.crec.data_ptr(),
+        k.crec.shape[1], k.taps_y, k.taps_x, lay.k_rows, lay.pitch, lay.margin,
+        lay.work_pitch, lay.max_phases, ops.plain.y_bias, ops.plain.out_shift,
+        lay.planes, lay.run, lay.slots,
         torch.cuda.current_stream(src.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch failed ({rc})")
@@ -159,18 +181,25 @@ def main(argv: list[str] | None = None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(b"".join(
+        (_build.CSRC / f).read_bytes() for f in (SOURCE.name, *UNITS))).hexdigest()[:16]
     out = _build.build_dir().parent / f"ablate-{digest}"
     out.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(lambda n: _build_variant(n, out), names))
-    libs = {name: lib for name, lib, _ in built}
+    torch.zeros(1, device="cuda")          # the context the libraries join
+    with torch.cuda.device(0):
+        libs = {name: _load(name, so) for name, so, _ in built}
     for name, _, regs in built:
-        print(f"{name}: registers of the 12 instantiations {regs}")
+        print(f"{name}: registers of the 48 instantiations {regs}")
     rng = np.random.default_rng(8)
-    for tag, algo, kw, sw, sh, dw, dh, batch in PLANES:
+    for tag, algo, kw, sw, sh, dw, dh, batch, form in PLANES:
         plan = build_plan(algo, sw, sh, dw, dh, **kw)
-        ops = cuda_resize.pack_operands(plan, "cuda")
+        ops = cuda_resize.pack_operands(plan, "cuda", relaxed=form == "relaxed",
+                                        carry=form == "carry")
+        if not ops.tables.tiled or ops.tables.carry != (form == "carry"):
+            raise RuntimeError(f"{tag}: the tiled kernel's {form} form refuses")
+        tag = f"{tag} [{cuda_resize.variant(ops.tables)}]"
         x = torch.from_numpy(rng.integers(0, 256, (batch, sh, sw), np.uint8)).cuda()
         if not torch.equal(_launch(libs["kernel"], ops, x),
                            cuda_resize.resize_plain(ops, x)):

@@ -1,5 +1,7 @@
-"""The row-halo carry form of the port's kernel (``kCarry`` in
-``libiqo_tpu_torch/csrc/resize_fused.cu``), on the CPU.
+"""The row-halo carry form of the port's windowed kernel (``kCarry`` in
+``libiqo_tpu_torch/csrc/resize_fused.cu``), on the CPU.  The tiled kernel's
+carry form, which takes every plan whose ring fits, has its own tests in
+``tests/test_torch_tiled_opt_ins.py``.
 
 The kernel runs only on a card; here the tests pin its host side: a NumPy
 model of the ring schedule over the very tables the kernel is handed
@@ -135,7 +137,7 @@ def test_ring_schedule_rebuilds_windowed_band(monkeypatch, case, blocks):
     if layout is None:      # the windowed tables, which the other tests hold
         assert not cuda_resize.kernel_tables(plan, carry=True, tiled=False).carry
         return
-    k = cuda_resize.kernel_tables(plan, carry=True)
+    k = cuda_resize.kernel_tables(plan, carry=True, tiled=False)
     assert k.carry and k.run == layout.run and k.ring_rows == layout.ring_rows
     src = np.random.default_rng(plan.y.n_src).integers(
         0, 256, (3, plan.y.n_src, plan.x.n_src), np.uint8)
@@ -210,8 +212,13 @@ def test_carry_refuses_non_monotone_rows():
 
 
 def test_variants_and_tables():
+    """The carry route: the tiled kernel's carry form where its ring fits
+    (4K luma), the windowed carry form with ``tiled=False``, and where
+    carry_ok refuses the form without carry."""
     plan = _plan(FULL["lanczos3 4K->1080p luma"])
-    k = cuda_resize.kernel_tables(plan, carry=True)
+    tiled = cuda_resize.kernel_tables(plan, carry=True)
+    assert cuda_resize.variant(tiled) == "wrap16_carry_tiled"
+    k = cuda_resize.kernel_tables(plan, carry=True, tiled=False)
     assert cuda_resize.variant(k) == "wrap16_carry"
     assert k.iyr.shape == k.iy.shape and int(k.iyr.max()) < k.ring_rows
     windowed = cuda_resize.kernel_tables(plan, tiled=False)
@@ -221,11 +228,11 @@ def test_variants_and_tables():
     chroma = _plan(FULL["lanczos3 4K->1080p px2 chroma"])
     assert not cuda_resize.kernel_tables(chroma, carry=True, tiled=False).carry
     area = _plan(SMALL[4])
-    rel = cuda_resize.kernel_tables(area, relaxed=True, carry=True)
+    rel = cuda_resize.kernel_tables(area, relaxed=True, carry=True, tiled=False)
     assert cuda_resize.variant(rel) == ("u16_relaxed_carry" if rel.carry
                                         else "u16_relaxed")
     assert set(cuda_resize.VARIANTS) == set(cuda_resize.LAUNCHES_BY_VARIANT)
-    assert len(cuda_resize.VARIANTS) == 10     # and the tiled kernel's two
+    assert len(cuda_resize.VARIANTS) == 16     # 8 windowed, 8 tiled
 
 
 def test_opt_in_is_the_jax_packages(monkeypatch):

@@ -361,7 +361,9 @@ def test_probe_library_is_built_apart_from_the_resize_library():
         "exp_band.cu", "exp_banded.cu", "exp_clamp.cu", "exp_mma.cu", "exp_slice.cu",
         "exp_stream.cu", "exp_vpu.cu", "exp_xpass.cu"]
     assert not set(_build.exp_sources()) & set(_build.sources())
-    assert [p.name for p in _build.sources()] == ["resize_fused.cu", "resize_tiled.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "resize_fused.cu", "resize_tiled.cu", "resize_tiled_carry.cu",
+        "resize_tiled_relaxed.cu", "resize_tiled_relaxed_carry.cu"]
     assert _build.exp_build_dir() != _build.build_dir()
     assert _build.exp_build_dir().parent == _build.build_dir().parent
 

@@ -311,7 +311,7 @@ def test_relaxed_kernel_model_matches_plain(algo, kw, sw, sh, dw, dh):
     the CUDA kernel is held to on the card."""
     plan = build_plan(algo, sw, sh, dw, dh, **kw)
     assert cuda_resize.supports_plan(plan, relaxed=True)
-    ops = cuda_resize.pack_operands(plan, relaxed=True)
+    ops = cuda_resize.pack_operands(plan, relaxed=True, tiled=False)
     assert ops.tables.relaxed
     assert cuda_resize.variant(ops.tables) == (
         "wrap16_relaxed" if algo == "lanczos" else "u16_relaxed")
@@ -335,7 +335,7 @@ def test_relaxed_kernel_model_residual_plane(monkeypatch, algo, kw, sw, sh,
     relaxed plain version."""
     monkeypatch.setattr(cuda_resize, "_repaired_bf16", cuda_resize._bf16)
     plan = build_plan(algo, sw, sh, dw, dh, **kw)
-    ops = cuda_resize.pack_operands(plan, relaxed=True)
+    ops = cuda_resize.pack_operands(plan, relaxed=True, tiled=False)
     assert ops.tables.cxd.shape == ops.tables.cxr.shape
     src = np.random.default_rng(5).integers(0, 256, (sh, sw), np.uint8)
     np.testing.assert_array_equal(
@@ -349,7 +349,10 @@ def test_launch_counts_by_variant_reset():
     assert cuda_resize.LAUNCHES_BY_VARIANT == {
         "wrap16": 0, "u16": 0, "wrap16_relaxed": 0, "u16_relaxed": 0,
         "wrap16_carry": 0, "u16_carry": 0, "wrap16_relaxed_carry": 0,
-        "u16_relaxed_carry": 0, "wrap16_tiled": 0, "u16_tiled": 0}
+        "u16_relaxed_carry": 0, "wrap16_tiled": 0, "u16_tiled": 0,
+        "wrap16_relaxed_tiled": 0, "u16_relaxed_tiled": 0,
+        "wrap16_carry_tiled": 0, "u16_carry_tiled": 0,
+        "wrap16_relaxed_carry_tiled": 0, "u16_relaxed_carry_tiled": 0}
 
 
 # -- on the card ------------------------------------------------------------

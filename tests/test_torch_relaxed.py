@@ -283,7 +283,12 @@ def test_routes():
     plan = build_plan("area", 64, 48, 32, 24)
     assert cuda_resize.variant(plan) == "u16"
     assert cuda_resize.variant(plan, relaxed=True) == "u16_relaxed"
-    assert cuda_resize.variant(cuda_resize.kernel_tables(plan, relaxed=True)) == "u16_relaxed"
+    # the tiled kernel's relaxed form where its layout fits; the windowed
+    # kernel's with tiled=False
+    assert cuda_resize.variant(cuda_resize.kernel_tables(
+        plan, relaxed=True)) == "u16_relaxed_tiled"
+    assert cuda_resize.variant(cuda_resize.kernel_tables(
+        plan, relaxed=True, tiled=False)) == "u16_relaxed"
 
 
 def test_clis_relaxed(tmp_path, capsys):

@@ -283,14 +283,20 @@ def test_tiled_routes(monkeypatch):
     t = cuda_resize.kernel_tables(plan)
     assert cuda_resize.variant(t) == "wrap16_tiled"
     assert cuda_resize.variant(cuda_resize.kernel_tables(plan, tiled=False)) == "wrap16"
-    # carry where carry_ok holds, relaxed stays relaxed
+    # carry and relaxed take the tiled kernel's forms; tiled=False the
+    # windowed kernel's
     assert cuda_resize.carry_ok(plan)
     assert cuda_resize.variant(
-        cuda_resize.kernel_tables(plan, carry=True)) == "wrap16_carry"
+        cuda_resize.kernel_tables(plan, carry=True)) == "wrap16_carry_tiled"
+    assert cuda_resize.variant(cuda_resize.kernel_tables(
+        plan, carry=True, tiled=False)) == "wrap16_carry"
     assert cuda_resize.variant(
-        cuda_resize.kernel_tables(plan, relaxed=True)) == "wrap16_relaxed"
+        cuda_resize.kernel_tables(plan, relaxed=True)) == "wrap16_relaxed_tiled"
+    assert cuda_resize.variant(cuda_resize.kernel_tables(
+        plan, relaxed=True, tiled=False)) == "wrap16_relaxed"
     chroma = build_plan(**MAIN_PLANS["chroma"])
     assert not cuda_resize.carry_ok(chroma)
+    assert cuda_resize.tiled_carry_layout(chroma) is None
     assert cuda_resize.variant(
         cuda_resize.kernel_tables(chroma, carry=True)) == "wrap16_tiled"
     area = build_plan(**U16_PLANS["area360p_luma"])
@@ -319,7 +325,7 @@ def test_kernel_tables_builds_one_layout_and_follows_tiled_ok(monkeypatch, kw):
     built = []
     layout = cuda_resize.tiled_layout
     monkeypatch.setattr(cuda_resize, "tiled_layout",
-                        lambda p: built.append(p) or layout(p))
+                        lambda p, *a: built.append(p) or layout(p, *a))
     tables = cuda_resize.kernel_tables(plan)
     assert len(built) == 1
     assert isinstance(tables, cuda_resize.TiledTables) == cuda_resize.tiled_ok(plan)
