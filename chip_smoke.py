@@ -129,8 +129,11 @@ Phases:
    the library call, timed under the kernel's own protocol
    (``torch.add(out=)`` and ``Tensor.copy_`` in the same chain for kernel
    A, a ``uint8`` ``sum`` fold for B, ``torch._int_mm`` for C, with bf16
-   ``torch.matmul`` as a yardstick; none for D), and the measured streaming
-   ceilings beside the data sheet's.
+   ``torch.matmul`` as a yardstick; none for D, which no one call computes:
+   its two products alone as two bf16 ``torch.bmm`` with ``out_dtype=
+   torch.float32``, rebuilt into D's function and held equal to its plain
+   version first), and the measured streaming ceilings beside the data
+   sheet's.
 14. The band-fetch probes (the H100 ports of ``scripts/exp_band_shape.py``,
    ``exp_i32_band.py``, ``exp_overlap.py`` and ``exp_blocked_halo.py``):
    kernels E, G and H == their plain versions bit for bit at the scripts'
@@ -158,7 +161,13 @@ Phases:
    library yardsticks under the kernels' own protocol (``torch._int_mm`` of
    the s8 dots alone, ``torch.bmm`` in f32 with TF32 off, bf16 ``torch.bmm``
    with ``out_dtype=torch.float32``, an int32 chain of elementwise calls, one
-   corner-gathering index).
+   corner-gathering index).  Then the redesigned forms of ``f32_2dot`` and
+   ``dense4`` (``csrc/exp/exp_xpass_gemm.cu``, ``form="gemm"``): == plain
+   bit for bit at 1, 3, R/8 and R repeats and a partial last step, == gold
+   (I) and == the library products (I and J) at one application, their
+   launches counted apart in ``main()``; timed in turns with PR 7's forms at
+   R and R/8 (µs per application as the slope and as t(R)/R), beside the
+   bound and the library call.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 2
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -1528,6 +1537,37 @@ def phase_probes(card: str) -> list:
     del a8s
     p_mma = plain_ms(lambda t: mxu.mma_steps_plain(t, bt8, torch.int32), a8)
     p_banded = plain_ms(lambda t: bd.banded_tile_plain(ops, t, "mono", "mono"), band)
+    # D: no one PyTorch call computes banded_tile (two dependent products,
+    # an int16 wrap and a split between them, then the epilogue).  Its two
+    # mono products alone, as two bf16 torch.bmm with float32 out over
+    # operands laid out beforehand (the band in bf16, the X planes of each
+    # band's own Y product), first rebuilt into D's whole function and held
+    # equal to the plain version
+    cy_stack = ops.cy.expand(bd.GRID, -1, -1).contiguous()
+    cx_stack = torch.stack([c_.t() for c_ in ops.cxt]).contiguous()      # (3, 896, 384)
+
+    def d_operands(t):
+        bb = t.to(torch.bfloat16)
+        y = torch.bmm(cy_stack, bb, out_dtype=torch.float32).to(torch.int64)
+        w16 = _harness.wrap(y, 16)
+        b_ = ((w16 + 128) & 255) - 128
+        a_ = (w16 - b_) >> 8
+        planes = torch.stack([p_.reshape(-1, bd.BW) for p_ in (a_, b_, a_ + b_)])
+        return bb, planes.to(torch.bfloat16).contiguous()
+
+    def d_dots(xy):
+        bb, planes = xy
+        return (torch.bmm(cy_stack, bb, out_dtype=torch.float32),
+                torch.bmm(planes, cx_stack, out_dtype=torch.float32))
+
+    _, xd = d_dots(d_operands(band))
+    sums = sum(_harness.wrap(xd[i].to(torch.int64), 32) * wt for i, wt in enumerate(bd.XWEIGHTS))
+    v = _harness.wrap(_harness.wrap(sums, 32) + (1 << 19), 32) >> 20
+    rebuilt = _harness.wrap(v, 16).clamp(0, 255).to(torch.uint8).view(bd.GRID, bd.TH, bd.TW)
+    check(torch.equal(rebuilt, bd.banded_tile_plain(ops, band, "mono", "mono")),
+          "banded_tile rebuilt from two bf16 torch.bmm != banded_tile_plain mono/mono")
+    lib_d_dots = _harness.launches_ms(d_dots, [d_operands(t) for t in
+                                               _harness.perturbed(band, bd.ITERS)])
     del dma_in, xb, rs
 
     d, m, b = rows["dma"], rows["mxu"], rows["bd"]
@@ -1551,7 +1591,9 @@ def phase_probes(card: str) -> list:
     mm = b["y=mono x=mono"]
     print(f"probe banded_tile mono/mono: kernel {mm['ms']!r} ms, plain "
           f"{p_banded!r} ms, bound {mm['bound_ms']!r} ms ({mm['bound_by']}), "
-          f"library none ({card})")
+          f"library none (no one call computes it); its two products alone as two bf16 "
+          f"torch.bmm(out_dtype=float32), operands laid out beforehand, {lib_d_dots!r} ms "
+          f"({card})")
     h, w = dma.H, dma.W
     rs_bytes = h * w + h * dma.LANES
     entries = [
@@ -1588,6 +1630,9 @@ def phase_probes(card: str) -> list:
          "launches": launches["banded_tile"], "max_abs_err": err["banded_tile"],
          "ms": mm["ms"], "plain_ms": p_banded, "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": None, "row": "y=mono x=mono",
+         "library_none": "no one PyTorch call computes it: two dependent products with an "
+                         "int16 wrap and a split between them, then the epilogue",
+         "dots_library_ms": lib_d_dots,
          "rows": {r: v["ms"] for r, v in b.items()}},
     ]
     print(f"phase probes: {time.perf_counter() - t_phase!r} s")
@@ -1757,26 +1802,45 @@ def phase_band_fetch(card: str) -> list:
     return entries
 
 
+GEMM_REPS = {"xs": (1, 3, 64, 67, 512), "vx": (1, 3, 13, 24)}   # R/8, R and partial steps
+
+
+def probe_turns(fns: dict, inputs) -> dict:
+    """Each of ``fns`` timed twice under the probes' protocol (back-to-back
+    calls on ``inputs``, ``_harness.launches_ms``), in the order given and
+    then reversed (min of its two): {name: ms per call}."""
+    from libiqo_tpu_torch.experiments import _harness
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n].append(_harness.launches_ms(fns[n], inputs))
+    return {n: min(t) for n, t in times.items()}
+
+
 def phase_xpass(card: str) -> list:
     """Phase 15, the X-pass and legality probes: kernels I-M == their plain
     versions at the TPU scripts' full shapes and full repeat counts in every
     variant (``bf16_1dot`` within its f32 summation bound; ``slice_groups``
     in both output forms); the five scripts' ``main()`` with every count set
     to 0 just before; plain times at the host's pace and library yardsticks.
-    Returns the five entries of the kernels line."""
+    Then the gemm forms of ``f32_2dot`` and ``dense4`` (``exp_xpass_gemm.cu``)
+    == plain at 1, 3, R/8 and R repeats (and == gold, or the library
+    products, at one application), timed in turns with PR 7's forms.
+    Returns the seven entries of the kernels line."""
     from libiqo_tpu_torch.experiments import (_harness, exp_element_clamp as ec,
                                               exp_slice_align as sa, exp_vpu_rate as vr,
-                                              exp_vpu_xpass as vx, exp_x_schemes as xs)
+                                              exp_vpu_xpass as vx, exp_x_schemes as xs,
+                                              xpass_gemm)
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
     names = ("xscheme_tile", "vpu_xpass_tile", "op_mix", "slice_groups", "window_probe")
-    err = dict.fromkeys(names, 0.0)
+    err = dict.fromkeys(names + ("xscheme_gemm", "vpu_xpass_gemm"), 0.0)
 
     # 1. kernel == plain, every variant, full shapes and repeats
     w, c = xs.inputs(dev)
     for v in xs.VARIANTS:
         cv = xs.build_cvals(v, c)
-        got, want = xs.x_scheme(v, w, cv, xs.R), xs.x_scheme_plain(v, w, cv, xs.R)
+        got, want = xs.x_scheme(v, w, cv, xs.R, "serial"), xs.x_scheme_plain(v, w, cv, xs.R)
         if v == "bf16_1dot":
             d = (got.to(torch.int64) - want.to(torch.int64)).abs().to(torch.float64)
             b = xs.bf16_bound(w, cv, xs.R)
@@ -1796,8 +1860,24 @@ def phase_xpass(card: str) -> list:
     ops = vx.operands(dev)
     for v in vx.VARIANTS:
         err["vpu_xpass_tile"] = max(err["vpu_xpass_tile"], probe_err(
-            f"vpu_xpass {v}", vx.vpu_xpass(v, ops, vx.R), vx.vpu_xpass_plain(v, ops, vx.R)))
+            f"vpu_xpass {v}", vx.vpu_xpass(v, ops, vx.R, "serial"),
+            vx.vpu_xpass_plain(v, ops, vx.R)))
     print(f"vpu_xpass == plain in all {len(vx.VARIANTS)} variants at R={vx.R}, bit for bit")
+    # the gemm forms (csrc/exp/exp_xpass_gemm.cu): == plain at 1, 3, R/8, R
+    # and a partial last step; at one application I's also == gold
+    cvf = xs.build_cvals("f32_2dot", c)
+    for reps in GEMM_REPS["xs"]:
+        err["xscheme_gemm"] = max(err["xscheme_gemm"], probe_err(
+            f"x_scheme f32_2dot[gemm] R={reps}", xs.x_scheme("f32_2dot", w, cvf, reps, "gemm"),
+            xs.x_scheme_plain("f32_2dot", w, cvf, reps)))
+    check(torch.equal(xs.x_scheme("f32_2dot", w, cvf, 1, "gemm"), xs.gold(w, c)),
+          "x_scheme f32_2dot[gemm] at R=1 != gold")
+    for reps in GEMM_REPS["vx"]:
+        err["vpu_xpass_gemm"] = max(err["vpu_xpass_gemm"], probe_err(
+            f"vpu_xpass dense4[gemm] R={reps}", vx.vpu_xpass("dense4", ops, reps, "gemm"),
+            vx.vpu_xpass_plain("dense4", ops, reps)))
+    print(f"f32_2dot[gemm] == plain at R {GEMM_REPS['xs']} and == gold at R=1; dense4[gemm] "
+          f"== plain at R {GEMM_REPS['vx']}, bit for bit")
     src = vr.inputs(dev)
     for mix in vr.MIXES:
         for p in vr.PS:
@@ -1827,12 +1907,16 @@ def phase_xpass(card: str) -> list:
     rows = {"xs": xs.main(), "vx": vx.main(), "vr": vr.main(), "sa": sa.main(), "ec": ec.main()}
     torch.cuda.synchronize()
     launches = {n: mod.LAUNCHES.total() for n, mod in zip(names, mods)}
+    launches["xscheme_tile"] = sum(xs.LAUNCHES[v] for v in xs.VARIANTS)
+    launches["vpu_xpass_tile"] = sum(vx.LAUNCHES[v] for v in vx.VARIANTS)
+    launches["xscheme_gemm"] = xs.LAUNCHES[xs.launch_key("f32_2dot", "gemm")]
+    launches["vpu_xpass_gemm"] = vx.LAUNCHES[vx.launch_key("dense4", "gemm")]
     idle = [f"{mod.__name__.rsplit('.', 1)[-1]}:{v}" for mod in mods
             for v, n in mod.LAUNCHES.items() if n == 0]
     check(not idle, f"X-pass probe variants never launched by main(): {idle}")
     bad = [r for r, v in rows["ec"].items() if r in ec.ROWS and not v["ok"]]
     check(not bad, f"window probes not OK: {bad}")
-    check(all(rows["xs"]["checks"][k] for k in ("f32_exact", "s16_exact")) and
+    check(all(rows["xs"]["checks"][k] for k in ("f32_exact", "f32_exact_serial", "s16_exact")) and
           not rows["xs"]["checks"]["s8_4dot_gold"] and rows["vx"]["checks"]["corr_i32_exact"],
           f"x_scheme / vpu_xpass checks: {rows['xs']['checks']} {rows['vx']['checks']}")
     print(f"X-pass main() runs -> launches {launches}; by variant " +
@@ -1847,10 +1931,12 @@ def phase_xpass(card: str) -> list:
     p_xs = plain_ms(lambda t: xs.x_scheme_plain("s8_4dot", t, cv8, xs.R), w)
     p_vx = _harness.launches_ms(lambda o: vx.vpu_xpass_plain("dense4", o, vx.R),
                                 [ops.perturbed(i) for i in range(2)], repeats=2, primed=False)
+    p_f32 = plain_ms(lambda t: xs.x_scheme_plain("f32_2dot", t, cvf, xs.R), w)
     p_vr = plain_ms(lambda t: vr.op_mix_plain(t, "epi", 8), src)
     p_sa = plain_ms(lambda t: sa.slice_groups_plain(t, sops, 128, 512), sw)
     p_ec = plain_ms(ec.window_x1_plain, srcs["x1"])
-    print(f"plain ms, host-paced: x_scheme s8_4dot R={xs.R} {p_xs!r}; vpu_xpass dense4 "
+    print(f"plain ms, host-paced: x_scheme s8_4dot R={xs.R} {p_xs!r}, f32_2dot {p_f32!r}; "
+          f"vpu_xpass dense4 "
           f"R={vx.R} {p_vx!r}; op_mix epi P=8 {p_vr!r}; slice_groups 128,512 {p_sa!r}; "
           f"window_x1 {p_ec!r} ({card})")
 
@@ -1894,6 +1980,9 @@ def phase_xpass(card: str) -> list:
     check(torch.equal(_harness.wrap(rec, 32).to(torch.int32),
                       xs.x_scheme_plain("f32_2dot", w, {"cf32": cf}, 1)),
           "torch.bmm f32 != x_scheme_plain f32_2dot")
+    check(torch.equal(_harness.wrap(rec, 32).to(torch.int32),
+                      xs.x_scheme("f32_2dot", w, cvf, 1, "gemm")),
+          "x_scheme f32_2dot[gemm] at R=1 != the torch.bmm f32 products")
     lib_f32 = _harness.launches_ms(lambda t: torch.bmm(t, cf),
                                    [f32_planes(t) for t in _harness.perturbed(w, 4)]) \
         * (xs.R // reps)
@@ -1925,6 +2014,9 @@ def phase_xpass(card: str) -> list:
     rec = (s[:vx.TH, :vx.TW] + s[:vx.TH, vx.TW:]) * 256 + s[vx.TH:, :vx.TW] + s[vx.TH:, vx.TW:]
     check(torch.equal(_harness.wrap(rec, 32).to(torch.int32), vx.vpu_xpass_plain("dense4", ops, 1)),
           "torch.bmm(out_dtype=float32) != vpu_xpass_plain dense4")
+    check(torch.equal(_harness.wrap(rec, 32).to(torch.int32),
+                      vx.vpu_xpass("dense4", ops, 1, "gemm")),
+          "vpu_xpass dense4[gemm] at R=1 != the bf16 torch.bmm products")
     lib_vx = _harness.launches_ms(lambda t: torch.bmm(t, cx[None], out_dtype=torch.float32),
                                   [dense_planes(ops.perturbed(i)) for i in range(4)])
     # K: the epi mix as a chain of int32 elementwise calls
@@ -1971,8 +2063,52 @@ def phase_xpass(card: str) -> list:
           f"float32 out {lib_vx!r} ms per {vx.R}; int32 epi chain {lib_vr!r}; slice dots as 3 "
           f"bf16 torch.bmm with float32 out {lib_sa!r}; corner gather {lib_ec!r} ({card})")
 
+    # the gemm forms against PR 7's serial forms, in turns, at R and R / 8
+    ti = probe_turns({f"{form} {reps}": functools.partial(
+        lambda x, r, f: xs.x_scheme("f32_2dot", x, cvf, r, f), r=reps, f=form)
+        for form in ("gemm", "serial") for reps in (xs.R, xs.R // 8)},
+        _harness.perturbed(w, xs.ITERS))
+    # J's gemm form computes whole steps of 8 repeats: R/8 = 3 costs it a step,
+    # so it is also timed at one whole step
+    j_step = xpass_gemm.DENSE4_GEMM.rep_step
+    tj = probe_turns({f"{form} {reps}": functools.partial(
+        lambda o, r, f: vx.vpu_xpass("dense4", o, r, f), r=reps, f=form)
+        for form, reps in (("gemm", vx.R), ("gemm", vx.R // 8), ("gemm", j_step),
+                           ("serial", vx.R), ("serial", vx.R // 8))},
+        [ops.perturbed(i) for i in range(vx.ITERS)])
+    j_whole = (tj[f"gemm {vx.R}"] - tj[f"gemm {j_step}"]) / (vx.R - j_step) * 1e3
+    per_app = {}
+    for tag, t, r_full in (("f32_2dot", ti, xs.R), ("dense4", tj, vx.R)):
+        for form in ("gemm", "serial"):
+            hi_, lo_ = t[f"{form} {r_full}"], t[f"{form} {r_full // 8}"]
+            per_app[tag, form] = ((hi_ - lo_) / (r_full - r_full // 8) * 1e3, hi_ / r_full * 1e3)
+    lib_app = {"f32_2dot": lib_f32 / xs.R * 1e3, "dense4": lib_vx / vx.R * 1e3}
+    for tag, variant_bound, r_full in (("f32_2dot", xs.bound("f32_2dot"), xs.R),
+                                       ("dense4", vx.bound("dense4"), vx.R)):
+        (gs, gr), (ss, sr) = per_app[tag, "gemm"], per_app[tag, "serial"]
+        print(f"{tag}[gemm] in turns with PR 7's form: {gs!r} us/application (slope R={r_full} "
+              f"to R/8), t(R)/R {gr!r}; serial form {ss!r} / {sr!r}; bound {variant_bound[2]!r}; "
+              f"library {lib_app[tag]!r} us/application; gemm/library t(R)/R "
+              f"{gr / lib_app[tag]!r}, slope {gs / lib_app[tag]!r} ({card})")
+    print(f"dense4[gemm] slope between whole steps (R={vx.R} and {j_step}): {j_whole!r} "
+          f"us/application ({card})")
+
     x, j, k, l_, m = (rows["xs"]["s8_4dot"], rows["vx"]["dense4"], rows["vr"]["epi P=8"],
                       rows["sa"]["k0%128, kl=512"], rows["ec"]["x1"])
+
+    def gemm_entry(name, replaces, tag, key, t, r_full, mod, plain, lib):
+        """A gemm form's entry: µs per application as the slope and as
+        t(R)/R, beside PR 7's serial form timed in the same turns."""
+        b_ms, by, app_us, _ = mod.bound(tag)
+        (gs, gr), (ss, sr) = per_app[tag, "gemm"], per_app[tag, "serial"]
+        return {"name": name, "route": "cuda",
+                "source": "libiqo_tpu_torch/csrc/exp/exp_xpass_gemm.cu", "replaces": replaces,
+                "launches": launches[key], "max_abs_err": err[key], "ms": t[f"gemm {r_full}"],
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": by, "library_ms": lib,
+                "row": f"{tag} R={r_full}", "us_per_app": gs, "us_per_app_at_r": gr,
+                "bound_us_per_app": app_us, "library_us_per_app": lib_app[tag],
+                "ms_r8": t[f"gemm {r_full // 8}"], "serial_ms": t[f"serial {r_full}"],
+                "serial_us_per_app": ss, "serial_us_per_app_at_r": sr}
     entries = [
         {"name": "xscheme_tile", "route": "cuda",
          "source": "libiqo_tpu_torch/csrc/exp/exp_xpass.cu",
@@ -2019,6 +2155,12 @@ def phase_xpass(card: str) -> list:
          "library_ms": lib_ec, "row": "x1",
          "rows": {r: v["ms"] for r, v in rows["ec"].items() if r in ec.ROWS},
          "x2_past_end_zeros": rows["ec"]["x2_past_end"]["all_zeros"]},
+        {**gemm_entry("xscheme_tile[f32_2dot,gemm]", "scripts/exp_x_schemes.py:156", "f32_2dot",
+                      "xscheme_gemm", ti, xs.R, xs, p_f32, lib_f32),
+         "also_replaces": ["scripts/exp_x_schemes.py:230"]},
+        {**gemm_entry("vpu_xpass_tile[dense4,gemm]", "scripts/exp_vpu_xpass.py:156", "dense4",
+                      "vpu_xpass_gemm", tj, vx.R, vx, p_vx, lib_vx),
+         "us_per_app_whole_steps": j_whole, "ms_step": tj[f"gemm {j_step}"]},
     ]
     print(f"phase xpass: {time.perf_counter() - t_phase!r} s")
     return entries

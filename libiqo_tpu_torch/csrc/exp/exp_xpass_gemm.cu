@@ -1,0 +1,569 @@
+// X-pass probes redesigned for Hopper (sm_90a): kernel I's f32_2dot scheme
+// and kernel J's dense4 as GEMMs whose M stacks the repeats' split rows
+// (I on CUDA cores in FP32 FMA, J on the tensor cores with wgmma).
+// Each computes exactly what the TPU kernel computes, out = sum_{r < reps}
+// body(w + r) with int32 wraps, and equals the plain versions bit for bit
+// (exp_x_schemes.x_scheme_plain("f32_2dot"), exp_vpu_xpass.vpu_xpass_plain
+// ("dense4")).  The first forms (exp_xpass.cu, xscheme_kernel<kF32x2> and
+// vpu_xpass_kernel<kDense4>) launch 120 blocks of 128 threads that each walk
+// every repeat in series; these spread the repeats over the grid.
+//
+// Kernel I, xscheme_f32_gemm: replaces scripts/exp_x_schemes.py, make
+// (pl.pallas_call at :156), variant f32_2dot, and at reps = 1 its
+// check_f32_exact (:230).  On w (160, 896) i32 and C (3, 384, 128) f32, group
+// g of 128 outputs contracts the work columns [256 g, 256 g + 384):
+// out += int(a @ C_g) * 256 + int(b @ C_g), a = (w + r) >> 8, b = (w + r) & 255.
+//   Block: one group, 16 work rows, a slice of the repeats.  It loads C_g
+//   (384 x 128 f32, 192 KB) into shared memory once, as 12 K chunks of 32
+//   rows, each its own cp.async group, so that the first step computes on
+//   chunk c while chunks c + 1 .. 11 are in flight; every later step reads it
+//   from shared memory.  A step stacks 4 repeats along M: 16 rows x 4 repeats
+//   x 2 planes = 128 A rows, m = 8 row + 2 repeat + plane.  Each K chunk of A
+//   is split from w + r into shared memory once per (step, chunk), double
+//   buffered: the split of chunk c + 1 is written while chunk c is computed,
+//   one barrier a chunk.  256 threads, each an 8 x 8 register tile (its
+//   row's 4 repeats x 2 planes, against 8 columns): per k two 16-byte loads
+//   of A and two of C feed 64 FFMA, 16 FFMA a shared load.  A thread's rows
+//   are one work row's, so it converts and meets the two planes and the
+//   step's repeats in its own registers, wrapping in uint32.  TF32 stays off
+//   (FFMA on CUDA cores): every partial and full sum is an integer whose
+//   |terms| sum below 2^24 (_F32_EXACT, asserted by the plain version), so
+//   any order of summation is exact.
+//   Shared memory: 196,608 (C) + 2 x 16,384 (A) = 229,376 bytes of 232,448,
+//   one block an SM, 8 warps (2 a scheduler).
+//
+// Kernel J, vpu_dense4_gemm: replaces scripts/exp_vpu_xpass.py, make
+// (pl.pallas_call at :156), variant dense4.  On wd (160, 896) i32 and cxh,
+// cxl (896, 384) bf16: out += sum over cc in (cxh, cxl) of int(hi @ cc) *
+// 256 + int(lo @ cc), hi = (wd + r) >> 8, lo = (wd + r) & 255 as bf16.
+//   Block: one warpgroup (128 threads), 16 work rows, 32 output columns, a
+//   slice of the repeats; a step stacks 8 repeats x 2 planes x 16 rows = 256
+//   A rows along M.  B is 64 rows of the K-major coefficients (cxh's 32
+//   columns, then cxl's): the block's 14 K chunks of 64, each with its 16
+//   work rows, are staged by cp.async in 4 stages, the B tiles 1024-byte
+//   aligned with their 16-byte pieces XOR-swizzled by row (the 128-byte
+//   swizzle that wgmma's descriptor names).  Each K step of 16 issues 4
+//   wgmma m64n64k16 (bf16 -> f32), one a repeat of the warp's 4: A from
+//   registers, B read by the tensor cores from the swizzled tile, D in
+//   registers; every warp holds its 16 rows over the full K, so no partial
+//   sums meet between warps.  The split is done in the kernel once per
+//   (repeat, K step) and goes straight into the A fragments: a warp's 16 A
+//   rows are the hi (row g) and lo (row g + 8) planes of its 8 work rows, so
+//   a lane splits its 4 work values of the K step for the warp's first
+//   repeat (I2F for hi, a magic-number add for lo) and steps to the next 3
+//   repeats by a carry from lo, in float.  Two A sets alternate: the K
+//   step's products run while the next one's split is made, and a set is
+//   rewritten only after the wgmma group that read it has retired.  A
+//   thread holds, for each output, the hi and lo rows against cxh and cxl:
+//   it converts each of the four f32 dots and meets them and its repeats in
+//   uint32.  Any order of the f32 sums is exact: no sum of |products|
+//   reaches 2^24 (test_dense4_sums_stay_below_2_24), so the tensor cores'
+//   order is free.  A step's 8 repeats are computed whole: past reps they
+//   are products of valid work values that the meeting leaves out.
+//   (bf16 mma.sync on fragments read with ldmatrix, with the split written
+//   into a shared A tile or made in registers, was slower on the H100: B
+//   fragments cost shared-memory traffic for every warp, and one m16n8k16
+//   product an instruction leaves the split and the products competing for
+//   issue; wgmma reads B without ldmatrix and issues a 64 x 64 x 16 product
+//   in one instruction.)
+//   Shared memory: 4 x (8,192 B + 4,608 work rows) + 1,024 alignment slack
+//   = 52,224 bytes; two blocks an SM by registers, 8 warps (2 a scheduler).
+
+// Both: a block's slice of repeats meets the other slices' in the output by
+// atomicAdd on uint32, which wraps and does not depend on the order; the
+// wrapper zeroes the output first.  The host (experiments/xpass_gemm.py)
+// picks the slices so that the grid fills the card, holds the geometry below
+// in a NumPy model, and checks it against iqo_exp_xpass_gemm_shape.
+//
+// What bounds them on the H100: operations.  Per application, I's two f32
+// dots are 47.2 M FMA, 1.41 us at 67 TFLOP/s; J's four bf16 dots 220 M
+// multiply-adds, 0.445 us at 989 TFLOP/s.  Bytes are read once for all
+// repeats (under 2 MB a launch; C and the coefficient chunks come from L2).
+// What the design does about it: it keeps the split (once per repeat, row
+// and column for all of a block's output columns) and the memory traffic (a
+// coefficient chunk read into shared memory once for every repeat a step
+// stacks) small beside the products, and puts 8 warps on each SM with
+// enough independent accumulators to keep the FMA pipes or the tensor cores
+// fed; J uses wgmma, the only path to the tensor cores' full rate.
+//
+// Intended int32 wraps (the sums over repeats, 256 int(hi), the slices'
+// meeting) are uint32 arithmetic, with inline PTX mad.lo.u32 / add.u32 in the
+// repeat loops so that the compiler cannot fold them.
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t mad_u32(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t add_u32(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t f2u(float x) {
+  return static_cast<uint32_t>(__float2int_rz(x));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N));
+}
+
+// Wait until at most `pending` (0..10) of this thread's cp.async groups are
+// still in flight.
+__device__ __forceinline__ void cp_wait_at_most(int pending) {
+  switch (pending) {
+    case 0: cp_wait<0>(); break;
+    case 1: cp_wait<1>(); break;
+    case 2: cp_wait<2>(); break;
+    case 3: cp_wait<3>(); break;
+    case 4: cp_wait<4>(); break;
+    case 5: cp_wait<5>(); break;
+    case 6: cp_wait<6>(); break;
+    case 7: cp_wait<7>(); break;
+    case 8: cp_wait<8>(); break;
+    case 9: cp_wait<9>(); break;
+    default: cp_wait<10>(); break;
+  }
+}
+
+// wgmma (sm_90a): D[64 x 64] += A[64 x 16] (registers) x B[16 x 64] (shared,
+// by descriptor), f32 accumulators; the warpgroup's 4 warps each hold 16 rows
+// of A and D in mma.sync's m16n8k16 fragment layout.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, 1, 1, 1, 0;"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// The descriptor of a K-major bf16 tile in shared memory with the 128-byte
+// swizzle: rows of 64 values (128 bytes) whose 16-byte pieces sit at piece ^
+// (row & 7), 8-row groups 1024 bytes apart, the tile 1024-byte aligned.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// Hold registers that an in-flight wgmma reads (A) or writes (D) until the
+// wait that retires it: the compiler may not reuse or read them before.
+__device__ __forceinline__ void pin(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+__device__ __forceinline__ void pin(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// x & 255 as float, exact: the integer in the low mantissa bits of 2^23
+__device__ __forceinline__ float low_byte(int x) {
+  return __int_as_float(0x4B000000 | (x & 255)) - 8388608.0f;
+}
+
+// ---- kernel I: f32_2dot ----------------------------------------------------
+
+namespace gi {
+constexpr int kThreads = 256;
+constexpr int kRows = 16;                  // work rows of a block
+constexpr int kRepStep = 4;                // repeats a step stacks along M
+constexpr int kM = kRows * kRepStep * 2;   // 128 A rows: m = 8 row + 2 repeat + plane
+constexpr int kN = 128, kK = 384, kKC = 32, kChunks = kK / kKC;
+constexpr int kBand = 896, kTW = 384, kTH = 160, kGroups = 3;
+constexpr int kSmemC = kK * kN * 4;        // C_g, resident
+constexpr int kSmemA = 2 * kKC * kM * 4;   // two A chunks, [k][m]
+constexpr int kSmem = kSmemC + kSmemA;
+static_assert(kThreads == kRows * (kN / 8), "one 8 x 8 tile a thread");
+static_assert(kKC * kRows == 2 * kThreads, "two split values a thread and chunk");
+static_assert(kSmem <= 232448, "shared memory of one block");
+}  // namespace gi
+
+__global__ void __launch_bounds__(gi::kThreads, 1)
+xscheme_f32_gemm(const int32_t* __restrict__ w, const float* __restrict__ c,
+                 uint32_t* __restrict__ out, int reps, int steps_per_slice) {
+  using namespace gi;
+  extern __shared__ __align__(16) float smem_f[];
+  float* cs = smem_f;                      // (384, 128): C_g
+  float* as = smem_f + kK * kN;            // 2 x (32, 128): A chunk, [k][m]
+  const int tid = threadIdx.x, tm = tid / 16, tn = tid % 16;
+  const int grp = blockIdx.y, row0 = kRows * blockIdx.z;
+  const int steps = (reps + kRepStep - 1) / kRepStep;
+  const int s0 = blockIdx.x * steps_per_slice;
+  const int s1 = min(s0 + steps_per_slice, steps);
+  if (s0 >= s1) return;
+
+  // C_g once, one cp.async group per K chunk
+  const float* cg = c + static_cast<long long>(grp) * kK * kN;
+  for (int ch = 0; ch < kChunks; ++ch) {
+#pragma unroll
+    for (int i = 0; i < kKC * kN / 4 / kThreads; ++i) {
+      const int e = ch * kKC * kN + 4 * (tid + kThreads * i);
+      cp_async16(cs + e, cg + e);
+    }
+    cp_commit();
+  }
+
+  // split duty: work row srow, chunk columns sk and sk + 16
+  const int srow = tid % kRows, sk = tid / kRows;
+  const int32_t* wsrc = w + static_cast<long long>(row0 + srow) * kBand + 256 * grp + sk;
+  int32_t wn0 = 0, wn1 = 0;                // the next split's two work values
+  auto wload = [&](int ch) {
+    wn0 = __ldg(wsrc + kKC * ch);
+    wn1 = __ldg(wsrc + kKC * ch + 16);
+  };
+  auto split = [&](int step, int buf) {
+    float* dst = as + buf * kKC * kM + srow * 8;
+    const uint32_t r0 = static_cast<uint32_t>(kRepStep * step);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t v = static_cast<uint32_t>(h ? wn1 : wn0) + r0;
+      float f[8];
+#pragma unroll
+      for (int j = 0; j < kRepStep; ++j) {
+        const int x = static_cast<int>(v + static_cast<uint32_t>(j));   // w + r, wrapped
+        f[2 * j] = static_cast<float>(x >> 8);
+        f[2 * j + 1] = low_byte(x);
+      }
+      float* p = dst + (sk + 16 * h) * kM;
+      *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+      *reinterpret_cast<float4*>(p + 4) = make_float4(f[4], f[5], f[6], f[7]);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  uint32_t sum[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+
+  const int g0 = s0 * kChunks, g1 = s1 * kChunks;
+  wload(0);
+  split(s0, 0);
+  wload(1);
+  cp_wait<kChunks - 1>();                  // this thread's copies of chunk 0
+  __syncthreads();
+  for (int g = g0; g < g1; ++g) {
+    const int ch = g % kChunks, buf = (g - g0) & 1;
+    if (g + 1 < g1) {
+      split((g + 1) / kChunks, buf ^ 1);
+      wload((g + 2) % kChunks);
+    }
+    const float* ap = as + buf * kKC * kM + 8 * tm;
+    const float* bp = cs + ch * kKC * kN + 4 * tn;
+#pragma unroll 8
+    for (int k = 0; k < kKC; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(ap + k * kM);
+      const float4 a1 = *reinterpret_cast<const float4*>(ap + k * kM + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(bp + k * kN);
+      const float4 b1 = *reinterpret_cast<const float4*>(bp + k * kN + 64);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (ch == kChunks - 1) {               // the step's repeats meet in uint32
+      const int r0 = kRepStep * (g / kChunks);
+#pragma unroll
+      for (int j = 0; j < kRepStep; ++j) {
+        if (r0 + j < reps) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            sum[n] = add_u32(sum[n], mad_u32(f2u(acc[2 * j][n]), 256u, f2u(acc[2 * j + 1][n])));
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) acc[2 * j][n] = acc[2 * j + 1][n] = 0.f;
+      }
+    }
+    if (g - g0 < kChunks - 1) cp_wait_at_most(kChunks - 2 - (g - g0));   // C chunk ch + 1
+    __syncthreads();
+  }
+  uint32_t* orow = out + static_cast<long long>(row0 + tm) * kTW + kN * grp + 4 * tn;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    atomicAdd(orow + j, sum[j]);
+    atomicAdd(orow + 64 + j, sum[4 + j]);
+  }
+}
+
+// ---- kernel J: dense4 ------------------------------------------------------
+
+namespace gj {
+constexpr int kThreads = 128;              // one warpgroup: 2 (row halves) x 2 (repeat halves)
+constexpr int kRows = 16;                  // work rows of a block
+constexpr int kRepStep = 8;                // repeats a step stacks along M, 4 a warp
+constexpr int kM = kRepStep * 2 * kRows;   // 256 A rows a step (the host's model)
+constexpr int kCols = 32;                  // output columns of a block
+constexpr int kN = 2 * kCols;              // 64 B rows: cxh's 32 columns, then cxl's
+constexpr int kK = 896, kKC = 64, kChunks = kK / kKC;
+constexpr int kTW = 384, kTH = 160;
+constexpr int kRowBytes = kKC * 2;         // a B row: 8 pieces of 16 bytes, swizzled
+constexpr int kWPitch = kKC + 8;           // words a work row: 8-byte loads in 2 wavefronts
+constexpr int kStages = 4;
+constexpr int kBBytes = kN * kRowBytes;    // a multiple of 1024: every B tile stays aligned
+constexpr int kWBytes = kRows * kWPitch * 4;
+constexpr int kSmem = kStages * (kBBytes + kWBytes) + 1024;   // + the alignment slack
+static_assert(kM == 4 * 4 * 16, "4 warps x 4 wgmma of 16 rows a step");
+static_assert(kBBytes % 1024 == 0, "B tiles 1024-byte aligned");
+static_assert(kN * 8 == 4 * kThreads && kRows * kKC / 4 == 2 * kThreads, "copies a thread");
+static_assert(2 * (kSmem + 1024) <= 233472, "two blocks an SM");
+}  // namespace gj
+
+// byte offset of 16-byte piece `piece` of row `row` in a swizzled B tile
+__device__ __forceinline__ int swz(int row, int piece) {
+  return row * gj::kRowBytes + ((piece ^ (row & 7)) << 4);
+}
+
+// bf16x2 of two floats by their high halves: exact for integers of at most
+// 8 significant bits (lo in [0, 255]; hi wherever bf16 holds it, which the
+// plain version's exact products need as well)
+__device__ __forceinline__ uint32_t pack_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+__global__ void __launch_bounds__(gj::kThreads, 2)
+vpu_dense4_gemm(const int32_t* __restrict__ wd, const __nv_bfloat16* __restrict__ cxt,
+                uint32_t* __restrict__ out, int reps, int steps_per_slice) {
+  using namespace gj;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  uint8_t* bsm = smem_raw + (((raw + 1023) & ~1023u) - raw);   // kStages B tiles
+  uint8_t* wsm = bsm + kStages * kBBytes;                        // kStages work-row tiles
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wr = warp % 2, wp = warp / 2, g = lane / 4, q = lane % 4;
+  const int col0 = kCols * blockIdx.y, row0 = kRows * blockIdx.z;
+  const int steps = (reps + kRepStep - 1) / kRepStep;
+  const int s0 = blockIdx.x * steps_per_slice;
+  const int s1 = min(s0 + steps_per_slice, steps);
+  if (s0 >= s1) return;
+  const int g0 = s0 * kChunks, g1 = s1 * kChunks;
+
+  // chunk gc's coefficient rows (rows j < 32: cxh's column col0 + j, then
+  // cxl's) and work rows into stage (gc - g0) % kStages
+  auto load = [&](int gc) {
+    const int st = (gc - g0) % kStages;
+    const int k0 = kKC * (gc % kChunks);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int piece = tid + kThreads * i, row = piece / 8, pc = piece % 8;
+      cp_async16(bsm + st * kBBytes + swz(row, pc),
+                 cxt + (static_cast<long long>(row / kCols) * kTW + col0 + row % kCols) * kK +
+                     k0 + 8 * pc);
+    }
+    int32_t* ws = reinterpret_cast<int32_t*>(wsm + st * kWBytes);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int piece = tid + kThreads * i, row = piece / 16, pc = piece % 16;
+      cp_async16(ws + row * kWPitch + 4 * pc,
+                 wd + static_cast<long long>(row0 + row) * kK + k0 + 4 * pc);
+    }
+  };
+
+  // acc[tt]: wgmma tt's D, this warp's 16 rows (g: hi, g + 8: lo of work row
+  // 8 wr + g, repeat 4 wp + tt of the step) x the 64 B columns: fragment
+  // 4 j + i is n8 tile j (j < 4: cxh's columns 8 j .., j >= 4: cxl's)
+  float acc[4][32];
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
+  uint32_t sum[4][2] = {{0, 0}, {0, 0}, {0, 0}, {0, 0}};
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (g0 + st < g1) load(g0 + st);
+    cp_commit();
+  }
+  cp_wait<kStages - 2>();
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");   // cp.async -> wgmma
+  __syncthreads();
+  for (int gc = g0; gc < g1; ++gc) {       // chunk gc of the slice
+    const int t = gc - g0, step = gc / kChunks;
+    if (gc + kStages - 1 < g1) load(gc + kStages - 1);
+    cp_commit();
+    const uint32_t btile = smem_addr(bsm + (t % kStages) * kBBytes);
+    const int32_t* wrow = reinterpret_cast<const int32_t*>(wsm + (t % kStages) * kWBytes) +
+                          (8 * wr + g) * kWPitch + 2 * q;
+    const int r0 = kRepStep * step + 4 * wp;                    // the warp's first repeat
+    uint32_t af[2][4][4];                  // [K step & 1][repeat][fragment]
+#pragma unroll
+    for (int kk = 0; kk < kKC / 16; ++kk) {
+      // the A fragments' work values: row g, k = 16 kk + 2 q + {0, 1, 8, 9};
+      // the split of w + r0 once, then r0 + 1 .. r0 + 3 by a carry from lo
+      const int2 v0 = *reinterpret_cast<const int2*>(wrow + 16 * kk);
+      const int2 v1 = *reinterpret_cast<const int2*>(wrow + 16 * kk + 8);
+      const int xw[4] = {v0.x, v0.y, v1.x, v1.y};
+      float hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = static_cast<int>(static_cast<uint32_t>(xw[e]) + static_cast<uint32_t>(r0));
+        hi[e] = static_cast<float>(x >> 8);
+        lo[e] = low_byte(x);
+      }
+      uint32_t (&a)[4][4] = af[kk & 1];    // the set K step kk - 2 read: retired
+#pragma unroll
+      for (int tt = 0; tt < 4; ++tt) {
+        if (tt > 0) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            lo[e] += 1.f;
+            const float carry = lo[e] >= 256.f ? 1.f : 0.f;
+            lo[e] = fmaf(-256.f, carry, lo[e]);
+            hi[e] += carry;
+          }
+        }
+        a[tt][0] = pack_exact(hi[0], hi[1]);
+        a[tt][1] = pack_exact(lo[0], lo[1]);
+        a[tt][2] = pack_exact(hi[2], hi[3]);
+        a[tt][3] = pack_exact(lo[2], lo[3]);
+      }
+      const uint64_t desc = desc_sw128(btile + 32 * kk);   // K step kk: 32 bytes in
+      wgmma_fence();
+#pragma unroll
+      for (int tt = 0; tt < 4; ++tt) wgmma_m64n64k16(acc[tt], a[tt], desc);
+      wgmma_commit();
+#pragma unroll
+      for (int tt = 0; tt < 4; ++tt) pin(a[tt]);
+      wgmma_wait<1>();                     // K step kk - 1 retired: its A set is free
+    }
+    wgmma_wait<0>();                       // the chunk's B tile is read
+#pragma unroll
+    for (int tt = 0; tt < 4; ++tt) pin(acc[tt]);
+    if (gc % kChunks == kChunks - 1) {     // the step's repeats meet in uint32
+#pragma unroll
+      for (int tt = 0; tt < 4; ++tt) {
+        if (r0 + tt < reps) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int c2 = 0; c2 < 2; ++c2) {
+              // n8 tile j: cxh, j + 4: cxl; fragment c2: the hi row, 2 + c2: the lo row
+              const uint32_t h =
+                  add_u32(f2u(acc[tt][4 * j + c2]), f2u(acc[tt][4 * (j + 4) + c2]));
+              const uint32_t l =
+                  add_u32(f2u(acc[tt][4 * j + 2 + c2]), f2u(acc[tt][4 * (j + 4) + 2 + c2]));
+              sum[j][c2] = add_u32(sum[j][c2], mad_u32(h, 256u, l));
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[tt][i] = 0.f;
+      }
+    }
+    cp_wait<kStages - 2>();
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+  }
+  uint32_t* orow = out + static_cast<long long>(row0 + 8 * wr + g) * kTW + col0 + 2 * q;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int c2 = 0; c2 < 2; ++c2) atomicAdd(orow + 8 * j + c2, sum[j][c2]);
+}
+
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
+
+}  // namespace
+
+extern "C" {
+
+// Raise both kernels' dynamic shared-memory limits (and prefer shared memory
+// over L1) on the current device; call once per device before their first
+// launch.
+int iqo_exp_xpass_gemm_setup() {
+  int rc = static_cast<int>(cudaFuncSetAttribute(
+      xscheme_f32_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, gi::kSmem));
+  if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
+      vpu_dense4_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, gj::kSmem));
+  if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
+      xscheme_f32_gemm, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared));
+  if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
+      vpu_dense4_gemm, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared));
+  return rc;
+}
+
+// The geometry the kernels were built with, for the host's model: shape[0..5]
+// kernel I (threads, rows, repeats a step, K chunk, chunks, shared bytes),
+// shape[6..12] kernel J (threads, rows, repeats a step, columns, K chunk,
+// chunks, shared bytes).
+int iqo_exp_xpass_gemm_shape(int* shape) {
+  const int v[13] = {gi::kThreads, gi::kRows, gi::kRepStep, gi::kKC, gi::kChunks, gi::kSmem,
+                     gj::kThreads, gj::kRows, gj::kRepStep, gj::kCols, gj::kKC, gj::kChunks,
+                     gj::kSmem};
+  for (int i = 0; i < 13; ++i) shape[i] = v[i];
+  return 0;
+}
+
+// Kernel I, f32_2dot: w (160, 896) i32, c (3, 384, 128) f32 -> out (160,
+// 384) int32, zeroed by the caller; slices x steps_per_slice covers the
+// ceil(reps / 4) steps.
+int iqo_exp_xscheme_gemm(const void* w, const void* c, void* out, int reps, int slices,
+                         int steps_per_slice, void* stream) {
+  if (reps < 1 || slices < 1 || steps_per_slice < 1) return 1008;
+  const int steps = (reps + gi::kRepStep - 1) / gi::kRepStep;
+  if ((slices - 1) * steps_per_slice >= steps || slices * steps_per_slice < steps) return 1008;
+  if (misaligned(w) || misaligned(c) || misaligned(out)) return 1002;
+  xscheme_f32_gemm<<<dim3(slices, gi::kGroups, gi::kTH / gi::kRows), gi::kThreads, gi::kSmem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(w), static_cast<const float*>(c), static_cast<uint32_t*>(out),
+      reps, steps_per_slice);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel J, dense4: wd (160, 896) i32, cxt (2, 384, 896) bf16 (cxh, cxl
+// K-major) -> out (160, 384) int32, zeroed by the caller; slices x
+// steps_per_slice covers the ceil(reps / 8) steps.
+int iqo_exp_vpu_gemm(const void* wd, const void* cxt, void* out, int reps, int slices,
+                     int steps_per_slice, void* stream) {
+  if (reps < 1 || slices < 1 || steps_per_slice < 1) return 1008;
+  const int steps = (reps + gj::kRepStep - 1) / gj::kRepStep;
+  if ((slices - 1) * steps_per_slice >= steps || slices * steps_per_slice < steps) return 1008;
+  if (misaligned(wd) || misaligned(cxt) || misaligned(out)) return 1002;
+  vpu_dense4_gemm<<<dim3(slices, gj::kTW / gj::kCols, gj::kTH / gj::kRows), gj::kThreads,
+                    gj::kSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(wd), static_cast<const __nv_bfloat16*>(cxt),
+      static_cast<uint32_t*>(out), reps, steps_per_slice);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -45,9 +45,26 @@ shared memory); the CUDA-core variants keep each thread's 9 + 9 work values
 of 4 outputs in registers.  The script's v5e figures are TPU history, not
 this card's.
 
+**Forms.**  ``vpu_xpass(..., form=)`` picks the kernel: ``"serial"`` is the
+form above; ``"gemm"`` (``dense4`` only, and its default) is the redesign in
+``csrc/exp/exp_xpass_gemm.cu``, ``vpu_dense4_gemm``: one warpgroup's bf16
+``wgmma`` m64n64k16 over 256 A rows a step that stack 8 repeats x 2 planes of
+16 work rows, the A fragments split in registers, the coefficients (``cxt``,
+as :func:`operands` lays them out) in K chunks of 64 staged by ``cp.async``
+in four stages, 128-byte swizzled, read by the tensor cores; each warp holds
+its rows over the full K; a block's slice of the repeats meets the others in
+a zeroed output by uint32 ``atomicAdd`` (:mod:`.xpass_gemm` states its
+geometry and models it in NumPy).
+:data:`LAUNCHES` counts each variant's serial launches under its name and
+the gemm form's under ``"dense4[gemm]"``.
+
 Times: per launch by back-to-back launches on 8 operand sets that each
 differ in ``we[0, 0]``, ``wo[0, 0]`` and ``wd[0, 0]``, at ``reps = R`` and
-``R / 8``; per application is the slope between the two.
+``R / 8``; per application is the slope between the two, and ``t(R) / R``.
+The gemm form computes whole steps of 8 repeats (a repeat past ``reps`` is
+computed and left out), so at ``R / 8`` = 3 it does a whole step's products
+and the slope understates its cost: its row adds the slope between ``R`` and
+one whole step, 8.
 
 Run on a card: ``python -m libiqo_tpu_torch.experiments.exp_vpu_xpass``.
 """
@@ -60,13 +77,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import _harness
+from . import _harness, xpass_gemm
 from ._harness import (BF16_OPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S,
                        Launches, wrap)
 
-__all__ = ["LAUNCHES", "VARIANTS", "XpassOperands", "bound", "check_exact", "f32_bound",
-           "f32_to_i32", "gold_corr", "main", "operands", "split_dense", "vpu_xpass",
-           "vpu_xpass_plain"]
+__all__ = ["LAUNCHES", "ROWS", "VARIANTS", "XpassOperands", "bound", "check_exact",
+           "f32_bound", "f32_to_i32", "gold_corr", "launch_key", "main", "operands",
+           "split_dense", "vpu_xpass", "vpu_xpass_plain"]
 
 TH, TW, TAPS = 160, 384, 12
 HALF = TAPS // 2
@@ -74,8 +91,18 @@ BAND = 2 * TW + 128
 WDI = TW + 128
 R = 24
 VARIANTS = ("empty", "dense4", "corr_i32", "corr_f32", "muls_i32", "muls_f32")
+GEMM_VARIANT = "dense4"    # the one variant with a gemm form, and its default
 ITERS = 8
-LAUNCHES = Launches(VARIANTS)
+
+
+def launch_key(variant: str, form: str) -> str:
+    """The :data:`LAUNCHES` key of a variant's form."""
+    return xpass_gemm.launch_key(variant, form)
+
+
+# main()'s rows, (variant, form): every variant's serial form, then the gemm forms
+ROWS = tuple((v, "serial") for v in VARIANTS) + ((GEMM_VARIANT, "gemm"),)
+LAUNCHES = Launches(launch_key(v, f) for v, f in ROWS)
 _F32_EXACT = 2**24
 
 
@@ -142,6 +169,10 @@ def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
     out-of-range float is undefined; the CPU gives INT_MIN)."""
     x = torch.nan_to_num(x.to(torch.float64), nan=0.0)
     return x.clamp(-2.0**31, 2.0**31 - 1).to(torch.int64)
+
+
+def _form(variant: str, form: str | None) -> str:
+    return xpass_gemm.form_of(variant, form, GEMM_VARIANT)
 
 
 def _check(variant: str, ops: XpassOperands, reps: int) -> None:
@@ -238,15 +269,27 @@ def f32_bound(ops: XpassOperands, reps: int = R) -> torch.Tensor:
     return 2 * 2 * TAPS * 2.0**-24 * mag + reps
 
 
-def vpu_xpass(variant: str, ops: XpassOperands, reps: int = R) -> torch.Tensor:
-    """Kernel J: (160, 384) int32.  CPU tensors take :func:`vpu_xpass_plain`;
+def vpu_xpass(variant: str, ops: XpassOperands, reps: int = R,
+              form: str | None = None) -> torch.Tensor:
+    """Kernel J: (160, 384) int32, in ``form`` (``"serial"``, or ``"gemm"``
+    for ``dense4``, its default).  CPU tensors take :func:`vpu_xpass_plain`;
     CUDA tensors launch the kernel or raise."""
+    form = _form(variant, form)
     _check(variant, ops, reps)
     tensors = (ops.we, ops.wo, ops.wd, ops.cxt)
-    if not _harness.on_card(*tensors, ops.cxh, ops.cxl):
-        return vpu_xpass_plain(variant, ops, reps)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("vpu_xpass takes contiguous tensors")
+    if not _harness.on_card(*tensors, ops.cxh, ops.cxl):
+        return vpu_xpass_plain(variant, ops, reps)
+    if form == "gemm":
+        dev = ops.wd.device
+        launch = xpass_gemm.geometry(xpass_gemm.DENSE4_GEMM, reps, xpass_gemm.sm_count(dev))
+        out = torch.zeros((TH, TW), dtype=torch.int32, device=dev)
+        _harness.check_rc(xpass_gemm.lib(dev).iqo_exp_vpu_gemm(
+            ops.wd.data_ptr(), ops.cxt.data_ptr(), out.data_ptr(), reps, launch.slices,
+            launch.steps_per_slice, _harness.stream(ops.wd)), f"vpu_xpass_tile[{variant},gemm]")
+        LAUNCHES.add(launch_key(variant, form))
+        return out
     lib = _harness.lib_with_setup("iqo_exp_xpass_setup", ops.we.device)
     out = torch.empty((TH, TW), dtype=torch.int32, device=ops.we.device)
     taps = (ctypes.c_int * TAPS)(*ops.taps)
@@ -287,23 +330,35 @@ def main() -> dict:
     ops = operands(torch.device("cuda", 0))
     xs = [ops.perturbed(i) for i in range(ITERS)]
     rows = {}
-    for variant in VARIANTS:
-        if not torch.equal(vpu_xpass(variant, xs[-1], R // 8),
+    for variant, form in ROWS:
+        if not torch.equal(vpu_xpass(variant, xs[-1], R // 8, form),
                            vpu_xpass_plain(variant, xs[-1], R // 8)):
             raise AssertionError(f"{variant}: kernel differs from its plain version")
-        t = {reps: _harness.launches_ms(lambda o: vpu_xpass(variant, o, reps), xs)
+        t = {reps: _harness.launches_ms(lambda o: vpu_xpass(variant, o, reps, form), xs)
              for reps in (R // 8, R)}
         us = (t[R] - t[R // 8]) / (R - R // 8) * 1e3
         b_ms, by, app_us, nbytes = bound(variant)
-        print(f"{variant:10s}: {us!r} us/application (bound {app_us!r}); per launch {t[R]!r} "
-              f"ms at R={R}, {t[R // 8]!r} ms at R={R // 8}; launch bound {b_ms!r} ms ({by}) "
-              f"({card})", flush=True)
-        rows[variant] = {"ms": t[R], "ms_r8": t[R // 8], "us_per_app": us,
-                         "bound_us_per_app": app_us, "bound_ms": b_ms, "bound_by": by,
-                         "bytes": nbytes}
+        key = launch_key(variant, form)
+        print(f"{key:12s}: {us!r} us/application, slope (t(R)/R {t[R] / R * 1e3!r}; bound "
+              f"{app_us!r}); per launch {t[R]!r} ms at R={R}, {t[R // 8]!r} ms at R={R // 8}; "
+              f"launch bound {b_ms!r} ms ({by}) ({card})", flush=True)
+        rows[key] = {"ms": t[R], "ms_r8": t[R // 8], "us_per_app": us,
+                     "us_per_app_at_r": t[R] / R * 1e3, "bound_us_per_app": app_us,
+                     "bound_ms": b_ms, "bound_by": by, "bytes": nbytes}
+        if form == "gemm":
+            # the form computes whole steps of 8 repeats, so R/8 = 3 repeats
+            # cost it one step: the slope between whole steps as well
+            step = xpass_gemm.DENSE4_GEMM.rep_step
+            t_step = _harness.launches_ms(lambda o: vpu_xpass(variant, o, step, form), xs)
+            whole = (t[R] - t_step) / (R - step) * 1e3
+            print(f"{key:12s}: {whole!r} us/application, slope between whole steps R={R} and "
+                  f"{step} ({t_step!r} ms at {step}) ({card})", flush=True)
+            rows[key].update(ms_step=t_step, us_per_app_whole_steps=whole)
     exact = check_exact(ops)
     print(f"corr_i32 exact vs numpy: {exact}; corr_i32/dense4 per application "
-          f"{rows['corr_i32']['us_per_app'] / rows['dense4']['us_per_app']!r} ({card})",
+          f"{rows['corr_i32']['us_per_app'] / rows['dense4']['us_per_app']!r}, "
+          f"corr_i32/dense4[gemm] "
+          f"{rows['corr_i32']['us_per_app'] / rows['dense4[gemm]']['us_per_app']!r} ({card})",
           flush=True)
     rows["checks"] = {"corr_i32_exact": exact}
     return rows

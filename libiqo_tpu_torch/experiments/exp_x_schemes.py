@@ -48,9 +48,19 @@ or shared memory for the CUDA-core variants) for all ``reps`` repeats, so
 the work values and the split redone in every repeat, as the script's
 ``body_of``.
 
+**Forms.**  ``x_scheme(..., form=)`` picks the kernel: ``"serial"`` is the
+form above; ``"gemm"`` (``f32_2dot`` only, and its default) is the redesign
+in ``csrc/exp/exp_xpass_gemm.cu``, ``xscheme_f32_gemm``: a register-tiled FFMA
+GEMM whose M stacks 4 repeats x 2 planes of 16 work rows against the group's
+taps, held in shared memory for a block's whole slice of the repeats; the
+slices meet in a zeroed output by uint32 ``atomicAdd``
+(:mod:`.xpass_gemm` states its geometry and models it in NumPy).
+:data:`LAUNCHES` counts each variant's serial launches under its name and
+the gemm form's under ``"f32_2dot[gemm]"``.
+
 Times: per launch by back-to-back launches on 8 tiles that each differ in
 ``w[0, 0]``, at ``reps = R`` and ``R / 8``; per application is the slope
-between the two, the script's ``us/application``.
+between the two, the script's ``us/application``, and ``t(R) / R``.
 
 Run on a card: ``python -m libiqo_tpu_torch.experiments.exp_x_schemes``.
 """
@@ -61,12 +71,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _harness
+from . import _harness, xpass_gemm
 from ._harness import (BF16_OPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S,
                        INT8_OPS_PER_S, Launches, wrap)
 
-__all__ = ["LAUNCHES", "VARIANTS", "bf16_bound", "bound", "build_cvals", "gold", "inputs",
-           "lsb_error", "main", "repeats", "split", "x_scheme", "x_scheme_plain"]
+__all__ = ["LAUNCHES", "ROWS", "VARIANTS", "bf16_bound", "bound", "build_cvals", "gold",
+           "inputs", "launch_key", "lsb_error", "main", "repeats", "split", "x_scheme",
+           "x_scheme_plain"]
 
 TH, TW = 160, 384
 N_G, GN = 3, 128
@@ -76,9 +87,19 @@ R = 512
 WINDOWS = ((0, 384), (256, 640), (512, 896))
 NTAPS = 12
 VARIANTS = ("empty", "s8_4dot", "s8_2dot_cat", "f32_2dot", "s16_1dot", "bf16_1dot")
+GEMM_VARIANT = "f32_2dot"  # the one variant with a gemm form, and its default
 ITERS = 8                  # work tiles per timed run
 LSB = 2**20                # one u8 output LSB in the pre-shift i32 sum domain
-LAUNCHES = Launches(VARIANTS)
+
+
+def launch_key(variant: str, form: str) -> str:
+    """The :data:`LAUNCHES` key of a variant's form."""
+    return xpass_gemm.launch_key(variant, form)
+
+
+# main()'s rows, (variant, form): every variant's serial form, then the gemm forms
+ROWS = tuple((v, "serial") for v in VARIANTS) + ((GEMM_VARIANT, "gemm"),)
+LAUNCHES = Launches(launch_key(v, f) for v, f in ROWS)
 _F32_EXACT = 2**24
 _CHUNK_REPS = 32           # repeats per batched product in the plain version
 # the operand planes each variant takes, in the kernel's argument order
@@ -140,6 +161,10 @@ def gold(w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def _check_variant(variant: str) -> None:
     if variant not in VARIANTS:
         raise ValueError(f"variants are {VARIANTS}, got {variant!r}")
+
+
+def _form(variant: str, form: str | None) -> str:
+    return xpass_gemm.form_of(variant, form, GEMM_VARIANT)
 
 
 def _check(variant: str, w: torch.Tensor, cvals: dict, reps: int) -> None:
@@ -256,17 +281,28 @@ def lsb_error(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return float(err.max()) / LSB, float(err.mean()) / LSB
 
 
-def x_scheme(variant: str, w: torch.Tensor, cvals: dict, reps: int = R) -> torch.Tensor:
+def x_scheme(variant: str, w: torch.Tensor, cvals: dict, reps: int = R,
+             form: str | None = None) -> torch.Tensor:
     """Kernel I: (160, 384) int32 from ``w`` (160, 896) int32 and the
-    variant's :func:`build_cvals` planes.  CPU tensors take
+    variant's :func:`build_cvals` planes, in ``form`` (``"serial"``, or
+    ``"gemm"`` for ``f32_2dot``, its default).  CPU tensors take
     :func:`x_scheme_plain`; CUDA tensors launch the kernel or raise."""
+    form = _form(variant, form)
     _check(variant, w, cvals, reps)
     planes = [cvals[n] for n in _PLANES[variant]]
     corr = cvals["corr"] if variant.startswith("s8") else None
-    if not _harness.on_card(w, *planes, *([] if corr is None else [corr])):
-        return x_scheme_plain(variant, w, cvals, reps)
     if not all(t.is_contiguous() for t in (w, *planes)):
         raise ValueError("x_scheme takes contiguous tensors")
+    if not _harness.on_card(w, *planes, *([] if corr is None else [corr])):
+        return x_scheme_plain(variant, w, cvals, reps)
+    if form == "gemm":
+        launch = xpass_gemm.geometry(xpass_gemm.F32_GEMM, reps, xpass_gemm.sm_count(w.device))
+        out = torch.zeros((TH, TW), dtype=torch.int32, device=w.device)
+        _harness.check_rc(xpass_gemm.lib(w.device).iqo_exp_xscheme_gemm(
+            w.data_ptr(), planes[0].data_ptr(), out.data_ptr(), reps, launch.slices,
+            launch.steps_per_slice, _harness.stream(w)), f"xscheme_tile[{variant},gemm]")
+        LAUNCHES.add(launch_key(variant, form))
+        return out
     lib = _harness.lib_with_setup("iqo_exp_xpass_setup", w.device)
     out = torch.empty((TH, TW), dtype=torch.int32, device=w.device)
     ptrs = [t.data_ptr() for t in planes] + [None] * (2 - len(planes))
@@ -316,38 +352,43 @@ def _hold(variant: str, got: torch.Tensor, w: torch.Tensor, cvals: dict, reps: i
 
 
 def main() -> dict:
-    """Every variant and the three checks on card 0; returns
-    {variant: {ms, ms_r8, us_per_app, ...}, "checks": {...}}."""
+    """Every variant in every form (:data:`ROWS`) and the three checks on
+    card 0; returns {launch key: {ms, ms_r8, us_per_app, us_per_app_at_r,
+    ...}, "checks": {...}}."""
     _harness.require_card()
     card = _harness.card()
     w, c = inputs(torch.device("cuda", 0))
     ws = _harness.perturbed(w, ITERS)
     rows = {}
-    for variant in VARIANTS:
+    for variant, form in ROWS:
         cv = build_cvals(variant, c)
-        _hold(variant, x_scheme(variant, ws[-1], cv, R // 8), ws[-1], cv, R // 8)
-        t = {reps: _harness.launches_ms(lambda x: x_scheme(variant, x, cv, reps), ws)
+        _hold(variant, x_scheme(variant, ws[-1], cv, R // 8, form), ws[-1], cv, R // 8)
+        t = {reps: _harness.launches_ms(lambda x: x_scheme(variant, x, cv, reps, form), ws)
              for reps in (R // 8, R)}
         us = (t[R] - t[R // 8]) / (R - R // 8) * 1e3
         b_ms, by, app_us, nbytes = bound(variant)
-        print(f"{variant:12s}: {us!r} us/application (bound {app_us!r}); per launch "
-              f"{t[R]!r} ms at R={R}, {t[R // 8]!r} ms at R={R // 8}; launch bound "
-              f"{b_ms!r} ms ({by}) ({card})", flush=True)
-        rows[variant] = {"ms": t[R], "ms_r8": t[R // 8], "us_per_app": us,
-                         "bound_us_per_app": app_us, "bound_ms": b_ms, "bound_by": by,
-                         "bytes": nbytes}
+        key = launch_key(variant, form)
+        print(f"{key:15s}: {us!r} us/application, slope (t(R)/R {t[R] / R * 1e3!r}; bound "
+              f"{app_us!r}); per launch {t[R]!r} ms at R={R}, {t[R // 8]!r} ms at R={R // 8}; "
+              f"launch bound {b_ms!r} ms ({by}) ({card})", flush=True)
+        rows[key] = {"ms": t[R], "ms_r8": t[R // 8], "us_per_app": us,
+                     "us_per_app_at_r": t[R] / R * 1e3, "bound_us_per_app": app_us,
+                     "bound_ms": b_ms, "bound_by": by, "bytes": nbytes}
     want = gold(w, c)
     f32 = torch.equal(x_scheme("f32_2dot", w, build_cvals("f32_2dot", c), 1), want)
+    f32_serial = torch.equal(x_scheme("f32_2dot", w, build_cvals("f32_2dot", c), 1, "serial"),
+                             want)
     s16 = torch.equal(x_scheme("s16_1dot", w, build_cvals("s16_1dot", c), 1), want)
     s8 = torch.equal(x_scheme("s8_4dot", w, build_cvals("s8_4dot", c), 1), want)
     mx, mean = lsb_error(x_scheme("bf16_1dot", w, build_cvals("bf16_1dot", c), 1), want)
-    print(f"f32_2dot exact vs numpy i32-wrap: {f32}", flush=True)
+    print(f"f32_2dot exact vs numpy i32-wrap: {f32} (gemm form; serial form {f32_serial})",
+          flush=True)
     print(f"s16_1dot exact vs numpy i32-wrap: {s16} (int32 IMAD dot on CUDA cores)", flush=True)
     print(f"s8_4dot == gold: {s8} (zero corr: the script's formula, not the banded product)",
           flush=True)
     print(f"bf16_1dot max err: {mx!r} LSB (mean {mean!r}) ({card})", flush=True)
-    rows["checks"] = {"f32_exact": f32, "s16_exact": s16, "s8_4dot_gold": s8,
-                      "bf16_max_lsb": mx, "bf16_mean_lsb": mean}
+    rows["checks"] = {"f32_exact": f32, "f32_exact_serial": f32_serial, "s16_exact": s16,
+                      "s8_4dot_gold": s8, "bf16_max_lsb": mx, "bf16_mean_lsb": mean}
     return rows
 
 

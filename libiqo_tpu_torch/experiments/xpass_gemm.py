@@ -1,0 +1,302 @@
+"""Launch geometry of the redesigned X-pass probes and NumPy models that walk it.
+
+Kernel I's ``f32_2dot`` and kernel J's ``dense4`` have a second form,
+``gemm`` (``libiqo_tpu_torch/csrc/exp/exp_xpass_gemm.cu``): a GEMM whose M
+stacks the repeats' split rows, with the repeats spread over the grid in
+slices whose uint32 partial sums meet in the output by ``atomicAdd``.  This
+module states each form's geometry (:data:`F32_GEMM`, :data:`DENSE4_GEMM`:
+block tile, repeats a step stacks, K chunks, shared-memory stages), picks the
+repeat slices for a launch (:func:`geometry`), and models the kernels'
+schedules in NumPy (:func:`f32_gemm_model`, :func:`dense4_gemm_model`,
+:func:`cover`), so that the CPU tests can hold the schedule against the plain
+versions; on the card the kernels themselves are held against them.
+
+A block of ``f32_2dot``'s form takes one group of 128 outputs, 16 work rows
+and a slice of the repeats; a step stacks 4 repeats x 2 planes of its 16 rows
+(128 A rows, ``m = 8 row + 2 repeat + plane``) against the group's taps, which
+stay in shared memory for the whole slice.  A block of ``dense4``'s form
+takes 32 output columns, 16 work rows and a slice; a step stacks 8 repeats x
+2 planes x 16 rows against 64 coefficient columns (cxh's 32, then cxl's),
+streamed in K chunks with the chunk's work rows; each warp splits its rows'
+work values into its A fragments in registers for wgmma.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+__all__ = ["DENSE4_GEMM", "F32_GEMM", "FORMS", "FormGeometry", "Launch", "SMEM_LIMIT",
+           "check_shape", "cover", "dense4_gemm_model", "f32_gemm_model", "form_of", "geometry",
+           "launch_key", "lib", "sm_count", "split_f32", "wrap_add"]
+
+SMEM_LIMIT = 232_448        # bytes of shared memory one block may use (H100)
+SMEM_PER_SM = 233_472       # the SM's 228 KB, of which 1 KB is reserved per block
+H100_SMS = 132
+SLICE_OVERHEAD = 0.1        # a block's set-up, in steps, for picking the slices
+_F32_EXACT = 2**24
+
+
+FORMS = ("serial", "gemm")
+
+
+def form_of(variant: str, form: str | None, gemm_variant: str) -> str:
+    """``form``, or the variant's default: ``"gemm"`` for the one variant
+    that has that form, else ``"serial"``."""
+    if form is None:
+        return "gemm" if variant == gemm_variant else "serial"
+    if form not in FORMS or (form == "gemm" and variant != gemm_variant):
+        raise ValueError(f"{variant} takes form 'serial'"
+                         + (" or 'gemm'" if variant == gemm_variant else "") + f", got {form!r}")
+    return form
+
+
+def launch_key(variant: str, form: str) -> str:
+    """A probe's ``LAUNCHES`` key of a variant's form: the variant's name for
+    PR 7's serial form, ``variant[form]`` otherwise."""
+    return variant if form == "serial" else f"{variant}[{form}]"
+
+
+@dataclasses.dataclass(frozen=True)
+class FormGeometry:
+    """One form's fixed geometry, as ``exp_xpass_gemm.cu`` states it."""
+    name: str
+    threads: int            # a block's threads
+    rows: int               # work rows of a block
+    rep_step: int           # repeats a step stacks along M
+    cols: int               # output columns of a block
+    k: int                  # the contraction
+    kc: int                 # K chunk
+    tiles_y: int            # grid: output column tiles
+    tiles_z: int            # grid: work row tiles
+    stages: tuple[tuple[str, int, int], ...]   # (what, count, bytes each)
+    reg_blocks: int         # blocks an SM holds by registers (its __launch_bounds__)
+
+    @property
+    def chunks(self) -> int:
+        return self.k // self.kc
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_y * self.tiles_z
+
+    @property
+    def smem(self) -> int:
+        return sum(n * b for _, n, b in self.stages)
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks an SM holds, by shared memory and by registers."""
+        return min(SMEM_PER_SM // (self.smem + 1024), self.reg_blocks)
+
+    @property
+    def m(self) -> int:
+        """A rows a step stacks: rows x repeats x 2 planes."""
+        return 2 * self.rows * self.rep_step
+
+
+# kernel I, f32_2dot: 256 threads of 8 x 8; C_g (384 x 128 f32) resident, two
+# A chunks of (32, 128) f32
+F32_GEMM = FormGeometry(
+    "f32_2dot[gemm]", threads=256, rows=16, rep_step=4, cols=128, k=384, kc=32,
+    tiles_y=3, tiles_z=10,
+    stages=(("C_g, resident (12 chunks)", 1, 384 * 128 * 4), ("A chunk", 2, 32 * 128 * 4)),
+    reg_blocks=1)
+# kernel J, dense4: one warpgroup, 4 wgmma m64n64k16 a K step (A fragments
+# split in registers); four stages of a B chunk (64 x 64 bf16, 1024-byte
+# aligned) and the chunk's 16 work rows (72 words a row)
+DENSE4_GEMM = FormGeometry(
+    "dense4[gemm]", threads=128, rows=16, rep_step=8, cols=32, k=896, kc=64,
+    tiles_y=12, tiles_z=10,
+    stages=(("B chunk", 4, 64 * 64 * 2), ("work rows", 4, 16 * 72 * 4),
+            ("alignment slack", 1, 1024)), reg_blocks=2)
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One launch of a form: ``slices`` x ``steps_per_slice`` covers the
+    ``steps`` steps of ``reps`` repeats; the grid is (slices, tiles_y,
+    tiles_z)."""
+    form: FormGeometry
+    reps: int
+    steps: int
+    steps_per_slice: int
+    slices: int
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        return self.slices, self.form.tiles_y, self.form.tiles_z
+
+    @property
+    def blocks(self) -> int:
+        return self.slices * self.form.tiles
+
+    def slice_steps(self, s: int) -> range:
+        return range(s * self.steps_per_slice, min((s + 1) * self.steps_per_slice, self.steps))
+
+
+def geometry(form: FormGeometry, reps: int, sms: int = H100_SMS) -> Launch:
+    """The repeat slices of one launch: the fewest waves of blocks times the
+    steps each block walks (plus :data:`SLICE_OVERHEAD`), among the slicings
+    whose grid holds at least two blocks per SM where one can."""
+    if reps < 1:
+        raise ValueError(f"reps must be >= 1, got {reps}")
+    steps = -(-reps // form.rep_step)
+    slots = sms * form.blocks_per_sm
+    options = []
+    for sps in range(1, steps + 1):
+        slices = -(-steps // sps)
+        waves = -(-slices * form.tiles // slots)
+        options.append((waves * (sps + SLICE_OVERHEAD), sps, slices))
+    floor = min(2 * sms, steps * form.tiles)
+    _, sps, slices = min(o for o in options if o[2] * form.tiles >= floor)
+    return Launch(form, reps, steps, sps, slices)
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def lib(device: torch.device):
+    """The probes' library with the forms' shared memory raised on
+    ``device``, after :func:`check_shape`."""
+    from . import _harness
+    lib_ = _harness.lib_with_setup("iqo_exp_xpass_gemm_setup", device)
+    check_shape(lib_)
+    return lib_
+
+
+def check_shape(lib_) -> None:
+    """The kernels' compiled geometry (``iqo_exp_xpass_gemm_shape``) must be
+    :data:`F32_GEMM` and :data:`DENSE4_GEMM`."""
+    import ctypes
+    got = (ctypes.c_int * 13)()
+    lib_.iqo_exp_xpass_gemm_shape(got)
+    want = [F32_GEMM.threads, F32_GEMM.rows, F32_GEMM.rep_step, F32_GEMM.kc, F32_GEMM.chunks,
+            F32_GEMM.smem, DENSE4_GEMM.threads, DENSE4_GEMM.rows, DENSE4_GEMM.rep_step,
+            DENSE4_GEMM.cols, DENSE4_GEMM.kc, DENSE4_GEMM.chunks, DENSE4_GEMM.smem]
+    if list(got) != want:
+        raise RuntimeError(f"exp_xpass_gemm.cu's geometry {list(got)} != the host's {want}")
+
+
+def wrap_add(acc: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """uint32 addition, as ``atomicAdd`` on uint32 and ``add.u32``."""
+    return (acc.astype(np.uint64) + v.astype(np.int64).astype(np.uint64)) \
+        .astype(np.uint32)
+
+
+def split_f32(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``(x >> 8, x & 255)`` of int32 work values, as the kernels split them."""
+    x = x.astype(np.int32)
+    return (x >> 8).astype(np.int64), (x & 255).astype(np.int64)
+
+
+def _chunked(a: np.ndarray, b: np.ndarray, kc: int) -> np.ndarray:
+    """a @ b on integers, summed K chunk by K chunk in float64, with every
+    output's sum of |terms| asserted below 2^24: then the kernels' f32 sums
+    equal it in any order.  int64."""
+    d = np.zeros((a.shape[0], b.shape[1]))
+    mag = np.zeros_like(d)
+    for k0 in range(0, a.shape[1], kc):
+        ak, bk = a[:, k0:k0 + kc].astype(np.float64), b[k0:k0 + kc].astype(np.float64)
+        d += ak @ bk
+        mag += np.abs(ak) @ np.abs(bk)
+    if mag.max(initial=0.0) >= _F32_EXACT:
+        raise ValueError(f"a sum of |terms| reaches {mag.max()}, not below 2^24")
+    return d.astype(np.int64)
+
+
+def _work(w: np.ndarray, r: int) -> np.ndarray:
+    """``w + r`` wrapped to int32, as the kernels add in uint32."""
+    return ((w.astype(np.int64) + r + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+def f32_gemm_model(w: np.ndarray, c: np.ndarray, reps: int, sms: int = H100_SMS) -> np.ndarray:
+    """Kernel I's ``f32_2dot`` in its gemm form, block by block, step by step
+    and K chunk by K chunk as :func:`geometry` lays them out: ``w`` (160, 896)
+    int32, ``c`` (3, 384, 128) integer taps -> (160, 384) int32."""
+    f = F32_GEMM
+    launch = geometry(f, reps, sms)
+    out = np.zeros((160, 384), np.uint32)
+    for s, grp, rt in np.ndindex(*launch.grid):
+        cg = c[grp].astype(np.int64)
+        rows = slice(f.rows * rt, f.rows * (rt + 1))
+        wt = w[rows, 256 * grp:256 * grp + f.k]
+        total = np.zeros((f.rows, f.cols), np.uint32)
+        for step in launch.slice_steps(s):
+            # A: m = 8 row + 2 j + plane, repeat 4 step + j
+            a = np.empty((f.rows, f.rep_step, 2, f.k), np.int64)
+            for j in range(f.rep_step):
+                a[:, j, 0], a[:, j, 1] = split_f32(_work(wt, f.rep_step * step + j))
+            d = _chunked(a.reshape(f.m, f.k), cg, f.kc).reshape(f.rows, f.rep_step, 2, f.cols)
+            for j in range(f.rep_step):
+                if f.rep_step * step + j < reps:
+                    total = wrap_add(total, d[:, j, 0] * 256 + d[:, j, 1])
+        out[rows, f.cols * grp:f.cols * (grp + 1)] = wrap_add(
+            out[rows, f.cols * grp:f.cols * (grp + 1)], total)
+    return out.view(np.int32)
+
+
+def dense4_gemm_model(wd: np.ndarray, cxh: np.ndarray, cxl: np.ndarray, reps: int,
+                      sms: int = H100_SMS) -> np.ndarray:
+    """Kernel J's ``dense4`` in its gemm form, block by block, step by step
+    and K chunk by K chunk: ``wd`` (160, 896) int32, ``cxh``, ``cxl`` (896,
+    384) integer coefficients -> (160, 384) int32."""
+    f = DENSE4_GEMM
+    launch = geometry(f, reps, sms)
+    out = np.zeros((160, 384), np.uint32)
+    for s, ct, rt in np.ndindex(*launch.grid):
+        cols = slice(f.cols * ct, f.cols * (ct + 1))
+        rows = slice(f.rows * rt, f.rows * (rt + 1))
+        b = np.concatenate([cxh[:, cols], cxl[:, cols]], axis=1).astype(np.int64)   # (896, 128)
+        total = np.zeros((f.rows, f.cols), np.uint32)
+        for step in launch.slice_steps(s):
+            # A: m = 16 rl + 8 plane + row, repeat 8 step + rl
+            a = np.empty((f.rep_step, 2, f.rows, f.k), np.int64)
+            for rl in range(f.rep_step):
+                a[rl, 0], a[rl, 1] = split_f32(_work(wd[rows], f.rep_step * step + rl))
+            d = _chunked(a.reshape(f.m, f.k), b, f.kc).reshape(f.rep_step, 2, f.rows, 2, f.cols)
+            for rl in range(f.rep_step):    # [rl, plane, row, cxh/cxl, col]
+                if f.rep_step * step + rl >= reps:
+                    continue
+                hi = d[rl, 0, :, 0] + d[rl, 0, :, 1]
+                lo = d[rl, 1, :, 0] + d[rl, 1, :, 1]
+                total = wrap_add(total, hi * 256 + lo)
+        out[rows, cols] = wrap_add(out[rows, cols], total)
+    return out.view(np.int32)
+
+
+def cover(form: FormGeometry, reps: int, sms: int = H100_SMS) -> np.ndarray:
+    """How many times each (repeat, row, column) is computed and kept by the
+    threads of a launch, (reps + the last step's padding, 160, 384) int64,
+    from each kernel's thread mapping: 1 where ``repeat < reps``, else 0."""
+    launch = geometry(form, reps, sms)
+    counts = np.zeros((launch.steps * form.rep_step, 160, 384), np.int64)
+    tid = np.arange(form.threads)
+    for s, ty, tz in np.ndindex(*launch.grid):
+        for step in launch.slice_steps(s):
+            if form is F32_GEMM:
+                # thread (tm, tn): row tm, repeats j, columns 4 tn + {0..3, 64..67}
+                tm, tn = tid // 16, tid % 16
+                cols = (form.cols * ty + 4 * tn[:, None] + np.array([0, 1, 2, 3, 64, 65, 66, 67]))
+                for j in range(form.rep_step):
+                    r = form.rep_step * step + j
+                    if r < reps:
+                        np.add.at(counts[r], (form.rows * tz + tm[:, None], cols), 1)
+            else:
+                # warp (wr, wp), lane (g, q): repeats 4 wp + tt, row 8 wr + g,
+                # columns 8 j + 2 q + c2
+                warp, lane = tid // 32, tid % 32
+                wr, wp, g, q = warp % 2, warp // 2, lane // 4, lane % 4
+                j, c2 = np.meshgrid(np.arange(4), np.arange(2), indexing="ij")
+                cols = form.cols * ty + 8 * j.ravel() + 2 * q[:, None] + c2.ravel()
+                rows = form.rows * tz + 8 * wr + g
+                for tt in range(4):
+                    r = form.rep_step * step + 4 * wp + tt
+                    live = r < reps
+                    np.add.at(counts, (r[live, None], rows[live, None], cols[live]), 1)
+    return counts

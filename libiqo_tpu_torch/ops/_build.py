@@ -223,6 +223,11 @@ def _bind_experiments(lib: ctypes.CDLL) -> ctypes.CDLL:
             # variant, we, wo, wd, cxt, taps (host int[12]), out, reps, stream
             ("iqo_exp_vpu_xpass", [i, p, p, p, p, ctypes.POINTER(i), p, i, p]),
             ("iqo_exp_xpass_setup", []),
+            # w / wd, c / cxt, out, reps, slices, steps per slice, stream
+            ("iqo_exp_xscheme_gemm", [p, p, p, i, i, i, p]),
+            ("iqo_exp_vpu_gemm", [p, p, p, i, i, i, p]),
+            ("iqo_exp_xpass_gemm_setup", []),
+            ("iqo_exp_xpass_gemm_shape", [ctypes.POINTER(i)]),
             # mix, P, src, out, n, stream
             ("iqo_exp_op_mix", [i, i, p, p, ll, p]),
             # align, kl, check, w, ct, out, steps, stream
