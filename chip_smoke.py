@@ -1443,12 +1443,18 @@ def probe_inputs(dma, gen):
             "readsum": ("readsum", u8(h))}
 
 
+MMA_SECOND_SHAPE = (36, 384, 768, 640)     # (steps, M, N, K): C's wgmma form, 324 tiles
+
+
 def phase_probes(card: str) -> list:
     """Phase 13, the H100 probes (``libiqo_tpu_torch/experiments``): each
     of the four kernels == its plain version at the TPU scripts' full shapes
     in every variant; each script's ``main()`` with every count set to 0
     just before (chain checksums asserted inside); plain and library times.
-    Returns the four entries of the kernels line."""
+    Kernel C in both forms, the first, ``mma_sync``, and the ``wgmma`` form, the
+    latter also at :data:`MMA_SECOND_SHAPE`; ``mxu.main()`` times both forms
+    and each row's library call in turns.  Returns the five entries of the
+    kernels line."""
     from libiqo_tpu_torch.experiments import (_harness, exp_banded_dots as bd,
                                               exp_dma_ceiling as dma,
                                               exp_int8_mxu as mxu)
@@ -1458,7 +1464,8 @@ def phase_probes(card: str) -> list:
     gen.manual_seed(SEED + 5)
 
     # 1. kernel == plain, every variant, full shapes
-    err = dict.fromkeys(("stream_map", "readsum", "mma_steps", "banded_tile"), 0.0)
+    err = dict.fromkeys(("stream_map", "readsum", "mma_steps", "mma_steps[wgmma]",
+                         "banded_tile"), 0.0)
     dma_in = probe_inputs(dma, gen)
     for row, (op, x) in dma_in.items():
         if op == "readsum":
@@ -1472,10 +1479,25 @@ def phase_probes(card: str) -> list:
     for row, (in_dt, acc) in mxu.ROWS.items():
         a, b = mxu.inputs(in_dt, dev)
         bt = mxu.k_major(b)
-        err["mma_steps"] = max(err["mma_steps"], probe_err(
-            row, mxu.mma_steps(a, bt, acc), mxu.mma_steps_plain(a, bt, acc)))
+        want = mxu.mma_steps_plain(a, bt, acc)
+        for form, key in (("mma_sync", "mma_steps"), ("wgmma", "mma_steps[wgmma]")):
+            err[key] = max(err[key], probe_err(f"{row} {form}", mxu.mma_steps(a, bt, acc, form),
+                                               want))
+        # the wgmma form's second shape: 324 tiles of 128 x 256 over the SMs,
+        # several a block and a partial last wave; K of 5, 10 or 20 chunks
+        steps2, m2, n2, k2 = MMA_SECOND_SHAPE
+        a2 = torch.randint(-100, 100, (steps2, m2, k2), device=dev, generator=gen)
+        b2 = torch.randint(-100, 100, (k2, n2), device=dev, generator=gen)
+        a2, bt2 = a2.to(in_dt), mxu.k_major(b2.to(in_dt))
+        err["mma_steps[wgmma]"] = max(err["mma_steps[wgmma]"], probe_err(
+            f"{row} wgmma {MMA_SECOND_SHAPE}", mxu.mma_steps(a2, bt2, acc, "wgmma"),
+            mxu.mma_steps_plain(a2, bt2, acc)))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"mma_steps == plain on all {len(mxu.ROWS)} exp_int8_mxu rows at "
-          f"STEPS={mxu.STEPS}, ({mxu.M}, {mxu.K}) @ ({mxu.K}, {mxu.N})")
+          f"STEPS={mxu.STEPS}, ({mxu.M}, {mxu.K}) @ ({mxu.K}, {mxu.N}) in both forms, bit for "
+          f"bit; the wgmma form also at (steps, M, N, K) {MMA_SECOND_SHAPE}: "
+          f"{MMA_SECOND_SHAPE[0] * MMA_SECOND_SHAPE[1] // 128 * MMA_SECOND_SHAPE[2] // 256} "
+          f"tiles on {sms} SMs")
     band, cy, cxs = bd.inputs(dev)
     ops = bd.pack(cy, *cxs)
     for ym, xm in bd.PAIRS:
@@ -1492,7 +1514,10 @@ def phase_probes(card: str) -> list:
     torch.cuda.synchronize()
     launches = {"stream_map": sum(dma.LAUNCHES[op] for op in dma.OPS),
                 "readsum": dma.LAUNCHES["readsum"],
-                "mma_steps": mxu.LAUNCHES.total(), "banded_tile": bd.LAUNCHES.total()}
+                "mma_steps": sum(mxu.LAUNCHES[r] for r in mxu.ROWS),
+                "mma_steps[wgmma]": sum(mxu.LAUNCHES[mxu.launch_key(r, "wgmma")]
+                                        for r in mxu.ROWS),
+                "banded_tile": bd.LAUNCHES.total()}
     idle = [f"{mod.__name__.rsplit('.', 1)[-1]}:{v}" for mod in (dma, mxu, bd)
             for v, n in mod.LAUNCHES.items() if n == 0]
     check(not idle, f"probe variants never launched by main(): {idle}")
@@ -1521,20 +1546,14 @@ def phase_probes(card: str) -> list:
           "the library fold != readsum_plain")
     lib_rs = _harness.launches_ms(lib_fold, _harness.perturbed(rs, dma.READS))
     p_readsum = plain_ms(dma.readsum_plain, rs)
+    # C's library calls (torch._int_mm, torch.mm) are held equal to the plain
+    # version and timed in turns with both forms inside mxu.main(); the bf16
+    # torch.matmul writes bf16, so it stays a yardstick
     a8, b8 = mxu.inputs(torch.int8, dev)
     a16, b16 = mxu.inputs(torch.bfloat16, dev)
     bt8, bt16 = mxu.k_major(b8), mxu.k_major(b16)
-    a8s = _harness.perturbed(a8, mxu.ITERS)
-
-    def lib_int_mm(t):      # b column-major, the layout cuBLASLt's s8 path takes
-        return torch._int_mm(t.view(-1, mxu.K), bt8.t()).view(mxu.STEPS, mxu.M, mxu.N)
-    check(torch.equal(lib_int_mm(a8s[-1]),
-                      mxu.mma_steps_plain(a8s[-1], bt8, torch.int32)),
-          "torch._int_mm != mma_steps_plain")
-    lib_int_mm_ms = _harness.launches_ms(lib_int_mm, a8s)
     lib_matmul = _harness.launches_ms(lambda t: torch.matmul(t, bt16.t()),
                                       _harness.perturbed(a16, mxu.ITERS))
-    del a8s
     p_mma = plain_ms(lambda t: mxu.mma_steps_plain(t, bt8, torch.int32), a8)
     p_banded = plain_ms(lambda t: bd.banded_tile_plain(ops, t, "mono", "mono"), band)
     # D: no one PyTorch call computes banded_tile (two dependent products,
@@ -1584,10 +1603,15 @@ def phase_probes(card: str) -> list:
     for row in ("inc", "copy33MB", "inc133MB", "copy133MB", "readsum"):
         print(f"probe ceiling {row}: {d[row]['gbs']!r} GB/s against the data "
               f"sheet's {HBM_BYTES_PER_S / 1e9!r} GB/s ({card})")
-    print(f"probe mma_steps s8xs8->i32: kernel {m['s8xs8->i32']['ms']!r} ms, "
-          f"plain {p_mma!r} ms, library torch._int_mm (b column-major) "
-          f"{lib_int_mm_ms!r} ms; bf16: kernel {m['bf16xbf16->f32']['ms']!r} ms, "
-          f"yardstick torch.matmul (bf16 out) {lib_matmul!r} ms ({card})")
+    for row, r in m.items():
+        print(f"probe mma_steps {row}: wgmma {r['ms']!r} ms, mma_sync {r['ms_mma_sync']!r} ms, "
+              f"library {r['library']} {r['library_ms']!r} ms"
+              f"{'' if r['library_one_call'] else ' (two calls: a yardstick)'}, in turns; "
+              f"wgmma/library {r['ms'] / r['library_ms']!r}, wgmma/bound "
+              f"{r['ms'] / r['bound_ms']!r} (bound {r['bound_ms']!r} ms, {r['bound_by']}) "
+              f"({card})")
+    print(f"probe mma_steps s8xs8->i32 plain {p_mma!r} ms; bf16 yardstick torch.matmul "
+          f"(bf16 out) {lib_matmul!r} ms ({card})")
     mm = b["y=mono x=mono"]
     print(f"probe banded_tile mono/mono: kernel {mm['ms']!r} ms, plain "
           f"{p_banded!r} ms, bound {mm['bound_ms']!r} ms ({mm['bound_by']}), "
@@ -1618,12 +1642,29 @@ def phase_probes(card: str) -> list:
          "source": "libiqo_tpu_torch/csrc/exp/exp_mma.cu",
          "replaces": "scripts/exp_int8_mxu.py:29",
          "launches": launches["mma_steps"], "max_abs_err": err["mma_steps"],
-         "ms": m["s8xs8->i32"]["ms"], "plain_ms": p_mma,
+         "ms": m["s8xs8->i32"]["ms_mma_sync"], "plain_ms": p_mma,
          "bound_ms": m["s8xs8->i32"]["bound_ms"],
-         "bound_by": m["s8xs8->i32"]["bound_by"], "library_ms": lib_int_mm_ms,
-         "row": "s8xs8->i32", "bf16_library_ms": lib_matmul,
-         "rows": {r: {k: v[k] for k in ("ms", "tmacs", "bound_ms", "bound_by")}
+         "bound_by": m["s8xs8->i32"]["bound_by"],
+         "library_ms": m["s8xs8->i32"]["library_ms"], "row": "s8xs8->i32",
+         "bf16_out_matmul_ms": lib_matmul,
+         "rows": {r: {"ms": v["ms_mma_sync"], "tmacs": v["tmacs_mma_sync"],
+                      "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+                      "library_ms": v["library_ms"], "library": v["library"],
+                      "library_one_call": v["library_one_call"], "wgmma_ms": v["ms"]}
                   for r, v in m.items()}},
+        {"name": "mma_steps[wgmma]", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_mma_wgmma.cu",
+         "replaces": "scripts/exp_int8_mxu.py:29",
+         "launches": launches["mma_steps[wgmma]"], "max_abs_err": err["mma_steps[wgmma]"],
+         "ms": m["s8xs8->i32"]["ms"], "plain_ms": p_mma,
+         "bound_ms": m["s8xs8->i32"]["bound_ms"], "bound_by": m["s8xs8->i32"]["bound_by"],
+         "library_ms": m["s8xs8->i32"]["library_ms"], "row": "s8xs8->i32",
+         "mma_sync_ms": m["s8xs8->i32"]["ms_mma_sync"],
+         "second_shape": list(MMA_SECOND_SHAPE),
+         "rows": {r: {"ms": v["ms"], "tmacs": v["tmacs"], "mma_sync_ms": v["ms_mma_sync"],
+                      "library_ms": v["library_ms"], "library": v["library"],
+                      "library_one_call": v["library_one_call"], "bound_ms": v["bound_ms"],
+                      "bound_by": v["bound_by"]} for r, v in m.items()}},
         {"name": "banded_tile", "route": "cuda",
          "source": "libiqo_tpu_torch/csrc/exp/exp_banded.cu",
          "replaces": "scripts/exp_banded_dots.py:92",
@@ -1825,8 +1866,10 @@ def phase_xpass(card: str) -> list:
     to 0 just before; plain times at the host's pace and library yardsticks.
     Then the gemm forms of ``f32_2dot`` and ``dense4`` (``exp_xpass_gemm.cu``)
     == plain at 1, 3, R/8 and R repeats (and == gold, or the library
-    products, at one application), timed in turns with PR 7's forms.
-    Returns the seven entries of the kernels line."""
+    products, at one application), and ``bf16_1dot``'s within its bound of
+    plain at the same repeats, timed in turns with the serial forms (bf16_1dot
+    also with its bf16 ``torch.bmm``).  Returns the eight entries of the
+    kernels line."""
     from libiqo_tpu_torch.experiments import (_harness, exp_element_clamp as ec,
                                               exp_slice_align as sa, exp_vpu_rate as vr,
                                               exp_vpu_xpass as vx, exp_x_schemes as xs,
@@ -1834,7 +1877,7 @@ def phase_xpass(card: str) -> list:
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
     names = ("xscheme_tile", "vpu_xpass_tile", "op_mix", "slice_groups", "window_probe")
-    err = dict.fromkeys(names + ("xscheme_gemm", "vpu_xpass_gemm"), 0.0)
+    err = dict.fromkeys(names + ("xscheme_gemm", "vpu_xpass_gemm", "xscheme_bf16_gemm"), 0.0)
 
     # 1. kernel == plain, every variant, full shapes and repeats
     w, c = xs.inputs(dev)
@@ -1850,7 +1893,7 @@ def phase_xpass(card: str) -> list:
         else:
             err["xscheme_tile"] = max(err["xscheme_tile"], probe_err(f"x_scheme {v}", got, want))
     cv = xs.build_cvals("bf16_1dot", c)
-    lsb = xs.lsb_error(xs.x_scheme("bf16_1dot", w, cv, 1), xs.gold(w, c))
+    lsb = xs.lsb_error(xs.x_scheme("bf16_1dot", w, cv, 1, "serial"), xs.gold(w, c))
     lsb_plain = xs.lsb_error(xs.x_scheme_plain("bf16_1dot", w, cv, 1), xs.gold(w, c))
     print(f"x_scheme == plain in all {len(xs.VARIANTS)} variants at R={xs.R}, bit for bit but "
           f"bf16_1dot: max |kernel - plain| {bf16_err!r} over R={xs.R} ({bf16_share!r} of its "
@@ -1872,6 +1915,42 @@ def phase_xpass(card: str) -> list:
             xs.x_scheme_plain("f32_2dot", w, cvf, reps)))
     check(torch.equal(xs.x_scheme("f32_2dot", w, cvf, 1, "gemm"), xs.gold(w, c)),
           "x_scheme f32_2dot[gemm] at R=1 != gold")
+    # bf16_1dot's gemm form: the tensor cores sum in their own order, so it is
+    # held within the f32 summation bound of its plain version (unchanged)
+    bf16_gemm_share = 0.0
+    for reps in GEMM_REPS["xs"]:
+        got = xs.x_scheme("bf16_1dot", w, cv, reps, "gemm")
+        d = (got.to(torch.int64) - xs.x_scheme_plain("bf16_1dot", w, cv, reps).to(torch.int64)) \
+            .abs().to(torch.float64)
+        b = xs.bf16_bound(w, cv, reps)
+        check(bool((d <= b).all()), f"x_scheme bf16_1dot[gemm] R={reps}: |kernel - plain| exceeds "
+              f"the f32 summation bound at {int((d > b).sum())} outputs, by up to "
+              f"{float((d - b).max())!r}")
+        err["xscheme_bf16_gemm"] = max(err["xscheme_bf16_gemm"], float(d.max()))
+        bf16_gemm_share = max(bf16_gemm_share, float((d / b).max()))
+    # ... also where a block's window reaches 2^24: those blocks take the
+    # int32 path.  Work column 800 lies only in group 2's window, where no tap
+    # reads it (its dots keep within int32, as the kernel's truncation needs),
+    # so the first row tile's group-2 block takes that path, the others not
+    w_wide = w.clone()
+    w_wide[:16, 800] += 2**24
+    for reps in (3, 67):
+        got = xs.x_scheme("bf16_1dot", w_wide, cv, reps, "gemm")
+        d = (got.to(torch.int64) - xs.x_scheme_plain("bf16_1dot", w_wide, cv, reps)
+             .to(torch.int64)).abs().to(torch.float64)
+        b = xs.bf16_bound(w_wide, cv, reps)
+        check(bool((d <= b).all()), f"x_scheme bf16_1dot[gemm] R={reps}, window past 2^24: "
+              f"|kernel - plain| exceeds the bound at {int((d > b).sum())} outputs")
+        err["xscheme_bf16_gemm"] = max(err["xscheme_bf16_gemm"], float(d.max()))
+        bf16_gemm_share = max(bf16_gemm_share, float((d / b).max()))
+    del w_wide
+    lsb_gemm = xs.lsb_error(xs.x_scheme("bf16_1dot", w, cv, 1, "gemm"), xs.gold(w, c))
+    print(f"bf16_1dot[gemm] within its bound of plain at R {GEMM_REPS['xs']} (and at R 3, 67 "
+          f"with a window past 2^24: the int32 path): max |kernel - "
+          f"plain| {err['xscheme_bf16_gemm']!r}, {bf16_gemm_share!r} of the bound; against gold "
+          f"at R=1: gemm {lsb_gemm[0]!r} LSB max, {lsb_gemm[1]!r} mean; the serial form "
+          f"{lsb[0]!r} / {lsb[1]!r}; plain {lsb_plain[0]!r} / {lsb_plain[1]!r}; the script in "
+          f"interpret mode 2.153 / 0.352")
     for reps in GEMM_REPS["vx"]:
         err["vpu_xpass_gemm"] = max(err["vpu_xpass_gemm"], probe_err(
             f"vpu_xpass dense4[gemm] R={reps}", vx.vpu_xpass("dense4", ops, reps, "gemm"),
@@ -1910,6 +1989,7 @@ def phase_xpass(card: str) -> list:
     launches["xscheme_tile"] = sum(xs.LAUNCHES[v] for v in xs.VARIANTS)
     launches["vpu_xpass_tile"] = sum(vx.LAUNCHES[v] for v in vx.VARIANTS)
     launches["xscheme_gemm"] = xs.LAUNCHES[xs.launch_key("f32_2dot", "gemm")]
+    launches["xscheme_bf16_gemm"] = xs.LAUNCHES[xs.launch_key("bf16_1dot", "gemm")]
     launches["vpu_xpass_gemm"] = vx.LAUNCHES[vx.launch_key("dense4", "gemm")]
     idle = [f"{mod.__name__.rsplit('.', 1)[-1]}:{v}" for mod in mods
             for v, n in mod.LAUNCHES.items() if n == 0]
@@ -1932,10 +2012,12 @@ def phase_xpass(card: str) -> list:
     p_vx = _harness.launches_ms(lambda o: vx.vpu_xpass_plain("dense4", o, vx.R),
                                 [ops.perturbed(i) for i in range(2)], repeats=2, primed=False)
     p_f32 = plain_ms(lambda t: xs.x_scheme_plain("f32_2dot", t, cvf, xs.R), w)
+    p_bf16 = plain_ms(lambda t: xs.x_scheme_plain("bf16_1dot", t, cv, xs.R), w)
     p_vr = plain_ms(lambda t: vr.op_mix_plain(t, "epi", 8), src)
     p_sa = plain_ms(lambda t: sa.slice_groups_plain(t, sops, 128, 512), sw)
     p_ec = plain_ms(ec.window_x1_plain, srcs["x1"])
-    print(f"plain ms, host-paced: x_scheme s8_4dot R={xs.R} {p_xs!r}, f32_2dot {p_f32!r}; "
+    print(f"plain ms, host-paced: x_scheme s8_4dot R={xs.R} {p_xs!r}, f32_2dot {p_f32!r}, "
+          f"bf16_1dot {p_bf16!r}; "
           f"vpu_xpass dense4 "
           f"R={vx.R} {p_vx!r}; op_mix epi P=8 {p_vr!r}; slice_groups 128,512 {p_sa!r}; "
           f"window_x1 {p_ec!r} ({card})")
@@ -1999,9 +2081,17 @@ def phase_xpass(card: str) -> list:
     check(bool(((got.to(torch.int64) - want.to(torch.int64)).abs().to(torch.float64)
                 <= xs.bf16_bound(w, {"cbf": cb}, 1)).all()),
           "torch.bmm bf16 outside bf16_1dot's bound from x_scheme_plain")
-    lib_bf16 = _harness.launches_ms(lambda t: torch.bmm(t, cb, out_dtype=torch.float32),
-                                    [bf16_planes(t) for t in _harness.perturbed(w, 4)]) \
-        * (xs.R // reps)
+    # ... timed in turns with bf16_1dot's two forms at R and R / 8 (the
+    # kernels on ITERS perturbed tiles, the library on 4 perturbed stacks)
+    bf_planes = [bf16_planes(t) for t in _harness.perturbed(w, 4)]
+    wsb = _harness.perturbed(w, xs.ITERS)
+    tb = probe_turns({**{f"{form} {r}": functools.partial(
+        lambda i, r, f: xs.x_scheme("bf16_1dot", wsb[i], cv, r, f), r=r, f=form)
+        for form in ("gemm", "serial") for r in (xs.R, xs.R // 8)},
+        "library": lambda i: torch.bmm(bf_planes[i % 4], cb, out_dtype=torch.float32)},
+        list(range(xs.ITERS)))
+    lib_bf16 = tb["library"] * (xs.R // reps)
+    del bf_planes
     # J dense4: the four bf16 dots of 24 applications as one product
     cx = torch.cat([ops.cxh, ops.cxl], dim=1)
 
@@ -2078,12 +2168,14 @@ def phase_xpass(card: str) -> list:
         [ops.perturbed(i) for i in range(vx.ITERS)])
     j_whole = (tj[f"gemm {vx.R}"] - tj[f"gemm {j_step}"]) / (vx.R - j_step) * 1e3
     per_app = {}
-    for tag, t, r_full in (("f32_2dot", ti, xs.R), ("dense4", tj, vx.R)):
+    for tag, t, r_full in (("f32_2dot", ti, xs.R), ("bf16_1dot", tb, xs.R), ("dense4", tj, vx.R)):
         for form in ("gemm", "serial"):
             hi_, lo_ = t[f"{form} {r_full}"], t[f"{form} {r_full // 8}"]
             per_app[tag, form] = ((hi_ - lo_) / (r_full - r_full // 8) * 1e3, hi_ / r_full * 1e3)
-    lib_app = {"f32_2dot": lib_f32 / xs.R * 1e3, "dense4": lib_vx / vx.R * 1e3}
+    lib_app = {"f32_2dot": lib_f32 / xs.R * 1e3, "bf16_1dot": lib_bf16 / xs.R * 1e3,
+               "dense4": lib_vx / vx.R * 1e3}
     for tag, variant_bound, r_full in (("f32_2dot", xs.bound("f32_2dot"), xs.R),
+                                       ("bf16_1dot", xs.bound("bf16_1dot"), xs.R),
                                        ("dense4", vx.bound("dense4"), vx.R)):
         (gs, gr), (ss, sr) = per_app[tag, "gemm"], per_app[tag, "serial"]
         print(f"{tag}[gemm] in turns with PR 7's form: {gs!r} us/application (slope R={r_full} "
@@ -2161,6 +2253,12 @@ def phase_xpass(card: str) -> list:
         {**gemm_entry("vpu_xpass_tile[dense4,gemm]", "scripts/exp_vpu_xpass.py:156", "dense4",
                       "vpu_xpass_gemm", tj, vx.R, vx, p_vx, lib_vx),
          "us_per_app_whole_steps": j_whole, "ms_step": tj[f"gemm {j_step}"]},
+        {**gemm_entry("xscheme_bf16_gemm", "scripts/exp_x_schemes.py:156", "bf16_1dot",
+                      "xscheme_bf16_gemm", tb, xs.R, xs, p_bf16, lib_bf16),
+         "also_replaces": ["scripts/exp_x_schemes.py:271"], "bound_share": bf16_gemm_share,
+         "lsb_vs_gold": lsb_gemm, "serial_lsb_vs_gold": lsb,
+         "library_in_turns": f"one bf16 torch.bmm(out_dtype=float32) over {reps} "
+                             "applications' planes, timed in the same turns"},
     ]
     print(f"phase xpass: {time.perf_counter() - t_phase!r} s")
     return entries

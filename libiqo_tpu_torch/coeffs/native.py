@@ -3,8 +3,10 @@
 The port's copy of ``libiqo_tpu/coeffs/native.py``.  Compiled on first use
 with g++ (strict IEEE: -O2 -fno-fast-math so the float32 quantization
 matches the NumPy engine bit-for-bit) into
-``build/libiqo_tpu_torch/native-<hash of the source>/`` beside the package,
-the same tree as the CUDA kernels; falls back to None when no toolchain is
+``build/libiqo_tpu_torch/native-<hash of the source>/`` beside the package
+in a writable source checkout, else under ``$LIBIQO_TPU_CACHE`` or the
+temporary directory (``utils/build_root.py``), the same tree as the CUDA
+kernels; falls back to None when no toolchain is
 available — callers then use the pure-Python engine.  Validated equal to
 the engine in tests/test_torch_plan.py.
 """
@@ -20,6 +22,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils.build_root import build_root
+
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "native" / "iqo_tables.cpp"
 _lib = None
@@ -28,7 +32,7 @@ _checked = False
 
 def _build_dir() -> Path:
     digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return _PKG.parent / "build" / "libiqo_tpu_torch" / f"native-{digest}"
+    return build_root(_PKG) / f"native-{digest}"
 
 
 def _build(so: Path) -> bool:

@@ -25,9 +25,9 @@
 // is libiqo_tpu_torch/experiments/exp_element_clamp.py.
 //
 // The tensor maps are encoded on the host by cuTensorMapEncodeTiled, fetched
-// through cudaGetDriverEntryPoint, so the library keeps its one nvcc -shared
-// command and links no libcuda; each map is a __grid_constant__
-// parameter.
+// through cudaGetDriverEntryPoint (hopper.cuh, with the mbarrier and TMA
+// helpers), so the library keeps its one nvcc -shared command and links no
+// libcuda; each map is a __grid_constant__ parameter.
 //
 // What bounds them on the H100: launch latency.  X1 moves 262 KB (786 KB
 // for the batch of 3), X2 32 KB, X3 448 KB: under a microsecond at 3.35
@@ -36,6 +36,8 @@
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -50,50 +52,9 @@ constexpr int kVarBytes = kNVar * kA * kB * 4;
 constexpr int kAlign = 128;                 // TMA's shared-memory destination alignment
 constexpr int kThreads = 256;
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ uint8_t* aligned(uint8_t* p) {
-  const uint32_t s = smem_u32(p);
+  const uint32_t s = smem_addr(p);
   return p + ((kAlign - s % kAlign) % kAlign);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_u32(bar)));
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" :: "r"(smem_u32(bar)), "r"(phase) : "memory");
-}
-
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int x, int y,
-                                       uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
-         "r"(smem_u32(bar)) : "memory");
 }
 
 __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int x, int y, int z,
@@ -101,8 +62,8 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int x,
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4}], [%5];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
-         "r"(smem_u32(bar)) : "memory");
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
+         "r"(smem_addr(bar)) : "memory");
 }
 
 // rows x cols i32 from box (256 wide) to dst (pitch wide), 16 bytes a thread
@@ -123,7 +84,10 @@ window_x1_kernel(const __grid_constant__ CUtensorMap map, int32_t* __restrict__ 
   int32_t* box = reinterpret_cast<int32_t*>(aligned(smem_raw));
   const int tx = blockIdx.x, ty = blockIdx.y, plane = blockIdx.z;
   const int oy = max(0, min(kHiH, ty * kTH - 32)), ox = max(0, min(kHiW, tx * kTW - 128));
-  if (threadIdx.x == 0) mbar_init(&bar);
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     mbar_expect(&bar, kBoxBytes);
@@ -143,7 +107,10 @@ window_x2_kernel(const __grid_constant__ CUtensorMap map, int32_t* __restrict__ 
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar;
   int32_t* box = reinterpret_cast<int32_t*>(aligned(smem_raw));
-  if (threadIdx.x == 0) mbar_init(&bar);
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     mbar_expect(&bar, kBoxBytes);                 // the whole box, zeros included
@@ -163,12 +130,13 @@ window_x3_kernel(const float* __restrict__ var, float* __restrict__ out, int ste
   for (int t = 0; t < steps; ++t) {
     if (t == 0) {
       if (threadIdx.x == 0) {
-        mbar_init(&bar);
+        mbar_init(&bar, 1);
+        mbar_fence_init();
         mbar_expect(&bar, kVarBytes);
         asm volatile(
             "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
             " [%0], [%1], %2, [%3];\n"
-            :: "r"(smem_u32(scratch)), "l"(reinterpret_cast<uint64_t>(var)), "r"(kVarBytes), "r"(smem_u32(&bar))
+            :: "r"(smem_addr(scratch)), "l"(reinterpret_cast<uint64_t>(var)), "r"(kVarBytes), "r"(smem_addr(&bar))
             : "memory");
       }
       __syncthreads();                            // the barrier is initialised
@@ -182,22 +150,10 @@ window_x3_kernel(const float* __restrict__ var, float* __restrict__ out, int ste
   }
 }
 
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess || q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // A map of `planes` (160, 640) i32 planes (2-D when planes == 0) with a
 // (64, 256) box, out-of-bounds elements read as zeros.
 int encode(CUtensorMap* map, const void* src, int planes) {
-  const EncodeTiled fn = encoder();
+  const EncodeTiled fn = tensor_map_encoder();
   if (fn == nullptr) return 1010;
   const cuuint64_t dims[3] = {kW, kH, static_cast<cuuint64_t>(planes)};
   const cuuint64_t strides[2] = {kW * 4ull, kW * kH * 4ull};

@@ -1,12 +1,15 @@
-// X-pass probes redesigned for Hopper (sm_90a): kernel I's f32_2dot scheme
-// and kernel J's dense4 as GEMMs whose M stacks the repeats' split rows
-// (I on CUDA cores in FP32 FMA, J on the tensor cores with wgmma).
-// Each computes exactly what the TPU kernel computes, out = sum_{r < reps}
-// body(w + r) with int32 wraps, and equals the plain versions bit for bit
+// X-pass probes redesigned for Hopper (sm_90a): kernel I's f32_2dot and
+// bf16_1dot schemes and kernel J's dense4 as GEMMs whose M stacks the
+// repeats' work rows (I's f32_2dot on CUDA cores in FP32 FMA, bf16_1dot and
+// J on the tensor cores with wgmma).  Each computes what the TPU kernel
+// computes, out = sum_{r < reps} body(w + r) with int32 wraps; f32_2dot and
+// dense4 equal the plain versions bit for bit
 // (exp_x_schemes.x_scheme_plain("f32_2dot"), exp_vpu_xpass.vpu_xpass_plain
-// ("dense4")).  The first forms (exp_xpass.cu, xscheme_kernel<kF32x2> and
-// vpu_xpass_kernel<kDense4>) launch 120 blocks of 128 threads that each walk
-// every repeat in series; these spread the repeats over the grid.
+// ("dense4")), bf16_1dot stays within the f32 summation bound of its plain
+// version (exp_x_schemes.bf16_bound).  The first forms (exp_xpass.cu,
+// xscheme_kernel<kF32x2>, <kBF16> and vpu_xpass_kernel<kDense4>) launch 120
+// blocks of 128 threads that each walk every repeat in series; these spread
+// the repeats over the grid.
 //
 // Kernel I, xscheme_f32_gemm: replaces scripts/exp_x_schemes.py, make
 // (pl.pallas_call at :156), variant f32_2dot, and at reps = 1 its
@@ -31,6 +34,35 @@
 //   any order of summation is exact.
 //   Shared memory: 196,608 (C) + 2 x 16,384 (A) = 229,376 bytes of 232,448,
 //   one block an SM, 8 warps (2 a scheduler).
+//
+// Kernel I, xscheme_bf16_gemm: replaces scripts/exp_x_schemes.py, make
+// (pl.pallas_call at :156), variant bf16_1dot, and at reps = 1 its
+// check_bf16_error (:271).  out += int(f32(bf16(w + r) @ bf16(C_g))): each
+// repeat's f32 dot is truncated before the repeats meet, so a repeat's
+// accumulator must be whole over K = 384 before it is converted; repeats
+// stack along M, never in one accumulator.
+//   Block: two warpgroups, one group, 16 work rows, a slice of the repeats.
+//   C_g, laid out K-major once per operand set by the host (build_cvals'
+//   cbf_k), stays in shared memory for the whole slice: 6 K blocks of 128 x
+//   64 bf16, 128-byte swizzled, 96 KB, each its own cp.async group so that
+//   the first step computes on block kb while the later ones land.  The
+//   block's window of w (16 x 384 i32, 24 KB) is resident too, stored in
+//   A-fragment order.  A step stacks 8 repeats, one a warp: warp w's 16 A
+//   rows are the 16 work rows at repeat 8 step + w, so each warpgroup issues
+//   24 K steps of wgmma m64n128k16 with A from registers, bf16(w + r)
+//   rounded as the plain version rounds (one rounding to f32, then to the
+//   nearest even bf16).  Where every |w + r| of the block's window stays
+//   below 2^24 (the script's tile: |w| < 21,931), the window is turned into
+//   floats once and float(w + r) is one FADD, exact, in place of an int32
+//   add and an int -> float conversion, which the other blocks take.  Two A
+//   sets alternate, a set rewritten only after the group that read it
+//   retired.  At the end of K each thread
+//   truncates its 64 f32 sums and adds them into uint32 totals.  At the end
+//   of the slice the 8 warps' totals meet in shared memory, then in the
+//   output by one atomicAdd an output.  The tensor cores sum in their own
+//   order: the result is held within bf16_bound, which covers any f32 order.
+//   Shared memory: 98,304 + 24,576 + 1,024 slack = 123,904 bytes, one block
+//   an SM, 8 warps (2 a scheduler).
 //
 // Kernel J, vpu_dense4_gemm: replaces scripts/exp_vpu_xpass.py, make
 // (pl.pallas_call at :156), variant dense4.  On wd (160, 896) i32 and cxh,
@@ -76,7 +108,8 @@
 // in a NumPy model, and checks it against iqo_exp_xpass_gemm_shape.
 //
 // What bounds them on the H100: operations.  Per application, I's two f32
-// dots are 47.2 M FMA, 1.41 us at 67 TFLOP/s; J's four bf16 dots 220 M
+// dots are 47.2 M FMA, 1.41 us at 67 TFLOP/s; I's bf16 dot 23.6 M
+// multiply-adds, 0.0477 us at 989 TFLOP/s; J's four bf16 dots 220 M
 // multiply-adds, 0.445 us at 989 TFLOP/s.  Bytes are read once for all
 // repeats (under 2 MB a launch; C and the coefficient chunks come from L2).
 // What the design does about it: it keeps the split (once per repeat, row
@@ -94,6 +127,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 __device__ __forceinline__ uint32_t mad_u32(uint32_t a, uint32_t b, uint32_t c) {
@@ -110,21 +145,6 @@ __device__ __forceinline__ uint32_t add_u32(uint32_t a, uint32_t b) {
 
 __device__ __forceinline__ uint32_t f2u(float x) {
   return static_cast<uint32_t>(__float2int_rz(x));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N));
 }
 
 // Wait until at most `pending` (0..10) of this thread's cp.async groups are
@@ -148,17 +168,6 @@ __device__ __forceinline__ void cp_wait_at_most(int pending) {
 // wgmma (sm_90a): D[64 x 64] += A[64 x 16] (registers) x B[16 x 64] (shared,
 // by descriptor), f32 accumulators; the warpgroup's 4 warps each hold 16 rows
 // of A and D in mma.sync's m16n8k16 fragment layout.
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
                                                 uint64_t desc_b) {
   asm volatile(
@@ -174,23 +183,16 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
 }
 
-// The descriptor of a K-major bf16 tile in shared memory with the 128-byte
-// swizzle: rows of 64 values (128 bytes) whose 16-byte pieces sit at piece ^
-// (row & 7), 8-row groups 1024 bytes apart, the tile 1024-byte aligned.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-// Hold registers that an in-flight wgmma reads (A) or writes (D) until the
-// wait that retires it: the compiler may not reuse or read them before.
-__device__ __forceinline__ void pin(uint32_t (&r)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-__device__ __forceinline__ void pin(float (&r)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+// wgmma: D[64 x 128] (+)= A[64 x 16] (registers) x B[16 x 128] (shared, by
+// descriptor), bf16 -> f32; scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " IQO_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : IQO_ACC64("+f", d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 // x & 255 as float, exact: the integer in the low mantissa bits of 2^23
@@ -322,6 +324,170 @@ xscheme_f32_gemm(const int32_t* __restrict__ w, const float* __restrict__ c,
   for (int j = 0; j < 4; ++j) {
     atomicAdd(orow + j, sum[j]);
     atomicAdd(orow + 64 + j, sum[4 + j]);
+  }
+}
+
+// ---- kernel I: bf16_1dot -----------------------------------------------------
+
+namespace gb {
+constexpr int kThreads = 256;              // two warpgroups of 4 warps
+constexpr int kRows = 16;                  // work rows of a block
+constexpr int kRepStep = 8;                // repeats a step stacks along M: one a warp
+constexpr int kM = kRows * kRepStep;       // 128 A rows a step: m = 16 repeat + row
+constexpr int kN = 128, kK = 384, kKC = 64, kChunks = kK / kKC;   // K blocks of 128 bytes
+constexpr int kBand = 896, kTW = 384, kTH = 160, kGroups = 3;
+constexpr int kBBytes = kN * kKC * 2;      // one K block of C_g: 128 rows x 128 bytes, swizzled
+constexpr int kSmemB = kChunks * kBBytes;  // C_g, resident
+constexpr int kSmemW = kRows * kK * 4;     // the block's work window, in A-fragment order
+constexpr int kSmem = kSmemB + kSmemW + 1024;   // + the alignment slack
+static_assert(kM == 2 * 4 * 16, "2 warpgroups x 4 warps x 16 rows a step");
+static_assert(kBBytes % 1024 == 0, "K blocks 1024-byte aligned");
+static_assert(8 * kRows * kN * 4 <= kSmemB, "the warps' sums fit where C_g was");
+static_assert(kSmem <= 232448, "shared memory of one block");
+}  // namespace gb
+
+// bf16x2 of two floats, each rounded to the nearest even bf16; f0 in the
+// low half
+__device__ __forceinline__ uint32_t bf16x2_rn(float f0, float f1) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(f0, f1);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// bf16x2 of float(x0 + r), float(x1 + r): int32 additions, then one rounding
+// to f32 and one to bf16, as the plain version rounds
+__device__ __forceinline__ uint32_t bf16x2_of(int x0, int x1, uint32_t r) {
+  return bf16x2_rn(__int2float_rn(static_cast<int>(static_cast<uint32_t>(x0) + r)),
+                   __int2float_rn(static_cast<int>(static_cast<uint32_t>(x1) + r)));
+}
+
+// One warp's share of a block's steps s0 .. s1 - 1 of bf16_1dot: warp w is
+// repeat r = 8 step + w, whose 16 A rows of the warpgroup's m64 are the
+// block's 16 work rows.  24 K steps of wgmma m64n128k16 with A = bf16(w +
+// r) made from the window, then each f32 sum truncated and added into sum
+// (uint32).  d: the warp's D rows g and g + 8 (work rows) x columns 8 j +
+// 2 q, + 1 (n8 tile j: d[4 j .. 4 j + 3]).  kFloat: the window holds
+// float(w) and every |w + r| < 2^24, so float(w + r) is float(w) + r, exact.
+template <bool kFloat>
+__device__ __forceinline__ void bf16_gemm_steps(const int4* wfrag, uint32_t bbase, int s0, int s1,
+                                                int reps, int warp, uint32_t (&sum)[64]) {
+  using namespace gb;
+  float d[64];
+  uint32_t af[2][4];                       // two A sets: K step kk writes set kk & 1
+  for (int step = s0; step < s1; ++step) {
+    const uint32_t r = static_cast<uint32_t>(kRepStep * step + warp);
+    const float rf = static_cast<float>(r);
+#pragma unroll
+    for (int kk = 0; kk < kK / 16; ++kk) {
+      if (step == s0 && kk % 4 == 0 && kk > 0) {   // the first step waits for K block kk / 4
+        cp_wait_at_most(kChunks - 1 - kk / 4);
+        fence_proxy_async();
+        __syncthreads();
+      }
+      uint32_t (&a)[4] = af[kk & 1];       // the set K step kk - 2 read: retired
+      if constexpr (kFloat) {
+        const float4 x0 = reinterpret_cast<const float4*>(wfrag)[kk * 64];        // row g
+        const float4 x1 = reinterpret_cast<const float4*>(wfrag)[kk * 64 + 32];   // row g + 8
+        a[0] = bf16x2_rn(x0.x + rf, x0.y + rf);   // row g, k 2 q, + 1
+        a[1] = bf16x2_rn(x1.x + rf, x1.y + rf);   // row g + 8
+        a[2] = bf16x2_rn(x0.z + rf, x0.w + rf);   // row g, k 2 q + 8, + 9
+        a[3] = bf16x2_rn(x1.z + rf, x1.w + rf);   // row g + 8
+      } else {
+        const int4 x0 = wfrag[kk * 64], x1 = wfrag[kk * 64 + 32];
+        a[0] = bf16x2_of(x0.x, x0.y, r);
+        a[1] = bf16x2_of(x1.x, x1.y, r);
+        a[2] = bf16x2_of(x0.z, x0.w, r);
+        a[3] = bf16x2_of(x1.z, x1.w, r);
+      }
+      wgmma_fence();
+      wgmma_m64n128k16(d, a, desc_sw128(bbase + (kk / 4) * kBBytes + 32 * (kk % 4)), kk > 0);
+      wgmma_commit();
+      pin(a);
+      wgmma_wait<1>();                     // K step kk - 1 retired: its A set is free
+    }
+    wgmma_wait<0>();
+    pin(d);
+    if (r < static_cast<uint32_t>(reps)) { // each f32 dot truncated, then summed in uint32
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sum[i] = add_u32(sum[i], f2u(d[i]));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(gb::kThreads, 1)
+xscheme_bf16_gemm(const int32_t* __restrict__ w, const __nv_bfloat16* __restrict__ ck,
+                  uint32_t* __restrict__ out, int reps, int steps_per_slice) {
+  using namespace gb;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* bsm = align1024(smem_raw);                         // C_g: kChunks K blocks
+  int32_t* wsm = reinterpret_cast<int32_t*>(bsm + kSmemB);    // the work window
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = blockIdx.y, row0 = kRows * blockIdx.z;
+  const int steps = (reps + kRepStep - 1) / kRepStep;
+  const int s0 = blockIdx.x * steps_per_slice;
+  const int s1 = min(s0 + steps_per_slice, steps);
+  if (s0 >= s1) return;
+
+  // The window: the 8-byte pieces (row, k pair p), k = 2 p, each at its A
+  // fragment's slot ((kk * 2 + row / 8) * 32 + 4 (row % 8) + q) * 4 + e, kk
+  // = p / 8, q = p % 4, e = 2 (p % 8 / 4), so that a lane reads its K step's
+  // values for rows g and g + 8 as two 16-byte words.  It rides in the first
+  // cp.async group with K block 0 of C_g; K blocks 1 .. 5 follow, a group
+  // each, and the first step computes on block kb while the later ones land.
+  const int32_t* wsrc = w + static_cast<long long>(row0) * kBand + 256 * grp;
+  for (int i = tid; i < kRows * kK / 2; i += kThreads) {
+    const int row = i / (kK / 2), p = i % (kK / 2);
+    cp_async8(wsm + ((p / 8 * 2 + row / 8) * 32 + 4 * (row % 8) + p % 4) * 4 + 2 * (p % 8 / 4),
+              wsrc + static_cast<long long>(row) * kBand + 2 * p);
+  }
+  // C_g K-major (ck: (3, 128, 384)): row n of K block kb is columns 64 kb ..
+  // of C_g's column n, its 16-byte pieces at piece ^ (n & 7)
+  const __nv_bfloat16* cg = ck + static_cast<long long>(grp) * kN * kK;
+  for (int kb = 0; kb < kChunks; ++kb) {
+    for (int i = tid; i < kN * 8; i += kThreads) {
+      const int n = i / 8, pc = i % 8;
+      cp_async16(bsm + kb * kBBytes + n * 128 + ((pc ^ (n & 7)) << 4),
+                 cg + static_cast<long long>(n) * kK + kKC * kb + 8 * pc);
+    }
+    cp_commit();
+  }
+
+  // Before the first product: the window and K block 0 have landed.  Where
+  // every |w + r| of the block's window stays below 2^24, the window is
+  // turned into floats in place (exact), and each value of a K step costs
+  // one FADD instead of an int32 add and a conversion.
+  cp_wait_at_most(kChunks - 1);
+  fence_proxy_async();
+  __syncthreads();
+  const int lim = (1 << 24) - reps;        // |w| < lim: |w + r| < 2^24 for every r
+  int wide = 0;
+  for (int i = tid; i < kRows * kK; i += kThreads) wide |= wsm[i] >= lim || wsm[i] <= -lim;
+  const bool narrow = !__syncthreads_or(wide);
+  if (narrow) {
+    for (int i = tid; i < kRows * kK; i += kThreads)
+      reinterpret_cast<float*>(wsm)[i] = static_cast<float>(wsm[i]);
+    __syncthreads();
+  }
+  uint32_t sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sum[i] = 0;
+  const int4* wfrag = reinterpret_cast<const int4*>(wsm) + lane;
+  if (narrow) bf16_gemm_steps<true>(wfrag, smem_addr(bsm), s0, s1, reps, warp, sum);
+  else bf16_gemm_steps<false>(wfrag, smem_addr(bsm), s0, s1, reps, warp, sum);
+
+  // the 8 warps' sums meet in shared memory (where C_g was), then one uint32
+  // atomicAdd an output meets the other slices'
+  __syncthreads();
+  uint32_t* part = reinterpret_cast<uint32_t*>(bsm);         // [warp][row][column]
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    part[(warp * kRows + g + 8 * (i % 4 / 2)) * kN + 8 * (i / 4) + 2 * q + i % 2] = sum[i];
+  __syncthreads();
+  for (int e = tid; e < kRows * kN; e += kThreads) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int wp = 0; wp < kThreads / 32; ++wp) v = add_u32(v, part[wp * kRows * kN + e]);
+    atomicAdd(out + static_cast<long long>(row0 + e / kN) * kTW + kN * grp + e % kN, v);
   }
 }
 
@@ -505,7 +671,7 @@ bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0
 
 extern "C" {
 
-// Raise both kernels' dynamic shared-memory limits (and prefer shared memory
+// Raise the three kernels' dynamic shared-memory limits (and prefer shared memory
 // over L1) on the current device; call once per device before their first
 // launch.
 int iqo_exp_xpass_gemm_setup() {
@@ -514,7 +680,12 @@ int iqo_exp_xpass_gemm_setup() {
   if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
       vpu_dense4_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, gj::kSmem));
   if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
+      xscheme_bf16_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, gb::kSmem));
+  if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
       xscheme_f32_gemm, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared));
+  if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
+      xscheme_bf16_gemm, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared));
   if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
       vpu_dense4_gemm, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -523,14 +694,16 @@ int iqo_exp_xpass_gemm_setup() {
 }
 
 // The geometry the kernels were built with, for the host's model: shape[0..5]
-// kernel I (threads, rows, repeats a step, K chunk, chunks, shared bytes),
-// shape[6..12] kernel J (threads, rows, repeats a step, columns, K chunk,
-// chunks, shared bytes).
+// kernel I's f32_2dot (threads, rows, repeats a step, K chunk, chunks,
+// shared bytes), shape[6..12] kernel J (threads, rows, repeats a step,
+// columns, K chunk, chunks, shared bytes), shape[13..18] kernel I's
+// bf16_1dot (as f32_2dot's).
 int iqo_exp_xpass_gemm_shape(int* shape) {
-  const int v[13] = {gi::kThreads, gi::kRows, gi::kRepStep, gi::kKC, gi::kChunks, gi::kSmem,
+  const int v[19] = {gi::kThreads, gi::kRows, gi::kRepStep, gi::kKC, gi::kChunks, gi::kSmem,
                      gj::kThreads, gj::kRows, gj::kRepStep, gj::kCols, gj::kKC, gj::kChunks,
-                     gj::kSmem};
-  for (int i = 0; i < 13; ++i) shape[i] = v[i];
+                     gj::kSmem, gb::kThreads, gb::kRows, gb::kRepStep, gb::kKC, gb::kChunks,
+                     gb::kSmem};
+  for (int i = 0; i < 19; ++i) shape[i] = v[i];
   return 0;
 }
 
@@ -547,6 +720,22 @@ int iqo_exp_xscheme_gemm(const void* w, const void* c, void* out, int reps, int 
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(w), static_cast<const float*>(c), static_cast<uint32_t*>(out),
       reps, steps_per_slice);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel I, bf16_1dot: w (160, 896) i32, ck (3, 128, 384) bf16 (C K-major)
+// -> out (160, 384) int32, zeroed by the caller; slices x steps_per_slice
+// covers the ceil(reps / 8) steps.
+int iqo_exp_xscheme_bf16_gemm(const void* w, const void* ck, void* out, int reps, int slices,
+                              int steps_per_slice, void* stream) {
+  if (reps < 1 || slices < 1 || steps_per_slice < 1) return 1008;
+  const int steps = (reps + gb::kRepStep - 1) / gb::kRepStep;
+  if ((slices - 1) * steps_per_slice >= steps || slices * steps_per_slice < steps) return 1008;
+  if (misaligned(w) || misaligned(ck) || misaligned(out)) return 1002;
+  xscheme_bf16_gemm<<<dim3(slices, gb::kGroups, gb::kTH / gb::kRows), gb::kThreads, gb::kSmem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(w), static_cast<const __nv_bfloat16*>(ck),
+      static_cast<uint32_t*>(out), reps, steps_per_slice);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -172,7 +172,7 @@ def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _form(variant: str, form: str | None) -> str:
-    return xpass_gemm.form_of(variant, form, GEMM_VARIANT)
+    return xpass_gemm.form_of(variant, form, (GEMM_VARIANT,))
 
 
 def _check(variant: str, ops: XpassOperands, reps: int) -> None:

@@ -49,14 +49,20 @@ the work values and the split redone in every repeat, as the script's
 ``body_of``.
 
 **Forms.**  ``x_scheme(..., form=)`` picks the kernel: ``"serial"`` is the
-form above; ``"gemm"`` (``f32_2dot`` only, and its default) is the redesign
-in ``csrc/exp/exp_xpass_gemm.cu``, ``xscheme_f32_gemm``: a register-tiled FFMA
-GEMM whose M stacks 4 repeats x 2 planes of 16 work rows against the group's
-taps, held in shared memory for a block's whole slice of the repeats; the
-slices meet in a zeroed output by uint32 ``atomicAdd``
-(:mod:`.xpass_gemm` states its geometry and models it in NumPy).
+form above; ``"gemm"`` (``f32_2dot`` and ``bf16_1dot``, and their default)
+is the redesign in ``csrc/exp/exp_xpass_gemm.cu``.  ``f32_2dot``'s,
+``xscheme_f32_gemm``, is a register-tiled FFMA GEMM whose M stacks 4 repeats
+x 2 planes of 16 work rows against the group's taps, held in shared memory
+for a block's whole slice of the repeats.  ``bf16_1dot``'s,
+``xscheme_bf16_gemm``, stacks 8 repeats of 16 work rows, one a warp, as two
+warpgroups' wgmma m64n128k16 with A, ``bf16(w + r)``, made in registers,
+against the group's taps laid out K-major (``cvals["cbf_k"]``) and
+resident; each repeat's f32 dot is whole over K before it is truncated, and
+the tensor cores' order of summation is held within :func:`bf16_bound`.  In
+both the slices meet in a zeroed output by uint32 ``atomicAdd``
+(:mod:`.xpass_gemm` states their geometry and models them in NumPy).
 :data:`LAUNCHES` counts each variant's serial launches under its name and
-the gemm form's under ``"f32_2dot[gemm]"``.
+the gemm forms' under ``"f32_2dot[gemm]"`` and ``"bf16_1dot[gemm]"``.
 
 Times: per launch by back-to-back launches on 8 tiles that each differ in
 ``w[0, 0]``, at ``reps = R`` and ``R / 8``; per application is the slope
@@ -87,7 +93,7 @@ R = 512
 WINDOWS = ((0, 384), (256, 640), (512, 896))
 NTAPS = 12
 VARIANTS = ("empty", "s8_4dot", "s8_2dot_cat", "f32_2dot", "s16_1dot", "bf16_1dot")
-GEMM_VARIANT = "f32_2dot"  # the one variant with a gemm form, and its default
+GEMM_VARIANT = ("f32_2dot", "bf16_1dot")   # the variants with a gemm form, their default
 ITERS = 8                  # work tiles per timed run
 LSB = 2**20                # one u8 output LSB in the pre-shift i32 sum domain
 
@@ -98,7 +104,7 @@ def launch_key(variant: str, form: str) -> str:
 
 
 # main()'s rows, (variant, form): every variant's serial form, then the gemm forms
-ROWS = tuple((v, "serial") for v in VARIANTS) + ((GEMM_VARIANT, "gemm"),)
+ROWS = tuple((v, "serial") for v in VARIANTS) + tuple((v, "gemm") for v in GEMM_VARIANT)
 LAUNCHES = Launches(launch_key(v, f) for v, f in ROWS)
 _F32_EXACT = 2**24
 _CHUNK_REPS = 32           # repeats per batched product in the plain version
@@ -133,7 +139,9 @@ def build_cvals(variant: str, c: torch.Tensor) -> dict[str, torch.Tensor]:
     """The script's operands of ``variant`` (``build_cvals``, ``:163-187``),
     each stacked over the 3 groups: ``e``, ``f`` (3, 384, 128) int8 and
     ``corr`` (3, 128) int32 zeros; ``ef`` (3, 384, 256) int8; ``cf32``
-    float32; ``c16`` int16; ``cbf`` bfloat16 (rounded from float32)."""
+    float32; ``c16`` int16; ``cbf`` bfloat16 (rounded from float32) and,
+    for the gemm form, ``cbf_k`` the same taps K-major, (3, 128, 384), laid
+    out once here as kernel C's ``k_major``."""
     _check_variant(variant)
     e = wrap(c.to(torch.int64) >> 8, 8).to(torch.int8)
     f = wrap(c.to(torch.int64) & 255, 8).to(torch.int8)
@@ -145,7 +153,8 @@ def build_cvals(variant: str, c: torch.Tensor) -> dict[str, torch.Tensor]:
     if variant == "s16_1dot":
         return {"c16": c.to(torch.int16)}
     if variant == "bf16_1dot":
-        return {"cbf": c.to(torch.float32).to(torch.bfloat16)}
+        cbf = c.to(torch.float32).to(torch.bfloat16)
+        return {"cbf": cbf, "cbf_k": cbf.transpose(1, 2).contiguous()}
     return {"cf32": c.to(torch.float32)}          # f32_2dot, empty (unused there)
 
 
@@ -285,20 +294,24 @@ def x_scheme(variant: str, w: torch.Tensor, cvals: dict, reps: int = R,
              form: str | None = None) -> torch.Tensor:
     """Kernel I: (160, 384) int32 from ``w`` (160, 896) int32 and the
     variant's :func:`build_cvals` planes, in ``form`` (``"serial"``, or
-    ``"gemm"`` for ``f32_2dot``, its default).  CPU tensors take
+    ``"gemm"`` for ``f32_2dot`` and ``bf16_1dot``, their default).  CPU tensors take
     :func:`x_scheme_plain`; CUDA tensors launch the kernel or raise."""
     form = _form(variant, form)
     _check(variant, w, cvals, reps)
     planes = [cvals[n] for n in _PLANES[variant]]
+    if form == "gemm" and variant == "bf16_1dot":
+        planes = [_taps_k_major(cvals)]
     corr = cvals["corr"] if variant.startswith("s8") else None
     if not all(t.is_contiguous() for t in (w, *planes)):
         raise ValueError("x_scheme takes contiguous tensors")
     if not _harness.on_card(w, *planes, *([] if corr is None else [corr])):
         return x_scheme_plain(variant, w, cvals, reps)
     if form == "gemm":
-        launch = xpass_gemm.geometry(xpass_gemm.F32_GEMM, reps, xpass_gemm.sm_count(w.device))
+        geom, entry = ((xpass_gemm.F32_GEMM, "iqo_exp_xscheme_gemm") if variant == "f32_2dot"
+                       else (xpass_gemm.BF16_GEMM, "iqo_exp_xscheme_bf16_gemm"))
+        launch = xpass_gemm.geometry(geom, reps, xpass_gemm.sm_count(w.device))
         out = torch.zeros((TH, TW), dtype=torch.int32, device=w.device)
-        _harness.check_rc(xpass_gemm.lib(w.device).iqo_exp_xscheme_gemm(
+        _harness.check_rc(getattr(xpass_gemm.lib(w.device), entry)(
             w.data_ptr(), planes[0].data_ptr(), out.data_ptr(), reps, launch.slices,
             launch.steps_per_slice, _harness.stream(w)), f"xscheme_tile[{variant},gemm]")
         LAUNCHES.add(launch_key(variant, form))
@@ -312,6 +325,17 @@ def x_scheme(variant: str, w: torch.Tensor, cvals: dict, reps: int = R,
                       f"xscheme_tile[{variant}]")
     LAUNCHES.add(variant)
     return out
+
+
+def _taps_k_major(cvals: dict) -> torch.Tensor:
+    """``bf16_1dot``'s gemm form reads the taps K-major: ``cvals["cbf_k"]``
+    (3, 128, 384) bf16, from :func:`build_cvals`."""
+    t = cvals.get("cbf_k")
+    if t is None or tuple(t.shape) != (N_G, GN, K) or t.dtype != torch.bfloat16:
+        raise ValueError(f"bf16_1dot[gemm] takes cvals['cbf_k'] {(N_G, GN, K)} bfloat16, the "
+                         f"taps K-major from build_cvals, got "
+                         f"{None if t is None else (tuple(t.shape), t.dtype)}")
+    return t
 
 
 def macs(variant: str) -> tuple[int, str]:
@@ -380,15 +404,19 @@ def main() -> dict:
                              want)
     s16 = torch.equal(x_scheme("s16_1dot", w, build_cvals("s16_1dot", c), 1), want)
     s8 = torch.equal(x_scheme("s8_4dot", w, build_cvals("s8_4dot", c), 1), want)
-    mx, mean = lsb_error(x_scheme("bf16_1dot", w, build_cvals("bf16_1dot", c), 1), want)
+    cvb = build_cvals("bf16_1dot", c)
+    mx, mean = lsb_error(x_scheme("bf16_1dot", w, cvb, 1), want)
+    mx_s, mean_s = lsb_error(x_scheme("bf16_1dot", w, cvb, 1, "serial"), want)
     print(f"f32_2dot exact vs numpy i32-wrap: {f32} (gemm form; serial form {f32_serial})",
           flush=True)
     print(f"s16_1dot exact vs numpy i32-wrap: {s16} (int32 IMAD dot on CUDA cores)", flush=True)
     print(f"s8_4dot == gold: {s8} (zero corr: the script's formula, not the banded product)",
           flush=True)
-    print(f"bf16_1dot max err: {mx!r} LSB (mean {mean!r}) ({card})", flush=True)
+    print(f"bf16_1dot max err: {mx!r} LSB (mean {mean!r}) (gemm form; serial form {mx_s!r} / "
+          f"{mean_s!r}) ({card})", flush=True)
     rows["checks"] = {"f32_exact": f32, "f32_exact_serial": f32_serial, "s16_exact": s16,
-                      "s8_4dot_gold": s8, "bf16_max_lsb": mx, "bf16_mean_lsb": mean}
+                      "s8_4dot_gold": s8, "bf16_max_lsb": mx, "bf16_mean_lsb": mean,
+                      "bf16_max_lsb_serial": mx_s, "bf16_mean_lsb_serial": mean_s}
     return rows
 
 

@@ -1,20 +1,25 @@
 """Launch geometry of the redesigned X-pass probes and NumPy models that walk it.
 
-Kernel I's ``f32_2dot`` and kernel J's ``dense4`` have a second form,
-``gemm`` (``libiqo_tpu_torch/csrc/exp/exp_xpass_gemm.cu``): a GEMM whose M
-stacks the repeats' split rows, with the repeats spread over the grid in
-slices whose uint32 partial sums meet in the output by ``atomicAdd``.  This
-module states each form's geometry (:data:`F32_GEMM`, :data:`DENSE4_GEMM`:
-block tile, repeats a step stacks, K chunks, shared-memory stages), picks the
-repeat slices for a launch (:func:`geometry`), and models the kernels'
-schedules in NumPy (:func:`f32_gemm_model`, :func:`dense4_gemm_model`,
+Kernel I's ``f32_2dot`` and ``bf16_1dot`` and kernel J's ``dense4`` have a
+second form, ``gemm`` (``libiqo_tpu_torch/csrc/exp/exp_xpass_gemm.cu``): a
+GEMM whose M stacks the repeats' work rows, with the repeats spread over the
+grid in slices whose uint32 partial sums meet in the output by
+``atomicAdd``.  This module states each form's geometry (:data:`F32_GEMM`,
+:data:`BF16_GEMM`, :data:`DENSE4_GEMM`: block tile, repeats a step stacks, K
+chunks, shared-memory stages), picks the repeat slices for a launch
+(:func:`geometry`), and models the kernels' schedules in NumPy
+(:func:`f32_gemm_model`, :func:`bf16_gemm_model`, :func:`dense4_gemm_model`,
 :func:`cover`), so that the CPU tests can hold the schedule against the plain
 versions; on the card the kernels themselves are held against them.
 
 A block of ``f32_2dot``'s form takes one group of 128 outputs, 16 work rows
 and a slice of the repeats; a step stacks 4 repeats x 2 planes of its 16 rows
 (128 A rows, ``m = 8 row + 2 repeat + plane``) against the group's taps, which
-stay in shared memory for the whole slice.  A block of ``dense4``'s form
+stay in shared memory for the whole slice.  A block of ``bf16_1dot``'s form
+takes the same tile with two warpgroups; a step stacks 8 repeats of its 16
+rows (one a warp, 128 A rows, ``m = 16 repeat + row``) against the group's
+taps, laid out K-major and resident, with wgmma; each repeat's f32 dot is
+whole over K before it is truncated.  A block of ``dense4``'s form
 takes 32 output columns, 16 work rows and a slice; a step stacks 8 repeats x
 2 planes x 16 rows against 64 coefficient columns (cxh's 32, then cxl's),
 streamed in K chunks with the chunk's work rows; each warp splits its rows'
@@ -29,9 +34,10 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["DENSE4_GEMM", "F32_GEMM", "FORMS", "FormGeometry", "Launch", "SMEM_LIMIT",
-           "check_shape", "cover", "dense4_gemm_model", "f32_gemm_model", "form_of", "geometry",
-           "launch_key", "lib", "sm_count", "split_f32", "wrap_add"]
+__all__ = ["BF16_GEMM", "DENSE4_GEMM", "F32_GEMM", "FORMS", "FormGeometry", "Launch",
+           "SMEM_LIMIT", "bf16_dot_f32", "bf16_gemm_model", "bf16_round", "check_shape", "cover",
+           "dense4_gemm_model", "f32_gemm_model", "form_of", "geometry", "launch_key", "lib",
+           "sm_count", "split_f32", "wrap_add"]
 
 SMEM_LIMIT = 232_448        # bytes of shared memory one block may use (H100)
 SMEM_PER_SM = 233_472       # the SM's 228 KB, of which 1 KB is reserved per block
@@ -43,14 +49,15 @@ _F32_EXACT = 2**24
 FORMS = ("serial", "gemm")
 
 
-def form_of(variant: str, form: str | None, gemm_variant: str) -> str:
-    """``form``, or the variant's default: ``"gemm"`` for the one variant
-    that has that form, else ``"serial"``."""
+def form_of(variant: str, form: str | None, gemm_variants: tuple[str, ...]) -> str:
+    """``form``, or the variant's default: ``"gemm"`` for the variants that
+    have that form, else ``"serial"``."""
+    has_gemm = variant in gemm_variants
     if form is None:
-        return "gemm" if variant == gemm_variant else "serial"
-    if form not in FORMS or (form == "gemm" and variant != gemm_variant):
+        return "gemm" if has_gemm else "serial"
+    if form not in FORMS or (form == "gemm" and not has_gemm):
         raise ValueError(f"{variant} takes form 'serial'"
-                         + (" or 'gemm'" if variant == gemm_variant else "") + f", got {form!r}")
+                         + (" or 'gemm'" if has_gemm else "") + f", got {form!r}")
     return form
 
 
@@ -74,6 +81,9 @@ class FormGeometry:
     tiles_z: int            # grid: work row tiles
     stages: tuple[tuple[str, int, int], ...]   # (what, count, bytes each)
     reg_blocks: int         # blocks an SM holds by registers (its __launch_bounds__)
+    planes: int = 2         # A planes a work row and repeat gives (hi and lo, or one)
+    fill: int = 2           # blocks per SM the grid holds where the steps allow
+    overhead: float = SLICE_OVERHEAD   # a block's set-up, in steps, for picking the slices
 
     @property
     def chunks(self) -> int:
@@ -94,8 +104,8 @@ class FormGeometry:
 
     @property
     def m(self) -> int:
-        """A rows a step stacks: rows x repeats x 2 planes."""
-        return 2 * self.rows * self.rep_step
+        """A rows a step stacks: rows x repeats x planes."""
+        return self.planes * self.rows * self.rep_step
 
 
 # kernel I, f32_2dot: 256 threads of 8 x 8; C_g (384 x 128 f32) resident, two
@@ -105,6 +115,18 @@ F32_GEMM = FormGeometry(
     tiles_y=3, tiles_z=10,
     stages=(("C_g, resident (12 chunks)", 1, 384 * 128 * 4), ("A chunk", 2, 32 * 128 * 4)),
     reg_blocks=1)
+# kernel I, bf16_1dot: two warpgroups, wgmma m64n128k16 with A (one repeat
+# a warp) from registers; C_g K-major (6 K blocks of 128 x 64 bf16,
+# swizzled) and the block's work window (16 x 384 i32) resident
+BF16_GEMM = FormGeometry(
+    "bf16_1dot[gemm]", threads=256, rows=16, rep_step=8, cols=128, k=384, kc=64,
+    tiles_y=3, tiles_z=10,
+    stages=(("C_g, K-major, resident (6 K blocks)", 1, 128 * 384 * 2),
+            ("work window", 1, 16 * 384 * 4), ("alignment slack", 1, 1024)),
+    reg_blocks=1, planes=1, fill=0, overhead=1.0)
+# (a block loads 120 KB of taps and window before its first product, about a
+# step's time, and its 8 warps need no second block on the SM: the fewest
+# blocks win, one wave of 120 at R)
 # kernel J, dense4: one warpgroup, 4 wgmma m64n64k16 a K step (A fragments
 # split in registers); four stages of a B chunk (64 x 64 bf16, 1024-byte
 # aligned) and the chunk's 16 work rows (72 words a row)
@@ -140,8 +162,9 @@ class Launch:
 
 def geometry(form: FormGeometry, reps: int, sms: int = H100_SMS) -> Launch:
     """The repeat slices of one launch: the fewest waves of blocks times the
-    steps each block walks (plus :data:`SLICE_OVERHEAD`), among the slicings
-    whose grid holds at least two blocks per SM where one can."""
+    steps each block walks (plus the form's set-up, ``form.overhead`` steps),
+    among the slicings whose grid holds at least ``form.fill`` blocks per SM
+    where the steps allow."""
     if reps < 1:
         raise ValueError(f"reps must be >= 1, got {reps}")
     steps = -(-reps // form.rep_step)
@@ -150,8 +173,8 @@ def geometry(form: FormGeometry, reps: int, sms: int = H100_SMS) -> Launch:
     for sps in range(1, steps + 1):
         slices = -(-steps // sps)
         waves = -(-slices * form.tiles // slots)
-        options.append((waves * (sps + SLICE_OVERHEAD), sps, slices))
-    floor = min(2 * sms, steps * form.tiles)
+        options.append((waves * (sps + form.overhead), sps, slices))
+    floor = min(form.fill * sms, steps * form.tiles)
     _, sps, slices = min(o for o in options if o[2] * form.tiles >= floor)
     return Launch(form, reps, steps, sps, slices)
 
@@ -172,13 +195,15 @@ def lib(device: torch.device):
 
 def check_shape(lib_) -> None:
     """The kernels' compiled geometry (``iqo_exp_xpass_gemm_shape``) must be
-    :data:`F32_GEMM` and :data:`DENSE4_GEMM`."""
+    :data:`F32_GEMM`, :data:`DENSE4_GEMM` and :data:`BF16_GEMM`."""
     import ctypes
-    got = (ctypes.c_int * 13)()
+    got = (ctypes.c_int * 19)()
     lib_.iqo_exp_xpass_gemm_shape(got)
     want = [F32_GEMM.threads, F32_GEMM.rows, F32_GEMM.rep_step, F32_GEMM.kc, F32_GEMM.chunks,
             F32_GEMM.smem, DENSE4_GEMM.threads, DENSE4_GEMM.rows, DENSE4_GEMM.rep_step,
-            DENSE4_GEMM.cols, DENSE4_GEMM.kc, DENSE4_GEMM.chunks, DENSE4_GEMM.smem]
+            DENSE4_GEMM.cols, DENSE4_GEMM.kc, DENSE4_GEMM.chunks, DENSE4_GEMM.smem,
+            BF16_GEMM.threads, BF16_GEMM.rows, BF16_GEMM.rep_step, BF16_GEMM.kc,
+            BF16_GEMM.chunks, BF16_GEMM.smem]
     if list(got) != want:
         raise RuntimeError(f"exp_xpass_gemm.cu's geometry {list(got)} != the host's {want}")
 
@@ -241,6 +266,52 @@ def f32_gemm_model(w: np.ndarray, c: np.ndarray, reps: int, sms: int = H100_SMS)
     return out.view(np.int32)
 
 
+def bf16_round(x: np.ndarray) -> np.ndarray:
+    """float32 values rounded to the nearest even bf16, as float32 (finite
+    values), as ``__floats2bfloat162_rn`` and ``torch``'s conversion."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def bf16_dot_f32(wt: np.ndarray, cb: np.ndarray, r: int, ks: int = 16) -> np.ndarray:
+    """One repeat of ``bf16_1dot``'s dot as the gemm form forms it: the work
+    values ``w + r`` (int32) rounded once to f32 and then to bf16, against
+    the bf16 taps ``cb`` (K, N), each K step of ``ks`` summed exactly and
+    rounded to f32, the steps summed in f32 in order (one order the tensor
+    cores could take), truncated to int64."""
+    a = bf16_round(_work(wt, r).astype(np.float32)).astype(np.float64)
+    cb = cb.astype(np.float64)
+    d = np.zeros((a.shape[0], cb.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], ks):
+        d = (d + (a[:, k0:k0 + ks] @ cb[k0:k0 + ks]).astype(np.float32)).astype(np.float32)
+    return np.trunc(d).astype(np.int64)
+
+
+def bf16_gemm_model(w: np.ndarray, cbf: np.ndarray, reps: int,
+                    sms: int = H100_SMS) -> np.ndarray:
+    """Kernel I's ``bf16_1dot`` in its gemm form, block by block and step by
+    step as :func:`geometry` lays them out: ``w`` (160, 896) int32, ``cbf``
+    (3, 384, 128) the bf16 taps as float32 -> (160, 384) int32.  Each
+    repeat's dot is :func:`bf16_dot_f32`, truncated whole, then summed over
+    the block's slice in uint32; the slices meet in uint32."""
+    f = BF16_GEMM
+    launch = geometry(f, reps, sms)
+    out = np.zeros((160, 384), np.uint32)
+    for s, grp, rt in np.ndindex(*launch.grid):
+        rows = slice(f.rows * rt, f.rows * (rt + 1))
+        cols = slice(f.cols * grp, f.cols * (grp + 1))
+        wt = w[rows, 256 * grp:256 * grp + f.k]
+        total = np.zeros((f.rows, f.cols), np.uint32)
+        for step in launch.slice_steps(s):
+            for j in range(f.rep_step):         # warp j: repeat 8 step + j
+                r = f.rep_step * step + j
+                if r < reps:
+                    total = wrap_add(total, bf16_dot_f32(wt, cbf[grp], r))
+        out[rows, cols] = wrap_add(out[rows, cols], total)
+    return out.view(np.int32)
+
+
 def dense4_gemm_model(wd: np.ndarray, cxh: np.ndarray, cxl: np.ndarray, reps: int,
                       sms: int = H100_SMS) -> np.ndarray:
     """Kernel J's ``dense4`` in its gemm form, block by block, step by step
@@ -279,7 +350,18 @@ def cover(form: FormGeometry, reps: int, sms: int = H100_SMS) -> np.ndarray:
     tid = np.arange(form.threads)
     for s, ty, tz in np.ndindex(*launch.grid):
         for step in launch.slice_steps(s):
-            if form is F32_GEMM:
+            if form is BF16_GEMM:
+                # warp w: repeat 8 step + w; lane (g, q): rows g, g + 8,
+                # columns 8 j + 2 q + c of the group's 128
+                warp, lane = tid // 32, tid % 32
+                g, q = lane // 4, lane % 4
+                j, h, c = np.meshgrid(np.arange(16), np.arange(2), np.arange(2), indexing="ij")
+                cols = form.cols * ty + 8 * j.ravel() + 2 * q[:, None] + c.ravel()
+                rows = form.rows * tz + g[:, None] + 8 * h.ravel()
+                r = form.rep_step * step + warp
+                live = r < reps
+                np.add.at(counts, (r[live, None], rows[live], cols[live]), 1)
+            elif form is F32_GEMM:
                 # thread (tm, tn): row tm, repeats j, columns 4 tn + {0..3, 64..67}
                 tm, tn = tid // 16, tid % 16
                 cols = (form.cols * ty + 4 * tn[:, None] + np.array([0, 1, 2, 3, 64, 65, 66, 67]))

@@ -2,8 +2,10 @@
 plain C interface, bound with ctypes.
 
 Two libraries, each built on first use into
-``build/libiqo_tpu_torch/<hash of its sources>/`` beside the package, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  Each
+``build/libiqo_tpu_torch/<hash of its sources>/`` beside the package in a
+writable source checkout, else under ``$LIBIQO_TPU_CACHE`` or the temporary
+directory (:func:`..utils.build_root.build_root`), so an edited source is
+rebuilt and an unchanged one is loaded as it is.  Each
 source is compiled by its own ``nvcc -c``, all started together, and the
 objects are linked by one ``nvcc -shared``:
 
@@ -30,6 +32,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from ..utils.build_root import build_root
 
 __all__ = ["BuildError", "bind_tiled", "build_dir", "build_library",
            "compile_command", "exp_build_dir", "find_nvcc", "load",
@@ -72,11 +76,11 @@ def _digest(csrc: Path = CSRC) -> str:
 
 
 def build_dir() -> Path:
-    return _PKG.parent / "build" / "libiqo_tpu_torch" / _digest()
+    return build_root(_PKG) / _digest()
 
 
 def exp_build_dir() -> Path:
-    return _PKG.parent / "build" / "libiqo_tpu_torch" / f"exp-{_digest(EXP_CSRC)}"
+    return build_root(_PKG) / f"exp-{_digest(EXP_CSRC)}"
 
 
 def find_nvcc() -> str | None:
@@ -204,6 +208,10 @@ def _bind_experiments(lib: ctypes.CDLL) -> ctypes.CDLL:
             ("iqo_exp_readsum", [p, p, i, i, p]),        # src, dst, h, w, stream
             # kind, a, b (K-major), out, steps, m, n, k, stream
             ("iqo_exp_mma_steps", [i, p, p, p, i, i, i, i, p]),
+            # kind, a, b (K-major), out, steps, m, n, k, persistent blocks, stream
+            ("iqo_exp_mma_wgmma", [i, p, p, p, i, i, i, i, i, p]),
+            ("iqo_exp_mma_wgmma_setup", []),
+            ("iqo_exp_mma_wgmma_shape", [ctypes.POINTER(i)]),
             # ymode, xmode, band, cy, cx0t, cx1t, cx2t, out, tiles, stream
             ("iqo_exp_banded", [i, i, p, p, p, p, p, p, i, p]),
             ("iqo_exp_banded_setup", []),
@@ -225,6 +233,7 @@ def _bind_experiments(lib: ctypes.CDLL) -> ctypes.CDLL:
             ("iqo_exp_xpass_setup", []),
             # w / wd, c / cxt, out, reps, slices, steps per slice, stream
             ("iqo_exp_xscheme_gemm", [p, p, p, i, i, i, p]),
+            ("iqo_exp_xscheme_bf16_gemm", [p, p, p, i, i, i, p]),
             ("iqo_exp_vpu_gemm", [p, p, p, i, i, i, p]),
             ("iqo_exp_xpass_gemm_setup", []),
             ("iqo_exp_xpass_gemm_shape", [ctypes.POINTER(i)]),

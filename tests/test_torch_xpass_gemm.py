@@ -1,15 +1,20 @@
-"""The redesigned X-pass probe forms (``f32_2dot`` and ``dense4`` in their
-``gemm`` form, ``libiqo_tpu_torch/csrc/exp/exp_xpass_gemm.cu``) on the CPU:
-their geometry and the NumPy model of their schedules
+"""The redesigned X-pass probe forms (``f32_2dot``, ``bf16_1dot`` and
+``dense4`` in their ``gemm`` form,
+``libiqo_tpu_torch/csrc/exp/exp_xpass_gemm.cu``) on the CPU: their geometry
+and the NumPy model of their schedules
 (``libiqo_tpu_torch/experiments/xpass_gemm.py``) against the plain versions
 and the TPU scripts' own Pallas kernels in interpret mode.
 
 The kernels run only on the card; here the model walks the same blocks,
 repeat slices, steps and K chunks, with the split of ``w + r`` in int32 and
-the slices meeting in uint32.  Tolerance 0, bit for bit, everywhere: every
-f32 sum the forms take is an integer whose |terms| sum below 2^24 (the model
-asserts it).  Tests that need the card are ``cuda``-marked and skip without
-one.
+the slices meeting in uint32.  Tolerance 0, bit for bit, for ``f32_2dot``
+and ``dense4``: every f32 sum they take is an integer whose |terms| sum
+below 2^24 (the model asserts it).  ``bf16_1dot``'s sums pass 2^24, so its
+f32 result depends on the order of summation: its model sums in one order
+the tensor cores could take and is held within ``exp_x_schemes.bf16_bound``
+(the f32 summation bound, unchanged), bit for bit only where the order does
+not enter (the slices' uint32 meeting).  Tests that need the card are
+``cuda``-marked and skip without one.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from libiqo_tpu_torch.experiments import xpass_gemm as xg
 
 ROOT = Path(__file__).resolve().parent.parent
 SOURCE = ROOT / "libiqo_tpu_torch" / "csrc" / "exp" / "exp_xpass_gemm.cu"
-FORMS = {"f32_2dot": (xg.F32_GEMM, xs.R), "dense4": (xg.DENSE4_GEMM, vx.R)}
+FORMS = {"f32_2dot": (xg.F32_GEMM, xs.R), "dense4": (xg.DENSE4_GEMM, vx.R),
+         "bf16_1dot": (xg.BF16_GEMM, xs.R)}
 
 
 @pytest.fixture(scope="module")
@@ -138,6 +144,95 @@ def test_models_refuse_sums_past_2_24(xs_inputs):
         _f32_model(w, big, 1)
 
 
+def _bf16_model(w, c, reps, sms=xg.H100_SMS):
+    cbf = xs.build_cvals("bf16_1dot", c)["cbf"].to(torch.float32).numpy()
+    return xg.bf16_gemm_model(w.numpy(), cbf, reps, sms)
+
+
+def _within_bf16_bound(got, want, w, c, reps):
+    """|got - want| <= bf16_bound at every output; returns the largest share
+    of the bound."""
+    err = np.abs(np.asarray(got, np.int64) - np.asarray(want, np.int64)).astype(np.float64)
+    bound = xs.bf16_bound(w, xs.build_cvals("bf16_1dot", c), reps).numpy()
+    assert (err <= bound).all(), f"{int((err > bound).sum())} outputs outside the bound"
+    return float((err / bound).max())
+
+
+@pytest.mark.parametrize("reps", [1, 3, 9])
+def test_bf16_gemm_model_within_the_bound_of_plain(xs_inputs, reps):
+    """Each repeat's f32 dot summed K step by K step (an order the tensor
+    cores could take), truncated, the repeats and slices met in uint32:
+    within bf16_bound of the plain version's f32 rounding of the exact sum."""
+    w, c = xs_inputs
+    want = xs.x_scheme_plain("bf16_1dot", w, xs.build_cvals("bf16_1dot", c), reps)
+    assert _within_bf16_bound(_bf16_model(w, c, reps), want.numpy(), w, c, reps) < 1.0
+
+
+@pytest.mark.parametrize("reps, sms", [(67, 13), (67, 20)])
+def test_bf16_gemm_model_over_slices_of_several_steps(xs_inputs, reps, sms):
+    """Slices of several steps of 8 repeats (the last step partial at 67):
+    the meeting of the slices still stays within the bound of plain."""
+    w, c = xs_inputs
+    launch = xg.geometry(xg.BF16_GEMM, reps, sms)
+    assert launch.steps_per_slice > 1 and launch.slices > 1
+    want = xs.x_scheme_plain("bf16_1dot", w, xs.build_cvals("bf16_1dot", c), reps)
+    _within_bf16_bound(_bf16_model(w, c, reps, sms), want.numpy(), w, c, reps)
+
+
+def test_bf16_gemm_model_within_the_bound_of_the_script(monkeypatch, interpret, xs_inputs):
+    """The script's own ``make("bf16_1dot")`` at R = 3, in interpret mode
+    (XLA's order of summation): within the same bound of the model."""
+    mod = _script("exp_x_schemes", monkeypatch, R=3)
+    cv = mod.build_cvals("bf16_1dot")
+    call, names = mod.make("bf16_1dot", cv)
+    args = [jnp.asarray(mod.W16)]
+    for n in names:
+        args.extend(cv[n])
+    w, c = xs_inputs
+    _within_bf16_bound(_bf16_model(w, c, 3), np.asarray(call(*args)), w, c, 3)
+
+
+@pytest.mark.parametrize("reps, sms", [(40, 20), (67, 132)])
+def test_bf16_gemm_slices_meet_to_the_serial_sum_where_it_wraps(xs_inputs, reps, sms):
+    """Over 20 or 67 repeats the sums pass 2^31 (each dot reaches ~1.3e9):
+    the slices, each summed in uint32 and met in uint32 in the output, equal
+    the serial int32-wrapped sum of the same per-repeat dots, bit for bit."""
+    w, c = xs_inputs
+    cbf = xs.build_cvals("bf16_1dot", c)["cbf"].to(torch.float32).numpy()
+    wn = w.numpy()
+    serial = np.zeros((160, 384), np.int64)
+    for g in range(3):
+        wt = wn[:, 256 * g:256 * g + 384]
+        for r in range(reps):
+            serial[:, 128 * g:128 * (g + 1)] += xg.bf16_dot_f32(wt, cbf[g], r)
+    assert np.abs(serial).max() > 2**31
+    serial = ((serial + 2**31) % 2**32 - 2**31).astype(np.int32)
+    assert xg.geometry(xg.BF16_GEMM, reps, sms).slices > 1
+    np.testing.assert_array_equal(xg.bf16_gemm_model(wn, cbf, reps, sms), serial)
+
+
+def test_the_int_path_probe_leaves_the_dots_in_int32(xs_inputs):
+    """The card test and chip_smoke.py send one block down the kernel's int32
+    path by raising work column 800 of the first row tile past 2^24: no tap
+    of any group reads that column, so no dot changes."""
+    w, c = xs_inputs
+    assert int(c[:, 266:].abs().sum()) == 0             # taps end at k 265
+    wide = w.clone()
+    wide[:16, 800] += 2**24
+    cv = xs.build_cvals("bf16_1dot", c)
+    assert torch.equal(xs.x_scheme_plain("bf16_1dot", wide, cv, 3),
+                       xs.x_scheme_plain("bf16_1dot", w, cv, 3))
+    assert all(not 256 * g <= 800 < 256 * g + 384 for g in (0, 1))
+
+
+def test_bf16_round_is_torchs():
+    rng = np.random.default_rng(4)
+    x = np.concatenate([rng.integers(-2**24, 2**24, 4096), np.arange(-1000, 1000),
+                        [255.5, 256.5, 257.5, 0.0, -0.0]]).astype(np.float32)
+    want = torch.from_numpy(x).to(torch.bfloat16).to(torch.float32).numpy()
+    np.testing.assert_array_equal(xg.bf16_round(x), want)
+
+
 # ---- geometry ---------------------------------------------------------------
 
 @pytest.mark.parametrize("variant", FORMS)
@@ -169,11 +264,15 @@ def test_slices_cover_the_steps(variant, reps, sms):
 
 @pytest.mark.parametrize("variant", FORMS)
 def test_the_grid_fills_the_card_at_r(variant):
-    """At R the grid holds at least two blocks per SM of the H100, with at
+    """At R the grid holds at least two blocks per SM of the H100 (f32_2dot,
+    dense4), or one wave of blocks on nine tenths of the SMs (bf16_1dot,
+    whose block's set-up weighs a step: the fewest blocks win), with at
     least two warps per scheduler on each SM."""
     form, r_full = FORMS[variant]
     launch = xg.geometry(form, r_full)
-    assert launch.blocks >= 2 * xg.H100_SMS
+    assert launch.blocks >= form.fill * xg.H100_SMS
+    if form.fill == 0:
+        assert 0.9 * xg.H100_SMS <= launch.blocks <= xg.H100_SMS * form.blocks_per_sm
     assert form.blocks_per_sm * form.threads // 32 >= 8
 
 
@@ -183,8 +282,8 @@ def test_shared_memory_fits(variant):
     assert form.smem <= xg.SMEM_LIMIT
     assert form.blocks_per_sm >= 1
     assert form.blocks_per_sm * (form.smem + 1024) <= xg.SMEM_PER_SM
-    assert {"f32_2dot": 229_376, "dense4": 52_224}[variant] == form.smem
-    assert {"f32_2dot": 1, "dense4": 2}[variant] == form.blocks_per_sm
+    assert {"f32_2dot": 229_376, "dense4": 52_224, "bf16_1dot": 123_904}[variant] == form.smem
+    assert {"f32_2dot": 1, "dense4": 2, "bf16_1dot": 1}[variant] == form.blocks_per_sm
 
 
 def _constexprs(namespace: str) -> dict[str, int]:
@@ -199,7 +298,8 @@ def _constexprs(namespace: str) -> dict[str, int]:
     return out
 
 
-@pytest.mark.parametrize("namespace, form", [("gi", xg.F32_GEMM), ("gj", xg.DENSE4_GEMM)])
+@pytest.mark.parametrize("namespace, form", [("gi", xg.F32_GEMM), ("gj", xg.DENSE4_GEMM),
+                                             ("gb", xg.BF16_GEMM)])
 def test_host_geometry_is_the_sources(namespace, form):
     """The host's geometry is the one ``exp_xpass_gemm.cu`` is compiled with
     (on the card, ``iqo_exp_xpass_gemm_shape`` says the same)."""
@@ -209,7 +309,7 @@ def test_host_geometry_is_the_sources(namespace, form):
     assert k["kM"] == form.m and k["kChunks"] == form.chunks
     smem = k["kSmem"]
     assert smem == form.smem
-    if namespace == "gi":
+    if namespace in ("gi", "gb"):
         assert (k["kN"], k["kTH"] // k["kRows"], k["kGroups"]) == (form.cols, form.tiles_z,
                                                                     form.tiles_y)
     else:
@@ -219,8 +319,8 @@ def test_host_geometry_is_the_sources(namespace, form):
 
 def test_source_names_what_it_replaces():
     head = SOURCE.read_text().split("#include")[0]
-    for ref in ("scripts/exp_x_schemes.py", ":156", "scripts/exp_vpu_xpass.py",
-                "1.41 us", "0.445 us", "mad.lo.u32"):
+    for ref in ("scripts/exp_x_schemes.py", ":156", ":271", "scripts/exp_vpu_xpass.py",
+                "1.41 us", "0.0477 us", "0.445 us", "mad.lo.u32", "bf16_bound"):
         assert ref in head
 
 
@@ -255,14 +355,17 @@ def test_split_is_the_plain_versions():
 # ---- the wrappers -------------------------------------------------------------
 
 def test_forms_and_launch_keys():
-    assert xs.ROWS[-1] == ("f32_2dot", "gemm") and vx.ROWS[-1] == ("dense4", "gemm")
-    assert set(xs.LAUNCHES) == {*xs.VARIANTS, "f32_2dot[gemm]"}
+    assert xs.ROWS[-2:] == (("f32_2dot", "gemm"), ("bf16_1dot", "gemm"))
+    assert vx.ROWS[-1] == ("dense4", "gemm")
+    assert set(xs.LAUNCHES) == {*xs.VARIANTS, "f32_2dot[gemm]", "bf16_1dot[gemm]"}
+    assert xs.launch_key("bf16_1dot", "gemm") == "bf16_1dot[gemm]"
     assert set(vx.LAUNCHES) == {*vx.VARIANTS, "dense4[gemm]"}
     assert xs.launch_key("f32_2dot", "serial") == "f32_2dot"
 
 
 @pytest.mark.parametrize("variant, form", [("f32_2dot", "nope"), ("s8_4dot", "gemm"),
-                                           ("bf16_1dot", "gemm"), ("empty", "dense")])
+                                           ("s16_1dot", "gemm"), ("empty", "dense"),
+                                           ("bf16_1dot", "wgmma")])
 def test_x_scheme_refuses_a_bad_form(xs_inputs, variant, form):
     w, c = xs_inputs
     with pytest.raises(ValueError, match="takes form"):
@@ -273,6 +376,25 @@ def test_x_scheme_refuses_a_bad_form(xs_inputs, variant, form):
 def test_vpu_xpass_refuses_a_bad_form(vx_ops, variant, form):
     with pytest.raises(ValueError, match="takes form"):
         vx.vpu_xpass(variant, vx_ops, 1, form)
+
+
+def test_bf16_gemm_takes_the_k_major_taps(xs_inputs):
+    """The gemm form reads ``cbf_k``, the taps laid out K-major once by
+    build_cvals; without it, or with it off shape or strided, it refuses."""
+    w, c = xs_inputs
+    cv = xs.build_cvals("bf16_1dot", c)
+    assert torch.equal(cv["cbf_k"], cv["cbf"].transpose(1, 2)) and cv["cbf_k"].is_contiguous()
+    with pytest.raises(ValueError, match="cbf_k"):
+        xs.x_scheme("bf16_1dot", w, {"cbf": cv["cbf"]}, 1, "gemm")
+    with pytest.raises(ValueError, match="cbf_k"):
+        xs.x_scheme("bf16_1dot", w, {**cv, "cbf_k": cv["cbf"]}, 1, "gemm")
+    strided = torch.empty((3, 128, 2 * 384), dtype=torch.bfloat16)[..., ::2]
+    strided.copy_(cv["cbf_k"])
+    with pytest.raises(ValueError, match="contiguous"):
+        xs.x_scheme("bf16_1dot", w, {**cv, "cbf_k": strided}, 1, "gemm")
+    # the serial form reads cbf only
+    assert torch.equal(xs.x_scheme("bf16_1dot", w, {"cbf": cv["cbf"]}, 1, "serial"),
+                       xs.x_scheme_plain("bf16_1dot", w, cv, 1))
 
 
 def test_wrappers_refuse_non_contiguous_tensors(xs_inputs, vx_ops):
@@ -311,6 +433,9 @@ def test_gemm_forms_run_the_plain_versions_on_cpu(xs_inputs, vx_ops):
                        xs.x_scheme("f32_2dot", w, cv, 2, "serial"))
     assert torch.equal(vx.vpu_xpass("dense4", vx_ops, 1),
                        vx.vpu_xpass_plain("dense4", vx_ops, 1))
+    cvb = xs.build_cvals("bf16_1dot", c)
+    assert torch.equal(xs.x_scheme("bf16_1dot", w, cvb, 2),
+                       xs.x_scheme_plain("bf16_1dot", w, cvb, 2))
     assert xs.LAUNCHES.total() == 0 and vx.LAUNCHES.total() == 0
 
 
@@ -332,6 +457,22 @@ def test_f32_gemm_equals_plain_on_card(cuda_device, reps):
     assert torch.equal(got, xs.x_scheme_plain("f32_2dot", w, cv, reps))
     if reps == 1:
         assert torch.equal(got, xs.gold(w, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("reps", [1, 3, 64, 67, xs.R])
+def test_bf16_gemm_within_the_bound_of_plain_on_card(cuda_device, reps, wide):
+    """On the script's tile every block takes the float path; with work
+    column 800 of the first row tile raised by 2^24 (in group 2's window
+    only, where no tap reads it) that block takes the int32 path."""
+    w, c = xs.inputs(cuda_device)
+    if wide:
+        w[:16, 800] += 2**24
+    cv = xs.build_cvals("bf16_1dot", c)
+    got = xs.x_scheme("bf16_1dot", w, cv, reps, "gemm")
+    err = (got.to(torch.int64) - xs.x_scheme_plain("bf16_1dot", w, cv, reps).to(torch.int64))
+    assert bool((err.abs().to(torch.float64) <= xs.bf16_bound(w, cv, reps)).all())
 
 
 @pytest.mark.cuda
