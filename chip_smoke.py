@@ -121,14 +121,17 @@ Phases:
    ``scripts/exp_dma_ceiling.py``, ``exp_int8_mxu.py`` and
    ``exp_banded_dots.py``): each of their four kernels == its plain version
    bit for bit at the TPU scripts' full shapes in every variant (the
-   ``stream_map`` rows and ``readsum``, the four ``mma_steps`` rows at
+   ``stream_map`` rows and ``readsum`` in its two forms, ``warp`` and
+   ``rows8``, also at a ragged height and at W = 128,
+   the four ``mma_steps`` rows at
    STEPS 64, the nine ``banded_tile`` modes at GRID 35); then each script's
    ``main()``, with every count set to 0 just before, which asserts every
    chain checksum and holds one output of each other row to the plain
    version; every variant must have launched.  Times beside the bound and
    the library call, timed under the kernel's own protocol
    (``torch.add(out=)`` and ``Tensor.copy_`` in the same chain for kernel
-   A, a ``uint8`` ``sum`` fold for B, ``torch._int_mm`` for C, with bf16
+   A, a ``uint8`` ``sum`` fold for B, timed in turns with B's two forms
+   inside ``main()``, ``torch._int_mm`` for C, with bf16
    ``torch.matmul`` as a yardstick; none for D, which no one call computes:
    its two products alone as two bf16 ``torch.bmm`` with ``out_dtype=
    torch.float32``, rebuilt into D's function and held equal to its plain
@@ -153,7 +156,9 @@ Phases:
    variant, bit for bit except ``bf16_1dot``, which is held within the f32
    summation bound ``(K + 1) 2^-24 sum |a c|`` per application (its LSB
    error against the exact product printed beside the script's);
-   ``slice_groups`` in its u8 form and its int32-sum check form; the TMA
+   ``slice_groups`` in its u8 form and its int32-sum check form, in both
+   forms, ``mma_sync`` and ``wgmma``, the latter also at 35 steps (a partial
+   M tile and a partial last wave); the TMA
    window probes X1 (2-D and batch 3), X2 and X3.  Then the five scripts'
    ``main()``, with every count set to 0 just before; every variant must
    have launched, the window probes must be OK, and the exactness checks
@@ -161,7 +166,9 @@ Phases:
    library yardsticks under the kernels' own protocol (``torch._int_mm`` of
    the s8 dots alone, ``torch.bmm`` in f32 with TF32 off, bf16 ``torch.bmm``
    with ``out_dtype=torch.float32``, an int32 chain of elementwise calls, one
-   corner-gathering index).  Then the redesigned forms of ``f32_2dot`` and
+   corner-gathering index; for L one such ``bmm`` over its 45 windows, and
+   three, one a plane, both timed in turns with L's two forms inside
+   ``main()``).  Then the redesigned forms of ``f32_2dot`` and
    ``dense4`` (``csrc/exp/exp_xpass_gemm.cu``, ``form="gemm"``): == plain
    bit for bit at 1, 3, R/8 and R repeats and a partial last step, == gold
    (I) and == the library products (I and J) at one application, their
@@ -1453,7 +1460,8 @@ def phase_probes(card: str) -> list:
     just before (chain checksums asserted inside); plain and library times.
     Kernel C in both forms, the first, ``mma_sync``, and the ``wgmma`` form, the
     latter also at :data:`MMA_SECOND_SHAPE`; ``mxu.main()`` times both forms
-    and each row's library call in turns.  Returns the five entries of the
+    and each row's library call in turns; ``dma.main()`` times B's two
+    forms and the library fold in turns.  Returns the six entries of the
     kernels line."""
     from libiqo_tpu_torch.experiments import (_harness, exp_banded_dots as bd,
                                               exp_dma_ceiling as dma,
@@ -1464,18 +1472,28 @@ def phase_probes(card: str) -> list:
     gen.manual_seed(SEED + 5)
 
     # 1. kernel == plain, every variant, full shapes
-    err = dict.fromkeys(("stream_map", "readsum", "mma_steps", "mma_steps[wgmma]",
-                         "banded_tile"), 0.0)
+    err = dict.fromkeys(("stream_map", "mma_steps", "mma_steps[wgmma]", "banded_tile"), 0.0)
     dma_in = probe_inputs(dma, gen)
     for row, (op, x) in dma_in.items():
-        if op == "readsum":
-            got, want = dma.readsum(x), dma.readsum_plain(x)
-        else:
-            got, want = dma.stream_map(x, op), dma.stream_map_plain(x, op)
-        kernel = "readsum" if op == "readsum" else "stream_map"
-        err[kernel] = max(err[kernel], probe_err(f"{row} {op}", got, want))
+        if op != "readsum":
+            err["stream_map"] = max(err["stream_map"], probe_err(
+                f"{row} {op}", dma.stream_map(x, op), dma.stream_map_plain(x, op)))
+    # B in every form, at the script's plane, a ragged height and one chunk
+    # of 128 columns
+    rs_planes = [dma_in["readsum"][1], torch.randint(
+        0, 256, (dma.H + 1, dma.W), dtype=torch.uint8, device=dev, generator=gen),
+        torch.randint(0, 256, (dma.H, dma.LANES), dtype=torch.uint8, device=dev,
+                      generator=gen)]
+    for x in rs_planes:
+        want = dma.readsum_plain(x)
+        for form in dma.FORMS_READSUM:
+            key = dma.readsum_key(form)
+            err[key] = max(err.get(key, 0.0), probe_err(f"readsum[{form}] {tuple(x.shape)}",
+                                                         dma.readsum(x, form), want))
+    del rs_planes[1:]
     print(f"stream_map == plain on {len(dma_in) - 1} exp_dma_ceiling rows, "
-          f"readsum == plain on {tuple(dma_in['readsum'][1].shape)}, bit for bit")
+          f"readsum in forms {dma.FORMS_READSUM} == plain on (H, W), (H + 1, W) and "
+          f"(H, 128) at (H, W) = {(dma.H, dma.W)}, bit for bit")
     for row, (in_dt, acc) in mxu.ROWS.items():
         a, b = mxu.inputs(in_dt, dev)
         bt = mxu.k_major(b)
@@ -1513,7 +1531,8 @@ def phase_probes(card: str) -> list:
     rows = {"dma": dma.main(), "mxu": mxu.main(), "bd": bd.main()}
     torch.cuda.synchronize()
     launches = {"stream_map": sum(dma.LAUNCHES[op] for op in dma.OPS),
-                "readsum": dma.LAUNCHES["readsum"],
+                **{dma.readsum_key(f): dma.LAUNCHES[dma.readsum_key(f)]
+                   for f in dma.FORMS_READSUM},
                 "mma_steps": sum(mxu.LAUNCHES[r] for r in mxu.ROWS),
                 "mma_steps[wgmma]": sum(mxu.LAUNCHES[mxu.launch_key(r, "wgmma")]
                                         for r in mxu.ROWS),
@@ -1539,12 +1558,8 @@ def phase_probes(card: str) -> list:
                                  dma.INNER[4], dma.expect_copy)
     p_inc = plain_ms(lambda t: dma.stream_map_plain(t, "inc_u8"), xb)
     rs = dma_in["readsum"][1]
-
-    def lib_fold(t):
-        return t.view(t.shape[0], -1, dma.LANES).sum(1, dtype=torch.uint8)
-    check(torch.equal(lib_fold(rs), dma.readsum_plain(rs)),
-          "the library fold != readsum_plain")
-    lib_rs = _harness.launches_ms(lib_fold, _harness.perturbed(rs, dma.READS))
+    # B's library fold is held equal to the plain version and timed in turns
+    # with B's forms inside dma.main()
     p_readsum = plain_ms(dma.readsum_plain, rs)
     # C's library calls (torch._int_mm, torch.mm) are held equal to the plain
     # version and timed in turns with both forms inside mxu.main(); the bf16
@@ -1597,10 +1612,15 @@ def phase_probes(card: str) -> list:
           f"(bytes) ({card})")
     print(f"probe copy33MB: kernel {d['copy33MB']['ms']!r} ms, library "
           f"b.copy_(a), same chain, {lib_copy!r} ms ({card})")
-    print(f"probe readsum: kernel {d['readsum']['ms']!r} ms, plain {p_readsum!r} "
-          f"ms, library x.view(h, -1, 128).sum(1, dtype=uint8) {lib_rs!r} ms "
+    lib_rs = d["readsum_library"]["ms"]
+    print(f"probe readsum, in turns: warp {d['readsum[warp]']['ms']!r} ms, "
+          f"rows8 {d['readsum']['ms']!r} ms, library "
+          f"x.view(h, -1, 128).sum(1, dtype=uint8) {lib_rs!r} ms, an empty launch "
+          f"{d['launch_floor']['ms']!r} ms; plain {p_readsum!r} ms; "
+          f"bound {(dma.H * dma.W + dma.H * dma.LANES) / HBM_BYTES_PER_S * 1e3!r} ms (bytes) "
           f"({card})")
-    for row in ("inc", "copy33MB", "inc133MB", "copy133MB", "readsum"):
+    for row in ("inc", "copy33MB", "inc133MB", "copy133MB", "readsum", "readsum[warp]",
+                "readsum_library", "readsum133MB"):
         print(f"probe ceiling {row}: {d[row]['gbs']!r} GB/s against the data "
               f"sheet's {HBM_BYTES_PER_S / 1e9!r} GB/s ({card})")
     for row, r in m.items():
@@ -1629,15 +1649,19 @@ def phase_probes(card: str) -> list:
          "bound_ms": inc_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": lib_add, "row": "inc33MB",
          "copy33MB_ms": d["copy33MB"]["ms"], "copy33MB_library_ms": lib_copy,
-         "gbs": {r: d[r]["gbs"] for r in d if r not in ("readsum", "resize4k")}},
-        {"name": "readsum", "route": "cuda",
-         "source": "libiqo_tpu_torch/csrc/exp/exp_stream.cu",
-         "replaces": "scripts/exp_dma_ceiling.py:73",
-         "launches": launches["readsum"], "max_abs_err": err["readsum"],
-         "ms": d["readsum"]["ms"], "plain_ms": p_readsum,
-         "bound_ms": rs_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": lib_rs, "gbs": d["readsum"]["gbs"],
-         "resize4k_ms": d["resize4k"]["ms"]},
+         "gbs": {r: d[r]["gbs"] for r in d
+                 if not r.startswith("readsum") and r not in ("resize4k", "launch_floor")}},
+        *({"name": dma.readsum_key(f), "route": "cuda",
+           "source": "libiqo_tpu_torch/csrc/exp/exp_stream.cu",
+           "replaces": "scripts/exp_dma_ceiling.py:73", "form": f,
+           "launches": launches[dma.readsum_key(f)], "max_abs_err": err[dma.readsum_key(f)],
+           "ms": d[dma.readsum_key(f)]["ms"], "plain_ms": p_readsum,
+           "bound_ms": rs_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": lib_rs, "gbs": d[dma.readsum_key(f)]["gbs"],
+           "rows8_ms": d["readsum"]["ms"], "launch_floor_ms": d["launch_floor"]["ms"],
+           **({"resize4k_ms": d["resize4k"]["ms"]} if f == "rows8" else
+              {"gbs_133MB": d["readsum133MB"]["gbs"]})}
+          for f in reversed(dma.FORMS_READSUM)),
         {"name": "mma_steps", "route": "cuda",
          "source": "libiqo_tpu_torch/csrc/exp/exp_mma.cu",
          "replaces": "scripts/exp_int8_mxu.py:29",
@@ -1844,6 +1868,7 @@ def phase_band_fetch(card: str) -> list:
 
 
 GEMM_REPS = {"xs": (1, 3, 64, 67, 512), "vx": (1, 3, 13, 24)}   # R/8, R and partial steps
+SLICE_SECOND_STEPS = 35    # L's wgmma form: a partial M tile and a partial last wave
 
 
 def probe_turns(fns: dict, inputs) -> dict:
@@ -1868,8 +1893,9 @@ def phase_xpass(card: str) -> list:
     == plain at 1, 3, R/8 and R repeats (and == gold, or the library
     products, at one application), and ``bf16_1dot``'s within its bound of
     plain at the same repeats, timed in turns with the serial forms (bf16_1dot
-    also with its bf16 ``torch.bmm``).  Returns the eight entries of the
-    kernels line."""
+    also with its bf16 ``torch.bmm``).  L in both forms, the ``wgmma`` form
+    also at :data:`SLICE_SECOND_STEPS` steps.  Returns the nine entries of
+    the kernels line."""
     from libiqo_tpu_torch.experiments import (_harness, exp_element_clamp as ec,
                                               exp_slice_align as sa, exp_vpu_rate as vr,
                                               exp_vpu_xpass as vx, exp_x_schemes as xs,
@@ -1877,7 +1903,8 @@ def phase_xpass(card: str) -> list:
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
     names = ("xscheme_tile", "vpu_xpass_tile", "op_mix", "slice_groups", "window_probe")
-    err = dict.fromkeys(names + ("xscheme_gemm", "vpu_xpass_gemm", "xscheme_bf16_gemm"), 0.0)
+    err = dict.fromkeys(names + ("xscheme_gemm", "vpu_xpass_gemm", "xscheme_bf16_gemm",
+                                 "slice_groups[wgmma]"), 0.0)
 
     # 1. kernel == plain, every variant, full shapes and repeats
     w, c = xs.inputs(dev)
@@ -1964,12 +1991,27 @@ def phase_xpass(card: str) -> list:
                 f"op_mix {mix} P={p}", vr.op_mix(src, mix, p), vr.op_mix_plain(src, mix, p)))
     print(f"op_mix == plain in all {len(vr.MIXES)} mixes x P {vr.PS} at {tuple(src.shape)}")
     sw, sops = sa.inputs(dev)
+    # L in both forms; the wgmma form also at 35 steps: a partial M tile and
+    # a partial last wave (540 tiles on the SMs)
+    sw35 = torch.cat([sw, sw[:SLICE_SECOND_STEPS - sa.GRID].flip(2)])
     for align, kl in sa.CONFIGS:
         for ck in (False, True):
-            err["slice_groups"] = max(err["slice_groups"], probe_err(
-                f"slice_groups {align},{kl} check={ck}", sa.slice_groups(sw, sops, align, kl, ck),
-                sa.slice_groups_plain(sw, sops, align, kl, ck)))
-    print(f"slice_groups == plain at {sa.CONFIGS} on {tuple(sw.shape)}, u8 and int32 sums")
+            for form, key in (("mma_sync", "slice_groups"), ("wgmma", "slice_groups[wgmma]")):
+                err[key] = max(err[key], probe_err(
+                    f"slice_groups[{form}] {align},{kl} check={ck}",
+                    sa.slice_groups(sw, sops, align, kl, ck, form),
+                    sa.slice_groups_plain(sw, sops, align, kl, ck)))
+            err["slice_groups[wgmma]"] = max(err["slice_groups[wgmma]"], probe_err(
+                f"slice_groups[wgmma] {align},{kl} check={ck} at {SLICE_SECOND_STEPS} steps",
+                sa.slice_groups(sw35, sops, align, kl, ck, "wgmma"),
+                sa.slice_groups_plain(sw35, sops, align, kl, ck)))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"slice_groups == plain at {sa.CONFIGS} on {tuple(sw.shape)}, u8 and int32 sums, "
+          f"both forms; the wgmma form also on {tuple(sw35.shape)}: "
+          f"{sa.wgmma_tiles(SLICE_SECOND_STEPS)} tiles on {sms} SMs, wave efficiency "
+          f"{sa.wave_efficiency(SLICE_SECOND_STEPS, sms)!r} (34 steps: "
+          f"{sa.wave_efficiency(sa.GRID, sms)!r})")
+    del sw35
     srcs = ec.inputs(dev)
     for row, fn, plain in (("x1", ec.window_x1, ec.window_x1_plain),
                            ("x1_batch", ec.window_x1, ec.window_x1_plain),
@@ -1991,6 +2033,10 @@ def phase_xpass(card: str) -> list:
     launches["xscheme_gemm"] = xs.LAUNCHES[xs.launch_key("f32_2dot", "gemm")]
     launches["xscheme_bf16_gemm"] = xs.LAUNCHES[xs.launch_key("bf16_1dot", "gemm")]
     launches["vpu_xpass_gemm"] = vx.LAUNCHES[vx.launch_key("dense4", "gemm")]
+    launches["slice_groups"] = sum(sa.LAUNCHES[sa.launch_key(a, kl, "mma_sync")]
+                                   for a, kl in sa.CONFIGS)
+    launches["slice_groups[wgmma]"] = sum(sa.LAUNCHES[sa.launch_key(a, kl, "wgmma")]
+                                          for a, kl in sa.CONFIGS)
     idle = [f"{mod.__name__.rsplit('.', 1)[-1]}:{v}" for mod in mods
             for v, n in mod.LAUNCHES.items() if n == 0]
     check(not idle, f"X-pass probe variants never launched by main(): {idle}")
@@ -2120,26 +2166,10 @@ def phase_xpass(card: str) -> list:
     check(torch.equal(lib_epi(src), vr.op_mix_plain(src, "epi", 8)),
           "the int32 chain != op_mix_plain epi P=8")
     lib_vr = _harness.launches_ms(lib_epi, _harness.perturbed(src, vr.ITERS))
-    # L: the banded dots alone, 15 groups as one batched product per plane,
-    # timed over ITERS perturbed tile stacks as the kernel
-    gk = sa.groups(128, 512)
-
-    def slice_windows(t):
-        return [torch.stack([p.reshape(-1, sa.BW)[:, k0:k0 + 512] for _, k0 in gk])
-                .to(torch.bfloat16).contiguous() for p in sa.split(t)]
-
-    lhs = slice_windows(sw)
-    rhs = [torch.stack([cc[k0:k0 + 512, o0:o0 + sa.GN] for o0, k0 in gk]).contiguous()
-           for cc in sops.c]
-    d = [torch.bmm(x, y, out_dtype=torch.float32).to(torch.int64) for x, y in zip(lhs, rhs)]
-    s = _harness.wrap(d[0] * 65280 - d[1] * 255 + d[2] * 256, 32)
-    s = s.permute(1, 0, 2).reshape(sw.shape[0], sa.TH, sa.TWF).to(torch.int32)
-    check(torch.equal(s, sa.slice_groups_plain(sw, sops, 128, 512, check=True)),
-          "torch.bmm(out_dtype=float32) over the windows != slice_groups_plain sums")
-    lib_sa = _harness.launches_ms(
-        lambda ls: [torch.bmm(x, y, out_dtype=torch.float32) for x, y in zip(ls, rhs)],
-        [slice_windows(t) for t in _harness.perturbed(sw, sa.ITERS)])
-    del lhs, d
+    # L: its dots as one bf16 torch.bmm with float32 out over the 45 windows
+    # (3 planes x 15 groups) and as three (one a plane), both held equal to
+    # the plain sums and timed in turns with both forms inside sa.main()
+    lib_sa = {name: (r["library_ms"], r["library3_ms"]) for name, r in rows["sa"].items()}
     # M: one indexing call gathering the 16 corners
     rows_i, cols_i = ec._corner_index(dev)
     flat = (rows_i[:, None] * ec.W + cols_i[None, :]).contiguous()
@@ -2150,8 +2180,9 @@ def phase_xpass(card: str) -> list:
     print(f"library: torch._int_mm of the s8 dots alone {lib_xs!r} ms per {xs.R} applications; "
           f"torch.bmm f32 (TF32 off) {lib_f32!r}; bf16_1dot's dots as one bf16 torch.bmm with "
           f"float32 out {lib_bf16!r}; dense4's dots as one bf16 torch.bmm with "
-          f"float32 out {lib_vx!r} ms per {vx.R}; int32 epi chain {lib_vr!r}; slice dots as 3 "
-          f"bf16 torch.bmm with float32 out {lib_sa!r}; corner gather {lib_ec!r} ({card})")
+          f"float32 out {lib_vx!r} ms per {vx.R}; int32 epi chain {lib_vr!r}; slice dots as "
+          f"(one, three) bf16 torch.bmm with float32 out {lib_sa!r}; corner gather {lib_ec!r} "
+          f"({card})")
 
     # the gemm forms against PR 7's serial forms, in turns, at R and R / 8
     ti = probe_turns({f"{form} {reps}": functools.partial(
@@ -2233,11 +2264,23 @@ def phase_xpass(card: str) -> list:
          "per_rep": {mx: rows["vr"][mx] for mx in vr.MIXES}},
         {"name": "slice_groups", "route": "cuda",
          "source": "libiqo_tpu_torch/csrc/exp/exp_slice.cu",
-         "replaces": "scripts/exp_slice_align.py:56",
+         "replaces": "scripts/exp_slice_align.py:56", "form": "mma_sync",
          "launches": launches["slice_groups"], "max_abs_err": err["slice_groups"],
+         "ms": l_["ms_mma_sync"], "plain_ms": p_sa, "bound_ms": l_["bound_ms"],
+         "bound_by": l_["bound_by"], "library_ms": l_["library_ms"],
+         "library3_ms": l_["library3_ms"], "row": "k0%128, kl=512",
+         "wgmma_ms": l_["ms"],
+         "rows": {r: v["ms_mma_sync"] for r, v in rows["sa"].items()}},
+        {"name": "slice_groups[wgmma]", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_slice_wgmma.cu",
+         "replaces": "scripts/exp_slice_align.py:56", "form": "wgmma",
+         "launches": launches["slice_groups[wgmma]"], "max_abs_err": err["slice_groups[wgmma]"],
          "ms": l_["ms"], "plain_ms": p_sa, "bound_ms": l_["bound_ms"],
-         "bound_by": l_["bound_by"], "library_ms": lib_sa, "row": "k0%128, kl=512",
-         "rows": {r: v["ms"] for r, v in rows["sa"].items()}},
+         "bound_by": l_["bound_by"], "library_ms": l_["library_ms"],
+         "library3_ms": l_["library3_ms"], "row": "k0%128, kl=512",
+         "mma_sync_ms": l_["ms_mma_sync"], "second_steps": SLICE_SECOND_STEPS,
+         "rows": {r: {k: v[k] for k in ("ms", "ms_mma_sync", "library_ms", "library3_ms",
+                                        "bound_ms")} for r, v in rows["sa"].items()}},
         {"name": "window_probe", "route": "cuda",
          "source": "libiqo_tpu_torch/csrc/exp/exp_clamp.cu",
          "replaces": "scripts/exp_element_clamp.py:44",

@@ -21,10 +21,25 @@
 // store (uint4), neighbouring threads on neighbouring addresses, in a grid
 // stride loop over a grid that fills the card several times over; the u8
 // add wraps per byte in one SIMD instruction (__vadd4), so no element is
-// widened.  Kernel B gives each row 8 threads of 16 lanes each; a thread
-// issues its row's W / 128 loads of 16 bytes back to back and sums the
-// bytes modulo 256 with __vadd4, which is `& 255` of the int32 sum.
-// Nothing is staged in shared memory: there is no reuse to keep.
+// widened.  Kernel B sums the bytes modulo 256 with __vadd4, which is `& 255`
+// of the int32 sum and exact in any order, in two forms:
+// * rows8 (readsum_kernel, the first form): 8 threads of 16 lanes a row, a
+//   thread's W / 128 loads of 16 bytes issued 8 at a time; 270 blocks of 64
+//   threads at 2160 rows, about 4 warps an SM, so at most ~16 KB of loads
+//   are in flight on an SM, and the 270 blocks sit 2 on 126 SMs and 3 on 6;
+// * warp (readsum_warp_kernel): one warp a row; lane t loads the row's
+//   16-byte pieces t, t + 32, ... (240 at W = 3840), kWarpLoads of them
+//   issued before their adds (predicated, with the streaming hint
+//   ld.global.cs: the plane is read once).  32 = 0 mod 8, so every piece of
+//   lane t lands on the 16 output lanes of group t % 8: the lane sums its
+//   pieces, then folds with its three partners (t ^ 8, t ^ 16) by two
+//   __shfl_xor_sync, and lanes 0-7 store 16 bytes each.  Blocks of one
+//   warp, 2,160 at 2,160 rows, all resident at once (16 or 17 an SM): every
+//   row of the plane is requested in the first microseconds (blocks of 2,
+//   4 or 8 warps, two warps a row, plain __ldg loads, and a persistent grid
+//   whose warps copied their rows by cp.async.bulk into rings in shared
+//   memory all timed slower on the H100).
+// Neither form stages anything in shared memory: there is no reuse to keep.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,6 +52,7 @@ constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;      // 16 blocks of 256 per SM
 constexpr int kReadsumLanes = 128;        // output lanes per row
 constexpr int kReadsumRowsPerBlock = 8;   // 8 threads of 16 lanes per row
+constexpr int kWarpLoads = 8;             // warp form: loads a lane issues before it adds
 
 template <int kOp>
 __device__ __forceinline__ uint32_t apply(uint32_t w) {
@@ -98,6 +114,46 @@ __global__ void readsum_kernel(const uint8_t* __restrict__ src,
   *reinterpret_cast<uint4*>(dst + (long long)row * kReadsumLanes + lane) = acc;
 }
 
+// lane t's sum of 16-byte pieces, folded over t, t ^ 8, t ^ 16, t ^ 24 (the
+// lanes of one group of 16 output lanes); lanes 0-7 store the row's 128
+__device__ __forceinline__ void fold_store(uint4 acc, uint8_t* __restrict__ dst, long long row,
+                                           int lane) {
+#pragma unroll
+  for (int off = 8; off < 32; off *= 2) {
+    acc.x = __vadd4(acc.x, __shfl_xor_sync(0xffffffffu, acc.x, off));
+    acc.y = __vadd4(acc.y, __shfl_xor_sync(0xffffffffu, acc.y, off));
+    acc.z = __vadd4(acc.z, __shfl_xor_sync(0xffffffffu, acc.z, off));
+    acc.w = __vadd4(acc.w, __shfl_xor_sync(0xffffffffu, acc.w, off));
+  }
+  if (lane < 8) *reinterpret_cast<uint4*>(dst + row * kReadsumLanes + 16 * lane) = acc;
+}
+
+__device__ __forceinline__ void add4(uint4& acc, const uint4 v) {
+  acc.x = __vadd4(acc.x, v.x);
+  acc.y = __vadd4(acc.y, v.y);
+  acc.z = __vadd4(acc.z, v.z);
+  acc.w = __vadd4(acc.w, v.w);
+}
+
+// The warp form: block = warp = row; each round issues kWarpLoads loads
+// (predicated) before it adds any.
+__global__ void __launch_bounds__(32)
+readsum_warp_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst, int w) {
+  const int row = blockIdx.x, lane = threadIdx.x;
+  const uint4* p = reinterpret_cast<const uint4*>(src + static_cast<long long>(row) * w);
+  const int pieces = w / 16;
+  uint4 acc = make_uint4(0, 0, 0, 0);
+  for (int base = lane; base < pieces; base += kWarpLoads * 32) {
+    uint4 v[kWarpLoads];
+#pragma unroll
+    for (int k = 0; k < kWarpLoads; ++k)
+      v[k] = base + 32 * k < pieces ? __ldcs(p + base + 32 * k) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int k = 0; k < kWarpLoads; ++k) add4(acc, v[k]);
+  }
+  fold_store(acc, dst, row, lane);
+}
+
 int launch_check() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace
@@ -140,6 +196,17 @@ int iqo_exp_stream_map(int op, const void* src, void* dst, long long nbytes,
     case kCopy: stream_map_kernel<kCopy><<<blocks, kThreads, 0, s>>>(in, out, nbytes); break;
     default: return 1001;
   }
+  return launch_check();
+}
+
+// Kernel B's warp form; iqo_exp_readsum is the rows8 form.
+int iqo_exp_readsum_warp(const void* src, void* dst, int h, int w, void* stream) {
+  if ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) % 16)
+    return 1002;
+  if (w % kReadsumLanes) return 1003;
+  if (h <= 0) return 0;
+  readsum_warp_kernel<<<h, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), w);
   return launch_check();
 }
 

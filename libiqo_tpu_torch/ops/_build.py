@@ -206,6 +206,7 @@ def _bind_experiments(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name, args in (
             ("iqo_exp_stream_map", [i, p, p, ll, p]),    # op, src, dst, bytes, stream
             ("iqo_exp_readsum", [p, p, i, i, p]),        # src, dst, h, w, stream
+            ("iqo_exp_readsum_warp", [p, p, i, i, p]),   # src, dst, h, w, stream
             # kind, a, b (K-major), out, steps, m, n, k, stream
             ("iqo_exp_mma_steps", [i, p, p, p, i, i, i, i, p]),
             # kind, a, b (K-major), out, steps, m, n, k, persistent blocks, stream
@@ -242,6 +243,10 @@ def _bind_experiments(lib: ctypes.CDLL) -> ctypes.CDLL:
             # align, kl, check, w, ct, out, steps, stream
             ("iqo_exp_slice_groups", [i, i, i, p, p, p, i, p]),
             ("iqo_exp_slice_setup", []),
+            # align, kl, check, w, ct, out, steps, persistent blocks, stream
+            ("iqo_exp_slice_wgmma", [i, i, i, p, p, p, i, i, p]),
+            ("iqo_exp_slice_wgmma_setup", []),
+            ("iqo_exp_slice_wgmma_shape", [ctypes.POINTER(i)]),
             ("iqo_exp_window_x1", [p, p, i, p]),         # src, out, planes, stream
             ("iqo_exp_window_x2", [p, p, p, p]),         # src, out, spill, stream
             ("iqo_exp_window_x3", [p, p, i, p]),         # var, out, steps, stream

@@ -24,28 +24,27 @@ Run on a card, from the repository root::
 
 Builds go to ``build/libiqo_tpu_torch/ablate-<hash>/<variant>/`` (the
 variant's header beside copies of the four ``resize_tiled*.cu`` sources; one
-``nvcc -c`` per source and variant, all started together).  Times: CUDA events, the card spinning
-while the host queues, min over 5 repeats of back-to-back calls on > 64 MB of
-distinct inputs, and each variant timed twice in the order kernel, variants,
-variants reversed, kernel (min of its two).  Prints one line per plane with
-the card's name and power limit.  Raises without a card.
+``nvcc -c`` per source and variant, all started together).  Times
+(:func:`._ablate.time_in_turns`): CUDA events, the card spinning while the
+host queues, min over 5 repeats of back-to-back calls on > 64 MB of distinct
+inputs, and each variant timed twice in the order kernel, variants, variants
+reversed, kernel (min of its two).  Prints one line per plane with the
+card's name and power limit.  Raises without a card.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..core.plan import build_plan
+from ..experiments import _harness
 from ..ops import _build, cuda_resize
+from . import _ablate
 
 __all__ = ["PLANES", "VARIANTS", "main", "variant_source"]
 
@@ -102,34 +101,12 @@ def variant_source(name: str, source: str | None = None) -> str:
     ValueError if one of its texts is not in the source as often as
     expected (once; the X tap loop four times, in its one-phase and
     per-output forms, integer and relaxed)."""
-    text = SOURCE.read_text() if source is None else source
-    for old, new in VARIANTS[name]:
-        if text.count(old) != _COUNTS.get(old, 1):
-            raise ValueError(f"variant {name}: {old!r} is not in the kernel "
-                             "source where expected")
-        text = text.replace(old, new)
-    return text
+    return _ablate.variant_source(VARIANTS, SOURCE, name, source, _COUNTS)
 
 
-def _build_variant(name: str, out: Path) -> tuple[str, Path, list[int]]:
-    """Build variant ``name`` into its own directory; returns the library's
-    path and the registers of its instantiations."""
-    where = out / name
-    where.mkdir(parents=True, exist_ok=True)
-    (where / SOURCE.name).write_text(variant_source(name))
-    for unit in UNITS:
-        (where / unit).write_text((_build.CSRC / unit).read_text())
-    so = where / f"{name}.so"
-    _, log = _build.build_library(so, [where / unit for unit in UNITS])
-    regs = [int(line.split("Used ")[1].split()[0])
-            for line in log.splitlines() if "Used " in line]
-    return name, so, regs
-
-
-def _load(name: str, so: Path) -> ctypes.CDLL:
-    """Load a variant's library on the current device (which torch has
-    initialised) and raise its kernels' shared-memory limit."""
-    lib = _build.bind_tiled(ctypes.CDLL(str(so)))
+def _load(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Bind a variant's library and raise its kernels' shared-memory limit."""
+    lib = _build.bind_tiled(lib)
     rc = lib.iqo_tiled_set_max_smem(cuda_resize.SMEM_BUDGET)
     if rc != 0:
         raise RuntimeError(f"{name}: shared-memory limit refused (cudaError_t {rc})")
@@ -153,45 +130,13 @@ def _launch(lib, ops, src: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _time_ms(fn, inputs, repeats: int = 5) -> float:
-    fn(inputs[0])
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    best = float("inf")
-    for _ in range(repeats):
-        torch.cuda._sleep(2_000_000 * len(inputs))
-        start.record()
-        for x in inputs:
-            fn(x)
-        stop.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(stop) / len(inputs))
-    return best
-
-
 def main(argv: list[str] | None = None) -> int:
-    asked = sys.argv[1:] if argv is None else argv
-    names = ["kernel", *(v for v in (asked or VARIANTS) if v != "kernel")]
-    unknown = sorted(set(names) - set(VARIANTS))
-    if unknown:
-        raise SystemExit(f"unknown variants {unknown}; choose from {sorted(VARIANTS)}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("tiled_ablate needs a CUDA device")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
-    digest = hashlib.sha256(b"".join(
-        (_build.CSRC / f).read_bytes() for f in (SOURCE.name, *UNITS))).hexdigest()[:16]
-    out = _build.build_dir().parent / f"ablate-{digest}"
-    out.mkdir(parents=True, exist_ok=True)
-    with ThreadPoolExecutor(len(names)) as pool:
-        built = list(pool.map(lambda n: _build_variant(n, out), names))
-    torch.zeros(1, device="cuda")          # the context the libraries join
-    with torch.cuda.device(0):
-        libs = {name: _load(name, so) for name, so, _ in built}
-    for name, _, regs in built:
-        print(f"{name}: registers of the 48 instantiations {regs}")
+    names = _ablate.names_of(sys.argv[1:] if argv is None else argv, VARIANTS)
+    _ablate.require_card("tiled_ablate")
+    card = _harness.card()
+    libs = _ablate.load_variants(_ablate.build_variants(
+        "ablate", names, SOURCE, variant_source, [_build.CSRC / u for u in UNITS], UNITS),
+        _load)
     rng = np.random.default_rng(8)
     for tag, algo, kw, sw, sh, dw, dh, batch, form in PLANES:
         plan = build_plan(algo, sw, sh, dw, dh, **kw)
@@ -207,10 +152,8 @@ def main(argv: list[str] | None = None) -> int:
         xs = [x.clone() for _ in range(max(8, math.ceil(64e6 / x.numel())))]
         for i, t in enumerate(xs):
             t.view(-1)[i] += i
-        times = {n: [] for n in names}
-        for n in names + names[::-1]:
-            times[n].append(_time_ms(lambda t, n=n: _launch(libs[n], ops, t), xs))
-        ms = {n: min(t) for n, t in times.items()}
+        ms = _ablate.time_in_turns(
+            {n: (lambda t, n=n: _launch(libs[n], ops, t)) for n in names}, xs)
         print(f"{tag} ({batch}, {sh}, {sw}): " + ", ".join(
             f"{n} {ms[n]!r} ms ({ms[n] / ms['kernel']!r})" for n in names) + f" ({card})")
     return 0
