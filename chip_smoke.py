@@ -143,12 +143,16 @@ Phases:
    full shapes in every form and variant (the seven ``band_ydot`` forms with
    nonzero streamed operands and its word-load form, whose output must be the
    byte form's permuted; ``overlap_dots`` in 4 variants x P in 0, 1, 2, 4, 8;
-   ``band_colsum`` in 3 configs x 3 variants); then the four scripts'
-   ``main()``, with every count set to 0 just before; every variant must have
-   launched.  Plain times at the host's pace and library yardsticks under
-   the kernels' own protocol: ``torch._int_mm`` of the dots alone for E and
-   G, over operands laid out outside the timed region, and a strided-view
-   ``sum`` for H, its 8-row broadcast left as an ``expand``.
+   ``band_colsum`` in 3 configs x 3 variants), E and G in both
+   implementations, ``ring`` (``csrc/exp/exp_band_ring.cu``) and ``sync``,
+   the ring also on a 2-frame ``grid3`` source and G's at 2100 rows (a short
+   last run, blocks past the plane); then the four scripts' ``main()``, with
+   every count set to 0 just before; every variant of both implementations
+   must have launched.  E's and G's ``main()`` time both implementations and
+   the library call in turns: ``torch._int_mm`` of the dots alone, over
+   operands laid out outside the timed region (G at every P >= 1).  Plain
+   times at the host's pace, and a strided-view ``sum`` for H under its
+   kernel's protocol, its 8-row broadcast left as an ``expand``.
 15. The X-pass and legality probes (the H100 ports of
    ``scripts/exp_x_schemes.py``, ``exp_vpu_xpass.py``, ``exp_vpu_rate.py``,
    ``exp_slice_align.py`` and ``exp_element_clamp.py``): kernels I-M == their
@@ -1704,54 +1708,64 @@ def phase_probes(card: str) -> list:
     return entries
 
 
-def _int8_windows(src: torch.Tensor, offs, rows: int, cols: int, flip: bool) -> torch.Tensor:
-    """The windows ``src[o : o + rows, :cols]`` as int8 (``^ 0x80`` when
-    ``flip``), one after another along N and held column-major:
-    (len(offs) * cols, rows) contiguous, for ``torch._int_mm``'s B."""
-    win = torch.stack([src[o:o + rows, :cols] for o in offs])
-    win = (win ^ 0x80 if flip else win).view(torch.int8)
-    return win.permute(0, 2, 1).reshape(len(offs) * cols, rows).contiguous()
+BAND_SECOND_H = 2100    # G's ring: a short last run, a shared clamped window, rows past H
 
 
 def phase_band_fetch(card: str) -> list:
     """Phase 14, the band-fetch probes: kernels E, G and H == their plain
-    versions at the TPU scripts' full shapes in every form and variant; the
-    four scripts' ``main()`` with every count set to 0 just before; plain and
-    library times.  Returns the three entries of the kernels line."""
+    versions at the TPU scripts' full shapes in every form and variant, E
+    and G in both implementations (``ring``, ``sync``), the ring also on a
+    2-frame ``grid3`` source and at 2100 rows; the four scripts' ``main()``
+    with every count set to 0 just before (E and G timing both
+    implementations and their library call in turns); plain times.  Returns
+    the five entries of the kernels line."""
     from libiqo_tpu_torch.experiments import (_harness, exp_band_shape as bs,
                                               exp_blocked_halo as bh,
                                               exp_i32_band as ib, exp_overlap as ov)
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
 
-    # 1. kernel == plain, every form and variant, full shapes
-    err = dict.fromkeys(("band_ydot", "overlap_dots", "band_colsum"), 0.0)
+    # 1. kernel == plain, every form and variant, full shapes, both impls
+    err = dict.fromkeys(("band_ydot", "band_ydot[ring]", "overlap_dots",
+                         "overlap_dots[ring]", "band_colsum"), 0.0)
+    key = lambda name, impl: name if impl == "sync" else f"{name}[{impl}]"  # noqa: E731
     coef, src = bs.inputs(dev)
     ops = bs.operands(dev, seed=SEED + 6)
-    scratch = torch.zeros_like(ops.slab)
-    for form in bs.FORMS:
-        x = src if form in ("base", "arb") else src[None]
-        o = ops if form in ("streams", "vmem") else None
-        err["band_ydot"] = max(err["band_ydot"], probe_err(
-            f"band_ydot {form}", bs.band_ydot(coef, x, form, o,
-                                              scratch if form == "vmem" else None),
-            bs.band_ydot_plain(coef, x, form, o)))
-    check(torch.equal(scratch, ops.slab), "band_ydot vmem: scratch != the slab")
-    words = ib.to_words(src)
-    err["band_ydot"] = max(err["band_ydot"], probe_err(
-        "band_ydot i32", bs.band_ydot(coef, words, "i32"),
-        bs.band_ydot_plain(coef, words, "i32")))
-    ib.rows(coef, src)                      # the i32 output is the u8 output permuted
+    for impl in bs.IMPLS:
+        scratch = torch.zeros_like(ops.slab)
+        for form in bs.FORMS:
+            x = src if form in ("base", "arb") else src[None]
+            o = ops if form in ("streams", "vmem") else None
+            err[key("band_ydot", impl)] = max(err[key("band_ydot", impl)], probe_err(
+                f"band_ydot {form} {impl}", bs.band_ydot(
+                    coef, x, form, o, scratch if form == "vmem" else None, impl),
+                bs.band_ydot_plain(coef, x, form, o)))
+        check(torch.equal(scratch, ops.slab), f"band_ydot vmem {impl}: scratch != the slab")
+        words = ib.to_words(src)
+        err[key("band_ydot", impl)] = max(err[key("band_ydot", impl)], probe_err(
+            f"band_ydot i32 {impl}", bs.band_ydot(coef, words, "i32", impl=impl),
+            bs.band_ydot_plain(coef, words, "i32")))
+        ib.rows(coef, src, impl)                # the i32 output is the u8 output permuted
+    two = torch.stack([src, src.flip(0)]).contiguous()
+    err["band_ydot[ring]"] = max(err["band_ydot[ring]"], probe_err(
+        "band_ydot grid3 ring, 2 frames", bs.band_ydot(coef, two, "grid3", impl="ring"),
+        bs.band_ydot_plain(coef, two, "grid3")))
     print(f"band_ydot == plain in all {len(bs.FORMS)} forms and the word form at "
-          f"{tuple(src.shape)}, N_T={bs.N_T}; i32 == u8 permuted")
+          f"{tuple(src.shape)}, N_T={bs.N_T}, impls {bs.IMPLS}, the ring also on 2 frames; "
+          f"i32 == u8 permuted")
     osrc, ocoef = ov.inputs(dev)
-    for variant in ov.VARIANTS:
-        for p in ov.PS:
-            err["overlap_dots"] = max(err["overlap_dots"], probe_err(
-                f"overlap_dots {variant} P={p}", ov.overlap_dots(osrc, ocoef, variant, p),
-                ov.overlap_dots_plain(osrc, ocoef, variant, p)))
+    short = osrc[:BAND_SECOND_H].contiguous()
+    for impl in ov.IMPLS:
+        for x in ((osrc, short) if impl == "ring" else (osrc,)):
+            for variant in ov.VARIANTS:
+                for p in ov.PS:
+                    err[key("overlap_dots", impl)] = max(err[key("overlap_dots", impl)], probe_err(
+                        f"overlap_dots {variant} P={p} {impl} at {x.shape[0]} rows",
+                        ov.overlap_dots(x, ocoef, variant, p, impl=impl),
+                        ov.overlap_dots_plain(x, ocoef, variant, p)))
     print(f"overlap_dots == plain in all {len(ov.VARIANTS)} variants x P {ov.PS} at "
-          f"{tuple(osrc.shape)}, ND={ov.ND}, N_TY={ov.N_TY}")
+          f"{tuple(osrc.shape)}, ND={ov.ND}, N_TY={ov.N_TY}, impls {ov.IMPLS}; the ring also "
+          f"at {tuple(short.shape)}")
     for name, n_t, step, halo, w, variant, x in bh.sources(dev):
         err["band_colsum"] = max(err["band_colsum"], probe_err(
             f"band_colsum {name} {variant}", bh.band_colsum(x, variant, n_t, step, halo),
@@ -1761,12 +1775,17 @@ def phase_band_fetch(card: str) -> list:
     print(f"band_colsum == plain in all {len(bh.CONFIGS)} configs x "
           f"{len(bh.VARIANTS)} variants")
 
-    # 2. the probes' main paths, every count set to 0 just before
+    # 2. the probes' main paths, every count set to 0 just before; E and G
+    # time both implementations and the library call in turns
     for mod in (bs, ov, bh):
         mod.reset_launches()
     rows = {"bs": bs.main(), "ib": ib.main(), "ov": ov.main(), "bh": bh.main()}
     torch.cuda.synchronize()
-    launches = {"band_ydot": bs.LAUNCHES.total(), "overlap_dots": ov.LAUNCHES.total(),
+
+    def count(mod, ring):
+        return sum(n for k, n in mod.LAUNCHES.items() if k.endswith("[ring]") == ring)
+    launches = {"band_ydot": count(bs, False), "band_ydot[ring]": count(bs, True),
+                "overlap_dots": count(ov, False), "overlap_dots[ring]": count(ov, True),
                 "band_colsum": bh.LAUNCHES.total()}
     idle = [f"{mod.__name__.rsplit('.', 1)[-1]}:{v}" for mod in (bs, ov, bh)
             for v, n in mod.LAUNCHES.items() if n == 0]
@@ -1774,9 +1793,9 @@ def phase_band_fetch(card: str) -> list:
     print(f"band-fetch main() runs -> launches {launches}; by variant "
           f"{dict(bs.LAUNCHES)} {dict(ov.LAUNCHES)} {dict(bh.LAUNCHES)}")
 
-    # 3. plain times, host-paced; library yardsticks under the kernels' own
-    # protocol (8 perturbed operands back to back), each first held equal to
-    # the plain version
+    # 3. plain times, host-paced; H's library yardstick under its kernel's
+    # own protocol (8 perturbed operands back to back), first held equal to
+    # the plain version (E's and G's library calls are timed by their main())
     def plain_ms(fn, x, n=2):
         return _harness.launches_ms(fn, _harness.perturbed(x, n), repeats=2,
                                     primed=False)
@@ -1793,30 +1812,6 @@ def phase_band_fetch(card: str) -> list:
     print(f"plain ms, host-paced: band_ydot {p_ydot}; overlap_dots {p_overlap}; "
           f"band_colsum luma-like {p_colsum} ({card})")
 
-    # E: C (32, 96) @ the 33 windows side by side, (96, 33 * 3840), column-major
-    e_offs = [bs.STEP * t for t in range(bs.N_T)]
-    wt = _int8_windows(src, e_offs, bs.BAND, bs.W, True)
-    got = torch._int_mm(coef, wt.t()).view(bs.TH, bs.N_T, bs.W).transpose(0, 1)
-    check(torch.equal(got.reshape(bs.N_T * bs.TH, bs.W), bs.band_ydot_plain(coef, src, "base")),
-          "torch._int_mm over the windows != band_ydot_plain base")
-    wts = _harness.perturbed(wt, bs.ITERS)
-    lib_ydot = _harness.launches_ms(lambda t: torch._int_mm(coef, t.t()), wts)
-    del wt, wts
-    # G at P = 8 (elem): [C ... C] (96, 1024) @ the 8 slices of each window
-    # stacked along K, the 12 windows side by side along N
-    clamp_hi = (ov.H - ov.BAND_H) // 32 * 32
-    g_offs = [max(0, min(clamp_hi, ov.STEP * t)) for t in range(ov.N_TY)]
-    st = torch.cat([_int8_windows(osrc, [o + 8 * i for o in g_offs], ov.KD, ov.ND, False)
-                    for i in range(8)], dim=1).contiguous()
-    c8 = torch.cat([ocoef] * 8, dim=1).contiguous()
-    got = (torch._int_mm(c8, st.t()) & 255).to(torch.uint8)
-    got = got.view(ov.TH, ov.N_TY, ov.ND).transpose(0, 1).reshape(ov.N_TY * ov.TH, ov.ND)
-    check(torch.equal(got, ov.overlap_dots_plain(osrc, ocoef, "elem", 8)),
-          "torch._int_mm over the stacked slices != overlap_dots_plain elem P=8")
-    sts = _harness.perturbed(st, ov.ITERS)
-    lib_overlap = _harness.launches_ms(lambda t: torch._int_mm(c8, t.t()), sts)
-    del st, sts
-
     # H: one sum over a strided view of the overlapping windows
     def lib_colsum(t):
         v = t.as_strided((64, 128, t.shape[1]), (64 * t.shape[1], t.shape[1], 1))
@@ -1827,33 +1822,47 @@ def phase_band_fetch(card: str) -> list:
     lib_colsum_ms = _harness.launches_ms(lib_colsum, _harness.perturbed(hx, bh.ITERS))
 
     e, g, h = rows["bs"]["base"], rows["ov"]["elem P=8"], rows["bh"]["luma-like element"]
-    print(f"probe band_ydot base: kernel {e['ms']!r} ms, plain {p_ydot['base']!r} ms, library "
-          f"torch._int_mm over laid-out windows (the dot alone) {lib_ydot!r} ms, bound "
-          f"{e['bound_ms']!r} ms ({e['bound_by']}) ({card})")
-    print(f"probe overlap_dots elem P=8: kernel {g['ms']!r} ms, plain {p_overlap['elem P=8']!r} ms, "
-          f"library torch._int_mm of [C]*8 over the stacked slices (the dots alone) "
-          f"{lib_overlap!r} ms, bound {g['bound_ms']!r} ms ({g['bound_by']}) ({card})")
+    print(f"probe band_ydot base: ring {e['ring_ms']!r} ms, sync {e['sync_ms']!r} ms, plain "
+          f"{p_ydot['base']!r} ms, library torch._int_mm over laid-out windows (the dot alone) "
+          f"{e['library_ms']!r} ms, bound {e['bound_ms']!r} ms ({e['bound_by']}) ({card})")
+    print(f"probe overlap_dots elem P=8: ring {g['ring_ms']!r} ms, sync {g['sync_ms']!r} ms, "
+          f"plain {p_overlap['elem P=8']!r} ms, library torch._int_mm of [C]*8 over the stacked "
+          f"slices (the dots alone) {g['library_ms']!r} ms, bound {g['bound_ms']!r} ms "
+          f"({g['bound_by']}) ({card})")
     print(f"probe band_colsum luma-like element: kernel {h['ms']!r} ms, plain "
           f"{p_colsum['element']!r} ms, library as_strided(...).sum(1, dtype=int32) + expand "
           f"{lib_colsum_ms!r} ms, bound {h['bound_ms']!r} ms ({h['bound_by']}) ({card})")
     src_file = "libiqo_tpu_torch/csrc/exp/exp_band.cu"
+    ring_file = "libiqo_tpu_torch/csrc/exp/exp_band_ring.cu"
+    e_rows = {**rows["bs"], "i32": rows["ib"]["i32"], "u8": rows["ib"]["u8"]}
+    e_common = {"route": "cuda", "replaces": "scripts/exp_band_shape.py:65",
+                "also_replaces": ["scripts/exp_band_shape.py:124", "scripts/exp_band_shape.py:147",
+                                  "scripts/exp_i32_band.py:65", "scripts/exp_i32_band.py:94"],
+                "plain_ms": p_ydot["base"], "bound_ms": e["bound_ms"],
+                "bound_by": e["bound_by"], "library_ms": e["library_ms"], "row": "base",
+                "plain_rows": p_ydot,
+                "library_rows": {f: v["library_ms"] for f, v in e_rows.items()}}
+    g_rows = rows["ov"]
+    g_common = {"route": "cuda", "replaces": "scripts/exp_overlap.py:82",
+                "plain_ms": p_overlap["elem P=8"], "bound_ms": g["bound_ms"],
+                "bound_by": g["bound_by"], "library_ms": g["library_ms"], "row": "elem P=8",
+                "plain_rows": p_overlap,
+                "library_rows": {r: v["library_ms"] for r, v in g_rows.items()}}
     entries = [
-        {"name": "band_ydot", "route": "cuda", "source": src_file,
-         "replaces": "scripts/exp_band_shape.py:65",
-         "also_replaces": ["scripts/exp_band_shape.py:124", "scripts/exp_band_shape.py:147",
-                           "scripts/exp_i32_band.py:65", "scripts/exp_i32_band.py:94"],
-         "launches": launches["band_ydot"], "max_abs_err": err["band_ydot"],
-         "ms": e["ms"], "plain_ms": p_ydot["base"], "bound_ms": e["bound_ms"],
-         "bound_by": e["bound_by"], "library_ms": lib_ydot, "row": "base",
-         "rows": {**{f: v["ms"] for f, v in rows["bs"].items()},
-                  "i32": rows["ib"]["i32"]["ms"], "u8": rows["ib"]["u8"]["ms"]},
-         "plain_rows": p_ydot},
-        {"name": "overlap_dots", "route": "cuda", "source": src_file,
-         "replaces": "scripts/exp_overlap.py:82",
-         "launches": launches["overlap_dots"], "max_abs_err": err["overlap_dots"],
-         "ms": g["ms"], "plain_ms": p_overlap["elem P=8"], "bound_ms": g["bound_ms"],
-         "bound_by": g["bound_by"], "library_ms": lib_overlap, "row": "elem P=8",
-         "rows": {r: v["ms"] for r, v in rows["ov"].items()}, "plain_rows": p_overlap},
+        {"name": "band_ydot", "source": src_file, "launches": launches["band_ydot"],
+         "max_abs_err": err["band_ydot"], "ms": e["sync_ms"], **e_common,
+         "rows": {f: v["sync_ms"] for f, v in e_rows.items()}},
+        {"name": "band_ydot[ring]", "source": ring_file, "launches": launches["band_ydot[ring]"],
+         "max_abs_err": err["band_ydot[ring]"], "ms": e["ring_ms"], **e_common,
+         "rows": {f: v["ring_ms"] for f, v in e_rows.items()},
+         "sync_ms": e["sync_ms"], "sync_rows": {f: v["sync_ms"] for f, v in e_rows.items()}},
+        {"name": "overlap_dots", "source": src_file, "launches": launches["overlap_dots"],
+         "max_abs_err": err["overlap_dots"], "ms": g["sync_ms"], **g_common,
+         "rows": {r: v["sync_ms"] for r, v in g_rows.items()}},
+        {"name": "overlap_dots[ring]", "source": ring_file,
+         "launches": launches["overlap_dots[ring]"], "max_abs_err": err["overlap_dots[ring]"],
+         "ms": g["ring_ms"], **g_common, "rows": {r: v["ring_ms"] for r, v in g_rows.items()},
+         "sync_ms": g["sync_ms"], "sync_rows": {r: v["sync_ms"] for r, v in g_rows.items()}},
         {"name": "band_colsum", "route": "cuda", "source": src_file,
          "replaces": "scripts/exp_blocked_halo.py:82",
          "launches": launches["band_colsum"], "max_abs_err": err["band_colsum"],
@@ -1876,11 +1885,7 @@ def probe_turns(fns: dict, inputs) -> dict:
     calls on ``inputs``, ``_harness.launches_ms``), in the order given and
     then reversed (min of its two): {name: ms per call}."""
     from libiqo_tpu_torch.experiments import _harness
-    names = list(fns)
-    times = {n: [] for n in names}
-    for n in names + names[::-1]:
-        times[n].append(_harness.launches_ms(fns[n], inputs))
-    return {n: min(t) for n, t in times.items()}
+    return _harness.turns_ms({n: (f, inputs) for n, f in fns.items()})
 
 
 def phase_xpass(card: str) -> list:

@@ -34,7 +34,7 @@ from ..ops import _build
 __all__ = ["BF16_OPS_PER_S", "FP32_OPS_PER_S", "HBM_BYTES_PER_S", "INT32_OPS_PER_S",
            "INT8_OPS_PER_S", "Launches", "TF32_OPS_PER_S", "card", "chain_ms", "check_rc",
            "checksum", "lib", "lib_with_setup", "launches_ms", "on_card", "perturbed",
-           "require_card", "run_chain", "signed32", "wrap"]
+           "require_card", "run_chain", "signed32", "turns_ms", "wrap"]
 
 # the H100 SXM data sheet: memory rate, bytes/s, and dense tensor-core
 # peaks, operations/s
@@ -235,6 +235,16 @@ def launches_ms(fn: Callable[[torch.Tensor], object], inputs: list[torch.Tensor]
         for x in inputs:
             fn(x)
     return _device_ms(enqueue, len(inputs), repeats, primed=primed)
+
+
+def turns_ms(calls: dict) -> dict:
+    """Each of ``calls`` (name: (fn, inputs)) timed by :func:`launches_ms`
+    twice, in the order given and then reversed; {name: the min of its two}."""
+    names = list(calls)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n].append(launches_ms(*calls[n]))
+    return {n: min(t) for n, t in times.items()}
 
 
 def perturbed(base: torch.Tensor, n: int) -> list[torch.Tensor]:

@@ -28,18 +28,33 @@ feeds zeros to the streamed operands; the probe draws them nonzero from a
 second seed (:func:`operands`), so that a mis-indexed operand shows on the
 card; the times do not depend on their values.
 
-The TPU's launch forms map onto the card as follows (the kernel's header
-has the whole mapping): base's grid of independent steps is one block per
-(row tile, column chunk of 128 columns): 33 x 30 = 990 blocks; ``arb``'s
-steps in order on one core are one block per column chunk (30 blocks),
-looping over the 33 tiles; grid3 and after are one block per (tile, chunk)
-with ``blockIdx.z`` the tile.  Every Element window is synchronous loads
-into shared memory, one byte per thread per load as the resize kernel's
-``load_rows``, then a barrier.  The dots run on ``mma.sync`` s8.
+Two implementations (:data:`IMPLS`, ``impl=`` of :func:`band_ydot`):
+
+* ``"ring"`` (the default, ``csrc/exp/exp_band_ring.cu``): on this card the
+  TPU's sequential grid ("arbitrary") and its parallel one are one schedule.
+  A persistent grid of one block an SM walks runs of consecutive row tiles
+  of a column chunk (and frame) in order (:mod:`.band_ring`: 990 items in
+  runs of 7 or 8 on 132 SMs, wave efficiency 0.9375); a producer warp keeps
+  the windows in flight by TMA, one 96-row box a window into a ring of 8
+  stages (a block's whole run); two consumer warpgroups run the
+  ``mma.sync`` s8 dots on alternate tiles.  So
+  ``arb`` and ``base`` are the same kernel, and the seven forms differ only
+  in their ingredients (3-D source, clamp, u8 store, streamed operands, slab
+  copy), each a template flag.
+* ``"sync"`` (``csrc/exp/exp_band.cu``, the first port): the launch forms
+  carried over one to one.  base's grid of independent steps is one block
+  per (row tile, column chunk of 128 columns): 33 x 30 = 990 blocks;
+  ``arb``'s steps in order on one core are one block per column chunk (30
+  blocks), looping over the 33 tiles; grid3 and after are one block per
+  (tile, chunk) with ``blockIdx.z`` the tile.  Every Element window is
+  synchronous loads into shared memory, one byte per thread per load as the
+  resize kernel's ``load_rows``, then a barrier.
 
 Each row times back-to-back launches on 8 sources that each differ in
 ``src[0, 0]`` (66 MB, more than the L2), as the script's loop perturbs
-``x[0, 0]``, and holds one output to the plain version.
+``x[0, 0]``, both implementations and the library call (``torch._int_mm``
+over the windows laid out beforehand, :func:`library`) in turns, and holds
+one output to the plain version.
 
 Run on a card: ``python -m libiqo_tpu_torch.experiments.exp_band_shape``.
 """
@@ -53,11 +68,12 @@ import functools
 import numpy as np
 import torch
 
-from . import _harness
+from . import _harness, band_ring
 from ._harness import HBM_BYTES_PER_S, INT8_OPS_PER_S, Launches
 
-__all__ = ["FORMS", "LAUNCHES", "StreamOperands", "band_dims", "band_ydot",
-           "band_ydot_plain", "bound", "inputs", "main", "operands"]
+__all__ = ["FORMS", "IMPLS", "LAUNCHES", "StreamOperands", "band_dims", "band_ydot",
+           "band_ydot_plain", "bound", "inputs", "issued_bytes", "launch_key", "library",
+           "library_operand", "main", "operands", "ring_work"]
 
 H, W = 2160, 3840
 TH = 32                    # output rows per tile
@@ -71,10 +87,20 @@ CHUNK = 128                # source columns per block of kernel E
 FORMS = ("base", "arb", "grid3", "clamp", "u8out", "streams", "vmem")
 WORDS = "i32"              # the word-load form (exp_i32_band's build_i32)
 ITERS = 8                  # sources per timed run (66 MB > L2)
-LAUNCHES = Launches(FORMS + (WORDS,))
+IMPLS = band_ring.IMPLS
+
+
+def launch_key(form: str, impl: str) -> str:
+    """The :data:`LAUNCHES` key of a form: ``"<form>"`` for the sync
+    implementation, ``"<form>[ring]"`` for the ring."""
+    return form if impl == "sync" else f"{form}[{impl}]"
+
+
+LAUNCHES = Launches(launch_key(f, i) for i in reversed(IMPLS) for f in FORMS + (WORDS,))
 _FORM_ID = {f: i for i, f in enumerate(FORMS)}
 _THREE_D = ("grid3", "clamp", "u8out", "streams", "vmem")
 _STREAMED = ("streams", "vmem")
+_CLAMPED = ("clamp", "u8out", "streams", "vmem")
 
 
 def reset_launches() -> None:
@@ -112,8 +138,8 @@ def operands(device, n_t: int | None = None, seed: int | None = None) -> StreamO
 def _check(coef: torch.Tensor, src: torch.Tensor, form: str,
            ops: StreamOperands | None) -> tuple[int, int, int]:
     """(frames, h, w) of a valid call; raises on anything else."""
-    if form not in LAUNCHES:
-        raise ValueError(f"forms are {tuple(LAUNCHES)}, got {form!r}")
+    if form not in FORMS + (WORDS,):
+        raise ValueError(f"forms are {FORMS + (WORDS,)}, got {form!r}")
     if tuple(coef.shape) != (TH, BAND) or coef.dtype != torch.int8:
         raise ValueError(f"coef must be ({TH}, {BAND}) int8, got "
                          f"{tuple(coef.shape)} {coef.dtype}")
@@ -170,7 +196,7 @@ def band_ydot_plain(coef: torch.Tensor, src: torch.Tensor, form: str,
         perm = torch.cat([torch.arange(p, w, 4, device=src.device) for p in range(4)])
         return r[:, perm].to(torch.int32)
     planes = src if src.ndim == 3 else src[None]
-    offs = _offsets(h, form in ("clamp", "u8out", "streams", "vmem"))
+    offs = _offsets(h, form in _CLAMPED)
     r = torch.stack([_ydot(coef, p, offs) for p in planes])
     if form in _STREAMED:
         r = r + sum(x.to(torch.int64) for x in ops.rows)
@@ -194,13 +220,36 @@ def band_dims() -> dict:
                     dims))
 
 
+@functools.cache
+def ring_lib(device: torch.device):
+    """The probes' library with the ring kernels' shared memory raised on
+    ``device``, their compiled geometry checked against
+    :data:`.band_ring.RING`."""
+    lib_ = _harness.lib_with_setup("iqo_exp_band_ring_setup", device)
+    got = (ctypes.c_int * 8)()
+    lib_.iqo_exp_band_ring_shape(got)
+    g = band_ring.RING
+    want = [g.chunk, g.threads, g.groups_e, g.groups_g, g.stages_e, g.stages_g, g.smem_e,
+            g.smem_g]
+    if list(got) != want:
+        raise RuntimeError(f"exp_band_ring.cu's geometry {list(got)} != the host's {want}")
+    return lib_
+
+
+def ring_work(form: str, h: int = H, w: int = W, frames: int = 1) -> band_ring.RingWork:
+    """The ring form's items and windows (:mod:`.band_ring`)."""
+    return band_ring.ydot_work(h, w, frames, form in _CLAMPED)
+
+
 def band_ydot(coef: torch.Tensor, src: torch.Tensor, form: str,
               ops: StreamOperands | None = None,
-              scratch: torch.Tensor | None = None) -> torch.Tensor:
+              scratch: torch.Tensor | None = None, impl: str | None = None) -> torch.Tensor:
     """Kernel E: (frames, H, W) or (H, W) u8, or (H, W / 4) int32 for the
-    ``"i32"`` form -> the Y pass of every full window (module docstring).
-    A CPU tensor takes :func:`band_ydot_plain`; a CUDA tensor launches the
-    kernel (W a multiple of 128) or raises."""
+    ``"i32"`` form -> the Y pass of every full window (module docstring), in
+    ``impl`` (:data:`IMPLS`, ``"ring"`` by default).  A CPU tensor takes
+    :func:`band_ydot_plain`; a CUDA tensor launches the kernel (W a
+    multiple of 128) or raises."""
+    impl = band_ring.impl_of(impl)
     frames, h, w = _check(coef, src, form, ops)
     tensors = [coef, src]
     if form in _STREAMED:
@@ -227,13 +276,20 @@ def band_ydot(coef: torch.Tensor, src: torch.Tensor, form: str,
     if form == "vmem" and tuple(scratch.shape) != tuple(ops.slab.shape):
         raise ValueError("scratch must have the slab's shape")
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _harness.check_rc(_harness.lib().iqo_exp_band_ydot(
-        _FORM_ID.get(form, 0), int(form == WORDS), src.data_ptr(),
-        h * w if src.ndim == 3 else 0, frames, h, w, coef.data_ptr(),
-        out.data_ptr(), *map(ptr, rows), *map(ptr, cols),
-        ptr(ops.slab) if form == "vmem" else None, ptr(scratch if form == "vmem" else None),
-        SLAB_BYTES if form == "vmem" else 0, _harness.stream(src)), f"band_ydot[{form}]")
-    LAUNCHES.add(form)
+    slab = (ptr(ops.slab), ptr(scratch), SLAB_BYTES) if form == "vmem" else (None, None, 0)
+    if impl == "ring":
+        sms = torch.cuda.get_device_properties(src.device).multi_processor_count
+        rc = ring_lib(src.device).iqo_exp_band_ydot_ring(
+            _FORM_ID.get(form, 0), int(form == WORDS), src.data_ptr(), frames, h, w,
+            coef.data_ptr(), out.data_ptr(), *map(ptr, rows), *map(ptr, cols), *slab,
+            band_ring.ring_ctas(ring_work(form, h, w, frames), sms), _harness.stream(src))
+    else:
+        rc = _harness.lib().iqo_exp_band_ydot(
+            _FORM_ID.get(form, 0), int(form == WORDS), src.data_ptr(),
+            h * w if src.ndim == 3 else 0, frames, h, w, coef.data_ptr(),
+            out.data_ptr(), *map(ptr, rows), *map(ptr, cols), *slab, _harness.stream(src))
+    _harness.check_rc(rc, f"band_ydot[{form}, {impl}]")
+    LAUNCHES.add(launch_key(form, impl))
     return out
 
 
@@ -271,32 +327,84 @@ def bound(form: str, h: int = H, w: int = W) -> tuple[float, str, int, int, int]
             n_t * BAND * w)
 
 
+def issued_bytes(form: str, impl: str = "ring", h: int = H, w: int = W, frames: int = 1,
+                 sms: int = band_ring.H100_SMS) -> int:
+    """Bytes the form's window fetches issue in one launch, from L2 or
+    memory, computed from the launch form (not measured): both fetch every
+    window whole (rows shared by two windows twice), ``sync`` by loads,
+    ``ring`` by TMA (:func:`.band_ring.issued_bytes`)."""
+    if band_ring.impl_of(impl) == "sync":
+        return frames * ((h - BAND) // STEP + 1) * BAND * w
+    work = ring_work(form, h, w, frames)
+    return band_ring.issued_bytes(work, band_ring.ring_ctas(work, sms))
+
+
+def library_operand(src: torch.Tensor) -> torch.Tensor:
+    """The library call's right operand: the windows ``int8(src[64 t :
+    64 t + 96] ^ 0x80)`` side by side, held column-major, (N_T W, 96)
+    contiguous (its transpose is ``torch._int_mm``'s B)."""
+    h, w = src.shape
+    win = torch.stack([src[o:o + BAND] for o in _offsets(h, False)])
+    return (win ^ 0x80).view(torch.int8).permute(0, 2, 1).reshape(-1, BAND).contiguous()
+
+
+def library(coef: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """Kernel E's dots as one PyTorch call: ``torch._int_mm(coef, wt.t())``,
+    (32, N_T W) int32; :func:`library_rows` lays it out as ``base``'s."""
+    return torch._int_mm(coef, wt.t())
+
+
+def library_rows(r: torch.Tensor, w: int) -> torch.Tensor:
+    """:func:`library`'s (32, n_t w) as ``base``'s output, (32 n_t, w)."""
+    return r.view(TH, -1, w).transpose(0, 1).reshape(-1, w)
+
+
 def main() -> dict:
-    """Every form on card 0; returns {form: {ms, bound_ms, bound_by, ...}}."""
+    """Every form on card 0, both implementations and the library call in
+    turns; returns {form: {"ring_ms", "sync_ms", "library_ms", "bound_ms",
+    "bound_by", ...}}."""
     _harness.require_card()
     card = _harness.card()
     dev = torch.device("cuda", 0)
     coef, src = inputs(dev)
     ops = operands(dev, seed=1)
+    wt = library_operand(src)
+    if not torch.equal(library_rows(library(coef, wt), W), band_ydot_plain(coef, src, "base")):
+        raise AssertionError("torch._int_mm over the windows differs from the plain version")
+    wts = _harness.perturbed(wt, ITERS)
     rows = {}
     for form in FORMS:
         xs = _harness.perturbed(src[None] if form in _THREE_D else src, ITERS)
         o = ops if form in _STREAMED else None
         scratch = torch.empty_like(ops.slab) if form == "vmem" else None
-        if not torch.equal(band_ydot(coef, xs[-1], form, o, scratch),
-                           band_ydot_plain(coef, xs[-1], form, o)):
-            raise AssertionError(f"{form}: kernel differs from its plain version")
-        ms = _harness.launches_ms(lambda x: band_ydot(coef, x, form, o, scratch), xs)
+        want = band_ydot_plain(coef, xs[-1], form, o)
+        calls = {}
+        for impl in IMPLS:
+            if not torch.equal(band_ydot(coef, xs[-1], form, o, scratch, impl), want):
+                raise AssertionError(f"{form} {impl}: kernel differs from its plain version")
+            calls[impl] = (functools.partial(
+                lambda x, i: band_ydot(coef, x, form, o, scratch, i), i=impl), xs)
+        calls["library"] = (lambda t: library(coef, t), wts)
+        ms = _harness.turns_ms(calls)
         b_ms, by, nbytes, macs, fetched = bound(form)
-        print(f"{form:7s}: {ms * 1e3!r} us/frame ({fetched / 1e6!r} MB band fetched, "
-              f"values ok); bound {b_ms * 1e3!r} us ({by}: {nbytes} B read once and "
-              f"written once), kernel/bound {ms / b_ms!r} ({card})", flush=True)
-        rows[form] = {"ms": ms, "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
-                      "macs": macs, "fetched": fetched}
-    print(f"arb/base {rows['arb']['ms'] / rows['base']['ms']!r}, "
-          f"streams/u8out {rows['streams']['ms'] / rows['u8out']['ms']!r}, "
-          f"vmem/streams {rows['vmem']['ms'] / rows['streams']['ms']!r} ({card})",
-          flush=True)
+        lib_ms = ms["library"]
+        print(f"{form:7s}: ring {ms['ring'] * 1e3!r} us, sync {ms['sync'] * 1e3!r} us, "
+              f"library torch._int_mm {lib_ms * 1e3!r} us (values ok); bound "
+              f"{b_ms * 1e3!r} us ({by}: {nbytes} B read once and written once); "
+              f"ring/bound {ms['ring'] / b_ms!r}, ring/library {ms['ring'] / lib_ms!r}, "
+              f"sync/library {ms['sync'] / lib_ms!r}; issued MB ring "
+              f"{issued_bytes(form) / 1e6!r}, sync {fetched / 1e6!r} ({card})", flush=True)
+        rows[form] = {"ring_ms": ms["ring"], "sync_ms": ms["sync"], "library_ms": lib_ms,
+                      "bound_ms": b_ms, "bound_by": by, "bytes": nbytes, "macs": macs,
+                      "fetched": fetched, "issued": issued_bytes(form)}
+    for impl in IMPLS:
+        k = f"{impl}_ms"
+        print(f"{impl}: arb/base {rows['arb'][k] / rows['base'][k]!r}, "
+              f"streams/u8out {rows['streams'][k] / rows['u8out'][k]!r}, "
+              f"vmem/streams {rows['vmem'][k] / rows['streams'][k]!r} ({card})", flush=True)
+    runs = band_ring.run_lengths(ring_work("base"))
+    print(f"ring: {len(runs)} blocks, runs of {min(runs)}-{max(runs)} items, wave "
+          f"efficiency {band_ring.wave_efficiency(ring_work('base'))!r} ({card})", flush=True)
     return rows
 
 

@@ -16,11 +16,15 @@ with its ``base`` form and ``build_i32`` (``:94``) with its ``"i32"`` form:
   order ``[c % 4 == 0 | c % 4 == 1 | ...]``.
 
 Both stage the band in shared memory and run the same ``mma.sync`` s8 dots,
-so their difference is the fetch.  As the script's ``main``
-(``:179-186``), the i32 output must equal the u8 output with its columns
-permuted.  The u8 row times 8 sources that each differ in ``src[0, 0]``;
-the i32 row 8 word planes whose word 0 differs in its low byte
-(``x[0, 0] ^ i``, as the script's ``measure_i32``).
+so in the ``sync`` implementation their difference is the fetch; the
+``ring`` implementation (the default, ``csrc/exp/exp_band_ring.cu``) fetches
+both by TMA, bytes being bytes, so there the forms differ only in the
+output's column order.  As the script's ``main`` (``:179-186``), the i32
+output must equal the u8 output with its columns permuted.  The u8 row
+times 8 sources that each differ in ``src[0, 0]``; the i32 row 8 word planes
+whose word 0 differs in its low byte (``x[0, 0] ^ i``, as the script's
+``measure_i32``); both implementations and the library call
+(``exp_band_shape.library``) in turns.
 
 Run on a card: ``python -m libiqo_tpu_torch.experiments.exp_i32_band``.
 """
@@ -30,8 +34,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import functools
+
 from . import _harness
-from .exp_band_shape import BAND, TH, WORDS, band_ydot, band_ydot_plain, bound
+from .exp_band_shape import (BAND, IMPLS, TH, WORDS, band_ydot, band_ydot_plain, bound,
+                             issued_bytes, library, library_operand, library_rows)
 
 __all__ = ["main", "permutation", "rows", "to_words", "inputs"]
 
@@ -60,11 +67,13 @@ def permutation(w: int, device=None) -> torch.Tensor:
     return torch.cat([torch.arange(p, w, 4, device=device) for p in range(4)])
 
 
-def rows(coef: torch.Tensor, src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(u8 output, i32 output) of kernel E, or of its plain version on the
-    CPU; raises unless the i32 output is the u8 output permuted."""
-    o_u8 = band_ydot(coef, src, "base")
-    o_i32 = band_ydot(coef, to_words(src), WORDS)
+def rows(coef: torch.Tensor, src: torch.Tensor,
+         impl: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(u8 output, i32 output) of kernel E in ``impl``, or of its plain
+    version on the CPU; raises unless the i32 output is the u8 output
+    permuted."""
+    o_u8 = band_ydot(coef, src, "base", impl=impl)
+    o_i32 = band_ydot(coef, to_words(src), WORDS, impl=impl)
     if not torch.equal(o_i32, o_u8[:, permutation(src.shape[1], src.device)]):
         raise AssertionError("i32 output != u8 output permuted")
     return o_u8, o_i32
@@ -81,27 +90,41 @@ def _perturbed_words(base: torch.Tensor, n: int) -> list[torch.Tensor]:
 
 
 def main() -> dict:
-    """Both rows on card 0; returns {"u8": {ms, ...}, "i32": {...}}."""
+    """Both rows on card 0, both implementations and the library call in
+    turns; returns {"u8": {"ring_ms", "sync_ms", "library_ms", ...}, "i32":
+    {...}}."""
     _harness.require_card()
     card = _harness.card()
     coef, src = inputs(torch.device("cuda", 0))
-    rows(coef, src)
-    print("value check (i32 permuted == u8): True", flush=True)
+    for impl in IMPLS:
+        rows(coef, src, impl)
+    print("value check (i32 permuted == u8), both implementations: True", flush=True)
+    wts = _harness.perturbed(library_operand(src), ITERS)
     found = {}
     for name, form, xs in (("u8", "base", _harness.perturbed(src, ITERS)),
                            ("i32", WORDS, _perturbed_words(to_words(src), ITERS))):
-        if not torch.equal(band_ydot(coef, xs[-1], form), band_ydot_plain(coef, xs[-1], form)):
-            raise AssertionError(f"{name}: kernel differs from its plain version")
-        ms = _harness.launches_ms(lambda x: band_ydot(coef, x, form), xs)
+        want = band_ydot_plain(coef, xs[-1], form)
+        calls = {}
+        for impl in IMPLS:
+            if not torch.equal(band_ydot(coef, xs[-1], form, impl=impl), want):
+                raise AssertionError(f"{name} {impl}: kernel differs from its plain version")
+            calls[impl] = (functools.partial(
+                lambda x, i: band_ydot(coef, x, form, impl=i), i=impl), xs)
+        calls["library"] = (lambda t: library(coef, t), wts)
+        ms = _harness.turns_ms(calls)
         b_ms, by, nbytes, macs, fetched = bound(form)
-        print(f"{name:3s} band Y pass: {ms * 1e3!r} us/frame ({fetched / 1e6!r} MB band "
-              f"fetch); bound {b_ms * 1e3!r} us ({by}), kernel/bound {ms / b_ms!r} "
+        print(f"{name:3s} band Y pass: ring {ms['ring'] * 1e3!r} us, sync {ms['sync'] * 1e3!r} "
+              f"us, library torch._int_mm {ms['library'] * 1e3!r} us; bound {b_ms * 1e3!r} us "
+              f"({by}), ring/bound {ms['ring'] / b_ms!r}, ring/library "
+              f"{ms['ring'] / ms['library']!r}; issued MB ring {issued_bytes(form) / 1e6!r}, "
+              f"sync {fetched / 1e6!r} ({card})", flush=True)
+        found[name] = {"ring_ms": ms["ring"], "sync_ms": ms["sync"],
+                       "library_ms": ms["library"], "bound_ms": b_ms, "bound_by": by,
+                       "bytes": nbytes, "macs": macs, "fetched": fetched}
+    for impl in IMPLS:
+        ratio = found["u8"][f"{impl}_ms"] / found["i32"][f"{impl}_ms"]
+        print(f"{impl}: ratio u8/i32 = {ratio!r} ({'i32 WINS' if ratio > 1 else 'u8 stays'}) "
               f"({card})", flush=True)
-        found[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
-                       "macs": macs, "fetched": fetched}
-    ratio = found["u8"]["ms"] / found["i32"]["ms"]
-    print(f"ratio u8/i32 = {ratio!r} ({'i32 WINS' if ratio > 1 else 'u8 stays'}) "
-          f"({card})", flush=True)
     return found
 
 

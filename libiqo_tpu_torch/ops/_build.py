@@ -227,6 +227,14 @@ def _bind_experiments(lib: ctypes.CDLL) -> ctypes.CDLL:
             # variant, a, b, out, w, n_t, step, halo, stream
             ("iqo_exp_band_colsum", [i, p, p, p, i, i, i, i, p]),
             ("iqo_exp_band_shape", [ctypes.POINTER(i)]),
+            # form, words, src, frames, h, w, coef, out, r0..r2, c0..c2, slab,
+            # scratch, slab bytes, persistent blocks, stream
+            ("iqo_exp_band_ydot_ring", [i, i, p, i, i, i, p, p, p, p, p, p, p, p, p, p, ll,
+                                        i, p]),
+            # blocked, P, src, h, w, coef, out, nd, n_ty, persistent blocks, stream
+            ("iqo_exp_overlap_ring", [i, i, p, i, i, p, p, i, i, i, p]),
+            ("iqo_exp_band_ring_setup", []),
+            ("iqo_exp_band_ring_shape", [ctypes.POINTER(i)]),
             # variant, w, c0, c1, corr, out, reps, stream
             ("iqo_exp_xscheme", [i, p, p, p, p, p, i, p]),
             # variant, we, wo, wd, cxt, taps (host int[12]), out, reps, stream

@@ -100,7 +100,4 @@ def time_in_turns(calls: Mapping[str, Callable[[torch.Tensor], object]],
     """Device ms a call of each of ``calls`` (``_harness.launches_ms`` over
     back-to-back calls, one per input), each timed twice, in order and then
     reversed; the min of its two."""
-    times = {n: [] for n in calls}
-    for n in list(calls) + list(calls)[::-1]:
-        times[n].append(_harness.launches_ms(calls[n], inputs))
-    return {n: min(t) for n, t in times.items()}
+    return _harness.turns_ms({n: (f, inputs) for n, f in calls.items()})

@@ -364,8 +364,9 @@ def test_launches_stay_zero_on_cpu():
     exp_blocked_halo.band_colsum(torch.zeros((72, 128), dtype=torch.uint8), "element", 1, 64, 8)
     for mod in (exp_band_shape, exp_overlap, exp_blocked_halo):
         assert mod.LAUNCHES.total() == 0
-    assert set(exp_band_shape.LAUNCHES) == set(exp_band_shape.FORMS) | {"i32"}
-    assert len(exp_overlap.LAUNCHES) == 20 and len(exp_blocked_halo.LAUNCHES) == 3
+    forms = set(exp_band_shape.FORMS) | {"i32"}
+    assert set(exp_band_shape.LAUNCHES) == forms | {f"{f}[ring]" for f in forms}
+    assert len(exp_overlap.LAUNCHES) == 40 and len(exp_blocked_halo.LAUNCHES) == 3
 
 
 @pytest.mark.parametrize("mod", NEW_MODULES, ids=lambda m: m.__name__.rsplit(".", 1)[-1])
