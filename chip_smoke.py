@@ -124,7 +124,9 @@ Phases:
    ``stream_map`` rows and ``readsum`` in its two forms, ``warp`` and
    ``rows8``, also at a ragged height and at W = 128,
    the four ``mma_steps`` rows at
-   STEPS 64, the nine ``banded_tile`` modes at GRID 35); then each script's
+   STEPS 64, the nine ``banded_tile`` modes at GRID 35 and on 3 tiles in
+   both forms, ``sync`` and ``wgmma``, ``csrc/exp/exp_banded_wgmma.cu``);
+   then each script's
    ``main()``, with every count set to 0 just before, which asserts every
    chain checksum and holds one output of each other row to the plain
    version; every variant must have launched.  Times beside the bound and
@@ -135,7 +137,8 @@ Phases:
    ``torch.matmul`` as a yardstick; none for D, which no one call computes:
    its two products alone as two bf16 ``torch.bmm`` with ``out_dtype=
    torch.float32``, rebuilt into D's function and held equal to its plain
-   version first), and the measured streaming ceilings beside the data
+   version first, timed in turns with D's two forms in mono/mono and
+   grouped/grouped), and the measured streaming ceilings beside the data
    sheet's.
 14. The band-fetch probes (the H100 ports of ``scripts/exp_band_shape.py``,
    ``exp_i32_band.py``, ``exp_overlap.py`` and ``exp_blocked_halo.py``):
@@ -172,13 +175,15 @@ Phases:
    with ``out_dtype=torch.float32``, an int32 chain of elementwise calls, one
    corner-gathering index; for L one such ``bmm`` over its 45 windows, and
    three, one a plane, both timed in turns with L's two forms inside
-   ``main()``).  Then the redesigned forms of ``f32_2dot`` and
+   ``main()``).  Then the redesigned forms of ``f32_2dot``, ``s16_1dot`` and
    ``dense4`` (``csrc/exp/exp_xpass_gemm.cu``, ``form="gemm"``): == plain
-   bit for bit at 1, 3, R/8 and R repeats and a partial last step, == gold
-   (I) and == the library products (I and J) at one application, their
-   launches counted apart in ``main()``; timed in turns with PR 7's forms at
-   R and R/8 (µs per application as the slope and as t(R)/R), beside the
-   bound and the library call.
+   bit for bit at 1, 3, R/8 and R repeats and a partial last step (s16 also
+   at the int16 extremes), == gold (I) and == the library products (I and J)
+   at one application, their launches counted apart in ``main()``; timed in
+   turns with PR 7's forms at R and R/8 (µs per application as the slope and
+   as t(R)/R), beside the bound and the library call (for ``s16_1dot`` a
+   float64 ``torch.bmm`` of the int16 planes, held equal to plain first, and
+   ``torch._int_mm`` of four s8 byte-plane products).
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 2
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -1455,6 +1460,7 @@ def probe_inputs(dma, gen):
 
 
 MMA_SECOND_SHAPE = (36, 384, 768, 640)     # (steps, M, N, K): C's wgmma form, 324 tiles
+BANDED_SHORT = 3                           # D's second stack: a partial last wave
 
 
 def phase_probes(card: str) -> list:
@@ -1465,8 +1471,11 @@ def phase_probes(card: str) -> list:
     Kernel C in both forms, the first, ``mma_sync``, and the ``wgmma`` form, the
     latter also at :data:`MMA_SECOND_SHAPE`; ``mxu.main()`` times both forms
     and each row's library call in turns; ``dma.main()`` times B's two
-    forms and the library fold in turns.  Returns the six entries of the
-    kernels line."""
+    forms and the library fold in turns.  Kernel D in both forms, ``sync``
+    and ``wgmma``, in all nine modes at GRID 35 and on :data:`BANDED_SHORT`
+    tiles, ``bd.main()`` timing both in turns, then mono/mono and
+    grouped/grouped in turns with the two-``bmm`` chain.  Returns the seven
+    entries of the kernels line."""
     from libiqo_tpu_torch.experiments import (_harness, exp_banded_dots as bd,
                                               exp_dma_ceiling as dma,
                                               exp_int8_mxu as mxu)
@@ -1476,7 +1485,8 @@ def phase_probes(card: str) -> list:
     gen.manual_seed(SEED + 5)
 
     # 1. kernel == plain, every variant, full shapes
-    err = dict.fromkeys(("stream_map", "mma_steps", "mma_steps[wgmma]", "banded_tile"), 0.0)
+    err = dict.fromkeys(("stream_map", "mma_steps", "mma_steps[wgmma]", "banded_tile",
+                         "banded_tile[wgmma]"), 0.0)
     dma_in = probe_inputs(dma, gen)
     for row, (op, x) in dma_in.items():
         if op != "readsum":
@@ -1522,12 +1532,20 @@ def phase_probes(card: str) -> list:
           f"tiles on {sms} SMs")
     band, cy, cxs = bd.inputs(dev)
     ops = bd.pack(cy, *cxs)
-    for ym, xm in bd.PAIRS:
-        err["banded_tile"] = max(err["banded_tile"], probe_err(
-            f"banded y={ym} x={xm}", bd.banded_tile(ops, band, ym, xm),
-            bd.banded_tile_plain(ops, band, ym, xm)))
-    print(f"banded_tile == plain in all {len(bd.PAIRS)} (Y, X) modes at "
-          f"GRID={bd.GRID}")
+    # D in both forms at GRID 35 and on a short stack of 3 tiles (the wgmma
+    # form's X walk then has 24 items: a partial last row pair, blocks of one
+    # item)
+    band3 = band[:BANDED_SHORT].flip(2).contiguous()
+    for b_ in (band, band3):
+        for ym, xm in bd.PAIRS:
+            want = bd.banded_tile_plain(ops, b_, ym, xm)
+            for form, key in (("sync", "banded_tile"), ("wgmma", "banded_tile[wgmma]")):
+                err[key] = max(err[key], probe_err(
+                    f"banded [{form}] y={ym} x={xm} on {b_.shape[0]} tiles",
+                    bd.banded_tile(ops, b_, ym, xm, form), want))
+    del band3
+    print(f"banded_tile == plain in all {len(bd.PAIRS)} (Y, X) modes in forms {bd.FORMS} at "
+          f"GRID={bd.GRID} and on {BANDED_SHORT} tiles, bit for bit")
 
     # 2. the probes' main paths, every count set to 0 just before
     for mod in (dma, mxu, bd):
@@ -1540,7 +1558,10 @@ def phase_probes(card: str) -> list:
                 "mma_steps": sum(mxu.LAUNCHES[r] for r in mxu.ROWS),
                 "mma_steps[wgmma]": sum(mxu.LAUNCHES[mxu.launch_key(r, "wgmma")]
                                         for r in mxu.ROWS),
-                "banded_tile": bd.LAUNCHES.total()}
+                "banded_tile": sum(bd.LAUNCHES[bd.launch_key(y, x, "sync")]
+                                   for y, x in bd.PAIRS),
+                "banded_tile[wgmma]": sum(bd.LAUNCHES[bd.launch_key(y, x, "wgmma")]
+                                          for y, x in bd.PAIRS)}
     idle = [f"{mod.__name__.rsplit('.', 1)[-1]}:{v}" for mod in (dma, mxu, bd)
             for v, n in mod.LAUNCHES.items() if n == 0]
     check(not idle, f"probe variants never launched by main(): {idle}")
@@ -1604,9 +1625,15 @@ def phase_probes(card: str) -> list:
     rebuilt = _harness.wrap(v, 16).clamp(0, 255).to(torch.uint8).view(bd.GRID, bd.TH, bd.TW)
     check(torch.equal(rebuilt, bd.banded_tile_plain(ops, band, "mono", "mono")),
           "banded_tile rebuilt from two bf16 torch.bmm != banded_tile_plain mono/mono")
-    lib_d_dots = _harness.launches_ms(d_dots, [d_operands(t) for t in
-                                               _harness.perturbed(band, bd.ITERS)])
-    del dma_in, xb, rs
+    # ... timed in turns with both forms of mono/mono and of grouped/grouped
+    bands = _harness.perturbed(band, bd.ITERS)
+    d_turns = _harness.turns_ms({
+        **{f"{form} {ym}": (functools.partial(
+            lambda t, f, y_: bd.banded_tile(ops, t, y_, y_, f), f=form, y_=ym), bands)
+           for form in bd.FORMS for ym in ("mono", "grouped")},
+        "dots": (d_dots, [d_operands(t) for t in bands])})
+    lib_d_dots = d_turns["dots"]
+    del dma_in, xb, rs, bands
 
     d, m, b = rows["dma"], rows["mxu"], rows["bd"]
     inc_bytes = d["inc33MB"]["bytes"]
@@ -1637,11 +1664,18 @@ def phase_probes(card: str) -> list:
     print(f"probe mma_steps s8xs8->i32 plain {p_mma!r} ms; bf16 yardstick torch.matmul "
           f"(bf16 out) {lib_matmul!r} ms ({card})")
     mm = b["y=mono x=mono"]
-    print(f"probe banded_tile mono/mono: kernel {mm['ms']!r} ms, plain "
-          f"{p_banded!r} ms, bound {mm['bound_ms']!r} ms ({mm['bound_by']}), "
-          f"library none (no one call computes it); its two products alone as two bf16 "
+    print(f"probe banded_tile mono/mono, in turns: wgmma {d_turns['wgmma mono']!r} ms, sync "
+          f"{d_turns['sync mono']!r} ms, its two products alone as two bf16 "
           f"torch.bmm(out_dtype=float32), operands laid out beforehand, {lib_d_dots!r} ms "
-          f"({card})")
+          f"(wgmma/bmm {d_turns['wgmma mono'] / lib_d_dots!r}); grouped/grouped wgmma "
+          f"{d_turns['wgmma grouped']!r} ms, sync {d_turns['sync grouped']!r} ms; plain "
+          f"{p_banded!r} ms, bound {mm['bound_ms']!r} ms ({mm['bound_by']}), library none (no "
+          f"one call computes it) ({card})")
+    for name, r in b.items():
+        print(f"probe banded_tile {name}: wgmma {r['ms']!r} ms, sync {r['ms_sync']!r} ms "
+              f"(in turns in main()), bound {r['bound_ms']!r} ms ({r['bound_by']}), "
+              f"wgmma/bound {r['ms'] / r['bound_ms']!r}; wgmma L2 reads from its walk "
+              f"{r['issued']} bytes ({card})")
     h, w = dma.H, dma.W
     rs_bytes = h * w + h * dma.LANES
     entries = [
@@ -1697,12 +1731,25 @@ def phase_probes(card: str) -> list:
          "source": "libiqo_tpu_torch/csrc/exp/exp_banded.cu",
          "replaces": "scripts/exp_banded_dots.py:92",
          "launches": launches["banded_tile"], "max_abs_err": err["banded_tile"],
+         "ms": mm["ms_sync"], "plain_ms": p_banded, "bound_ms": mm["bound_ms"],
+         "bound_by": mm["bound_by"], "library_ms": None, "row": "y=mono x=mono", "form": "sync",
+         "library_none": "no one PyTorch call computes it: two dependent products with an "
+                         "int16 wrap and a split between them, then the epilogue",
+         "dots_library_ms": lib_d_dots, "ms_in_turns": d_turns["sync mono"],
+         "wgmma_ms": mm["ms"], "rows": {r: v["ms_sync"] for r, v in b.items()}},
+        {"name": "banded_tile[wgmma]", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_banded_wgmma.cu",
+         "replaces": "scripts/exp_banded_dots.py:92", "form": "wgmma",
+         "launches": launches["banded_tile[wgmma]"], "max_abs_err": err["banded_tile[wgmma]"],
          "ms": mm["ms"], "plain_ms": p_banded, "bound_ms": mm["bound_ms"],
          "bound_by": mm["bound_by"], "library_ms": None, "row": "y=mono x=mono",
          "library_none": "no one PyTorch call computes it: two dependent products with an "
                          "int16 wrap and a split between them, then the epilogue",
-         "dots_library_ms": lib_d_dots,
-         "rows": {r: v["ms"] for r, v in b.items()}},
+         "dots_library_ms": lib_d_dots, "ms_in_turns": d_turns["wgmma mono"],
+         "sync_ms": mm["ms_sync"], "grouped_ms_in_turns": d_turns["wgmma grouped"],
+         "grouped_sync_ms_in_turns": d_turns["sync grouped"], "short_tiles": BANDED_SHORT,
+         "rows": {r: {"ms": v["ms"], "ms_sync": v["ms_sync"], "bound_ms": v["bound_ms"],
+                      "issued": v["issued"]} for r, v in b.items()}},
     ]
     print(f"phase probes: {time.perf_counter() - t_phase!r} s")
     return entries
@@ -1899,8 +1946,10 @@ def phase_xpass(card: str) -> list:
     products, at one application), and ``bf16_1dot``'s within its bound of
     plain at the same repeats, timed in turns with the serial forms (bf16_1dot
     also with its bf16 ``torch.bmm``).  L in both forms, the ``wgmma`` form
-    also at :data:`SLICE_SECOND_STEPS` steps.  Returns the nine entries of
-    the kernels line."""
+    also at :data:`SLICE_SECOND_STEPS` steps.  ``s16_1dot``'s gemm form ==
+    plain at the same repeats and at the int16 extremes, timed in turns with
+    its serial form, a float64 ``torch.bmm`` and ``torch._int_mm``.  Returns
+    the ten entries of the kernels line."""
     from libiqo_tpu_torch.experiments import (_harness, exp_element_clamp as ec,
                                               exp_slice_align as sa, exp_vpu_rate as vr,
                                               exp_vpu_xpass as vx, exp_x_schemes as xs,
@@ -1909,7 +1958,7 @@ def phase_xpass(card: str) -> list:
     dev = torch.device("cuda", 0)
     names = ("xscheme_tile", "vpu_xpass_tile", "op_mix", "slice_groups", "window_probe")
     err = dict.fromkeys(names + ("xscheme_gemm", "vpu_xpass_gemm", "xscheme_bf16_gemm",
-                                 "slice_groups[wgmma]"), 0.0)
+                                 "xscheme_s16_gemm", "slice_groups[wgmma]"), 0.0)
 
     # 1. kernel == plain, every variant, full shapes and repeats
     w, c = xs.inputs(dev)
@@ -1947,6 +1996,34 @@ def phase_xpass(card: str) -> list:
             xs.x_scheme_plain("f32_2dot", w, cvf, reps)))
     check(torch.equal(xs.x_scheme("f32_2dot", w, cvf, 1, "gemm"), xs.gold(w, c)),
           "x_scheme f32_2dot[gemm] at R=1 != gold")
+    # s16_1dot's gemm form (four s8 byte-plane products): == plain at the same
+    # repeats, bit for bit, and == gold at one application
+    cv16 = xs.build_cvals("s16_1dot", c)
+    for reps in GEMM_REPS["xs"]:
+        err["xscheme_s16_gemm"] = max(err["xscheme_s16_gemm"], probe_err(
+            f"x_scheme s16_1dot[gemm] R={reps}", xs.x_scheme("s16_1dot", w, cv16, reps, "gemm"),
+            xs.x_scheme_plain("s16_1dot", w, cv16, reps)))
+    check(torch.equal(xs.x_scheme("s16_1dot", w, cv16, 1, "gemm"), xs.gold(w, c)),
+          "x_scheme s16_1dot[gemm] at R=1 != gold")
+    # ... and at the int16 extremes: work values at -32768 and 32767 and taps
+    # at +-8192 in every byte combination, over repeats that wrap them
+    w_ext = w.clone()
+    w_ext[::2, ::3] = 32767
+    w_ext[1::2, 1::3] = -32768
+    c_ext = c.clone()
+    nz = c_ext != 0
+    ends = torch.tensor([8192, -8192, 8191, -8191, 255, -256, 129, -129], dtype=c.dtype,
+                        device=dev)
+    c_ext[nz] = ends[torch.arange(int(nz.sum()), device=dev) % len(ends)]
+    cv_ext = xs.build_cvals("s16_1dot", c_ext)
+    for reps in (3, 67):
+        err["xscheme_s16_gemm"] = max(err["xscheme_s16_gemm"], probe_err(
+            f"x_scheme s16_1dot[gemm] R={reps} at the int16 extremes",
+            xs.x_scheme("s16_1dot", w_ext, cv_ext, reps, "gemm"),
+            xs.x_scheme_plain("s16_1dot", w_ext, cv_ext, reps)))
+    del w_ext
+    print(f"s16_1dot[gemm] == plain at R {GEMM_REPS['xs']} and at R 3, 67 on int16 extremes, "
+          f"== gold at R=1, bit for bit")
     # bf16_1dot's gemm form: the tensor cores sum in their own order, so it is
     # held within the f32 summation bound of its plain version (unchanged)
     bf16_gemm_share = 0.0
@@ -2037,6 +2114,7 @@ def phase_xpass(card: str) -> list:
     launches["vpu_xpass_tile"] = sum(vx.LAUNCHES[v] for v in vx.VARIANTS)
     launches["xscheme_gemm"] = xs.LAUNCHES[xs.launch_key("f32_2dot", "gemm")]
     launches["xscheme_bf16_gemm"] = xs.LAUNCHES[xs.launch_key("bf16_1dot", "gemm")]
+    launches["xscheme_s16_gemm"] = xs.LAUNCHES[xs.launch_key("s16_1dot", "gemm")]
     launches["vpu_xpass_gemm"] = vx.LAUNCHES[vx.launch_key("dense4", "gemm")]
     launches["slice_groups"] = sum(sa.LAUNCHES[sa.launch_key(a, kl, "mma_sync")]
                                    for a, kl in sa.CONFIGS)
@@ -2047,7 +2125,8 @@ def phase_xpass(card: str) -> list:
     check(not idle, f"X-pass probe variants never launched by main(): {idle}")
     bad = [r for r, v in rows["ec"].items() if r in ec.ROWS and not v["ok"]]
     check(not bad, f"window probes not OK: {bad}")
-    check(all(rows["xs"]["checks"][k] for k in ("f32_exact", "f32_exact_serial", "s16_exact")) and
+    check(all(rows["xs"]["checks"][k] for k in ("f32_exact", "f32_exact_serial", "s16_exact",
+                                                "s16_exact_serial")) and
           not rows["xs"]["checks"]["s8_4dot_gold"] and rows["vx"]["checks"]["corr_i32_exact"],
           f"x_scheme / vpu_xpass checks: {rows['xs']['checks']} {rows['vx']['checks']}")
     print(f"X-pass main() runs -> launches {launches}; by variant " +
@@ -2064,11 +2143,12 @@ def phase_xpass(card: str) -> list:
                                 [ops.perturbed(i) for i in range(2)], repeats=2, primed=False)
     p_f32 = plain_ms(lambda t: xs.x_scheme_plain("f32_2dot", t, cvf, xs.R), w)
     p_bf16 = plain_ms(lambda t: xs.x_scheme_plain("bf16_1dot", t, cv, xs.R), w)
+    p_s16 = plain_ms(lambda t: xs.x_scheme_plain("s16_1dot", t, cv16, xs.R), w)
     p_vr = plain_ms(lambda t: vr.op_mix_plain(t, "epi", 8), src)
     p_sa = plain_ms(lambda t: sa.slice_groups_plain(t, sops, 128, 512), sw)
     p_ec = plain_ms(ec.window_x1_plain, srcs["x1"])
     print(f"plain ms, host-paced: x_scheme s8_4dot R={xs.R} {p_xs!r}, f32_2dot {p_f32!r}, "
-          f"bf16_1dot {p_bf16!r}; "
+          f"bf16_1dot {p_bf16!r}, s16_1dot {p_s16!r}; "
           f"vpu_xpass dense4 "
           f"R={vx.R} {p_vx!r}; op_mix epi P=8 {p_vr!r}; slice_groups 128,512 {p_sa!r}; "
           f"window_x1 {p_ec!r} ({card})")
@@ -2143,6 +2223,32 @@ def phase_xpass(card: str) -> list:
         list(range(xs.ITERS)))
     lib_bf16 = tb["library"] * (xs.R // reps)
     del bf_planes
+    # I s16_1dot: one float64 torch.bmm over 64 applications' int16 planes
+    # (exact: every |sum| < 384 x 2^15 x 2^13 < 2^53), rebuilt into the
+    # function (the repeats summed, wrapped to int32) and held equal to the
+    # plain version; timed in turns with s16_1dot's two forms at R and R / 8
+    # and with torch._int_mm of 64 applications' four s8 byte-plane products
+    # (s8_4dot's planes: the same products' count, not the same function)
+    c64 = cv16["c16"].to(torch.float64)
+
+    def s16_planes(t):
+        return torch.stack([p.to(torch.float64) for p in window_rows("s16_1dot", t, torch.int16)])
+
+    d = torch.bmm(s16_planes(w), c64).to(torch.int64).view(xs.N_G, reps, xs.TH, xs.GN)
+    got = _harness.wrap(torch.cat(list(d.sum(1)), dim=1), 32).to(torch.int32)
+    check(torch.equal(got, xs.x_scheme_plain("s16_1dot", w, cv16, reps)),
+          "torch.bmm float64 over the int16 planes != x_scheme_plain s16_1dot")
+    s16p = [s16_planes(t) for t in _harness.perturbed(w, 4)]
+    s8p = [s8_planes(t) for t in _harness.perturbed(w, 4)]
+    wss = _harness.perturbed(w, xs.ITERS)
+    ts = probe_turns({**{f"{form} {r}": functools.partial(
+        lambda i, r, f: xs.x_scheme("s16_1dot", wss[i], cv16, r, f), r=r, f=form)
+        for form in ("gemm", "serial") for r in (xs.R, xs.R // 8)},
+        "library": lambda i: torch.bmm(s16p[i % 4], c64),
+        "int_mm": lambda i: lib_s8(s8p[i % 4])}, list(range(xs.ITERS)))
+    lib_s16 = ts["library"] * (xs.R // reps)
+    lib_s16_int_mm = ts["int_mm"] * (xs.R // reps)
+    del s16p, s8p
     # J dense4: the four bf16 dots of 24 applications as one product
     cx = torch.cat([ops.cxh, ops.cxl], dim=1)
 
@@ -2204,14 +2310,16 @@ def phase_xpass(card: str) -> list:
         [ops.perturbed(i) for i in range(vx.ITERS)])
     j_whole = (tj[f"gemm {vx.R}"] - tj[f"gemm {j_step}"]) / (vx.R - j_step) * 1e3
     per_app = {}
-    for tag, t, r_full in (("f32_2dot", ti, xs.R), ("bf16_1dot", tb, xs.R), ("dense4", tj, vx.R)):
+    for tag, t, r_full in (("f32_2dot", ti, xs.R), ("bf16_1dot", tb, xs.R), ("s16_1dot", ts, xs.R),
+                           ("dense4", tj, vx.R)):
         for form in ("gemm", "serial"):
             hi_, lo_ = t[f"{form} {r_full}"], t[f"{form} {r_full // 8}"]
             per_app[tag, form] = ((hi_ - lo_) / (r_full - r_full // 8) * 1e3, hi_ / r_full * 1e3)
     lib_app = {"f32_2dot": lib_f32 / xs.R * 1e3, "bf16_1dot": lib_bf16 / xs.R * 1e3,
-               "dense4": lib_vx / vx.R * 1e3}
+               "s16_1dot": lib_s16 / xs.R * 1e3, "dense4": lib_vx / vx.R * 1e3}
     for tag, variant_bound, r_full in (("f32_2dot", xs.bound("f32_2dot"), xs.R),
                                        ("bf16_1dot", xs.bound("bf16_1dot"), xs.R),
+                                       ("s16_1dot", xs.bound("s16_1dot", form="gemm"), xs.R),
                                        ("dense4", vx.bound("dense4"), vx.R)):
         (gs, gr), (ss, sr) = per_app[tag, "gemm"], per_app[tag, "serial"]
         print(f"{tag}[gemm] in turns with PR 7's form: {gs!r} us/application (slope R={r_full} "
@@ -2220,6 +2328,11 @@ def phase_xpass(card: str) -> list:
               f"{gr / lib_app[tag]!r}, slope {gs / lib_app[tag]!r} ({card})")
     print(f"dense4[gemm] slope between whole steps (R={vx.R} and {j_step}): {j_whole!r} "
           f"us/application ({card})")
+    print(f"s16_1dot in turns: gemm t(R)/R {per_app['s16_1dot', 'gemm'][1]!r} us/application, "
+          f"serial (IMAD) {per_app['s16_1dot', 'serial'][1]!r}, float64 torch.bmm "
+          f"{lib_app['s16_1dot']!r}, torch._int_mm of four s8 byte-plane products "
+          f"{lib_s16_int_mm / xs.R * 1e3!r}; bounds: four s8 products "
+          f"{xs.bound('s16_1dot', form='gemm')[2]!r}, IMAD {xs.bound('s16_1dot')[2]!r} ({card})")
 
     x, j, k, l_, m = (rows["xs"]["s8_4dot"], rows["vx"]["dense4"], rows["vr"]["epi P=8"],
                       rows["sa"]["k0%128, kl=512"], rows["ec"]["x1"])
@@ -2227,7 +2340,7 @@ def phase_xpass(card: str) -> list:
     def gemm_entry(name, replaces, tag, key, t, r_full, mod, plain, lib):
         """A gemm form's entry: µs per application as the slope and as
         t(R)/R, beside PR 7's serial form timed in the same turns."""
-        b_ms, by, app_us, _ = mod.bound(tag)
+        b_ms, by, app_us, _ = xs.bound(tag, form="gemm") if mod is xs else mod.bound(tag)
         (gs, gr), (ss, sr) = per_app[tag, "gemm"], per_app[tag, "serial"]
         return {"name": name, "route": "cuda",
                 "source": "libiqo_tpu_torch/csrc/exp/exp_xpass_gemm.cu", "replaces": replaces,
@@ -2307,6 +2420,15 @@ def phase_xpass(card: str) -> list:
          "lsb_vs_gold": lsb_gemm, "serial_lsb_vs_gold": lsb,
          "library_in_turns": f"one bf16 torch.bmm(out_dtype=float32) over {reps} "
                              "applications' planes, timed in the same turns"},
+        {**gemm_entry("xscheme_tile[s16_1dot,gemm]", "scripts/exp_x_schemes.py:156", "s16_1dot",
+                      "xscheme_s16_gemm", ts, xs.R, xs, p_s16, lib_s16),
+         "also_replaces": ["scripts/exp_x_schemes.py:248"],
+         "serial_bound_us_per_app": xs.bound("s16_1dot")[2],
+         "int_mm_ms": lib_s16_int_mm,
+         "int_mm_us_per_app": lib_s16_int_mm / xs.R * 1e3,
+         "library_in_turns": f"one float64 torch.bmm over {reps} applications' int16 planes, "
+                             "timed in the same turns; int_mm_ms: torch._int_mm of the four s8 "
+                             "byte-plane products (s8_4dot's planes), a yardstick"},
     ]
     print(f"phase xpass: {time.perf_counter() - t_phase!r} s")
     return entries

@@ -14,9 +14,10 @@
 //   f32x2   int(a @ C) * 256 + int(b @ C), a = w >> 8, b = w & 255, FP32 FMA
 //           on CUDA cores (TF32 would round C; every sum is an integer below
 //           2^24, so exact in any order);
-//   s16     int16(w) @ C as an int32 IMAD dot on CUDA cores: the substitute
-//           for an s16 product, which Hopper's tensor cores do not have
-//           (__dp2a cannot serve: C does not fit s8);
+//   s16     int16(w) @ C as an int32 IMAD dot on CUDA cores: the serial
+//           form's route (__dp2a cannot serve: C does not fit s8); the gemm
+//           form (exp_xpass_gemm.cu, xscheme_s16_gemm) is the exact route on
+//           the s8 tensor cores, the dot as four byte-plane products;
 //   bf16    int(bf16(w) @ bf16(C)), mma.sync m16n8k16 bf16 -> f32, truncated.
 // Replaces the TPU kernels of scripts/exp_x_schemes.py: make (pl.pallas_call
 // at :156) and, at reps = 1, check_f32_exact (:230), check_s16_exact (:248)

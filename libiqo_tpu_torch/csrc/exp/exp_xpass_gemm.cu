@@ -1,7 +1,7 @@
-// X-pass probes redesigned for Hopper (sm_90a): kernel I's f32_2dot and
-// bf16_1dot schemes and kernel J's dense4 as GEMMs whose M stacks the
-// repeats' work rows (I's f32_2dot on CUDA cores in FP32 FMA, bf16_1dot and
-// J on the tensor cores with wgmma).  Each computes what the TPU kernel
+// X-pass probes redesigned for Hopper (sm_90a): kernel I's f32_2dot,
+// bf16_1dot and s16_1dot schemes and kernel J's dense4 as GEMMs whose M
+// stacks the repeats' work rows (I's f32_2dot on CUDA cores in FP32 FMA,
+// bf16_1dot, s16_1dot and J on the tensor cores with wgmma).  Each computes what the TPU kernel
 // computes, out = sum_{r < reps} body(w + r) with int32 wraps; f32_2dot and
 // dense4 equal the plain versions bit for bit
 // (exp_x_schemes.x_scheme_plain("f32_2dot"), exp_vpu_xpass.vpu_xpass_plain
@@ -64,6 +64,35 @@
 //   Shared memory: 98,304 + 24,576 + 1,024 slack = 123,904 bytes, one block
 //   an SM, 8 warps (2 a scheduler).
 //
+// Kernel I, xscheme_s16_gemm: replaces scripts/exp_x_schemes.py, make
+// (pl.pallas_call at :156), variant s16_1dot, and at reps = 1 its
+// check_s16_exact (:248).  out += wrap32(int16(w + r) @ C_g), exact: the
+// serial form's IMAD dot (exp_xpass.cu) as four products on the s8 tensor
+// cores.  With x = int16(w + r) = 256 xh + xl (xh = x >> 8 as s8, xl = x &
+// 255 as u8) and the taps c = 256 ch + cl alike (laid out once by the host,
+// build_cvals' c16_k, both bytes K-major), x c = 65536 xh ch + 256 (xh cl +
+// xl ch) + xl cl: wgmma m64n64k32 .s32.s8.s8, .s8.u8, .u8.s8 and .u8.u8,
+// the two middle products into one accumulator.
+//   Block: two warpgroups, 16 work rows, 64 output columns (half a group), a
+//   slice of the repeats.  Both byte planes of its taps (3 K blocks of 64 x
+//   128 bytes each, 128-byte swizzled: 48 KB) stay in shared memory for the
+//   slice, a cp.async group a K block, as bf16_1dot's.  The window of w is
+//   resident as int16 (12 KB) in A-fragment order.  A step stacks 8
+//   repeats, one a warp (warp w: repeat 8 step + w).  Per K step of 32 a
+//   lane reads its 16 int16 of rows g and g + 8 as two 16-byte words, adds
+//   r to both halves of each word at once (no carry crosses them: the int16
+//   wrap), and splits the high and low bytes into the two A fragments with
+//   one byte permute each; a repeat past reps gives zero fragments.  The
+//   s32 accumulators (hh, mid, ll: 96 registers) sum over K and over the
+//   warp's repeats of the slice; a slice has at most 64 steps, so no sum can
+//   leave int32 for any int16 values (64 x 384 x 255 x 255 < 2^31) and no
+//   wrap is relied on.  At the end of the slice each thread forms 65536 hh
+//   + 256 mid + ll in uint32, the 8 warps' sums meet in shared memory and
+//   then in the output by one atomicAdd an output.  Bit for bit equal to
+//   exp_x_schemes.x_scheme_plain("s16_1dot"), and to gold at one repeat.
+//   Shared memory: 49,152 + 12,288 + 1,024 slack = 62,464 bytes; one block
+//   an SM by registers, 8 warps (2 a scheduler).
+//
 // Kernel J, vpu_dense4_gemm: replaces scripts/exp_vpu_xpass.py, make
 // (pl.pallas_call at :156), variant dense4.  On wd (160, 896) i32 and cxh,
 // cxl (896, 384) bf16: out += sum over cc in (cxh, cxl) of int(hi @ cc) *
@@ -109,7 +138,8 @@
 //
 // What bounds them on the H100: operations.  Per application, I's two f32
 // dots are 47.2 M FMA, 1.41 us at 67 TFLOP/s; I's bf16 dot 23.6 M
-// multiply-adds, 0.0477 us at 989 TFLOP/s; J's four bf16 dots 220 M
+// multiply-adds, 0.0477 us at 989 TFLOP/s; I's s16 dot as four s8 products
+// 94.4 M multiply-adds, 0.0954 us at 1,979 TOP/s; J's four bf16 dots 220 M
 // multiply-adds, 0.445 us at 989 TFLOP/s.  Bytes are read once for all
 // repeats (under 2 MB a launch; C and the coefficient chunks come from L2).
 // What the design does about it: it keeps the split (once per repeat, row
@@ -491,6 +521,180 @@ xscheme_bf16_gemm(const int32_t* __restrict__ w, const __nv_bfloat16* __restrict
   }
 }
 
+// ---- kernel I: s16_1dot ------------------------------------------------------
+
+namespace gs {
+constexpr int kThreads = 256;              // two warpgroups of 4 warps
+constexpr int kRows = 16;                  // work rows of a block
+constexpr int kRepStep = 8;                // repeats a step stacks along M: one a warp
+constexpr int kCols = 64;                  // output columns of a block: half a group
+constexpr int kK = 384, kKC = 128, kKBlocks = kK / kKC;   // K blocks of 128 bytes
+constexpr int kKSteps = kK / 32;           // wgmma k32 steps
+constexpr int kBand = 896, kTW = 384, kTH = 160, kGN = 128;
+constexpr int kBTile = kCols * kKC;        // a byte plane's K block: 64 x 128 bytes, swizzled
+constexpr int kSmemB = 2 * kKBlocks * kBTile;   // both byte planes of the taps, resident
+constexpr int kSmemW = kRows * kK * 2;     // the block's work window as int16, in A-fragment order
+constexpr int kSmem = kSmemB + kSmemW + 1024;   // + the alignment slack
+// A warp's accumulators sum its repeats of a slice: at most this many steps,
+// so that no s32 sum can leave int32 for any int16 work values and taps
+// (384 x 255 x 255 a repeat for the low bytes' product, the largest)
+constexpr int kMaxSliceSteps = 64;
+static_assert(kBTile % 1024 == 0, "K blocks 1024-byte aligned");
+static_assert(8 * kRows * kCols * 4 <= kSmemB, "the warps' sums fit where the taps were");
+static_assert(static_cast<long long>(kMaxSliceSteps) * kK * 255 * 255 < (1LL << 31),
+              "a slice's s32 sums stay in int32");
+static_assert(kSmem <= 232448, "shared memory of one block");
+}  // namespace gs
+
+// wgmma (sm_90a): D[64 x 64] += A[64 x 32] (registers, 8-bit) x B[32 x 64]
+// (shared, by descriptor, K-major), s32 accumulators; A's and B's types
+// (s8 or u8) are named by the instruction
+#define IQO_WGMMA_I8(name, types)                                                              \
+  __device__ __forceinline__ void name(uint32_t(&d)[32], const uint32_t(&a)[4], uint64_t b) {  \
+    asm volatile(                                                                              \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                            \
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32." types " "                                 \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "     \
+        "{%32, %33, %34, %35}, %36, p;\n}\n"                                                    \
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),  \
+          "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),           \
+          "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),        \
+          "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),        \
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),        \
+          "+r"(d[31])                                                                          \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                         \
+  }
+IQO_WGMMA_I8(wgmma_s8s8, "s8.s8")
+IQO_WGMMA_I8(wgmma_s8u8, "s8.u8")
+IQO_WGMMA_I8(wgmma_u8s8, "u8.s8")
+IQO_WGMMA_I8(wgmma_u8u8, "u8.u8")
+#undef IQO_WGMMA_I8
+
+// Two int16 (a pair in one word) plus the same 16-bit r in each half
+// (rr = r | r << 16), each wrapped to 16 bits: the low 15 bits add, bit 15
+// is the sum's, and no carry crosses the halves
+__device__ __forceinline__ uint32_t add16x2(uint32_t x, uint32_t rr) {
+  return ((x & 0x7FFF7FFFu) + (rr & 0x7FFF7FFFu)) ^ ((x ^ rr) & 0x80008000u);
+}
+
+__global__ void __launch_bounds__(gs::kThreads, 1)
+xscheme_s16_gemm(const int32_t* __restrict__ w, const uint8_t* __restrict__ ck,
+                 uint32_t* __restrict__ out, int reps, int steps_per_slice) {
+  using namespace gs;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* bsm = align1024(smem_raw);      // [K block][hi, lo] taps, 64 x 128 bytes each
+  uint8_t* wsm = bsm + kSmemB;             // the work window, int16 pairs
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int half = blockIdx.y, grp = half / 2, row0 = kRows * blockIdx.z;
+  const int steps = (reps + kRepStep - 1) / kRepStep;
+  const int s0 = blockIdx.x * steps_per_slice;
+  const int s1 = min(s0 + steps_per_slice, steps);
+  if (s0 >= s1) return;
+
+  // the taps' byte planes (ck: (3, 2, 128, 384), K-major): row n of the
+  // block's K block kb and plane p is column 64 half' + n of the group,
+  // columns 128 kb .. of K, its 16-byte pieces at piece ^ (n & 7); one
+  // cp.async group a K block
+  const uint8_t* cg = ck + static_cast<long long>(grp) * 2 * kGN * kK;
+  for (int kb = 0; kb < kKBlocks; ++kb) {
+    for (int i = tid; i < 2 * kCols * 8; i += kThreads) {
+      const int p = i / (kCols * 8), n = i / 8 % kCols, pc = i % 8;
+      cp_async16(bsm + (2 * kb + p) * kBTile + n * 128 + ((pc ^ (n & 7)) << 4),
+                 cg + (static_cast<long long>(p) * kGN + kCols * (half % 2) + n) * kK +
+                     kKC * kb + 16 * pc);
+    }
+    cp_commit();
+  }
+  // the window: int16(w) of the block's 16 rows over the group's 384
+  // columns, element (row, k) at byte ((kk * 2 + row / 8) * 32 + lane) * 16
+  // + 8 (k % 32 / 16) + 2 (k % 4), kk = k / 32, lane = 4 (row % 8) + k % 16
+  // / 4: lane (g, q) reads its K step's A values of rows g and g + 8 as two
+  // 16-byte words, the warp 512 contiguous bytes a word
+  const int32_t* wsrc = w + static_cast<long long>(row0) * kBand + 256 * grp;
+  for (int i = tid; i < kRows * kK / 2; i += kThreads) {
+    const int row = i / (kK / 2), k = 2 * (i % (kK / 2));
+    const int2 v = *reinterpret_cast<const int2*>(wsrc + static_cast<long long>(row) * kBand + k);
+    const int off = (((k / 32) * 2 + row / 8) * 32 + 4 * (row % 8) + k % 16 / 4) * 16 +
+                    8 * (k % 32 / 16) + 2 * (k % 4);
+    *reinterpret_cast<uint32_t*>(wsm + off) =
+        (static_cast<uint32_t>(v.x) & 0xFFFFu) | (static_cast<uint32_t>(v.y) << 16);
+  }
+  cp_wait<kKBlocks - 1>();                 // this thread's copies of K block 0
+  fence_proxy_async();
+  __syncthreads();
+
+  // warp w's 16 A rows of each step are the block's work rows at repeat
+  // r = 8 step + w: hh += ah ch, mid += ah cl + al ch, ll += al cl, each over
+  // the warp's repeats of the slice; a repeat past reps gives zero A rows
+  uint32_t hh[32], mid[32], ll[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) hh[i] = mid[i] = ll[i] = 0;
+  const uint4* wfrag = reinterpret_cast<const uint4*>(wsm) + lane;
+  const uint32_t bbase = smem_addr(bsm);
+  uint32_t ahi[2][4], alo[2][4];           // two A sets: K step kk writes set kk & 1
+  for (int step = s0; step < s1; ++step) {
+    const uint32_t r = static_cast<uint32_t>(kRepStep * step + warp);
+    const bool live = r < static_cast<uint32_t>(reps);
+    const uint32_t rr = (r & 0xFFFFu) * 0x10001u;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      if (step == s0 && kk % 4 == 0 && kk > 0) {   // the first step waits for K block kk / 4
+        if (kk / 4 == 1) cp_wait<kKBlocks - 2>();
+        else cp_wait<0>();
+        fence_proxy_async();
+        __syncthreads();
+      }
+      const uint4 x0 = wfrag[(2 * kk) * 32];       // row g: k 4q .. 4q + 3, 16 + 4q ..
+      const uint4 x1 = wfrag[(2 * kk + 1) * 32];   // row g + 8
+      const uint32_t p[8] = {add16x2(x0.x, rr), add16x2(x0.y, rr), add16x2(x1.x, rr),
+                             add16x2(x1.y, rr), add16x2(x0.z, rr), add16x2(x0.w, rr),
+                             add16x2(x1.z, rr), add16x2(x1.w, rr)};
+      uint32_t (&ah)[4] = ahi[kk & 1];     // the sets K step kk - 2 read: retired
+      uint32_t (&al)[4] = alo[kk & 1];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {        // a_i: rows g, g + 8, g, g + 8; k 4q.., 4q.., 16 + 4q..
+        ah[i] = live ? __byte_perm(p[2 * i], p[2 * i + 1], 0x7531) : 0u;   // the high bytes, s8
+        al[i] = live ? __byte_perm(p[2 * i], p[2 * i + 1], 0x6420) : 0u;   // the low bytes, u8
+      }
+      const uint32_t kb = bbase + (kk / 4) * 2 * kBTile + 32 * (kk % 4);
+      const uint64_t dh = desc_sw128(kb), dl = desc_sw128(kb + kBTile);
+      wgmma_fence();
+      wgmma_s8s8(hh, ah, dh);
+      wgmma_s8u8(mid, ah, dl);
+      wgmma_u8s8(mid, al, dh);
+      wgmma_u8u8(ll, al, dl);
+      wgmma_commit();
+      pin(ah);
+      pin(al);
+      wgmma_wait<1>();                     // K step kk - 1 retired: its A sets are free
+    }
+  }
+  wgmma_wait<0>();
+  pin(hh);
+  pin(mid);
+  pin(ll);
+
+  // 65536 hh + 256 mid + ll in uint32 (the int32 wrap of the dot, summed
+  // over the warp's repeats); the 8 warps' sums meet in shared memory (where
+  // the taps were), then one uint32 atomicAdd an output meets the other
+  // slices'
+  __syncthreads();
+  uint32_t* part = reinterpret_cast<uint32_t*>(bsm);         // [warp][row][column]
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    part[(warp * kRows + g + 8 * (i % 4 / 2)) * kCols + 8 * (i / 4) + 2 * q + i % 2] =
+        mad_u32(hh[i], 65536u, mad_u32(mid[i], 256u, ll[i]));
+  __syncthreads();
+  for (int e = tid; e < kRows * kCols; e += kThreads) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int wp = 0; wp < kThreads / 32; ++wp) v = add_u32(v, part[wp * kRows * kCols + e]);
+    atomicAdd(out + static_cast<long long>(row0 + e / kCols) * kTW + kCols * half + e % kCols, v);
+  }
+}
+
 // ---- kernel J: dense4 ------------------------------------------------------
 
 namespace gj {
@@ -671,7 +875,7 @@ bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0
 
 extern "C" {
 
-// Raise the three kernels' dynamic shared-memory limits (and prefer shared memory
+// Raise the four kernels' dynamic shared-memory limits (and prefer shared memory
 // over L1) on the current device; call once per device before their first
 // launch.
 int iqo_exp_xpass_gemm_setup() {
@@ -681,6 +885,11 @@ int iqo_exp_xpass_gemm_setup() {
       vpu_dense4_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, gj::kSmem));
   if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
       xscheme_bf16_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, gb::kSmem));
+  if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
+      xscheme_s16_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, gs::kSmem));
+  if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
+      xscheme_s16_gemm, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared));
   if (!rc) rc = static_cast<int>(cudaFuncSetAttribute(
       xscheme_f32_gemm, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared));
@@ -697,13 +906,16 @@ int iqo_exp_xpass_gemm_setup() {
 // kernel I's f32_2dot (threads, rows, repeats a step, K chunk, chunks,
 // shared bytes), shape[6..12] kernel J (threads, rows, repeats a step,
 // columns, K chunk, chunks, shared bytes), shape[13..18] kernel I's
-// bf16_1dot (as f32_2dot's).
+// bf16_1dot (as f32_2dot's), shape[19..26] kernel I's s16_1dot (threads,
+// rows, repeats a step, columns, K block, K blocks, shared bytes, most steps
+// a slice).
 int iqo_exp_xpass_gemm_shape(int* shape) {
-  const int v[19] = {gi::kThreads, gi::kRows, gi::kRepStep, gi::kKC, gi::kChunks, gi::kSmem,
+  const int v[27] = {gi::kThreads, gi::kRows, gi::kRepStep, gi::kKC, gi::kChunks, gi::kSmem,
                      gj::kThreads, gj::kRows, gj::kRepStep, gj::kCols, gj::kKC, gj::kChunks,
                      gj::kSmem, gb::kThreads, gb::kRows, gb::kRepStep, gb::kKC, gb::kChunks,
-                     gb::kSmem};
-  for (int i = 0; i < 19; ++i) shape[i] = v[i];
+                     gb::kSmem, gs::kThreads, gs::kRows, gs::kRepStep, gs::kCols, gs::kKC,
+                     gs::kKBlocks, gs::kSmem, gs::kMaxSliceSteps};
+  for (int i = 0; i < 27; ++i) shape[i] = v[i];
   return 0;
 }
 
@@ -735,6 +947,24 @@ int iqo_exp_xscheme_bf16_gemm(const void* w, const void* ck, void* out, int reps
   xscheme_bf16_gemm<<<dim3(slices, gb::kGroups, gb::kTH / gb::kRows), gb::kThreads, gb::kSmem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(w), static_cast<const __nv_bfloat16*>(ck),
+      static_cast<uint32_t*>(out), reps, steps_per_slice);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel I, s16_1dot: w (160, 896) i32, ck (3, 2, 128, 384) u8 (the taps'
+// high and low bytes, K-major) -> out (160, 384) int32, zeroed by the caller;
+// slices x steps_per_slice covers the ceil(reps / 8) steps, at most
+// kMaxSliceSteps a slice.
+int iqo_exp_xscheme_s16_gemm(const void* w, const void* ck, void* out, int reps, int slices,
+                             int steps_per_slice, void* stream) {
+  if (reps < 1 || slices < 1 || steps_per_slice < 1 || steps_per_slice > gs::kMaxSliceSteps)
+    return 1008;
+  const int steps = (reps + gs::kRepStep - 1) / gs::kRepStep;
+  if ((slices - 1) * steps_per_slice >= steps || slices * steps_per_slice < steps) return 1008;
+  if (misaligned(w) || misaligned(ck) || misaligned(out)) return 1002;
+  xscheme_s16_gemm<<<dim3(slices, gs::kTW / gs::kCols, gs::kTH / gs::kRows), gs::kThreads,
+                     gs::kSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(w), static_cast<const uint8_t*>(ck),
       static_cast<uint32_t*>(out), reps, steps_per_slice);
   return static_cast<int>(cudaGetLastError());
 }

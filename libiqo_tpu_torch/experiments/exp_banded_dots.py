@@ -2,9 +2,14 @@
 tensor cores: monolithic against block-banded, and each pass skipped.
 
 Port of ``scripts/exp_banded_dots.py`` to one NVIDIA H100.  Kernel D,
-``banded_tile(ops, band, ymode, xmode)`` (``libiqo_tpu_torch/csrc/exp/
-exp_banded.cu``), replaces ``make`` (``pl.pallas_call`` at ``:92``) in all
-nine (Y, X) modes of ``:150-155``.  Per tile of ``band`` (GRID, 336, 896) u8:
+``banded_tile(ops, band, ymode, xmode, form)``, replaces ``make``
+(``pl.pallas_call`` at ``:92``) in all nine (Y, X) modes of ``:150-155``, in
+two forms (:data:`FORMS`): ``"wgmma"``, the default
+(``libiqo_tpu_torch/csrc/exp/exp_banded_wgmma.cu``: a transposed Y GEMM on
+wgmma into int16 work rows, then a persistent X GEMM on wgmma fed by a TMA
+ring, its walk and model in :mod:`.banded_wgmma`), and ``"sync"``, PR 5's
+(``exp_banded.cu``: a block of 16 output rows a tile on ``mma.sync``).  Per
+tile of ``band`` (GRID, 336, 896) u8:
 
 * Y: ``w = int32(cy @ band)`` (``mono``), or each group of 40 rows over its
   96 band rows only (``grouped``, ``:39``), or ``band[:160] * 37``
@@ -20,9 +25,11 @@ The coefficients are packed once (:func:`pack`: ``cy`` as it is, each
 ``cxp`` K-major), as the TPU kernel copies them into VMEM once per call.
 The nine modes compute different functions on these dense random
 coefficients, so each is held to its own plain version, never to another
-mode.  Each row times back-to-back launches on band stacks that each differ
-in ``band[0, 0, 0]`` (``bench``, ``:116-145``) and reports ms per 35-tile
-frame beside its bound.
+mode.  Each row times both forms in turns (back-to-back launches on band
+stacks that each differ in ``band[0, 0, 0]``, ``bench``, ``:116-145``) and
+reports ms per 35-tile frame beside its bound.  :data:`LAUNCHES` counts the
+``sync`` form under ``"y,x"`` and the ``wgmma`` form, one count a call of its
+two kernels, under ``"y,x[wgmma]"``.
 
 Run on a card: ``python -m libiqo_tpu_torch.experiments.exp_banded_dots``.
 """
@@ -36,11 +43,11 @@ import functools
 import numpy as np
 import torch
 
-from . import _harness
+from . import _harness, banded_wgmma
 from ._harness import BF16_OPS_PER_S, HBM_BYTES_PER_S, Launches, wrap
 
-__all__ = ["LAUNCHES", "MODES", "PAIRS", "BandedOperands", "banded_tile",
-           "banded_tile_plain", "main", "pack"]
+__all__ = ["FORMS", "LAUNCHES", "MODES", "PAIRS", "BandedOperands", "banded_tile",
+           "banded_tile_plain", "launch_key", "main", "pack"]
 
 TH, BH, BW, TW = 160, 336, 896, 384
 GRID = 35                  # 7 x 5 tiles per 4K -> 1080p frame
@@ -54,7 +61,16 @@ XGRP = tuple((g * 128, 128, max(0, 256 * g - 128), 384) for g in range(3))
 XWEIGHTS = (65280, -255, 256)
 ITERS = 8                  # band stacks per timed run (84 MB > L2)
 _F32_EXACT = 2**24
-LAUNCHES = Launches(f"{y},{x}" for y, x in PAIRS)
+FORMS = ("wgmma", "sync")  # the first is the default
+
+
+def launch_key(ymode: str, xmode: str, form: str) -> str:
+    """The :data:`LAUNCHES` key of a mode pair's form: ``"y,x"`` for the
+    ``sync`` form, ``"y,x[wgmma]"`` for the ``wgmma`` form."""
+    return f"{ymode},{xmode}" + ("" if form == "sync" else f"[{form}]")
+
+
+LAUNCHES = Launches(launch_key(y, x, f) for f in reversed(FORMS) for y, x in PAIRS)
 
 
 def reset_launches() -> None:
@@ -149,12 +165,30 @@ def _lib_for(device: torch.device):
     return _harness.lib_with_setup("iqo_exp_banded_setup", device)
 
 
+def _form(form: str | None) -> str:
+    if form is None:
+        return FORMS[0]
+    if form not in FORMS:
+        raise ValueError(f"banded_tile's forms are {FORMS}, got {form!r}")
+    return form
+
+
+@functools.cache
+def _wgmma_lib(device: torch.device):
+    """The probes' library with the wgmma form's shared memory raised on
+    ``device``, its geometry checked against :mod:`.banded_wgmma`'s."""
+    lib = _harness.lib_with_setup("iqo_exp_banded_wgmma_setup", device)
+    banded_wgmma.check_shape(lib)
+    return lib
+
+
 def banded_tile(ops: BandedOperands, band: torch.Tensor, ymode: str,
-                xmode: str) -> torch.Tensor:
-    """Kernel D: band (tiles, 336, 896) u8 -> (tiles, 160, 384) u8.  A CPU
-    tensor takes :func:`banded_tile_plain`; a CUDA tensor launches the
-    kernel or raises."""
+                xmode: str, form: str | None = None) -> torch.Tensor:
+    """Kernel D: band (tiles, 336, 896) u8 -> (tiles, 160, 384) u8, in
+    ``form`` (:data:`FORMS`, ``"wgmma"`` if None).  A CPU tensor takes
+    :func:`banded_tile_plain`; a CUDA tensor launches the kernel or raises."""
     _check_modes(ymode, xmode)
+    form = _form(form)
     if band.dtype != torch.uint8 or band.ndim != 3 or tuple(band.shape[1:]) != (BH, BW):
         raise ValueError(f"band must be (tiles, {BH}, {BW}) uint8, got "
                          f"{tuple(band.shape)} {band.dtype}")
@@ -162,13 +196,34 @@ def banded_tile(ops: BandedOperands, band: torch.Tensor, ymode: str,
         return banded_tile_plain(ops, band, ymode, xmode)
     if not band.is_contiguous():
         raise ValueError("banded_tile takes a contiguous band")
+    if form == "wgmma":
+        return _banded_wgmma(ops, band, ymode, xmode)
     lib = _lib_for(band.device)
     out = torch.empty((band.shape[0], TH, TW), dtype=torch.uint8, device=band.device)
     _harness.check_rc(lib.iqo_exp_banded(
         MODES.index(ymode), MODES.index(xmode), band.data_ptr(),
         ops.cy.data_ptr(), *(c.data_ptr() for c in ops.cxt), out.data_ptr(),
         band.shape[0], _harness.stream(band)), "banded_tile")
-    LAUNCHES.add(f"{ymode},{xmode}")
+    LAUNCHES.add(launch_key(ymode, xmode, "sync"))
+    return out
+
+
+def _banded_wgmma(ops: BandedOperands, band: torch.Tensor, ymode: str,
+                  xmode: str) -> torch.Tensor:
+    """The wgmma form's two launches: Y into int16 work rows (or, with X
+    skip, into the output), then X; grids from :mod:`.banded_wgmma`."""
+    tiles, dev = band.shape[0], band.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    xskip = xmode == "skip"
+    work = None if xskip else torch.empty((tiles * TH, BW), dtype=torch.int16, device=dev)
+    out = torch.empty((tiles, TH, TW), dtype=torch.uint8, device=dev)
+    _harness.check_rc(_wgmma_lib(dev).iqo_exp_banded_wgmma(
+        MODES.index(ymode), MODES.index(xmode), band.data_ptr(), ops.cy.data_ptr(),
+        *(c.data_ptr() for c in ops.cxt), None if work is None else work.data_ptr(),
+        out.data_ptr(), tiles, banded_wgmma.y_ctas(tiles, xskip, sms),
+        0 if xskip else banded_wgmma.x_ctas(tiles, sms), _harness.stream(band)),
+        "banded_tile[wgmma]")
+    LAUNCHES.add(launch_key(ymode, xmode, "wgmma"))
     return out
 
 
@@ -208,7 +263,8 @@ def bound(ymode: str, xmode: str, tiles: int | None = None) -> tuple[float, str,
 
 
 def main() -> dict:
-    """Every mode on card 0; returns {"y=.. x=..": {ms, bound_ms, ...}}."""
+    """Every mode in both forms on card 0, timed in turns; returns {"y=..
+    x=..": {ms (wgmma), ms_sync, bound_ms, ...}}."""
     _harness.require_card()
     card = _harness.card()
     band, cy, cxs = inputs(torch.device("cuda", 0))
@@ -217,20 +273,25 @@ def main() -> dict:
     rows = {}
     for ym, xm in PAIRS:
         name = f"y={ym} x={xm}"
-        if not torch.equal(banded_tile(ops, bands[-1], ym, xm),
-                           banded_tile_plain(ops, bands[-1], ym, xm)):
-            raise AssertionError(f"{name}: kernel differs from its plain version")
-        ms = _harness.launches_ms(lambda b: banded_tile(ops, b, ym, xm), bands)
+        want = banded_tile_plain(ops, bands[-1], ym, xm)
+        for form in FORMS:
+            if not torch.equal(banded_tile(ops, bands[-1], ym, xm, form), want):
+                raise AssertionError(f"{name} [{form}]: kernel differs from its plain version")
+        ms = _harness.turns_ms({
+            form: (lambda b, f=form: banded_tile(ops, b, ym, xm, f), bands) for form in FORMS})
         b_ms, by, nbytes, m = bound(ym, xm)
-        print(f"{name:22s}: {ms!r} ms/frame ({GRID} tiles), {m} MAC, bound "
-              f"{b_ms!r} ms ({by}), kernel/bound {ms / b_ms!r} ({card})",
+        print(f"{name:22s}: wgmma {ms['wgmma']!r} ms/frame, sync {ms['sync']!r} ms/frame, in "
+              f"turns ({GRID} tiles), {m} MAC, bound {b_ms!r} ms ({by}), wgmma/bound "
+              f"{ms['wgmma'] / b_ms!r}, wgmma/sync {ms['wgmma'] / ms['sync']!r} ({card})",
               flush=True)
-        rows[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": by,
-                      "bytes": nbytes, "macs": m}
-    y = rows["y=mono x=skip"]["ms"] - rows["y=skip x=skip"]["ms"]
-    x = rows["y=skip x=mono"]["ms"] - rows["y=skip x=skip"]["ms"]
-    print(f"per pass, over skip/skip: Y mono {y!r} ms, X mono {x!r} ms "
-          f"({card})", flush=True)
+        rows[name] = {"ms": ms["wgmma"], "ms_sync": ms["sync"], "bound_ms": b_ms,
+                      "bound_by": by, "bytes": nbytes, "macs": m,
+                      "issued": banded_wgmma.issued_bytes(GRID, xm)}
+    for key in ("ms", "ms_sync"):
+        y = rows["y=mono x=skip"][key] - rows["y=skip x=skip"][key]
+        x = rows["y=skip x=mono"][key] - rows["y=skip x=skip"][key]
+        print(f"per pass, over skip/skip, {'wgmma' if key == 'ms' else 'sync'}: Y mono {y!r} "
+              f"ms, X mono {x!r} ms ({card})", flush=True)
     return rows
 
 

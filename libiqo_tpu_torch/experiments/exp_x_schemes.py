@@ -35,9 +35,10 @@ bound of :func:`bf16_bound`.
 issue the same four m16n8 products per 32 of K; only the coefficient planes'
 layout differs, as the TPU's per-dot overhead has no counterpart);
 ``bf16_1dot`` ``mma.sync`` m16n8k16 bf16 -> f32; ``f32_2dot`` FP32 FMA on
-CUDA cores (TF32 would round ``C``); ``s16_1dot`` **an int32 multiply-add
-(IMAD) dot on CUDA cores, the substitute for an s16 product, which Hopper's
-tensor cores do not have** (``__dp2a`` cannot serve: ``C`` does not fit s8).
+CUDA cores (TF32 would round ``C``); ``s16_1dot`` an int32 multiply-add
+(IMAD) dot on CUDA cores, its serial form's route (``__dp2a`` cannot serve:
+``C`` does not fit s8); its gemm form is the exact route on the s8 tensor
+cores, below.
 The TPU keeps the whole tile and every coefficient plane in VMEM across the
 repeats: 573 KB of work rows and 295-590 KB of planes, more than an SM's
 227 KB.  The kernel splits the output over 120 blocks, (10 row blocks of
@@ -49,8 +50,8 @@ the work values and the split redone in every repeat, as the script's
 ``body_of``.
 
 **Forms.**  ``x_scheme(..., form=)`` picks the kernel: ``"serial"`` is the
-form above; ``"gemm"`` (``f32_2dot`` and ``bf16_1dot``, and their default)
-is the redesign in ``csrc/exp/exp_xpass_gemm.cu``.  ``f32_2dot``'s,
+form above; ``"gemm"`` (``f32_2dot``, ``bf16_1dot`` and ``s16_1dot``, and
+their default) is the redesign in ``csrc/exp/exp_xpass_gemm.cu``.  ``f32_2dot``'s,
 ``xscheme_f32_gemm``, is a register-tiled FFMA GEMM whose M stacks 4 repeats
 x 2 planes of 16 work rows against the group's taps, held in shared memory
 for a block's whole slice of the repeats.  ``bf16_1dot``'s,
@@ -58,11 +59,17 @@ for a block's whole slice of the repeats.  ``bf16_1dot``'s,
 warpgroups' wgmma m64n128k16 with A, ``bf16(w + r)``, made in registers,
 against the group's taps laid out K-major (``cvals["cbf_k"]``) and
 resident; each repeat's f32 dot is whole over K before it is truncated, and
-the tensor cores' order of summation is held within :func:`bf16_bound`.  In
-both the slices meet in a zeroed output by uint32 ``atomicAdd``
-(:mod:`.xpass_gemm` states their geometry and models them in NumPy).
-:data:`LAUNCHES` counts each variant's serial launches under its name and
-the gemm forms' under ``"f32_2dot[gemm]"`` and ``"bf16_1dot[gemm]"``.
+the tensor cores' order of summation is held within :func:`bf16_bound`.
+``s16_1dot``'s, ``xscheme_s16_gemm``, computes the exact int16 dot on the s8
+tensor cores: with ``x = 256 xh + xl`` and ``c = 256 ch + cl`` (high byte
+s8, low byte u8), ``x c = 65536 xh ch + 256 (xh cl + xl ch) + xl cl``, four
+wgmma products on byte planes split in registers from ``int16(w + r)``,
+against the taps' byte planes laid out K-major (``cvals["c16_k"]``); the s32
+sums are recombined in uint32.  In all three the slices meet in a zeroed
+output by uint32 ``atomicAdd`` (:mod:`.xpass_gemm` states their geometry
+and models them in NumPy).  :data:`LAUNCHES` counts each variant's serial
+launches under its name and the gemm forms' under ``"f32_2dot[gemm]"``,
+``"bf16_1dot[gemm]"`` and ``"s16_1dot[gemm]"``.
 
 Times: per launch by back-to-back launches on 8 tiles that each differ in
 ``w[0, 0]``, at ``reps = R`` and ``R / 8``; per application is the slope
@@ -93,7 +100,7 @@ R = 512
 WINDOWS = ((0, 384), (256, 640), (512, 896))
 NTAPS = 12
 VARIANTS = ("empty", "s8_4dot", "s8_2dot_cat", "f32_2dot", "s16_1dot", "bf16_1dot")
-GEMM_VARIANT = ("f32_2dot", "bf16_1dot")   # the variants with a gemm form, their default
+GEMM_VARIANT = ("f32_2dot", "bf16_1dot", "s16_1dot")   # with a gemm form, their default
 ITERS = 8                  # work tiles per timed run
 LSB = 2**20                # one u8 output LSB in the pre-shift i32 sum domain
 
@@ -111,6 +118,9 @@ _CHUNK_REPS = 32           # repeats per batched product in the plain version
 # the operand planes each variant takes, in the kernel's argument order
 _PLANES = {"empty": (), "s8_4dot": ("e", "f"), "s8_2dot_cat": ("ef",),
            "f32_2dot": ("cf32",), "s16_1dot": ("c16",), "bf16_1dot": ("cbf",)}
+_GEMM_ENTRY = {"f32_2dot": (xpass_gemm.F32_GEMM, "iqo_exp_xscheme_gemm"),
+               "bf16_1dot": (xpass_gemm.BF16_GEMM, "iqo_exp_xscheme_bf16_gemm"),
+               "s16_1dot": (xpass_gemm.S16_GEMM, "iqo_exp_xscheme_s16_gemm")}
 _DTYPES = {"e": torch.int8, "f": torch.int8, "ef": torch.int8, "cf32": torch.float32,
            "c16": torch.int16, "cbf": torch.bfloat16, "corr": torch.int32}
 
@@ -139,9 +149,10 @@ def build_cvals(variant: str, c: torch.Tensor) -> dict[str, torch.Tensor]:
     """The script's operands of ``variant`` (``build_cvals``, ``:163-187``),
     each stacked over the 3 groups: ``e``, ``f`` (3, 384, 128) int8 and
     ``corr`` (3, 128) int32 zeros; ``ef`` (3, 384, 256) int8; ``cf32``
-    float32; ``c16`` int16; ``cbf`` bfloat16 (rounded from float32) and,
-    for the gemm form, ``cbf_k`` the same taps K-major, (3, 128, 384), laid
-    out once here as kernel C's ``k_major``."""
+    float32; ``c16`` int16 and, for the gemm form, ``c16_k`` its high and
+    low bytes K-major, (3, 2, 128, 384) uint8; ``cbf`` bfloat16 (rounded
+    from float32) and, for the gemm form, ``cbf_k`` the same taps K-major,
+    (3, 128, 384); each laid out once here as kernel C's ``k_major``."""
     _check_variant(variant)
     e = wrap(c.to(torch.int64) >> 8, 8).to(torch.int8)
     f = wrap(c.to(torch.int64) & 255, 8).to(torch.int8)
@@ -151,7 +162,10 @@ def build_cvals(variant: str, c: torch.Tensor) -> dict[str, torch.Tensor]:
     if variant == "s8_2dot_cat":
         return {"ef": torch.cat([e, f], dim=2).contiguous(), "corr": corr}
     if variant == "s16_1dot":
-        return {"c16": c.to(torch.int16)}
+        c16 = c.to(torch.int16)
+        v = c16.to(torch.int64)
+        planes = torch.stack([(v >> 8) & 255, v & 255], dim=1).to(torch.uint8)
+        return {"c16": c16, "c16_k": planes.transpose(2, 3).contiguous()}
     if variant == "bf16_1dot":
         cbf = c.to(torch.float32).to(torch.bfloat16)
         return {"cbf": cbf, "cbf_k": cbf.transpose(1, 2).contiguous()}
@@ -294,21 +308,21 @@ def x_scheme(variant: str, w: torch.Tensor, cvals: dict, reps: int = R,
              form: str | None = None) -> torch.Tensor:
     """Kernel I: (160, 384) int32 from ``w`` (160, 896) int32 and the
     variant's :func:`build_cvals` planes, in ``form`` (``"serial"``, or
-    ``"gemm"`` for ``f32_2dot`` and ``bf16_1dot``, their default).  CPU tensors take
-    :func:`x_scheme_plain`; CUDA tensors launch the kernel or raise."""
+    ``"gemm"`` for ``f32_2dot``, ``bf16_1dot`` and ``s16_1dot``, their
+    default).  CPU tensors take :func:`x_scheme_plain`; CUDA tensors launch
+    the kernel or raise."""
     form = _form(variant, form)
     _check(variant, w, cvals, reps)
     planes = [cvals[n] for n in _PLANES[variant]]
-    if form == "gemm" and variant == "bf16_1dot":
-        planes = [_taps_k_major(cvals)]
+    if form == "gemm" and variant in _K_MAJOR:
+        planes = [_taps_k_major(variant, cvals)]
     corr = cvals["corr"] if variant.startswith("s8") else None
     if not all(t.is_contiguous() for t in (w, *planes)):
         raise ValueError("x_scheme takes contiguous tensors")
     if not _harness.on_card(w, *planes, *([] if corr is None else [corr])):
         return x_scheme_plain(variant, w, cvals, reps)
     if form == "gemm":
-        geom, entry = ((xpass_gemm.F32_GEMM, "iqo_exp_xscheme_gemm") if variant == "f32_2dot"
-                       else (xpass_gemm.BF16_GEMM, "iqo_exp_xscheme_bf16_gemm"))
+        geom, entry = _GEMM_ENTRY[variant]
         launch = xpass_gemm.geometry(geom, reps, xpass_gemm.sm_count(w.device))
         out = torch.zeros((TH, TW), dtype=torch.int32, device=w.device)
         _harness.check_rc(getattr(xpass_gemm.lib(w.device), entry)(
@@ -327,33 +341,47 @@ def x_scheme(variant: str, w: torch.Tensor, cvals: dict, reps: int = R,
     return out
 
 
-def _taps_k_major(cvals: dict) -> torch.Tensor:
-    """``bf16_1dot``'s gemm form reads the taps K-major: ``cvals["cbf_k"]``
-    (3, 128, 384) bf16, from :func:`build_cvals`."""
-    t = cvals.get("cbf_k")
-    if t is None or tuple(t.shape) != (N_G, GN, K) or t.dtype != torch.bfloat16:
-        raise ValueError(f"bf16_1dot[gemm] takes cvals['cbf_k'] {(N_G, GN, K)} bfloat16, the "
+# the gemm forms that read their taps K-major: (cvals key, shape, dtype)
+_K_MAJOR = {"bf16_1dot": ("cbf_k", (N_G, GN, K), torch.bfloat16),
+            "s16_1dot": ("c16_k", (N_G, 2, GN, K), torch.uint8)}
+
+
+def _taps_k_major(variant: str, cvals: dict) -> torch.Tensor:
+    """``bf16_1dot``'s and ``s16_1dot``'s gemm forms read the taps K-major:
+    ``cvals["cbf_k"]`` (3, 128, 384) bf16, ``cvals["c16_k"]`` (3, 2, 128,
+    384) uint8 (high, low byte), from :func:`build_cvals`."""
+    key, shape, dtype = _K_MAJOR[variant]
+    t = cvals.get(key)
+    if t is None or tuple(t.shape) != shape or t.dtype != dtype:
+        raise ValueError(f"{variant}[gemm] takes cvals[{key!r}] {shape} {dtype}, the "
                          f"taps K-major from build_cvals, got "
                          f"{None if t is None else (tuple(t.shape), t.dtype)}")
     return t
 
 
-def macs(variant: str) -> tuple[int, str]:
-    """(multiply-adds of one application, the unit that runs them)."""
+def macs(variant: str, form: str = "serial") -> tuple[int, str]:
+    """(multiply-adds of one application, the unit that runs them): the
+    serial forms' (``s16_1dot`` an int32 dot), or with ``form="gemm"``
+    ``s16_1dot``'s four s8 byte-plane products."""
     per_dot = TH * K * GN * N_G                      # 23.6 M
+    if variant == "s16_1dot" and form == "gemm":
+        return 4 * per_dot, "int8"
     return {"empty": (0, "none"), "s8_4dot": (4 * per_dot, "int8"),
             "s8_2dot_cat": (4 * per_dot, "int8"), "f32_2dot": (2 * per_dot, "fp32"),
             "s16_1dot": (per_dot, "int32"), "bf16_1dot": (per_dot, "bf16")}[variant]
 
 
-def bound(variant: str, reps: int = R) -> tuple[float, str, float, int]:
+def bound(variant: str, reps: int = R, form: str = "serial") -> tuple[float, str, float, int]:
     """(ms of one launch, 'bytes' or 'operations', µs of one application's
     operations, bytes): the work tile, the variant's planes and the output
     once each at 3.35 TB/s, against the multiply-adds at the unit's peak
     (s8 1,979 TOP/s and bf16 989 TFLOP/s on the tensor cores, FP32 67
-    TFLOP/s, int32 multiply-adds :data:`INT32_OPS_PER_S`)."""
+    TFLOP/s, int32 multiply-adds :data:`INT32_OPS_PER_S`).  ``form`` names
+    the route where it changes the unit: ``s16_1dot``'s serial form is an
+    IMAD dot (1.41 µs an application), its gemm form four s8 products
+    (0.0954 µs)."""
     _check_variant(variant)
-    m, unit = macs(variant)
+    m, unit = macs(variant, form)
     per_s = {"int8": INT8_OPS_PER_S / 2, "bf16": BF16_OPS_PER_S / 2, "fp32": FP32_OPS_PER_S / 2,
              "int32": INT32_OPS_PER_S, "none": float("inf")}[unit]
     planes = {"empty": 0, "s8_4dot": 2 * N_G * K * GN + 4 * N_G * GN,
@@ -390,7 +418,7 @@ def main() -> dict:
         t = {reps: _harness.launches_ms(lambda x: x_scheme(variant, x, cv, reps, form), ws)
              for reps in (R // 8, R)}
         us = (t[R] - t[R // 8]) / (R - R // 8) * 1e3
-        b_ms, by, app_us, nbytes = bound(variant)
+        b_ms, by, app_us, nbytes = bound(variant, form=form)
         key = launch_key(variant, form)
         print(f"{key:15s}: {us!r} us/application, slope (t(R)/R {t[R] / R * 1e3!r}; bound "
               f"{app_us!r}); per launch {t[R]!r} ms at R={R}, {t[R // 8]!r} ms at R={R // 8}; "
@@ -402,19 +430,23 @@ def main() -> dict:
     f32 = torch.equal(x_scheme("f32_2dot", w, build_cvals("f32_2dot", c), 1), want)
     f32_serial = torch.equal(x_scheme("f32_2dot", w, build_cvals("f32_2dot", c), 1, "serial"),
                              want)
-    s16 = torch.equal(x_scheme("s16_1dot", w, build_cvals("s16_1dot", c), 1), want)
+    cv16 = build_cvals("s16_1dot", c)
+    s16 = torch.equal(x_scheme("s16_1dot", w, cv16, 1), want)
+    s16_serial = torch.equal(x_scheme("s16_1dot", w, cv16, 1, "serial"), want)
     s8 = torch.equal(x_scheme("s8_4dot", w, build_cvals("s8_4dot", c), 1), want)
     cvb = build_cvals("bf16_1dot", c)
     mx, mean = lsb_error(x_scheme("bf16_1dot", w, cvb, 1), want)
     mx_s, mean_s = lsb_error(x_scheme("bf16_1dot", w, cvb, 1, "serial"), want)
     print(f"f32_2dot exact vs numpy i32-wrap: {f32} (gemm form; serial form {f32_serial})",
           flush=True)
-    print(f"s16_1dot exact vs numpy i32-wrap: {s16} (int32 IMAD dot on CUDA cores)", flush=True)
+    print(f"s16_1dot exact vs numpy i32-wrap: {s16} (gemm form: four s8 byte-plane products; "
+          f"serial form, an int32 IMAD dot on CUDA cores, {s16_serial})", flush=True)
     print(f"s8_4dot == gold: {s8} (zero corr: the script's formula, not the banded product)",
           flush=True)
     print(f"bf16_1dot max err: {mx!r} LSB (mean {mean!r}) (gemm form; serial form {mx_s!r} / "
           f"{mean_s!r}) ({card})", flush=True)
     rows["checks"] = {"f32_exact": f32, "f32_exact_serial": f32_serial, "s16_exact": s16,
+                      "s16_exact_serial": s16_serial,
                       "s8_4dot_gold": s8, "bf16_max_lsb": mx, "bf16_mean_lsb": mean,
                       "bf16_max_lsb_serial": mx_s, "bf16_mean_lsb_serial": mean_s}
     return rows

@@ -1,16 +1,17 @@
 """Launch geometry of the redesigned X-pass probes and NumPy models that walk it.
 
-Kernel I's ``f32_2dot`` and ``bf16_1dot`` and kernel J's ``dense4`` have a
-second form, ``gemm`` (``libiqo_tpu_torch/csrc/exp/exp_xpass_gemm.cu``): a
+Kernel I's ``f32_2dot``, ``bf16_1dot`` and ``s16_1dot`` and kernel J's
+``dense4`` have a second form, ``gemm`` (``libiqo_tpu_torch/csrc/exp/exp_xpass_gemm.cu``): a
 GEMM whose M stacks the repeats' work rows, with the repeats spread over the
 grid in slices whose uint32 partial sums meet in the output by
 ``atomicAdd``.  This module states each form's geometry (:data:`F32_GEMM`,
-:data:`BF16_GEMM`, :data:`DENSE4_GEMM`: block tile, repeats a step stacks, K
-chunks, shared-memory stages), picks the repeat slices for a launch
-(:func:`geometry`), and models the kernels' schedules in NumPy
-(:func:`f32_gemm_model`, :func:`bf16_gemm_model`, :func:`dense4_gemm_model`,
-:func:`cover`), so that the CPU tests can hold the schedule against the plain
-versions; on the card the kernels themselves are held against them.
+:data:`BF16_GEMM`, :data:`S16_GEMM`, :data:`DENSE4_GEMM`: block tile,
+repeats a step stacks, K chunks, shared-memory stages), picks the repeat
+slices for a launch (:func:`geometry`), and models the kernels' schedules in
+NumPy (:func:`f32_gemm_model`, :func:`bf16_gemm_model`,
+:func:`s16_gemm_model`, :func:`dense4_gemm_model`, :func:`cover`), so that
+the CPU tests can hold the schedule against the plain versions; on the card
+the kernels themselves are held against them.
 
 A block of ``f32_2dot``'s form takes one group of 128 outputs, 16 work rows
 and a slice of the repeats; a step stacks 4 repeats x 2 planes of its 16 rows
@@ -19,7 +20,13 @@ stay in shared memory for the whole slice.  A block of ``bf16_1dot``'s form
 takes the same tile with two warpgroups; a step stacks 8 repeats of its 16
 rows (one a warp, 128 A rows, ``m = 16 repeat + row``) against the group's
 taps, laid out K-major and resident, with wgmma; each repeat's f32 dot is
-whole over K before it is truncated.  A block of ``dense4``'s form
+whole over K before it is truncated.  A block of ``s16_1dot``'s form takes
+64 outputs (half a group), 16 work rows and a slice; a step stacks 8
+repeats of its 16 rows, one a warp, as the int16 work values' byte planes
+against the taps' byte planes, K-major and resident (:func:`byte_planes`):
+four s8/u8 wgmma products into three s32 accumulators that sum a warp's
+repeats over the whole slice (:func:`s16_recombine` at its end).  A block of
+``dense4``'s form
 takes 32 output columns, 16 work rows and a slice; a step stacks 8 repeats x
 2 planes x 16 rows against 64 coefficient columns (cxh's 32, then cxl's),
 streamed in K chunks with the chunk's work rows; each warp splits its rows'
@@ -35,9 +42,10 @@ import numpy as np
 import torch
 
 __all__ = ["BF16_GEMM", "DENSE4_GEMM", "F32_GEMM", "FORMS", "FormGeometry", "Launch",
-           "SMEM_LIMIT", "bf16_dot_f32", "bf16_gemm_model", "bf16_round", "check_shape", "cover",
-           "dense4_gemm_model", "f32_gemm_model", "form_of", "geometry", "launch_key", "lib",
-           "sm_count", "split_f32", "wrap_add"]
+           "S16_GEMM", "SMEM_LIMIT", "bf16_dot_f32", "bf16_gemm_model", "bf16_round",
+           "byte_planes", "check_shape", "cover", "dense4_gemm_model", "f32_gemm_model",
+           "form_of", "geometry", "launch_key", "lib", "s16_gemm_model", "s16_recombine",
+           "sm_count", "split_f32", "window_offset", "wrap_add"]
 
 SMEM_LIMIT = 232_448        # bytes of shared memory one block may use (H100)
 SMEM_PER_SM = 233_472       # the SM's 228 KB, of which 1 KB is reserved per block
@@ -84,6 +92,7 @@ class FormGeometry:
     planes: int = 2         # A planes a work row and repeat gives (hi and lo, or one)
     fill: int = 2           # blocks per SM the grid holds where the steps allow
     overhead: float = SLICE_OVERHEAD   # a block's set-up, in steps, for picking the slices
+    max_steps: int | None = None       # most steps a slice may take (None: any)
 
     @property
     def chunks(self) -> int:
@@ -127,6 +136,17 @@ BF16_GEMM = FormGeometry(
 # (a block loads 120 KB of taps and window before its first product, about a
 # step's time, and its 8 warps need no second block on the SM: the fewest
 # blocks win, one wave of 120 at R)
+# kernel I, s16_1dot: two warpgroups, 4 wgmma m64n64k32 (s8/u8) a K step with
+# A (one repeat a warp) from registers; both byte planes of the half group's
+# taps K-major (3 K blocks of 64 x 128 bytes each, swizzled) and the work
+# window as int16 (16 x 384) resident; at most 64 steps a slice, so that the
+# s32 sums of a slice stay in int32
+S16_GEMM = FormGeometry(
+    "s16_1dot[gemm]", threads=256, rows=16, rep_step=8, cols=64, k=384, kc=128,
+    tiles_y=6, tiles_z=10,
+    stages=(("taps' byte planes, K-major, resident (3 K blocks x 2)", 1, 2 * 64 * 384),
+            ("work window, int16", 1, 16 * 384 * 2), ("alignment slack", 1, 1024)),
+    reg_blocks=1, planes=1, fill=0, overhead=1.0, max_steps=64)
 # kernel J, dense4: one warpgroup, 4 wgmma m64n64k16 a K step (A fragments
 # split in registers); four stages of a B chunk (64 x 64 bf16, 1024-byte
 # aligned) and the chunk's 16 work rows (72 words a row)
@@ -170,7 +190,7 @@ def geometry(form: FormGeometry, reps: int, sms: int = H100_SMS) -> Launch:
     steps = -(-reps // form.rep_step)
     slots = sms * form.blocks_per_sm
     options = []
-    for sps in range(1, steps + 1):
+    for sps in range(1, min(steps, form.max_steps or steps) + 1):
         slices = -(-steps // sps)
         waves = -(-slices * form.tiles // slots)
         options.append((waves * (sps + form.overhead), sps, slices))
@@ -195,15 +215,18 @@ def lib(device: torch.device):
 
 def check_shape(lib_) -> None:
     """The kernels' compiled geometry (``iqo_exp_xpass_gemm_shape``) must be
-    :data:`F32_GEMM`, :data:`DENSE4_GEMM` and :data:`BF16_GEMM`."""
+    :data:`F32_GEMM`, :data:`DENSE4_GEMM`, :data:`BF16_GEMM` and
+    :data:`S16_GEMM`."""
     import ctypes
-    got = (ctypes.c_int * 19)()
+    got = (ctypes.c_int * 27)()
     lib_.iqo_exp_xpass_gemm_shape(got)
     want = [F32_GEMM.threads, F32_GEMM.rows, F32_GEMM.rep_step, F32_GEMM.kc, F32_GEMM.chunks,
             F32_GEMM.smem, DENSE4_GEMM.threads, DENSE4_GEMM.rows, DENSE4_GEMM.rep_step,
             DENSE4_GEMM.cols, DENSE4_GEMM.kc, DENSE4_GEMM.chunks, DENSE4_GEMM.smem,
             BF16_GEMM.threads, BF16_GEMM.rows, BF16_GEMM.rep_step, BF16_GEMM.kc,
-            BF16_GEMM.chunks, BF16_GEMM.smem]
+            BF16_GEMM.chunks, BF16_GEMM.smem, S16_GEMM.threads, S16_GEMM.rows,
+            S16_GEMM.rep_step, S16_GEMM.cols, S16_GEMM.kc, S16_GEMM.chunks, S16_GEMM.smem,
+            S16_GEMM.max_steps]
     if list(got) != want:
         raise RuntimeError(f"exp_xpass_gemm.cu's geometry {list(got)} != the host's {want}")
 
@@ -312,6 +335,68 @@ def bf16_gemm_model(w: np.ndarray, cbf: np.ndarray, reps: int,
     return out.view(np.int32)
 
 
+def byte_planes(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``(x >> 8, x & 255)`` of int16 values, int64: the high byte as s8
+    and the low byte as u8, so that ``x == 256 hi + lo``; the kernel takes
+    the work values' planes by byte permutes of their int16 and the taps'
+    from ``build_cvals``' ``c16_k``."""
+    x = x.astype(np.int64)
+    if x.size and (x.min() < -2**15 or x.max() >= 2**15):
+        raise ValueError("byte_planes takes int16 values")
+    return x >> 8, x & 255
+
+
+def s16_recombine(hh: np.ndarray, mid: np.ndarray, ll: np.ndarray) -> np.ndarray:
+    """``65536 hh + 256 mid + ll`` in uint32, as the kernel's ``mad.lo.u32``
+    forms it from the s32 sums: the dot wrapped to 32 bits."""
+    u = [np.asarray(v).astype(np.int64).astype(np.uint64) for v in (hh, mid, ll)]
+    return ((u[0] * 65536 + u[1] * 256 + u[2]) & 0xFFFFFFFF).astype(np.uint32)
+
+
+def window_offset(row: int, k: int) -> int:
+    """Byte offset of the int16 work value (row, k) in ``xscheme_s16_gemm``'s
+    resident window: lane ``4 (row % 8) + k % 16 // 4`` reads its K step
+    ``k // 32``'s values of rows g and g + 8 as the 16-byte words ``2 kk``
+    and ``2 kk + 1`` of 32 lanes."""
+    kk, lane = k // 32, 4 * (row % 8) + k % 16 // 4
+    return ((kk * 2 + row // 8) * 32 + lane) * 16 + 8 * (k % 32 // 16) + 2 * (k % 4)
+
+
+def s16_gemm_model(w: np.ndarray, c: np.ndarray, reps: int, sms: int = H100_SMS) -> np.ndarray:
+    """Kernel I's ``s16_1dot`` in its gemm form, block by block, warp by warp
+    and step by step as :func:`geometry` lays them out: ``w`` (160, 896)
+    int32, ``c`` (3, 384, 128) int16 taps -> (160, 384) int32.  Each warp
+    sums its repeats' byte-plane products in three accumulators over the
+    slice (asserted to stay in int32, as the kernel's s32 sums must), forms
+    :func:`s16_recombine` at the end; the warps and the slices meet in
+    uint32."""
+    f = S16_GEMM
+    launch = geometry(f, reps, sms)
+    out = np.zeros((160, 384), np.uint32)
+    for s, half, rt in np.ndindex(*launch.grid):
+        grp = half // 2
+        rows = slice(f.rows * rt, f.rows * (rt + 1))
+        cols = slice(f.cols * half, f.cols * (half + 1))
+        ch, cl = byte_planes(c[grp][:, f.cols * (half % 2):f.cols * (half % 2 + 1)])
+        wt = w[rows, 256 * grp:256 * grp + f.k].astype(np.int64)
+        total = np.zeros((f.rows, f.cols), np.uint32)
+        for warp in range(f.rep_step):
+            hh, mid, ll = (np.zeros((f.rows, f.cols), np.int64) for _ in range(3))
+            for step in launch.slice_steps(s):
+                r = f.rep_step * step + warp
+                if r >= reps:
+                    continue                    # zero A rows
+                xh, xl = byte_planes((wt + r + 2**15) % 2**16 - 2**15)
+                hh += xh @ ch
+                mid += xh @ cl + xl @ ch
+                ll += xl @ cl
+            if max(np.abs(a).max(initial=0) for a in (hh, mid, ll)) >= 2**31:
+                raise ValueError("an s32 sum of the slice leaves int32")
+            total = wrap_add(total, s16_recombine(hh, mid, ll))
+        out[rows, cols] = wrap_add(out[rows, cols], total)
+    return out.view(np.int32)
+
+
 def dense4_gemm_model(wd: np.ndarray, cxh: np.ndarray, cxl: np.ndarray, reps: int,
                       sms: int = H100_SMS) -> np.ndarray:
     """Kernel J's ``dense4`` in its gemm form, block by block, step by step
@@ -350,12 +435,13 @@ def cover(form: FormGeometry, reps: int, sms: int = H100_SMS) -> np.ndarray:
     tid = np.arange(form.threads)
     for s, ty, tz in np.ndindex(*launch.grid):
         for step in launch.slice_steps(s):
-            if form is BF16_GEMM:
+            if form is BF16_GEMM or form is S16_GEMM:
                 # warp w: repeat 8 step + w; lane (g, q): rows g, g + 8,
-                # columns 8 j + 2 q + c of the group's 128
+                # columns 8 j + 2 q + c of the block's 128 (s16: 64)
                 warp, lane = tid // 32, tid % 32
                 g, q = lane // 4, lane % 4
-                j, h, c = np.meshgrid(np.arange(16), np.arange(2), np.arange(2), indexing="ij")
+                j, h, c = np.meshgrid(np.arange(form.cols // 8), np.arange(2), np.arange(2),
+                                      indexing="ij")
                 cols = form.cols * ty + 8 * j.ravel() + 2 * q[:, None] + c.ravel()
                 rows = form.rows * tz + g[:, None] + 8 * h.ravel()
                 r = form.rep_step * step + warp

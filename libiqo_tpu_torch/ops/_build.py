@@ -217,6 +217,11 @@ def _bind_experiments(lib: ctypes.CDLL) -> ctypes.CDLL:
             ("iqo_exp_banded", [i, i, p, p, p, p, p, p, i, p]),
             ("iqo_exp_banded_setup", []),
             ("iqo_exp_banded_shape", [ctypes.POINTER(i)] * 4),
+            # ymode, xmode, band, cy, cxt0..2, work, out, tiles, Y blocks,
+            # X blocks, stream
+            ("iqo_exp_banded_wgmma", [i, i, p, p, p, p, p, p, p, i, i, i, p]),
+            ("iqo_exp_banded_wgmma_setup", []),
+            ("iqo_exp_banded_wgmma_shape", [ctypes.POINTER(i)]),
             # form, words, src, frame stride, frames, h, w, coef, out,
             # r0..r2, c0..c2, slab, scratch, slab bytes, stream
             ("iqo_exp_band_ydot", [i, i, p, ll, i, i, i, p, p, p, p, p, p, p, p, p, p,
@@ -243,6 +248,7 @@ def _bind_experiments(lib: ctypes.CDLL) -> ctypes.CDLL:
             # w / wd, c / cxt, out, reps, slices, steps per slice, stream
             ("iqo_exp_xscheme_gemm", [p, p, p, i, i, i, p]),
             ("iqo_exp_xscheme_bf16_gemm", [p, p, p, i, i, i, p]),
+            ("iqo_exp_xscheme_s16_gemm", [p, p, p, i, i, i, p]),
             ("iqo_exp_vpu_gemm", [p, p, p, i, i, i, p]),
             ("iqo_exp_xpass_gemm_setup", []),
             ("iqo_exp_xpass_gemm_shape", [ctypes.POINTER(i)]),
