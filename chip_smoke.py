@@ -1736,7 +1736,8 @@ def phase_probes(card: str) -> list:
          "library_none": "no one PyTorch call computes it: two dependent products with an "
                          "int16 wrap and a split between them, then the epilogue",
          "dots_library_ms": lib_d_dots, "ms_in_turns": d_turns["sync mono"],
-         "wgmma_ms": mm["ms"], "rows": {r: v["ms_sync"] for r, v in b.items()}},
+         "grouped_ms_in_turns": d_turns["sync grouped"],
+         "rows": {r: v["ms_sync"] for r, v in b.items()}},
         {"name": "banded_tile[wgmma]", "route": "cuda",
          "source": "libiqo_tpu_torch/csrc/exp/exp_banded_wgmma.cu",
          "replaces": "scripts/exp_banded_dots.py:92", "form": "wgmma",
@@ -1746,10 +1747,8 @@ def phase_probes(card: str) -> list:
          "library_none": "no one PyTorch call computes it: two dependent products with an "
                          "int16 wrap and a split between them, then the epilogue",
          "dots_library_ms": lib_d_dots, "ms_in_turns": d_turns["wgmma mono"],
-         "sync_ms": mm["ms_sync"], "grouped_ms_in_turns": d_turns["wgmma grouped"],
-         "grouped_sync_ms_in_turns": d_turns["sync grouped"], "short_tiles": BANDED_SHORT,
-         "rows": {r: {"ms": v["ms"], "ms_sync": v["ms_sync"], "bound_ms": v["bound_ms"],
-                      "issued": v["issued"]} for r, v in b.items()}},
+         "grouped_ms_in_turns": d_turns["wgmma grouped"], "short_tiles": BANDED_SHORT,
+         "rows": {r: {"ms": v["ms"], "bound_ms": v["bound_ms"]} for r, v in b.items()}},
     ]
     print(f"phase probes: {time.perf_counter() - t_phase!r} s")
     return entries

@@ -201,73 +201,87 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def _bind_experiments(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _exp_signatures() -> tuple:
+    """(symbol, argtypes) of every entry point of the probe library; each
+    returns an int (a cudaError_t or a code of the entry point's own)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name, args in (
-            ("iqo_exp_stream_map", [i, p, p, ll, p]),    # op, src, dst, bytes, stream
-            ("iqo_exp_readsum", [p, p, i, i, p]),        # src, dst, h, w, stream
-            ("iqo_exp_readsum_warp", [p, p, i, i, p]),   # src, dst, h, w, stream
-            # kind, a, b (K-major), out, steps, m, n, k, stream
-            ("iqo_exp_mma_steps", [i, p, p, p, i, i, i, i, p]),
-            # kind, a, b (K-major), out, steps, m, n, k, persistent blocks, stream
-            ("iqo_exp_mma_wgmma", [i, p, p, p, i, i, i, i, i, p]),
-            ("iqo_exp_mma_wgmma_setup", []),
-            ("iqo_exp_mma_wgmma_shape", [ctypes.POINTER(i)]),
-            # ymode, xmode, band, cy, cx0t, cx1t, cx2t, out, tiles, stream
-            ("iqo_exp_banded", [i, i, p, p, p, p, p, p, i, p]),
-            ("iqo_exp_banded_setup", []),
-            ("iqo_exp_banded_shape", [ctypes.POINTER(i)] * 4),
-            # ymode, xmode, band, cy, cxt0..2, work, out, tiles, Y blocks,
-            # X blocks, stream
-            ("iqo_exp_banded_wgmma", [i, i, p, p, p, p, p, p, p, i, i, i, p]),
-            ("iqo_exp_banded_wgmma_setup", []),
-            ("iqo_exp_banded_wgmma_shape", [ctypes.POINTER(i)]),
-            # form, words, src, frame stride, frames, h, w, coef, out,
-            # r0..r2, c0..c2, slab, scratch, slab bytes, stream
-            ("iqo_exp_band_ydot", [i, i, p, ll, i, i, i, p, p, p, p, p, p, p, p, p, p,
-                                   ll, p]),
-            # variant, P, src, h, w, coef, out, nd, n_ty, stream
-            ("iqo_exp_overlap", [i, i, p, i, i, p, p, i, i, p]),
-            ("iqo_exp_overlap_setup", []),
-            # variant, a, b, out, w, n_t, step, halo, stream
-            ("iqo_exp_band_colsum", [i, p, p, p, i, i, i, i, p]),
-            ("iqo_exp_band_shape", [ctypes.POINTER(i)]),
-            # form, words, src, frames, h, w, coef, out, r0..r2, c0..c2, slab,
-            # scratch, slab bytes, persistent blocks, stream
-            ("iqo_exp_band_ydot_ring", [i, i, p, i, i, i, p, p, p, p, p, p, p, p, p, p, ll,
-                                        i, p]),
-            # blocked, P, src, h, w, coef, out, nd, n_ty, persistent blocks, stream
-            ("iqo_exp_overlap_ring", [i, i, p, i, i, p, p, i, i, i, p]),
-            ("iqo_exp_band_ring_setup", []),
-            ("iqo_exp_band_ring_shape", [ctypes.POINTER(i)]),
-            # variant, w, c0, c1, corr, out, reps, stream
-            ("iqo_exp_xscheme", [i, p, p, p, p, p, i, p]),
-            # variant, we, wo, wd, cxt, taps (host int[12]), out, reps, stream
-            ("iqo_exp_vpu_xpass", [i, p, p, p, p, ctypes.POINTER(i), p, i, p]),
-            ("iqo_exp_xpass_setup", []),
-            # w / wd, c / cxt, out, reps, slices, steps per slice, stream
-            ("iqo_exp_xscheme_gemm", [p, p, p, i, i, i, p]),
-            ("iqo_exp_xscheme_bf16_gemm", [p, p, p, i, i, i, p]),
-            ("iqo_exp_xscheme_s16_gemm", [p, p, p, i, i, i, p]),
-            ("iqo_exp_vpu_gemm", [p, p, p, i, i, i, p]),
-            ("iqo_exp_xpass_gemm_setup", []),
-            ("iqo_exp_xpass_gemm_shape", [ctypes.POINTER(i)]),
-            # mix, P, src, out, n, stream
-            ("iqo_exp_op_mix", [i, i, p, p, ll, p]),
-            # align, kl, check, w, ct, out, steps, stream
-            ("iqo_exp_slice_groups", [i, i, i, p, p, p, i, p]),
-            ("iqo_exp_slice_setup", []),
-            # align, kl, check, w, ct, out, steps, persistent blocks, stream
-            ("iqo_exp_slice_wgmma", [i, i, i, p, p, p, i, i, p]),
-            ("iqo_exp_slice_wgmma_setup", []),
-            ("iqo_exp_slice_wgmma_shape", [ctypes.POINTER(i)]),
-            ("iqo_exp_window_x1", [p, p, i, p]),         # src, out, planes, stream
-            ("iqo_exp_window_x2", [p, p, p, p]),         # src, out, spill, stream
-            ("iqo_exp_window_x3", [p, p, i, p]),         # var, out, steps, stream
-            ("iqo_exp_window_setup", [])):
-        getattr(lib, name).argtypes = args
-        getattr(lib, name).restype = i
-    lib.iqo_exp_error_string.argtypes = [i]
+    return (
+        ("iqo_exp_stream_map", [i, p, p, ll, p]),    # op, src, dst, bytes, stream
+        ("iqo_exp_readsum", [p, p, i, i, p]),        # src, dst, h, w, stream
+        ("iqo_exp_readsum_warp", [p, p, i, i, p]),   # src, dst, h, w, stream
+        # kind, a, b (K-major), out, steps, m, n, k, stream
+        ("iqo_exp_mma_steps", [i, p, p, p, i, i, i, i, p]),
+        # kind, a, b (K-major), out, steps, m, n, k, persistent blocks, stream
+        ("iqo_exp_mma_wgmma", [i, p, p, p, i, i, i, i, i, p]),
+        ("iqo_exp_mma_wgmma_setup", []),
+        ("iqo_exp_mma_wgmma_shape", [ctypes.POINTER(i)]),
+        # ymode, xmode, band, cy, cx0t, cx1t, cx2t, out, tiles, stream
+        ("iqo_exp_banded", [i, i, p, p, p, p, p, p, i, p]),
+        ("iqo_exp_banded_setup", []),
+        ("iqo_exp_banded_shape", [ctypes.POINTER(i)] * 4),
+        # ymode, xmode, band, cy, cxt0..2, work, out, tiles, Y blocks,
+        # X blocks, stream
+        ("iqo_exp_banded_wgmma", [i, i, p, p, p, p, p, p, p, i, i, i, p]),
+        ("iqo_exp_banded_wgmma_setup", []),
+        ("iqo_exp_banded_wgmma_shape", [ctypes.POINTER(i)]),
+        # form, words, src, frame stride, frames, h, w, coef, out,
+        # r0..r2, c0..c2, slab, scratch, slab bytes, stream
+        ("iqo_exp_band_ydot", [i, i, p, ll, i, i, i, p, p, p, p, p, p, p, p, p, p,
+                               ll, p]),
+        # variant, P, src, h, w, coef, out, nd, n_ty, stream
+        ("iqo_exp_overlap", [i, i, p, i, i, p, p, i, i, p]),
+        ("iqo_exp_overlap_setup", []),
+        # variant, a, b, out, w, n_t, step, halo, stream
+        ("iqo_exp_band_colsum", [i, p, p, p, i, i, i, i, p]),
+        ("iqo_exp_band_shape", [ctypes.POINTER(i)]),
+        # form, words, src, frames, h, w, coef, out, r0..r2, c0..c2, slab,
+        # scratch, slab bytes, persistent blocks, stream
+        ("iqo_exp_band_ydot_ring", [i, i, p, i, i, i, p, p, p, p, p, p, p, p, p, p, ll,
+                                    i, p]),
+        # blocked, P, src, h, w, coef, out, nd, n_ty, persistent blocks, stream
+        ("iqo_exp_overlap_ring", [i, i, p, i, i, p, p, i, i, i, p]),
+        ("iqo_exp_band_ring_setup", []),
+        ("iqo_exp_band_ring_shape", [ctypes.POINTER(i)]),
+        # variant, w, c0, c1, corr, out, reps, stream
+        ("iqo_exp_xscheme", [i, p, p, p, p, p, i, p]),
+        # variant, we, wo, wd, cxt, taps (host int[12]), out, reps, stream
+        ("iqo_exp_vpu_xpass", [i, p, p, p, p, ctypes.POINTER(i), p, i, p]),
+        ("iqo_exp_xpass_setup", []),
+        # w / wd, c / cxt, out, reps, slices, steps per slice, stream
+        ("iqo_exp_xscheme_gemm", [p, p, p, i, i, i, p]),
+        ("iqo_exp_xscheme_bf16_gemm", [p, p, p, i, i, i, p]),
+        ("iqo_exp_xscheme_s16_gemm", [p, p, p, i, i, i, p]),
+        ("iqo_exp_vpu_gemm", [p, p, p, i, i, i, p]),
+        ("iqo_exp_xpass_gemm_setup", []),
+        ("iqo_exp_xpass_gemm_shape", [ctypes.POINTER(i)]),
+        # mix, P, src, out, n, stream
+        ("iqo_exp_op_mix", [i, i, p, p, ll, p]),
+        # align, kl, check, w, ct, out, steps, stream
+        ("iqo_exp_slice_groups", [i, i, i, p, p, p, i, p]),
+        ("iqo_exp_slice_setup", []),
+        # align, kl, check, w, ct, out, steps, persistent blocks, stream
+        ("iqo_exp_slice_wgmma", [i, i, i, p, p, p, i, i, p]),
+        ("iqo_exp_slice_wgmma_setup", []),
+        ("iqo_exp_slice_wgmma_shape", [ctypes.POINTER(i)]),
+        ("iqo_exp_window_x1", [p, p, i, p]),         # src, out, planes, stream
+        ("iqo_exp_window_x2", [p, p, p, p]),         # src, out, spill, stream
+        ("iqo_exp_window_x3", [p, p, i, p]),         # var, out, steps, stream
+        ("iqo_exp_window_setup", []))
+
+
+def bind_experiments(lib: ctypes.CDLL, names: tuple[str, ...] | None = None) -> ctypes.CDLL:
+    """Declare the probe entry points ``names`` (all of them if None) on
+    ``lib``, which may be a library built from a part of the probe sources."""
+    for name, args in _exp_signatures():
+        if names is None or name in names:
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _bind_experiments(lib: ctypes.CDLL) -> ctypes.CDLL:
+    bind_experiments(lib)
+    lib.iqo_exp_error_string.argtypes = [ctypes.c_int]
     lib.iqo_exp_error_string.restype = ctypes.c_char_p
     return lib
 

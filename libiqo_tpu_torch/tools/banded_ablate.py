@@ -99,10 +99,7 @@ def variant_source(name: str, source: str | None = None) -> str:
 
 
 def _load(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.iqo_exp_banded_wgmma.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, p]
-    lib.iqo_exp_banded_wgmma.restype = i
-    lib.iqo_exp_banded_wgmma_setup.restype = i
+    _build.bind_experiments(lib, ("iqo_exp_banded_wgmma", "iqo_exp_banded_wgmma_setup"))
     rc = lib.iqo_exp_banded_wgmma_setup()
     if rc != 0:
         raise RuntimeError(f"{name}: shared-memory limit refused (cudaError_t {rc})")

@@ -17,6 +17,7 @@ changes in the source.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import importlib.util
 import re
@@ -30,6 +31,7 @@ from jax.experimental import pallas as pl
 
 from libiqo_tpu_torch.experiments import banded_wgmma as bw
 from libiqo_tpu_torch.experiments import exp_banded_dots as bd
+from libiqo_tpu_torch.ops import _build
 from libiqo_tpu_torch.tools import banded_ablate
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -299,6 +301,31 @@ def test_ablation_variants_apply_to_the_source(variant):
                  "cp_wait<", "named_sync(", "__syncthreads()", "wg_sync()"):
         assert text.count(call) == source.count(call), (variant, call)
     assert (text == source) == (variant == "kernel")
+
+
+def test_probe_signatures_cover_every_entry_point():
+    """The ablation tool binds its variants through the probe library's one
+    table of signatures, which names every entry point of the sources."""
+    exported = {m for f in _build.exp_sources() if f.suffix == ".cu"
+                for m in re.findall(r"^(?:int|const char\*) (iqo_exp_\w+)\(",
+                                    f.read_text(), re.M)}
+    assert {name for name, _ in _build._exp_signatures()} | {"iqo_exp_error_string"} == exported
+
+
+def test_a_partial_bind_declares_only_what_it_names():
+    class Lib:
+        def __init__(self):
+            self.fns = {}
+
+        def __getattr__(self, name):
+            return self.fns.setdefault(name, type("Fn", (), {})())
+
+    lib = Lib()
+    _build.bind_experiments(lib, ("iqo_exp_banded_wgmma", "iqo_exp_banded_wgmma_setup"))
+    assert set(lib.fns) == {"iqo_exp_banded_wgmma", "iqo_exp_banded_wgmma_setup"}
+    assert len(lib.fns["iqo_exp_banded_wgmma"].argtypes) == 13
+    assert lib.fns["iqo_exp_banded_wgmma_setup"].argtypes == []
+    assert all(f.restype is ctypes.c_int for f in lib.fns.values())
 
 
 def test_ablation_tool_needs_a_card(monkeypatch):
