@@ -183,7 +183,12 @@ Phases:
    turns with PR 7's forms at R and R/8 (µs per application as the slope and
    as t(R)/R), beside the bound and the library call (for ``s16_1dot`` a
    float64 ``torch.bmm`` of the int16 planes, held equal to plain first, and
-   ``torch._int_mm`` of four s8 byte-plane products).
+   ``torch._int_mm`` of four s8 byte-plane products).  The gemm forms of
+   ``s8_4dot`` and ``s8_2dot_cat`` (``csrc/exp/exp_xpass_s8.cu``) == plain on
+   the persistent walk at the same repeats, with the script's zero ``corr`` and a nonzero one, at the byte extremes
+   and on a walk of 7 blocks; timed in turns with their serial forms,
+   ``s16_1dot[gemm]`` and ``torch._int_mm`` of their dots (four calls of N =
+   128 a group, two of N = 256), each held equal to plain first.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 2
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -1923,6 +1928,7 @@ def phase_band_fetch(card: str) -> list:
 
 
 GEMM_REPS = {"xs": (1, 3, 64, 67, 512), "vx": (1, 3, 13, 24)}   # R/8, R and partial steps
+S8_VARIANTS = ("s8_4dot", "s8_2dot_cat")
 SLICE_SECOND_STEPS = 35    # L's wgmma form: a partial M tile and a partial last wave
 
 
@@ -1947,8 +1953,12 @@ def phase_xpass(card: str) -> list:
     also with its bf16 ``torch.bmm``).  L in both forms, the ``wgmma`` form
     also at :data:`SLICE_SECOND_STEPS` steps.  ``s16_1dot``'s gemm form ==
     plain at the same repeats and at the int16 extremes, timed in turns with
-    its serial form, a float64 ``torch.bmm`` and ``torch._int_mm``.  Returns
-    the ten entries of the kernels line."""
+    its serial form, a float64 ``torch.bmm`` and ``torch._int_mm``.
+    ``s8_4dot``'s and ``s8_2dot_cat``'s gemm forms (``exp_xpass_s8.cu``) ==
+    plain at the same repeats, with the script's zero ``corr`` and a nonzero one, at the byte extremes and on a walk of 7
+    blocks (flushes cut at 64 steps), timed in turns with their serial forms,
+    ``s16_1dot[gemm]`` and ``torch._int_mm`` of their dots.  Returns the
+    twelve entries of the kernels line."""
     from libiqo_tpu_torch.experiments import (_harness, exp_element_clamp as ec,
                                               exp_slice_align as sa, exp_vpu_rate as vr,
                                               exp_vpu_xpass as vx, exp_x_schemes as xs,
@@ -1957,7 +1967,8 @@ def phase_xpass(card: str) -> list:
     dev = torch.device("cuda", 0)
     names = ("xscheme_tile", "vpu_xpass_tile", "op_mix", "slice_groups", "window_probe")
     err = dict.fromkeys(names + ("xscheme_gemm", "vpu_xpass_gemm", "xscheme_bf16_gemm",
-                                 "xscheme_s16_gemm", "slice_groups[wgmma]"), 0.0)
+                                 "xscheme_s16_gemm", "slice_groups[wgmma]", "s8_4dot[gemm]",
+                                 "s8_2dot_cat[gemm]"), 0.0)
 
     # 1. kernel == plain, every variant, full shapes and repeats
     w, c = xs.inputs(dev)
@@ -2020,9 +2031,48 @@ def phase_xpass(card: str) -> list:
             f"x_scheme s16_1dot[gemm] R={reps} at the int16 extremes",
             xs.x_scheme("s16_1dot", w_ext, cv_ext, reps, "gemm"),
             xs.x_scheme_plain("s16_1dot", w_ext, cv_ext, reps)))
-    del w_ext
     print(f"s16_1dot[gemm] == plain at R {GEMM_REPS['xs']} and at R 3, 67 on int16 extremes, "
           f"== gold at R=1, bit for bit")
+    # the s8 variants' gemm forms: == plain at the same repeats with the script's zero corr and with a nonzero one, at the byte
+    # extremes (work values past int16, taps whose e and f reach -128 and
+    # 127), and on a walk of 7 blocks at R 600 (runs of 75 steps of a tile,
+    # their flushes cut at 64)
+    corr_nz = torch.from_numpy(np.random.default_rng(15).integers(
+        -2**31, 2**31, (xs.N_G, xs.GN)).astype(np.int32)).to(dev)
+    w_ext[::3, 1::5] = 2**20 + 129
+    w_ext[1::3, 2::7] = -(2**20) - 257
+    c_ext8 = c.clone()
+    ends8 = torch.tensor([-32768, 32767, 127, 128, -129, 32639, -32641, 255], dtype=c.dtype,
+                         device=dev)
+    c_ext8[nz] = ends8[torch.arange(int(nz.sum()), device=dev) % len(ends8)]
+    for v in S8_VARIANTS:
+        cv8v = xs.build_cvals(v, c)
+        for reps in GEMM_REPS["xs"]:
+            for corr in (cv8v["corr"], corr_nz):
+                cvr = {**cv8v, "corr": corr}
+                err[f"{v}[gemm]"] = max(err[f"{v}[gemm]"], probe_err(
+                    f"x_scheme {v}[gemm] R={reps}{' nonzero corr' if corr is corr_nz else ''}",
+                    xs.x_scheme(v, w, cvr, reps, "gemm"), xs.x_scheme_plain(v, w, cvr, reps)))
+        cve = {**xs.build_cvals(v, c_ext8), "corr": corr_nz}
+        planes = (cve["e"], cve["f"]) if v == "s8_4dot" else (cve["ef"],)
+        check(all(int(p.min()) == -128 and int(p.max()) == 127 for p in planes),
+              f"{v}: the extreme taps miss -128 or 127")
+        for reps in (3, 67):
+            err[f"{v}[gemm]"] = max(err[f"{v}[gemm]"], probe_err(
+                f"x_scheme {v}[gemm] R={reps} at the byte extremes",
+                xs.x_scheme(v, w_ext, cve, reps), xs.x_scheme_plain(v, w_ext, cve, reps)))
+        cvr = {**cv8v, "corr": corr_nz}
+        cut = xpass_gemm.s8_launch(600, 7)
+        err[f"{v}[gemm]"] = max(err[f"{v}[gemm]"], probe_err(
+            f"x_scheme {v}[gemm] R=600 on a walk of 7 blocks",
+            xs.s8_gemm_launch(v, w, cvr["ef_k"], corr_nz, cut), xs.x_scheme_plain(v, w, cvr, 600)))
+    del w_ext
+    walk8 = xpass_gemm.s8_launch(xs.R, xpass_gemm.sm_count(dev))
+    print(f"s8_4dot[gemm], s8_2dot_cat[gemm] == plain at R {GEMM_REPS['xs']}, with zero and "
+          f"nonzero corr, at R 3, 67 on the byte extremes and at R 600 on a walk of 7 blocks "
+          f"(flushes cut at 64 steps), bit for bit")
+    print(f"s8 gemm walk at R={xs.R}: {walk8.units} units on {walk8.blocks} blocks, wave "
+          f"efficiency computed from the walk {walk8.wave_efficiency!r} ({walk8.sms} SMs)")
     # bf16_1dot's gemm form: the tensor cores sum in their own order, so it is
     # held within the f32 summation bound of its plain version (unchanged)
     bf16_gemm_share = 0.0
@@ -2114,6 +2164,8 @@ def phase_xpass(card: str) -> list:
     launches["xscheme_gemm"] = xs.LAUNCHES[xs.launch_key("f32_2dot", "gemm")]
     launches["xscheme_bf16_gemm"] = xs.LAUNCHES[xs.launch_key("bf16_1dot", "gemm")]
     launches["xscheme_s16_gemm"] = xs.LAUNCHES[xs.launch_key("s16_1dot", "gemm")]
+    for v in S8_VARIANTS:
+        launches[f"{v}[gemm]"] = xs.LAUNCHES[xs.launch_key(v, "gemm")]
     launches["vpu_xpass_gemm"] = vx.LAUNCHES[vx.launch_key("dense4", "gemm")]
     launches["slice_groups"] = sum(sa.LAUNCHES[sa.launch_key(a, kl, "mma_sync")]
                                    for a, kl in sa.CONFIGS)
@@ -2126,7 +2178,9 @@ def phase_xpass(card: str) -> list:
     check(not bad, f"window probes not OK: {bad}")
     check(all(rows["xs"]["checks"][k] for k in ("f32_exact", "f32_exact_serial", "s16_exact",
                                                 "s16_exact_serial")) and
-          not rows["xs"]["checks"]["s8_4dot_gold"] and rows["vx"]["checks"]["corr_i32_exact"],
+          not rows["xs"]["checks"]["s8_4dot_gold"] and
+          not rows["xs"]["checks"]["s8_4dot_gold_serial"] and
+          rows["vx"]["checks"]["corr_i32_exact"],
           f"x_scheme / vpu_xpass checks: {rows['xs']['checks']} {rows['vx']['checks']}")
     print(f"X-pass main() runs -> launches {launches}; by variant " +
           " ".join(str(dict(mod.LAUNCHES)) for mod in mods))
@@ -2143,6 +2197,9 @@ def phase_xpass(card: str) -> list:
     p_f32 = plain_ms(lambda t: xs.x_scheme_plain("f32_2dot", t, cvf, xs.R), w)
     p_bf16 = plain_ms(lambda t: xs.x_scheme_plain("bf16_1dot", t, cv, xs.R), w)
     p_s16 = plain_ms(lambda t: xs.x_scheme_plain("s16_1dot", t, cv16, xs.R), w)
+    cvc = xs.build_cvals("s8_2dot_cat", c)
+    p_s8 = {"s8_4dot": p_xs,
+            "s8_2dot_cat": plain_ms(lambda t: xs.x_scheme_plain("s8_2dot_cat", t, cvc, xs.R), w)}
     p_vr = plain_ms(lambda t: vr.op_mix_plain(t, "epi", 8), src)
     p_sa = plain_ms(lambda t: sa.slice_groups_plain(t, sops, 128, 512), sw)
     p_ec = plain_ms(ec.window_x1_plain, srcs["x1"])
@@ -2248,6 +2305,61 @@ def phase_xpass(card: str) -> list:
     lib_s16 = ts["library"] * (xs.R // reps)
     lib_s16_int_mm = ts["int_mm"] * (xs.R // reps)
     del s16p, s8p
+    # I s8_4dot and s8_2dot_cat: torch._int_mm of their dots alone over 64
+    # applications' a and b planes (each (64 x 160, 384) s8 a group), four
+    # calls of N = 128 a group (a e, a f, b e, b f) for s8_4dot and two of N =
+    # 256 against [e | f] for s8_2dot_cat, each rebuilt into the function and
+    # held equal to the plain version; timed in turns with both gemm forms at
+    # R and R / 8, their serial forms and s16_1dot[gemm]
+    e_t = [cv8["e"][g].t().contiguous() for g in range(xs.N_G)]
+    f_t = [cv8["f"][g].t().contiguous() for g in range(xs.N_G)]
+
+    def ab_planes(t):
+        a, b = xs.split("s8_4dot", xs.repeats(t, 0, reps))
+        return [(a[..., k0:k1].reshape(-1, xs.K).to(torch.int8).contiguous(),
+                 b[..., k0:k1].reshape(-1, xs.K).to(torch.int8).contiguous())
+                for k0, k1 in xs.WINDOWS]
+
+    def lib4(planes):
+        return [(torch._int_mm(a, e.t()), torch._int_mm(a, f.t()), torch._int_mm(b, e.t()),
+                 torch._int_mm(b, f.t())) for (a, b), e, f in zip(planes, e_t, f_t)]
+
+    def lib2(planes):
+        return [(torch._int_mm(a, ef.t()), torch._int_mm(b, ef.t()))
+                for (a, b), ef in zip(planes, eft)]
+
+    def rebuilt(ae, af, be, bf):
+        s_ = [x.to(torch.int64).reshape(reps, xs.TH, xs.GN).sum(0) for x in (ae, af, be, bf)]
+        return s_[0] * 65536 + (s_[1] + s_[2]) * 256 + s_[3]
+
+    abp = ab_planes(w)
+    want64 = xs.x_scheme_plain("s8_4dot", w, cv8, reps)
+    got4 = torch.cat([rebuilt(*d) for d in lib4(abp)], dim=1)
+    check(torch.equal(_harness.wrap(got4, 32).to(torch.int32), want64),
+          "torch._int_mm, four calls of N = 128 a group, != x_scheme_plain s8_4dot")
+    got2 = torch.cat([rebuilt(da[:, :xs.GN], da[:, xs.GN:], db[:, :xs.GN], db[:, xs.GN:])
+                      for da, db in lib2(abp)], dim=1)
+    check(torch.equal(_harness.wrap(got2, 32).to(torch.int32), want64),
+          "torch._int_mm, two calls of N = 256 a group, != x_scheme_plain s8_2dot_cat")
+    del abp
+    abps = [ab_planes(t) for t in _harness.perturbed(w, 4)]
+    ws8 = _harness.perturbed(w, xs.ITERS)
+    cvs8 = {v: xs.build_cvals(v, c) for v in S8_VARIANTS}
+    t8 = probe_turns({
+        **{f"{v} {form} {r}": functools.partial(
+            lambda i, v, r, f: xs.x_scheme(v, ws8[i], cvs8[v], r, f), v=v, r=r, f=form)
+           for v in S8_VARIANTS for form in ("gemm", "serial") for r in (xs.R, xs.R // 8)},
+        **{f"s16_1dot gemm {r}": functools.partial(
+            lambda i, r: xs.x_scheme("s16_1dot", ws8[i], cv16, r, "gemm"), r=r)
+           for r in (xs.R, xs.R // 8)},
+        "int_mm4": lambda i: lib4(abps[i % 4]), "int_mm2": lambda i: lib2(abps[i % 4])},
+        list(range(xs.ITERS)))
+    del abps
+    lib_s8v = {"s8_4dot": t8["int_mm4"] * (xs.R // reps),
+              "s8_2dot_cat": t8["int_mm2"] * (xs.R // reps)}
+    # the gemm and the serial form's times under gemm_entry's keys
+    t8v = {v: {f"{form} {r}": t8[f"{v} {form} {r}"]
+               for form in ("gemm", "serial") for r in (xs.R, xs.R // 8)} for v in S8_VARIANTS}
     # J dense4: the four bf16 dots of 24 applications as one product
     cx = torch.cat([ops.cxh, ops.cxl], dim=1)
 
@@ -2310,12 +2422,14 @@ def phase_xpass(card: str) -> list:
     j_whole = (tj[f"gemm {vx.R}"] - tj[f"gemm {j_step}"]) / (vx.R - j_step) * 1e3
     per_app = {}
     for tag, t, r_full in (("f32_2dot", ti, xs.R), ("bf16_1dot", tb, xs.R), ("s16_1dot", ts, xs.R),
-                           ("dense4", tj, vx.R)):
+                           ("dense4", tj, vx.R), ("s8_4dot", t8v["s8_4dot"], xs.R),
+                           ("s8_2dot_cat", t8v["s8_2dot_cat"], xs.R)):
         for form in ("gemm", "serial"):
             hi_, lo_ = t[f"{form} {r_full}"], t[f"{form} {r_full // 8}"]
             per_app[tag, form] = ((hi_ - lo_) / (r_full - r_full // 8) * 1e3, hi_ / r_full * 1e3)
     lib_app = {"f32_2dot": lib_f32 / xs.R * 1e3, "bf16_1dot": lib_bf16 / xs.R * 1e3,
-               "s16_1dot": lib_s16 / xs.R * 1e3, "dense4": lib_vx / vx.R * 1e3}
+               "s16_1dot": lib_s16 / xs.R * 1e3, "dense4": lib_vx / vx.R * 1e3,
+               **{v: lib_s8v[v] / xs.R * 1e3 for v in S8_VARIANTS}}
     for tag, variant_bound, r_full in (("f32_2dot", xs.bound("f32_2dot"), xs.R),
                                        ("bf16_1dot", xs.bound("bf16_1dot"), xs.R),
                                        ("s16_1dot", xs.bound("s16_1dot", form="gemm"), xs.R),
@@ -2332,6 +2446,17 @@ def phase_xpass(card: str) -> list:
           f"{lib_app['s16_1dot']!r}, torch._int_mm of four s8 byte-plane products "
           f"{lib_s16_int_mm / xs.R * 1e3!r}; bounds: four s8 products "
           f"{xs.bound('s16_1dot', form='gemm')[2]!r}, IMAD {xs.bound('s16_1dot')[2]!r} ({card})")
+    per8 = {k: ((t8[f"{k} {xs.R}"] - t8[f"{k} {xs.R // 8}"]) / (xs.R - xs.R // 8) * 1e3,
+                t8[f"{k} {xs.R}"] / xs.R * 1e3)
+            for k in [f"{v} {form}" for v in S8_VARIANTS
+                      for form in ("gemm", "serial")] + ["s16_1dot gemm"]}
+    for k, (slope, at_r) in per8.items():
+        print(f"s8 turns: {k}: t(R)/R {at_r!r} us/application, slope {slope!r} ({card})")
+    print(f"s8 turns: torch._int_mm of the dots alone, four calls of N = 128 a group "
+          f"{lib_app['s8_4dot']!r} us/application, two of N = 256 against [e | f] "
+          f"{lib_app['s8_2dot_cat']!r}; bound {xs.bound('s8_4dot', form='gemm')[2]!r}; "
+          f"s8_2dot_cat[gemm] / s8_4dot[gemm] t(R)/R "
+          f"{per8['s8_2dot_cat gemm'][1] / per8['s8_4dot gemm'][1]!r} ({card})")
 
     x, j, k, l_, m = (rows["xs"]["s8_4dot"], rows["vx"]["dense4"], rows["vr"]["epi P=8"],
                       rows["sa"]["k0%128, kl=512"], rows["ec"]["x1"])
@@ -2428,6 +2553,14 @@ def phase_xpass(card: str) -> list:
          "library_in_turns": f"one float64 torch.bmm over {reps} applications' int16 planes, "
                              "timed in the same turns; int_mm_ms: torch._int_mm of the four s8 "
                              "byte-plane products (s8_4dot's planes), a yardstick"},
+        *[{**gemm_entry(f"xscheme_tile[{v},gemm]", "scripts/exp_x_schemes.py:156", v,
+                        f"{v}[gemm]", t8v[v], xs.R, xs, p_s8[v], lib_s8v[v]),
+           "source": "libiqo_tpu_torch/csrc/exp/exp_xpass_s8.cu",
+           "s16_1dot_gemm_ms": t8[f"s16_1dot gemm {xs.R}"],
+           "library_call": ("torch._int_mm, four calls of N = 128 a group" if v == "s8_4dot" else
+                            "torch._int_mm, two calls of N = 256 against [e | f] a group")
+           + f", over {reps} applications' planes, timed in the same turns"}
+          for v in S8_VARIANTS],
     ]
     print(f"phase xpass: {time.perf_counter() - t_phase!r} s")
     return entries

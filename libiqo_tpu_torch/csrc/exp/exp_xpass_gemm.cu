@@ -161,18 +161,6 @@
 
 namespace {
 
-__device__ __forceinline__ uint32_t mad_u32(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;
-  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t add_u32(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
 __device__ __forceinline__ uint32_t f2u(float x) {
   return static_cast<uint32_t>(__float2int_rz(x));
 }
@@ -546,30 +534,11 @@ static_assert(static_cast<long long>(kMaxSliceSteps) * kK * 255 * 255 < (1LL << 
 static_assert(kSmem <= 232448, "shared memory of one block");
 }  // namespace gs
 
-// wgmma (sm_90a): D[64 x 64] += A[64 x 32] (registers, 8-bit) x B[32 x 64]
-// (shared, by descriptor, K-major), s32 accumulators; A's and B's types
-// (s8 or u8) are named by the instruction
-#define IQO_WGMMA_I8(name, types)                                                              \
-  __device__ __forceinline__ void name(uint32_t(&d)[32], const uint32_t(&a)[4], uint64_t b) {  \
-    asm volatile(                                                                              \
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                            \
-        "wgmma.mma_async.sync.aligned.m64n64k32.s32." types " "                                 \
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "     \
-        "{%32, %33, %34, %35}, %36, p;\n}\n"                                                    \
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),  \
-          "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),           \
-          "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),        \
-          "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),        \
-          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),        \
-          "+r"(d[31])                                                                          \
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                         \
-  }
+// wgmma m64n64k32 with s32 sums, one per pair of 8-bit types (hopper.cuh)
 IQO_WGMMA_I8(wgmma_s8s8, "s8.s8")
 IQO_WGMMA_I8(wgmma_s8u8, "s8.u8")
 IQO_WGMMA_I8(wgmma_u8s8, "u8.s8")
 IQO_WGMMA_I8(wgmma_u8u8, "u8.u8")
-#undef IQO_WGMMA_I8
 
 // Two int16 (a pair in one word) plus the same 16-bit r in each half
 // (rr = r | r << 16), each wrapped to 16 bits: the low 15 bits add, bit 15

@@ -1,11 +1,15 @@
 // Hopper (sm_90a) building blocks of the probes' wgmma kernels
-// (exp_xpass_gemm.cu, exp_mma_wgmma.cu): shared-memory addresses, cp.async,
-// mbarriers, TMA tensor loads and bulk tensor stores with their host-side
-// encoder, named barriers, and wgmma with its fences, 128-byte-swizzle
-// descriptors and register pins.
+// (exp_xpass_gemm.cu, exp_xpass_s8.cu, exp_mma_wgmma.cu, ...): shared-memory
+// addresses, cp.async, mbarriers, TMA tensor loads and bulk tensor stores with
+// their host-side encoder, named barriers, and wgmma with its fences,
+// 128-byte-swizzle descriptors and register pins; the X-pass probes' uint32
+// arithmetic, and the 8-bit wgmma products with s32 sums
+// (IQO_WGMMA_I8 at N = 64, IQO_WGMMA_I8_N128 at N = 128), which a source
+// instantiates by name.
 //
-// Everything sits in an anonymous namespace: each source that includes the
-// header gets its own copy, and the shared library exports none of it.
+// Everything but the macros sits in an anonymous namespace: each source that
+// includes the header gets its own copy, and the shared library exports none
+// of it.
 
 #pragma once
 
@@ -198,6 +202,22 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// ---- integer helpers of the X-pass probes ------------------------------------------
+
+// uint32 multiply-add and add in inline PTX: the intended int32 wraps of the
+// repeat loops, which the compiler cannot fold
+__device__ __forceinline__ uint32_t mad_u32(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t add_u32(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
 }  // namespace
 
 // The 64 accumulator operands of an m64n128 wgmma (%0 .. %63) and their
@@ -213,3 +233,35 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
 #define IQO_ACC64(c, d)                                                                     \
   IQO_ACC8(c, d, 0), IQO_ACC8(c, d, 8), IQO_ACC8(c, d, 16), IQO_ACC8(c, d, 24),             \
       IQO_ACC8(c, d, 32), IQO_ACC8(c, d, 40), IQO_ACC8(c, d, 48), IQO_ACC8(c, d, 56)
+
+// wgmma (sm_90a): D[64 x 64] += A[64 x 32] (registers, 8-bit) x B[32 x 64]
+// (shared, by descriptor, K-major), s32 accumulators; A's and B's types
+// (s8 or u8) are named by the instruction
+#define IQO_WGMMA_I8(name, types)                                                              \
+  __device__ __forceinline__ void name(uint32_t(&d)[32], const uint32_t(&a)[4], uint64_t b) {  \
+    asm volatile(                                                                              \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                            \
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32." types " "                                 \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "     \
+        "{%32, %33, %34, %35}, %36, p;\n}\n"                                                    \
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),  \
+          "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),           \
+          "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),        \
+          "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),        \
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),        \
+          "+r"(d[31])                                                                          \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                         \
+  }
+
+// The same at N = 128: D[64 x 128] += A[64 x 32] (registers) x B[32 x 128]
+// (shared, K-major: 128 rows of the swizzled tile), 64 s32 accumulators
+#define IQO_WGMMA_I8_N128(name, types)                                                         \
+  __device__ __forceinline__ void name(uint32_t(&d)[64], const uint32_t(&a)[4], uint64_t b) {  \
+    asm volatile(                                                                              \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                            \
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32." types " " IQO_D64                       \
+        ", {%64, %65, %66, %67}, %68, p;\n}\n"                                                  \
+        : IQO_ACC64("+r", d)                                                                   \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));                         \
+  }

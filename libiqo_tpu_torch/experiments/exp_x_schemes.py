@@ -50,8 +50,9 @@ the work values and the split redone in every repeat, as the script's
 ``body_of``.
 
 **Forms.**  ``x_scheme(..., form=)`` picks the kernel: ``"serial"`` is the
-form above; ``"gemm"`` (``f32_2dot``, ``bf16_1dot`` and ``s16_1dot``, and
-their default) is the redesign in ``csrc/exp/exp_xpass_gemm.cu``.  ``f32_2dot``'s,
+form above; ``"gemm"`` (every variant but ``empty``, and their default) is
+the redesign in ``csrc/exp/exp_xpass_gemm.cu`` and, for the s8 variants,
+``csrc/exp/exp_xpass_s8.cu``.  ``f32_2dot``'s,
 ``xscheme_f32_gemm``, is a register-tiled FFMA GEMM whose M stacks 4 repeats
 x 2 planes of 16 work rows against the group's taps, held in shared memory
 for a block's whole slice of the repeats.  ``bf16_1dot``'s,
@@ -65,11 +66,16 @@ tensor cores: with ``x = 256 xh + xl`` and ``c = 256 ch + cl`` (high byte
 s8, low byte u8), ``x c = 65536 xh ch + 256 (xh cl + xl ch) + xl cl``, four
 wgmma products on byte planes split in registers from ``int16(w + r)``,
 against the taps' byte planes laid out K-major (``cvals["c16_k"]``); the s32
-sums are recombined in uint32.  In all three the slices meet in a zeroed
+sums are recombined in uint32.  ``s8_4dot``'s and ``s8_2dot_cat``'s,
+``xscheme_s8_gemm<kCat>``, take the same split (``a`` the high byte of
+``int16(w + r)``, ``b`` its low byte XOR 0x80) against the taps' planes
+``e`` and ``f`` laid out K-major (``cvals["ef_k"]``): four s8 wgmma
+m64n64k32 a K step for ``s8_4dot``, two m64n128k32 against ``[e | f]`` for
+``s8_2dot_cat``, on a persistent walk of (tile, step) units that gives each
+SM an equal run.  In all of them the slices or runs meet in a zeroed
 output by uint32 ``atomicAdd`` (:mod:`.xpass_gemm` states their geometry
 and models them in NumPy).  :data:`LAUNCHES` counts each variant's serial
-launches under its name and the gemm forms' under ``"f32_2dot[gemm]"``,
-``"bf16_1dot[gemm]"`` and ``"s16_1dot[gemm]"``.
+launches under its name and the gemm forms' under ``"<variant>[gemm]"``.
 
 Times: per launch by back-to-back launches on 8 tiles that each differ in
 ``w[0, 0]``, at ``reps = R`` and ``R / 8``; per application is the slope
@@ -100,7 +106,8 @@ R = 512
 WINDOWS = ((0, 384), (256, 640), (512, 896))
 NTAPS = 12
 VARIANTS = ("empty", "s8_4dot", "s8_2dot_cat", "f32_2dot", "s16_1dot", "bf16_1dot")
-GEMM_VARIANT = ("f32_2dot", "bf16_1dot", "s16_1dot")   # with a gemm form, their default
+# with a gemm form, their default
+GEMM_VARIANT = ("s8_4dot", "s8_2dot_cat", "f32_2dot", "bf16_1dot", "s16_1dot")
 ITERS = 8                  # work tiles per timed run
 LSB = 2**20                # one u8 output LSB in the pre-shift i32 sum domain
 
@@ -120,7 +127,9 @@ _PLANES = {"empty": (), "s8_4dot": ("e", "f"), "s8_2dot_cat": ("ef",),
            "f32_2dot": ("cf32",), "s16_1dot": ("c16",), "bf16_1dot": ("cbf",)}
 _GEMM_ENTRY = {"f32_2dot": (xpass_gemm.F32_GEMM, "iqo_exp_xscheme_gemm"),
                "bf16_1dot": (xpass_gemm.BF16_GEMM, "iqo_exp_xscheme_bf16_gemm"),
-               "s16_1dot": (xpass_gemm.S16_GEMM, "iqo_exp_xscheme_s16_gemm")}
+               "s16_1dot": (xpass_gemm.S16_GEMM, "iqo_exp_xscheme_s16_gemm"),
+               "s8_4dot": (xpass_gemm.S8_GEMM, "iqo_exp_xscheme_s8_gemm"),
+               "s8_2dot_cat": (xpass_gemm.S8_GEMM, "iqo_exp_xscheme_s8_gemm")}
 _DTYPES = {"e": torch.int8, "f": torch.int8, "ef": torch.int8, "cf32": torch.float32,
            "c16": torch.int16, "cbf": torch.bfloat16, "corr": torch.int32}
 
@@ -148,19 +157,21 @@ def inputs(device) -> tuple[torch.Tensor, torch.Tensor]:
 def build_cvals(variant: str, c: torch.Tensor) -> dict[str, torch.Tensor]:
     """The script's operands of ``variant`` (``build_cvals``, ``:163-187``),
     each stacked over the 3 groups: ``e``, ``f`` (3, 384, 128) int8 and
-    ``corr`` (3, 128) int32 zeros; ``ef`` (3, 384, 256) int8; ``cf32``
-    float32; ``c16`` int16 and, for the gemm form, ``c16_k`` its high and
-    low bytes K-major, (3, 2, 128, 384) uint8; ``cbf`` bfloat16 (rounded
-    from float32) and, for the gemm form, ``cbf_k`` the same taps K-major,
-    (3, 128, 384); each laid out once here as kernel C's ``k_major``."""
+    ``corr`` (3, 128) int32 zeros; ``ef`` (3, 384, 256) int8; for both s8
+    variants' gemm form ``ef_k``, ``[e | f]`` K-major, (3, 256, 384) int8;
+    ``cf32`` float32; ``c16`` int16 and, for the gemm form, ``c16_k`` its
+    high and low bytes K-major, (3, 2, 128, 384) uint8; ``cbf`` bfloat16
+    (rounded from float32) and, for the gemm form, ``cbf_k`` the same taps
+    K-major, (3, 128, 384); each laid out once here as kernel C's
+    ``k_major``."""
     _check_variant(variant)
     e = wrap(c.to(torch.int64) >> 8, 8).to(torch.int8)
     f = wrap(c.to(torch.int64) & 255, 8).to(torch.int8)
     corr = torch.zeros((N_G, GN), dtype=torch.int32, device=c.device)
-    if variant == "s8_4dot":
-        return {"e": e, "f": f, "corr": corr}
-    if variant == "s8_2dot_cat":
-        return {"ef": torch.cat([e, f], dim=2).contiguous(), "corr": corr}
+    if variant.startswith("s8"):
+        ef = torch.cat([e, f], dim=2).contiguous()
+        planes = {"e": e, "f": f} if variant == "s8_4dot" else {"ef": ef}
+        return {**planes, "corr": corr, "ef_k": ef.transpose(1, 2).contiguous()}
     if variant == "s16_1dot":
         c16 = c.to(torch.int16)
         v = c16.to(torch.int64)
@@ -308,11 +319,11 @@ def x_scheme(variant: str, w: torch.Tensor, cvals: dict, reps: int = R,
              form: str | None = None) -> torch.Tensor:
     """Kernel I: (160, 384) int32 from ``w`` (160, 896) int32 and the
     variant's :func:`build_cvals` planes, in ``form`` (``"serial"``, or
-    ``"gemm"`` for ``f32_2dot``, ``bf16_1dot`` and ``s16_1dot``, their
-    default).  CPU tensors take :func:`x_scheme_plain`; CUDA tensors launch
-    the kernel or raise."""
+    ``"gemm"`` for every variant but ``empty``, their default).  CPU tensors
+    take :func:`x_scheme_plain`; CUDA tensors launch the kernel or raise."""
     form = _form(variant, form)
     _check(variant, w, cvals, reps)
+    s8_gemm = form == "gemm" and variant.startswith("s8")
     planes = [cvals[n] for n in _PLANES[variant]]
     if form == "gemm" and variant in _K_MAJOR:
         planes = [_taps_k_major(variant, cvals)]
@@ -321,6 +332,9 @@ def x_scheme(variant: str, w: torch.Tensor, cvals: dict, reps: int = R,
         raise ValueError("x_scheme takes contiguous tensors")
     if not _harness.on_card(w, *planes, *([] if corr is None else [corr])):
         return x_scheme_plain(variant, w, cvals, reps)
+    if s8_gemm:
+        return s8_gemm_launch(variant, w, planes[0], corr, xpass_gemm.s8_launch(
+            reps, xpass_gemm.sm_count(w.device)))
     if form == "gemm":
         geom, entry = _GEMM_ENTRY[variant]
         launch = xpass_gemm.geometry(geom, reps, xpass_gemm.sm_count(w.device))
@@ -341,15 +355,35 @@ def x_scheme(variant: str, w: torch.Tensor, cvals: dict, reps: int = R,
     return out
 
 
+def s8_gemm_launch(variant: str, w: torch.Tensor, ef_k: torch.Tensor, corr: torch.Tensor,
+                   launch: xpass_gemm.S8Launch) -> torch.Tensor:
+    """One launch of ``xscheme_s8_gemm`` on card tensors in ``launch``'s
+    blocks (:func:`xpass_gemm.s8_launch`); :func:`x_scheme` picks the launch
+    from the card's SM count.  Counted under ``"<variant>[gemm]"``."""
+    if not all(t.is_contiguous() for t in (w, ef_k, corr)):
+        raise ValueError("x_scheme takes contiguous tensors")
+    out = torch.zeros((TH, TW), dtype=torch.int32, device=w.device)
+    _harness.check_rc(getattr(xpass_gemm.s8_lib(w.device), _GEMM_ENTRY[variant][1])(
+        w.data_ptr(), ef_k.data_ptr(), corr.data_ptr(), out.data_ptr(), launch.reps,
+        int(variant == "s8_2dot_cat"), launch.blocks, _harness.stream(w)),
+        f"xscheme_tile[{variant},gemm]")
+    LAUNCHES.add(launch_key(variant, "gemm"))
+    return out
+
+
 # the gemm forms that read their taps K-major: (cvals key, shape, dtype)
 _K_MAJOR = {"bf16_1dot": ("cbf_k", (N_G, GN, K), torch.bfloat16),
-            "s16_1dot": ("c16_k", (N_G, 2, GN, K), torch.uint8)}
+            "s16_1dot": ("c16_k", (N_G, 2, GN, K), torch.uint8),
+            "s8_4dot": ("ef_k", (N_G, 2 * GN, K), torch.int8),
+            "s8_2dot_cat": ("ef_k", (N_G, 2 * GN, K), torch.int8)}
 
 
 def _taps_k_major(variant: str, cvals: dict) -> torch.Tensor:
-    """``bf16_1dot``'s and ``s16_1dot``'s gemm forms read the taps K-major:
-    ``cvals["cbf_k"]`` (3, 128, 384) bf16, ``cvals["c16_k"]`` (3, 2, 128,
-    384) uint8 (high, low byte), from :func:`build_cvals`."""
+    """``bf16_1dot``'s, ``s16_1dot``'s and the s8 variants' gemm forms read
+    the taps K-major: ``cvals["cbf_k"]`` (3, 128, 384) bf16,
+    ``cvals["c16_k"]`` (3, 2, 128, 384) uint8 (high, low byte),
+    ``cvals["ef_k"]`` (3, 256, 384) int8 (``[e | f]``), from
+    :func:`build_cvals`."""
     key, shape, dtype = _K_MAJOR[variant]
     t = cvals.get(key)
     if t is None or tuple(t.shape) != shape or t.dtype != dtype:
@@ -362,7 +396,8 @@ def _taps_k_major(variant: str, cvals: dict) -> torch.Tensor:
 def macs(variant: str, form: str = "serial") -> tuple[int, str]:
     """(multiply-adds of one application, the unit that runs them): the
     serial forms' (``s16_1dot`` an int32 dot), or with ``form="gemm"``
-    ``s16_1dot``'s four s8 byte-plane products."""
+    ``s16_1dot``'s four s8 byte-plane products; the s8 variants' four s8
+    products in either form."""
     per_dot = TH * K * GN * N_G                      # 23.6 M
     if variant == "s16_1dot" and form == "gemm":
         return 4 * per_dot, "int8"
@@ -433,7 +468,9 @@ def main() -> dict:
     cv16 = build_cvals("s16_1dot", c)
     s16 = torch.equal(x_scheme("s16_1dot", w, cv16, 1), want)
     s16_serial = torch.equal(x_scheme("s16_1dot", w, cv16, 1, "serial"), want)
-    s8 = torch.equal(x_scheme("s8_4dot", w, build_cvals("s8_4dot", c), 1), want)
+    cv8 = build_cvals("s8_4dot", c)
+    s8 = torch.equal(x_scheme("s8_4dot", w, cv8, 1), want)
+    s8_serial = torch.equal(x_scheme("s8_4dot", w, cv8, 1, "serial"), want)
     cvb = build_cvals("bf16_1dot", c)
     mx, mean = lsb_error(x_scheme("bf16_1dot", w, cvb, 1), want)
     mx_s, mean_s = lsb_error(x_scheme("bf16_1dot", w, cvb, 1, "serial"), want)
@@ -441,13 +478,13 @@ def main() -> dict:
           flush=True)
     print(f"s16_1dot exact vs numpy i32-wrap: {s16} (gemm form: four s8 byte-plane products; "
           f"serial form, an int32 IMAD dot on CUDA cores, {s16_serial})", flush=True)
-    print(f"s8_4dot == gold: {s8} (zero corr: the script's formula, not the banded product)",
-          flush=True)
+    print(f"s8_4dot == gold: {s8} (gemm form; serial form {s8_serial}) (zero corr: the "
+          f"script's formula, not the banded product)", flush=True)
     print(f"bf16_1dot max err: {mx!r} LSB (mean {mean!r}) (gemm form; serial form {mx_s!r} / "
           f"{mean_s!r}) ({card})", flush=True)
     rows["checks"] = {"f32_exact": f32, "f32_exact_serial": f32_serial, "s16_exact": s16,
-                      "s16_exact_serial": s16_serial,
-                      "s8_4dot_gold": s8, "bf16_max_lsb": mx, "bf16_mean_lsb": mean,
+                      "s16_exact_serial": s16_serial, "s8_4dot_gold": s8,
+                      "s8_4dot_gold_serial": s8_serial, "bf16_max_lsb": mx, "bf16_mean_lsb": mean,
                       "bf16_max_lsb_serial": mx_s, "bf16_mean_lsb_serial": mean_s}
     return rows
 

@@ -1,15 +1,18 @@
 """Launch geometry of the redesigned X-pass probes and NumPy models that walk it.
 
-Kernel I's ``f32_2dot``, ``bf16_1dot`` and ``s16_1dot`` and kernel J's
-``dense4`` have a second form, ``gemm`` (``libiqo_tpu_torch/csrc/exp/exp_xpass_gemm.cu``): a
-GEMM whose M stacks the repeats' work rows, with the repeats spread over the
-grid in slices whose uint32 partial sums meet in the output by
+Kernel I's ``f32_2dot``, ``bf16_1dot``, ``s16_1dot``, ``s8_4dot`` and
+``s8_2dot_cat`` and kernel J's ``dense4`` have a second form, ``gemm``
+(``libiqo_tpu_torch/csrc/exp/exp_xpass_gemm.cu``, the s8 variants'
+``exp_xpass_s8.cu``): a GEMM whose M stacks the repeats' work rows, with the
+repeats spread over the grid in slices (the s8 variants: a persistent walk
+of (tile, step) units instead) whose uint32 partial sums meet in the output by
 ``atomicAdd``.  This module states each form's geometry (:data:`F32_GEMM`,
-:data:`BF16_GEMM`, :data:`S16_GEMM`, :data:`DENSE4_GEMM`: block tile,
-repeats a step stacks, K chunks, shared-memory stages), picks the repeat
-slices for a launch (:func:`geometry`), and models the kernels' schedules in
-NumPy (:func:`f32_gemm_model`, :func:`bf16_gemm_model`,
-:func:`s16_gemm_model`, :func:`dense4_gemm_model`, :func:`cover`), so that
+:data:`BF16_GEMM`, :data:`S16_GEMM`, :data:`S8_GEMM`, :data:`DENSE4_GEMM`:
+block tile, repeats a step stacks, K chunks, shared-memory stages), picks the
+repeat slices for a launch (:func:`geometry`; the s8 variants' walk,
+:func:`s8_launch`), and models the kernels' schedules in NumPy
+(:func:`f32_gemm_model`, :func:`bf16_gemm_model`, :func:`s16_gemm_model`,
+:func:`s8_gemm_model`, :func:`dense4_gemm_model`, :func:`cover`), so that
 the CPU tests can hold the schedule against the plain versions; on the card
 the kernels themselves are held against them.
 
@@ -26,7 +29,13 @@ repeats of its 16 rows, one a warp, as the int16 work values' byte planes
 against the taps' byte planes, K-major and resident (:func:`byte_planes`):
 four s8/u8 wgmma products into three s32 accumulators that sum a warp's
 repeats over the whole slice (:func:`s16_recombine` at its end).  A block of
-``dense4``'s form
+the s8 variants' form takes the same tile and steps, as ``a = int8((w + r)
+>> 8)`` and ``b = int8(((w + r) & 255) - 128)`` (:func:`s8_split`) against
+the taps' planes ``e`` and ``f``, K-major and resident: four s8 wgmma
+m64n64k32 (``s8_4dot``) or two m64n128k32 against ``[e | f]``
+(``s8_2dot_cat``) a K step; it walks a contiguous run of the (tile, step)
+units (:class:`S8Launch`) and flushes its sums at each new tile and after at
+most 64 steps.  A block of ``dense4``'s form
 takes 32 output columns, 16 work rows and a slice; a step stacks 8 repeats x
 2 planes x 16 rows against 64 coefficient columns (cxh's 32, then cxl's),
 streamed in K chunks with the chunk's work rows; each warp splits its rows'
@@ -42,10 +51,12 @@ import numpy as np
 import torch
 
 __all__ = ["BF16_GEMM", "DENSE4_GEMM", "F32_GEMM", "FORMS", "FormGeometry", "Launch",
-           "S16_GEMM", "SMEM_LIMIT", "bf16_dot_f32", "bf16_gemm_model", "bf16_round",
-           "byte_planes", "check_shape", "cover", "dense4_gemm_model", "f32_gemm_model",
-           "form_of", "geometry", "launch_key", "lib", "s16_gemm_model", "s16_recombine",
-           "sm_count", "split_f32", "window_offset", "wrap_add"]
+           "S16_GEMM", "S8_GEMM", "S8Launch", "SMEM_LIMIT",
+           "bf16_dot_f32", "bf16_gemm_model", "bf16_round", "byte_planes", "check_s8_shape",
+           "check_shape", "cover", "dense4_gemm_model", "f32_gemm_model", "form_of",
+           "geometry", "launch_key", "lib", "s16_gemm_model", "s16_recombine", "s8_gemm_model",
+           "s8_launch", "s8_lib", "s8_split", "s8_unit_cover", "sm_count", "split_f32",
+           "window_offset", "wrap_add"]
 
 SMEM_LIMIT = 232_448        # bytes of shared memory one block may use (H100)
 SMEM_PER_SM = 233_472       # the SM's 228 KB, of which 1 KB is reserved per block
@@ -92,7 +103,7 @@ class FormGeometry:
     planes: int = 2         # A planes a work row and repeat gives (hi and lo, or one)
     fill: int = 2           # blocks per SM the grid holds where the steps allow
     overhead: float = SLICE_OVERHEAD   # a block's set-up, in steps, for picking the slices
-    max_steps: int | None = None       # most steps a slice may take (None: any)
+    max_steps: int | None = None       # most steps a slice (s8: a run between flushes) may take
 
     @property
     def chunks(self) -> int:
@@ -147,6 +158,23 @@ S16_GEMM = FormGeometry(
     stages=(("taps' byte planes, K-major, resident (3 K blocks x 2)", 1, 2 * 64 * 384),
             ("work window, int16", 1, 16 * 384 * 2), ("alignment slack", 1, 1024)),
     reg_blocks=1, planes=1, fill=0, overhead=1.0, max_steps=64)
+# kernel I, s8_4dot and s8_2dot_cat: two warpgroups, 4 wgmma m64n64k32 or 2
+# m64n128k32 (s8) a K step with A (one repeat a warp) from registers; a
+# tile's taps e and f K-major (3 K blocks of 128 x 128 bytes, swizzled) and
+# its work window as int16 (16 x 384), in two buffers (the next tile's loads
+# land while a flush runs), the 8 warps' sums at a flush and a window of
+# zeros that a repeat past reps reads; at most 64
+# steps between two flushes, so that the s32 sums stay in int32.  Its
+# tiles_y x tiles_z are the 60 tiles of the walk.
+S8_GEMM = FormGeometry(
+    "s8[gemm]", threads=256, rows=16, rep_step=8, cols=64, k=384, kc=128,
+    tiles_y=6, tiles_z=10,
+    stages=(("a tile's taps e and f, K-major (3 K blocks)", 2, 2 * 64 * 384),
+            ("a tile's work window, int16", 2, 16 * 384 * 2),
+            ("the warps' sums at a flush", 1, 8 * 16 * 64 * 4),
+            ("a window of zeros (a repeat past reps)", 1, 16 * 384 * 2),
+            ("alignment slack", 1, 1024)),
+    reg_blocks=1, planes=1, max_steps=64)
 # kernel J, dense4: one warpgroup, 4 wgmma m64n64k16 a K step (A fragments
 # split in registers); four stages of a B chunk (64 x 64 bf16, 1024-byte
 # aligned) and the chunk's 16 work rows (72 words a row)
@@ -199,6 +227,65 @@ def geometry(form: FormGeometry, reps: int, sms: int = H100_SMS) -> Launch:
     return Launch(form, reps, steps, sps, slices)
 
 
+@dataclasses.dataclass(frozen=True)
+class S8Launch:
+    """One launch of the s8 variants' gemm form: ``blocks`` blocks, block
+    ``b`` a contiguous run of the (tile, step) units ``tile * steps + step``
+    (tile ``t``: output columns ``64 (t // 10)``, work rows ``16 (t % 10)``).
+    The walk gives each of ``min(sms, units)`` persistent blocks an equal
+    run, ``[b U / B, (b + 1) U / B)``."""
+    reps: int
+    steps: int
+    blocks: int
+    sms: int
+
+    @property
+    def units(self) -> int:
+        return S8_GEMM.tiles * self.steps
+
+    def run(self, b: int) -> tuple[int, int]:
+        """Block ``b``'s units ``[u0, u1)``, as the kernel computes them."""
+        return self.units * b // self.blocks, self.units * (b + 1) // self.blocks
+
+    def segments(self, b: int) -> list[tuple[int, int, int]]:
+        """Block ``b``'s runs between two flushes, ``(tile, first step, end
+        step)``: its run cut where it enters a new tile and after at most
+        ``S8_GEMM.max_steps`` steps of one tile."""
+        u, u1 = self.run(b)
+        out = []
+        while u < u1:
+            tile, s0 = divmod(u, self.steps)
+            s1 = min(self.steps, s0 + S8_GEMM.max_steps, s0 + u1 - u)
+            out.append((tile, s0, s1))
+            u += s1 - s0
+        return out
+
+    @property
+    def wave_efficiency(self) -> float:
+        """The units over the SMs' time, ``sms x waves x`` the longest run
+        (one block an SM)."""
+        longest = max(u1 - u0 for u0, u1 in map(self.run, range(self.blocks)))
+        return self.units / (self.sms * -(-self.blocks // self.sms) * longest)
+
+
+def s8_launch(reps: int, sms: int = H100_SMS) -> S8Launch:
+    """The s8 variants' launch: the walk's ``min(sms, units)`` blocks."""
+    if reps < 1:
+        raise ValueError(f"reps must be >= 1, got {reps}")
+    steps = -(-reps // S8_GEMM.rep_step)
+    return S8Launch(reps, steps, min(sms, S8_GEMM.tiles * steps), sms)
+
+
+def s8_unit_cover(launch: S8Launch) -> np.ndarray:
+    """How many times a launch's flush segments take each (tile, step) unit,
+    (60, steps) int64: 1 everywhere where the walk is right."""
+    counts = np.zeros((S8_GEMM.tiles, launch.steps), np.int64)
+    for b in range(launch.blocks):
+        for tile, s0, s1 in launch.segments(b):
+            counts[tile, s0:s1] += 1
+    return counts
+
+
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -211,6 +298,28 @@ def lib(device: torch.device):
     lib_ = _harness.lib_with_setup("iqo_exp_xpass_gemm_setup", device)
     check_shape(lib_)
     return lib_
+
+
+@functools.cache
+def s8_lib(device: torch.device):
+    """The probes' library with the s8 form's shared memory raised on
+    ``device``, after :func:`check_s8_shape`."""
+    from . import _harness
+    lib_ = _harness.lib_with_setup("iqo_exp_xpass_s8_setup", device)
+    check_s8_shape(lib_)
+    return lib_
+
+
+def check_s8_shape(lib_) -> None:
+    """``exp_xpass_s8.cu``'s compiled geometry (``iqo_exp_xpass_s8_shape``)
+    must be :data:`S8_GEMM`."""
+    import ctypes
+    got = (ctypes.c_int * 9)()
+    lib_.iqo_exp_xpass_s8_shape(got)
+    f = S8_GEMM
+    want = [f.threads, f.rows, f.rep_step, f.cols, f.kc, f.chunks, f.tiles, f.smem, f.max_steps]
+    if list(got) != want:
+        raise RuntimeError(f"exp_xpass_s8.cu's geometry {list(got)} != the host's {want}")
 
 
 def check_shape(lib_) -> None:
@@ -394,6 +503,70 @@ def s16_gemm_model(w: np.ndarray, c: np.ndarray, reps: int, sms: int = H100_SMS)
                 raise ValueError("an s32 sum of the slice leaves int32")
             total = wrap_add(total, s16_recombine(hh, mid, ll))
         out[rows, cols] = wrap_add(out[rows, cols], total)
+    return out.view(np.int32)
+
+
+def _s8(v) -> np.ndarray:
+    """The low byte of integers as s8, int64."""
+    return ((np.asarray(v, np.int64) + 128) & 255) - 128
+
+
+def s8_split(x) -> tuple[np.ndarray, np.ndarray]:
+    """``(a, b)`` of the s8 variants from work values, as the kernel takes
+    them from the window's ``int16(w)`` plus ``r`` in 16 bits: ``a`` the high
+    byte as s8, ``b`` the low byte XOR 0x80 as s8, both int64; equal to
+    ``int8((w + r) >> 8)`` and ``int8(((w + r) & 255) - 128)``, which read
+    only the low 16 bits of ``w + r``."""
+    x = np.asarray(x, np.int64) & 0xFFFF
+    return _s8(x >> 8), _s8((x & 255) ^ 0x80)
+
+
+def s8_gemm_model(w: np.ndarray, c: np.ndarray, corr: np.ndarray, reps: int, cat: bool,
+                  sms: int = H100_SMS) -> np.ndarray:
+    """Kernel I's ``s8_4dot`` (``cat`` False) or ``s8_2dot_cat`` in its gemm
+    form, block by block, flush by flush and warp by warp as
+    :func:`s8_launch` lays them out: ``w`` (160, 896) int32, ``c`` (3, 384,
+    128) integer taps (``e = int8(c >> 8)``, ``f = int8(c & 255)``), ``corr``
+    (3, 128) integers -> (160, 384) int32.  Each warp sums its live repeats'
+    products between two flushes in s32 accumulators (``s8_4dot``: ``a e``,
+    ``a f + b e``, ``b f``; ``s8_2dot_cat``: ``a [e | f]``, ``b [e | f]``),
+    asserted to stay in int32; at the flush it forms ``65536 hh + 256 mid +
+    ll + corr x`` its live repeats in uint32; the warps and the flushes meet
+    in uint32."""
+    f = S8_GEMM
+    launch = s8_launch(reps, sms)
+    c = np.asarray(c, np.int64)
+    planes = np.concatenate([_s8(c >> 8), _s8(c & 255)], axis=2)    # (3, 384, 256): [e | f]
+    corr = np.asarray(corr, np.int64)
+    window = np.asarray(w, np.int64) & 0xFFFF                        # the int16 window
+    out = np.zeros((160, 384), np.uint32)
+    for b in range(launch.blocks):
+        for tile, s0, s1 in launch.segments(b):
+            half, rt = divmod(tile, f.tiles_z)
+            grp, lo = half // 2, f.cols * (half % 2)
+            ef = np.concatenate([planes[grp][:, lo:lo + f.cols],
+                                 planes[grp][:, 128 + lo:128 + lo + f.cols]], axis=1)
+            wt = window[f.rows * rt:f.rows * (rt + 1), 256 * grp:256 * grp + f.k]
+            total = np.zeros((f.rows, f.cols), np.uint32)
+            for warp in range(f.rep_step):
+                rs = [r for r in range(f.rep_step * s0 + warp, f.rep_step * s1, f.rep_step)
+                      if r < reps]
+                if not rs:
+                    continue                    # zero A rows, corr x 0
+                a, bb = s8_split(wt[None] + np.array(rs)[:, None, None])
+                # the s32 sums over K and the warp's repeats: the repeats' planes
+                # summed first (the products are linear), exact in float64
+                da = (a.sum(0).astype(np.float64) @ ef).astype(np.int64)    # a [e | f]
+                db = (bb.sum(0).astype(np.float64) @ ef).astype(np.int64)   # b [e | f]
+                hh, mid, ll = da[:, :f.cols], da[:, f.cols:] + db[:, :f.cols], db[:, f.cols:]
+                accs = (da, db) if cat else (hh, mid, ll)
+                if max(np.abs(x).max(initial=0) for x in accs) >= 2**31:
+                    raise ValueError("an s32 sum between two flushes leaves int32")
+                rec = wrap_add(s16_recombine(hh, mid, ll), corr[grp, lo:lo + f.cols] * len(rs))
+                total = wrap_add(total, rec)
+            rows = slice(f.rows * rt, f.rows * (rt + 1))
+            cols = slice(f.cols * half, f.cols * (half + 1))
+            out[rows, cols] = wrap_add(out[rows, cols], total)
     return out.view(np.int32)
 
 

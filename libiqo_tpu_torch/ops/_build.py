@@ -254,6 +254,10 @@ def _exp_signatures() -> tuple:
         ("iqo_exp_vpu_gemm", [p, p, p, i, i, i, p]),
         ("iqo_exp_xpass_gemm_setup", []),
         ("iqo_exp_xpass_gemm_shape", [ctypes.POINTER(i)]),
+        # w, ef_k, corr, out, reps, cat, blocks of the walk, stream
+        ("iqo_exp_xscheme_s8_gemm", [p, p, p, p, i, i, i, p]),
+        ("iqo_exp_xpass_s8_setup", []),
+        ("iqo_exp_xpass_s8_shape", [ctypes.POINTER(i)]),
         # mix, P, src, out, n, stream
         ("iqo_exp_op_mix", [i, i, p, p, ll, p]),
         # align, kl, check, w, ct, out, steps, stream

@@ -412,7 +412,8 @@ def test_launches_stay_zero_on_cpu(xs_inputs, vx_ops, slice_inputs):
     for mod in NEW_MODULES:
         assert mod.LAUNCHES.total() == 0
     assert set(exp_x_schemes.LAUNCHES) == {*exp_x_schemes.VARIANTS, "f32_2dot[gemm]",
-                                           "bf16_1dot[gemm]", "s16_1dot[gemm]"}
+                                           "bf16_1dot[gemm]", "s16_1dot[gemm]",
+                                           "s8_4dot[gemm]", "s8_2dot_cat[gemm]"}
     assert set(exp_vpu_xpass.LAUNCHES) == {*exp_vpu_xpass.VARIANTS, "dense4[gemm]"}
     assert len(exp_vpu_rate.LAUNCHES) == 9 and len(exp_slice_align.LAUNCHES) == 6
 

@@ -358,14 +358,14 @@ def test_forms_and_launch_keys():
     assert xs.ROWS[-3:] == (("f32_2dot", "gemm"), ("bf16_1dot", "gemm"), ("s16_1dot", "gemm"))
     assert vx.ROWS[-1] == ("dense4", "gemm")
     assert set(xs.LAUNCHES) == {*xs.VARIANTS, "f32_2dot[gemm]", "bf16_1dot[gemm]",
-                                "s16_1dot[gemm]"}
+                                "s16_1dot[gemm]", "s8_4dot[gemm]", "s8_2dot_cat[gemm]"}
     assert xs.launch_key("s16_1dot", "gemm") == "s16_1dot[gemm]"
     assert xs.launch_key("bf16_1dot", "gemm") == "bf16_1dot[gemm]"
     assert set(vx.LAUNCHES) == {*vx.VARIANTS, "dense4[gemm]"}
     assert xs.launch_key("f32_2dot", "serial") == "f32_2dot"
 
 
-@pytest.mark.parametrize("variant, form", [("f32_2dot", "nope"), ("s8_4dot", "gemm"),
+@pytest.mark.parametrize("variant, form", [("f32_2dot", "nope"), ("s8_2dot_cat", "wgmma"),
                                            ("s16_1dot", "wgmma"), ("empty", "dense"),
                                            ("bf16_1dot", "wgmma")])
 def test_x_scheme_refuses_a_bad_form(xs_inputs, variant, form):
