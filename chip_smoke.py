@@ -188,7 +188,17 @@ Phases:
    the persistent walk at the same repeats, with the script's zero ``corr`` and a nonzero one, at the byte extremes
    and on a walk of 7 blocks; timed in turns with their serial forms,
    ``s16_1dot[gemm]`` and ``torch._int_mm`` of their dots (four calls of N =
-   128 a group, two of N = 256), each held equal to plain first.
+   128 a group, two of N = 256), each held equal to plain first.  J's
+   ``corr_f32`` and ``muls_f32`` in their wide form
+   (``csrc/exp/exp_vpu_f32.cu``: int -> float by the exponent trick, the
+   repeats in thirds over 1440 warps) == plain bit for bit at R 1, 3, 24 and
+   25, at the int16 extremes and on work values past 2^22 (their warps take
+   ``I2F``), timed in turns with their serial forms at R and R/8; X3's
+   cluster form (one thread block cluster of 4 a row chunk, the scratch in
+   distributed shared memory) == plain bit for bit on ``arange`` and on random
+   float bits with NaN and -0.0, compared as int32 views, timed in turns with
+   its serial form and ``var.index_select(0, idx)`` inside ``main()``, as X2
+   with ``src[128:160, :128].clone()``.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 2
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -196,6 +206,7 @@ and prints no result.  Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -1928,6 +1939,7 @@ def phase_band_fetch(card: str) -> list:
 
 
 GEMM_REPS = {"xs": (1, 3, 64, 67, 512), "vx": (1, 3, 13, 24)}   # R/8, R and partial steps
+WIDE_REPS = (1, 3, 24, 25)      # J's wide form: R/8, R, one past (thirds of 8, 8, 9)
 S8_VARIANTS = ("s8_4dot", "s8_2dot_cat")
 SLICE_SECOND_STEPS = 35    # L's wgmma form: a partial M tile and a partial last wave
 
@@ -1957,18 +1969,23 @@ def phase_xpass(card: str) -> list:
     ``s8_4dot``'s and ``s8_2dot_cat``'s gemm forms (``exp_xpass_s8.cu``) ==
     plain at the same repeats, with the script's zero ``corr`` and a nonzero one, at the byte extremes and on a walk of 7
     blocks (flushes cut at 64 steps), timed in turns with their serial forms,
-    ``s16_1dot[gemm]`` and ``torch._int_mm`` of their dots.  Returns the
-    twelve entries of the kernels line."""
+    ``s16_1dot[gemm]`` and ``torch._int_mm`` of their dots.  J's wide forms
+    of ``corr_f32`` and ``muls_f32`` (``exp_vpu_f32.cu``) == plain at
+    :data:`WIDE_REPS`, at the int16 extremes and past 2^22, timed in turns
+    with their serial forms; X3's cluster form == plain on ``arange`` and on
+    float bits with NaN and -0.0 (as int32 views), timed inside
+    ``ec.main()``.  Returns the fifteen entries of the kernels line."""
     from libiqo_tpu_torch.experiments import (_harness, exp_element_clamp as ec,
                                               exp_slice_align as sa, exp_vpu_rate as vr,
                                               exp_vpu_xpass as vx, exp_x_schemes as xs,
-                                              xpass_gemm)
+                                              vpu_f32, xpass_gemm)
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
     names = ("xscheme_tile", "vpu_xpass_tile", "op_mix", "slice_groups", "window_probe")
     err = dict.fromkeys(names + ("xscheme_gemm", "vpu_xpass_gemm", "xscheme_bf16_gemm",
                                  "xscheme_s16_gemm", "slice_groups[wgmma]", "s8_4dot[gemm]",
-                                 "s8_2dot_cat[gemm]"), 0.0)
+                                 "s8_2dot_cat[gemm]", "window_probe[x3,cluster]",
+                                 *(f"vpu_xpass_tile[{v},wide]" for v in vx.WIDE_VARIANTS)), 0.0)
 
     # 1. kernel == plain, every variant, full shapes and repeats
     w, c = xs.inputs(dev)
@@ -1997,6 +2014,30 @@ def phase_xpass(card: str) -> list:
             f"vpu_xpass {v}", vx.vpu_xpass(v, ops, vx.R, "serial"),
             vx.vpu_xpass_plain(v, ops, vx.R)))
     print(f"vpu_xpass == plain in all {len(vx.VARIANTS)} variants at R={vx.R}, bit for bit")
+    # J's wide forms: == plain at WIDE_REPS, at the int16 extremes (we, wo at
+    # -32768 and 32767, r up to R) and with work values past 2^22, whose
+    # warps take I2F (the NumPy model says which)
+    we_x, wo_x = ops.we.clone(), ops.wo.clone()
+    we_x[::2, ::3], wo_x[::2, 1::3] = -32768, 32767
+    we_x[1::2, 1::3], wo_x[1::2, ::3] = 32767, -32768
+    ops_ext = dataclasses.replace(ops, we=we_x, wo=wo_x)
+    we_b, wo_b = ops.we.clone(), ops.wo.clone()
+    we_b[7, 100], wo_b[90, 300], we_b[150, 5] = 2**22 + 5, -(2**28) - 3, -(2**22)
+    ops_big = dataclasses.replace(ops, we=we_b, wo=wo_b)
+    for v in vx.WIDE_VARIANTS:
+        key = f"vpu_xpass_tile[{v},wide]"
+        cases = [(f"R={r}", ops, r) for r in WIDE_REPS] + \
+            [(f"R={r} at the int16 extremes", ops_ext, r) for r in (3, vx.R + 1)] + \
+            [(f"R={r} past 2^22", ops_big, r) for r in (3, vx.R)]
+        for tag, o, r in cases:
+            err[key] = max(err[key], probe_err(f"vpu_xpass {v}[wide] {tag}",
+                                               vx.vpu_xpass(v, o, r, "wide"),
+                                               vx.vpu_xpass_plain(v, o, r)))
+    _, paths = vpu_f32.model("corr_f32", we_b.cpu().numpy(), wo_b.cpu().numpy(), ops.taps, vx.R)
+    check(not paths.all(), "the input past 2^22 sends no warp to I2F")
+    print(f"corr_f32[wide], muls_f32[wide] == plain at R {WIDE_REPS}, at the int16 extremes "
+          f"(R 3, {vx.R + 1}) and past 2^22 (R 3, {vx.R}; {int((~paths).sum())} of "
+          f"{paths.size} warps on I2F), bit for bit")
     # the gemm forms (csrc/exp/exp_xpass_gemm.cu): == plain at 1, 3, R/8, R
     # and a partial last step; at one application I's also == gold
     cvf = xs.build_cvals("f32_2dot", c)
@@ -2147,10 +2188,25 @@ def phase_xpass(card: str) -> list:
     for row, fn, plain in (("x1", ec.window_x1, ec.window_x1_plain),
                            ("x1_batch", ec.window_x1, ec.window_x1_plain),
                            ("x2", ec.window_x2, ec.window_x2_plain),
-                           ("x3", ec.window_x3, ec.window_x3_plain)):
+                           ("x3", functools.partial(ec.window_x3, form="serial"),
+                            ec.window_x3_plain)):
         err["window_probe"] = max(err["window_probe"], probe_err(
             f"window {row}", fn(srcs[row]), plain(srcs[row])))
-    print("window_x1 (2-D and batch 3), window_x2, window_x3 == plain")
+    # X3's cluster form: a copy keeps every bit, so compare int32 views, on
+    # arange and on random bits with NaN and -0.0 patterns among them
+    bits = torch.from_numpy(np.random.default_rng(16).integers(
+        -2**31, 2**31, (ec.N_VAR, ec.A, ec.B)).astype(np.int32))
+    bits.view(-1)[::97] = 0x7FC00001          # a quiet NaN with a payload
+    bits.view(-1)[5::89] = -2**31             # -0.0
+    bits.view(-1)[7::101] = 0x7F800001        # a signalling NaN
+    for tag, var in (("arange", srcs["x3"]), ("random bits", bits.view(torch.float32).to(dev))):
+        for form in ec.FORMS:
+            got = ec.window_x3(var, form).view(torch.int32)
+            want = ec.window_x3_plain(var).view(torch.int32)
+            key = "window_probe[x3,cluster]" if form == "cluster" else "window_probe"
+            err[key] = max(err[key], probe_err(f"window_x3[{form}] {tag}", got, want))
+    print("window_x1 (2-D and batch 3), window_x2, window_x3 == plain; window_x3 [cluster] == "
+          "plain, bit for bit as int32 views, on arange and on random bits with NaN and -0.0")
 
     # 2. the probes' main paths, every count set to 0 just before
     mods = (xs, vx, vr, sa, ec)
@@ -2167,6 +2223,10 @@ def phase_xpass(card: str) -> list:
     for v in S8_VARIANTS:
         launches[f"{v}[gemm]"] = xs.LAUNCHES[xs.launch_key(v, "gemm")]
     launches["vpu_xpass_gemm"] = vx.LAUNCHES[vx.launch_key("dense4", "gemm")]
+    for v in vx.WIDE_VARIANTS:
+        launches[f"vpu_xpass_tile[{v},wide]"] = vx.LAUNCHES[vx.launch_key(v, "wide")]
+    launches["window_probe"] = sum(ec.LAUNCHES[r] for r in ("x1", "x1_batch", "x2", "x3"))
+    launches["window_probe[x3,cluster]"] = ec.LAUNCHES["x3[cluster]"]
     launches["slice_groups"] = sum(sa.LAUNCHES[sa.launch_key(a, kl, "mma_sync")]
                                    for a, kl in sa.CONFIGS)
     launches["slice_groups[wgmma]"] = sum(sa.LAUNCHES[sa.launch_key(a, kl, "wgmma")]
@@ -2203,11 +2263,16 @@ def phase_xpass(card: str) -> list:
     p_vr = plain_ms(lambda t: vr.op_mix_plain(t, "epi", 8), src)
     p_sa = plain_ms(lambda t: sa.slice_groups_plain(t, sops, 128, 512), sw)
     p_ec = plain_ms(ec.window_x1_plain, srcs["x1"])
+    p_x3 = plain_ms(ec.window_x3_plain, srcs["x3"])
+    p_wide = {v: _harness.launches_ms(lambda o, v=v: vx.vpu_xpass_plain(v, o, vx.R),
+                                      [ops.perturbed(i) for i in range(2)], repeats=2,
+                                      primed=False) for v in vx.WIDE_VARIANTS}
     print(f"plain ms, host-paced: x_scheme s8_4dot R={xs.R} {p_xs!r}, f32_2dot {p_f32!r}, "
           f"bf16_1dot {p_bf16!r}, s16_1dot {p_s16!r}; "
           f"vpu_xpass dense4 "
-          f"R={vx.R} {p_vx!r}; op_mix epi P=8 {p_vr!r}; slice_groups 128,512 {p_sa!r}; "
-          f"window_x1 {p_ec!r} ({card})")
+          f"R={vx.R} {p_vx!r}, corr_f32 {p_wide['corr_f32']!r}, muls_f32 "
+          f"{p_wide['muls_f32']!r}; op_mix epi P=8 {p_vr!r}; slice_groups 128,512 {p_sa!r}; "
+          f"window_x1 {p_ec!r}, window_x3 {p_x3!r} ({card})")
 
     # I: per group, the work planes of 64 applications stacked by rows over
     # the group's window, (64 x planes x 160, K); the s8 dots alone are
@@ -2458,6 +2523,29 @@ def phase_xpass(card: str) -> list:
           f"s8_2dot_cat[gemm] / s8_4dot[gemm] t(R)/R "
           f"{per8['s8_2dot_cat gemm'][1] / per8['s8_4dot gemm'][1]!r} ({card})")
 
+    # J's wide forms against their serial forms, in turns, at R and R / 8;
+    # no one PyTorch call sums in the script's order (a conv1d differs once
+    # the sums pass 2^24), so there is no library row
+    tw = probe_turns({f"{v} {form} {r}": functools.partial(
+        lambda o, v, r, f: vx.vpu_xpass(v, o, r, f), v=v, r=r, f=form)
+        for v in vx.WIDE_VARIANTS for form in ("wide", "serial") for r in (vx.R, vx.R // 8)},
+        [ops.perturbed(i) for i in range(vx.ITERS)])
+    wide_app = {(v, form): ((tw[f"{v} {form} {vx.R}"] - tw[f"{v} {form} {vx.R // 8}"])
+                            / (vx.R - vx.R // 8) * 1e3, tw[f"{v} {form} {vx.R}"] / vx.R * 1e3)
+                for v in vx.WIDE_VARIANTS for form in ("wide", "serial")}
+    for v in vx.WIDE_VARIANTS:
+        (ws_, wr_), (ss_, sr_) = wide_app[v, "wide"], wide_app[v, "serial"]
+        app_b = vx.bound(v)[2]
+        print(f"{v}[wide] in turns with the serial form: {ws_!r} us/application (slope R={vx.R} "
+              f"to R/8), t(R)/R {wr_!r}; serial form {ss_!r} / {sr_!r}; bound {app_b!r} "
+              f"(wide at {app_b / ws_!r} of the bound's pace); library none ({card})")
+    x3c = rows["ec"]["x3[cluster]"]
+    print(f"window_x3 [cluster] {x3c['ms'] * 1e3!r} us a launch, serial "
+          f"{x3c['serial_ms'] * 1e3!r}, var.index_select(0, idx) "
+          f"{x3c['library_ms'] * 1e3!r} in the same turns; X2 "
+          f"{rows['ec']['x2']['ms'] * 1e3!r}, src[128:160, :128].clone() "
+          f"{rows['ec']['x2']['library_ms'] * 1e3!r} ({card})")
+
     x, j, k, l_, m = (rows["xs"]["s8_4dot"], rows["vx"]["dense4"], rows["vr"]["epi P=8"],
                       rows["sa"]["k0%128, kl=512"], rows["ec"]["x1"])
 
@@ -2531,7 +2619,34 @@ def phase_xpass(card: str) -> list:
          "ms": m["ms"], "plain_ms": p_ec, "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
          "library_ms": lib_ec, "row": "x1",
          "rows": {r: v["ms"] for r, v in rows["ec"].items() if r in ec.ROWS},
+         "row_library_ms": {"x2": rows["ec"]["x2"]["library_ms"],
+                            "x3": rows["ec"]["x3"]["library_ms"]},
          "x2_past_end_zeros": rows["ec"]["x2_past_end"]["all_zeros"]},
+        {"name": "window_probe[x3,cluster]", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_clamp.cu",
+         "replaces": "scripts/exp_element_clamp.py:127",
+         "launches": launches["window_probe[x3,cluster]"],
+         "max_abs_err": err["window_probe[x3,cluster]"], "ms": x3c["ms"], "plain_ms": p_x3,
+         "bound_ms": x3c["bound_ms"], "bound_by": x3c["bound_by"],
+         "library_ms": x3c["library_ms"], "row": "x3",
+         "library_call": "var.index_select(0, idx), idx = [0, 1, 1, 2] on the card, "
+                         "timed in the same turns",
+         "serial_ms": x3c["serial_ms"]},
+        *[{"name": f"vpu_xpass_tile[{v},wide]", "route": "cuda",
+           "source": "libiqo_tpu_torch/csrc/exp/exp_vpu_f32.cu",
+           "replaces": "scripts/exp_vpu_xpass.py:156",
+           "launches": launches[f"vpu_xpass_tile[{v},wide]"],
+           "max_abs_err": err[f"vpu_xpass_tile[{v},wide]"], "ms": tw[f"{v} wide {vx.R}"],
+           "plain_ms": p_wide[v], "bound_ms": vx.bound(v)[0], "bound_by": vx.bound(v)[1],
+           "library_ms": None,
+           "library_none": "no one PyTorch call sums in the script's order; a conv1d "
+                           "differs once the sums pass 2^24",
+           "row": f"{v} R={vx.R}", "us_per_app": wide_app[v, "wide"][0],
+           "us_per_app_at_r": wide_app[v, "wide"][1], "bound_us_per_app": vx.bound(v)[2],
+           "ms_r8": tw[f"{v} wide {vx.R // 8}"], "serial_ms": tw[f"{v} serial {vx.R}"],
+           "serial_us_per_app": wide_app[v, "serial"][0],
+           "serial_us_per_app_at_r": wide_app[v, "serial"][1]}
+          for v in vx.WIDE_VARIANTS],
         {**gemm_entry("xscheme_tile[f32_2dot,gemm]", "scripts/exp_x_schemes.py:156", "f32_2dot",
                       "xscheme_gemm", ti, xs.R, xs, p_f32, lib_f32),
          "also_replaces": ["scripts/exp_x_schemes.py:230"]},

@@ -18,7 +18,24 @@
 //   (cp.async.bulk global -> shared on an mbarrier, the counterpart of
 //   make_async_copy and its DMA semaphore) of var (3, 64, 256) f32, 192 KB of
 //   dynamic shared memory; step t writes scratch[v(t)], v = 0, 1, 1, 2
-//   computed at run time (the loop is not unrolled), to out[t].
+//   computed at run time (the loop is not unrolled), to out[t]
+//   (form="serial").
+// window_x3_cluster (form="cluster", the default): the sequential grid of 4
+//   as a thread block cluster of 4 blocks, block rank t taking step t, whose
+//   scratch is read through the cluster's distributed shared memory.  The 64
+//   rows split into 16 row chunks, one cluster each (64 blocks of 128
+//   threads).  Rank 0 fills its cluster's scratch once, at the start: one
+//   cp.async.bulk a variant slice (the chunk's 4 rows of variant v, 4 KB)
+//   into its own shared memory, all completing on its mbarrier.  After a
+//   cluster barrier, rank t computes v = 0, 1, 1, 2 at run time, reads
+//   scratch[v] from rank 0 (mapa + ld.shared::cluster) and writes out[t]'s
+//   rows of the chunk; a split cluster barrier (arrive after the reads, wait
+//   after the stores) keeps rank 0 until every peer has read.  No rank loads
+//   its own slice from global memory: the question stays whether a scratch
+//   filled once, asynchronously, can be read under a run-time index from a
+//   later step.  (Slices spread over ranks 0-2 would need one more cluster
+//   barrier before the copies, for every owner's mbarrier to be initialised,
+//   on the critical path.)
 //
 // Replaces the TPU kernels of scripts/exp_element_clamp.py: run_x1
 // (pl.pallas_call at :44), run_x2 (:83) and run_x3 (:127).  The Python side
@@ -32,6 +49,8 @@
 // What bounds them on the H100: launch latency.  X1 moves 262 KB (786 KB
 // for the batch of 3), X2 32 KB, X3 448 KB: under a microsecond at 3.35
 // TB/s.  The probes ask whether the copies are legal and right, not how fast.
+// X3's serial form pushes its 448 KB through one SM; the cluster form
+// spreads them over 64 blocks, 4 KB in and 4 KB out each.
 
 #include <cstdint>
 #include <cuda.h>
@@ -150,6 +169,48 @@ window_x3_kernel(const float* __restrict__ var, float* __restrict__ out, int ste
   }
 }
 
+constexpr int kX3Steps = 4;                 // blocks of a cluster: the TPU grid's steps
+constexpr int kX3Rows = 4;                  // rows of each variant a cluster takes
+constexpr int kX3Chunks = kA / kX3Rows;     // clusters: 16
+constexpr int kX3SliceBytes = kX3Rows * kB * 4;
+constexpr int kX3Threads = 128;
+constexpr int kX3PerThread = kX3Rows * kB / 4 / kX3Threads;   // float4 a thread
+
+// v(t) of the TPU kernel: 0, 1, 1, 2
+__device__ __forceinline__ uint32_t x3_variant(uint32_t t) { return t == 0 ? 0 : (t == 3 ? 2 : 1); }
+
+__global__ void __launch_bounds__(kX3Threads)
+window_x3_cluster_kernel(const float* __restrict__ var, float* __restrict__ out) {
+  __shared__ __align__(128) float scratch[kNVar][kX3Rows * kB];   // rank 0's: 12 KB
+  __shared__ __align__(8) uint64_t bar;
+  const uint32_t t = cluster_rank();
+  const int chunk = blockIdx.y;
+  if (t == 0) {                               // rank 0 fills the whole scratch, once
+    if (threadIdx.x == 0) {
+      mbar_init(&bar, 1);
+      mbar_fence_init();
+      mbar_expect(&bar, kNVar * kX3SliceBytes);
+      for (int v = 0; v < kNVar; ++v)
+        bulk_copy_cluster(smem_addr(scratch[v]), var + (v * kA + chunk * kX3Rows) * kB,
+                          kX3SliceBytes, smem_addr(&bar));
+    }
+    __syncthreads();                          // the barrier is initialised
+    mbar_wait(&bar, 0);
+  }
+  cluster_sync();                             // the scratch has landed; every rank reads it
+  const uint32_t src = map_rank(scratch[x3_variant(t)], 0);
+  float4 v[kX3PerThread];
+#pragma unroll
+  for (int i = 0; i < kX3PerThread; ++i)
+    v[i] = ld_cluster_f4(src + 16 * (threadIdx.x + i * kX3Threads));
+  cluster_arrive();                           // this block's reads of rank 0 are done
+  float4* dst = reinterpret_cast<float4*>(out + (static_cast<long long>(t) * kA +
+                                                 chunk * kX3Rows) * kB);
+#pragma unroll
+  for (int i = 0; i < kX3PerThread; ++i) dst[threadIdx.x + i * kX3Threads] = v[i];
+  cluster_wait();                             // rank 0 stays until every read is done
+}
+
 // A map of `planes` (160, 640) i32 planes (2-D when planes == 0) with a
 // (64, 256) box, out-of-bounds elements read as zeros.
 int encode(CUtensorMap* map, const void* src, int planes) {
@@ -221,6 +282,29 @@ int iqo_exp_window_x3(const void* var, void* out, int steps, void* stream) {
   window_x3_kernel<<<1, kThreads, kVarSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(var), static_cast<float*>(out), steps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// X3, cluster form: var (3, 64, 256) f32 -> out (4, 64, 256), as 16
+// clusters of 4 blocks.  A cluster launch the card refuses returns its error.
+int iqo_exp_window_x3_cluster(const void* var, void* out, void* stream) {
+  if (misaligned(var) || misaligned(out)) return 1002;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kX3Steps, kX3Chunks, 1);
+  cfg.blockDim = dim3(kX3Threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kX3Steps;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, window_x3_cluster_kernel,
+                                            static_cast<const float*>(var),
+                                            static_cast<float*>(out));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(rc != cudaSuccess ? rc : last);
 }
 
 }  // extern "C"

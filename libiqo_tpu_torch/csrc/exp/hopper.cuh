@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the probes' wgmma kernels
 // (exp_xpass_gemm.cu, exp_xpass_s8.cu, exp_mma_wgmma.cu, ...): shared-memory
 // addresses, cp.async, mbarriers, TMA tensor loads and bulk tensor stores with
-// their host-side encoder, named barriers, and wgmma with its fences,
+// their host-side encoder, 1-D bulk copies, thread block clusters (ranks,
+// mapa, the cluster barrier, distributed shared-memory loads), named
+// barriers, and wgmma with its fences,
 // 128-byte-swizzle descriptors and register pins; the X-pass probes' uint32
 // arithmetic, and the 8-bit wgmma products with s32 sums
 // (IQO_WGMMA_I8 at N = 64, IQO_WGMMA_I8_N128 at N = 128), which a source
@@ -120,6 +122,60 @@ __device__ __forceinline__ void bulk_wait_read() {
 // this thread's bulk stores are complete
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// One 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global memory into the shared memory at cluster address `dst`,
+// completing on the mbarrier at cluster address `bar` in the same block (a
+// block's own shared-memory addresses are cluster addresses too).
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, const void* src, uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ---- thread block clusters ------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// the cluster address of this block's shared-memory object `p` in block
+// `rank` of the cluster
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(d) : "r"(smem_addr(p)), "r"(rank));
+  return d;
+}
+
+// The cluster barrier, in halves for work between them: every thread of every
+// block of the cluster arrives (release), then waits (acquire) until all have,
+// so that what each did before its arrival is seen by all after the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // a barrier of `threads` threads (a multiple of 32) on named barrier `id`

@@ -18,22 +18,39 @@ copies, replaces the three ``pl.pallas_call`` sites:
   with zeros.  Rows 0-31, columns 0-127 (all inside the source) are written,
   (32, 128); ``spill`` takes the whole box, for :func:`main` to report what
   the rows past the end held (not gated);
-* ``window_x3(var)`` for ``run_x3`` (``:127``): the TPU's sequential grid of 4
-  with its scratch carried: one block loops over t = 0..3; at t = 0 it makes
-  one 1-D bulk copy (``cp.async.bulk``) of ``var`` (3, 64, 256) float32 (192
-  KB) into dynamic shared memory on an mbarrier, the counterpart of
-  ``make_async_copy`` and its semaphore; step t writes ``scratch[v(t)]``,
-  ``v = 0, 1, 1, 2`` computed at run time, to ``out[t]``: (4, 64, 256).
+* ``window_x3(var, form)`` for ``run_x3`` (``:127``): the TPU's sequential
+  grid of 4 with its scratch carried, ``var`` (3, 64, 256) float32 ->
+  ``out`` (4, 64, 256), ``out[t] = scratch[v(t)]``, ``v = 0, 1, 1, 2``
+  computed at run time.  ``form="cluster"`` (the default) runs the grid as
+  a thread block cluster of 4 blocks, block rank t as step t, its scratch
+  read through the cluster's distributed shared memory: 16 clusters, one a
+  chunk of 4 rows (:func:`x3_schedule`); rank 0 fills the scratch once, at
+  the start, by one ``cp.async.bulk`` a variant slice into its own shared
+  memory, on its mbarrier; after a cluster barrier, rank t reads
+  ``scratch[v(t)]`` from rank 0 (``ld.shared::cluster``), and a split
+  cluster barrier keeps rank 0 until every peer has read.  (The slices
+  spread over ranks 0-2 would need one more cluster barrier, for every
+  owner's mbarrier to be initialised before rank 0's copies.)
+  ``form="serial"`` is the first kernel: one block loops over t; at t = 0 one
+  bulk copy of all of ``var`` (192 KB) into its dynamic shared memory on an
+  mbarrier, the counterpart of ``make_async_copy`` and its semaphore.
 
 The tensor maps are encoded on the host by ``cuTensorMapEncodeTiled``,
 fetched through ``cudaGetDriverEntryPoint`` (the one ``nvcc -shared`` links
 no ``libcuda``), and passed as ``__grid_constant__`` parameters.
+
+:func:`main` times X3's two forms in turns with ``var.index_select(0, idx)``
+(``var[[0, 1, 1, 2]]`` with the index on the card), and X2 in turns with
+``src[128:160, :128].clone()``, each library call held equal to the plain
+version first.  :data:`LAUNCHES` counts X3's serial form under ``"x3"``
+and its cluster form under ``"x3[cluster]"``.
 
 Run on a card: ``python -m libiqo_tpu_torch.experiments.exp_element_clamp``.
 """
 
 from __future__ import annotations
 
+import functools
 
 import numpy as np
 import torch
@@ -41,8 +58,9 @@ import torch
 from . import _harness
 from ._harness import HBM_BYTES_PER_S, Launches
 
-__all__ = ["LAUNCHES", "ROWS", "bound", "inputs", "main", "window_x1", "window_x1_plain",
-           "window_x2", "window_x2_plain", "window_x3", "window_x3_plain"]
+__all__ = ["FORMS", "LAUNCHES", "ROWS", "bound", "inputs", "main", "window_x1",
+           "window_x1_plain", "window_x2", "window_x2_plain", "window_x3", "window_x3_plain",
+           "x3_model", "x3_schedule"]
 
 H, W = 160, 640
 TH, TW = 32, 128
@@ -53,7 +71,12 @@ N_TY, N_TX = 4, 4
 BATCH = 3
 N_VAR, A, B = 3, 64, 256
 X3_STEPS = 4
-ROWS = ("x1", "x1_batch", "x2", "x3")
+X3_ROWS = 4                 # rows of each variant a cluster takes
+X3_CHUNKS = A // X3_ROWS    # clusters of the cluster form
+FORMS = ("cluster", "serial")   # X3's forms, the first its default
+# main()'s rows, each a LAUNCHES key: X3's serial form "x3", its cluster form
+# "x3[cluster]"
+ROWS = ("x1", "x1_batch", "x2", "x3", "x3[cluster]")
 ITERS = 8
 LAUNCHES = Launches(ROWS)
 
@@ -159,10 +182,51 @@ def window_x2(src: torch.Tensor, spill: torch.Tensor | None = None) -> torch.Ten
     return out
 
 
-def window_x3(var: torch.Tensor) -> torch.Tensor:
-    """Kernel M, X3: var (3, 64, 256) float32 -> (4, 64, 256).  A CPU tensor
-    takes :func:`window_x3_plain`; a CUDA tensor launches the kernel or
-    raises."""
+def _variant(t: int) -> int:
+    """v(t) of the TPU kernel: 0, 1, 1, 2."""
+    return 0 if t == 0 else (2 if t == 3 else 1)
+
+
+def x3_schedule() -> list[dict]:
+    """The cluster form's schedule, one entry a block: its cluster (row
+    chunk), rank t, the variant slices it bulk-copies into its own shared
+    memory (rank 0: all three; the other ranks none), the variant v(t) it
+    reads from rank 0's shared memory, and the rows it writes of
+    ``out[t]``."""
+    return [{"chunk": k, "rank": t, "copies": list(range(N_VAR)) if t == 0 else [],
+             "reads": _variant(t), "rows": range(X3_ROWS * k, X3_ROWS * (k + 1))}
+            for k in range(X3_CHUNKS) for t in range(X3_STEPS)]
+
+
+def x3_model(var: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The cluster form in NumPy: the copies fill the scratch slices of the
+    ranks that issue them ({(chunk, rank, variant): rows}), then every block
+    reads its slice from rank 0 of its cluster, which must hold it.  Returns
+    out (4, 64, 256) and how often each of its elements was written."""
+    scratch = {}
+    sched = x3_schedule()
+    for blk in sched:
+        for v in blk["copies"]:
+            scratch[blk["chunk"], blk["rank"], v] = var[v, blk["rows"]].copy()
+    out = np.zeros((X3_STEPS, A, B), np.float32)
+    writes = np.zeros((X3_STEPS, A, B), np.int64)
+    for blk in sched:
+        key = blk["chunk"], 0, blk["reads"]
+        if key not in scratch:
+            raise AssertionError(f"block {blk} reads a slice that no copy filled")
+        out[blk["rank"], blk["rows"]] = scratch[key]
+        writes[blk["rank"], blk["rows"]] += 1
+    return out, writes
+
+
+def window_x3(var: torch.Tensor, form: str | None = None) -> torch.Tensor:
+    """Kernel M, X3: var (3, 64, 256) float32 -> (4, 64, 256), in ``form``
+    (``"cluster"``, the default, or ``"serial"``).  A CPU tensor takes
+    :func:`window_x3_plain`; a CUDA tensor launches the kernel or raises
+    (also where the card refuses the cluster launch)."""
+    form = FORMS[0] if form is None else form
+    if form not in FORMS:
+        raise ValueError(f"window_x3 takes form 'cluster' or 'serial', got {form!r}")
     if var.dtype != torch.float32 or tuple(var.shape) != (N_VAR, A, B):
         raise ValueError(f"var must be ({N_VAR}, {A}, {B}) float32, got "
                          f"{tuple(var.shape)} {var.dtype}")
@@ -171,6 +235,13 @@ def window_x3(var: torch.Tensor) -> torch.Tensor:
     if not var.is_contiguous():
         raise ValueError("window_x3 takes a contiguous var")
     out = torch.empty((X3_STEPS, A, B), dtype=torch.float32, device=var.device)
+    if form == "cluster":
+        with torch.cuda.device(var.device):
+            rc = _harness.lib().iqo_exp_window_x3_cluster(
+                var.data_ptr(), out.data_ptr(), _harness.stream(var))
+        _harness.check_rc(rc, "window_x3[cluster]")
+        LAUNCHES.add("x3[cluster]")
+        return out
     lib = _harness.lib_with_setup("iqo_exp_window_setup", var.device)
     _harness.check_rc(lib.iqo_exp_window_x3(
         var.data_ptr(), out.data_ptr(), X3_STEPS, _harness.stream(var)), "window_x3")
@@ -183,39 +254,69 @@ def bound(row: str) -> tuple[float, str, int]:
     once each, at 3.35 TB/s (a launch's latency is far longer)."""
     corners = N_TY * N_TX * TH * TW * 4
     nbytes = {"x1": 2 * corners, "x1_batch": 2 * BATCH * corners,
-              "x2": 2 * 32 * TW * 4, "x3": (N_VAR + X3_STEPS) * A * B * 4}[row]
+              "x2": 2 * 32 * TW * 4, "x3": (N_VAR + X3_STEPS) * A * B * 4}[row.split("[")[0]]
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
 
 
 def main() -> dict:
-    """The script's four runs on card 0, each held to its plain version, with
-    the script's OK / WRONG / REJECTED lines; returns {row: {ok, ms, ...},
+    """The script's four runs on card 0, X3 in both forms, each held to its
+    plain version, with the script's OK / WRONG / REJECTED lines (X3's
+    default form, the cluster, under the script's label); X2 timed in turns
+    with ``src[128:160, :128].clone()``, X3's two forms in turns with
+    ``var.index_select(0, idx)``; returns {row: {ok, ms, ...},
     "x2_past_end": ...}."""
     _harness.require_card()
     card = _harness.card()
-    srcs = inputs(torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    srcs = inputs(dev)
+    x3 = {f: functools.partial(window_x3, form=f) for f in FORMS}
     calls = {"x1": (window_x1, window_x1_plain), "x1_batch": (window_x1, window_x1_plain),
-             "x2": (window_x2, window_x2_plain), "x3": (window_x3, window_x3_plain)}
+             "x2": (window_x2, window_x2_plain), "x3": (x3["serial"], window_x3_plain),
+             "x3[cluster]": (x3["cluster"], window_x3_plain)}
     label = {"x1": "X1 batch=None", "x1_batch": f"X1 batch={BATCH}",
-             "x2": "X2 (OOB-high Element window)", "x3": "X3 (dynamic scratch leading index)"}
-    rows = {}
+             "x2": "X2 (OOB-high Element window)",
+             "x3": "X3 [serial] (dynamic scratch leading index)",
+             "x3[cluster]": "X3 (dynamic scratch leading index)"}
+    rows, verdicts = {}, {}
     for row, (fn, plain) in calls.items():
-        x = srcs[row]
+        x = srcs[row.split("[")[0]]
         try:
             ok = torch.equal(fn(x), plain(x))
         except RuntimeError as e:        # a refused launch or tensor map: the script's REJECTED
             print(f"{label[row]}: REJECTED: {type(e).__name__}: {str(e)[:300]}", flush=True)
             rows[row] = {"ok": False, "rejected": True}
             continue
-        verdict = ("OK" if ok else "VALUE MISMATCH") if row.startswith("x1") else \
+        verdicts[row] = ("OK" if ok else "VALUE MISMATCH") if row.startswith("x1") else \
             ("ran, in-bounds part " + ("OK" if ok else "WRONG")) if row == "x2" else \
             ("ran, " + ("OK" if ok else "WRONG VALUES"))
-        ms = _harness.launches_ms(fn, _harness.perturbed(x, ITERS))
+        rows[row] = {"ok": ok, "rejected": False}
+    # library calls, each held to the plain version first
+    r0 = (H - 32) // 32 * 32
+    idx = torch.tensor([0, 1, 1, 2], device=dev)
+    library = {"x2": lambda t: t[r0:r0 + 32, :TW].clone(),
+               "x3": lambda t: t.index_select(0, idx)}
+    for row, fn in library.items():
+        if not torch.equal(fn(srcs[row]), calls[row][1](srcs[row])):
+            raise AssertionError(f"the library call of {row} differs from its plain version")
+    ran = [r for r in ROWS if not rows[r]["rejected"]]
+    ms = {r: _harness.launches_ms(calls[r][0], _harness.perturbed(srcs[r], ITERS))
+          for r in ran if r.startswith("x1")}
+    for group in (("x2",), ("x3", "x3[cluster]")):
+        base = group[0]
+        turns = {r: (calls[r][0], _harness.perturbed(srcs[base], ITERS)) for r in group if r in ran}
+        turns[base + " library"] = (library[base], _harness.perturbed(srcs[base], ITERS))
+        ms.update(_harness.turns_ms(turns))
+    for row in ran:
         b_ms, by, nbytes = bound(row)
-        print(f"{label[row]}: {verdict}; {ms * 1e3!r} us per launch, {nbytes} bytes, bound "
-              f"{b_ms * 1e3!r} us ({by}) ({card})", flush=True)
-        rows[row] = {"ok": ok, "rejected": False, "ms": ms, "bound_ms": b_ms, "bound_by": by,
-                     "bytes": nbytes}
+        base = row.split("[")[0]
+        extra = {"library_ms": ms[base + " library"]} if base in library else {}
+        if row == "x3[cluster]" and "x3" in ms:
+            extra["serial_ms"] = ms["x3"]
+        print(f"{label[row]}: {verdicts[row]}; {ms[row] * 1e3!r} us per launch, {nbytes} bytes, "
+              f"bound {b_ms * 1e3!r} us ({by})"
+              + "".join(f"; {k} {v * 1e3!r} us in the same turns" for k, v in extra.items())
+              + f" ({card})", flush=True)
+        rows[row].update(ms=ms[row], bound_ms=b_ms, bound_by=by, bytes=nbytes, **extra)
     spill = torch.full((BAND_H, BAND_W), -1, dtype=torch.int32, device=srcs["x2"].device)
     window_x2(srcs["x2"], spill)
     past = spill[H - (H - 32) // 32 * 32:]

@@ -54,9 +54,15 @@ as :func:`operands` lays them out) in K chunks of 64 staged by ``cp.async``
 in four stages, 128-byte swizzled, read by the tensor cores; each warp holds
 its rows over the full K; a block's slice of the repeats meets the others in
 a zeroed output by uint32 ``atomicAdd`` (:mod:`.xpass_gemm` states its
-geometry and models it in NumPy).
+geometry and models it in NumPy); ``"wide"`` (``corr_f32`` and ``muls_f32``
+only, and their default) is the redesign in ``csrc/exp/exp_vpu_f32.cu``,
+``vpu_f32_wide_kernel``: the int -> float conversions on the FP32 pipe by
+the exponent trick (``I2F`` for a warp whose values do not fit), 4 outputs
+a thread with corr_f32's window shared in registers, and the repeats split
+in thirds over the 3 warps of each of 480 blocks, 1440 warps on 132 SMs
+(:mod:`.vpu_f32` states the thread map and models it in NumPy).
 :data:`LAUNCHES` counts each variant's serial launches under its name and
-the gemm form's under ``"dense4[gemm]"``.
+the other forms' under ``"variant[form]"``.
 
 Times: per launch by back-to-back launches on 8 operand sets that each
 differ in ``we[0, 0]``, ``wo[0, 0]`` and ``wd[0, 0]``, at ``reps = R`` and
@@ -73,17 +79,18 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from . import _harness, xpass_gemm
+from . import _harness, vpu_f32, xpass_gemm
 from ._harness import (BF16_OPS_PER_S, FP32_OPS_PER_S, HBM_BYTES_PER_S, INT32_OPS_PER_S,
                        Launches, wrap)
 
-__all__ = ["LAUNCHES", "ROWS", "VARIANTS", "XpassOperands", "bound", "check_exact",
-           "f32_bound", "f32_to_i32", "gold_corr", "launch_key", "main", "operands",
-           "split_dense", "vpu_xpass", "vpu_xpass_plain"]
+__all__ = ["F32_OPS_PER_OUTPUT", "LAUNCHES", "ROWS", "VARIANTS", "WIDE_VARIANTS",
+           "XpassOperands", "bound", "check_exact", "f32_bound", "f32_to_i32", "gold_corr", "launch_key", "main",
+           "operands", "split_dense", "vpu_xpass", "vpu_xpass_plain"]
 
 TH, TW, TAPS = 160, 384, 12
 HALF = TAPS // 2
@@ -92,6 +99,7 @@ WDI = TW + 128
 R = 24
 VARIANTS = ("empty", "dense4", "corr_i32", "corr_f32", "muls_i32", "muls_f32")
 GEMM_VARIANT = "dense4"    # the one variant with a gemm form, and its default
+WIDE_VARIANTS = ("corr_f32", "muls_f32")   # the variants with a wide form, their default
 ITERS = 8
 
 
@@ -100,8 +108,10 @@ def launch_key(variant: str, form: str) -> str:
     return xpass_gemm.launch_key(variant, form)
 
 
-# main()'s rows, (variant, form): every variant's serial form, then the gemm forms
-ROWS = tuple((v, "serial") for v in VARIANTS) + ((GEMM_VARIANT, "gemm"),)
+# main()'s rows, (variant, form): every variant's serial form, then the wide
+# and the gemm forms
+ROWS = tuple((v, "serial") for v in VARIANTS) + tuple((v, "wide") for v in WIDE_VARIANTS) + \
+    ((GEMM_VARIANT, "gemm"),)
 LAUNCHES = Launches(launch_key(v, f) for v, f in ROWS)
 _F32_EXACT = 2**24
 
@@ -172,7 +182,21 @@ def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _form(variant: str, form: str | None) -> str:
-    return xpass_gemm.form_of(variant, form, (GEMM_VARIANT,))
+    return xpass_gemm.form_of(variant, form, (GEMM_VARIANT,), WIDE_VARIANTS)
+
+
+@functools.cache
+def _wide_lib(device: torch.device):
+    """The probe library, its wide form's compiled thread map checked
+    against :mod:`.vpu_f32` once per device."""
+    lib = _harness.lib()
+    shape = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        _harness.check_rc(lib.iqo_exp_vpu_f32_shape(shape), "iqo_exp_vpu_f32_shape")
+    want = (vpu_f32.OUTS, vpu_f32.SLICES, vpu_f32.THREADS, vpu_f32.BLOCKS)
+    if tuple(shape) != want:
+        raise RuntimeError(f"exp_vpu_f32.cu's thread map {tuple(shape)} != vpu_f32's {want}")
+    return lib
 
 
 def _check(variant: str, ops: XpassOperands, reps: int) -> None:
@@ -208,8 +232,9 @@ def _f32_corr(xs, ys, taps, shifted: bool) -> torch.Tensor:
 
 def split_dense(wd: torch.Tensor, r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """dense4's work planes for the repeats ``r`` (reps,): ``(w >> 8, w & 255)``
-    of ``w = wd + r``, int64 (reps, 160, 896)."""
-    w = wd.to(torch.int64) + r[:, None, None]
+    of ``w = wd + r`` wrapped to int32 as the script adds, int64 (reps, 160,
+    896)."""
+    w = wrap(wd.to(torch.int64) + r[:, None, None], 32)
     return w >> 8, w & 255
 
 
@@ -226,8 +251,8 @@ def _body(variant: str, ops: XpassOperands, r: torch.Tensor) -> torch.Tensor:
             hi, lo = (torch.matmul(p, cc).to(torch.int64) for p in planes)
             s = s + hi * 256 + lo
         return s
-    r = r[:, None, None]
-    we, wo = ops.we.to(torch.int64) + r, ops.wo.to(torch.int64) + r
+    r = r[:, None, None]          # the script's int32 adds, wrapped
+    we, wo = wrap(ops.we.to(torch.int64) + r, 32), wrap(ops.wo.to(torch.int64) + r, 32)
     if variant == "empty":
         return we[..., :TW]
     if variant in ("corr_i32", "muls_i32"):
@@ -271,9 +296,10 @@ def f32_bound(ops: XpassOperands, reps: int = R) -> torch.Tensor:
 
 def vpu_xpass(variant: str, ops: XpassOperands, reps: int = R,
               form: str | None = None) -> torch.Tensor:
-    """Kernel J: (160, 384) int32, in ``form`` (``"serial"``, or ``"gemm"``
-    for ``dense4``, its default).  CPU tensors take :func:`vpu_xpass_plain`;
-    CUDA tensors launch the kernel or raise."""
+    """Kernel J: (160, 384) int32, in ``form`` (``"serial"``; ``"gemm"`` for
+    ``dense4``, ``"wide"`` for ``corr_f32`` and ``muls_f32``, each their
+    default).  CPU tensors take :func:`vpu_xpass_plain`; CUDA tensors launch
+    the kernel or raise."""
     form = _form(variant, form)
     _check(variant, ops, reps)
     tensors = (ops.we, ops.wo, ops.wd, ops.cxt)
@@ -290,9 +316,16 @@ def vpu_xpass(variant: str, ops: XpassOperands, reps: int = R,
             launch.steps_per_slice, _harness.stream(ops.wd)), f"vpu_xpass_tile[{variant},gemm]")
         LAUNCHES.add(launch_key(variant, form))
         return out
+    taps = (ctypes.c_int * TAPS)(*ops.taps)
+    if form == "wide":
+        out = torch.empty((TH, TW), dtype=torch.int32, device=ops.we.device)
+        _harness.check_rc(_wide_lib(ops.we.device).iqo_exp_vpu_f32_wide(
+            WIDE_VARIANTS.index(variant), ops.we.data_ptr(), ops.wo.data_ptr(), taps,
+            out.data_ptr(), reps, _harness.stream(ops.we)), f"vpu_xpass_tile[{variant},wide]")
+        LAUNCHES.add(launch_key(variant, form))
+        return out
     lib = _harness.lib_with_setup("iqo_exp_xpass_setup", ops.we.device)
     out = torch.empty((TH, TW), dtype=torch.int32, device=ops.we.device)
-    taps = (ctypes.c_int * TAPS)(*ops.taps)
     _harness.check_rc(lib.iqo_exp_vpu_xpass(
         VARIANTS.index(variant), *(t.data_ptr() for t in tensors), taps, out.data_ptr(),
         reps, _harness.stream(ops.we)), f"vpu_xpass_tile[{variant}]")
@@ -300,18 +333,25 @@ def vpu_xpass(variant: str, ops: XpassOperands, reps: int = R,
     return out
 
 
+# float32 multiplies and adds of one output in the script's body_of: per
+# plane, HALF terms of 2 FMUL and 1 FADD, summed by HALF - 1 FADD (the first
+# term starts the sum); corr_f32 sums two planes (x >> 8, x & 255)
+F32_OPS_PER_OUTPUT = {"corr_f32": 2 * (3 * HALF + HALF - 1), "muls_f32": 3 * HALF + HALF - 1}
+
+
 def bound(variant: str, reps: int = R) -> tuple[float, str, float, int]:
     """(ms of one launch, 'bytes' or 'operations', µs of one application's
     operations, bytes): the operands the variant reads and the output once
     each at 3.35 TB/s, against its operations: ``dense4`` 4 x 160 x 896 x 384
     bf16 multiply-adds at 989 TFLOP/s, the int32 variants 12 ``IMAD`` per
-    output at :data:`INT32_OPS_PER_S`, ``corr_f32`` 48 and ``muls_f32`` 24
-    float32 instructions (mul or add) per output at half the 67 TFLOP/s."""
+    output at :data:`INT32_OPS_PER_S`, ``corr_f32`` 46 and ``muls_f32`` 23
+    float32 instructions (mul or add) per output at half the 67 TFLOP/s:
+    :data:`F32_OPS_PER_OUTPUT`, the script's ``body_of`` counted."""
     n = TH * TW
     ops_s = {"empty": (0, 1.0), "dense4": (4 * TH * BAND * TW, BF16_OPS_PER_S / 2),
              "corr_i32": (TAPS * n, INT32_OPS_PER_S), "muls_i32": (TAPS * n, INT32_OPS_PER_S),
-             "corr_f32": (48 * n, FP32_OPS_PER_S / 2),
-             "muls_f32": (24 * n, FP32_OPS_PER_S / 2)}[variant]
+             "corr_f32": (F32_OPS_PER_OUTPUT["corr_f32"] * n, FP32_OPS_PER_S / 2),
+             "muls_f32": (F32_OPS_PER_OUTPUT["muls_f32"] * n, FP32_OPS_PER_S / 2)}[variant]
     reads = TH * BAND * 4 + 2 * BAND * TW * 2 if variant == "dense4" else \
         2 * TH * (TW + HALF - 1 if variant.startswith("corr") else TW) * 4
     if variant == "empty":

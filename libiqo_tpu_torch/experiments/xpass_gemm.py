@@ -65,18 +65,20 @@ SLICE_OVERHEAD = 0.1        # a block's set-up, in steps, for picking the slices
 _F32_EXACT = 2**24
 
 
-FORMS = ("serial", "gemm")
+FORMS = ("serial", "gemm", "wide")
 
 
-def form_of(variant: str, form: str | None, gemm_variants: tuple[str, ...]) -> str:
+def form_of(variant: str, form: str | None, gemm_variants: tuple[str, ...],
+            wide_variants: tuple[str, ...] = ()) -> str:
     """``form``, or the variant's default: ``"gemm"`` for the variants that
-    have that form, else ``"serial"``."""
-    has_gemm = variant in gemm_variants
+    have that form, ``"wide"`` for those that have that one (kernel J's
+    float32 variants), else ``"serial"``."""
+    has = [f for f, vs in (("gemm", gemm_variants), ("wide", wide_variants)) if variant in vs]
     if form is None:
-        return "gemm" if has_gemm else "serial"
-    if form not in FORMS or (form == "gemm" and not has_gemm):
+        return has[0] if has else "serial"
+    if form != "serial" and form not in has:
         raise ValueError(f"{variant} takes form 'serial'"
-                         + (" or 'gemm'" if has_gemm else "") + f", got {form!r}")
+                         + "".join(f" or {f!r}" for f in has) + f", got {form!r}")
     return form
 
 

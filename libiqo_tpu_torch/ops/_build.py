@@ -247,6 +247,10 @@ def _exp_signatures() -> tuple:
         # variant, we, wo, wd, cxt, taps (host int[12]), out, reps, stream
         ("iqo_exp_vpu_xpass", [i, p, p, p, p, ctypes.POINTER(i), p, i, p]),
         ("iqo_exp_xpass_setup", []),
+        # variant (0 corr_f32, 1 muls_f32), we, wo, taps (host int[12]), out,
+        # reps, stream
+        ("iqo_exp_vpu_f32_wide", [i, p, p, ctypes.POINTER(i), p, i, p]),
+        ("iqo_exp_vpu_f32_shape", [ctypes.POINTER(i)]),
         # w / wd, c / cxt, out, reps, slices, steps per slice, stream
         ("iqo_exp_xscheme_gemm", [p, p, p, i, i, i, p]),
         ("iqo_exp_xscheme_bf16_gemm", [p, p, p, i, i, i, p]),
@@ -270,6 +274,7 @@ def _exp_signatures() -> tuple:
         ("iqo_exp_window_x1", [p, p, i, p]),         # src, out, planes, stream
         ("iqo_exp_window_x2", [p, p, p, p]),         # src, out, spill, stream
         ("iqo_exp_window_x3", [p, p, i, p]),         # var, out, steps, stream
+        ("iqo_exp_window_x3_cluster", [p, p, p]),    # var, out, stream
         ("iqo_exp_window_setup", []))
 
 

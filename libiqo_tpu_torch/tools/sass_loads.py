@@ -12,7 +12,10 @@ is, from the repository root::
 
 Each ``name`` is a substring of the kernels' mangled names (default: the
 band-fetch kernels ``band_ydot_kernel``, ``overlap_kernel``,
-``band_colsum_kernel``).
+``band_colsum_kernel``).  :func:`loop_counts` counts chosen opcodes inside
+each loop of a kernel (a branch back to an earlier address), as
+``tools/vpu_f32_ablate.py`` does for the conversions of kernel J's float32
+forms.
 """
 
 from __future__ import annotations
@@ -24,13 +27,18 @@ from pathlib import Path
 
 from ..ops import _build
 
-__all__ = ["instruction_counts", "load_depths", "main"]
+__all__ = ["instruction_counts", "load_depths", "loop_counts", "loops", "main"]
 
 _PRED = re.compile(r"^@!?U?P\w+\s+")
 _INSN = re.compile(r"/\*[0-9a-f]{4}\*/\s+(.*?);")
 # a global load into a register; LDGSTS (cp.async) writes shared memory instead
 _LOAD = re.compile(r"LDG(?!STS)\S*\s+(R\d+)")
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
+# an instruction with its address, and a label line (in listings that name
+# branch targets by label rather than by address)
+_ADDR_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_BRA = re.compile(r"BRA(?:\.\w+)*\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
 
 
 def load_depths(sass: str) -> list[int]:
@@ -55,6 +63,51 @@ def load_depths(sass: str) -> list[int]:
             n += _LOAD.match(t2) is not None
         depths.append(n)
     return depths
+
+
+def _instructions(sass: str) -> tuple[list[tuple[int, str]], dict[str, int]]:
+    """(address, instruction without its predicate) of every instruction of
+    one function's listing, and the address of each label."""
+    insns, labels, pending = [], {}, []
+    for line in sass.splitlines():
+        if m := _LABEL.match(line):
+            pending.append(m.group(1))
+        elif m := _ADDR_INSN.search(line):
+            addr = int(m.group(1), 16)
+            labels.update(dict.fromkeys(pending, addr))
+            pending = []
+            insns.append((addr, _PRED.sub("", m.group(2).strip())))
+    return insns, labels
+
+
+def loops(sass: str) -> list[tuple[int, int]]:
+    """(first, last) address of every loop of one function's listing: each
+    branch to an earlier address (not the self-branch that closes a listing)."""
+    insns, labels = _instructions(sass)
+    found = []
+    for addr, text in insns:
+        if m := _BRA.match(text):
+            target = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+            if target is not None and target < addr:
+                found.append((target, addr))
+    return found
+
+
+def _loop_counts(sass: str, opcodes: tuple[str, ...]) -> list[dict[str, int]]:
+    insns, _ = _instructions(sass)
+    counts = []
+    for first, last in loops(sass):
+        body = [t.split()[0].split(".")[0] for a, t in insns if first <= a <= last]
+        counts.append({"instructions": len(body), **{op: body.count(op) for op in opcodes}})
+    return counts
+
+
+def loop_counts(names: list[str], opcodes: tuple[str, ...]) -> dict[str, list[dict[str, int]]]:
+    """For each kernel whose mangled name contains one of ``names``, one
+    entry a loop: its instructions and how many of each opcode in
+    ``opcodes`` (matched without their suffixes: ``I2F`` counts
+    ``I2F.S64``).  Raises without ``cuobjdump``."""
+    return {sym: _loop_counts(sass, opcodes) for sym, sass in _listings(names).items()}
 
 
 def _cuobjdump() -> str:

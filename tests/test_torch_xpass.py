@@ -414,7 +414,8 @@ def test_launches_stay_zero_on_cpu(xs_inputs, vx_ops, slice_inputs):
     assert set(exp_x_schemes.LAUNCHES) == {*exp_x_schemes.VARIANTS, "f32_2dot[gemm]",
                                            "bf16_1dot[gemm]", "s16_1dot[gemm]",
                                            "s8_4dot[gemm]", "s8_2dot_cat[gemm]"}
-    assert set(exp_vpu_xpass.LAUNCHES) == {*exp_vpu_xpass.VARIANTS, "dense4[gemm]"}
+    assert set(exp_vpu_xpass.LAUNCHES) == {*exp_vpu_xpass.VARIANTS, "dense4[gemm]",
+                                           "corr_f32[wide]", "muls_f32[wide]"}
     assert len(exp_vpu_rate.LAUNCHES) == 9 and len(exp_slice_align.LAUNCHES) == 6
 
 

@@ -361,7 +361,7 @@ def test_forms_and_launch_keys():
                                 "s16_1dot[gemm]", "s8_4dot[gemm]", "s8_2dot_cat[gemm]"}
     assert xs.launch_key("s16_1dot", "gemm") == "s16_1dot[gemm]"
     assert xs.launch_key("bf16_1dot", "gemm") == "bf16_1dot[gemm]"
-    assert set(vx.LAUNCHES) == {*vx.VARIANTS, "dense4[gemm]"}
+    assert set(vx.LAUNCHES) == {*vx.VARIANTS, "dense4[gemm]", "corr_f32[wide]", "muls_f32[wide]"}
     assert xs.launch_key("f32_2dot", "serial") == "f32_2dot"
 
 
