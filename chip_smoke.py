@@ -39,6 +39,16 @@ Phases:
    1080p -> 4K (the tiled kernel's IMAD Y pass), luma and chroma at full
    size; then a seeded fuzz set of 20 Area/Linear geometries, each also
    against the NumPy oracle; then scripts/tpu_check.py's default fuzz set.
+   3b. The on-card gate's exact sweep (``libiqo_tpu_torch/tools/
+   card_check.py``, whose whole run is ``python -m
+   libiqo_tpu_torch.tools.card_check``) over its GRADED, STRESS and
+   STRESS_GEOMETRIES lists, batch 4 and 2 on three graded configs: each
+   through its facade on the card and the windowed kernel == the plain
+   path, == the NumPy oracle on sources of at most ORACLE_MAX_PIXELS
+   pixels; every case on a kernel.  Area 8192x4 -> 16x4 (512 taps, a
+   window of 8192 columns: the windowed kernel's wide-window walk, fewer
+   rows a block) timed on its kernel in turns with the plain path, beside
+   its bound; the phase's seconds.
 4. The Lanczos main path: ``YUV420Resizer(..., device="cuda")``, ``resize``
    on 4 frames and ``resize_batch`` on 4; the wrap16_tiled launch count
    over that run must equal its plane calls, with no other launch; every
@@ -230,6 +240,8 @@ sys.path.insert(0, str(ROOT))
 # the H100 SXM data sheet's rates, kept in one place
 from libiqo_tpu_torch.experiments._harness import (  # noqa: E402
     BF16_OPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S)
+# the on-card gate's case lists and sweeps (python -m libiqo_tpu_torch.tools.card_check)
+from libiqo_tpu_torch.tools import card_check  # noqa: E402
 
 SRC_W, SRC_H, DST_W, DST_H = 3840, 2160, 1920, 1080     # the Lanczos main path
 AREA_MAIN = ("area", 1920, 1080, 640, 360)             # the Area main path
@@ -282,18 +294,6 @@ CARRY_PLANES = {                # full-width planes where carry_ok holds
     "lanczos3 8K->1080p": ("lanczos", dict(degree=3), 7680, 4320, 1920, 1080, 1),
     "lanczos2 720p->1080p": ("lanczos", dict(degree=2), 1280, 720, 1920, 1080, 1),
 }
-# scripts/tpu_check.py:carry_sweep's cases: GRADED, two more, and
-# fuzz_cases(6, seed=20260819) (drawn by tpu_fuzz_cases)
-CARRY_SWEEP = [
-    ("linear", 640, 480, 320, 240, {}),
-    ("area", 1920, 1080, 480, 270, {}),
-    ("lanczos", 1280, 720, 1920, 1080, dict(degree=2)),
-    ("lanczos", 3840, 2160, 1920, 1080, dict(degree=3)),
-    ("lanczos", 1920, 1080, 960, 540, dict(degree=3, px_scale=2)),
-    ("lanczos", 512, 520, 256, 130, dict(degree=4)),      # clamped tail
-    ("lanczos", 7680, 4320, 1920, 1080, dict(degree=3)),
-]
-CARRY_SWEEP_FUZZ = (6, 20260819)
 CARRY_FUZZ = 10
 # CARRY_BLOCKS values for the windowed carry form's run-length sweep on 4K
 # luma: runs of 2, 3, 7, 13, 34 and 68 row tiles (510 down to 15 blocks)
@@ -574,7 +574,7 @@ def phase_tpu_fuzz(cr, build_plan, numpy_ref, rng, n: int = 20,
     kernels == plain on every case inside ``supports_plan``, and ==
     numpy_ref where the source is small."""
     max_err = done = tiled = 0
-    for algo, sw, sh, dw, dh, kw in tpu_fuzz_cases(n, seed):
+    for algo, sw, sh, dw, dh, kw in card_check.fuzz_cases(n, seed):
         plan = build_plan(algo, sw, sh, dw, dh, **kw)
         if not cr.supports_plan(plan):
             continue
@@ -590,6 +590,61 @@ def phase_tpu_fuzz(cr, build_plan, numpy_ref, rng, n: int = 20,
           f"{n} fuzz cases (seed {seed}; {tiled} on the tiled kernel, the rest "
           "outside tiled_ok; the others outside supports_plan)")
     return max_err
+
+
+WIDE_WINDOW = ("area", 8192, 4, 16, 4, {})     # STRESS's 512-tap plan
+WIDE_INPUTS = 64                               # distinct 32 KB sources timed
+
+
+def phase_card_check(cr, build_plan, card: str) -> dict:
+    """Phase 3b: the on-card gate's exact sweep (``card_check.exact_sweep``)
+    over GRADED, STRESS and STRESS_GEOMETRIES: each through its facade on
+    the card, and the windowed kernel, == the plain path on the card, ==
+    numpy_ref on sources of at most ORACLE_MAX_PIXELS pixels; every case
+    must run a kernel.  Then Area 8192x4 -> 16x4, the wide-window walk
+    (``cuda_resize.work_rows`` < 16), timed on its kernel in turns with the
+    plain path beside its bound.  Returns its figures."""
+    t_phase = time.perf_counter()
+    rows, fails, skips = card_check.exact_sweep(
+        card_check.Oracle(), card, cases=card_check.GRADED + card_check.STRESS
+        + card_check.STRESS_GEOMETRIES, oracle_max_pixels=ORACLE_MAX_PIXELS)
+    bad = [r for r in rows if r["status"] != "ok"]
+    check(not bad and not fails and not skips, f"card_check exact sweep: {bad}")
+    print(f"card_check exact sweep: {len(rows)} rows (GRADED, STRESS, "
+          f"STRESS_GEOMETRIES, batch 4 and 2 on three graded configs) ok on "
+          f"their kernels: {sorted({r['variant'] for r in rows})}; windowed "
+          f"{sorted({r['windowed_variant'] for r in rows if 'windowed_variant' in r})}; "
+          f"numpy_ref on {sum(r['oracle'] for r in rows)} of them")
+
+    alg, sw, sh, dw, dh, kw = WIDE_WINDOW
+    plan = build_plan(alg, sw, sh, dw, dh, **kw)
+    r = card_check.facade(WIDE_WINDOW)
+    check(r.resolved_backend() == "cuda", f"{WIDE_WINDOW}: resolves to "
+          f"{r.resolved_backend()}")
+    ops = cr.pack_operands(plan, "cuda")
+    x = torch.from_numpy(card_check.source(WIDE_WINDOW, 0)).cuda()[None]
+    got, counts = card_check.launched(cr, lambda: cr.resize_fused(ops, x))
+    check(counts == {"u16": 1} and ops.tables.rows == cr.work_rows(plan) < cr.TILE_ROWS,
+          f"{WIDE_WINDOW}: launched {counts}, {ops.tables.rows} rows a block")
+    err = compare("area 8192x4->16x4 vs plain", got, cr.resize_plain(ops, x))
+    err = max(err, compare("area 8192x4->16x4 vs numpy_ref", got.cpu(),
+                           torch.from_numpy(card_check.oracle(WIDE_WINDOW, 0))[None]))
+    xs = perturbed(x, WIDE_INPUTS)
+    ms = in_turns({"kernel": lambda t: cr.resize_fused(ops, t),
+                   "plain": lambda t: cr.resize_plain(ops, t)}, xs)
+    bytes_ms, ops_ms = bound([(plan, 1)])
+    wide = {"plan": "area 8192x4->16x4", "variant": "u16", "work_rows": ops.tables.rows,
+            "win_max": ops.tables.win_max, "launches": counts["u16"],
+            "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"area 8192x4->16x4 == plain == numpy_ref on kernel[u16] "
+          f"({ops.tables.rows} rows a block, a window of {ops.tables.win_max} "
+          f"columns): kernel {ms['kernel']!r} ms, plain {ms['plain']!r} ms (in "
+          f"turns, {WIDE_INPUTS} inputs), bound {wide['bound_ms']!r} ms "
+          f"({wide['bound_by']}) ({card})")
+    print(f"phase card_check: {time.perf_counter() - t_phase!r} s")
+    return wide
 
 
 def drive_yuv(cr, yuv, build_plan, rng, frame, variant, chroma_variant=None,
@@ -1202,26 +1257,6 @@ def phase_sharded(cr, sharding, build_plan, numpy_ref, rng, card: str) -> dict:
     return entries
 
 
-def tpu_fuzz_cases(n: int, seed: int):
-    """scripts/tpu_check.py:fuzz_cases, the same seeded draws."""
-    rng = np.random.default_rng(seed)
-    cases = []
-    while len(cases) < n:
-        alg = rng.choice(["lanczos", "area", "linear"])
-        sw, sh = int(rng.integers(16, 1200)), int(rng.integers(16, 900))
-        if alg == "area":
-            dw = int(rng.integers(4, max(5, sw)))
-            dh = int(rng.integers(4, max(5, sh)))
-        elif alg == "linear":
-            dw = int(rng.integers(max(4, sw // 3 + 1), sw * 3))
-            dh = int(rng.integers(max(4, sh // 3 + 1), sh * 3))
-        else:
-            dw, dh = int(rng.integers(4, sw * 2)), int(rng.integers(4, sh * 2))
-        kw = dict(degree=int(rng.integers(1, 10))) if alg == "lanczos" else {}
-        cases.append((str(alg), sw, sh, dw, dh, kw))
-    return cases
-
-
 def carry_small(rng, cr, build_plan):
     """A seeded fuzz set of small plans that the tiled carry form takes."""
     n = tries = 0
@@ -1303,7 +1338,8 @@ def phase_carry(cr, yuv, build_plan, numpy_ref, rng, card: str) -> dict:
               f"memory, fetch/band {lay.fetch / lay.band!r}; windowed: run "
               f"{win.run}, fetch/band {win.fetch / win.band!r}")
     n = skipped = 0
-    for algo, sw, sh, dw, dh, kw in CARRY_SWEEP + tpu_fuzz_cases(*CARRY_SWEEP_FUZZ):
+    for algo, sw, sh, dw, dh, kw in (card_check.CARRY_CASES
+                                     + card_check.fuzz_cases(*card_check.CARRY_FUZZ)):
         plan = build_plan(algo, sw, sh, dw, dh, **kw)
         if not (cr.supports_plan(plan) and cr.tiled_carry_layout(plan) is not None):
             skipped += 1
@@ -2703,6 +2739,7 @@ def main() -> int:
         cuda_resize, build_plan, numpy_ref, rng, "u16", U16_FRAMES.values(),
         [("area/linear fuzz", area_linear_fuzz(rng))])
     phase_tpu_fuzz(cuda_resize, build_plan, numpy_ref, rng)
+    wide = phase_card_check(cuda_resize, build_plan, smi)
     with tempfile.TemporaryDirectory() as tmp:
         launches16, e = phase_lanczos_path(cuda_resize, yuv, build_plan, rng,
                                            Path(tmp))
@@ -2799,7 +2836,7 @@ def main() -> int:
          "max_abs_err": max(erru, MAX_ERR["u16"]), "ms": tu["fused_ms"],
          "plain_ms": tu["plain_ms"], "bound_ms": tu["bound_ms"],
          "bound_by": tu["bound_by"], "library_ms": None,
-         "yardstick_ms": tu["yardstick_ms"]},
+         "yardstick_ms": tu["yardstick_ms"], "wide_window": wide},
         *relaxed_entries("wrap16", launches16r, plain16r, err16r, t16r),
         *relaxed_entries("u16", launchesur, plainur, errur, tur),
         sharded["wrap16"], sharded["u16"],

@@ -54,6 +54,16 @@
 //   C++); int16 narrowing, two's-complement reinterpretation and the
 //   arithmetic right shift are written out explicitly.
 //
+// The work tile is kTileRows x win_max int32 words, except for the plans
+// whose output is one partial column tile (dst_w < kTileCols) and whose
+// window is so wide (area 8192x4 -> 16x4: 8192 source columns, 512 taps an
+// output) that sixteen rows of it exceed shared memory: a block then takes
+// fewer output rows, tile_rows = min(16, budget / (4 * win_max)), and the
+// grid more row tiles (cuda_resize.work_rows; at least 4 rows, which keeps
+// the scope at the JAX package's for this class of plan).  Each output is
+// still computed by one thread over its whole tap list in tap order, so the
+// bytes are those of the 16-row tile.  The carry form keeps 16 rows.
+//
 // Every plan whose band (or carry ring) fits shared memory now runs on the
 // tiled kernel, csrc/resize_tiled.cuh, which stages the source band with
 // cp.async, runs the Y pass on s8 mma.sync and keeps a 16-bit work tile, in
@@ -286,13 +296,14 @@ __device__ __forceinline__ void load_rows(
 // only when kRelaxed; cxd may be null.  win holds [lo, hi) of each column
 // tile's source window.  With kCarry, rwin holds [lo, hi) of each row
 // tile's source rows, iyr the ring slot of every Y tap (tap-major, as iy),
-// and blockIdx.y indexes runs of `run` row tiles; otherwise they are
-// unread and blockIdx.y is the row tile.
+// and blockIdx.y indexes runs of `run` row tiles of kTileRows rows;
+// otherwise they are unread and blockIdx.y is the row tile of tile_rows
+// (<= kTileRows) rows.
 template <bool kWrap16, bool kRelaxed, bool kCarry>
 __global__ void __launch_bounds__(kThreads) resize_fused_kernel(
     const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     long long src_frame_stride, long long src_row_stride,
-    int dst_h, int dst_w,
+    int dst_h, int dst_w, int tile_rows,
     const int32_t* __restrict__ cy, const int32_t* __restrict__ iy,
     const int32_t* __restrict__ ydiv, int taps_y, int y_bias,
     const int32_t* __restrict__ cx, const int32_t* __restrict__ ix,
@@ -301,9 +312,9 @@ __global__ void __launch_bounds__(kThreads) resize_fused_kernel(
     const int32_t* __restrict__ win, int win_max, int out_shift,
     const int32_t* __restrict__ rwin, const int32_t* __restrict__ iyr,
     int ring_rows, int ring_pitch, int run) {
-  // [kTileRows][win_max]: int32 work rows, or with kRelaxed the bits of
-  // their bf16-rounded float values; with kCarry the u8 ring
-  // [ring_rows][ring_pitch] follows
+  // [tile_rows][win_max]: int32 work rows, or with kRelaxed the bits of
+  // their bf16-rounded float values; with kCarry ([kTileRows][win_max])
+  // the u8 ring [ring_rows][ring_pitch] follows
   extern __shared__ int32_t work[];
 
   const uint8_t* fsrc = src + static_cast<long long>(blockIdx.z) * src_frame_stride;
@@ -313,8 +324,8 @@ __global__ void __launch_bounds__(kThreads) resize_fused_kernel(
   const int c0 = blockIdx.x * kTileCols;
 
   if constexpr (!kCarry) {
-    const int r0 = blockIdx.y * kTileRows;
-    const int rows = min(kTileRows, dst_h - r0);
+    const int r0 = blockIdx.y * tile_rows;
+    const int rows = min(tile_rows, dst_h - r0);
     y_pass<kWrap16, kRelaxed>(work, win_max, r0, rows, width, dst_h, cy, iy,
                               ydiv, taps_y, y_bias,
                               GlobalRows{fsrc + lo, src_row_stride});
@@ -399,12 +410,15 @@ int iqo_set_max_smem(int bytes) {
 // nonzero (cxr then holds the bf16 plane; cxd the residual plane or
 // null), and its carry form when carry is nonzero (rwin, iyr, ring_rows,
 // ring_pitch and run then describe the ring; otherwise they are unread).
-// Allocates nothing; dst is contiguous (n_frames, dst_h, dst_w).  The
-// shared memory (work tile, and the ring with carry) must be within the
-// limit set by iqo_set_max_smem.  Returns a cudaError_t.
+// Without carry a block computes tile_rows output rows (1..kTileRows); the
+// carry form takes kTileRows, and tile_rows must be kTileRows.  Allocates
+// nothing; dst is contiguous (n_frames, dst_h, dst_w).  The shared memory
+// (work tile, and the ring with carry) must be within the limit set by
+// iqo_set_max_smem.  Returns a cudaError_t.
 int iqo_resize_fused(int wrap16, int relaxed, int carry, const void* src,
                      void* dst, int n_frames, long long src_frame_stride,
                      long long src_row_stride, int dst_h, int dst_w,
+                     int tile_rows,
                      const void* cy, const void* iy, const void* ydiv,
                      int taps_y, int y_bias,
                      const void* cx, const void* ix, const void* xdiv,
@@ -412,8 +426,10 @@ int iqo_resize_fused(int wrap16, int relaxed, int carry, const void* src,
                      const void* win, int win_max, int out_shift,
                      const void* rwin, const void* iyr, int ring_rows,
                      int ring_pitch, int run, void* stream) {
-  int smem = kTileRows * win_max * static_cast<int>(sizeof(int32_t));
-  const int row_tiles = (dst_h + kTileRows - 1) / kTileRows;
+  if (tile_rows < 1 || tile_rows > kTileRows || (carry && tile_rows != kTileRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int smem = tile_rows * win_max * static_cast<int>(sizeof(int32_t));
+  const int row_tiles = (dst_h + tile_rows - 1) / tile_rows;
   int grid_y = row_tiles;
   if (carry) {
     smem += ring_rows * ring_pitch;
@@ -423,7 +439,7 @@ int iqo_resize_fused(int wrap16, int relaxed, int carry, const void* src,
   pick(wrap16, relaxed, carry)<<<grid, kThreads, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst),
-      src_frame_stride, src_row_stride, dst_h, dst_w,
+      src_frame_stride, src_row_stride, dst_h, dst_w, tile_rows,
       static_cast<const int32_t*>(cy), static_cast<const int32_t*>(iy),
       static_cast<const int32_t*>(ydiv), taps_y, y_bias,
       static_cast<const int32_t*>(cx), static_cast<const int32_t*>(ix),

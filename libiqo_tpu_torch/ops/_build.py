@@ -151,6 +151,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.iqo_resize_fused.argtypes = [
         i, i, i,                        # wrap16, relaxed, carry: which instantiation
         p, p, i, ll, ll, i, i,          # src, dst, frames, strides, dst shape
+        i,                              # tile_rows: output rows a block
         p, p, p, i, i,                  # cy, iy, ydiv, taps_y, y_bias
         p, p, p, i,                     # cx, ix, xdiv, taps_x
         p, p,                           # cxr, cxd (relaxed planes; cxd may be NULL)

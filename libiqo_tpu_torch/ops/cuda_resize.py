@@ -48,11 +48,12 @@ __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "VARIANTS", "CarryLayout",
            "pack_operands", "relaxed_plane", "reset_launches",
            "resize_fused", "resize_plain", "smem_bytes", "supports_plan",
            "tile_windows", "tiled_carry_layout", "tiled_layout", "tiled_ok",
-           "tiled_tables", "tiled_width", "variant"]
+           "tiled_tables", "tiled_width", "variant", "work_rows"]
 
 # Must match kTileRows/kTileCols in csrc/resize_fused.cu (checked at load).
 TILE_ROWS = 16
 TILE_COLS = 128
+MIN_WORK_ROWS = 4         # fewest rows in the wide-window walk's work tile
 SMEM_BUDGET = 232448      # dynamic shared memory one sm_90 block may use
 _MAX_GRID_YZ = 65535      # CUDA's limit on gridDim.y (row tiles) and .z (frames)
 _I32_MAX = 2**31 - 1
@@ -116,6 +117,26 @@ def smem_bytes(plan: ResizePlan) -> int:
     """Shared memory of one block: the TILE_ROWS x window int32 work tile."""
     w = tile_windows(plan.x)
     return TILE_ROWS * int((w[:, 1] - w[:, 0]).max()) * 4
+
+
+def work_rows(plan: ResizePlan) -> int:
+    """Output rows one block of the windowed ``resize_fused`` takes (the
+    height of its work tile), or 0 where no height fits.
+
+    TILE_ROWS wherever that work tile fits SMEM_BUDGET.  Else, only for a
+    plan whose output is one partial column tile (``dst_w < TILE_COLS``),
+    so that no column tiling narrows its window (Area 8192x4 -> 16x4: 8192
+    source columns), the most rows that fit, at least MIN_WORK_ROWS: the
+    kernel's wide-window walk.  With fewer than 4 rows it would take
+    windows past 14528 columns, which the JAX package's kernel refuses
+    (Area 16384x4 -> 16x4, 65536x16 -> 16x16).  Each output is computed as
+    in the 16-row tile, so the bytes are the same."""
+    w = tile_windows(plan.x)
+    win = int((w[:, 1] - w[:, 0]).max())
+    rows = min(TILE_ROWS, SMEM_BUDGET // (4 * win))
+    if rows == TILE_ROWS or (plan.x.n_dst < TILE_COLS and rows >= MIN_WORK_ROWS):
+        return rows
+    return 0
 
 
 def _x_divisors(plan: ResizePlan) -> np.ndarray:
@@ -239,14 +260,16 @@ def supports_plan(plan: ResizePlan, relaxed: bool = False) -> bool:
     wrap as the reference's C accumulators, so 16-bit taps of any value are
     exact, provided the border divisors fit int32.  Other (Area, Linear)
     plans when :func:`_u16_exact` holds.  Either way the tap tables must
-    index in int32, the row tiles fit the grid, and the work tile fits the
-    shared-memory budget.
+    index in int32, a work tile must fit the shared-memory budget
+    (:func:`work_rows`: 16 rows, or the wide-window walk's fewer rows) and
+    its row tiles the grid.
 
     Relaxed: all of that, and the JAX package's relaxed guards
     (``pallas_resize.py:943-1024``): ``wmax * max_j sum|cx| < 2^31``, with
     wmax 32768 for wrap16 plans and 65280 for u16 ones (the sum is also
     taken over the rounded planes, so the float32 sums stay inside int32),
-    and :func:`relaxed_plane` must succeed.  Plans outside
+    and :func:`relaxed_plane` must succeed, and the 16-row work tile must
+    fit (the wide-window walk is exact only).  Plans outside
     :func:`_exact_f32_ok` are refused as well: the port's Y pass is exact
     integer arithmetic for every plan, so the JAX package's Y-exactness
     refusal has nothing to guard here, but the port's relaxed scope does
@@ -260,11 +283,10 @@ def supports_plan(plan: ResizePlan, relaxed: bool = False) -> bool:
         return False
     if max(ax.num_coefs * ax.n_dst for ax in (plan.y, plan.x)) > _I32_MAX:
         return False
-    if -(-plan.y.n_dst // TILE_ROWS) > _MAX_GRID_YZ:
+    rows = work_rows(plan)
+    if rows == 0 or -(-plan.y.n_dst // rows) > _MAX_GRID_YZ:
         return False
-    if smem_bytes(plan) > SMEM_BUDGET:
-        return False
-    return not relaxed or _relaxed_ok(plan)
+    return not relaxed or (rows == TILE_ROWS and _relaxed_ok(plan))
 
 
 def carry_requested() -> bool:
@@ -664,6 +686,7 @@ class KernelTables:
     ring_rows: int = 0
     ring_pitch: int = 0
     run: int = 0
+    rows: int = TILE_ROWS   # output rows a block (:func:`work_rows`)
     tiled: bool = False     # these are resize_fused's tables, not the tiled kernel's
 
 
@@ -726,7 +749,8 @@ def kernel_tables(plan: ResizePlan, device="cpu", relaxed: bool = False,
         cx=t(plan.x.coef.T), ix=t(torch_resize.clamped_taps(plan.x).T),
         xdiv=t(_x_divisors(plan)), win=t(win),
         win_max=int((win[:, 1] - win[:, 0]).max()), wrap16=plan.wrap16,
-        cxr=cxr, cxd=cxd, relaxed=relaxed, carry=layout is not None, **ring)
+        cxr=cxr, cxd=cxd, relaxed=relaxed, carry=layout is not None,
+        rows=TILE_ROWS if layout is not None else work_rows(plan), **ring)
 
 
 def pack_operands(plan: ResizePlan, device="cpu", relaxed: bool = False,
@@ -846,7 +870,7 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
     rc = lib.iqo_resize_fused(
         int(k.wrap16), int(k.relaxed), int(k.carry), src.data_ptr(),
         out.data_ptr(),
-        src.shape[0], src.stride(0), src.stride(1), dh, dw,
+        src.shape[0], src.stride(0), src.stride(1), dh, dw, k.rows,
         k.cy.data_ptr(), k.iy.data_ptr(), k.ydiv.data_ptr(),
         k.cy.shape[0], ops.plain.y_bias,
         k.cx.data_ptr(), k.ix.data_ptr(), k.xdiv.data_ptr(),
