@@ -42,13 +42,15 @@ Phases:
    3b. The on-card gate's exact sweep (``libiqo_tpu_torch/tools/
    card_check.py``, whose whole run is ``python -m
    libiqo_tpu_torch.tools.card_check``) over its GRADED, STRESS and
-   STRESS_GEOMETRIES lists, batch 4 and 2 on three graded configs: each
-   through its facade on the card and the windowed kernel == the plain
-   path, == the NumPy oracle on sources of at most ORACLE_MAX_PIXELS
-   pixels; every case on a kernel.  Area 8192x4 -> 16x4 (512 taps, a
-   window of 8192 columns: the windowed kernel's wide-window walk, fewer
-   rows a block) timed on its kernel in turns with the plain path, beside
-   its bound; the phase's seconds.
+   STRESS_GEOMETRIES lists and the port's own WIDE_WINDOW, batch 4 and 2
+   on three graded configs: each through its facade on the card and the
+   windowed kernel == the plain path, == the NumPy oracle on sources of at
+   most ORACLE_MAX_PIXELS pixels; every case on a kernel.  WIDE_TIMED, the
+   windowed kernel's wide-window walk (fewer rows a block): Area 8192x4 ->
+   16x4 (512 taps, one window of 8192 columns), Area 8192x2160 -> 256x540
+   and 4096x2160 -> 128x540 (column tiles of 4096 columns, 14 rows), each
+   timed on that kernel in turns with the facade's route and the plain
+   path, beside its bound; the phase's seconds.
 4. The Lanczos main path: ``YUV420Resizer(..., device="cuda")``, ``resize``
    on 4 frames and ``resize_batch`` on 4; the wrap16_tiled launch count
    over that run must equal its plane calls, with no other launch; every
@@ -68,8 +70,10 @@ Phases:
 6. The benchmark CLI as a user runs it: default mode, ``--amortized``,
    ``--batch 16`` and ``--stream 64 --batch 16``, each must exit 0 and
    print its elapsed time.
-7. Times: CUDA events, minimum over repeats of the mean over back-to-back
-   calls on inputs that each differ by one byte, for the tiled kernel and
+7. Times (the probes' timer, ``experiments/_harness.py``: ``launches_ms``
+   on ``perturbed`` inputs): CUDA events, minimum over repeats of the mean
+   over back-to-back calls on inputs that each differ by one byte, for the
+   tiled kernel and
    the windowed ``resize_fused`` in turns (windowed, tiled, tiled,
    windowed), the plain version and, for Area/Linear,
    ``torch.nn.functional.interpolate`` on a float32 copy as a yardstick
@@ -100,6 +104,12 @@ Phases:
    relaxed plain version and the bound, per plane and per frame, on both
    main paths; and the exact kernel on a px_scale-4 plane (Lanczos3
    960x540 -> 480x270, the chroma of a 4K -> 1080p YUV410 frame).
+   10b. The measurement modules, ``libiqo_tpu_torch/tools/bench.py``,
+   ``bench_configs``, ``bench_video64``, ``bench_fallback``,
+   ``bench_decomp`` and ``tile_sweep`` (the ports of ``bench.py`` and the
+   JAX package's bench scripts), each through its ``main`` in its short
+   form (``--quick``: fewer counts, the same shapes, checks and guards);
+   each must exit 0, and the run must launch the tiled kernel.
 11. Sharding (``libiqo_tpu_torch.parallel.sharding``) on the one card, over
    meshes that name ``cuda:0`` several times: the sharded main path, with
    every count set to 0 just before, is Lanczos3 4K -> 1080p luma, its px2
@@ -237,7 +247,9 @@ sys.modules["libiqo_tpu"] = None  # nor the JAX package
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
-# the H100 SXM data sheet's rates, kept in one place
+# the probes' timer (launches_ms, perturbed), which every phase times with,
+# and the H100 SXM data sheet's rates, kept in one place
+from libiqo_tpu_torch.experiments import _harness  # noqa: E402
 from libiqo_tpu_torch.experiments._harness import (  # noqa: E402
     BF16_OPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S)
 # the on-card gate's case lists and sweeps (python -m libiqo_tpu_torch.tools.card_check)
@@ -265,7 +277,6 @@ RELAXED_GRADED = {
     "linear 640x480->320x240": ("linear", {}, 640, 480, 320, 240),
 }
 PX4_PLANE = ("lanczos", dict(degree=3, px_scale=4), 960, 540, 480, 270)
-SPIN_CYCLES_PER_CALL = 2_000_000   # ~1 ms of the card's clock per call queued
 CLI_RUNS = (["--cycles", "32"], ["--amortized"], ["--batch", "16"],
             ["--stream", "64", "--batch", "16"])
 SHARDS = 4                      # row (or data) shards, all on the one card
@@ -592,58 +603,80 @@ def phase_tpu_fuzz(cr, build_plan, numpy_ref, rng, n: int = 20,
     return max_err
 
 
-WIDE_WINDOW = ("area", 8192, 4, 16, 4, {})     # STRESS's 512-tap plan
-WIDE_INPUTS = 64                               # distinct 32 KB sources timed
+# the wide-window walk's timed plans: STRESS's 512-tap plan (one partial
+# column tile, 7 rows a block) and the two of WIDE_WINDOW the JAX package's
+# kernel takes (several column tiles of 4096 columns, 14 rows a block)
+WIDE_TIMED = (("area", 8192, 4, 16, 4, {}), card_check.WIDE_WINDOW[0],
+              card_check.WIDE_WINDOW[1])
+WIDE_INPUTS = 64                               # most distinct sources timed
 
 
-def phase_card_check(cr, build_plan, card: str) -> dict:
+def phase_card_check(cr, build_plan, card: str) -> list:
     """Phase 3b: the on-card gate's exact sweep (``card_check.exact_sweep``)
-    over GRADED, STRESS and STRESS_GEOMETRIES: each through its facade on
-    the card, and the windowed kernel, == the plain path on the card, ==
-    numpy_ref on sources of at most ORACLE_MAX_PIXELS pixels; every case
-    must run a kernel.  Then Area 8192x4 -> 16x4, the wide-window walk
-    (``cuda_resize.work_rows`` < 16), timed on its kernel in turns with the
-    plain path beside its bound.  Returns its figures."""
+    over GRADED, STRESS, STRESS_GEOMETRIES and the port's WIDE_WINDOW: each
+    through its facade on the card, and the windowed kernel, == the plain
+    path on the card, == numpy_ref on sources of at most ORACLE_MAX_PIXELS
+    pixels; every case must run a kernel.  Then WIDE_TIMED, the windowed
+    kernel's wide-window walk (``cuda_resize.work_rows`` < 16): each timed
+    on that kernel in turns with the facade's route (the tiled kernel where
+    ``tiled_ok`` holds) and the plain path, beside its bound.  Returns its
+    figures, one dict a plan."""
     t_phase = time.perf_counter()
     rows, fails, skips = card_check.exact_sweep(
         card_check.Oracle(), card, cases=card_check.GRADED + card_check.STRESS
-        + card_check.STRESS_GEOMETRIES, oracle_max_pixels=ORACLE_MAX_PIXELS)
+        + card_check.STRESS_GEOMETRIES + card_check.WIDE_WINDOW,
+        oracle_max_pixels=ORACLE_MAX_PIXELS)
     bad = [r for r in rows if r["status"] != "ok"]
     check(not bad and not fails and not skips, f"card_check exact sweep: {bad}")
     print(f"card_check exact sweep: {len(rows)} rows (GRADED, STRESS, "
-          f"STRESS_GEOMETRIES, batch 4 and 2 on three graded configs) ok on "
-          f"their kernels: {sorted({r['variant'] for r in rows})}; windowed "
+          f"STRESS_GEOMETRIES, WIDE_WINDOW, batch 4 and 2 on three graded configs) "
+          f"ok on their kernels: {sorted({r['variant'] for r in rows})}; windowed "
           f"{sorted({r['windowed_variant'] for r in rows if 'windowed_variant' in r})}; "
           f"numpy_ref on {sum(r['oracle'] for r in rows)} of them")
+    wide = [time_wide(cr, build_plan, case, card) for case in WIDE_TIMED]
+    print(f"phase card_check: {time.perf_counter() - t_phase!r} s")
+    return wide
 
-    alg, sw, sh, dw, dh, kw = WIDE_WINDOW
+
+def time_wide(cr, build_plan, case, card: str) -> dict:
+    """One plan on the wide-window walk (``resize_fused`` at fewer than 16
+    rows a block, ``tiled=False``) == plain (== numpy_ref on a small
+    source), timed in turns with the facade's route and the plain path."""
+    alg, sw, sh, dw, dh, kw = case
+    name = card_check.case_name(case)
     plan = build_plan(alg, sw, sh, dw, dh, **kw)
-    r = card_check.facade(WIDE_WINDOW)
-    check(r.resolved_backend() == "cuda", f"{WIDE_WINDOW}: resolves to "
-          f"{r.resolved_backend()}")
-    ops = cr.pack_operands(plan, "cuda")
-    x = torch.from_numpy(card_check.source(WIDE_WINDOW, 0)).cuda()[None]
+    r = card_check.facade(case)
+    check(r.resolved_backend() == "cuda", f"{name}: resolves to {r.resolved_backend()}")
+    ops = cr.pack_operands(plan, "cuda", tiled=False)
+    x = torch.from_numpy(card_check.source(case, 0)).cuda()[None]
     got, counts = card_check.launched(cr, lambda: cr.resize_fused(ops, x))
     check(counts == {"u16": 1} and ops.tables.rows == cr.work_rows(plan) < cr.TILE_ROWS,
-          f"{WIDE_WINDOW}: launched {counts}, {ops.tables.rows} rows a block")
-    err = compare("area 8192x4->16x4 vs plain", got, cr.resize_plain(ops, x))
-    err = max(err, compare("area 8192x4->16x4 vs numpy_ref", got.cpu(),
-                           torch.from_numpy(card_check.oracle(WIDE_WINDOW, 0))[None]))
-    xs = perturbed(x, WIDE_INPUTS)
+          f"{name}: launched {counts}, {ops.tables.rows} rows a block")
+    err = compare(f"{name} vs plain", got, cr.resize_plain(ops, x))
+    if sw * sh <= ORACLE_MAX_PIXELS:
+        err = max(err, compare(f"{name} vs numpy_ref", got.cpu(),
+                               torch.from_numpy(card_check.oracle(case, 0))[None]))
+    route, route_counts = card_check.launched(cr, lambda: r.resize(x))
+    err = max(err, compare(f"{name} facade vs plain", route, got))
+    xs = _harness.perturbed(x, min(WIDE_INPUTS, n_inputs(x.numel())))
     ms = in_turns({"kernel": lambda t: cr.resize_fused(ops, t),
-                   "plain": lambda t: cr.resize_plain(ops, t)}, xs)
+                   "route": lambda t: r.resize(t),
+                   "plain": lambda t: cr.resize_plain(ops, t)}, xs,
+                  primed={"plain": False})
     bytes_ms, ops_ms = bound([(plan, 1)])
-    wide = {"plan": "area 8192x4->16x4", "variant": "u16", "work_rows": ops.tables.rows,
-            "win_max": ops.tables.win_max, "launches": counts["u16"],
-            "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
-            "bound_ms": max(bytes_ms, ops_ms),
+    wide = {"plan": name, "variant": "u16", "work_rows": ops.tables.rows,
+            "win_max": ops.tables.win_max, "grid": [len(ops.tables.win),
+                                                   -(-dh // ops.tables.rows)],
+            "launches": counts["u16"], "route_variant": "/".join(route_counts),
+            "max_abs_err": err, "ms": ms["kernel"], "route_ms": ms["route"],
+            "plain_ms": ms["plain"], "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    print(f"area 8192x4->16x4 == plain == numpy_ref on kernel[u16] "
-          f"({ops.tables.rows} rows a block, a window of {ops.tables.win_max} "
-          f"columns): kernel {ms['kernel']!r} ms, plain {ms['plain']!r} ms (in "
-          f"turns, {WIDE_INPUTS} inputs), bound {wide['bound_ms']!r} ms "
-          f"({wide['bound_by']}) ({card})")
-    print(f"phase card_check: {time.perf_counter() - t_phase!r} s")
+    print(f"{name} == plain{' == numpy_ref' if sw * sh <= ORACLE_MAX_PIXELS else ''} "
+          f"on kernel[u16] ({ops.tables.rows} rows a block, a window of "
+          f"{ops.tables.win_max} columns, grid {wide['grid']}): kernel "
+          f"{ms['kernel']!r} ms, route {wide['route_variant']} {ms['route']!r} ms, "
+          f"plain {ms['plain']!r} ms (in turns, {len(xs)} inputs), bound "
+          f"{wide['bound_ms']!r} ms ({wide['bound_by']}) ({card})")
     return wide
 
 
@@ -795,39 +828,6 @@ def phase_benchmark_cli(card: str, runs=CLI_RUNS, route: str = "cuda"):
         print(f"benchmark CLI {' '.join(extra)}: {mode}: {elapsed[0]} ({card})")
 
 
-def time_ms(fn, inputs, repeats: int = 5, primed: bool = True) -> float:
-    """Min over repeats of the mean time of back-to-back calls, by CUDA
-    events; every call has its own input.  Primed, the card first spins
-    long enough for the host to enqueue every call, so the events time the
-    device alone; unprimed, a call that the host issues more slowly than the
-    card runs it is timed at the host's pace."""
-    fn(inputs[0])
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    best = float("inf")
-    for _ in range(repeats):
-        if primed:
-            torch.cuda._sleep(SPIN_CYCLES_PER_CALL * len(inputs))
-        start.record()
-        for x in inputs:
-            fn(x)
-        stop.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(stop) / len(inputs))
-    return best
-
-
-def perturbed(base: torch.Tensor, n: int) -> list[torch.Tensor]:
-    """n copies of base, copy i with one byte raised by i (mod 256)."""
-    out = []
-    for i in range(n):
-        x = base.clone()
-        x.view(-1)[i] += i
-        out.append(x)
-    return out
-
-
 def n_inputs(nbytes: int) -> int:
     """Enough distinct inputs (>= 8) that they exceed the 50 MB L2 together."""
     return max(8, math.ceil(64e6 / nbytes))
@@ -864,33 +864,34 @@ def phase_times(cr, yuv, build_plan, rng, card: str, frame) -> dict:
         planes.append((plan, batch))
         ops = cr.pack_operands(plan, "cuda")
         shape = (batch, plan.y.n_src, plan.x.n_src)
-        xs = perturbed(torch.from_numpy(random_u8(rng, shape)).cuda(),
+        xs = _harness.perturbed(torch.from_numpy(random_u8(rng, shape)).cuda(),
                        n_inputs(math.prod(shape)))
         size = (plan.y.n_dst, plan.x.n_dst)
         yard = None
         if mode:
             fs = [x.float()[:, None] for x in xs]
             kw = {} if mode == "area" else dict(align_corners=False)
-            yard = time_ms(lambda x: F.interpolate(x, size=size, mode=mode, **kw), fs)
+            yard = _harness.launches_ms(lambda x: F.interpolate(x, size=size, mode=mode, **kw), fs)
             del fs
         old = cr.pack_operands(plan, "cuda", tiled=False)
         check(ops.tables.tiled and not old.tables.tiled, f"{name}: routes")
         tiled = lambda x: cr.resize_fused(ops, x)       # noqa: E731
         fused = lambda x: cr.resize_fused(old, x)       # noqa: E731
-        times = [time_ms(f, xs) for f in (fused, tiled, tiled, fused)]
-        rows[name] = (min(times[1:3]), time_ms(tiled, xs, primed=False),
-                      time_ms(lambda x: cr.resize_plain(ops, x), xs), yard,
+        times = [_harness.launches_ms(f, xs) for f in (fused, tiled, tiled, fused)]
+        rows[name] = (min(times[1:3]), _harness.launches_ms(tiled, xs, primed=False),
+                      _harness.launches_ms(lambda x: cr.resize_plain(ops, x), xs,
+                                           primed=False), yard,
                       min(times[0], times[3]))
 
     shapes = ((sh, sw), (sh // 2, sw // 2), (sh // 2, sw // 2))
     n = n_inputs(sum(map(math.prod, shapes)))
     fs = [yuv.YUV420Frame(*p) for p in zip(*(
-        perturbed(torch.from_numpy(random_u8(rng, s)).cuda(), n) for s in shapes))]
+        _harness.perturbed(torch.from_numpy(random_u8(rng, s)).cuda(), n) for s in shapes))]
     kernel = yuv.YUV420Resizer(method, sw, sh, dw, dh, backend="cuda")
     plain = yuv.YUV420Resizer(method, sw, sh, dw, dh, backend="torch")
     rows["frame (YUV420Resizer)"] = (
-        time_ms(kernel.resize, fs), time_ms(kernel.resize, fs, primed=False),
-        time_ms(plain.resize, fs), None, None)
+        _harness.launches_ms(kernel.resize, fs), _harness.launches_ms(kernel.resize, fs, primed=False),
+        _harness.launches_ms(plain.resize, fs, primed=False), None, None)
     bytes_ms, ops_ms = bound(planes)
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -1038,14 +1039,15 @@ def phase_relaxed_times(cr, build_plan, rng, card: str, frame) -> dict:
         check(rel.tables.tiled and not win.tables.tiled and ex.tables.tiled,
               f"relaxed {name}: routes")
         shape = (batch, plan.y.n_src, plan.x.n_src)
-        xs = perturbed(torch.from_numpy(random_u8(rng, shape)).cuda(),
+        xs = _harness.perturbed(torch.from_numpy(random_u8(rng, shape)).cuda(),
                        n_inputs(math.prod(shape)))
-        times = [time_ms(lambda x, o=o: cr.resize_fused(o, x), xs)
+        times = [_harness.launches_ms(lambda x, o=o: cr.resize_fused(o, x), xs)
                  for o in (win, rel, ex, ex, rel, win)]
         rows[name] = (min(times[1], times[4]),
-                      time_ms(lambda x: cr.resize_fused(rel, x), xs, primed=False),
+                      _harness.launches_ms(lambda x: cr.resize_fused(rel, x), xs, primed=False),
                       min(times[2], times[3]),
-                      time_ms(lambda x: cr.resize_plain(rel, x), xs),
+                      _harness.launches_ms(lambda x: cr.resize_plain(rel, x), xs,
+                                           primed=False),
                       min(times[0], times[5]))
         variants = (cr.variant(rel.tables), cr.variant(win.tables),
                     cr.variant(ex.tables))
@@ -1078,16 +1080,47 @@ def phase_px4_time(cr, build_plan, rng, card: str) -> None:
     host = random_u8(rng, (1, sh, sw))
     hold(cr, "px4 plane", plan, host)
     ops = cr.pack_operands(plan, "cuda")
-    xs = perturbed(torch.from_numpy(host).cuda(), n_inputs(host.size))
-    k = time_ms(lambda x: cr.resize_fused(ops, x), xs)
-    ku = time_ms(lambda x: cr.resize_fused(ops, x), xs, primed=False)
-    p = time_ms(lambda x: cr.resize_plain(ops, x), xs)
+    xs = _harness.perturbed(torch.from_numpy(host).cuda(), n_inputs(host.size))
+    k = _harness.launches_ms(lambda x: cr.resize_fused(ops, x), xs)
+    ku = _harness.launches_ms(lambda x: cr.resize_fused(ops, x), xs, primed=False)
+    p = _harness.launches_ms(lambda x: cr.resize_plain(ops, x), xs, primed=False)
     bytes_ms, ops_ms = bound([(plan, 1)])
     print(f"time px4 lanczos3 {sw}x{sh}->{dw}x{dh} (1 plane, "
           f"{cr.variant(ops.tables)}): kernel "
           f"{k!r} ms (unprimed {ku!r}), plain {p!r} ms, bound "
           f"{max(bytes_ms, ops_ms)!r} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'};"
           f" bytes {bytes_ms!r}, operations {ops_ms!r}) ({card})")
+
+
+BENCH_MODULES = ("bench", "bench_configs", "bench_video64", "bench_fallback",
+                 "bench_decomp", "tile_sweep")
+
+
+def phase_bench_modules(cr) -> dict:
+    """Phase 10b: the measurement modules (``libiqo_tpu_torch/tools/
+    bench*.py``, ``tile_sweep.py``, the ports of ``bench.py`` and the JAX
+    package's bench scripts) in their short form (``--quick``: fewer counts,
+    the same shapes and checks), each in this process through its
+    ``main``; every one must exit 0 (its checks and guards passed), and
+    the main paths' tiled kernel must have launched (``bench_fallback``
+    sets the counts to 0 before each of its cases, so what is left is the
+    launches since its last one).  Returns the launches by variant."""
+    import importlib
+
+    t_phase = time.perf_counter()
+    cr.reset_launches()
+    for name in BENCH_MODULES:
+        t0 = time.perf_counter()
+        rc = importlib.import_module(f"libiqo_tpu_torch.tools.{name}").main(["--quick"])
+        check(rc == 0, f"tools.{name} --quick exited {rc}")
+        torch.cuda.empty_cache()
+        print(f"tools.{name} --quick: {time.perf_counter() - t0!r} s")
+    launches = {v: n for v, n in cr.LAUNCHES_BY_VARIANT.items() if n}
+    check(launches.get("wrap16_tiled") and launches.get("u16_tiled"),
+          f"the bench modules launched {launches}")
+    print(f"bench modules' launches: {launches}")
+    print(f"phase bench modules: {time.perf_counter() - t_phase!r} s")
+    return launches
 
 
 def halo_rows(sharding, plan, shards: int) -> int:
@@ -1222,15 +1255,15 @@ def phase_sharded(cr, sharding, build_plan, numpy_ref, rng, card: str) -> dict:
         plan, fn, ops, x = planes[name]
         ops_u = cr.pack_operands(plan, "cuda")
         fn_t, ops_t = sharding.make_row_sharded_fn(plan, rows, backend="torch")
-        xs = perturbed(x, n_inputs(x.numel()))
+        xs = _harness.perturbed(x, n_inputs(x.numel()))
         sharded = lambda t: fn(*ops, t)                          # noqa: E731
         whole = lambda t: cr.resize_fused(ops_u, t[None])        # noqa: E731
         # in turns, unsharded, sharded, sharded, unsharded
-        times = [time_ms(f, xs) for f in (whole, sharded, sharded, whole)]
+        times = [_harness.launches_ms(f, xs) for f in (whole, sharded, sharded, whole)]
         k, u = min(times[1:3]), min(times[0], times[3])
-        ku = time_ms(sharded, xs, primed=False)
-        uu = time_ms(whole, xs, primed=False)
-        p = time_ms(lambda t: fn_t(*ops_t, t), xs)
+        ku = _harness.launches_ms(sharded, xs, primed=False)
+        uu = _harness.launches_ms(whole, xs, primed=False)
+        p = _harness.launches_ms(lambda t: fn_t(*ops_t, t), xs, primed=False)
         halo = halo_rows(sharding, plan, SHARDS) * plan.x.n_src
         nbytes = (plan.y.n_src * plan.x.n_src + 2 * halo
                   + plan.y.n_dst * plan.x.n_dst)
@@ -1306,13 +1339,16 @@ def hold_carry(cr, tag: str, plan, host: np.ndarray, oracle=None) -> dict:
     return errs
 
 
-def in_turns(fns: dict, xs) -> dict:
+def in_turns(fns: dict, xs, primed: dict | None = None) -> dict:
     """Each of ``fns`` timed twice, in the order given and then reversed
-    (min of its two): {name: ms}."""
+    (min of its two): {name: ms}; ``primed`` maps a name to False to time
+    it at the host's pace (a plain path, whose launches overfill the queue
+    that the card's spin holds)."""
     names = list(fns)
     times = {n: [] for n in names}
     for n in names + names[::-1]:
-        times[n].append(time_ms(fns[n], xs))
+        times[n].append(_harness.launches_ms(fns[n], xs,
+                                             primed=(primed or {}).get(n, True)))
     return {n: min(t) for n, t in times.items()}
 
 
@@ -1384,12 +1420,12 @@ def phase_carry(cr, yuv, build_plan, numpy_ref, rng, card: str) -> dict:
         check(cr.variant(carry.tables) == v + "_tiled"
               and cr.variant(windowed.tables) == v, f"{name}: carry routes")
         x = torch.from_numpy(random_u8(rng, (1, plan.y.n_src, plan.x.n_src))).cuda()
-        xs = perturbed(x, n_inputs(x.numel()))
+        xs = _harness.perturbed(x, n_inputs(x.numel()))
         ms = in_turns({"windowed": lambda t: cr.resize_fused(windowed, t),
                        "tiled": lambda t: cr.resize_fused(tiled, t),
                        "carry": lambda t: cr.resize_fused(carry, t)}, xs)
-        ku = time_ms(lambda t: cr.resize_fused(carry, t), xs, primed=False)
-        p = time_ms(lambda t: cr.resize_plain(carry, t), xs)
+        ku = _harness.launches_ms(lambda t: cr.resize_fused(carry, t), xs, primed=False)
+        p = _harness.launches_ms(lambda t: cr.resize_plain(carry, t), xs, primed=False)
         bytes_ms, ops_ms = bound([(plan, 1)], BF16_OPS_PER_S if relaxed
                                  else INT8_OPS_PER_S)
         b = max(bytes_ms, ops_ms)
@@ -1426,7 +1462,7 @@ def phase_carry(cr, yuv, build_plan, numpy_ref, rng, card: str) -> dict:
         tiled = cr.pack_operands(plan, "cuda")
         windowed = cr.pack_operands(plan, "cuda", carry=True, tiled=False)
         x = torch.from_numpy(random_u8(rng, (batch, plan.y.n_src, plan.x.n_src))).cuda()
-        xs = perturbed(x, n_inputs(x.numel()))
+        xs = _harness.perturbed(x, n_inputs(x.numel()))
         ms = in_turns({"windowed": lambda t: cr.resize_fused(windowed, t),
                        "tiled": lambda t: cr.resize_fused(tiled, t),
                        "carry": lambda t: cr.resize_fused(carry, t)}, xs)
@@ -1441,7 +1477,7 @@ def phase_carry(cr, yuv, build_plan, numpy_ref, rng, card: str) -> dict:
     tiled = cr.pack_operands(plan, "cuda")
     windowed = cr.pack_operands(plan, "cuda", tiled=False)
     x = torch.from_numpy(random_u8(rng, (1, plan.y.n_src, plan.x.n_src))).cuda()
-    xs = perturbed(x, n_inputs(x.numel()))
+    xs = _harness.perturbed(x, n_inputs(x.numel()))
     want = cr.resize_fused(tiled, x)
     for tw, run in CARRY_TILED_SWEEP:
         lay = cr.tiled_carry_layout(plan, tw=tw, run=run)
@@ -1864,12 +1900,14 @@ def phase_band_fetch(card: str) -> list:
     print(f"overlap_dots == plain in all {len(ov.VARIANTS)} variants x P {ov.PS} at "
           f"{tuple(osrc.shape)}, ND={ov.ND}, N_TY={ov.N_TY}, impls {ov.IMPLS}; the ring also "
           f"at {tuple(short.shape)}")
+    hxs = {}                                   # each config's element source
     for name, n_t, step, halo, w, variant, x in bh.sources(dev):
         err["band_colsum"] = max(err["band_colsum"], probe_err(
             f"band_colsum {name} {variant}", bh.band_colsum(x, variant, n_t, step, halo),
             bh.band_colsum_plain(x, variant, n_t, step, halo)))
-        if (name, variant) == ("luma-like", "element"):
-            hx = x
+        if variant == "element":
+            hxs[name] = x
+    hx = hxs["luma-like"]
     print(f"band_colsum == plain in all {len(bh.CONFIGS)} configs x "
           f"{len(bh.VARIANTS)} variants")
 
@@ -1910,14 +1948,26 @@ def phase_band_fetch(card: str) -> list:
     print(f"plain ms, host-paced: band_ydot {p_ydot}; overlap_dots {p_overlap}; "
           f"band_colsum luma-like {p_colsum} ({card})")
 
-    # H: one sum over a strided view of the overlapping windows
+    # H: one sum over a strided view of the overlapping windows, on the
+    # luma-like config and the narrow one (256 tiles of 64 + 64 rows, w 512)
     def lib_colsum(t):
-        v = t.as_strided((64, 128, t.shape[1]), (64 * t.shape[1], t.shape[1], 1))
-        return v.sum(1, dtype=torch.int32)[:, None].expand(64, 8, t.shape[1])
-    check(torch.equal(lib_colsum(hx).reshape(8 * 64, -1),
-                      bh.band_colsum_plain(hx, "element", 64, 64, 64)),
-          "the strided-view sum != band_colsum_plain element")
-    lib_colsum_ms = _harness.launches_ms(lib_colsum, _harness.perturbed(hx, bh.ITERS))
+        n_t = (t.shape[0] - 64) // 64
+        v = t.as_strided((n_t, 128, t.shape[1]), (64 * t.shape[1], t.shape[1], 1))
+        return v.sum(1, dtype=torch.int32)[:, None].expand(n_t, 8, t.shape[1])
+    lib_colsum_rows = {}
+    for name in ("luma-like", "narrow"):
+        x = hxs[name]
+        n_t = (x.shape[0] - 64) // 64
+        check(torch.equal(lib_colsum(x).reshape(8 * n_t, -1),
+                          bh.band_colsum_plain(x, "element", n_t, 64, 64)),
+              f"the strided-view sum != band_colsum_plain element ({name})")
+        lib_colsum_rows[f"{name} element"] = _harness.launches_ms(
+            lib_colsum, _harness.perturbed(x, bh.ITERS))
+    lib_colsum_ms = lib_colsum_rows["luma-like element"]
+    hn = rows["bh"]["narrow element"]
+    print(f"probe band_colsum narrow element: kernel {hn['ms']!r} ms ({hn['bound_ms'] / hn['ms']!r} "
+          f"of its bound's pace), library as_strided(...).sum(1, dtype=int32) + expand "
+          f"{lib_colsum_rows['narrow element']!r} ms, bound {hn['bound_ms']!r} ms ({card})")
 
     e, g, h = rows["bs"]["base"], rows["ov"]["elem P=8"], rows["bh"]["luma-like element"]
     print(f"probe band_ydot base: ring {e['ring_ms']!r} ms, sync {e['sync_ms']!r} ms, plain "
@@ -1966,7 +2016,7 @@ def phase_band_fetch(card: str) -> list:
          "launches": launches["band_colsum"], "max_abs_err": err["band_colsum"],
          "ms": h["ms"], "plain_ms": p_colsum["element"], "bound_ms": h["bound_ms"],
          "bound_by": h["bound_by"], "library_ms": lib_colsum_ms,
-         "row": "luma-like element",
+         "library_rows": lib_colsum_rows, "row": "luma-like element",
          "rows": {r: v["ms"] for r, v in rows["bh"].items()},
          "plain_rows": {f"luma-like {v}": t for v, t in p_colsum.items()}},
     ]
@@ -1984,7 +2034,6 @@ def probe_turns(fns: dict, inputs) -> dict:
     """Each of ``fns`` timed twice under the probes' protocol (back-to-back
     calls on ``inputs``, ``_harness.launches_ms``), in the order given and
     then reversed (min of its two): {name: ms per call}."""
-    from libiqo_tpu_torch.experiments import _harness
     return _harness.turns_ms({n: (f, inputs) for n, f in fns.items()})
 
 
@@ -2771,6 +2820,7 @@ def main() -> int:
                                ("lanczos3", SRC_W, SRC_H, DST_W, DST_H))
     tur = phase_relaxed_times(cuda_resize, build_plan, rrng, smi, AREA_MAIN)
     phase_px4_time(cuda_resize, build_plan, rrng, smi)
+    phase_bench_modules(cuda_resize)
 
     sharded = phase_sharded(cuda_resize, sharding, build_plan, numpy_ref,
                             np.random.default_rng(SEED + 3), smi)

@@ -55,14 +55,15 @@
 //   arithmetic right shift are written out explicitly.
 //
 // The work tile is kTileRows x win_max int32 words, except for the plans
-// whose output is one partial column tile (dst_w < kTileCols) and whose
-// window is so wide (area 8192x4 -> 16x4: 8192 source columns, 512 taps an
-// output) that sixteen rows of it exceed shared memory: a block then takes
-// fewer output rows, tile_rows = min(16, budget / (4 * win_max)), and the
+// whose widest column-tile window is so wide that sixteen rows of it exceed
+// shared memory (area 8192x4 -> 16x4: one partial column tile of 8192
+// source columns, 512 taps an output; area 8192x2160 -> 256x540: two column
+// tiles of 4096): a block then takes fewer output rows, tile_rows =
+// min(16, budget / (4 * win_max)), on any number of column tiles, and the
 // grid more row tiles (cuda_resize.work_rows; at least 4 rows, which keeps
-// the scope at the JAX package's for this class of plan).  Each output is
-// still computed by one thread over its whole tap list in tap order, so the
-// bytes are those of the 16-row tile.  The carry form keeps 16 rows.
+// the scope at the JAX package's for these plans).  Each output is still
+// computed by one thread over its whole tap list in tap order, so the bytes
+// are those of the 16-row tile.  The carry form keeps 16 rows.
 //
 // Every plan whose band (or carry ring) fits shared memory now runs on the
 // tiled kernel, csrc/resize_tiled.cuh, which stages the source band with

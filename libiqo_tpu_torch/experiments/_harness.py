@@ -50,6 +50,7 @@ INT8_OPS_PER_S = 1979e12
 FP32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 _SPIN_MARGIN = 2.0              # spin this much longer than the host's enqueue
+_MAX_RETRIES = 4                # repeats redone because the host outran the spin
 
 
 class Launches(dict):
@@ -196,7 +197,9 @@ def _device_ms(enqueue: Callable[[], object], launches: int, repeats: int,
         host_s = max(host_s, queued_ms * 1e-3)
         if primed and queued_ms > spin / per_ms:   # the card caught up with the host
             tries += 1
-            if tries > 2 * repeats:
+            # each retry doubles the spin; calls that block the host (a sync,
+            # or more launches than the queue holds) never fit it
+            if tries > _MAX_RETRIES:
                 raise RuntimeError(f"the host took {queued_ms!r} ms to queue "
                                    f"{launches} launches, longer than the spin "
                                    f"of {spin / per_ms!r} ms: not a device time")
@@ -249,10 +252,10 @@ def turns_ms(calls: dict) -> dict:
 
 def perturbed(base: torch.Tensor, n: int) -> list[torch.Tensor]:
     """n copies of base, copy i with its first element set to i (as the TPU
-    loops' ``dynamic_update_slice`` of the loop index)."""
+    loops' ``dynamic_update_slice`` of the loop index; mod 256 for uint8)."""
     out = []
     for i in range(n):
         x = base.clone()
-        x.view(-1)[0] = i
+        x.view(-1)[0] = i % 256 if x.dtype == torch.uint8 else i
         out.append(x)
     return out

@@ -123,20 +123,19 @@ def work_rows(plan: ResizePlan) -> int:
     """Output rows one block of the windowed ``resize_fused`` takes (the
     height of its work tile), or 0 where no height fits.
 
-    TILE_ROWS wherever that work tile fits SMEM_BUDGET.  Else, only for a
-    plan whose output is one partial column tile (``dst_w < TILE_COLS``),
-    so that no column tiling narrows its window (Area 8192x4 -> 16x4: 8192
-    source columns), the most rows that fit, at least MIN_WORK_ROWS: the
-    kernel's wide-window walk.  With fewer than 4 rows it would take
-    windows past 14528 columns, which the JAX package's kernel refuses
-    (Area 16384x4 -> 16x4, 65536x16 -> 16x16).  Each output is computed as
-    in the 16-row tile, so the bytes are the same."""
+    TILE_ROWS wherever that work tile fits SMEM_BUDGET.  Else the most rows
+    that fit, at least MIN_WORK_ROWS: the kernel's wide-window walk, for
+    any plan whose widest column-tile window is too wide for 16 rows (Area
+    8192x4 -> 16x4: one partial column tile of 8192 source columns, 7
+    rows; Area 8192x2160 -> 256x540: two column tiles of 4096, 14 rows).
+    With fewer than 4 rows it would take windows past 14528 columns, which
+    the JAX package's kernel refuses (Area 16384x4 -> 16x4, 65536x16 ->
+    16x16).  Each output is computed as in the 16-row tile, so the bytes
+    are the same."""
     w = tile_windows(plan.x)
     win = int((w[:, 1] - w[:, 0]).max())
     rows = min(TILE_ROWS, SMEM_BUDGET // (4 * win))
-    if rows == TILE_ROWS or (plan.x.n_dst < TILE_COLS and rows >= MIN_WORK_ROWS):
-        return rows
-    return 0
+    return rows if rows >= MIN_WORK_ROWS else 0
 
 
 def _x_divisors(plan: ResizePlan) -> np.ndarray:
@@ -261,15 +260,17 @@ def supports_plan(plan: ResizePlan, relaxed: bool = False) -> bool:
     exact, provided the border divisors fit int32.  Other (Area, Linear)
     plans when :func:`_u16_exact` holds.  Either way the tap tables must
     index in int32, a work tile must fit the shared-memory budget
-    (:func:`work_rows`: 16 rows, or the wide-window walk's fewer rows) and
-    its row tiles the grid.
+    (:func:`work_rows`: 16 rows, or the wide-window walk's 4-15 rows on any
+    number of column tiles, so that every plan the JAX package's kernel
+    takes runs on a kernel here) and its row tiles the grid.
 
     Relaxed: all of that, and the JAX package's relaxed guards
     (``pallas_resize.py:943-1024``): ``wmax * max_j sum|cx| < 2^31``, with
     wmax 32768 for wrap16 plans and 65280 for u16 ones (the sum is also
     taken over the rounded planes, so the float32 sums stay inside int32),
     and :func:`relaxed_plane` must succeed, and the 16-row work tile must
-    fit (the wide-window walk is exact only).  Plans outside
+    fit (the wide-window walk is exact only: a relaxed plan whose window is
+    too wide for 16 rows takes the exact kernel, ``api.Resizer``'s ladder).  Plans outside
     :func:`_exact_f32_ok` are refused as well: the port's Y pass is exact
     integer arithmetic for every plan, so the JAX package's Y-exactness
     refusal has nothing to guard here, but the port's relaxed scope does

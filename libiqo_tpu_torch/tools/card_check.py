@@ -11,13 +11,15 @@ root on a machine with a CUDA card::
 Sweeps, each a function that returns its rows:
 
 * :func:`exact_sweep`: :data:`GRADED`, :data:`STRESS`,
-  :data:`STRESS_GEOMETRIES` and ``fuzz_cases(20)`` through the facades on
+  :data:`STRESS_GEOMETRIES`, the port's own :data:`WIDE_WINDOW` (the
+  windowed kernel's wide-window walk on several column tiles) and
+  ``fuzz_cases(20)`` through the facades on
   ``cuda`` (``LanczosResizer``/``AreaResizer``/``LinearResizer``), and the
   windowed ``resize_fused`` (``pack_operands(..., tiled=False)``) on each,
   both == ``numpy_ref`` == the plain path on the card; batch 4 and 2 on
   ``GRADED[0]``, ``[2]`` and ``[4]``.  Each row names the instantiation
   that ran, read from ``cuda_resize.LAUNCHES_BY_VARIANT`` after
-  ``reset_launches()``.  A GRADED, STRESS or STRESS_GEOMETRIES case that
+  ``reset_launches()``.  A GRADED, STRESS, STRESS_GEOMETRIES or WIDE_WINDOW case that
   resolves to ``torch`` or launches no kernel is ``FAIL-unsupported``; only
   a fuzz case outside ``supports_plan`` is a skip, with its reason.
 * :func:`relaxed_sweep`: ``precision="relaxed"`` == its plain version (0
@@ -101,6 +103,19 @@ STRESS_GEOMETRIES = [
     ("lanczos", 257, 8191, 129, 4099, dict(degree=3)),     # prime tall
     ("area", 5120, 2880, 1280, 720, {}),                   # 5K 4:1
     ("lanczos", 640, 480, 1920, 1440, dict(degree=4)),     # 3x upsample deg4
+]
+# the port's own list: windows too wide for 16 rows of the windowed kernel's
+# shared memory on several column tiles, which its wide-window walk takes
+# at 4-15 rows a block (cuda_resize.work_rows); the first two the JAX
+# package's kernel takes too, the rest it refuses
+WIDE_WINDOW = [
+    ("area", 8192, 2160, 256, 540, {}),              # 2 column tiles, 14 rows
+    ("area", 4096, 2160, 128, 540, {}),              # 1 column tile, 14 rows
+    ("area", 4096, 4096, 128, 128, {}),
+    ("area", 3840, 2160, 128, 72, {}),               # 15 rows
+    ("area", 7680, 4320, 240, 135, {}),
+    ("lanczos", 7680, 4320, 240, 135, dict(degree=3)),   # wrap16, 13 rows
+    ("area", 40960, 8, 1024, 8, {}),                 # 8 column tiles, 11 rows
 ]
 BATCHED = (GRADED[0], GRADED[2], GRADED[4])     # batch 4 and 2, tpu_check.py:494
 BATCHES = (4, 2)
@@ -338,12 +353,12 @@ def exact_case(case, orc: Oracle, card: str, required: bool,
 
 def exact_sweep(orc: Oracle, card: str, fuzz: int = 20, cases=None,
                 oracle_max_pixels: int | None = None) -> tuple[list, int, int]:
-    """The exact sweep over ``cases`` (GRADED, STRESS, STRESS_GEOMETRIES and
-    ``fuzz_cases(fuzz)`` by default; every case but a fuzz case is
-    required): (rows, failures, skips)."""
-    required = {case_name(c) for c in GRADED + STRESS + STRESS_GEOMETRIES}
+    """The exact sweep over ``cases`` (GRADED, STRESS, STRESS_GEOMETRIES,
+    WIDE_WINDOW and ``fuzz_cases(fuzz)`` by default; every case but a fuzz
+    case is required): (rows, failures, skips)."""
+    required = {case_name(c) for c in GRADED + STRESS + STRESS_GEOMETRIES + WIDE_WINDOW}
     if cases is None:
-        cases = GRADED + STRESS + STRESS_GEOMETRIES + fuzz_cases(fuzz)
+        cases = GRADED + STRESS + STRESS_GEOMETRIES + WIDE_WINDOW + fuzz_cases(fuzz)
     rows = []
     for case in cases:
         for row in exact_case(case, orc, card, case_name(case) in required,
@@ -585,7 +600,8 @@ def main(argv=None) -> int:
         orc = Oracle(pool)
         # every oracle output up front, the largest first, while the card works
         jobs = ([(c, range(1 + max(BATCHES) * (c in BATCHED))) for c in
-                 GRADED + STRESS + STRESS_GEOMETRIES + fuzz_cases(args.fuzz)]
+                 GRADED + STRESS + STRESS_GEOMETRIES + WIDE_WINDOW
+                 + fuzz_cases(args.fuzz)]
                 + [(c, range(CARRY_BATCH)) for c in CARRY_CASES + fuzz_cases(*CARRY_FUZZ)]
                 + [(c, (0,)) for c in RELAXED_PX2 + fuzz_cases(*RELAXED_FUZZ)
                    + border_cases()]

@@ -1,14 +1,15 @@
 """Where the time goes on the YUV420 main path, on one CUDA device.
 
     python -m libiqo_tpu_torch.tools.profile_yuv [-m METHOD -iw W -ih H
-        -ow W -oh H] [--out FILE]
+        -ow W -oh H] [--precision exact|relaxed] [--out FILE]
 
 One YUV420 frame, by default 3840x2160 -> 1920x1080, Lanczos3 (the
 Lanczos main path; ``-m area -iw 1920 -ih 1080 -ow 640 -oh 360`` is the
 benchmark CLI's default), through ``YUV420Resizer(..., device="cuda")``.
-For the kernel (``backend="cuda"``) and the plain path
-(``backend="torch"``), with frames already on the card (tensor in / tensor
-out) and as NumPy frames (the CLI's form), it measures:
+For the kernel (``backend="cuda"``; with ``--precision relaxed`` its
+relaxed route, ``cuda-relaxed``) and the plain path (``backend="torch"``,
+always exact), with frames already on the card (tensor in / tensor out)
+and as NumPy frames (the CLI's form), it measures:
 
 * latency: host clock around one ``resize`` ended by
   ``torch.cuda.synchronize()``, median and p90 over 120 frames;
@@ -138,6 +139,7 @@ def main(argv=None) -> int:
     ap.add_argument("-ih", type=int, default=2160)
     ap.add_argument("-ow", type=int, default=1920)
     ap.add_argument("-oh", type=int, default=1080)
+    ap.add_argument("--precision", default="exact", choices=["exact", "relaxed"])
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
     sw, sh = args.iw, args.ih
@@ -158,12 +160,13 @@ def main(argv=None) -> int:
                              for p in (f.y, f.u, f.v))) for f in host]
     result = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda,
-              "frame": f"{args.m} {sw}x{sh}->{args.ow}x{args.oh}", "forms": {}}
+              "frame": f"{args.m} {sw}x{sh}->{args.ow}x{args.oh}",
+              "precision": args.precision, "forms": {}}
     for backend in ("cuda", "torch"):
-        r = yuv.YUV420Resizer(args.m, sw, sh, args.ow, args.oh,
-                              backend=backend, device="cuda")
+        r = yuv.YUV420Resizer(args.m, sw, sh, args.ow, args.oh, backend=backend,
+                              precision=args.precision, device="cuda")
         for form, frames in (("device", dev), ("numpy", host)):
-            key = f"{backend}/{form}"
+            key = f"{r.resolved_backend()}/{form}"
             result["forms"][key] = m = measure(r, frames, sw * sh)
             print(key, json.dumps(m), flush=True)
     if args.out:

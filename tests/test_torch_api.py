@@ -152,7 +152,7 @@ def test_resolved_backend():
     assert api.LinearResizer(64, 48, 32, 24, backend="cuda",
                              **cpu).resolved_backend() == "cuda"
     # outside the kernel's shared-memory budget: the plain path
-    assert api.AreaResizer(40960, 8, 1024, 8, backend="cuda",
+    assert api.AreaResizer(65536, 16, 16, 16, backend="cuda",
                            **cpu).resolved_backend() == "torch"
     assert api.LinearResizer(64, 48, 32, 24, backend="numpy",
                              **cpu).resolved_backend() == "numpy"
@@ -173,7 +173,7 @@ def test_auto_on_cuda_takes_the_kernel_by_plan_alone(monkeypatch):
     assert api.LinearResizer(64, 48, 32, 24, **cpu)._backend_for(card) == "cuda"
     assert api.LanczosResizer(3, 64, 48, 32, 24, px_scale=3,
                               **cpu)._backend_for(card) == "cuda"
-    assert api.AreaResizer(40960, 8, 1024, 8, **cpu)._backend_for(card) == "torch"
+    assert api.AreaResizer(65536, 16, 16, 16, **cpu)._backend_for(card) == "torch"
     assert api.LanczosResizer(3, 64, 48, 32, 24, backend="torch",
                               **cpu)._backend_for(card) == "torch"
 

@@ -223,16 +223,18 @@ def test_walk_model_at_sixteen_rows(algo, kw, sw, sh, dw, dh):
 
 
 def test_work_rows_bounds():
-    """16 rows wherever they fit; fewer only for one partial column tile,
-    and never fewer than MIN_WORK_ROWS: the plans both packages refuse stay
-    refused."""
+    """16 rows wherever they fit; fewer, on any number of column tiles,
+    where the widest window does not, and never fewer than MIN_WORK_ROWS:
+    the plans both packages refuse stay refused."""
     assert cuda_resize.work_rows(build_plan("lanczos", 3840, 2160, 1920, 1080,
                                             degree=3)) == cuda_resize.TILE_ROWS
     edge = cuda_resize.SMEM_BUDGET // (4 * cuda_resize.MIN_WORK_ROWS)   # 14528
     for sw, rows in ((edge, cuda_resize.MIN_WORK_ROWS), (edge + 16, 0)):
         assert cuda_resize.work_rows(build_plan("area", sw, 4, 16, 4)) == rows, sw
-    for geometry in ((4096, 4096, 128, 128), (40960, 8, 1024, 8),
-                     (16384, 4, 16, 4), (65536, 16, 16, 16)):
+    # two column tiles of 4096 columns: 14 rows; five of 1280: 11
+    assert cuda_resize.work_rows(build_plan("area", 8192, 2160, 256, 540)) == 14
+    assert cuda_resize.work_rows(build_plan("area", 40960, 8, 1024, 8)) == 11
+    for geometry in ((16384, 4, 16, 4), (32768, 16, 16, 16), (65536, 16, 16, 16)):
         plan = build_plan("area", *geometry)
         assert cuda_resize.work_rows(plan) == 0 and not cuda_resize.supports_plan(plan)
         assert not pallas_resize.supports_plan(jax_build_plan("area", *geometry))
@@ -279,7 +281,8 @@ def test_gate_module_is_walked_for_jax_imports():
 
 def test_committed_result():
     """Where the committed result exists: a passing run on an H100, every
-    GRADED, STRESS and STRESS_GEOMETRIES row on a kernel variant, relaxed
+    GRADED, STRESS, STRESS_GEOMETRIES and WIDE_WINDOW row on a kernel
+    variant (WIDE_WINDOW's windowed rows on the wide-window walk), relaxed
     within 2 LSB of exact with flat fields exact."""
     if not card_check.RESULT.exists():
         pytest.skip("no committed card_check_result.json")
@@ -291,11 +294,15 @@ def test_committed_result():
     assert res["n_cases"] == sum(len(res[k]) for k in
                                  ("results", "relaxed", "carry", "sharded", "border_div"))
     rows = {r["case"]: r for r in res["results"]}
-    for case in card_check.GRADED + card_check.STRESS + card_check.STRESS_GEOMETRIES:
+    for case in (card_check.GRADED + card_check.STRESS + card_check.STRESS_GEOMETRIES
+                 + card_check.WIDE_WINDOW):
         row = rows[card_check.case_name(case)]
         assert row["status"] == "ok" and row["route"] == "cuda", row
         assert row["variant"] in cuda_resize.VARIANTS and row["launches"] > 0, row
         assert row["oracle"] and row["vs_oracle"] == 0, row
+    for case in card_check.WIDE_WINDOW:
+        row = rows[card_check.case_name(case)]
+        assert row["windowed_variant"] in ("u16", "wrap16") and row["work_rows"] < 16, row
     assert rows["area 8192x4->16x4"]["variant"] == "u16"
     for r in res["relaxed"]:
         assert r["status"] == "ok" and r["max_lsb_vs_exact"] <= 2 and r["flat_ok"], r

@@ -64,7 +64,7 @@ def test_simulated_relaxed_refusal(monkeypatch):
     assert r._backend_for(torch.device("cpu")) == "torch"
 
 
-@pytest.mark.parametrize("geometry", [(4096, 4096, 128, 128), (40960, 8, 1024, 8),
+@pytest.mark.parametrize("geometry", [(16384, 4, 16, 4), (32768, 16, 16, 16),
                                       (65536, 16, 16, 16)])
 def test_refused_by_both_lands_on_torch(geometry):
     """Seam (b): the envelope busters, refused by both packages' kernels,
@@ -109,7 +109,7 @@ def _fuzz_cases(n, seed=20260819):
 
 CASES = _fuzz_cases(24) + [
     ("area", 65536, 16, 16, 16, {}),       # the JAX package's envelope buster
-    ("area", 4096, 4096, 128, 128, {}),    # refused by both
+    ("area", 4096, 4096, 128, 128, {}),    # JAX refuses; the wide-window walk
     ("area", 8192, 4, 16, 4, {}),          # the wide-window walk
     ("lanczos", 3840, 2160, 1920, 1080, dict(degree=3)),
     ("lanczos", 1920, 1080, 960, 540, dict(degree=3, px_scale=2)),

@@ -113,10 +113,10 @@ def test_supports_plan_scope():
     wide = area.x.coef.copy()
     wide[0, 0] += 33000 - wide[0].sum()
     assert not cuda_resize.supports_plan(_with_axis(area, "x", coef=wide))
-    # a 40:1 downscale needs a work tile wider than shared memory holds
+    # a 4096:1 downscale needs a window wider than 4 rows of shared memory
     assert not cuda_resize.supports_plan(
-        build_plan("lanczos", 40960, 8, 1024, 8, degree=3))
-    assert not cuda_resize.supports_plan(build_plan("area", 40960, 8, 1024, 8))
+        build_plan("lanczos", 65536, 16, 16, 16, degree=3))
+    assert not cuda_resize.supports_plan(build_plan("area", 65536, 16, 16, 16))
 
 
 def test_nvcc_command_targets_sm90a():
@@ -402,8 +402,8 @@ def test_relaxed_kernel_matches_plain_on_card(cuda_device, name):
 
 @pytest.mark.cuda
 def test_kernel_refuses_unsupported_plan_on_card(cuda_device):
-    plan = build_plan("area", 40960, 8, 1024, 8)     # work tile > shared memory
+    plan = build_plan("area", 65536, 16, 16, 16)     # work tile > shared memory
     ops = cuda_resize.pack_operands(plan, cuda_device)
     with pytest.raises(ValueError):
-        cuda_resize.resize_fused(ops, torch.zeros((1, 8, 40960), dtype=torch.uint8,
+        cuda_resize.resize_fused(ops, torch.zeros((1, 16, 65536), dtype=torch.uint8,
                                                   device=cuda_device))

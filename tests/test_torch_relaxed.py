@@ -278,8 +278,12 @@ def test_routes():
                                   **rel)._backend_for(card) == b
     assert api.LanczosResizer(3, 64, 48, 32, 24, **cpu)._backend_for(card) == "cuda"
     # outside the kernel's shared-memory budget: the plain exact path
-    assert api.AreaResizer(40960, 8, 1024, 8, backend="cuda",
+    assert api.AreaResizer(65536, 16, 16, 16, backend="cuda",
                            **rel).resolved_backend() == "torch"
+    # a window too wide for the relaxed form's 16 rows: the exact kernel's
+    # wide-window walk
+    assert api.AreaResizer(40960, 8, 1024, 8, backend="cuda",
+                           **rel).resolved_backend() == "cuda"
     plan = build_plan("area", 64, 48, 32, 24)
     assert cuda_resize.variant(plan) == "u16"
     assert cuda_resize.variant(plan, relaxed=True) == "u16_relaxed"
