@@ -44,13 +44,22 @@ Phases:
    libiqo_tpu_torch.tools.card_check``) over its GRADED, STRESS and
    STRESS_GEOMETRIES lists and the port's own WIDE_WINDOW, batch 4 and 2
    on three graded configs: each through its facade on the card and the
-   windowed kernel == the plain path, == the NumPy oracle on sources of at
-   most ORACLE_MAX_PIXELS pixels; every case on a kernel.  WIDE_TIMED, the
-   windowed kernel's wide-window walk (fewer rows a block): Area 8192x4 ->
-   16x4 (512 taps, one window of 8192 columns), Area 8192x2160 -> 256x540
-   and 4096x2160 -> 128x540 (column tiles of 4096 columns, 14 rows), each
-   timed on that kernel in turns with the facade's route and the plain
-   path, beside its bound; the phase's seconds.
+   kernel of ``tiled=False`` == the plain path, == the NumPy oracle on
+   sources of at most ORACLE_MAX_PIXELS pixels; every case on a kernel.
+   Then the wide-window kernel's path (``csrc/resize_wide.cu``, the plans
+   whose window is too wide for 16 rows of the windowed kernel): the facade
+   on WIDE_FACADE (Area 8192x4 -> 16x4, the thumbnails Area 4096x4096 ->
+   128x128, 3840x2160 -> 128x72, Area and Lanczos3 7680x4320 -> 240x135)
+   with every count set to 0 just before, one ``*_wide`` launch a call.
+   WIDE_PITCHED (widths not a multiple of 16, from rows that start 16-byte
+   aligned in a wider pitch) on the kernel's 16-byte loads, which run past
+   each row's end: == plain, == the walk, == the oracle on the small one.
+   WIDE_TIMED (those five and Area 8192x2160 -> 256x540, 4096x2160 ->
+   128x540, whose facade takes the tiled kernel) on the wide-window kernel
+   == plain, == the windowed walk, also from a source 5 bytes into wider
+   rows, each timed in turns with the windowed kernel's wide-window
+   walk (``wide=False``), the facade's route and the plain path, beside its
+   bound; the phase's seconds.
 4. The Lanczos main path: ``YUV420Resizer(..., device="cuda")``, ``resize``
    on 4 frames and ``resize_batch`` on 4; the wrap16_tiled launch count
    over that run must equal its plane calls, with no other launch; every
@@ -217,8 +226,11 @@ Phases:
    cluster form (one thread block cluster of 4 a row chunk, the scratch in
    distributed shared memory) == plain bit for bit on ``arange`` and on random
    float bits with NaN and -0.0, compared as int32 views, timed in turns with
-   its serial form and ``var.index_select(0, idx)`` inside ``main()``, as X2
-   with ``src[128:160, :128].clone()``.
+   its serial form and ``var.index_select(0, idx)`` inside ``main()``; X2's
+   split form (8 TMA boxes of (64, 32) on 8 blocks, each from row 128 past
+   the source's end) == plain, its spill == its model (rows past the end
+   zeros), timed in turns with its single-box form and
+   ``src[128:160, :128].clone()`` inside ``main()``.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 2
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -603,24 +615,34 @@ def phase_tpu_fuzz(cr, build_plan, numpy_ref, rng, n: int = 20,
     return max_err
 
 
-# the wide-window walk's timed plans: STRESS's 512-tap plan (one partial
-# column tile, 7 rows a block) and the two of WIDE_WINDOW the JAX package's
-# kernel takes (several column tiles of 4096 columns, 14 rows a block)
-WIDE_TIMED = (("area", 8192, 4, 16, 4, {}), card_check.WIDE_WINDOW[0],
-              card_check.WIDE_WINDOW[1])
+# the wide-window plans (cuda_resize.work_rows < 16): card_check.WIDE_FACADE,
+# the five the facade sends to the wide-window kernel, and WIDE_TIMED, those
+# and the two the facade sends to the tiled kernel, timed here on the
+# wide-window kernel with tiled=False
 WIDE_INPUTS = 64                               # most distinct sources timed
+WIDE_STRIDED = (5, 11)          # (offset, pad) of a source the byte loads take
+# widths that are not a multiple of 16, from rows that start 16-byte aligned
+# in a wider pitch: each row's last 16-byte load runs past its end into the
+# pitch's noise, in columns the X pass never reads
+WIDE_PITCHED = (("area", 8191, 4, 16, 4, {}), ("area", 3839, 2160, 128, 72, {}),
+                ("lanczos", 7679, 4319, 240, 135, dict(degree=3)))
 
 
-def phase_card_check(cr, build_plan, card: str) -> list:
+def phase_card_check(cr, build_plan, card: str) -> dict:
     """Phase 3b: the on-card gate's exact sweep (``card_check.exact_sweep``)
     over GRADED, STRESS, STRESS_GEOMETRIES and the port's WIDE_WINDOW: each
-    through its facade on the card, and the windowed kernel, == the plain
-    path on the card, == numpy_ref on sources of at most ORACLE_MAX_PIXELS
-    pixels; every case must run a kernel.  Then WIDE_TIMED, the windowed
-    kernel's wide-window walk (``cuda_resize.work_rows`` < 16): each timed
-    on that kernel in turns with the facade's route (the tiled kernel where
-    ``tiled_ok`` holds) and the plain path, beside its bound.  Returns its
-    figures, one dict a plan."""
+    through its facade on the card, and the kernel of ``tiled=False``, ==
+    the plain path on the card, == numpy_ref on sources of at most
+    ORACLE_MAX_PIXELS pixels; every case must run a kernel.  Then the
+    wide-window kernel's path: the facade on each WIDE_FACADE plan with
+    every count set to 0 just before, one ``*_wide`` launch a call.  Then
+    WIDE_PITCHED on its 16-byte loads past each row's end (:func:`hold_pitched`).
+    Then WIDE_TIMED, each on the wide-window kernel == plain (== numpy_ref on a
+    small source, == the windowed walk), also from a source 5 bytes into
+    wider rows (byte loads), timed in turns with the
+    windowed kernel's wide-window walk (``wide=False``), the facade's route
+    and the plain path, beside its bound.  Returns {"rows": one dict a
+    plan, "launches": the path's launches by variant}."""
     t_phase = time.perf_counter()
     rows, fails, skips = card_check.exact_sweep(
         card_check.Oracle(), card, cases=card_check.GRADED + card_check.STRESS
@@ -630,54 +652,129 @@ def phase_card_check(cr, build_plan, card: str) -> list:
     check(not bad and not fails and not skips, f"card_check exact sweep: {bad}")
     print(f"card_check exact sweep: {len(rows)} rows (GRADED, STRESS, "
           f"STRESS_GEOMETRIES, WIDE_WINDOW, batch 4 and 2 on three graded configs) "
-          f"ok on their kernels: {sorted({r['variant'] for r in rows})}; windowed "
+          f"ok on their kernels: {sorted({r['variant'] for r in rows})}; tiled=False "
           f"{sorted({r['windowed_variant'] for r in rows if 'windowed_variant' in r})}; "
           f"numpy_ref on {sum(r['oracle'] for r in rows)} of them")
-    wide = [time_wide(cr, build_plan, case, card) for case in WIDE_TIMED]
+    facades = [(case, card_check.facade(case)) for case in card_check.WIDE_FACADE]
+    srcs = [torch.from_numpy(card_check.source(case, 1)).cuda()
+            for case in card_check.WIDE_FACADE]
+    for (case, r), x in zip(facades, srcs):
+        r.resize(x)                            # operands built and cached
+    torch.cuda.synchronize()
+    cr.reset_launches()
+    for (case, r), x in zip(facades, srcs):
+        n = dict(cr.LAUNCHES_BY_VARIANT)
+        r.resize(x)
+        got = {v: c - n[v] for v, c in cr.LAUNCHES_BY_VARIANT.items() if c != n[v]}
+        want = "wrap16_wide" if case[0] == "lanczos" else "u16_wide"
+        check(got == {want: 1}, f"{card_check.case_name(case)}: the facade launched {got}")
+    torch.cuda.synchronize()
+    launches = {v: cr.LAUNCHES_BY_VARIANT[v] for v in ("u16_wide", "wrap16_wide")}
+    check(sum(cr.LAUNCHES_BY_VARIANT.values()) == len(card_check.WIDE_FACADE),
+          f"wide-window path: {cr.LAUNCHES_BY_VARIANT}")
+    print(f"wide-window path: the facade on {len(card_check.WIDE_FACADE)} plans -> "
+          f"launches {launches}")
+    for case in WIDE_PITCHED:
+        hold_pitched(cr, build_plan, case)
+    wide = [time_wide(cr, build_plan, case, card) for case in card_check.WIDE_TIMED]
     print(f"phase card_check: {time.perf_counter() - t_phase!r} s")
-    return wide
+    return {"rows": wide, "launches": launches}
+
+
+def hold_pitched(cr, build_plan, case) -> int:
+    """One WIDE_PITCHED plan from the first ``src_w`` columns of rows of a
+    16-byte aligned pitch 16 past ``src_w`` rounded up to 16, the pitch's
+    tail noise: the wide-window kernel takes 16-byte loads there
+    (``cuda_resize.wide_load_bytes``), its window reaches the row's end, and
+    it == plain (both routes, :func:`hold`; == numpy_ref on a small source)
+    == the windowed walk."""
+    from libiqo_tpu_torch.golden import numpy_ref
+
+    alg, sw, sh, dw, dh, kw = case
+    name = card_check.case_name(case)
+    plan = build_plan(alg, sw, sh, dw, dh, **kw)
+    ops = cr.pack_operands(plan, "cuda", tiled=False)
+    walk = cr.pack_operands(plan, "cuda", tiled=False, wide=False)
+    v = cr.variant(ops.tables)
+    pitch = -(-sw // 16) * 16 + 16
+    buf = torch.from_numpy(random_u8(np.random.default_rng(sw * sh), (1, sh, pitch))).cuda()
+    x = buf[:, :, :sw]
+    check(v.endswith("_wide") and not cr.tiled_ok(plan) and sw % 16
+          and int(ops.tables.layout.win[:, 1].max()) == sw,
+          f"{name}: {v}, window ends at {ops.tables.layout.win[:, 1].max()}")
+    check(cr.wide_load_bytes(x) == 16, f"{name}: pitch {pitch} takes "
+          f"{cr.wide_load_bytes(x)}-byte loads")
+    got, counts = card_check.launched(cr, lambda: cr.resize_fused(ops, x))
+    check(counts == {v: 1}, f"{name}: launched {counts}")
+    small = sw * sh <= ORACLE_MAX_PIXELS
+    err = hold(cr, f"{name} pitch {pitch}", plan, x, numpy_ref if small else None)
+    err = max(err, compare(f"{name} pitch {pitch} walk vs kernel",
+                           cr.resize_fused(walk, x), got))
+    print(f"{name} from a pitch of {pitch} bytes: 16-byte loads past the row's end, "
+          f"kernel[{v}] == plain == the walk{' == numpy_ref' if small else ''}")
+    return err
 
 
 def time_wide(cr, build_plan, case, card: str) -> dict:
-    """One plan on the wide-window walk (``resize_fused`` at fewer than 16
-    rows a block, ``tiled=False``) == plain (== numpy_ref on a small
-    source), timed in turns with the facade's route and the plain path."""
+    """One wide-window plan on the wide-window kernel (``tiled=False``) ==
+    plain (== numpy_ref on a small source), == the windowed walk, from an
+    aligned source and from one 5 bytes into wider rows (byte loads); the
+    facade's route (one launch, of this kernel where ``tiled_ok`` refuses);
+    timed in turns with the walk, the route and the plain path."""
     alg, sw, sh, dw, dh, kw = case
     name = card_check.case_name(case)
     plan = build_plan(alg, sw, sh, dw, dh, **kw)
     r = card_check.facade(case)
     check(r.resolved_backend() == "cuda", f"{name}: resolves to {r.resolved_backend()}")
     ops = cr.pack_operands(plan, "cuda", tiled=False)
+    walk = cr.pack_operands(plan, "cuda", tiled=False, wide=False)
+    v, lay = cr.variant(ops.tables), ops.tables.layout
+    check(v.endswith("_wide") and walk.tables.rows == cr.work_rows(plan) < cr.TILE_ROWS,
+          f"{name}: {v}, the walk at {walk.tables.rows} rows")
     x = torch.from_numpy(card_check.source(case, 0)).cuda()[None]
     got, counts = card_check.launched(cr, lambda: cr.resize_fused(ops, x))
-    check(counts == {"u16": 1} and ops.tables.rows == cr.work_rows(plan) < cr.TILE_ROWS,
-          f"{name}: launched {counts}, {ops.tables.rows} rows a block")
+    check(counts == {v: 1}, f"{name}: launched {counts}")
     err = compare(f"{name} vs plain", got, cr.resize_plain(ops, x))
     if sw * sh <= ORACLE_MAX_PIXELS:
         err = max(err, compare(f"{name} vs numpy_ref", got.cpu(),
                                torch.from_numpy(card_check.oracle(case, 0))[None]))
+    wgot, wcounts = card_check.launched(cr, lambda: cr.resize_fused(walk, x))
+    check(wcounts == {cr.variant(walk.tables): 1}, f"{name}: the walk launched {wcounts}")
+    err = max(err, compare(f"{name} walk vs kernel", wgot, got))
+    off, pad = WIDE_STRIDED
+    buf = torch.from_numpy(random_u8(np.random.default_rng(sw * sh), (1, sh, sw + pad))).cuda()
+    view = buf[:, :, off:off + sw]
+    check(cr.wide_load_bytes(view) == 1, f"{name}: +{off} bytes takes "
+          f"{cr.wide_load_bytes(view)}-byte loads")
+    err = max(err, compare(f"{name} +{off} bytes, pitch {sw + pad}",
+                           cr.resize_fused(ops, view), cr.resize_plain(ops, view)))
     route, route_counts = card_check.launched(cr, lambda: r.resize(x))
-    err = max(err, compare(f"{name} facade vs plain", route, got))
+    err = max(err, compare(f"{name} facade vs kernel", route, got))
+    facade = not cr.tiled_ok(plan)
+    check(len(route_counts) == 1 and sum(route_counts.values()) == 1
+          and (v in route_counts) == facade, f"{name}: the facade launched {route_counts}")
     xs = _harness.perturbed(x, min(WIDE_INPUTS, n_inputs(x.numel())))
     ms = in_turns({"kernel": lambda t: cr.resize_fused(ops, t),
+                   "walk": lambda t: cr.resize_fused(walk, t),
                    "route": lambda t: r.resize(t),
                    "plain": lambda t: cr.resize_plain(ops, t)}, xs,
                   primed={"plain": False})
     bytes_ms, ops_ms = bound([(plan, 1)])
-    wide = {"plan": name, "variant": "u16", "work_rows": ops.tables.rows,
-            "win_max": ops.tables.win_max, "grid": [len(ops.tables.win),
-                                                   -(-dh // ops.tables.rows)],
-            "launches": counts["u16"], "route_variant": "/".join(route_counts),
-            "max_abs_err": err, "ms": ms["kernel"], "route_ms": ms["route"],
-            "plain_ms": ms["plain"], "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    print(f"{name} == plain{' == numpy_ref' if sw * sh <= ORACLE_MAX_PIXELS else ''} "
-          f"on kernel[u16] ({ops.tables.rows} rows a block, a window of "
-          f"{ops.tables.win_max} columns, grid {wide['grid']}): kernel "
-          f"{ms['kernel']!r} ms, route {wide['route_variant']} {ms['route']!r} ms, "
-          f"plain {ms['plain']!r} ms (in turns, {len(xs)} inputs), bound "
-          f"{wide['bound_ms']!r} ms ({wide['bound_by']}) ({card})")
-    return wide
+    row = {"plan": name, "variant": v, "facade": facade,
+           "layout": {"tc": lay.tc, "tr": lay.tr, "ks": lay.ks, "group": lay.group,
+                      "blocks": lay.blocks, "smem": lay.smem},
+           "launches": counts[v], "route_variant": "/".join(route_counts),
+           "max_abs_err": err, "ms": ms["kernel"], "walk_ms": ms["walk"],
+           "walk_rows": walk.tables.rows, "route_ms": ms["route"],
+           "plain_ms": ms["plain"], "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"{name} == plain == the walk{' == numpy_ref' if sw * sh <= ORACLE_MAX_PIXELS else ''}"
+          f", aligned and at +{off} bytes, on kernel[{v}] (tile {lay.tr} x {lay.tc}, "
+          f"{lay.blocks} blocks, {lay.ks} Y slices, {lay.group} lanes an output): kernel "
+          f"{ms['kernel']!r} ms, walk ({walk.tables.rows} rows) {ms['walk']!r}, route "
+          f"{row['route_variant']} {ms['route']!r}, plain {ms['plain']!r} (in turns, "
+          f"{len(xs)} inputs), bound {row['bound_ms']!r} ms ({row['bound_by']}) ({card})")
+    return row
 
 
 def drive_yuv(cr, yuv, build_plan, rng, frame, variant, chroma_variant=None,
@@ -2059,7 +2156,10 @@ def phase_xpass(card: str) -> list:
     :data:`WIDE_REPS`, at the int16 extremes and past 2^22, timed in turns
     with their serial forms; X3's cluster form == plain on ``arange`` and on
     float bits with NaN and -0.0 (as int32 views), timed inside
-    ``ec.main()``.  Returns the fifteen entries of the kernels line."""
+    ``ec.main()``; X2's split form == plain, its spill == its model, timed
+    inside ``ec.main()`` in turns with its single-box form and
+    ``src[128:160, :128].clone()``.  Returns the sixteen entries of the
+    kernels line."""
     from libiqo_tpu_torch.experiments import (_harness, exp_element_clamp as ec,
                                               exp_slice_align as sa, exp_vpu_rate as vr,
                                               exp_vpu_xpass as vx, exp_x_schemes as xs,
@@ -2070,6 +2170,7 @@ def phase_xpass(card: str) -> list:
     err = dict.fromkeys(names + ("xscheme_gemm", "vpu_xpass_gemm", "xscheme_bf16_gemm",
                                  "xscheme_s16_gemm", "slice_groups[wgmma]", "s8_4dot[gemm]",
                                  "s8_2dot_cat[gemm]", "window_probe[x3,cluster]",
+                                 "window_probe[x2,boxes]",
                                  *(f"vpu_xpass_tile[{v},wide]" for v in vx.WIDE_VARIANTS)), 0.0)
 
     # 1. kernel == plain, every variant, full shapes and repeats
@@ -2272,11 +2373,19 @@ def phase_xpass(card: str) -> list:
     srcs = ec.inputs(dev)
     for row, fn, plain in (("x1", ec.window_x1, ec.window_x1_plain),
                            ("x1_batch", ec.window_x1, ec.window_x1_plain),
-                           ("x2", ec.window_x2, ec.window_x2_plain),
+                           ("x2", functools.partial(ec.window_x2, form="single"),
+                            ec.window_x2_plain),
                            ("x3", functools.partial(ec.window_x3, form="serial"),
                             ec.window_x3_plain)):
         err["window_probe"] = max(err["window_probe"], probe_err(
             f"window {row}", fn(srcs[row]), plain(srcs[row])))
+    # X2's split form: out == plain; spill rows inside == src, past the end 0
+    spill = torch.full((ec.BAND_H, ec.BAND_W), -1, dtype=torch.int32, device=dev)
+    got = ec.window_x2(srcs["x2"], spill, form="boxes")
+    err["window_probe[x2,boxes]"] = max(
+        probe_err("window_x2[boxes]", got, ec.window_x2_plain(srcs["x2"])),
+        probe_err("window_x2[boxes] spill", spill.cpu(),
+                  torch.from_numpy(ec.x2_model(srcs["x2"].cpu().numpy())[1])))
     # X3's cluster form: a copy keeps every bit, so compare int32 views, on
     # arange and on random bits with NaN and -0.0 patterns among them
     bits = torch.from_numpy(np.random.default_rng(16).integers(
@@ -2290,8 +2399,10 @@ def phase_xpass(card: str) -> list:
             want = ec.window_x3_plain(var).view(torch.int32)
             key = "window_probe[x3,cluster]" if form == "cluster" else "window_probe"
             err[key] = max(err[key], probe_err(f"window_x3[{form}] {tag}", got, want))
-    print("window_x1 (2-D and batch 3), window_x2, window_x3 == plain; window_x3 [cluster] == "
-          "plain, bit for bit as int32 views, on arange and on random bits with NaN and -0.0")
+    print("window_x1 (2-D and batch 3), window_x2 (both forms; the boxes' spill == its "
+          "model: rows inside == src, past the end 0), window_x3 == plain; window_x3 "
+          "[cluster] == plain, bit for bit as int32 views, on arange and on random bits with "
+          "NaN and -0.0")
 
     # 2. the probes' main paths, every count set to 0 just before
     mods = (xs, vx, vr, sa, ec)
@@ -2312,6 +2423,7 @@ def phase_xpass(card: str) -> list:
         launches[f"vpu_xpass_tile[{v},wide]"] = vx.LAUNCHES[vx.launch_key(v, "wide")]
     launches["window_probe"] = sum(ec.LAUNCHES[r] for r in ("x1", "x1_batch", "x2", "x3"))
     launches["window_probe[x3,cluster]"] = ec.LAUNCHES["x3[cluster]"]
+    launches["window_probe[x2,boxes]"] = ec.LAUNCHES["x2[boxes]"]
     launches["slice_groups"] = sum(sa.LAUNCHES[sa.launch_key(a, kl, "mma_sync")]
                                    for a, kl in sa.CONFIGS)
     launches["slice_groups[wgmma]"] = sum(sa.LAUNCHES[sa.launch_key(a, kl, "wgmma")]
@@ -2321,6 +2433,8 @@ def phase_xpass(card: str) -> list:
     check(not idle, f"X-pass probe variants never launched by main(): {idle}")
     bad = [r for r, v in rows["ec"].items() if r in ec.ROWS and not v["ok"]]
     check(not bad, f"window probes not OK: {bad}")
+    past = rows["ec"]["x2_past_end"]
+    check(past["all_zeros"] and past["inside_equal"], f"X2's spill: {past}")
     check(all(rows["xs"]["checks"][k] for k in ("f32_exact", "f32_exact_serial", "s16_exact",
                                                 "s16_exact_serial")) and
           not rows["xs"]["checks"]["s8_4dot_gold"] and
@@ -2349,6 +2463,7 @@ def phase_xpass(card: str) -> list:
     p_sa = plain_ms(lambda t: sa.slice_groups_plain(t, sops, 128, 512), sw)
     p_ec = plain_ms(ec.window_x1_plain, srcs["x1"])
     p_x3 = plain_ms(ec.window_x3_plain, srcs["x3"])
+    p_x2 = plain_ms(ec.window_x2_plain, srcs["x2"])
     p_wide = {v: _harness.launches_ms(lambda o, v=v: vx.vpu_xpass_plain(v, o, vx.R),
                                       [ops.perturbed(i) for i in range(2)], repeats=2,
                                       primed=False) for v in vx.WIDE_VARIANTS}
@@ -2357,7 +2472,7 @@ def phase_xpass(card: str) -> list:
           f"vpu_xpass dense4 "
           f"R={vx.R} {p_vx!r}, corr_f32 {p_wide['corr_f32']!r}, muls_f32 "
           f"{p_wide['muls_f32']!r}; op_mix epi P=8 {p_vr!r}; slice_groups 128,512 {p_sa!r}; "
-          f"window_x1 {p_ec!r}, window_x3 {p_x3!r} ({card})")
+          f"window_x1 {p_ec!r}, window_x3 {p_x3!r}, window_x2 {p_x2!r} ({card})")
 
     # I: per group, the work planes of 64 applications stacked by rows over
     # the group's window, (64 x planes x 160, K); the s8 dots alone are
@@ -2624,12 +2739,13 @@ def phase_xpass(card: str) -> list:
         print(f"{v}[wide] in turns with the serial form: {ws_!r} us/application (slope R={vx.R} "
               f"to R/8), t(R)/R {wr_!r}; serial form {ss_!r} / {sr_!r}; bound {app_b!r} "
               f"(wide at {app_b / ws_!r} of the bound's pace); library none ({card})")
-    x3c = rows["ec"]["x3[cluster]"]
+    x3c, x2b = rows["ec"]["x3[cluster]"], rows["ec"]["x2[boxes]"]
     print(f"window_x3 [cluster] {x3c['ms'] * 1e3!r} us a launch, serial "
           f"{x3c['serial_ms'] * 1e3!r}, var.index_select(0, idx) "
-          f"{x3c['library_ms'] * 1e3!r} in the same turns; X2 "
-          f"{rows['ec']['x2']['ms'] * 1e3!r}, src[128:160, :128].clone() "
-          f"{rows['ec']['x2']['library_ms'] * 1e3!r} ({card})")
+          f"{x3c['library_ms'] * 1e3!r} in the same turns; X2 [boxes] "
+          f"{rows['ec']['x2[boxes]']['ms'] * 1e3!r}, [single] {rows['ec']['x2']['ms'] * 1e3!r}, "
+          f"src[128:160, :128].clone() {rows['ec']['x2']['library_ms'] * 1e3!r} in the same "
+          f"turns ({card})")
 
     x, j, k, l_, m = (rows["xs"]["s8_4dot"], rows["vx"]["dense4"], rows["vr"]["epi P=8"],
                       rows["sa"]["k0%128, kl=512"], rows["ec"]["x1"])
@@ -2717,6 +2833,15 @@ def phase_xpass(card: str) -> list:
          "library_call": "var.index_select(0, idx), idx = [0, 1, 1, 2] on the card, "
                          "timed in the same turns",
          "serial_ms": x3c["serial_ms"]},
+        {"name": "window_probe[x2,boxes]", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_clamp.cu",
+         "replaces": "scripts/exp_element_clamp.py:83",
+         "launches": launches["window_probe[x2,boxes]"],
+         "max_abs_err": err["window_probe[x2,boxes]"], "ms": x2b["ms"], "plain_ms": p_x2,
+         "bound_ms": x2b["bound_ms"], "bound_by": x2b["bound_by"],
+         "library_ms": x2b["library_ms"], "row": "x2",
+         "library_call": "src[128:160, :128].clone(), timed in the same turns",
+         "single_ms": x2b["single_ms"]},
         *[{"name": f"vpu_xpass_tile[{v},wide]", "route": "cuda",
            "source": "libiqo_tpu_torch/csrc/exp/exp_vpu_f32.cu",
            "replaces": "scripts/exp_vpu_xpass.py:156",
@@ -2833,6 +2958,23 @@ def main() -> int:
 
     src = "libiqo_tpu_torch/csrc/resize_fused.cu"
     tiled_src = "libiqo_tpu_torch/csrc/resize_tiled.cuh"
+
+    def wide_entry(wide, v, plan):
+        """The wide-window kernel's entry for instantiation ``v``: its
+        launches on the facade's path, its times on ``plan`` beside the
+        walk's, and every plan it took in phase 3b."""
+        mine = [r for r in wide["rows"] if r["variant"] == v]
+        t = next(r for r in mine if r["plan"] == plan)
+        return {"name": f"resize_wide[{v.split('_')[0]}]", "route": "cuda",
+                "source": "libiqo_tpu_torch/csrc/resize_wide.cu", "replaces": replaces,
+                "launches": wide["launches"][v],
+                "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None, "plan": plan,
+                "walk_ms": t["walk_ms"],
+                "plans": {r["plan"]: {k: r[k] for k in (
+                    "ms", "walk_ms", "route_ms", "route_variant", "plain_ms", "bound_ms",
+                    "layout")} for r in mine}}
     replaces = "libiqo_tpu/ops/pallas_resize.py:1687"
     replaces_relaxed = "libiqo_tpu/ops/pallas_resize.py:1486"
 
@@ -2886,7 +3028,13 @@ def main() -> int:
          "max_abs_err": max(erru, MAX_ERR["u16"]), "ms": tu["fused_ms"],
          "plain_ms": tu["plain_ms"], "bound_ms": tu["bound_ms"],
          "bound_by": tu["bound_by"], "library_ms": None,
-         "yardstick_ms": tu["yardstick_ms"], "wide_window": wide},
+         "yardstick_ms": tu["yardstick_ms"],
+         "wide_window_walk_ms": {r["plan"]: r["walk_ms"] for r in wide["rows"]}},
+        # the wide-window kernel: launches from the facade on WIDE_FACADE;
+        # ms on the largest plan of its instantiation, every plan under "plans"
+        *(wide_entry(wide, v, plan) for v, plan in (
+            ("u16_wide", "area 7680x4320->240x135"),
+            ("wrap16_wide", "lanczos3 7680x4320->240x135"))),
         *relaxed_entries("wrap16", launches16r, plain16r, err16r, t16r),
         *relaxed_entries("u16", launchesur, plainur, errur, tur),
         sharded["wrap16"], sharded["u16"],

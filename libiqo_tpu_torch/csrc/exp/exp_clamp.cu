@@ -8,11 +8,19 @@
 //   the kernel from blockIdx, as the TPU index map clamps them) and writes the
 //   window's top-left (32, 128) to out tile (ty, tx): out (128, 512) i32 per
 //   plane.  One block of 256 threads per (tx, ty, plane).
-// window_x2: one (64, 256) box at row 128 of the (160, 640) source: its last
-//   32 rows lie past the end, and TMA fills them with zeros
+// window_x2: the (64, 256) window at row 128 of the (160, 640) source: its
+//   last 32 rows lie past the end, and TMA fills them with zeros
 //   (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE).  Rows 0-31, columns 0-127 (inside the
-//   source) go to out (32, 128); `spill`, if given, takes the whole box, so
-//   that the caller can see what the rows past the end held.
+//   source) go to out (32, 128); `spill`, if given, takes the whole window, so
+//   that the caller can see what the rows past the end held.  Two forms:
+//   window_x2_boxes (form="boxes", the default) splits the window into 8
+//   boxes of (64, 32), one a block of 128 threads, each box starting at row
+//   128 and running past the end, each block writing its columns of out
+//   (boxes 0-3) and of spill; window_x2_kernel (form="single") is the first
+//   form, one block loading the whole window as one 64 KB box, 256 threads
+//   copying out.  The single box's 64 KB landing in one SM before any store
+//   starts is what kept it behind src[128:160, :128].clone() (1.117x): the
+//   split form lands 8 KB in each of 8 SMs at once.
 // window_x3: the TPU's sequential grid of 4 with its scratch carried from
 //   step 0, as one block looping over t: at t = 0 one 1-D bulk copy
 //   (cp.async.bulk global -> shared on an mbarrier, the counterpart of
@@ -70,6 +78,9 @@ constexpr int kNVar = 3, kA = 64, kB = 256;
 constexpr int kVarBytes = kNVar * kA * kB * 4;
 constexpr int kAlign = 128;                 // TMA's shared-memory destination alignment
 constexpr int kThreads = 256;
+constexpr int kX2Boxes = 8;                 // boxes of X2's split form, one a block
+constexpr int kX2BoxW = kBandW / kX2Boxes;  // 32 columns: 128 bytes a box row
+constexpr int kX2Threads = 128;
 
 __device__ __forceinline__ uint8_t* aligned(uint8_t* p) {
   const uint32_t s = smem_addr(p);
@@ -138,6 +149,40 @@ window_x2_kernel(const __grid_constant__ CUtensorMap map, int32_t* __restrict__ 
   mbar_wait(&bar, 0);
   copy_out(box, out, 32, kTW, kTW);
   if (spill != nullptr) copy_out(box, spill, kBandH, kBandW, kBandW);
+}
+
+// X2's split form: block b loads the (64, 32) box at (column 32 b, row 128)
+// and writes its rows 0-31 to out's columns [32 b, 32 b + 32) where they
+// lie inside out's 128, and the whole box to spill's columns.
+__global__ void __launch_bounds__(kX2Threads)
+window_x2_boxes_kernel(const __grid_constant__ CUtensorMap map, int32_t* __restrict__ out,
+                       int32_t* __restrict__ spill) {
+  __shared__ __align__(kAlign) int32_t box[kBandH * kX2BoxW];
+  __shared__ __align__(8) uint64_t bar;
+  const int c0 = blockIdx.x * kX2BoxW;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+    mbar_expect(&bar, sizeof(box));               // the whole box, zeros included
+    tma_2d(box, &map, c0, (kH - 32) / 32 * 32, &bar);
+  }
+  __syncthreads();                                // the barrier is initialised
+  mbar_wait(&bar, 0);
+  constexpr int kRowVecs = kX2BoxW / 4;
+  if (c0 < kTW) {
+    for (int i = threadIdx.x; i < 32 * kRowVecs; i += kX2Threads) {
+      const int r = i / kRowVecs, c = 4 * (i % kRowVecs);
+      *reinterpret_cast<int4*>(out + r * kTW + c0 + c) =
+          *reinterpret_cast<const int4*>(box + r * kX2BoxW + c);
+    }
+  }
+  if (spill != nullptr) {
+    for (int i = threadIdx.x; i < kBandH * kRowVecs; i += kX2Threads) {
+      const int r = i / kRowVecs, c = 4 * (i % kRowVecs);
+      *reinterpret_cast<int4*>(spill + r * kBandW + c0 + c) =
+          *reinterpret_cast<const int4*>(box + r * kX2BoxW + c);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -212,13 +257,13 @@ window_x3_cluster_kernel(const float* __restrict__ var, float* __restrict__ out)
 }
 
 // A map of `planes` (160, 640) i32 planes (2-D when planes == 0) with a
-// (64, 256) box, out-of-bounds elements read as zeros.
-int encode(CUtensorMap* map, const void* src, int planes) {
+// (64, box_w) box, out-of-bounds elements read as zeros.
+int encode(CUtensorMap* map, const void* src, int planes, int box_w = kBandW) {
   const EncodeTiled fn = tensor_map_encoder();
   if (fn == nullptr) return 1010;
   const cuuint64_t dims[3] = {kW, kH, static_cast<cuuint64_t>(planes)};
   const cuuint64_t strides[2] = {kW * 4ull, kW * kH * 4ull};
-  const cuuint32_t box[3] = {kBandW, kBandH, 1};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_w), kBandH, 1};
   const cuuint32_t estrides[3] = {1, 1, 1};
   const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_INT32, planes ? 3 : 2,
                          const_cast<void*>(src), dims, strides, box, estrides,
@@ -265,13 +310,20 @@ int iqo_exp_window_x1(const void* src, void* out, int planes, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// X2: src (160, 640) i32 -> out (32, 128); spill (64, 256) or NULL.
-int iqo_exp_window_x2(const void* src, void* out, void* spill, void* stream) {
+// X2: src (160, 640) i32 -> out (32, 128); spill (64, 256) or NULL.  form
+// 0: the split form (8 boxes of (64, 32), 8 blocks); 1: one (64, 256) box.
+int iqo_exp_window_x2(int form, const void* src, void* out, void* spill, void* stream) {
+  if (form != 0 && form != 1) return 1008;
   if (misaligned(src) || misaligned(out) || (spill != nullptr && misaligned(spill))) return 1002;
   CUtensorMap map;
-  if (const int rc = encode(&map, src, 0)) return rc;
-  window_x2_kernel<<<1, kThreads, kBoxSmem, static_cast<cudaStream_t>(stream)>>>(
-      map, static_cast<int32_t*>(out), static_cast<int32_t*>(spill));
+  if (const int rc = encode(&map, src, 0, form == 0 ? kX2BoxW : kBandW)) return rc;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (form == 0)
+    window_x2_boxes_kernel<<<kX2Boxes, kX2Threads, 0, s>>>(
+        map, static_cast<int32_t*>(out), static_cast<int32_t*>(spill));
+  else
+    window_x2_kernel<<<1, kThreads, kBoxSmem, s>>>(
+        map, static_cast<int32_t*>(out), static_cast<int32_t*>(spill));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -63,7 +63,9 @@
 // grid more row tiles (cuda_resize.work_rows; at least 4 rows, which keeps
 // the scope at the JAX package's for these plans).  Each output is still
 // computed by one thread over its whole tap list in tap order, so the bytes
-// are those of the 16-row tile.  The carry form keeps 16 rows.
+// are those of the 16-row tile.  The carry form keeps 16 rows.  This walk
+// takes such plans only with cuda_resize.pack_operands(..., wide=False),
+// for timing turns: csrc/resize_wide.cu takes them otherwise.
 //
 // Every plan whose band (or carry ring) fits shared memory now runs on the
 // tiled kernel, csrc/resize_tiled.cuh, which stages the source band with

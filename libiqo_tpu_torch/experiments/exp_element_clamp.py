@@ -13,11 +13,15 @@ copies, replaces the three ``pl.pallas_call`` sites:
   mbarrier; the coordinates clamped in the kernel from ``blockIdx``, as the
   index map does) and writes its top-left (32, 128) to out tile (ty, tx):
   (128, 512), or (3, 128, 512);
-* ``window_x2(src)`` for ``run_x2`` (``:83``): one (64, 256) box at row 128 of
-  the (160, 640) source, so 32 of its rows lie past the end; TMA fills them
-  with zeros.  Rows 0-31, columns 0-127 (all inside the source) are written,
-  (32, 128); ``spill`` takes the whole box, for :func:`main` to report what
-  the rows past the end held (not gated);
+* ``window_x2(src, spill, form)`` for ``run_x2`` (``:83``): the (64, 256)
+  window at row 128 of the (160, 640) source, so 32 of its rows lie past the
+  end; TMA fills them with zeros.  Rows 0-31, columns 0-127 (all inside the
+  source) are written, (32, 128); ``spill`` takes the whole window, for
+  :func:`main` to report what the rows past the end held (not gated).
+  ``form="boxes"`` (the default) loads the window as 8 TMA boxes of (64, 32),
+  one a block (:func:`x2_schedule`), each from row 128 past the end, each
+  block writing its columns of ``out`` and of ``spill``; ``form="single"``
+  is the first kernel, one block loading one (64, 256) box;
 * ``window_x3(var, form)`` for ``run_x3`` (``:127``): the TPU's sequential
   grid of 4 with its scratch carried, ``var`` (3, 64, 256) float32 ->
   ``out`` (4, 64, 256), ``out[t] = scratch[v(t)]``, ``v = 0, 1, 1, 2``
@@ -43,7 +47,8 @@ no ``libcuda``), and passed as ``__grid_constant__`` parameters.
 (``var[[0, 1, 1, 2]]`` with the index on the card), and X2 in turns with
 ``src[128:160, :128].clone()``, each library call held equal to the plain
 version first.  :data:`LAUNCHES` counts X3's serial form under ``"x3"``
-and its cluster form under ``"x3[cluster]"``.
+and its cluster form under ``"x3[cluster]"``, X2's single box under
+``"x2"`` and its boxes under ``"x2[boxes]"``.
 
 Run on a card: ``python -m libiqo_tpu_torch.experiments.exp_element_clamp``.
 """
@@ -58,9 +63,9 @@ import torch
 from . import _harness
 from ._harness import HBM_BYTES_PER_S, Launches
 
-__all__ = ["FORMS", "LAUNCHES", "ROWS", "bound", "inputs", "main", "window_x1",
-           "window_x1_plain", "window_x2", "window_x2_plain", "window_x3", "window_x3_plain",
-           "x3_model", "x3_schedule"]
+__all__ = ["FORMS", "LAUNCHES", "ROWS", "X2_FORMS", "bound", "inputs", "main",
+           "window_x1", "window_x1_plain", "window_x2", "window_x2_plain", "window_x3",
+           "window_x3_plain", "x2_model", "x2_schedule", "x3_model", "x3_schedule"]
 
 H, W = 160, 640
 TH, TW = 32, 128
@@ -74,9 +79,12 @@ X3_STEPS = 4
 X3_ROWS = 4                 # rows of each variant a cluster takes
 X3_CHUNKS = A // X3_ROWS    # clusters of the cluster form
 FORMS = ("cluster", "serial")   # X3's forms, the first its default
+X2_FORMS = ("boxes", "single")  # X2's forms, the first its default
+X2_BOXES = 8                    # boxes of X2's split form, one a block
+X2_BOX_W = BAND_W // X2_BOXES   # 32 columns each
 # main()'s rows, each a LAUNCHES key: X3's serial form "x3", its cluster form
-# "x3[cluster]"
-ROWS = ("x1", "x1_batch", "x2", "x3", "x3[cluster]")
+# "x3[cluster]"; X2's single box "x2", its boxes "x2[boxes]"
+ROWS = ("x1", "x1_batch", "x2", "x2[boxes]", "x3", "x3[cluster]")
 ITERS = 8
 LAUNCHES = Launches(ROWS)
 
@@ -161,10 +169,50 @@ def window_x1(src: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def window_x2(src: torch.Tensor, spill: torch.Tensor | None = None) -> torch.Tensor:
-    """Kernel M, X2: src (160, 640) int32 -> (32, 128); ``spill`` (64, 256)
-    int32, if given, takes the whole box (the card only).  A CPU tensor takes
+def x2_schedule() -> list[dict]:
+    """X2's split form, one entry a block: the box it loads (its column and
+    row, (64, 32)), the source rows inside the box, the rows past the
+    source's end that TMA fills with zeros, and the columns of ``out`` it
+    writes (rows 0-31; none for boxes past ``out``'s 128 columns)."""
+    r0 = (H - 32) // 32 * 32
+    out = []
+    for b in range(X2_BOXES):
+        c0 = b * X2_BOX_W
+        inside = max(0, min(BAND_H, H - r0))
+        out.append({"block": b, "col": c0, "row": r0, "shape": (BAND_H, X2_BOX_W),
+                    "rows_inside": inside, "rows_past_end": BAND_H - inside,
+                    "out_cols": range(c0, c0 + X2_BOX_W) if c0 < TW else range(0)})
+    return out
+
+
+def x2_model(src: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The split form in NumPy: each block's box read from ``src`` with the
+    rows past the end as zeros, written to its columns of ``out`` and of
+    ``spill``.  Returns out (32, 128), spill (64, 256) and how often each
+    element of the (64, 256) window was loaded."""
+    out = np.zeros((32, TW), np.int32)
+    spill = np.zeros((BAND_H, BAND_W), np.int32)
+    loads = np.zeros((BAND_H, BAND_W), np.int64)
+    for blk in x2_schedule():
+        r, c = blk["row"], blk["col"]
+        box = np.zeros(blk["shape"], np.int32)
+        box[:blk["rows_inside"]] = src[r:r + blk["rows_inside"], c:c + X2_BOX_W]
+        loads[:, c:c + X2_BOX_W] += 1
+        if len(blk["out_cols"]):
+            out[:, blk["out_cols"]] = box[:32]
+        spill[:, c:c + X2_BOX_W] = box
+    return out, spill, loads
+
+
+def window_x2(src: torch.Tensor, spill: torch.Tensor | None = None,
+              form: str | None = None) -> torch.Tensor:
+    """Kernel M, X2: src (160, 640) int32 -> (32, 128), in ``form``
+    (``"boxes"``, the default, or ``"single"``); ``spill`` (64, 256) int32,
+    if given, takes the whole window (the card only).  A CPU tensor takes
     :func:`window_x2_plain`; a CUDA tensor launches the kernel or raises."""
+    form = X2_FORMS[0] if form is None else form
+    if form not in X2_FORMS:
+        raise ValueError(f"window_x2 takes form 'boxes' or 'single', got {form!r}")
     _check_src(src, False)
     if spill is not None and (spill.dtype != torch.int32 or
                               tuple(spill.shape) != (BAND_H, BAND_W)):
@@ -176,9 +224,10 @@ def window_x2(src: torch.Tensor, spill: torch.Tensor | None = None) -> torch.Ten
     out = torch.empty((32, TW), dtype=torch.int32, device=src.device)
     lib = _harness.lib_with_setup("iqo_exp_window_setup", src.device)
     _harness.check_rc(lib.iqo_exp_window_x2(
-        src.data_ptr(), out.data_ptr(), None if spill is None else spill.data_ptr(),
-        _harness.stream(src)), "window_x2")
-    LAUNCHES.add("x2")
+        X2_FORMS.index(form), src.data_ptr(), out.data_ptr(),
+        None if spill is None else spill.data_ptr(), _harness.stream(src)),
+        f"window_x2[{form}]")
+    LAUNCHES.add("x2" if form == "single" else "x2[boxes]")
     return out
 
 
@@ -259,22 +308,26 @@ def bound(row: str) -> tuple[float, str, int]:
 
 
 def main() -> dict:
-    """The script's four runs on card 0, X3 in both forms, each held to its
-    plain version, with the script's OK / WRONG / REJECTED lines (X3's
-    default form, the cluster, under the script's label); X2 timed in turns
-    with ``src[128:160, :128].clone()``, X3's two forms in turns with
-    ``var.index_select(0, idx)``; returns {row: {ok, ms, ...},
-    "x2_past_end": ...}."""
+    """The script's four runs on card 0, X2 and X3 in both forms, each held
+    to its plain version, with the script's OK / WRONG / REJECTED lines (the
+    default forms, X2's boxes and X3's cluster, under the script's labels);
+    X2's two forms timed in turns with ``src[128:160, :128].clone()``, X3's
+    two forms in turns with ``var.index_select(0, idx)``; the spill of both
+    X2 forms checked: rows inside == src, rows past the end zeros; returns
+    {row: {ok, ms, ...}, "x2_past_end": ...}."""
     _harness.require_card()
     card = _harness.card()
     dev = torch.device("cuda", 0)
     srcs = inputs(dev)
     x3 = {f: functools.partial(window_x3, form=f) for f in FORMS}
+    x2 = {f: functools.partial(window_x2, form=f) for f in X2_FORMS}
     calls = {"x1": (window_x1, window_x1_plain), "x1_batch": (window_x1, window_x1_plain),
-             "x2": (window_x2, window_x2_plain), "x3": (x3["serial"], window_x3_plain),
+             "x2": (x2["single"], window_x2_plain), "x2[boxes]": (x2["boxes"], window_x2_plain),
+             "x3": (x3["serial"], window_x3_plain),
              "x3[cluster]": (x3["cluster"], window_x3_plain)}
     label = {"x1": "X1 batch=None", "x1_batch": f"X1 batch={BATCH}",
-             "x2": "X2 (OOB-high Element window)",
+             "x2": "X2 [single] (OOB-high Element window)",
+             "x2[boxes]": "X2 (OOB-high Element window)",
              "x3": "X3 [serial] (dynamic scratch leading index)",
              "x3[cluster]": "X3 (dynamic scratch leading index)"}
     rows, verdicts = {}, {}
@@ -287,7 +340,7 @@ def main() -> dict:
             rows[row] = {"ok": False, "rejected": True}
             continue
         verdicts[row] = ("OK" if ok else "VALUE MISMATCH") if row.startswith("x1") else \
-            ("ran, in-bounds part " + ("OK" if ok else "WRONG")) if row == "x2" else \
+            ("ran, in-bounds part " + ("OK" if ok else "WRONG")) if row.startswith("x2") else \
             ("ran, " + ("OK" if ok else "WRONG VALUES"))
         rows[row] = {"ok": ok, "rejected": False}
     # library calls, each held to the plain version first
@@ -301,7 +354,7 @@ def main() -> dict:
     ran = [r for r in ROWS if not rows[r]["rejected"]]
     ms = {r: _harness.launches_ms(calls[r][0], _harness.perturbed(srcs[r], ITERS))
           for r in ran if r.startswith("x1")}
-    for group in (("x2",), ("x3", "x3[cluster]")):
+    for group in (("x2", "x2[boxes]"), ("x3", "x3[cluster]")):
         base = group[0]
         turns = {r: (calls[r][0], _harness.perturbed(srcs[base], ITERS)) for r in group if r in ran}
         turns[base + " library"] = (library[base], _harness.perturbed(srcs[base], ITERS))
@@ -312,20 +365,26 @@ def main() -> dict:
         extra = {"library_ms": ms[base + " library"]} if base in library else {}
         if row == "x3[cluster]" and "x3" in ms:
             extra["serial_ms"] = ms["x3"]
+        if row == "x2[boxes]" and "x2" in ms:
+            extra["single_ms"] = ms["x2"]
         print(f"{label[row]}: {verdicts[row]}; {ms[row] * 1e3!r} us per launch, {nbytes} bytes, "
               f"bound {b_ms * 1e3!r} us ({by})"
               + "".join(f"; {k} {v * 1e3!r} us in the same turns" for k, v in extra.items())
               + f" ({card})", flush=True)
         rows[row].update(ms=ms[row], bound_ms=b_ms, bound_by=by, bytes=nbytes, **extra)
-    spill = torch.full((BAND_H, BAND_W), -1, dtype=torch.int32, device=srcs["x2"].device)
-    window_x2(srcs["x2"], spill)
-    past = spill[H - (H - 32) // 32 * 32:]
-    zeros = bool((past == 0).all())
-    print(f"X2 box rows past the end (32 x {BAND_W}): "
-          f"{'all zeros' if zeros else 'not all zeros: ' + str(past.unique()[:8].tolist())}; "
-          f"rows inside == src: {torch.equal(spill[:32], srcs['x2'][128:, :BAND_W])} ({card})",
-          flush=True)
-    rows["x2_past_end"] = {"all_zeros": zeros, "rows": past.shape[0]}
+    inside = H - (H - 32) // 32 * 32
+    zeros, same = True, True
+    for form in X2_FORMS:
+        spill = torch.full((BAND_H, BAND_W), -1, dtype=torch.int32, device=srcs["x2"].device)
+        window_x2(srcs["x2"], spill, form)
+        past = spill[inside:]
+        zeros &= bool((past == 0).all())
+        same &= torch.equal(spill[:inside], srcs["x2"][128:, :BAND_W])
+        print(f"X2 [{form}] rows past the end ({past.shape[0]} x {BAND_W}): "
+              f"{'all zeros' if (past == 0).all() else 'not all zeros: ' + str(past.unique()[:8].tolist())}; "
+              f"rows inside == src: {torch.equal(spill[:inside], srcs['x2'][128:, :BAND_W])} "
+              f"({card})", flush=True)
+    rows["x2_past_end"] = {"all_zeros": zeros, "inside_equal": same, "rows": BAND_H - inside}
     return rows
 
 

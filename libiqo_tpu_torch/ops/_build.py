@@ -9,9 +9,9 @@ rebuilt and an unchanged one is loaded as it is.  Each
 source is compiled by its own ``nvcc -c``, all started together, and the
 objects are linked by one ``nvcc -shared``:
 
-* the resize kernels, ``resize_fused`` and the four forms of
-  ``resize_tiled`` (one source each, the kernel in ``resize_tiled.cuh``),
-  from ``libiqo_tpu_torch/csrc/*.cu`` (:func:`load`);
+* the resize kernels, ``resize_fused``, the four forms of
+  ``resize_tiled`` (one source each, the kernel in ``resize_tiled.cuh``)
+  and ``resize_wide``, from ``libiqo_tpu_torch/csrc/*.cu`` (:func:`load`);
 * the measurement probes of ``libiqo_tpu_torch/experiments``, from
   ``libiqo_tpu_torch/csrc/exp/*.cu`` (:func:`load_experiments`).
 
@@ -159,6 +159,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, i, i, i,                  # rwin, iyr, ring_rows, ring_pitch, run (carry)
         p]                              # stream
     lib.iqo_resize_fused.restype = i
+    lib.iqo_resize_wide.argtypes = [
+        i, p, p, i, ll, ll, i, i, i, i, # wrap16, src, dst, frames, strides, src, dst shape
+        p, p, p, i, i,                  # cy, ys, ydiv, taps_y, y_bias
+        p, p, p, i,                     # cx, xs, xdiv, taps_x
+        p, i, i, i, i, i, i,            # win, n_ct, tc, tr, ks, group, wp
+        i, p]                           # out_shift, stream
+    lib.iqo_resize_wide.restype = i
+    lib.iqo_wide_set_max_smem.argtypes = [i]
+    lib.iqo_wide_set_max_smem.restype = i
+    lib.iqo_wide_shape.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.iqo_wide_shape.restype = i
+    lib.iqo_wide_load_bytes.argtypes = [p, i, ll, ll]   # src, frames, strides
+    lib.iqo_wide_load_bytes.restype = i
     bind_tiled(lib)
     lib.iqo_set_max_smem.argtypes = [i]
     lib.iqo_set_max_smem.restype = i
@@ -273,7 +286,7 @@ def _exp_signatures() -> tuple:
         ("iqo_exp_slice_wgmma_setup", []),
         ("iqo_exp_slice_wgmma_shape", [ctypes.POINTER(i)]),
         ("iqo_exp_window_x1", [p, p, i, p]),         # src, out, planes, stream
-        ("iqo_exp_window_x2", [p, p, p, p]),         # src, out, spill, stream
+        ("iqo_exp_window_x2", [i, p, p, p, p]),      # form, src, out, spill, stream
         ("iqo_exp_window_x3", [p, p, i, p]),         # var, out, steps, stream
         ("iqo_exp_window_x3_cluster", [p, p, p]),    # var, out, stream
         ("iqo_exp_window_setup", []))

@@ -1,7 +1,7 @@
 """The fused resize kernels for Hopper: host-side operands, scope, routes and
 wrapper.
 
-Two kernels replace the TPU's fused Pallas kernel
+Three kernels replace the TPU's fused Pallas kernel
 (``libiqo_tpu/ops/pallas_resize.py:_make_padless_fn``).  The tiled kernel
 (``csrc/resize_tiled.cuh``) runs every plan whose band fits its shared
 memory: one block stages its source band and tile records
@@ -21,7 +21,9 @@ relaxed carry form (``*_relaxed_carry_tiled``).  The windowed kernel
 (``csrc/resize_fused.cu``) serves the plans whose band does not fit, in the
 same forms (``wrap16``, ``u16``, ``*_relaxed``, ``*_carry`` where
 :func:`carry_ok` holds, ``*_relaxed_carry``), and every plan with
-``tiled=False``.  This module packs a :class:`ResizePlan` into the kernels' operands, decides
+``tiled=False``, except the exact plans whose window is too wide for its
+16-row work tile: the wide-window kernel (``csrc/resize_wide.cu``,
+``wrap16_wide``, ``u16_wide``, :func:`wide_layout`) takes those.  This module packs a :class:`ResizePlan` into the kernels' operands, decides
 which plans they take (:func:`supports_plan`, :func:`tiled_ok`), and
 launches the one the operands were built for (:func:`resize_fused`).
 :func:`resize_plain` is the same function in plain PyTorch over the same
@@ -44,11 +46,13 @@ from . import _build, torch_resize
 
 __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "VARIANTS", "CarryLayout",
            "KernelOperands", "KernelTables", "TiledLayout", "TiledTables",
-           "carry_layout", "carry_ok", "carry_requested", "kernel_tables",
-           "pack_operands", "relaxed_plane", "reset_launches",
-           "resize_fused", "resize_plain", "smem_bytes", "supports_plan",
-           "tile_windows", "tiled_carry_layout", "tiled_layout", "tiled_ok",
-           "tiled_tables", "tiled_width", "variant", "work_rows"]
+           "WideLayout", "WideTables", "carry_layout", "carry_ok",
+           "carry_requested", "kernel_tables", "pack_operands",
+           "relaxed_plane", "reset_launches", "resize_fused", "resize_plain",
+           "smem_bytes", "supports_plan", "tile_windows", "tiled_carry_layout",
+           "tiled_layout", "tiled_ok", "tiled_tables", "tiled_width",
+           "variant", "wide_layout", "wide_load_bytes", "wide_tables",
+           "work_rows"]
 
 # Must match kTileRows/kTileCols in csrc/resize_fused.cu (checked at load).
 TILE_ROWS = 16
@@ -66,13 +70,19 @@ RING_ALIGN = 16           # bytes: the ring's row pitch is a multiple
 TILED_WIDTHS = (128, 64, 32)   # output columns per block of the tiled kernel
 TILED_BLOCKS = 264        # blocks a tiled grid aims for: two per SM of 132
 BAND_ALIGN = 128          # bytes: the staged band's row pitch is a multiple
+# Must match kThreads/kGroupCols in csrc/resize_wide.cu (checked at load).
+WIDE_THREADS = 256        # threads a block of the wide-window kernel
+WIDE_GROUP_COLS = 16      # work columns a Y item: one 16-byte load a tap
+WIDE_BLOCKS = 264         # blocks a wide-window grid aims for: two per SM of 132
+WIDE_SLICE_TAPS = 128     # Y taps an output row from which the Y pass slices them
+WIDE_ITEM_SHARE = 0.9     # the Y items' least share of the threads' last round
 
 VARIANTS = ("wrap16", "u16", "wrap16_relaxed", "u16_relaxed",
             "wrap16_carry", "u16_carry", "wrap16_relaxed_carry",
             "u16_relaxed_carry", "wrap16_tiled", "u16_tiled",
             "wrap16_relaxed_tiled", "u16_relaxed_tiled", "wrap16_carry_tiled",
             "u16_carry_tiled", "wrap16_relaxed_carry_tiled",
-            "u16_relaxed_carry_tiled")
+            "u16_relaxed_carry_tiled", "wrap16_wide", "u16_wide")
 LAUNCHES = 0              # kernel launches in this process
 LAUNCHES_BY_VARIANT = dict.fromkeys(VARIANTS, 0)   # the same, by instantiation
 _launch_lock = threading.Lock()
@@ -90,10 +100,13 @@ def reset_launches() -> None:
 def variant(plan, relaxed: bool = False, carry: bool = False) -> str:
     """The kernel instantiation that a plan takes on the windowed
     ``resize_fused``, exact or ``relaxed``, without or with ``carry`` (one
-    of :data:`VARIANTS`); given its :class:`KernelTables` or
-    :class:`TiledTables`, the one they were built for, whose name ends in
-    ``_tiled`` for the tiled kernel's."""
+    of :data:`VARIANTS`); given its :class:`KernelTables`,
+    :class:`TiledTables` or :class:`WideTables`, the one they were built
+    for, whose name ends in ``_tiled`` for the tiled kernel's and in
+    ``_wide`` for the wide-window kernel's."""
     name = "wrap16" if plan.wrap16 else "u16"
+    if getattr(plan, "wide", False):
+        return name + "_wide"
     if getattr(plan, "relaxed", relaxed):
         name += "_relaxed"
     if getattr(plan, "carry", carry):
@@ -124,14 +137,15 @@ def work_rows(plan: ResizePlan) -> int:
     height of its work tile), or 0 where no height fits.
 
     TILE_ROWS wherever that work tile fits SMEM_BUDGET.  Else the most rows
-    that fit, at least MIN_WORK_ROWS: the kernel's wide-window walk, for
-    any plan whose widest column-tile window is too wide for 16 rows (Area
-    8192x4 -> 16x4: one partial column tile of 8192 source columns, 7
-    rows; Area 8192x2160 -> 256x540: two column tiles of 4096, 14 rows).
+    that fit, at least MIN_WORK_ROWS: the scope of the plans whose widest
+    column-tile window is too wide for 16 rows (Area 8192x4 -> 16x4: one
+    partial column tile of 8192 source columns, 7 rows; Area 8192x2160 ->
+    256x540: two column tiles of 4096, 14 rows), which the wide-window
+    kernel (:func:`wide_layout`) takes, and ``pack_operands(...,
+    wide=False)`` the windowed kernel's wide-window walk at these rows.
     With fewer than 4 rows it would take windows past 14528 columns, which
     the JAX package's kernel refuses (Area 16384x4 -> 16x4, 65536x16 ->
-    16x16).  Each output is computed as in the 16-row tile, so the bytes
-    are the same."""
+    16x16)."""
     w = tile_windows(plan.x)
     win = int((w[:, 1] - w[:, 0]).max())
     rows = min(TILE_ROWS, SMEM_BUDGET // (4 * win))
@@ -638,6 +652,7 @@ class TiledTables:
     relaxed: bool = False
     carry: bool = False
     tiled: bool = True
+    wide: bool = False
 
 
 def _relaxed_tensors(plan: ResizePlan, relaxed: bool, device):
@@ -665,6 +680,153 @@ def tiled_tables(plan: ResizePlan, device="cpu",
 
 
 @dataclasses.dataclass(frozen=True)
+class WideLayout:
+    """How the wide-window kernel (``csrc/resize_wide.cu``) walks a plan.
+    Block b computes the ``tr`` x ``tc`` outputs of row tile ``b // n_ct``
+    and column tile ``b % n_ct``.  Its Y pass walks items of (``ks`` slices
+    of the Y taps, output row, WIDE_GROUP_COLS work columns from the column
+    window's start rounded down to 16 bytes), ``ng`` groups a row at most,
+    into a ``tr`` x ``wp`` int32 work tile; its X pass gives each output's
+    taps to ``group`` lanes of a warp."""
+    tc: int                 # output columns a block
+    tr: int                 # output rows a block
+    ks: int                 # slices of the Y taps
+    group: int              # lanes an output's X taps split over
+    ng: int                 # 16-column groups of the widest window
+    wp: int                 # work tile row pitch, int32 words
+    win: np.ndarray         # (n_col_tiles, 2) int32 [lo, hi) source columns
+    n_rt: int               # row tiles
+    taps_y: int
+    taps_x: int
+
+    @property
+    def n_ct(self) -> int:
+        return len(self.win)
+
+    @property
+    def blocks(self) -> int:
+        """Blocks a frame."""
+        return self.n_ct * self.n_rt
+
+    @property
+    def smem(self) -> int:
+        """Bytes of shared memory a block: the work tile, the block's Y and
+        X tables and their starts."""
+        return 4 * (self.tr * (self.wp + self.taps_y + 1)
+                    + self.tc * (self.taps_x + 1))
+
+
+def _wide_groups(win: np.ndarray) -> int:
+    """16-column groups of the widest window, from its start rounded down to
+    16 columns (the 16-byte loads' alignment)."""
+    lo = win[:, 0].astype(np.int64)
+    return int((-(-(win[:, 1] - (lo - lo % WIDE_GROUP_COLS)) // WIDE_GROUP_COLS)).max())
+
+
+def _item_share(items: int) -> float:
+    """The share of the threads that Y items fill over their rounds."""
+    return items / (WIDE_THREADS * -(-items // WIDE_THREADS))
+
+
+def wide_layout(plan: ResizePlan, budget: int = SMEM_BUDGET,
+                blocks: int = WIDE_BLOCKS, tc: int | None = None,
+                tr: int | None = None) -> WideLayout | None:
+    """The wide-window kernel's layout of a plan (see :class:`WideLayout`),
+    or None where even one output a block does not fit ``budget`` bytes of
+    shared memory.  A pure function of the plan.
+
+    The tile: from TILE_ROWS x TILE_COLS (rows capped at the plan's),
+    halve the columns and the rows in turn until a frame's grid holds
+    ``blocks`` blocks (two per SM of an H100) or each output has a block of
+    its own; then the rows, and if need be the columns, shrink until the
+    block's shared memory fits ``budget`` (``tc`` and ``tr`` fix either).
+    Columns stay powers of two, so each column tile's window lies inside
+    the 128-column tile's.  ``ks``: 1 below WIDE_SLICE_TAPS Y taps (the
+    slices' zero fill and shared-memory atomics cost more than they gain
+    there); else the fewest slices (at least 4 taps a slice) whose items
+    fill the threads' last round to WIDE_ITEM_SHARE, else the best.
+    ``group``: the fewest lanes, a power of two up to 32, that give every
+    thread an output's share of taps."""
+    dw, dh = plan.x.n_dst, plan.y.n_dst
+    taps_y, taps_x = plan.y.num_coefs, plan.x.num_coefs
+    fixed_c, fixed_r = tc is not None, tr is not None
+    tc = TILE_COLS if tc is None else tc
+    tr = min(TILE_ROWS, dh) if tr is None else tr
+    turn = 0
+    while -(-dw // tc) * -(-dh // tr) < blocks:
+        can_c, can_r = tc > 1 and not fixed_c, tr > 1 and not fixed_r
+        if not (can_c or can_r):
+            break
+        if can_c and (turn % 2 == 0 or not can_r):
+            tc //= 2
+        else:
+            tr = -(-tr // 2)
+        turn += 1
+    while True:
+        win = tile_windows(plan.x, tc)
+        ng = _wide_groups(win)
+        wp = ng * WIDE_GROUP_COLS + 4          # rows 4 banks apart
+        room = budget // 4 - tc * (taps_x + 1)
+        fit = room // (wp + taps_y + 1) if room > 0 else 0
+        if fit >= 1:
+            tr = min(tr, fit)
+            break
+        if tc == 1 or fixed_c:
+            return None
+        tc //= 2
+    items = tr * ng
+    top = max(1, min(taps_y // 4, WIDE_THREADS)) if taps_y >= WIDE_SLICE_TAPS else 1
+    shares = [_item_share(items * k) for k in range(1, top + 1)]
+    ks = next((k for k, v in enumerate(shares, 1) if v >= WIDE_ITEM_SHARE),
+              1 + int(np.argmax(shares)))
+    group = 1
+    while group < 32 and tr * tc * group < WIDE_THREADS and group < taps_x:
+        group *= 2
+    return WideLayout(tc=tc, tr=tr, ks=ks, group=group, ng=ng, wp=wp,
+                      win=win, n_rt=-(-dh // tr), taps_y=taps_y, taps_x=taps_x)
+
+
+@dataclasses.dataclass(frozen=True)
+class WideTables:
+    """The wide-window kernel's operands, output-major int32 tables on the
+    device, and its layout.  Read-only once built."""
+    cy: torch.Tensor        # (dst_h, taps_y)
+    ys: torch.Tensor        # (dst_h,) first source row, unclamped
+    ydiv: torch.Tensor      # (dst_h,) border divisor, 0 on main rows
+    cx: torch.Tensor        # (dst_w, taps_x)
+    xs: torch.Tensor        # (dst_w,) first source column, unclamped
+    xdiv: torch.Tensor      # (dst_w,) deno_x * y_bias, 0 on main columns
+    win: torch.Tensor       # (n_col_tiles, 2) source columns [lo, hi)
+    layout: WideLayout
+    wrap16: bool
+    relaxed: bool = False
+    carry: bool = False
+    tiled: bool = False
+    wide: bool = True
+
+
+def wide_tables(plan: ResizePlan, device="cpu",
+                layout: WideLayout | None = None) -> WideTables:
+    """The wide-window kernel's tables for an exact plan, at ``layout``
+    (:func:`wide_layout` by default, which must take the plan)."""
+    lay = wide_layout(plan) if layout is None else layout
+    if lay is None:
+        raise ValueError("one output a block does not fit the wide-window "
+                         "kernel's shared memory")
+    ydeno = np.where(plan.y.deno == 0, 1, plan.y.deno)
+
+    def t(a):
+        a = np.ascontiguousarray(np.asarray(a).astype(np.int32))
+        return torch.from_numpy(a).to(device)
+
+    return WideTables(
+        cy=t(plan.y.coef), ys=t(plan.y.start),
+        ydiv=t(np.where(plan.y.is_border, ydeno, 0)), cx=t(plan.x.coef),
+        xs=t(plan.x.start), xdiv=t(_x_divisors(plan)), win=t(lay.win),
+        layout=lay, wrap16=plan.wrap16)
+
+
+@dataclasses.dataclass(frozen=True)
 class KernelTables:
     """The kernel's operands, tap-major: int32 tables, and in the relaxed
     form float32 coefficient planes of bf16 values.  Read-only once
@@ -689,6 +851,7 @@ class KernelTables:
     run: int = 0
     rows: int = TILE_ROWS   # output rows a block (:func:`work_rows`)
     tiled: bool = False     # these are resize_fused's tables, not the tiled kernel's
+    wide: bool = False      # ... nor the wide-window kernel's
 
 
 @dataclasses.dataclass(frozen=True)
@@ -699,7 +862,7 @@ class KernelOperands:
     holds), relaxed ones on any device, since the relaxed plain version
     reads its planes from them."""
     plain: torch_resize.Operands
-    tables: KernelTables | TiledTables | None
+    tables: KernelTables | TiledTables | WideTables | None
 
     @property
     def device(self) -> torch.device:
@@ -711,23 +874,31 @@ class KernelOperands:
 
 
 def kernel_tables(plan: ResizePlan, device="cpu", relaxed: bool = False,
-                  carry: bool = False, tiled: bool = True
-                  ) -> KernelTables | TiledTables:
+                  carry: bool = False, tiled: bool = True, wide: bool = True
+                  ) -> KernelTables | TiledTables | WideTables:
     """The kernel's tables for a plan that :func:`supports_plan` takes
     (with the same ``relaxed``), exact or relaxed.  With ``tiled`` (the
     default), the tiled kernel's (:func:`tiled_tables`): with ``carry`` its
     carry form's where :func:`tiled_carry_layout` takes the plan; else,
     without a windowed carry (:func:`carry_ok`) to take its place, its
     plain form's where that layout fits (:func:`tiled_ok`).  Else the
+    wide-window kernel's (:func:`wide_tables`) for an exact plan whose
+    16-row work tile does not fit (:func:`work_rows` < TILE_ROWS) where
+    :func:`wide_layout` takes it and ``wide`` holds (the default); else the
     windowed ``resize_fused`` form's: the carry form where ``carry`` and
-    :func:`carry_ok` hold, the plain one otherwise (every plan's with
-    ``tiled=False``)."""
+    :func:`carry_ok` hold, the plain one otherwise (every other plan's with
+    ``tiled=False``, and with ``wide=False`` the wide-window walk's at
+    fewer rows a block)."""
     if tiled:
         lay = tiled_carry_layout(plan, relaxed) if carry else None
         if lay is None and not (carry and carry_ok(plan)):
             lay = tiled_layout(plan, relaxed)
         if lay is not None and _fits(lay):
             return tiled_tables(plan, device, lay)
+    if wide and not relaxed and 0 < work_rows(plan) < TILE_ROWS:
+        lay = wide_layout(plan)
+        if lay is not None:
+            return wide_tables(plan, device, lay)
     win = tile_windows(plan.x)
     ydeno = np.where(plan.y.deno == 0, 1, plan.y.deno)
 
@@ -755,17 +926,20 @@ def kernel_tables(plan: ResizePlan, device="cpu", relaxed: bool = False,
 
 
 def pack_operands(plan: ResizePlan, device="cpu", relaxed: bool = False,
-                  carry: bool = False, tiled: bool = True) -> KernelOperands:
+                  carry: bool = False, tiled: bool = True,
+                  wide: bool = True) -> KernelOperands:
     """Turn a :class:`ResizePlan` into tensors on ``device``.  Exact: the
     kernel's tables are built only where it can launch, on a CUDA device
     for plans inside :func:`supports_plan`: the tiled kernel's where
-    :func:`tiled_ok` holds, else the windowed ``resize_fused`` form's;
-    ``tiled=False`` builds the windowed form's for every plan (to run the
-    two kernels side by side).  ``relaxed=True`` needs
-    ``supports_plan(plan, relaxed=True)`` (else ValueError) and builds the
-    relaxed tables, by the same routes, on any device.  ``carry=True``
-    builds a carry form's tables where one takes the plan
-    (:func:`kernel_tables`)."""
+    :func:`tiled_ok` holds, else the wide-window kernel's where the 16-row
+    work tile does not fit, else the windowed ``resize_fused`` form's;
+    ``tiled=False`` builds those of the other two for every plan (to run the
+    kernels side by side), and ``wide=False`` the windowed kernel's
+    wide-window walk in place of the wide-window kernel (to time the two in
+    turns).  ``relaxed=True`` needs ``supports_plan(plan, relaxed=True)``
+    (else ValueError) and builds the relaxed tables, by the same routes, on
+    any device.  ``carry=True`` builds a carry form's tables where one takes
+    the plan (:func:`kernel_tables`)."""
     device = torch.device(device)
     if relaxed:
         if not supports_plan(plan, relaxed=True):
@@ -774,7 +948,7 @@ def pack_operands(plan: ResizePlan, device="cpu", relaxed: bool = False,
         tables = kernel_tables(plan, device, relaxed=True, carry=carry,
                                tiled=tiled)
     elif device.type == "cuda" and supports_plan(plan):
-        tables = kernel_tables(plan, device, carry=carry, tiled=tiled)
+        tables = kernel_tables(plan, device, carry=carry, tiled=tiled, wide=wide)
     else:
         tables = None
     return KernelOperands(plain=torch_resize.pack_operands(plan, device),
@@ -806,6 +980,11 @@ def _lib():
         raise RuntimeError(f"tiled kernel rows {rows.value}, widths "
                            f"{tuple(widths[:n])} != host {TILE_ROWS}, "
                            f"{TILED_WIDTHS}")
+    lib.iqo_wide_shape(ctypes.byref(rows), ctypes.byref(cols))
+    if (rows.value, cols.value) != (WIDE_THREADS, WIDE_GROUP_COLS):
+        raise RuntimeError(f"wide-window kernel {rows.value} threads, "
+                           f"{cols.value} columns an item != host "
+                           f"{WIDE_THREADS}, {WIDE_GROUP_COLS}")
     return lib
 
 
@@ -815,20 +994,32 @@ def _lib_for(device: torch.device):
     the budget on ``device``, once per device."""
     lib = _lib()
     with torch.cuda.device(device):
-        rc = lib.iqo_set_max_smem(SMEM_BUDGET) or lib.iqo_tiled_set_max_smem(
-            SMEM_BUDGET)
+        rc = (lib.iqo_set_max_smem(SMEM_BUDGET)
+              or lib.iqo_tiled_set_max_smem(SMEM_BUDGET)
+              or lib.iqo_wide_set_max_smem(SMEM_BUDGET))
     if rc != 0:
         raise RuntimeError(f"resize_fused setup failed on {device}: "
                            f"{lib.iqo_error_string(rc).decode()} ({rc})")
     return lib
 
 
+def wide_load_bytes(src: torch.Tensor) -> int:
+    """The width in bytes of the loads the wide-window kernel takes on a
+    (B, src_h, src_w) uint8 CUDA tensor: 16 where its start and strides are
+    16-byte aligned, else 1 (the kernel's own rule, ``iqo_wide_load_bytes``)."""
+    if src.device.type != "cuda" or src.dim() != 3:
+        raise ValueError(f"a (B, src_h, src_w) CUDA tensor, not {src.dim()}-d on {src.device}")
+    return _lib().iqo_wide_load_bytes(src.data_ptr(), src.shape[0], src.stride(0),
+                                      src.stride(1))
+
+
 def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
     """(B, src_h, src_w) uint8 -> (B, dst_h, dst_w) uint8.
 
     Launches the kernel the tables were built for: the tiled kernel
-    (``csrc/resize_tiled.cuh``) in its form for :class:`TiledTables`, else
-    ``resize_fused`` in its instantiation.  A CPU tensor goes through
+    (``csrc/resize_tiled.cuh``) in its form for :class:`TiledTables`, the
+    wide-window kernel (``csrc/resize_wide.cu``) for :class:`WideTables`,
+    else ``resize_fused`` in its instantiation.  A CPU tensor goes through
     :func:`resize_plain`.  A CUDA tensor launches
     the kernel, or raises: there is no fallback.  Rows may be strided; the
     last dimension must be contiguous."""
@@ -868,6 +1059,16 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
             lay.max_phases, ops.plain.y_bias, ops.plain.out_shift, lay.planes,
             lay.run, lay.slots, stream)
         return _launched(lib, rc, k, out, "resize_tiled")
+    if k.wide:
+        lay = k.layout
+        rc = lib.iqo_resize_wide(
+            int(k.wrap16), src.data_ptr(), out.data_ptr(), src.shape[0],
+            src.stride(0), src.stride(1), h, w, dh, dw, k.cy.data_ptr(),
+            k.ys.data_ptr(), k.ydiv.data_ptr(), lay.taps_y, ops.plain.y_bias,
+            k.cx.data_ptr(), k.xs.data_ptr(), k.xdiv.data_ptr(), lay.taps_x,
+            k.win.data_ptr(), lay.n_ct, lay.tc, lay.tr, lay.ks, lay.group,
+            lay.wp, ops.plain.out_shift, stream)
+        return _launched(lib, rc, k, out, "resize_wide")
     rc = lib.iqo_resize_fused(
         int(k.wrap16), int(k.relaxed), int(k.carry), src.data_ptr(),
         out.data_ptr(),

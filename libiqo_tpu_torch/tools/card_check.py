@@ -11,12 +11,13 @@ root on a machine with a CUDA card::
 Sweeps, each a function that returns its rows:
 
 * :func:`exact_sweep`: :data:`GRADED`, :data:`STRESS`,
-  :data:`STRESS_GEOMETRIES`, the port's own :data:`WIDE_WINDOW` (the
-  windowed kernel's wide-window walk on several column tiles) and
-  ``fuzz_cases(20)`` through the facades on
+  :data:`STRESS_GEOMETRIES`, the port's own :data:`WIDE_WINDOW` (windows
+  too wide for 16 rows of the windowed kernel, on the wide-window kernel)
+  and ``fuzz_cases(20)`` through the facades on
   ``cuda`` (``LanczosResizer``/``AreaResizer``/``LinearResizer``), and the
-  windowed ``resize_fused`` (``pack_operands(..., tiled=False)``) on each,
-  both == ``numpy_ref`` == the plain path on the card; batch 4 and 2 on
+  kernel of ``pack_operands(..., tiled=False)`` on each (the windowed
+  ``resize_fused``, or the wide-window kernel where the 16-row tile does
+  not fit), both == ``numpy_ref`` == the plain path on the card; batch 4 and 2 on
   ``GRADED[0]``, ``[2]`` and ``[4]``.  Each row names the instantiation
   that ran, read from ``cuda_resize.LAUNCHES_BY_VARIANT`` after
   ``reset_launches()``.  A GRADED, STRESS, STRESS_GEOMETRIES or WIDE_WINDOW case that
@@ -105,9 +106,10 @@ STRESS_GEOMETRIES = [
     ("lanczos", 640, 480, 1920, 1440, dict(degree=4)),     # 3x upsample deg4
 ]
 # the port's own list: windows too wide for 16 rows of the windowed kernel's
-# shared memory on several column tiles, which its wide-window walk takes
-# at 4-15 rows a block (cuda_resize.work_rows); the first two the JAX
-# package's kernel takes too, the rest it refuses
+# shared memory on several column tiles (4-15 rows fit: cuda_resize.work_rows),
+# which the wide-window kernel takes (csrc/resize_wide.cu; the facade's route
+# where tiled_ok refuses); the first two the JAX package's kernel takes too,
+# the rest it refuses.  Rows: the windowed walk's (wide=False)
 WIDE_WINDOW = [
     ("area", 8192, 2160, 256, 540, {}),              # 2 column tiles, 14 rows
     ("area", 4096, 2160, 128, 540, {}),              # 1 column tile, 14 rows
@@ -117,6 +119,11 @@ WIDE_WINDOW = [
     ("lanczos", 7680, 4320, 240, 135, dict(degree=3)),   # wrap16, 13 rows
     ("area", 40960, 8, 1024, 8, {}),                 # 8 column tiles, 11 rows
 ]
+# the plans whose facade takes the wide-window kernel (tiled_ok refuses them):
+# STRESS's 512-tap plan and the WIDE_WINDOW thumbnails; WIDE_TIMED adds the two
+# of WIDE_WINDOW that the JAX package's kernel takes (the facade's route: tiled)
+WIDE_FACADE = [STRESS[8]] + WIDE_WINDOW[2:6]
+WIDE_TIMED = WIDE_FACADE + WIDE_WINDOW[:2]
 BATCHED = (GRADED[0], GRADED[2], GRADED[4])     # batch 4 and 2, tpu_check.py:494
 BATCHES = (4, 2)
 # tpu_check.py:carry_sweep's cases: GRADED, two more, fuzz_cases(6, seed=20260819)
@@ -298,9 +305,10 @@ def exact_case(case, orc: Oracle, card: str, required: bool,
                oracle_max_pixels: int | None = None, batches=()) -> list[dict]:
     """One case of the exact sweep: its rows (the case, then each batch).
 
-    The facade on ``cuda`` and the windowed kernel == the plain path on the
-    card, and == ``numpy_ref`` where the source has at most
-    ``oracle_max_pixels`` pixels (every case by default)."""
+    The facade on ``cuda`` and the kernel of ``tiled=False`` (the windowed
+    kernel, or the wide-window kernel) == the plain path on the card, and
+    == ``numpy_ref`` where the source has at most ``oracle_max_pixels``
+    pixels (every case by default)."""
     from ..core.plan import build_plan
     from ..ops import cuda_resize as cr
 

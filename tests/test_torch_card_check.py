@@ -1,14 +1,15 @@
 """The host side of the port's on-card byte gate
-(``libiqo_tpu_torch/tools/card_check.py``) and of the windowed kernel's
-wide-window walk.
+(``libiqo_tpu_torch/tools/card_check.py``) and of the wide-window plans.
 
 The gate's case lists are the JAX package's own (``scripts/tpu_check.py``,
 ``scripts/stress_geometries.py``); on every case of every list the port's
 kernels take what the JAX package's kernel takes; Area 8192x4 -> 16x4 and
 the other plans whose scope the wide-window walk opened are modelled as
-``resize_fused.cu`` walks them, against ``numpy_ref``; and the committed
-result, where present, shows a passing run on an H100 with every required
-case on a kernel.
+``resize_wide.cu`` computes them (``test_torch_wide_kernel.wide_model``)
+and as ``resize_fused.cu``'s walk does (:func:`walk_model`, the
+``wide=False`` form kept for the timing turns), against ``numpy_ref``; and
+the committed result, where present, shows a passing run on an H100 with
+every required case on a kernel.
 """
 
 import ast
@@ -27,6 +28,8 @@ from libiqo_tpu_torch.core.plan import build_plan
 from libiqo_tpu_torch.golden import numpy_ref
 from libiqo_tpu_torch.ops import cuda_resize
 from libiqo_tpu_torch.tools import card_check
+
+from test_torch_wide_kernel import wide_model
 
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPTS = ROOT / "scripts"
@@ -115,8 +118,9 @@ WIDE = ("area", 8192, 4, 16, 4, {})
 
 def test_area_8192x4_to_16x4_is_pinned():
     """STRESS's 512-tap row: the JAX package's kernel takes it, and so does
-    the port's, on the windowed kernel's wide-window walk (a block of fewer
-    than 16 rows), exact only."""
+    the port's, on the wide-window kernel (the windowed kernel's 16-row
+    tile does not fit; its walk of fewer rows stays for the timing turns),
+    exact only."""
     assert card_check.STRESS[8] == WIDE
     plan = build_plan(*WIDE[:5])
     assert pallas_resize.supports_plan(jax_build_plan(*WIDE[:5]))
@@ -126,8 +130,11 @@ def test_area_8192x4_to_16x4_is_pinned():
     assert not cuda_resize.tiled_ok(plan)
     assert not cuda_resize.supports_plan(plan, relaxed=True)
     k = cuda_resize.kernel_tables(plan)
-    assert not k.tiled and k.rows == cuda_resize.work_rows(plan)
-    assert k.rows * k.win_max * 4 <= cuda_resize.SMEM_BUDGET
+    assert isinstance(k, cuda_resize.WideTables) and cuda_resize.variant(k) == "u16_wide"
+    assert k.layout.smem <= cuda_resize.SMEM_BUDGET
+    walk = cuda_resize.kernel_tables(plan, wide=False)
+    assert not walk.tiled and walk.rows == cuda_resize.work_rows(plan)
+    assert walk.rows * walk.win_max * 4 <= cuda_resize.SMEM_BUDGET
 
 
 def _wrap16(v):
@@ -193,15 +200,20 @@ WIDE_PLANS = [
 
 @pytest.mark.parametrize("case", WIDE_PLANS, ids=card_check.case_name)
 def test_wide_window_walk_model_matches_oracle(case):
+    """The route's kernel (the wide-window kernel) and the windowed walk
+    (``wide=False``), each modelled, == ``numpy_ref``."""
     alg, sw, sh, dw, dh, kw = case
     plan = build_plan(alg, sw, sh, dw, dh, **kw)
     assert cuda_resize.smem_bytes(plan) > cuda_resize.SMEM_BUDGET, case
     assert cuda_resize.supports_plan(plan), case
     k = cuda_resize.kernel_tables(plan)
-    assert k.rows == cuda_resize.work_rows(plan) < cuda_resize.TILE_ROWS
+    assert isinstance(k, cuda_resize.WideTables)
+    walk = cuda_resize.kernel_tables(plan, wide=False)
+    assert walk.rows == cuda_resize.work_rows(plan) < cuda_resize.TILE_ROWS
     src = card_check.source(case, 0)
     want = numpy_ref.resize_u8(plan, src)
-    np.testing.assert_array_equal(walk_model(plan, k, src), want)
+    np.testing.assert_array_equal(wide_model(plan, k.layout, src), want)
+    np.testing.assert_array_equal(walk_model(plan, walk, src), want)
     ops = cuda_resize.pack_operands(plan)             # the CPU's plain route
     np.testing.assert_array_equal(
         cuda_resize.resize_fused(ops, torch.from_numpy(src)[None])[0].numpy(), want)
@@ -282,8 +294,9 @@ def test_gate_module_is_walked_for_jax_imports():
 def test_committed_result():
     """Where the committed result exists: a passing run on an H100, every
     GRADED, STRESS, STRESS_GEOMETRIES and WIDE_WINDOW row on a kernel
-    variant (WIDE_WINDOW's windowed rows on the wide-window walk), relaxed
-    within 2 LSB of exact with flat fields exact."""
+    variant (WIDE_WINDOW's ``tiled=False`` rows, and the facade's where
+    ``tiled_ok`` refuses, on the wide-window kernel), relaxed within 2 LSB
+    of exact with flat fields exact."""
     if not card_check.RESULT.exists():
         pytest.skip("no committed card_check_result.json")
     res = json.loads(card_check.RESULT.read_text())
@@ -300,10 +313,13 @@ def test_committed_result():
         assert row["status"] == "ok" and row["route"] == "cuda", row
         assert row["variant"] in cuda_resize.VARIANTS and row["launches"] > 0, row
         assert row["oracle"] and row["vs_oracle"] == 0, row
+    wide = ("u16_wide", "wrap16_wide")
     for case in card_check.WIDE_WINDOW:
         row = rows[card_check.case_name(case)]
-        assert row["windowed_variant"] in ("u16", "wrap16") and row["work_rows"] < 16, row
-    assert rows["area 8192x4->16x4"]["variant"] == "u16"
+        assert row["windowed_variant"] in wide and row["work_rows"] < 16, row
+        tiled = cuda_resize.tiled_ok(build_plan(*case[:5], **case[5]))
+        assert (row["variant"] in wide) != tiled, row
+    assert rows["area 8192x4->16x4"]["variant"] == "u16_wide"
     for r in res["relaxed"]:
         assert r["status"] == "ok" and r["max_lsb_vs_exact"] <= 2 and r["flat_ok"], r
     assert all(r["status"] == "ok" for r in res["border_div"])

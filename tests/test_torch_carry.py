@@ -232,7 +232,7 @@ def test_variants_and_tables():
     assert cuda_resize.variant(rel) == ("u16_relaxed_carry" if rel.carry
                                         else "u16_relaxed")
     assert set(cuda_resize.VARIANTS) == set(cuda_resize.LAUNCHES_BY_VARIANT)
-    assert len(cuda_resize.VARIANTS) == 16     # 8 windowed, 8 tiled
+    assert len(cuda_resize.VARIANTS) == 18     # 8 windowed, 8 tiled, 2 wide-window
 
 
 def test_opt_in_is_the_jax_packages(monkeypatch):

@@ -365,7 +365,7 @@ def test_probe_library_is_built_apart_from_the_resize_library():
     assert not set(_build.exp_sources()) & set(_build.sources())
     assert [p.name for p in _build.sources()] == [
         "resize_fused.cu", "resize_tiled.cu", "resize_tiled_carry.cu",
-        "resize_tiled_relaxed.cu", "resize_tiled_relaxed_carry.cu"]
+        "resize_tiled_relaxed.cu", "resize_tiled_relaxed_carry.cu", "resize_wide.cu"]
     assert _build.exp_build_dir() != _build.build_dir()
     assert _build.exp_build_dir().parent == _build.build_dir().parent
 

@@ -25,6 +25,7 @@ from libiqo_tpu_torch.ops import cuda_resize
 
 from test_torch_card_check import walk_model
 from test_torch_tiled import _model as tiled_model
+from test_torch_wide_kernel import wide_model
 
 CARD = torch.device("cuda")
 RNG = np.random.default_rng(41)
@@ -128,8 +129,9 @@ def _ids(c):
 def test_supports_plan_equals_buildable(case):
     """supports_plan holds exactly when the kernel's tables build and its
     model runs within shared memory: the model equals the oracle there
-    (the tiled kernel's where ``tiled_ok`` holds, else the windowed one's),
-    and cannot fit its work tile where the predicate refuses."""
+    (the tiled kernel's where ``tiled_ok`` holds, the wide-window kernel's
+    where the windowed kernel's 16-row tile does not fit, else the windowed
+    one's), and cannot fit its work tile where the predicate refuses."""
     alg, sw, sh, dw, dh, kw = case
     plan = build_plan(alg, sw, sh, dw, dh, **kw)
     sup = cuda_resize.supports_plan(plan)
@@ -139,12 +141,14 @@ def test_supports_plan_equals_buildable(case):
         with pytest.raises(AssertionError):
             walk_model(plan, k, np.zeros((sh, sw), np.uint8))
         return
+    wide = isinstance(k, cuda_resize.WideTables)
     if sw * sh > 1e6:                       # the full-size frames: tables only
-        assert k.rows * k.win_max * 4 <= cuda_resize.SMEM_BUDGET
+        assert (k.layout.smem if wide else k.rows * k.win_max * 4) <= cuda_resize.SMEM_BUDGET
         return
     src = RNG.integers(0, 256, (sh, sw), np.uint8)
     want = numpy_ref.resize_u8(plan, src)
-    model = tiled_model(plan, src) if cuda_resize.tiled_ok(plan) else walk_model(plan, k, src)
+    model = (tiled_model(plan, src) if cuda_resize.tiled_ok(plan) else
+             wide_model(plan, k.layout, src) if wide else walk_model(plan, k, src))
     np.testing.assert_array_equal(model, want)
     relaxed = cuda_resize.supports_plan(plan, relaxed=True)
     try:

@@ -352,7 +352,8 @@ def test_launch_counts_by_variant_reset():
         "u16_relaxed_carry": 0, "wrap16_tiled": 0, "u16_tiled": 0,
         "wrap16_relaxed_tiled": 0, "u16_relaxed_tiled": 0,
         "wrap16_carry_tiled": 0, "u16_carry_tiled": 0,
-        "wrap16_relaxed_carry_tiled": 0, "u16_relaxed_carry_tiled": 0}
+        "wrap16_relaxed_carry_tiled": 0, "u16_relaxed_carry_tiled": 0,
+        "wrap16_wide": 0, "u16_wide": 0}
 
 
 # -- on the card ------------------------------------------------------------

@@ -1,16 +1,18 @@
 """The port's kernel scope on wide windows against the JAX package's.
 
-``cuda_resize.work_rows`` gives the windowed kernel's wide-window walk
-4-15 rows a block on any number of column tiles, so every plan that the
-JAX package's kernel takes runs on a kernel of the port: over a grid of
-large Area and Lanczos3 downscales, JAX ``supports_plan`` implies the
+``cuda_resize.work_rows`` gives the plans whose windows are too wide for
+16 rows of the windowed kernel 4-15 rows a block on any number of column
+tiles, so every plan that the JAX package's kernel takes runs on a kernel
+of the port: the wide-window kernel (``csrc/resize_wide.cu``) by default,
+the windowed kernel's walk at those rows with ``wide=False``.  Over a grid
+of large Area and Lanczos3 downscales, JAX ``supports_plan`` implies the
 port's (the JAX plan is built only where the port refuses, which keeps the
 grid cheap); the wide-window plans resolve to ``cuda``, Area 65536x16 ->
 16x16 (windows past 4 rows of shared memory) to ``torch``; the relaxed form
-keeps 16 rows, so a relaxed resizer takes the exact kernel there; and the
-walk's NumPy model (``test_torch_card_check.walk_model``) equals
-``numpy_ref`` on small plans with several column tiles and fewer than 16
-rows a block.
+keeps 16 rows, so a relaxed resizer takes the exact kernel there; and both
+kernels' NumPy models (``test_torch_wide_kernel.wide_model``,
+``test_torch_card_check.walk_model``) equal ``numpy_ref`` on small plans
+with several column tiles and fewer than 16 rows a block.
 """
 
 import numpy as np
@@ -26,6 +28,7 @@ from libiqo_tpu_torch.ops import cuda_resize
 from libiqo_tpu_torch.tools import card_check
 
 from test_torch_card_check import walk_model
+from test_torch_wide_kernel import wide_model
 
 CARD = torch.device("cuda", 0)
 SOURCES = {"8K": (7680, 4320), "4K": (3840, 2160), "4096sq": (4096, 4096)}
@@ -65,17 +68,19 @@ def test_wide_window_plans_resolve_to_the_kernel(case):
     rr = api.Resizer.from_plan(plan, precision="relaxed", device="cpu")
     assert rr._backend_for(CARD) == "cuda"
     k = cuda_resize.kernel_tables(plan, tiled=False)
-    assert not k.tiled and k.rows == rows
-    assert k.rows * k.win_max * 4 <= cuda_resize.SMEM_BUDGET
+    assert isinstance(k, cuda_resize.WideTables) and k.layout.smem <= cuda_resize.SMEM_BUDGET
+    walk = cuda_resize.kernel_tables(plan, tiled=False, wide=False)
+    assert not walk.tiled and walk.rows == rows
+    assert walk.rows * walk.win_max * 4 <= cuda_resize.SMEM_BUDGET
 
 
 def test_wide_window_rows_and_grids():
-    """The two plans the JAX package's kernel takes: 14 rows a block, 2 and
-    1 column tiles of 4096 columns, 39 row tiles."""
+    """The two plans the JAX package's kernel takes, on the windowed walk:
+    14 rows a block, 2 and 1 column tiles of 4096 columns, 39 row tiles."""
     for case, tiles in zip(card_check.WIDE_WINDOW[:2], (2, 1)):
         plan = build_plan(*case[:5])
         assert pallas_resize.supports_plan(jax_build_plan(*case[:5]))
-        k = cuda_resize.kernel_tables(plan, tiled=False)
+        k = cuda_resize.kernel_tables(plan, tiled=False, wide=False)
         assert (k.rows, k.win_max, len(k.win)) == (14, 4096, tiles)
         assert -(-plan.y.n_dst // k.rows) == 39
 
@@ -102,11 +107,14 @@ MODEL_PLANS = [
 def test_walk_model_on_several_column_tiles(case):
     alg, sw, sh, dw, dh, kw = case
     plan = build_plan(alg, sw, sh, dw, dh, **kw)
-    k = cuda_resize.kernel_tables(plan, tiled=False)
+    k = cuda_resize.kernel_tables(plan, tiled=False, wide=False)
     assert len(k.win) > 1 and k.rows == cuda_resize.work_rows(plan) < cuda_resize.TILE_ROWS
     src = card_check.source(case, 0)
     want = numpy_ref.resize_u8(plan, src)
     np.testing.assert_array_equal(walk_model(plan, k, src), want)
+    wide = cuda_resize.kernel_tables(plan, tiled=False)
+    assert isinstance(wide, cuda_resize.WideTables)
+    np.testing.assert_array_equal(wide_model(plan, wide.layout, src), want)
     ops = cuda_resize.pack_operands(plan)             # the CPU's plain route
     np.testing.assert_array_equal(
         cuda_resize.resize_fused(ops, torch.from_numpy(src)[None])[0].numpy(), want)

@@ -92,8 +92,15 @@ def test_window_x3_refuses_a_bad_form(form):
 
 @pytest.mark.parametrize("wrapper", [ec.window_x1, ec.window_x2])
 def test_x1_and_x2_take_no_form(wrapper):
-    with pytest.raises(TypeError):
-        wrapper(ec.inputs("cpu")["x2"], form="cluster")
+    """X1 takes no form; X2 takes its own two (``"boxes"``, ``"single"``)
+    and refuses X3's."""
+    src = ec.inputs("cpu")["x2"]
+    if wrapper is ec.window_x1:
+        with pytest.raises(TypeError):
+            wrapper(src, form="cluster")
+        return
+    with pytest.raises(ValueError, match="takes form"):
+        wrapper(src, form="cluster")
 
 
 @pytest.mark.parametrize("rank", range(4))
@@ -153,7 +160,8 @@ def test_launch_keys_stay_zero_on_cpu():
     for form in (None, *ec.FORMS):
         ec.window_x3(var, form)
     assert ec.LAUNCHES.total() == 0
-    assert set(ec.LAUNCHES) == {"x1", "x1_batch", "x2", "x3", "x3[cluster]"} == set(ec.ROWS)
+    assert set(ec.LAUNCHES) == {"x1", "x1_batch", "x2", "x2[boxes]", "x3",
+                                "x3[cluster]"} == set(ec.ROWS)
 
 
 def test_bound_of_the_cluster_row_is_x3s():

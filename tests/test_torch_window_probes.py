@@ -93,6 +93,40 @@ def test_window_x2_copies_only_rows_inside_the_source():
     np.testing.assert_array_equal(ec.window_x2(src).numpy(), src[128:160, :128].numpy())
 
 
+def test_x2_boxes_cover_the_window_once():
+    """X2's split form: 8 boxes of (64, 32), each at row 128 of the
+    160-row source, so each holds 32 rows inside and 32 past the end; the
+    boxes load every element of the (64, 256) window exactly once, and the
+    first four write out's 128 columns."""
+    sched = ec.x2_schedule()
+    assert len(sched) == ec.X2_BOXES == 8 and ec.X2_BOX_W * ec.X2_BOXES == ec.BAND_W
+    for blk in sched:
+        assert blk["row"] == 128 and blk["shape"] == (ec.BAND_H, ec.X2_BOX_W)
+        assert blk["rows_inside"] == 32 and blk["rows_past_end"] == 32
+        assert blk["row"] + blk["rows_inside"] == ec.H
+    assert sum(blk["rows_past_end"] * blk["shape"][1] for blk in sched) == 32 * ec.BAND_W
+    _, _, loads = ec.x2_model(ec.inputs("cpu")["x2"].numpy())
+    assert loads.shape == (ec.BAND_H, ec.BAND_W) and (loads == 1).all()
+    cols = [c for blk in sched for c in blk["out_cols"]]
+    assert sorted(cols) == list(range(ec.TW))
+
+
+def test_x2_model_equals_plain_and_script(script, capsys):
+    """The split form's model: out == the plain version == the script in
+    interpret mode; spill rows 0-31 == src[128:160, :256], rows 32-63 zero."""
+    script.run_x2()
+    capsys.readouterr()
+    src = ec.inputs("cpu")["x2"].numpy()
+    out, spill, _ = ec.x2_model(src)
+    np.testing.assert_array_equal(out, script.outputs[-1])
+    np.testing.assert_array_equal(out, ec.window_x2_plain(torch.from_numpy(src)).numpy())
+    np.testing.assert_array_equal(spill[:32], src[128:160, :256])
+    assert (spill[32:] == 0).all()
+    for form in (None, *ec.X2_FORMS):
+        np.testing.assert_array_equal(ec.window_x2(torch.from_numpy(src), form=form).numpy(),
+                                      out)
+
+
 def test_window_x3_equals_script(script, capsys):
     script.run_x3()
     assert "X3 (dynamic scratch leading index): ran, OK" in capsys.readouterr().out
@@ -185,5 +219,6 @@ def test_window_kernels_equal_plain_on_card(cuda_device):
     srcs = ec.inputs(cuda_device)
     assert torch.equal(ec.window_x1(srcs["x1"]), ec.window_x1_plain(srcs["x1"]))
     assert torch.equal(ec.window_x1(srcs["x1_batch"]), ec.window_x1_plain(srcs["x1_batch"]))
-    assert torch.equal(ec.window_x2(srcs["x2"]), ec.window_x2_plain(srcs["x2"]))
+    for form in ec.X2_FORMS:
+        assert torch.equal(ec.window_x2(srcs["x2"], form=form), ec.window_x2_plain(srcs["x2"]))
     assert torch.equal(ec.window_x3(srcs["x3"]), ec.window_x3_plain(srcs["x3"]))
