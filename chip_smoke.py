@@ -59,7 +59,10 @@ Phases:
    == plain, == the windowed walk, also from a source 5 bytes into wider
    rows, each timed in turns with the windowed kernel's wide-window
    walk (``wide=False``), the facade's route and the plain path, beside its
-   bound; the phase's seconds.
+   bound.  Then REFUSED_WIDE (Area 4096x232448 -> 16x4, a 952 MB source,
+   whose 58112 Y taps an output ``wide_layout`` refuses) through its facade
+   on the windowed kernel's walk, one launch, == the plain path byte for
+   byte, the kernel's and the plain path's times; the phase's seconds.
 4. The Lanczos main path: ``YUV420Resizer(..., device="cuda")``, ``resize``
    on 4 frames and ``resize_batch`` on 4; the wrap16_tiled launch count
    over that run must equal its plane calls, with no other launch; every
@@ -175,16 +178,19 @@ Phases:
    full shapes in every form and variant (the seven ``band_ydot`` forms with
    nonzero streamed operands and its word-load form, whose output must be the
    byte form's permuted; ``overlap_dots`` in 4 variants x P in 0, 1, 2, 4, 8;
-   ``band_colsum`` in 3 configs x 3 variants), E and G in both
+   ``band_colsum`` in 3 configs x 3 variants, in both forms, ``walk`` and
+   ``grid``, also on EDGE_SHAPES (halo past the step, one tile, no halo, w
+   not a multiple of 16 or of the chunk) from planes 0 and 4 bytes into
+   their buffers, blocked2's halo from a plane of its own), E and G in both
    implementations, ``ring`` (``csrc/exp/exp_band_ring.cu``) and ``sync``,
    the ring also on a 2-frame ``grid3`` source and G's at 2100 rows (a short
    last run, blocks past the plane); then the four scripts' ``main()``, with
    every count set to 0 just before; every variant of both implementations
    must have launched.  E's and G's ``main()`` time both implementations and
    the library call in turns: ``torch._int_mm`` of the dots alone, over
-   operands laid out outside the timed region (G at every P >= 1).  Plain
-   times at the host's pace, and a strided-view ``sum`` for H under its
-   kernel's protocol, its 8-row broadcast left as an ``expand``.
+   operands laid out outside the timed region (G at every P >= 1); H's times
+   both forms and a strided-view ``sum`` (its 8-row broadcast left as an
+   ``expand``) in turns.  Plain times at the host's pace.
 15. The X-pass and legality probes (the H100 ports of
    ``scripts/exp_x_schemes.py``, ``exp_vpu_xpass.py``, ``exp_vpu_rate.py``,
    ``exp_slice_align.py`` and ``exp_element_clamp.py``): kernels I-M == their
@@ -230,7 +236,10 @@ Phases:
    split form (8 TMA boxes of (64, 32) on 8 blocks, each from row 128 past
    the source's end) == plain, its spill == its model (rows past the end
    zeros), timed in turns with its single-box form and
-   ``src[128:160, :128].clone()`` inside ``main()``.
+   ``src[128:160, :128].clone()`` inside ``main()``; X1's split form (8 TMA
+   boxes of (64, 32) a tile, 128 blocks, 384 for the batch) == plain and its
+   model, 2-D and batch, timed in turns with its single-box form and the
+   corner-gathering index inside ``main()``.
 
 Any failure raises and exits non-zero.  Without a CUDA device it exits 2
 and prints no result.  Imports nothing of JAX or of the JAX package.
@@ -626,6 +635,13 @@ WIDE_STRIDED = (5, 11)          # (offset, pad) of a source the byte loads take
 # pitch's noise, in columns the X pass never reads
 WIDE_PITCHED = (("area", 8191, 4, 16, 4, {}), ("area", 3839, 2160, 128, 72, {}),
                 ("lanczos", 7679, 4319, 240, 135, dict(degree=3)))
+# the windowed kernel's wide-window walk on its last route: an exact plan
+# whose 16-row tile does not fit and which wide_layout refuses (one output's
+# 58112 Y taps do not fit shared memory), so the facade keeps it on the walk;
+# its 952 MB source is held to the plain path (numpy_ref's int64 copy of it
+# takes minutes on the host)
+REFUSED_WIDE = ("area", 4096, 232448, 16, 4, {})
+REFUSED_PLAIN_CALLS = 2         # the plain path loops over 58112 taps: seconds a call
 
 
 def phase_card_check(cr, build_plan, card: str) -> dict:
@@ -677,8 +693,58 @@ def phase_card_check(cr, build_plan, card: str) -> dict:
     for case in WIDE_PITCHED:
         hold_pitched(cr, build_plan, case)
     wide = [time_wide(cr, build_plan, case, card) for case in card_check.WIDE_TIMED]
+    refused = hold_refused(cr, build_plan, card)
     print(f"phase card_check: {time.perf_counter() - t_phase!r} s")
-    return {"rows": wide, "launches": launches}
+    return {"rows": wide, "launches": launches, "refused": refused}
+
+
+def hold_refused(cr, build_plan, card: str) -> dict:
+    """REFUSED_WIDE through its facade on the card: the route (in
+    ``supports_plan``, ``work_rows`` < 16, refused by ``wide_layout``, on
+    ``KernelTables``), one launch of the windowed kernel's walk, == the
+    plain path byte for byte; the kernel's time (CUDA events, one source of
+    952 MB, far past the L2) and the plain path's (host clock, synchronised),
+    beside the bound."""
+    t0 = time.perf_counter()
+    alg, sw, sh, dw, dh, kw = REFUSED_WIDE
+    name = card_check.case_name(REFUSED_WIDE)
+    plan = build_plan(alg, sw, sh, dw, dh, **kw)
+    tables = cr.kernel_tables(plan)
+    check(cr.supports_plan(plan) and cr.work_rows(plan) < cr.TILE_ROWS
+          and cr.wide_layout(plan) is None and isinstance(tables, cr.KernelTables),
+          f"{name}: not on the walk's refused-layout route")
+    r = card_check.facade(REFUSED_WIDE)
+    check(r.resolved_backend() == "cuda", f"{name}: resolves to {r.resolved_backend()}")
+    ops = cr.pack_operands(plan, "cuda")
+    v = cr.variant(ops.tables)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    x = torch.randint(0, 256, (1, sh, sw), dtype=torch.uint8, device="cuda", generator=gen)
+    got, counts = card_check.launched(cr, lambda: r.resize(x))
+    check(counts == {v: 1} and v == "u16", f"{name}: the facade launched {counts}")
+    plain_s = []
+    for _ in range(REFUSED_PLAIN_CALLS):
+        t1 = time.perf_counter()
+        want = cr.resize_plain(ops, x)
+        torch.cuda.synchronize()
+        plain_s.append(time.perf_counter() - t1)
+    err = compare(f"{name} facade vs plain", got, want)
+    err = max(err, compare(f"{name} kernel vs plain", cr.resize_fused(ops, x), want))
+    ms = _harness.launches_ms(lambda t: cr.resize_fused(ops, t), [x], repeats=2, primed=False)
+    bytes_ms, ops_ms = bound([(plan, 1)])
+    row = {"plan": name, "variant": v, "route": "the windowed walk (wide_layout refuses)",
+           "rows_per_block": ops.tables.rows, "source_bytes": sw * sh, "max_abs_err": err,
+           "ms": ms, "plain_ms": min(plain_s) * 1e3, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "seconds": time.perf_counter() - t0}
+    print(f"{name} ({sw * sh / 1e6!r} MB): the facade's route {v}, the windowed kernel's "
+          f"walk at {row['rows_per_block']} rows a block (wide_layout refuses: "
+          f"{plan.y.num_coefs} Y taps an output), one launch, == plain byte for byte; "
+          f"kernel {ms!r} ms, plain {row['plain_ms']!r} ms (host clock, synchronised, min of "
+          f"{REFUSED_PLAIN_CALLS}), bound {row['bound_ms']!r} ms ({row['bound_by']}); this "
+          f"step {row['seconds']!r} s ({card})")
+    del x, got, want
+    torch.cuda.empty_cache()
+    return row
 
 
 def hold_pitched(cr, build_plan, case) -> int:
@@ -1946,10 +2012,11 @@ def phase_band_fetch(card: str) -> list:
     """Phase 14, the band-fetch probes: kernels E, G and H == their plain
     versions at the TPU scripts' full shapes in every form and variant, E
     and G in both implementations (``ring``, ``sync``), the ring also on a
-    2-frame ``grid3`` source and at 2100 rows; the four scripts' ``main()``
-    with every count set to 0 just before (E and G timing both
-    implementations and their library call in turns); plain times.  Returns
-    the five entries of the kernels line."""
+    2-frame ``grid3`` source and at 2100 rows, H in both forms (``walk``,
+    ``grid``), also on ``EDGE_SHAPES``; the four scripts' ``main()`` with
+    every count set to 0 just before (E, G and H timing both forms and their
+    library call in turns); plain times.  Returns the six entries of the
+    kernels line."""
     from libiqo_tpu_torch.experiments import (_harness, exp_band_shape as bs,
                                               exp_blocked_halo as bh,
                                               exp_i32_band as ib, exp_overlap as ov)
@@ -1958,7 +2025,7 @@ def phase_band_fetch(card: str) -> list:
 
     # 1. kernel == plain, every form and variant, full shapes, both impls
     err = dict.fromkeys(("band_ydot", "band_ydot[ring]", "overlap_dots",
-                         "overlap_dots[ring]", "band_colsum"), 0.0)
+                         "overlap_dots[ring]", "band_colsum", "band_colsum[walk]"), 0.0)
     key = lambda name, impl: name if impl == "sync" else f"{name}[{impl}]"  # noqa: E731
     coef, src = bs.inputs(dev)
     ops = bs.operands(dev, seed=SEED + 6)
@@ -1997,16 +2064,37 @@ def phase_band_fetch(card: str) -> list:
     print(f"overlap_dots == plain in all {len(ov.VARIANTS)} variants x P {ov.PS} at "
           f"{tuple(osrc.shape)}, ND={ov.ND}, N_TY={ov.N_TY}, impls {ov.IMPLS}; the ring also "
           f"at {tuple(short.shape)}")
-    hxs = {}                                   # each config's element source
+    ckey = {"grid": "band_colsum", "walk": "band_colsum[walk]"}
     for name, n_t, step, halo, w, variant, x in bh.sources(dev):
-        err["band_colsum"] = max(err["band_colsum"], probe_err(
-            f"band_colsum {name} {variant}", bh.band_colsum(x, variant, n_t, step, halo),
-            bh.band_colsum_plain(x, variant, n_t, step, halo)))
-        if variant == "element":
-            hxs[name] = x
-    hx = hxs["luma-like"]
-    print(f"band_colsum == plain in all {len(bh.CONFIGS)} configs x "
-          f"{len(bh.VARIANTS)} variants")
+        want = bh.band_colsum_plain(x, variant, n_t, step, halo)
+        for form in bh.FORMS:
+            err[ckey[form]] = max(err[ckey[form]], probe_err(
+                f"band_colsum[{form}] {name} {variant}",
+                bh.band_colsum(x, variant, n_t, step, halo, form=form), want))
+        if (name, variant) == ("luma-like", "element"):
+            hx = x                             # the plain path's timed source
+    # shapes off the script's, blocked2 with a halo plane of its own, and
+    # the walk's 4-byte loads where w or a plane's address is not a
+    # multiple of 16 (a plane 4 bytes into its buffer, which the grid form
+    # refuses)
+    gen = np.random.default_rng(SEED + 14)
+    edges = []
+    for name, n_t, step, halo, w in bh.EDGE_SHAPES:
+        rows = n_t * step + halo
+        buf = torch.from_numpy(gen.integers(0, 256, (2 * rows * w + 16,), np.uint8)).to(dev)
+        for off in (0, 4):
+            x = buf[off:off + rows * w].view(rows, w)
+            y = buf[rows * w + 16 - off:2 * rows * w + 16 - off].view(rows, w)
+            vec = 16 if w % 16 == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0 else 4
+            for variant in bh.VARIANTS:
+                want = bh.band_colsum_plain(x, variant, n_t, step, halo, y)
+                for form in bh.FORMS[:1] if off else bh.FORMS:   # grid takes 16-byte aligned planes
+                    err[ckey[form]] = max(err[ckey[form]], probe_err(
+                        f"band_colsum[{form}] {name} +{off} {variant}",
+                        bh.band_colsum(x, variant, n_t, step, halo, y, form=form), want))
+            edges.append(f"{name} +{off} (vec {vec})")
+    print(f"band_colsum == plain in both forms, all {len(bh.CONFIGS)} configs x "
+          f"{len(bh.VARIANTS)} variants and on {edges}, blocked2's halo from a plane of its own")
 
     # 2. the probes' main paths, every count set to 0 just before; E and G
     # time both implementations and the library call in turns
@@ -2019,16 +2107,18 @@ def phase_band_fetch(card: str) -> list:
         return sum(n for k, n in mod.LAUNCHES.items() if k.endswith("[ring]") == ring)
     launches = {"band_ydot": count(bs, False), "band_ydot[ring]": count(bs, True),
                 "overlap_dots": count(ov, False), "overlap_dots[ring]": count(ov, True),
-                "band_colsum": bh.LAUNCHES.total()}
+                "band_colsum": sum(bh.LAUNCHES[bh.launch_key(v, "grid")] for v in bh.VARIANTS),
+                "band_colsum[walk]": sum(bh.LAUNCHES[bh.launch_key(v, "walk")]
+                                         for v in bh.VARIANTS)}
     idle = [f"{mod.__name__.rsplit('.', 1)[-1]}:{v}" for mod in (bs, ov, bh)
             for v, n in mod.LAUNCHES.items() if n == 0]
     check(not idle, f"band-fetch variants never launched by main(): {idle}")
     print(f"band-fetch main() runs -> launches {launches}; by variant "
           f"{dict(bs.LAUNCHES)} {dict(ov.LAUNCHES)} {dict(bh.LAUNCHES)}")
 
-    # 3. plain times, host-paced; H's library yardstick under its kernel's
-    # own protocol (8 perturbed operands back to back), first held equal to
-    # the plain version (E's and G's library calls are timed by their main())
+    # 3. plain times, host-paced (the library calls are timed in turns by
+    # the probes' main(): H's a strided-view sum, its 8-row broadcast left
+    # as an expand)
     def plain_ms(fn, x, n=2):
         return _harness.launches_ms(fn, _harness.perturbed(x, n), repeats=2,
                                     primed=False)
@@ -2045,26 +2135,15 @@ def phase_band_fetch(card: str) -> list:
     print(f"plain ms, host-paced: band_ydot {p_ydot}; overlap_dots {p_overlap}; "
           f"band_colsum luma-like {p_colsum} ({card})")
 
-    # H: one sum over a strided view of the overlapping windows, on the
-    # luma-like config and the narrow one (256 tiles of 64 + 64 rows, w 512)
-    def lib_colsum(t):
-        n_t = (t.shape[0] - 64) // 64
-        v = t.as_strided((n_t, 128, t.shape[1]), (64 * t.shape[1], t.shape[1], 1))
-        return v.sum(1, dtype=torch.int32)[:, None].expand(n_t, 8, t.shape[1])
-    lib_colsum_rows = {}
-    for name in ("luma-like", "narrow"):
-        x = hxs[name]
-        n_t = (x.shape[0] - 64) // 64
-        check(torch.equal(lib_colsum(x).reshape(8 * n_t, -1),
-                          bh.band_colsum_plain(x, "element", n_t, 64, 64)),
-              f"the strided-view sum != band_colsum_plain element ({name})")
-        lib_colsum_rows[f"{name} element"] = _harness.launches_ms(
-            lib_colsum, _harness.perturbed(x, bh.ITERS))
-    lib_colsum_ms = lib_colsum_rows["luma-like element"]
-    hn = rows["bh"]["narrow element"]
-    print(f"probe band_colsum narrow element: kernel {hn['ms']!r} ms ({hn['bound_ms'] / hn['ms']!r} "
-          f"of its bound's pace), library as_strided(...).sum(1, dtype=int32) + expand "
-          f"{lib_colsum_rows['narrow element']!r} ms, bound {hn['bound_ms']!r} ms ({card})")
+    hr = rows["bh"]
+    lib_colsum_rows = {r: v["library_ms"] for r, v in hr.items()}
+    for row in ("narrow element", "luma-like element"):
+        hn = hr[row]
+        print(f"probe band_colsum {row}: walk {hn['ms']!r} ms ({hn['bound_ms'] / hn['ms']!r} "
+              f"of its bound's pace), grid {hn['grid_ms']!r} ms "
+              f"({hn['bound_ms'] / hn['grid_ms']!r}), library as_strided(...).sum(1, "
+              f"dtype=int32) + expand {hn['library_ms']!r} ms, in turns; bound "
+              f"{hn['bound_ms']!r} ms; walk {hn['walk']} ({card})")
 
     e, g, h = rows["bs"]["base"], rows["ov"]["elem P=8"], rows["bh"]["luma-like element"]
     print(f"probe band_ydot base: ring {e['ring_ms']!r} ms, sync {e['sync_ms']!r} ms, plain "
@@ -2074,9 +2153,9 @@ def phase_band_fetch(card: str) -> list:
           f"plain {p_overlap['elem P=8']!r} ms, library torch._int_mm of [C]*8 over the stacked "
           f"slices (the dots alone) {g['library_ms']!r} ms, bound {g['bound_ms']!r} ms "
           f"({g['bound_by']}) ({card})")
-    print(f"probe band_colsum luma-like element: kernel {h['ms']!r} ms, plain "
-          f"{p_colsum['element']!r} ms, library as_strided(...).sum(1, dtype=int32) + expand "
-          f"{lib_colsum_ms!r} ms, bound {h['bound_ms']!r} ms ({h['bound_by']}) ({card})")
+    print(f"probe band_colsum luma-like element: walk {h['ms']!r} ms, grid "
+          f"{h['grid_ms']!r} ms, plain {p_colsum['element']!r} ms, library "
+          f"{h['library_ms']!r} ms, bound {h['bound_ms']!r} ms ({h['bound_by']}) ({card})")
     src_file = "libiqo_tpu_torch/csrc/exp/exp_band.cu"
     ring_file = "libiqo_tpu_torch/csrc/exp/exp_band_ring.cu"
     e_rows = {**rows["bs"], "i32": rows["ib"]["i32"], "u8": rows["ib"]["u8"]}
@@ -2109,12 +2188,25 @@ def phase_band_fetch(card: str) -> list:
          "ms": g["ring_ms"], **g_common, "rows": {r: v["ring_ms"] for r, v in g_rows.items()},
          "sync_ms": g["sync_ms"], "sync_rows": {r: v["sync_ms"] for r, v in g_rows.items()}},
         {"name": "band_colsum", "route": "cuda", "source": src_file,
-         "replaces": "scripts/exp_blocked_halo.py:82",
+         "replaces": "scripts/exp_blocked_halo.py:82", "form": "grid",
          "launches": launches["band_colsum"], "max_abs_err": err["band_colsum"],
-         "ms": h["ms"], "plain_ms": p_colsum["element"], "bound_ms": h["bound_ms"],
-         "bound_by": h["bound_by"], "library_ms": lib_colsum_ms,
+         "ms": h["grid_ms"], "plain_ms": p_colsum["element"], "bound_ms": h["bound_ms"],
+         "bound_by": h["bound_by"], "library_ms": h["library_ms"],
          "library_rows": lib_colsum_rows, "row": "luma-like element",
-         "rows": {r: v["ms"] for r, v in rows["bh"].items()},
+         "rows": {r: v["grid_ms"] for r, v in hr.items()},
+         "bound_rows": {r: v["bound_ms"] for r, v in hr.items()},
+         "walk_ms": h["ms"], "plain_rows": {f"luma-like {v}": t for v, t in p_colsum.items()}},
+        {"name": "band_colsum[walk]", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_colsum_walk.cu",
+         "replaces": "scripts/exp_blocked_halo.py:82", "form": "walk",
+         "launches": launches["band_colsum[walk]"], "max_abs_err": err["band_colsum[walk]"],
+         "ms": h["ms"], "plain_ms": p_colsum["element"], "bound_ms": h["bound_ms"],
+         "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+         "library_rows": lib_colsum_rows, "row": "luma-like element",
+         "rows": {r: v["ms"] for r, v in hr.items()},
+         "grid_rows": {r: v["grid_ms"] for r, v in hr.items()},
+         "bound_rows": {r: v["bound_ms"] for r, v in hr.items()},
+         "walks": {r: v["walk"] for r, v in hr.items()}, "grid_ms": h["grid_ms"],
          "plain_rows": {f"luma-like {v}": t for v, t in p_colsum.items()}},
     ]
     print(f"phase band fetch: {time.perf_counter() - t_phase!r} s")
@@ -2158,8 +2250,10 @@ def phase_xpass(card: str) -> list:
     float bits with NaN and -0.0 (as int32 views), timed inside
     ``ec.main()``; X2's split form == plain, its spill == its model, timed
     inside ``ec.main()`` in turns with its single-box form and
-    ``src[128:160, :128].clone()``.  Returns the sixteen entries of the
-    kernels line."""
+    ``src[128:160, :128].clone()``; X1's split form, 2-D and batch, == plain
+    and its model, timed inside ``ec.main()`` in turns with its single-box
+    form and the corner-gathering index.  Returns the seventeen entries of
+    the kernels line."""
     from libiqo_tpu_torch.experiments import (_harness, exp_element_clamp as ec,
                                               exp_slice_align as sa, exp_vpu_rate as vr,
                                               exp_vpu_xpass as vx, exp_x_schemes as xs,
@@ -2170,7 +2264,7 @@ def phase_xpass(card: str) -> list:
     err = dict.fromkeys(names + ("xscheme_gemm", "vpu_xpass_gemm", "xscheme_bf16_gemm",
                                  "xscheme_s16_gemm", "slice_groups[wgmma]", "s8_4dot[gemm]",
                                  "s8_2dot_cat[gemm]", "window_probe[x3,cluster]",
-                                 "window_probe[x2,boxes]",
+                                 "window_probe[x2,boxes]", "window_probe[x1,boxes]",
                                  *(f"vpu_xpass_tile[{v},wide]" for v in vx.WIDE_VARIANTS)), 0.0)
 
     # 1. kernel == plain, every variant, full shapes and repeats
@@ -2371,14 +2465,22 @@ def phase_xpass(card: str) -> list:
           f"{sa.wave_efficiency(sa.GRID, sms)!r})")
     del sw35
     srcs = ec.inputs(dev)
-    for row, fn, plain in (("x1", ec.window_x1, ec.window_x1_plain),
-                           ("x1_batch", ec.window_x1, ec.window_x1_plain),
+    single_x1 = functools.partial(ec.window_x1, form="single")
+    for row, fn, plain in (("x1", single_x1, ec.window_x1_plain),
+                           ("x1_batch", single_x1, ec.window_x1_plain),
                            ("x2", functools.partial(ec.window_x2, form="single"),
                             ec.window_x2_plain),
                            ("x3", functools.partial(ec.window_x3, form="serial"),
                             ec.window_x3_plain)):
         err["window_probe"] = max(err["window_probe"], probe_err(
             f"window {row}", fn(srcs[row]), plain(srcs[row])))
+    # X1's split form, 2-D and batch: == plain, == its model
+    for row in ("x1", "x1_batch"):
+        got = ec.window_x1(srcs[row], form="boxes")
+        err["window_probe[x1,boxes]"] = max(
+            probe_err(f"window_x1[boxes] {row}", got, ec.window_x1_plain(srcs[row])),
+            probe_err(f"window_x1[boxes] {row} model", got.cpu(),
+                      torch.from_numpy(ec.x1_model(srcs[row].cpu().numpy())[0])))
     # X2's split form: out == plain; spill rows inside == src, past the end 0
     spill = torch.full((ec.BAND_H, ec.BAND_W), -1, dtype=torch.int32, device=dev)
     got = ec.window_x2(srcs["x2"], spill, form="boxes")
@@ -2399,7 +2501,8 @@ def phase_xpass(card: str) -> list:
             want = ec.window_x3_plain(var).view(torch.int32)
             key = "window_probe[x3,cluster]" if form == "cluster" else "window_probe"
             err[key] = max(err[key], probe_err(f"window_x3[{form}] {tag}", got, want))
-    print("window_x1 (2-D and batch 3), window_x2 (both forms; the boxes' spill == its "
+    print("window_x1 (both forms, 2-D and batch 3; the boxes == their model), window_x2 "
+          "(both forms; the boxes' spill == its "
           "model: rows inside == src, past the end 0), window_x3 == plain; window_x3 "
           "[cluster] == plain, bit for bit as int32 views, on arange and on random bits with "
           "NaN and -0.0")
@@ -2424,6 +2527,7 @@ def phase_xpass(card: str) -> list:
     launches["window_probe"] = sum(ec.LAUNCHES[r] for r in ("x1", "x1_batch", "x2", "x3"))
     launches["window_probe[x3,cluster]"] = ec.LAUNCHES["x3[cluster]"]
     launches["window_probe[x2,boxes]"] = ec.LAUNCHES["x2[boxes]"]
+    launches["window_probe[x1,boxes]"] = ec.LAUNCHES["x1[boxes]"] + ec.LAUNCHES["x1_batch[boxes]"]
     launches["slice_groups"] = sum(sa.LAUNCHES[sa.launch_key(a, kl, "mma_sync")]
                                    for a, kl in sa.CONFIGS)
     launches["slice_groups[wgmma]"] = sum(sa.LAUNCHES[sa.launch_key(a, kl, "wgmma")]
@@ -2657,13 +2761,9 @@ def phase_xpass(card: str) -> list:
     # (3 planes x 15 groups) and as three (one a plane), both held equal to
     # the plain sums and timed in turns with both forms inside sa.main()
     lib_sa = {name: (r["library_ms"], r["library3_ms"]) for name, r in rows["sa"].items()}
-    # M: one indexing call gathering the 16 corners
-    rows_i, cols_i = ec._corner_index(dev)
-    flat = (rows_i[:, None] * ec.W + cols_i[None, :]).contiguous()
-    check(torch.equal(srcs["x1"].view(-1)[flat], ec.window_x1_plain(srcs["x1"])),
-          "the corner gather != window_x1_plain")
-    lib_ec = _harness.launches_ms(lambda t: t.view(-1)[flat],
-                                  _harness.perturbed(srcs["x1"], ec.ITERS))
+    # M: one indexing call gathering the 16 corners, held equal to plain and
+    # timed in turns with X1's two forms inside ec.main()
+    lib_ec = rows["ec"]["x1"]["library_ms"]
     print(f"library: torch._int_mm of the s8 dots alone {lib_xs!r} ms per {xs.R} applications; "
           f"torch.bmm f32 (TF32 off) {lib_f32!r}; bf16_1dot's dots as one bf16 torch.bmm with "
           f"float32 out {lib_bf16!r}; dense4's dots as one bf16 torch.bmm with "
@@ -2745,7 +2845,11 @@ def phase_xpass(card: str) -> list:
           f"{x3c['library_ms'] * 1e3!r} in the same turns; X2 [boxes] "
           f"{rows['ec']['x2[boxes]']['ms'] * 1e3!r}, [single] {rows['ec']['x2']['ms'] * 1e3!r}, "
           f"src[128:160, :128].clone() {rows['ec']['x2']['library_ms'] * 1e3!r} in the same "
-          f"turns ({card})")
+          f"turns; X1 [boxes] {rows['ec']['x1[boxes]']['ms'] * 1e3!r}, [single] "
+          f"{rows['ec']['x1']['ms'] * 1e3!r}, corner index {lib_ec * 1e3!r}; X1 batch [boxes] "
+          f"{rows['ec']['x1_batch[boxes]']['ms'] * 1e3!r}, [single] "
+          f"{rows['ec']['x1_batch']['ms'] * 1e3!r}, index over the batch "
+          f"{rows['ec']['x1_batch']['library_ms'] * 1e3!r} in the same turns ({card})")
 
     x, j, k, l_, m = (rows["xs"]["s8_4dot"], rows["vx"]["dense4"], rows["vr"]["epi P=8"],
                       rows["sa"]["k0%128, kl=512"], rows["ec"]["x1"])
@@ -2820,9 +2924,21 @@ def phase_xpass(card: str) -> list:
          "ms": m["ms"], "plain_ms": p_ec, "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
          "library_ms": lib_ec, "row": "x1",
          "rows": {r: v["ms"] for r, v in rows["ec"].items() if r in ec.ROWS},
-         "row_library_ms": {"x2": rows["ec"]["x2"]["library_ms"],
-                            "x3": rows["ec"]["x3"]["library_ms"]},
+         "row_library_ms": {r: rows["ec"][r]["library_ms"]
+                            for r in ("x1", "x1_batch", "x2", "x3")},
          "x2_past_end_zeros": rows["ec"]["x2_past_end"]["all_zeros"]},
+        {"name": "window_probe[x1,boxes]", "route": "cuda",
+         "source": "libiqo_tpu_torch/csrc/exp/exp_clamp.cu",
+         "replaces": "scripts/exp_element_clamp.py:44",
+         "launches": launches["window_probe[x1,boxes]"],
+         "max_abs_err": err["window_probe[x1,boxes]"], "ms": rows["ec"]["x1[boxes]"]["ms"],
+         "plain_ms": p_ec, "bound_ms": rows["ec"]["x1[boxes]"]["bound_ms"],
+         "bound_by": rows["ec"]["x1[boxes]"]["bound_by"], "library_ms": lib_ec, "row": "x1",
+         "library_call": "src.view(-1)[flat], the corner-gathering index, timed in the same "
+                         "turns; over the batch src.view(B, -1)[:, flat]",
+         "single_ms": rows["ec"]["x1"]["ms"],
+         "batch": {k: rows["ec"]["x1_batch[boxes]"][k]
+                   for k in ("ms", "single_ms", "library_ms", "bound_ms")}},
         {"name": "window_probe[x3,cluster]", "route": "cuda",
          "source": "libiqo_tpu_torch/csrc/exp/exp_clamp.cu",
          "replaces": "scripts/exp_element_clamp.py:127",
@@ -3029,7 +3145,8 @@ def main() -> int:
          "plain_ms": tu["plain_ms"], "bound_ms": tu["bound_ms"],
          "bound_by": tu["bound_by"], "library_ms": None,
          "yardstick_ms": tu["yardstick_ms"],
-         "wide_window_walk_ms": {r["plan"]: r["walk_ms"] for r in wide["rows"]}},
+         "wide_window_walk_ms": {r["plan"]: r["walk_ms"] for r in wide["rows"]},
+         "refused_layout_plan": wide["refused"]},
         # the wide-window kernel: launches from the facade on WIDE_FACADE;
         # ms on the largest plan of its instantiation, every plan under "plans"
         *(wide_entry(wide, v, plan) for v, plan in (

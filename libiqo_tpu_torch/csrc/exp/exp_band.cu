@@ -47,9 +47,10 @@
 // rows [t step, (t + 1) step) of plane A plus [(t + 1) step, (t + 1) step +
 // halo) of plane B (blocked2; the probe passes the same plane twice, as the
 // script's call(x, x)), or of the step rows alone (blocked1), each sum
-// written to 8 rows: out (8 n_t, W) i32.  One block per (tile, chunk).
-// Replaces the TPU kernel of scripts/exp_blocked_halo.py: build
-// (pl.pallas_call at :82).  |sum| <= 128 * 255.
+// written to 8 rows: out (8 n_t, W) i32.  One block per (tile, chunk): the
+// grid form (form="grid"); the walk, its redesign and the default, is
+// exp_colsum_walk.cu.  Replaces the TPU kernel of scripts/exp_blocked_halo.py:
+// build (pl.pallas_call at :82).  |sum| <= 128 * 255.
 //
 // The Python side is libiqo_tpu_torch/experiments/exp_band_shape.py,
 // exp_i32_band.py, exp_overlap.py and exp_blocked_halo.py.

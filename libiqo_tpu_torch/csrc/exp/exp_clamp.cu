@@ -7,7 +7,14 @@
 //   .3d for the batch, completing on an mbarrier; the coordinates clamped in
 //   the kernel from blockIdx, as the TPU index map clamps them) and writes the
 //   window's top-left (32, 128) to out tile (ty, tx): out (128, 512) i32 per
-//   plane.  One block of 256 threads per (tx, ty, plane).
+//   plane.  Two forms: window_x1_boxes (form="boxes", the default) splits
+//   each tile's window into 8 boxes of (64, 32) at the same clamped
+//   coordinates, one a block of 128 threads (128 blocks, 384 for the batch
+//   through the 3-D map), and the 4 blocks whose boxes cover the window's
+//   columns 0-127 write their (32, 32) of the corner; window_x1_kernel
+//   (form="single") is the first form, one block of 256 threads per (tx, ty,
+//   plane) landing the whole window as one 64 KB box before any store, the
+//   fault X2's split form removed.
 // window_x2: the (64, 256) window at row 128 of the (160, 640) source: its
 //   last 32 rows lie past the end, and TMA fills them with zeros
 //   (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE).  Rows 0-31, columns 0-127 (inside the
@@ -78,7 +85,7 @@ constexpr int kNVar = 3, kA = 64, kB = 256;
 constexpr int kVarBytes = kNVar * kA * kB * 4;
 constexpr int kAlign = 128;                 // TMA's shared-memory destination alignment
 constexpr int kThreads = 256;
-constexpr int kX2Boxes = 8;                 // boxes of X2's split form, one a block
+constexpr int kX2Boxes = 8;                 // boxes of X1's and X2's split forms, one a block
 constexpr int kX2BoxW = kBandW / kX2Boxes;  // 32 columns: 128 bytes a box row
 constexpr int kX2Threads = 128;
 
@@ -129,6 +136,39 @@ window_x1_kernel(const __grid_constant__ CUtensorMap map, int32_t* __restrict__ 
   mbar_wait(&bar, 0);
   copy_out(box, out + (long long)plane * kOutH * kOutW + (long long)ty * kTH * kOutW + tx * kTW,
            kTH, kTW, kOutW);
+}
+
+// X1's split form: block (8 tx + j, ty, plane) loads the (64, 32) box at
+// column ox + 32 j, row oy of tile (ty, tx)'s clamped window; boxes 0-3 (the
+// window's columns 0-127) write their rows 0-31 to the tile's corner.
+template <bool kBatched>
+__global__ void __launch_bounds__(kX2Threads)
+window_x1_boxes_kernel(const __grid_constant__ CUtensorMap map, int32_t* __restrict__ out) {
+  __shared__ __align__(kAlign) int32_t box[kBandH * kX2BoxW];
+  __shared__ __align__(8) uint64_t bar;
+  const int j = blockIdx.x % kX2Boxes, tx = blockIdx.x / kX2Boxes, ty = blockIdx.y;
+  const int plane = blockIdx.z;
+  const int oy = max(0, min(kHiH, ty * kTH - 32)), ox = max(0, min(kHiW, tx * kTW - 128));
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+    mbar_expect(&bar, sizeof(box));
+    if constexpr (kBatched)
+      tma_3d(box, &map, ox + j * kX2BoxW, oy, plane, &bar);
+    else
+      tma_2d(box, &map, ox + j * kX2BoxW, oy, &bar);
+  }
+  __syncthreads();                                // the barrier is initialised
+  mbar_wait(&bar, 0);
+  if (j * kX2BoxW >= kTW) return;                 // past the corner's columns
+  constexpr int kRowVecs = kX2BoxW / 4;
+  int32_t* dst = out + (long long)plane * kOutH * kOutW + (long long)ty * kTH * kOutW +
+                 tx * kTW + j * kX2BoxW;
+  for (int i = threadIdx.x; i < kTH * kRowVecs; i += kX2Threads) {
+    const int r = i / kRowVecs, c = 4 * (i % kRowVecs);
+    *reinterpret_cast<int4*>(dst + r * kOutW + c) =
+        *reinterpret_cast<const int4*>(box + r * kX2BoxW + c);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -295,18 +335,28 @@ int iqo_exp_window_setup() {
 }
 
 // X1: src (160, 640) i32, or (planes, 160, 640) when planes > 0 -> out
-// (128, 512), or (planes, 128, 512).
-int iqo_exp_window_x1(const void* src, void* out, int planes, void* stream) {
-  if (planes < 0) return 1008;
+// (128, 512), or (planes, 128, 512).  form 0: the split form (8 boxes of
+// (64, 32) a tile, one a block); 1: one (64, 256) box a tile.
+int iqo_exp_window_x1(int form, const void* src, void* out, int planes, void* stream) {
+  if ((form != 0 && form != 1) || planes < 0) return 1008;
   if (misaligned(src) || misaligned(out)) return 1002;
   CUtensorMap map;
-  if (const int rc = encode(&map, src, planes)) return rc;
+  if (const int rc = encode(&map, src, planes, form == 0 ? kX2BoxW : kBandW)) return rc;
   auto s = static_cast<cudaStream_t>(stream);
+  auto o = static_cast<int32_t*>(out);
+  if (form == 0) {
+    const dim3 grid(kNTx * kX2Boxes, kNTy, planes ? planes : 1);
+    if (planes)
+      window_x1_boxes_kernel<true><<<grid, kX2Threads, 0, s>>>(map, o);
+    else
+      window_x1_boxes_kernel<false><<<grid, kX2Threads, 0, s>>>(map, o);
+    return static_cast<int>(cudaGetLastError());
+  }
   const dim3 grid(kNTx, kNTy, planes ? planes : 1);
   if (planes)
-    window_x1_kernel<true><<<grid, kThreads, kBoxSmem, s>>>(map, static_cast<int32_t*>(out));
+    window_x1_kernel<true><<<grid, kThreads, kBoxSmem, s>>>(map, o);
   else
-    window_x1_kernel<false><<<grid, kThreads, kBoxSmem, s>>>(map, static_cast<int32_t*>(out));
+    window_x1_kernel<false><<<grid, kThreads, kBoxSmem, s>>>(map, o);
   return static_cast<int>(cudaGetLastError());
 }
 

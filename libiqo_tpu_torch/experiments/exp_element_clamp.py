@@ -6,13 +6,18 @@ Port of ``scripts/exp_element_clamp.py`` to one NVIDIA H100.  Kernel M
 (``libiqo_tpu_torch/csrc/exp/exp_clamp.cu``), the port's first TMA and bulk
 copies, replaces the three ``pl.pallas_call`` sites:
 
-* ``window_x1(src)`` for ``run_x1`` (``:44``): on a (160, 640) int32 source,
-  or a batch of 3, a grid of (4, 4) tiles; tile (ty, tx) loads a (64, 256)
-  window at ``(clamp(32 ty - 32, 0, 96), clamp(128 tx - 128, 0, 384))`` as
-  **one TMA box** (``cp.async.bulk.tensor.2d``, 3-D for the batch, on an
+* ``window_x1(src, form)`` for ``run_x1`` (``:44``): on a (160, 640) int32
+  source, or a batch of 3, a grid of (4, 4) tiles; tile (ty, tx) loads a
+  (64, 256) window at ``(clamp(32 ty - 32, 0, 96), clamp(128 tx - 128, 0,
+  384))`` by TMA (``cp.async.bulk.tensor.2d``, 3-D for the batch, on an
   mbarrier; the coordinates clamped in the kernel from ``blockIdx``, as the
   index map does) and writes its top-left (32, 128) to out tile (ty, tx):
-  (128, 512), or (3, 128, 512);
+  (128, 512), or (3, 128, 512).  ``form="boxes"`` (the default) loads each
+  window as 8 boxes of (64, 32), one a block (:func:`x1_schedule`: 128
+  blocks, 384 for the batch), and the 4 blocks whose boxes cover the
+  window's columns 0-127 write their (32, 32) of the corner;
+  ``form="single"`` is the first kernel, one block landing the whole window
+  as **one 64 KB box** before any store;
 * ``window_x2(src, spill, form)`` for ``run_x2`` (``:83``): the (64, 256)
   window at row 128 of the (160, 640) source, so 32 of its rows lie past the
   end; TMA fills them with zeros.  Rows 0-31, columns 0-127 (all inside the
@@ -44,11 +49,15 @@ fetched through ``cudaGetDriverEntryPoint`` (the one ``nvcc -shared`` links
 no ``libcuda``), and passed as ``__grid_constant__`` parameters.
 
 :func:`main` times X3's two forms in turns with ``var.index_select(0, idx)``
-(``var[[0, 1, 1, 2]]`` with the index on the card), and X2 in turns with
-``src[128:160, :128].clone()``, each library call held equal to the plain
+(``var[[0, 1, 1, 2]]`` with the index on the card), X2 in turns with
+``src[128:160, :128].clone()``, and X1's two forms, 2-D and batch, in turns
+with the corner-gathering index (``src.view(-1)[flat]``, over the batch
+``src.view(B, -1)[:, flat]``), each library call held equal to the plain
 version first.  :data:`LAUNCHES` counts X3's serial form under ``"x3"``
 and its cluster form under ``"x3[cluster]"``, X2's single box under
-``"x2"`` and its boxes under ``"x2[boxes]"``.
+``"x2"`` and its boxes under ``"x2[boxes]"``, X1's single box under
+``"x1"``/``"x1_batch"`` and its boxes under ``"x1[boxes]"``/
+``"x1_batch[boxes]"``.
 
 Run on a card: ``python -m libiqo_tpu_torch.experiments.exp_element_clamp``.
 """
@@ -63,9 +72,10 @@ import torch
 from . import _harness
 from ._harness import HBM_BYTES_PER_S, Launches
 
-__all__ = ["FORMS", "LAUNCHES", "ROWS", "X2_FORMS", "bound", "inputs", "main",
-           "window_x1", "window_x1_plain", "window_x2", "window_x2_plain", "window_x3",
-           "window_x3_plain", "x2_model", "x2_schedule", "x3_model", "x3_schedule"]
+__all__ = ["FORMS", "LAUNCHES", "ROWS", "X1_FORMS", "X2_FORMS", "bound", "corner_index",
+           "inputs", "main", "window_x1", "window_x1_plain", "window_x2", "window_x2_plain",
+           "window_x3", "window_x3_plain", "x1_model", "x1_schedule", "x2_model",
+           "x2_schedule", "x3_model", "x3_schedule"]
 
 H, W = 160, 640
 TH, TW = 32, 128
@@ -80,11 +90,14 @@ X3_ROWS = 4                 # rows of each variant a cluster takes
 X3_CHUNKS = A // X3_ROWS    # clusters of the cluster form
 FORMS = ("cluster", "serial")   # X3's forms, the first its default
 X2_FORMS = ("boxes", "single")  # X2's forms, the first its default
-X2_BOXES = 8                    # boxes of X2's split form, one a block
+X1_FORMS = X2_FORMS             # X1's forms, the first its default
+X2_BOXES = 8                    # boxes of X1's and X2's split forms, one a block
 X2_BOX_W = BAND_W // X2_BOXES   # 32 columns each
 # main()'s rows, each a LAUNCHES key: X3's serial form "x3", its cluster form
-# "x3[cluster]"; X2's single box "x2", its boxes "x2[boxes]"
-ROWS = ("x1", "x1_batch", "x2", "x2[boxes]", "x3", "x3[cluster]")
+# "x3[cluster]"; X2's single box "x2", its boxes "x2[boxes]"; X1's single
+# box "x1" / "x1_batch", its boxes "x1[boxes]" / "x1_batch[boxes]"
+ROWS = ("x1", "x1_batch", "x1[boxes]", "x1_batch[boxes]", "x2", "x2[boxes]", "x3",
+        "x3[cluster]")
 ITERS = 8
 LAUNCHES = Launches(ROWS)
 
@@ -110,14 +123,26 @@ def _offsets(n: int, step: int, pad: int, hi: int) -> list[int]:
     return [min(max(0, t * step - pad), hi) for t in range(n)]
 
 
+def _window_offsets() -> tuple[list[int], list[int]]:
+    """Each tile row's and tile column's clamped window offset."""
+    hi_h, hi_w = (H - BAND_H) // 32 * 32, (W - BAND_W) // 128 * 128
+    return (_offsets(N_TY, STEP_H, PAD_LO_H, hi_h), _offsets(N_TX, STEP_W, PAD_LO_W, hi_w))
+
+
 def _corner_index(device) -> tuple[torch.Tensor, torch.Tensor]:
     """Source row of each output row and source column of each output column."""
-    hi_h, hi_w = (H - BAND_H) // 32 * 32, (W - BAND_W) // 128 * 128
-    rows = torch.tensor([o + i for o in _offsets(N_TY, STEP_H, PAD_LO_H, hi_h)
-                         for i in range(TH)], device=device)
-    cols = torch.tensor([o + j for o in _offsets(N_TX, STEP_W, PAD_LO_W, hi_w)
-                         for j in range(TW)], device=device)
+    oy, ox = _window_offsets()
+    rows = torch.tensor([o + i for o in oy for i in range(TH)], device=device)
+    cols = torch.tensor([o + j for o in ox for j in range(TW)], device=device)
     return rows, cols
+
+
+def corner_index(device) -> torch.Tensor:
+    """The flat source index of every element of X1's output, (128, 512):
+    ``src.view(-1)[flat]`` (``src.view(B, -1)[:, flat]`` over a batch) is
+    ``window_x1_plain(src)``, the library call of X1's rows."""
+    rows, cols = _corner_index(device)
+    return (rows[:, None] * W + cols[None, :]).contiguous()
 
 
 def _check_src(src: torch.Tensor, batched: bool) -> None:
@@ -149,10 +174,14 @@ def window_x3_plain(var: torch.Tensor) -> torch.Tensor:
     return var[[0, 1, 1, 2]].clone()
 
 
-def window_x1(src: torch.Tensor) -> torch.Tensor:
-    """Kernel M, X1: src (160, 640) or (B, 160, 640) int32 -> (..., 128, 512).
-    A CPU tensor takes :func:`window_x1_plain`; a CUDA tensor launches the
-    kernel or raises."""
+def window_x1(src: torch.Tensor, form: str | None = None) -> torch.Tensor:
+    """Kernel M, X1: src (160, 640) or (B, 160, 640) int32 -> (..., 128, 512),
+    in ``form`` (``"boxes"``, the default, or ``"single"``).  A CPU tensor
+    takes :func:`window_x1_plain`; a CUDA tensor launches the kernel or
+    raises."""
+    form = X1_FORMS[0] if form is None else form
+    if form not in X1_FORMS:
+        raise ValueError(f"window_x1 takes form 'boxes' or 'single', got {form!r}")
     batched = src.ndim == 3
     _check_src(src, batched)
     if not _harness.on_card(src):
@@ -163,10 +192,58 @@ def window_x1(src: torch.Tensor) -> torch.Tensor:
                       device=src.device)
     lib = _harness.lib_with_setup("iqo_exp_window_setup", src.device)
     _harness.check_rc(lib.iqo_exp_window_x1(
-        src.data_ptr(), out.data_ptr(), src.shape[0] if batched else 0, _harness.stream(src)),
-        "window_x1")
-    LAUNCHES.add("x1_batch" if batched else "x1")
+        X1_FORMS.index(form), src.data_ptr(), out.data_ptr(), src.shape[0] if batched else 0,
+        _harness.stream(src)), f"window_x1[{form}]")
+    row = "x1_batch" if batched else "x1"
+    LAUNCHES.add(row if form == "single" else f"{row}[boxes]")
     return out
+
+
+def x1_schedule(planes: int = 0) -> list[dict]:
+    """X1's split form, one entry a block (planes 0: the 2-D source): its
+    plane, tile (ty, tx) and box j, the box it loads (its row and column in
+    the source, (64, 32)) from the tile's clamped window, and the output
+    rows and columns it writes (rows 0-31 of the box; none for boxes 4-7,
+    past the corner's 128 columns)."""
+    oy, ox = _window_offsets()
+    out = []
+    for plane in range(max(planes, 1)):
+        for ty in range(N_TY):
+            for tx in range(N_TX):
+                for j in range(X2_BOXES):
+                    col = j * X2_BOX_W
+                    out.append({"plane": plane, "ty": ty, "tx": tx, "box": j,
+                                "row": oy[ty], "col": ox[tx] + col,
+                                "shape": (BAND_H, X2_BOX_W),
+                                "out_rows": range(ty * TH, ty * TH + TH),
+                                "out_cols": range(tx * TW + col, tx * TW + col + X2_BOX_W)
+                                if col < TW else range(0)})
+    return out
+
+
+def x1_model(src: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The split form in NumPy: each block's box read from ``src`` ((160,
+    640) or (B, 160, 640)), its rows 0-31 written to its columns of the
+    corner.  Returns out ((..., 128, 512)) and how often each element of
+    every tile's (64, 256) window was loaded, (planes, 4, 4, 64, 256)."""
+    planes = src[None] if src.ndim == 2 else src
+    out = np.zeros((planes.shape[0], N_TY * TH, N_TX * TW), np.int32)
+    writes = np.zeros(out.shape, np.int64)
+    loads = np.zeros((planes.shape[0], N_TY, N_TX, BAND_H, BAND_W), np.int64)
+    oy, ox = _window_offsets()
+    for blk in x1_schedule(planes.shape[0] if src.ndim == 3 else 0):
+        r, c = blk["row"], blk["col"]
+        box = planes[blk["plane"], r:r + BAND_H, c:c + X2_BOX_W]
+        j0 = c - ox[blk["tx"]]
+        loads[blk["plane"], blk["ty"], blk["tx"], :, j0:j0 + X2_BOX_W] += 1
+        if len(blk["out_cols"]):
+            out[blk["plane"], blk["out_rows"].start:blk["out_rows"].stop,
+                blk["out_cols"].start:blk["out_cols"].stop] = box[:TH]
+            writes[blk["plane"], blk["out_rows"].start:blk["out_rows"].stop,
+                   blk["out_cols"].start:blk["out_cols"].stop] += 1
+    if not (writes == 1).all():
+        raise AssertionError("the boxes do not write every output element once")
+    return (out[0] if src.ndim == 2 else out), loads
 
 
 def x2_schedule() -> list[dict]:
@@ -308,24 +385,29 @@ def bound(row: str) -> tuple[float, str, int]:
 
 
 def main() -> dict:
-    """The script's four runs on card 0, X2 and X3 in both forms, each held
-    to its plain version, with the script's OK / WRONG / REJECTED lines (the
-    default forms, X2's boxes and X3's cluster, under the script's labels);
-    X2's two forms timed in turns with ``src[128:160, :128].clone()``, X3's
-    two forms in turns with ``var.index_select(0, idx)``; the spill of both
-    X2 forms checked: rows inside == src, rows past the end zeros; returns
-    {row: {ok, ms, ...}, "x2_past_end": ...}."""
+    """The script's four runs on card 0, X1, X2 and X3 in both forms, each
+    held to its plain version, with the script's OK / WRONG / REJECTED lines
+    (the default forms, X1's and X2's boxes and X3's cluster, under the
+    script's labels); X1's two forms timed in turns with the corner-gathering
+    index (2-D and batch), X2's with ``src[128:160, :128].clone()``, X3's
+    with ``var.index_select(0, idx)``; the spill of both X2 forms checked:
+    rows inside == src, rows past the end zeros; returns {row: {ok, ms,
+    ...}, "x2_past_end": ...}."""
     _harness.require_card()
     card = _harness.card()
     dev = torch.device("cuda", 0)
     srcs = inputs(dev)
     x3 = {f: functools.partial(window_x3, form=f) for f in FORMS}
     x2 = {f: functools.partial(window_x2, form=f) for f in X2_FORMS}
-    calls = {"x1": (window_x1, window_x1_plain), "x1_batch": (window_x1, window_x1_plain),
+    x1 = {f: functools.partial(window_x1, form=f) for f in X1_FORMS}
+    calls = {"x1": (x1["single"], window_x1_plain), "x1_batch": (x1["single"], window_x1_plain),
+             "x1[boxes]": (x1["boxes"], window_x1_plain),
+             "x1_batch[boxes]": (x1["boxes"], window_x1_plain),
              "x2": (x2["single"], window_x2_plain), "x2[boxes]": (x2["boxes"], window_x2_plain),
              "x3": (x3["serial"], window_x3_plain),
              "x3[cluster]": (x3["cluster"], window_x3_plain)}
-    label = {"x1": "X1 batch=None", "x1_batch": f"X1 batch={BATCH}",
+    label = {"x1": "X1 [single] batch=None", "x1_batch": f"X1 [single] batch={BATCH}",
+             "x1[boxes]": "X1 batch=None", "x1_batch[boxes]": f"X1 batch={BATCH}",
              "x2": "X2 [single] (OOB-high Element window)",
              "x2[boxes]": "X2 (OOB-high Element window)",
              "x3": "X3 [serial] (dynamic scratch leading index)",
@@ -346,15 +428,18 @@ def main() -> dict:
     # library calls, each held to the plain version first
     r0 = (H - 32) // 32 * 32
     idx = torch.tensor([0, 1, 1, 2], device=dev)
-    library = {"x2": lambda t: t[r0:r0 + 32, :TW].clone(),
+    flat = corner_index(dev)
+    library = {"x1": lambda t: t.view(-1)[flat],
+               "x1_batch": lambda t: t.view(t.shape[0], -1)[:, flat],
+               "x2": lambda t: t[r0:r0 + 32, :TW].clone(),
                "x3": lambda t: t.index_select(0, idx)}
     for row, fn in library.items():
         if not torch.equal(fn(srcs[row]), calls[row][1](srcs[row])):
             raise AssertionError(f"the library call of {row} differs from its plain version")
     ran = [r for r in ROWS if not rows[r]["rejected"]]
-    ms = {r: _harness.launches_ms(calls[r][0], _harness.perturbed(srcs[r], ITERS))
-          for r in ran if r.startswith("x1")}
-    for group in (("x2", "x2[boxes]"), ("x3", "x3[cluster]")):
+    ms = {}
+    for group in (("x1", "x1[boxes]"), ("x1_batch", "x1_batch[boxes]"), ("x2", "x2[boxes]"),
+                  ("x3", "x3[cluster]")):
         base = group[0]
         turns = {r: (calls[r][0], _harness.perturbed(srcs[base], ITERS)) for r in group if r in ran}
         turns[base + " library"] = (library[base], _harness.perturbed(srcs[base], ITERS))
@@ -365,8 +450,8 @@ def main() -> dict:
         extra = {"library_ms": ms[base + " library"]} if base in library else {}
         if row == "x3[cluster]" and "x3" in ms:
             extra["serial_ms"] = ms["x3"]
-        if row == "x2[boxes]" and "x2" in ms:
-            extra["single_ms"] = ms["x2"]
+        if row in ("x1[boxes]", "x1_batch[boxes]", "x2[boxes]") and base in ms:
+            extra["single_ms"] = ms[base]
         print(f"{label[row]}: {verdicts[row]}; {ms[row] * 1e3!r} us per launch, {nbytes} bytes, "
               f"bound {b_ms * 1e3!r} us ({by})"
               + "".join(f"; {k} {v * 1e3!r} us in the same turns" for k, v in extra.items())

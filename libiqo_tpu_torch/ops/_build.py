@@ -247,6 +247,10 @@ def _exp_signatures() -> tuple:
         ("iqo_exp_overlap_setup", []),
         # variant, a, b, out, w, n_t, step, halo, stream
         ("iqo_exp_band_colsum", [i, p, p, p, i, i, i, i, p]),
+        # variant, a, b, out, w, n_t, step, halo, vec, cw, run, thread rows, stream
+        ("iqo_exp_band_colsum_walk", [i, p, p, p, i, i, i, i, i, i, i, i, p]),
+        ("iqo_exp_band_colsum_walk_setup", []),
+        ("iqo_exp_band_colsum_walk_shape", [ctypes.POINTER(i)]),
         ("iqo_exp_band_shape", [ctypes.POINTER(i)]),
         # form, words, src, frames, h, w, coef, out, r0..r2, c0..c2, slab,
         # scratch, slab bytes, persistent blocks, stream
@@ -285,7 +289,7 @@ def _exp_signatures() -> tuple:
         ("iqo_exp_slice_wgmma", [i, i, i, p, p, p, i, i, p]),
         ("iqo_exp_slice_wgmma_setup", []),
         ("iqo_exp_slice_wgmma_shape", [ctypes.POINTER(i)]),
-        ("iqo_exp_window_x1", [p, p, i, p]),         # src, out, planes, stream
+        ("iqo_exp_window_x1", [i, p, p, i, p]),      # form, src, out, planes, stream
         ("iqo_exp_window_x2", [i, p, p, p, p]),      # form, src, out, spill, stream
         ("iqo_exp_window_x3", [p, p, i, p]),         # var, out, steps, stream
         ("iqo_exp_window_x3_cluster", [p, p, p]),    # var, out, stream

@@ -366,7 +366,7 @@ def test_launches_stay_zero_on_cpu():
         assert mod.LAUNCHES.total() == 0
     forms = set(exp_band_shape.FORMS) | {"i32"}
     assert set(exp_band_shape.LAUNCHES) == forms | {f"{f}[ring]" for f in forms}
-    assert len(exp_overlap.LAUNCHES) == 40 and len(exp_blocked_halo.LAUNCHES) == 3
+    assert len(exp_overlap.LAUNCHES) == 40 and len(exp_blocked_halo.LAUNCHES) == 6
 
 
 @pytest.mark.parametrize("mod", NEW_MODULES, ids=lambda m: m.__name__.rsplit(".", 1)[-1])

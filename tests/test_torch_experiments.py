@@ -359,7 +359,7 @@ def test_module_entry_point_fails_without_a_card(name):
 def test_probe_library_is_built_apart_from_the_resize_library():
     assert [p.name for p in _build.exp_sources()] == [
         "exp_band.cu", "exp_band_ring.cu", "exp_banded.cu", "exp_banded_wgmma.cu", "exp_clamp.cu",
-        "exp_mma.cu", "exp_mma_wgmma.cu",
+        "exp_colsum_walk.cu", "exp_mma.cu", "exp_mma_wgmma.cu",
         "exp_slice.cu", "exp_slice_wgmma.cu", "exp_stream.cu", "exp_vpu.cu", "exp_vpu_f32.cu",
         "exp_xpass.cu", "exp_xpass_gemm.cu", "exp_xpass_s8.cu"]
     assert not set(_build.exp_sources()) & set(_build.sources())

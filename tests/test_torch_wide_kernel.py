@@ -23,6 +23,8 @@ byte-exact.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -228,6 +230,26 @@ def test_shared_memory_caps_rows_only_through_the_budget():
     assert cr.wide_layout(tall) is None
     k = cr.kernel_tables(tall)
     assert isinstance(k, cr.KernelTables) and k.rows == cr.work_rows(tall)
+
+
+def test_refused_layout_route_of_the_card_run():
+    """``chip_smoke.py`` phase 3b's REFUSED_WIDE, Area 4096x232448 -> 16x4,
+    takes the windowed kernel's walk on the facade: inside
+    ``supports_plan``, 14 work rows (< 16), ``wide_layout`` refused (58112 Y
+    taps an output do not fit shared memory), windowed tables on the u16
+    instantiation."""
+    import ast
+    import re
+    text = (Path(__file__).resolve().parent.parent / "chip_smoke.py").read_text()
+    case = ast.literal_eval(re.search(r"^REFUSED_WIDE = (.*)$", text, re.M).group(1))
+    assert case == ("area", 4096, 232448, 16, 4, {})
+    plan = _plan(case)
+    assert plan.y.num_coefs == 58112 and plan.x.num_coefs == 256
+    assert cr.supports_plan(plan) and not cr.tiled_ok(plan)
+    assert cr.work_rows(plan) == 14 < cr.TILE_ROWS
+    assert cr.wide_layout(plan) is None
+    k = cr.kernel_tables(plan)
+    assert isinstance(k, cr.KernelTables) and k.rows == 14 and cr.variant(k) == "u16"
 
 
 def test_old_walk_stays_reachable():

@@ -92,15 +92,12 @@ def test_window_x3_refuses_a_bad_form(form):
 
 @pytest.mark.parametrize("wrapper", [ec.window_x1, ec.window_x2])
 def test_x1_and_x2_take_no_form(wrapper):
-    """X1 takes no form; X2 takes its own two (``"boxes"``, ``"single"``)
-    and refuses X3's."""
+    """X1 and X2 take none of X3's forms: each takes its own two
+    (``"boxes"``, ``"single"``) and refuses ``"cluster"``."""
     src = ec.inputs("cpu")["x2"]
-    if wrapper is ec.window_x1:
-        with pytest.raises(TypeError):
-            wrapper(src, form="cluster")
-        return
     with pytest.raises(ValueError, match="takes form"):
         wrapper(src, form="cluster")
+    assert ec.X1_FORMS == ec.X2_FORMS == ("boxes", "single")
 
 
 @pytest.mark.parametrize("rank", range(4))
@@ -160,8 +157,8 @@ def test_launch_keys_stay_zero_on_cpu():
     for form in (None, *ec.FORMS):
         ec.window_x3(var, form)
     assert ec.LAUNCHES.total() == 0
-    assert set(ec.LAUNCHES) == {"x1", "x1_batch", "x2", "x2[boxes]", "x3",
-                                "x3[cluster]"} == set(ec.ROWS)
+    assert set(ec.LAUNCHES) == {"x1", "x1_batch", "x1[boxes]", "x1_batch[boxes]", "x2",
+                                "x2[boxes]", "x3", "x3[cluster]"} == set(ec.ROWS)
 
 
 def test_bound_of_the_cluster_row_is_x3s():

@@ -127,6 +127,56 @@ def test_x2_model_equals_plain_and_script(script, capsys):
                                       out)
 
 
+def test_x1_boxes_cover_each_tiles_window_once():
+    """X1's split form: 8 boxes of (64, 32) a tile, 128 blocks (384 for a
+    batch of 3), each box inside the 160 x 640 source at the tile's clamped
+    window; the boxes load every element of each tile's (64, 256) window
+    exactly once, and boxes 0-3 write the tile's (32, 128) corner."""
+    for planes in (0, ec.BATCH):
+        sched = ec.x1_schedule(planes)
+        assert len(sched) == max(planes, 1) * ec.N_TY * ec.N_TX * ec.X2_BOXES
+        for blk in sched:
+            assert blk["shape"] == (ec.BAND_H, ec.X2_BOX_W)
+            assert 0 <= blk["row"] and blk["row"] + ec.BAND_H <= ec.H
+            assert 0 <= blk["col"] and blk["col"] + ec.X2_BOX_W <= ec.W
+            assert len(blk["out_cols"]) == (ec.X2_BOX_W if blk["box"] < 4 else 0)
+    src = ec.inputs("cpu")["x1_batch"].numpy()
+    _, loads = ec.x1_model(src)
+    assert loads.shape == (ec.BATCH, ec.N_TY, ec.N_TX, ec.BAND_H, ec.BAND_W)
+    assert (loads == 1).all()
+    sched = ec.x1_schedule()
+    assert len(sched) == 128 and len(ec.x1_schedule(ec.BATCH)) == 384
+    tile = [blk for blk in sched if (blk["ty"], blk["tx"]) == (0, 1)]
+    assert [blk["col"] for blk in tile] == list(range(0, 256, 32))      # tx 1 clamps to 0
+    assert {blk["row"] for blk in sched if blk["ty"] == 3} == {64}
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+def test_x1_model_equals_plain_and_script(script, capsys, batch):
+    """The split form's model == the plain version == the script's
+    ``run_x1`` in interpret mode, 2-D and batch; both forms' wrappers give
+    it on the CPU."""
+    assert script.run_x1(batch=batch)
+    capsys.readouterr()
+    src = ec.inputs("cpu")["x1" if batch is None else "x1_batch"]
+    out, _ = ec.x1_model(src.numpy())
+    np.testing.assert_array_equal(out, script.outputs[-1])
+    np.testing.assert_array_equal(out, ec.window_x1_plain(src).numpy())
+    for form in (None, *ec.X1_FORMS):
+        np.testing.assert_array_equal(ec.window_x1(src, form=form).numpy(), out)
+
+
+def test_corner_index_is_the_plain_version():
+    """The library call of X1's rows: one index of the flat source, over a
+    batch one index a plane."""
+    srcs = ec.inputs("cpu")
+    flat = ec.corner_index("cpu")
+    assert flat.shape == (128, 512)
+    assert torch.equal(srcs["x1"].view(-1)[flat], ec.window_x1_plain(srcs["x1"]))
+    b = srcs["x1_batch"]
+    assert torch.equal(b.view(b.shape[0], -1)[:, flat], ec.window_x1_plain(b))
+
+
 def test_window_x3_equals_script(script, capsys):
     script.run_x3()
     assert "X3 (dynamic scratch leading index): ran, OK" in capsys.readouterr().out
@@ -156,6 +206,8 @@ def test_window_offsets_clamp():
 
 def test_bounds_give_the_bytes():
     assert ec.bound("x1")[1:] == ("bytes", 2 * 128 * 512 * 4)
+    assert ec.bound("x1[boxes]") == ec.bound("x1")
+    assert ec.bound("x1_batch[boxes]") == ec.bound("x1_batch")
     assert ec.bound("x1_batch")[2] == 3 * ec.bound("x1")[2]
     assert ec.bound("x2")[2] == 2 * 32 * 128 * 4
     assert ec.bound("x3")[2] == 7 * 64 * 256 * 4
@@ -172,13 +224,17 @@ def test_wrappers_refuse_other_devices_and_bad_calls():
         ec.window_x1(srcs["x1"][:, :320])
     with pytest.raises(ValueError, match="var must be"):
         ec.window_x3(srcs["x3"].to(torch.float64))
+    for bad in ("cluster", "", "Boxes", "serial"):
+        with pytest.raises(ValueError, match="takes form"):
+            ec.window_x1(srcs["x1"], form=bad)
 
 
 def test_launches_stay_zero_on_cpu():
     ec.reset_launches()
     srcs = ec.inputs("cpu")
-    ec.window_x1(srcs["x1"])
-    ec.window_x1(srcs["x1_batch"])
+    for form in (None, *ec.X1_FORMS):
+        ec.window_x1(srcs["x1"], form=form)
+        ec.window_x1(srcs["x1_batch"], form=form)
     ec.window_x2(srcs["x2"])
     ec.window_x3(srcs["x3"])
     assert ec.LAUNCHES.total() == 0 and set(ec.LAUNCHES) == set(ec.ROWS)
@@ -217,8 +273,9 @@ def cuda_device():
 @pytest.mark.cuda
 def test_window_kernels_equal_plain_on_card(cuda_device):
     srcs = ec.inputs(cuda_device)
-    assert torch.equal(ec.window_x1(srcs["x1"]), ec.window_x1_plain(srcs["x1"]))
-    assert torch.equal(ec.window_x1(srcs["x1_batch"]), ec.window_x1_plain(srcs["x1_batch"]))
+    for form in ec.X1_FORMS:
+        for row in ("x1", "x1_batch"):
+            assert torch.equal(ec.window_x1(srcs[row], form=form), ec.window_x1_plain(srcs[row]))
     for form in ec.X2_FORMS:
         assert torch.equal(ec.window_x2(srcs["x2"], form=form), ec.window_x2_plain(srcs["x2"]))
     assert torch.equal(ec.window_x3(srcs["x3"]), ec.window_x3_plain(srcs["x3"]))
