@@ -8,8 +8,10 @@ Run from the repository root, with no arguments:
 Two main paths, each through the entry points a user calls:
 
 * Lanczos: one YUV420 frame, 3840x2160 -> 1920x1080, Lanczos3, exact; luma
-  at px_scale 1, U and V as one batch-of-2 call at px_scale 2.  It runs the
-  tiled kernel (``csrc/resize_tiled.cu``) in its ``wrap16_tiled`` form.
+  at px_scale 1, U and V at px_scale 2, through the executables' one frame
+  call (``ops/executable.py``: luma one launch, U and V one launch of a lone
+  frame and two of a batch, where they lie).  It runs the tiled kernel
+  (``csrc/resize_tiled.cu``) in its ``wrap16_tiled`` form.
 * Area: ``YUV420Resizer("area", 1920, 1080, 640, 360)``, the benchmark
   CLI's default (``python -m libiqo_tpu_torch.cli.benchmark``).  It runs
   the tiled kernel's ``u16_tiled`` form, as Linear does.
@@ -65,20 +67,35 @@ Phases:
    byte, the kernel's and the plain path's times; the phase's seconds.
 4. The Lanczos main path: ``YUV420Resizer(..., device="cuda")``, ``resize``
    on 4 frames and ``resize_batch`` on 4; the wrap16_tiled launch count
-   over that run must equal its plane calls, with no other launch; every
+   over that run must be the frame calls' (2 a frame: luma, U and V as one
+   launch; 3 a batch: U and V one launch each), with no other launch; every
    plane must equal the plain path; the resize CLI on a 3-frame file must
    write the API's bytes.
 5. The Area main path: ``YUV420Resizer("area", ...)`` with no ``device``
    argument must resolve to the kernel on the card; over 4 frames and one
-   ``resize_batch(4)`` the u16_tiled launch count must be 2 per call; every
-   plane must equal the plain path; the benchmark CLI's default mode, run
-   in this process, must launch the u16_tiled kernel twice per cycle.
+   ``resize_batch(4)`` the u16_tiled launch count must be 2 a frame and 3
+   a batch; every plane must equal the plain path; the benchmark CLI's
+   default mode, run in this process, must launch the u16_tiled kernel
+   twice per cycle.
    5b. The windowed route: ``YUV420Resizer`` on 4K -> 1920x16 strips
    (Lanczos3 and Area), whose luma band exceeds the tiled kernel's shared
    memory: luma launches ``resize_fused``'s wrap16 / u16, chroma the tiled
    kernel; then relaxed on a Lanczos3 4K -> 256x144 thumbnail and the Area
    strip: luma ``wrap16_relaxed`` / ``u16_relaxed``, chroma the tiled
    relaxed form.
+   5c. The executable layer (``ops/executable.py``, the counterpart of the
+   JAX package's compiled executables): on every facade route, the main
+   paths exact and relaxed, the carry main paths with ``LIBIQO_TPU_CARRY=1``,
+   5b's strips and WIDE_FACADE, each plane's executable == ``resize_fused``
+   on its operands == the plain path, byte for byte, one launch of its
+   variant, from an aligned source and one 5 bytes into an odd pitch; each
+   frame's ``resize_batch(3)`` and ``resize`` with U and V in place,
+   stacked and pitched: one frame call, 3 and 2 launches, == the per-plane
+   path == plain.  Then the Lanczos main frame at batch 1 and 16: the
+   frame call against the per-plane path (``resize_fused`` on luma and on
+   U and V stacked) and the per-plane executables in place (three
+   launches), in turns: card ms a frame, host-paced ms a frame and host ms
+   to issue a call.
 6. The benchmark CLI as a user runs it: default mode, ``--amortized``,
    ``--batch 16`` and ``--stream 64 --batch 16``, each must exit 0 and
    print its elapsed time.
@@ -119,7 +136,8 @@ Phases:
    10b. The measurement modules, ``libiqo_tpu_torch/tools/bench.py``,
    ``bench_configs``, ``bench_video64``, ``bench_fallback``,
    ``bench_decomp`` and ``tile_sweep`` (the ports of ``bench.py`` and the
-   JAX package's bench scripts), each through its ``main`` in its short
+   JAX package's bench scripts) and ``host_split`` (the host's cost of each
+   step of a frame call), each through its ``main`` in its short
    form (``--quick``: fewer counts, the same shapes, checks and guards);
    each must exit 0, and the run must launch the tiled kernel.
 11. Sharding (``libiqo_tpu_torch.parallel.sharding``) on the one card, over
@@ -128,7 +146,8 @@ Phases:
    chroma and Area 1080p -> 360p luma, each row-sharded over 4 shards,
    ``make_yuv_step_fn`` at 4K -> 1080p on 4 frames over dp 4, and
    ``make_batch_row_sharded_fn`` on a 2x2 mesh with 3 frames and 1081
-   output rows; one launch of the tiled kernel per shard per plane call.  Each output equals
+   output rows; one launch of the tiled kernel per shard per plane call,
+   and per shard's frame call of the YUV step 2 (luma, U and V as one).  Each output equals
    the unsharded kernel or the plain path byte for byte; then small
    row-sharded geometries (tests/test_sharding.py's, the multi-hop Area
    cases and 237 -> 119 rows among them, and a seeded fuzz set) equal
@@ -846,11 +865,13 @@ def time_wide(cr, build_plan, case, card: str) -> dict:
 def drive_yuv(cr, yuv, build_plan, rng, frame, variant, chroma_variant=None,
               **kwargs):
     """``YUV420Resizer(*frame, **kwargs)`` on 4 frames and one
-    ``resize_batch(4)`` with every launch count set to 0 just before;
-    the launch counts must be 2 per call, all of ``variant``, or one of
-    ``variant`` (luma) and one of ``chroma_variant``; every plane must
-    equal the plain path (the relaxed one for a relaxed variant).
-    Returns (launches by variant, max_err, frames, outs)."""
+    ``resize_batch(4)`` with every launch count set to 0 just before; each
+    call is one frame call of the executables (``ops/executable.py``): a
+    frame launches luma once and U and V as one launch, the batch luma once
+    and U and V once each.  The launch counts must be those, all of
+    ``variant``, or of ``variant`` (luma) and ``chroma_variant``; every
+    plane must equal the plain path (the relaxed one for a relaxed
+    variant).  Returns (launches by variant, max_err, frames, outs)."""
     method, sw, sh, dw, dh = frame
     relaxed = "_relaxed" in variant
     route = "cuda-relaxed" if relaxed else "cuda"
@@ -869,13 +890,13 @@ def drive_yuv(cr, yuv, build_plan, rng, frame, variant, chroma_variant=None,
     bout = r.resize_batch(*batch)
     torch.cuda.synchronize()
     launches, by_variant = cr.LAUNCHES, dict(cr.LAUNCHES_BY_VARIANT)
-    calls = len(frames) + 1
-    want = {variant: 2 * calls} if chroma_variant in (None, variant) else {
-        variant: calls, chroma_variant: calls}
-    check(launches == 2 * calls
+    luma_n, chroma_n = len(frames) + 1, len(frames) + 2
+    want = ({variant: luma_n + chroma_n} if chroma_variant in (None, variant)
+            else {variant: luma_n, chroma_variant: chroma_n})
+    check(launches == luma_n + chroma_n
           and all(by_variant[v] == n for v, n in want.items()),
           f"{method} path: {launches} kernel launches {by_variant}, expected "
-          f"{want} (2 per resize, 2 per batch)")
+          f"{want} (2 per resize, 3 per batch)")
     print(f"{method} path ({r.resolved_backend()} on {r._luma.device}): "
           f"{len(frames)} x resize + 1 x resize_batch(4) -> launches "
           f"{ {v: n for v, n in by_variant.items() if n} } (expected {want})")
@@ -973,6 +994,200 @@ def phase_windowed_path(cr, yuv, build_plan, rng) -> dict:
         launches[luma_v] = by_variant[luma_v]
         MAX_ERR[luma_v] = max(MAX_ERR.get(luma_v, 0), err)
     return launches
+
+
+# the executable layer's routes (ops/executable.py): (label, YUV420Resizer
+# frame, precision, LIBIQO_TPU_CARRY set): both main paths exact and relaxed,
+# the carry main paths and phase 5b's strips; WIDE_FACADE beside them
+EXEC_FRAMES = (
+    ("lanczos main", ("lanczos3", SRC_W, SRC_H, DST_W, DST_H), "exact", False),
+    ("area main", AREA_MAIN, "exact", False),
+    ("lanczos main", ("lanczos3", SRC_W, SRC_H, DST_W, DST_H), "relaxed", False),
+    ("area main", AREA_MAIN, "relaxed", False),
+    *(("carry path", f, p, True) for f, _, _, p in CARRY_PATHS),
+    *(("strip", f, p, False) for f, _, _, p in WINDOWED_FRAMES),
+)
+EXEC_BATCHES = (1, 16)          # a lone frame, and tools/bench.py's batch
+EXEC_ISSUE_CALLS = 256          # frames a host-clock issue timing queues
+EXEC_ISSUE_ROUNDS = 3           # rounds of issue timings in turns (A B C C B A)
+
+
+def hold_executable(cr, tag: str, ex, x: torch.Tensor) -> int:
+    """One executable on the card: ``ex(x)`` is one launch of its variant
+    and == ``cr.resize_fused(ex.ops, x)`` == the plain path, byte for
+    byte."""
+    cr.reset_launches()
+    got = ex(x)
+    torch.cuda.synchronize()
+    check(cr.LAUNCHES == 1 and cr.LAUNCHES_BY_VARIANT[ex.variant] == 1,
+          f"{tag}: {cr.LAUNCHES} launches {cr.LAUNCHES_BY_VARIANT}, expected one "
+          f"{ex.variant}")
+    err = compare(f"{tag} executable vs resize_fused", got, cr.resize_fused(ex.ops, x))
+    return max(err, compare(f"{tag} executable vs plain", got, cr.resize_plain(ex.ops, x)))
+
+
+def frame_layouts(rng, batch: int, sw: int, sh: int):
+    """(name, y, u, v) CUDA planes of ``batch`` frames: U and V tensors of
+    their own ("in place"), views of one buffer ("stacked"), and each plane
+    5 bytes into an odd-pitched buffer ("pitched")."""
+    off, pad = WIDE_STRIDED
+    cw, ch = sw // 2, sh // 2
+
+    def planes(shape):
+        return torch.from_numpy(random_u8(rng, shape)).cuda()
+    uv = planes((2 * batch, ch, cw))
+    ybuf, uvbuf = planes((batch, sh, sw + pad)), planes((2 * batch, ch, cw + pad))
+    return [("in place", planes((batch, sh, sw)), planes((batch, ch, cw)),
+             planes((batch, ch, cw))),
+            ("stacked", planes((batch, sh, sw)), uv[:batch], uv[batch:]),
+            ("pitched", ybuf[..., off:off + sw], uvbuf[:batch, :, off:off + cw],
+             uvbuf[batch:, :, off:off + cw])]
+
+
+def hold_frames(cr, yuv, rng, label: str, r, lex, cex) -> None:
+    """``r.resize_batch`` (3 frames) and ``r.resize`` (a lone frame) in
+    each of :func:`frame_layouts`: one frame call, 3 launches a batch and 2
+    a lone frame (luma on ``lex.variant``, U and V on ``cex.variant``), ==
+    the per-plane path (``resize_fused`` on luma and on the stacked U and
+    V) == the plain path, byte for byte."""
+    (sw, sh), (dw, dh) = r._true_src, r._true_dst
+    check((sw, sh) == r.src_size and (dw, dh) == r.dst_size, f"{label}: odd sizes")
+    for layout, y, u, v in frame_layouts(rng, 3, sw, sh):
+        per_plane = (cr.resize_fused(lex.ops, y), cr.resize_fused(cex.ops, torch.cat([u, v])))
+        plain = (cr.resize_plain(lex.ops, y), cr.resize_plain(cex.ops, torch.cat([u, v])))
+        for what, call, b, launches in (
+                ("resize_batch(3)", lambda: r.resize_batch(y, u, v), 3, 3),
+                ("resize", lambda: r.resize(yuv.YUV420Frame(y[1], u[1], v[1])), 1, 2)):
+            cr.reset_launches()
+            got = call()
+            got = (got.y, got.u, got.v) if b == 1 else got
+            torch.cuda.synchronize()
+            want = {lex.variant: 1}
+            want[cex.variant] = want.get(cex.variant, 0) + launches - 1
+            by = {k: n for k, n in cr.LAUNCHES_BY_VARIANT.items() if n}
+            check(cr.LAUNCHES == launches and by == want,
+                  f"{label} {layout} {what}: launches {by}, expected {want}")
+            sel = slice(0, 3) if b == 3 else slice(1, 2)
+            wants = ((per_plane[0][sel], per_plane[1][:3][sel], per_plane[1][3:][sel]),
+                     (plain[0][sel], plain[1][:3][sel], plain[1][3:][sel]))
+            for name, g, pp, pl in zip("yuv", got, *wants):
+                g = g if b == 3 else g[None]
+                compare(f"{label} {layout} {what} {name} vs per-plane", g, pp)
+                compare(f"{label} {layout} {what} {name} vs plain", g, pl)
+
+
+def time_frames(cr, yuv, bench_decomp, _bench, rng, card: str) -> list:
+    """The Lanczos main frame at EXEC_BATCHES: card ms a frame (CUDA
+    events, the card spinning while the host queues) and host ms to issue a
+    call (host clock, ``bench_decomp.issue_ms``) of the executable's frame
+    call against the per-plane path (``resize_fused`` on luma and on U and
+    V stacked: today's copy and one chroma launch) and the per-plane
+    executables in place (three launches), each form timed twice in turns;
+    each form == the frame call on one input first.  The host's issue time
+    is the min over EXEC_ISSUE_ROUNDS rounds in turns: it spreads between
+    runs far more than the card's time."""
+    r = yuv.YUV420Resizer("lanczos3", SRC_W, SRC_H, DST_W, DST_H)
+    dev = torch.device("cuda", 0)
+    lex, cex = r._luma._bind(dev)[1], r._chroma._bind(dev)[1]
+    rows = []
+    for b in EXEC_BATCHES:
+        planes = [torch.from_numpy(p).cuda() for p in _bench.seeded_planes((b, SRC_H, SRC_W))]
+        if b == 1:
+            xs = _bench.copies(tuple(p[0] for p in planes))
+            calls = {
+                "executable": lambda x: r.resize(yuv.YUV420Frame(*x)),
+                "per_plane_stacked": lambda x: (cr.resize_fused(lex.ops, x[0][None]),
+                                                cr.resize_fused(cex.ops, torch.stack(x[1:]))),
+                "per_plane_in_place": lambda x: (lex(x[0][None]), cex(x[1][None]),
+                                                 cex(x[2][None]))}
+        else:
+            xs = _bench.copies(tuple(planes))
+            calls = {
+                "executable": lambda x: r.resize_batch(*x),
+                "per_plane_stacked": lambda x: (cr.resize_fused(lex.ops, x[0]),
+                                                cr.resize_fused(cex.ops, torch.cat(x[1:]))),
+                "per_plane_in_place": lambda x: (lex(x[0]), cex(x[1]), cex(x[2]))}
+        outs = {n: c(xs[0]) for n, c in calls.items()}
+        f = outs.pop("executable")
+        ref = (f.y[None], f.u[None], f.v[None]) if b == 1 else f
+        y_, uv = outs.pop("per_plane_stacked")
+        outs["per_plane_stacked"] = (y_, uv[:b], uv[b:])
+        for n, o in outs.items():
+            for name, g, w in zip("yuv", o, ref):
+                compare(f"time batch {b} {n} {name}", g, w)
+        card_ms = in_turns(calls, xs)
+        host_ms = in_turns(calls, xs, dict.fromkeys(calls, False))
+        names = list(calls)
+        issue = {n: [] for n in names}
+        for n in (names + names[::-1]) * EXEC_ISSUE_ROUNDS:
+            issue[n].append(bench_decomp.issue_ms(calls[n], xs, EXEC_ISSUE_CALLS // b, 1))
+        for n in names:
+            row = {"batch": b, "form": n, "card_ms_per_frame": card_ms[n] / b,
+                   "host_paced_ms_per_frame": host_ms[n] / b,
+                   "issue_ms_per_call": min(issue[n]), "card": card}
+            rows.append(row)
+            print(f"frame call batch {b:2d} {n:18s}: {row['card_ms_per_frame']!r} ms a "
+                  f"frame on the card, {row['host_paced_ms_per_frame']!r} at the host's "
+                  f"pace; a call issued in {row['issue_ms_per_call']!r} ms ({card})")
+    return rows
+
+
+def phase_executables(cr, yuv, rng, card: str) -> dict:
+    """Phase 5c, the executable layer: every facade route through its
+    executable == ``resize_fused`` == plain, from aligned sources and 5
+    bytes into odd pitches; the frame calls' launches and bytes with U and
+    V in place, stacked and pitched; then the frame call's times against
+    the per-plane path.  Returns {"variants", "rows"}."""
+    from libiqo_tpu_torch.tools import _bench, bench_decomp
+
+    t_phase = time.perf_counter()
+    off, pad = WIDE_STRIDED
+    dev = torch.device("cuda", 0)
+    variants, n = set(), 0
+    carry_env = os.environ.pop("LIBIQO_TPU_CARRY", None)
+    try:
+        for label, frame, precision, carry in EXEC_FRAMES:
+            if carry:
+                os.environ["LIBIQO_TPU_CARRY"] = "1"
+            method, sw, sh, dw, dh = frame
+            label = f"{label} {method} {sw}x{sh}->{dw}x{dh} {precision}"
+            r = yuv.YUV420Resizer(method, sw, sh, dw, dh, precision=precision)
+            exs = []
+            for plane, res, (h, w) in (("luma", r._luma, (sh, sw)),
+                                       ("chroma", r._chroma, (sh // 2, sw // 2))):
+                kernel, ex = res._bind(dev)
+                check(kernel, f"{label} {plane}: route {res.resolved_backend()}")
+                buf = torch.from_numpy(random_u8(rng, (2, h, w + pad))).cuda()
+                hold_executable(cr, f"{label} {plane}", ex, buf[..., :w].contiguous())
+                hold_executable(cr, f"{label} {plane} +{off}", ex, buf[..., off:off + w])
+                exs.append(ex)
+                variants.add(ex.variant)
+            hold_frames(cr, yuv, rng, label, r, *exs)
+            os.environ.pop("LIBIQO_TPU_CARRY", None)
+            n += 1
+            print(f"executables {label}: luma {exs[0].variant}, chroma {exs[1].variant} "
+                  f"== resize_fused == plain (aligned, +{off} bytes); frame calls "
+                  "(in place, stacked, pitched) == per-plane == plain, 3 launches a "
+                  "batch, 2 a lone frame")
+        for case in card_check.WIDE_FACADE:
+            res = card_check.facade(case)
+            kernel, ex = res._bind(dev)
+            check(kernel and ex.variant.endswith("_wide"), f"{case}: {ex.variant}")
+            alg, sw, sh, dw, dh, _ = case
+            buf = torch.from_numpy(random_u8(rng, (1, sh, sw + pad))).cuda()
+            hold_executable(cr, f"wide {case}", ex, buf[..., :sw].contiguous())
+            hold_executable(cr, f"wide {case} +{off}", ex, buf[..., off:off + sw])
+            variants.add(ex.variant)
+            n += 1
+    finally:
+        os.environ.pop("LIBIQO_TPU_CARRY", None)
+        if carry_env is not None:
+            os.environ["LIBIQO_TPU_CARRY"] = carry_env
+    print(f"executable layer: {n} routes, variants {sorted(variants)}, every one == "
+          "resize_fused == plain byte for byte")
+    rows = time_frames(cr, yuv, bench_decomp, _bench, rng, card)
+    print(f"phase 5c (executables): {time.perf_counter() - t_phase!r} s")
+    return {"variants": sorted(variants), "rows": rows}
 
 
 def phase_benchmark_cli(card: str, runs=CLI_RUNS, route: str = "cuda"):
@@ -1256,13 +1471,14 @@ def phase_px4_time(cr, build_plan, rng, card: str) -> None:
 
 
 BENCH_MODULES = ("bench", "bench_configs", "bench_video64", "bench_fallback",
-                 "bench_decomp", "tile_sweep")
+                 "bench_decomp", "tile_sweep", "host_split")
 
 
 def phase_bench_modules(cr) -> dict:
     """Phase 10b: the measurement modules (``libiqo_tpu_torch/tools/
     bench*.py``, ``tile_sweep.py``, the ports of ``bench.py`` and the JAX
-    package's bench scripts) in their short form (``--quick``: fewer counts,
+    package's bench scripts, and ``host_split.py``) in their short form
+    (``--quick``: fewer counts,
     the same shapes and checks), each in this process through its
     ``main``; every one must exit 0 (its checks and guards passed), and
     the main paths' tiled kernel must have launched (``bench_fallback``
@@ -1338,20 +1554,21 @@ def phase_sharded(cr, sharding, build_plan, numpy_ref, rng, card: str) -> dict:
         before = cr.LAUNCHES
         out = call()
         check(cr.LAUNCHES - before == n, f"{what}: {cr.LAUNCHES - before} "
-              f"launches, expected {n} (one per shard per plane call)")
+              f"launches, expected {n}")
         return out
 
     cr.reset_launches()
     outs = {name: launched(f"sharded {name}", SHARDS, lambda: fn(*ops, x))
             for name, (_, fn, ops, x) in planes.items()}
-    yuv_out = launched("yuv step", 3 * SHARDS, lambda: step(*step_ops, *yuv_in))
+    # a frame per shard: one frame call, luma and U and V as one launch
+    yuv_out = launched("yuv step", 2 * SHARDS, lambda: step(*step_ops, *yuv_in))
     dpsp_out = launched("dp x sp", 4, lambda: dpsp(*dpsp_ops, dpsp_in))
     torch.cuda.synchronize()
     by_variant = dict(cr.LAUNCHES_BY_VARIANT)
     want = {**dict.fromkeys(by_variant, 0),
-            "wrap16_tiled": 2 * SHARDS + 3 * SHARDS + 4, "u16_tiled": SHARDS}
+            "wrap16_tiled": 2 * SHARDS + 2 * SHARDS + 4, "u16_tiled": SHARDS}
     check(by_variant == want, f"sharded main path launched {by_variant}, "
-          f"expected {want}: one per shard per plane call")
+          f"expected {want}: one per shard per plane call, 2 per shard's frame")
     print(f"sharded main path on {SHARDS} x {cuda}: 4K luma, px2 chroma and "
           f"Area 360p row-sharded, YUV step 4K->1080p batch {SHARDS} over dp "
           f"{SHARDS}, dp x sp 2x2 -> launches "
@@ -3037,6 +3254,7 @@ def main() -> int:
     launchesu, e = phase_area_path(cuda_resize, yuv, build_plan, benchmark, rng)
     MAX_ERR["u16_tiled"] = max(MAX_ERR["u16_tiled"], e)
     windowed = phase_windowed_path(cuda_resize, yuv, build_plan, rng)
+    executables = phase_executables(cuda_resize, yuv, np.random.default_rng(SEED + 5), smi)
     phase_benchmark_cli(smi)
 
     t16 = phase_times(cuda_resize, yuv, build_plan, rng, smi,
@@ -3124,7 +3342,8 @@ def main() -> int:
          "max_abs_err": MAX_ERR["wrap16_tiled"], "ms": t16["ms"],
          "plain_ms": t16["plain_ms"], "bound_ms": t16["bound_ms"],
          "bound_by": t16["bound_by"], "library_ms": None,
-         "fused_ms": t16["fused_ms"], "planes": t16["planes"]},
+         "fused_ms": t16["fused_ms"], "planes": t16["planes"],
+         "executable": executables},
         {"name": "resize_tiled[u16]", "route": "cuda", "source": tiled_src,
          "replaces": replaces, "launches": launchesu,
          "max_abs_err": MAX_ERR["u16_tiled"], "ms": tu["ms"],

@@ -2,8 +2,8 @@
 
 The port of ``libiqo_tpu/api.py``, with the same construct-once /
 resize-many contract (ref: include/libiqo/LanczosResizer.hpp:26-52): the
-constructor builds the plan, ``resize`` is pure compute over cached device
-operands.
+constructor builds the plan, ``resize`` is pure compute through a cached
+executable over device operands.
 
 * Computation runs on the input tensor's device.  NumPy input runs on the
   resizer's ``device=`` (default ``"cuda"``: the card) and comes back as
@@ -32,8 +32,14 @@ operands.
 * ``LIBIQO_TPU_CARRY=1`` (or ``2``), the JAX package's opt-in, runs the
   kernel's row-halo carry form wherever one applies
   (``cuda_resize.tiled_carry_layout``, else ``cuda_resize.carry_ok``); it
-  is read where operands are packed, so it takes effect for operands not
-  yet cached.
+  is read where executables are built, so it takes effect for executables
+  not yet built.
+* Each plan's launch is packed once into an executable
+  (:class:`~libiqo_tpu_torch.ops.executable.Executable`, the counterpart
+  of the JAX package's ``jax.jit`` executables), kept in an LRU of at most
+  ``LIBIQO_TPU_CACHE_SIZE`` entries (default 256; 0 disables caching), as
+  the JAX package's ``_COMPILED_CACHE``; a resizer remembers its own per
+  device and carry choice, so a ``resize`` issues one ctypes call.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import hashlib
+import os
 import threading
 
 import numpy as np
@@ -49,26 +56,31 @@ import torch
 from .core.plan import ResizePlan, build_plan, plan_from_arrays
 from .golden import numpy_ref
 from .ops import cuda_resize, torch_resize
+from .ops.executable import Executable
 from .utils.device import resolve_device
 
 __all__ = ["Resizer", "LanczosResizer", "AreaResizer", "LinearResizer",
-           "clear_operand_cache", "operands_for"]
+           "clear_compiled_cache", "clear_operand_cache", "executable_for",
+           "operands_for"]
 
 _BACKENDS = ("auto", "cuda", "torch", "numpy")
 _PRECISIONS = ("exact", "relaxed")
 
 
-class _OperandCache:
-    """LRU of packed plan operands by (plan content, precision, carry,
-    device).
+class _ExecutableCache:
+    """LRU of executables (their packed plan operands and C handles) by
+    (plan content, precision, carry, device).
 
     The reference's benchmark builds a fresh resizer every cycle
     (ref: benchmark/benchmark.cpp:1019-1031); with this cache a fresh
-    construction reuses the device tables.  Entries are frozen dataclasses
-    that no code path writes, and a lock guards the dictionary."""
+    construction reuses the executable and its device tables.  Entries are
+    never written after they are built; a lock guards the dictionary, so
+    two threads building one key end with one entry.  ``max_entries`` <= 0
+    caches nothing.  An evicted executable is freed, C handle and tables,
+    once no resizer holds it."""
 
     def __init__(self, max_entries: int):
-        self._max = max_entries
+        self.max_entries = max_entries
         self._entries: collections.OrderedDict = collections.OrderedDict()
         self._lock = threading.Lock()
 
@@ -78,9 +90,10 @@ class _OperandCache:
                 self._entries.move_to_end(key)
                 return self._entries[key]
             value = build()
-            self._entries[key] = value
-            if len(self._entries) > self._max:
-                self._entries.popitem(last=False)
+            if self.max_entries > 0:
+                self._entries[key] = value
+                if len(self._entries) > self.max_entries:
+                    self._entries.popitem(last=False)
             return value
 
     def clear(self) -> None:
@@ -88,12 +101,22 @@ class _OperandCache:
             self._entries.clear()
 
 
-_CACHE = _OperandCache(max_entries=256)
+def cache_size(environ=os.environ) -> int:
+    """The executable cache's size: ``LIBIQO_TPU_CACHE_SIZE`` (default 256),
+    read once at import, as the JAX package reads it."""
+    return int(environ.get("LIBIQO_TPU_CACHE_SIZE", "256"))
 
 
-def clear_operand_cache() -> None:
-    """Drop every cached set of device operands."""
+_CACHE = _ExecutableCache(cache_size())
+
+
+def clear_compiled_cache() -> None:
+    """Drop every cached executable and its device tables (resizers keep
+    the ones they hold)."""
     _CACHE.clear()
+
+
+clear_operand_cache = clear_compiled_cache
 
 
 def _plan_digest(plan: ResizePlan) -> str:
@@ -106,18 +129,30 @@ def _plan_digest(plan: ResizePlan) -> str:
     return h.hexdigest()
 
 
-def operands_for(plan: ResizePlan, dev: torch.device, relaxed: bool = False,
-                 digest: str | None = None) -> cuda_resize.KernelOperands:
-    """The plan's operands on ``dev``, through the operand cache, keyed by
-    the plan's content (``digest``, computed when not given), the precision
-    route, the carry choice read from ``LIBIQO_TPU_CARRY`` now, and the
-    device: operands of different routes or carry choices are never
-    shared."""
-    carry = cuda_resize.carry_requested()
+def executable_for(plan: ResizePlan, dev: torch.device, relaxed: bool = False,
+                   digest: str | None = None, carry: bool | None = None) -> Executable:
+    """The plan's executable on ``dev``, through the executable cache, keyed
+    by the plan's content (``digest``, computed when not given), the
+    precision route, the carry choice (read from ``LIBIQO_TPU_CARRY`` now
+    when not given) and the device: executables of different routes or
+    carry choices are never shared."""
+    if carry is None:
+        carry = cuda_resize.carry_requested()
     key = (digest or _plan_digest(plan), "relaxed" if relaxed else "exact",
            "carry" if carry else "windowed", str(dev))
-    return _CACHE.get(key, lambda: cuda_resize.pack_operands(
-        plan, dev, relaxed=relaxed, carry=carry))
+    return _CACHE.get(key, lambda: Executable(cuda_resize.pack_operands(
+        plan, dev, relaxed=relaxed, carry=carry)))
+
+
+def operands_for(plan: ResizePlan, dev: torch.device, relaxed: bool = False,
+                 digest: str | None = None) -> cuda_resize.KernelOperands:
+    """The operands of :func:`executable_for`'s executable."""
+    return executable_for(plan, dev, relaxed, digest).ops
+
+
+def as_tensor(src: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A NumPy array's copy on ``dev``."""
+    return torch.from_numpy(src if src.flags.writeable else src.copy()).to(dev)
 
 
 def _spawn_warmup(fn, *args) -> concurrent.futures.Future:
@@ -156,6 +191,7 @@ class Resizer:
         self._relaxed_ok = (precision == "relaxed"
                             and cuda_resize.supports_plan(plan, relaxed=True))
         self._digest = _plan_digest(plan)
+        self._bound: dict = {}   # (device, carry) -> (kernel route?, Executable)
 
     @classmethod
     def from_plan(cls, plan, backend: str = "auto",
@@ -206,12 +242,23 @@ class Resizer:
                   relaxed: bool = False) -> cuda_resize.KernelOperands:
         return operands_for(self._plan, dev, relaxed, self._digest)
 
-    # -- compute ----------------------------------------------------------
+    def _bind(self, dev: torch.device) -> tuple[bool, Executable]:
+        """Whether data on ``dev`` takes a kernel route, and the executable
+        of its route, remembered per (device, carry choice): after the
+        first call on a device no digest, key or lock work is done."""
+        key = (dev, cuda_resize.carry_requested())
+        bound = self._bound.get(key)
+        if bound is None:
+            route = self._backend_for(dev)
+            bound = (route.startswith("cuda"),
+                     executable_for(self._plan, dev, route == "cuda-relaxed",
+                                    self._digest, key[1]))
+            self._bound[key] = bound
+        return bound
 
-    def resize(self, src):
-        """Resize (src_h, src_w) or (..., src_h, src_w) uint8 -> uint8.
-
-        NumPy in -> NumPy out; tensor in -> tensor out on its device."""
+    def _check(self, src) -> bool:
+        """Raise unless ``src`` is a uint8 array or tensor of this
+        geometry; returns whether it is NumPy."""
         if tuple(src.shape[-2:]) != self.src_shape:
             raise ValueError(
                 f"source spatial shape {tuple(src.shape[-2:])} != "
@@ -222,34 +269,37 @@ class Resizer:
         if not is_numpy and not isinstance(src, torch.Tensor):
             raise TypeError(f"source must be a numpy array or a tensor, "
                             f"got {type(src).__name__}")
+        return is_numpy
 
+    # -- compute ----------------------------------------------------------
+
+    def resize(self, src):
+        """Resize (src_h, src_w) or (..., src_h, src_w) uint8 -> uint8.
+
+        NumPy in -> NumPy out; tensor in -> tensor out on its device."""
+        is_numpy = self._check(src)
         if self._backend == "numpy":
             arr = src if is_numpy else src.cpu().numpy()
             flat = arr.reshape((-1,) + arr.shape[-2:])
             out = np.stack([numpy_ref.resize_u8(self._plan, im) for im in flat])
             return out.reshape(arr.shape[:-2] + out.shape[-2:])
 
-        if is_numpy:
-            arr = src if src.flags.writeable else src.copy()
-            t = torch.from_numpy(arr).to(self._device)
+        t = as_tensor(src, self._device) if is_numpy else src
+        kernel, ex = self._bind(t.device)
+        if kernel and t.dim() in (2, 3):
+            out = ex(t)
         else:
-            t = src
-        route = self._backend_for(t.device)
-        ops = self._operands(t.device, relaxed=route == "cuda-relaxed")
-        flat = t.reshape((-1,) + self.src_shape)
-        if route.startswith("cuda"):
-            out = cuda_resize.resize_fused(ops, flat)
-        else:
-            out = torch_resize.resize(ops.plain, flat)
-        out = out.reshape(tuple(t.shape[:-2]) + self.dst_shape)
+            flat = t.reshape((-1,) + self.src_shape)
+            out = ex(flat) if kernel else torch_resize.resize(ex.ops.plain, flat)
+            out = out.reshape(tuple(t.shape[:-2]) + self.dst_shape)
         return out.cpu().numpy() if is_numpy else out
 
     # -- warmup -----------------------------------------------------------
 
     def warmup(self, batch: int | None = None):
-        """Build the device operands and, on the kernel path, the kernel
-        library now, instead of on the first real ``resize``.  Returns
-        ``self``."""
+        """Build the executable (device operands and, on the kernel path,
+        the kernel library and the C handle) now, instead of on the first
+        real ``resize``.  Returns ``self``."""
         if self._backend == "numpy":
             return self
         shape = self.src_shape if batch is None else (batch, *self.src_shape)

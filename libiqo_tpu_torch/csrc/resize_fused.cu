@@ -124,6 +124,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "exec.cuh"
+
 namespace {
 
 constexpr int kTileRows = 16;     // TH: output rows per block
@@ -380,6 +382,66 @@ Kernel pick(int wrap16, int relaxed, int carry) {
   return kernels[(wrap16 ? 4 : 0) | (relaxed ? 2 : 0) | (carry ? 1 : 0)];
 }
 
+// The kernel's arguments but the source, the output and the strides.
+struct FusedArgs {
+  int dst_h, dst_w, tile_rows;
+  const int32_t *cy, *iy, *ydiv;
+  int taps_y, y_bias;
+  const int32_t *cx, *ix, *xdiv;
+  int taps_x;
+  const float *cxr, *cxd;
+  const int32_t* win;
+  int win_max, out_shift;
+  const int32_t *rwin, *iyr;
+  int ring_rows, ring_pitch, run;
+};
+
+struct FusedExec final : iqo::Exec {
+  Kernel kernel = nullptr;
+  dim3 grid;                 // of one frame
+  int smem = 0;
+  FusedArgs a{};
+
+  int launch(const void* src, void* dst, int n_frames, long long frame_stride,
+             long long row_stride, cudaStream_t stream) const override {
+    if (!iqo::frames_ok(n_frames)) return static_cast<int>(cudaErrorInvalidValue);
+    const FusedArgs r = a;
+    kernel<<<dim3(grid.x, grid.y, n_frames), kThreads, smem, stream>>>(
+        static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), frame_stride, row_stride,
+        r.dst_h, r.dst_w, r.tile_rows, r.cy, r.iy, r.ydiv, r.taps_y, r.y_bias, r.cx, r.ix,
+        r.xdiv, r.taps_x, r.cxr, r.cxd, r.win, r.win_max, r.out_shift, r.rwin, r.iyr,
+        r.ring_rows, r.ring_pitch, r.run);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// Packs one windowed resize into e: the instantiation for (wrap16, relaxed,
+// carry), the record and the geometry of one frame.  Returns a cudaError_t.
+int pack(FusedExec& e, int wrap16, int relaxed, int carry, int dst_h, int dst_w,
+         int tile_rows, const void* cy, const void* iy, const void* ydiv, int taps_y,
+         int y_bias, const void* cx, const void* ix, const void* xdiv, int taps_x,
+         const void* cxr, const void* cxd, const void* win, int win_max, int out_shift,
+         const void* rwin, const void* iyr, int ring_rows, int ring_pitch, int run) {
+  if (tile_rows < 1 || tile_rows > kTileRows || (carry && tile_rows != kTileRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
+  e.a = FusedArgs{dst_h, dst_w, tile_rows, i32(cy), i32(iy), i32(ydiv), taps_y, y_bias,
+                  i32(cx), i32(ix), i32(xdiv), taps_x, static_cast<const float*>(cxr),
+                  static_cast<const float*>(cxd), i32(win), win_max, out_shift, i32(rwin),
+                  i32(iyr), ring_rows, ring_pitch, run};
+  e.kernel = pick(wrap16, relaxed, carry);
+  e.smem = tile_rows * win_max * static_cast<int>(sizeof(int32_t));
+  const int row_tiles = (dst_h + tile_rows - 1) / tile_rows;
+  int grid_y = row_tiles;
+  if (carry) {
+    e.smem += ring_rows * ring_pitch;
+    grid_y = (row_tiles + run - 1) / run;
+  }
+  e.grid = dim3((dst_w + kTileCols - 1) / kTileCols, grid_y, 1);
+  e.out_frame = static_cast<long long>(dst_h) * dst_w;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -408,16 +470,34 @@ int iqo_set_max_smem(int bytes) {
   return 0;
 }
 
-// Launches one resize of n_frames frames on `stream`: the kWrap16
-// instantiation when wrap16 is nonzero, its relaxed form when relaxed is
-// nonzero (cxr then holds the bf16 plane; cxd the residual plane or
-// null), and its carry form when carry is nonzero (rwin, iyr, ring_rows,
-// ring_pitch and run then describe the ring; otherwise they are unread).
-// Without carry a block computes tile_rows output rows (1..kTileRows); the
-// carry form takes kTileRows, and tile_rows must be kTileRows.  Allocates
-// nothing; dst is contiguous (n_frames, dst_h, dst_w).  The shared memory
-// (work tile, and the ring with carry) must be within the limit set by
-// iqo_set_max_smem.  Returns a cudaError_t.
+// The executable of one windowed resize: the kWrap16 instantiation when
+// wrap16 is nonzero, its relaxed form when relaxed is nonzero (cxr then
+// holds the bf16 plane; cxd the residual plane or null), and its carry form
+// when carry is nonzero (rwin, iyr, ring_rows, ring_pitch and run then
+// describe the ring; otherwise they are unread).  Without carry a block
+// computes tile_rows output rows (1..kTileRows); the carry form takes
+// kTileRows, and tile_rows must be kTileRows.  The shared memory (work
+// tile, and the ring with carry) must be within the limit set by
+// iqo_set_max_smem.  Writes the handle to *out.  Returns a cudaError_t.
+int iqo_resize_fused_exec_create(int wrap16, int relaxed, int carry, int dst_h, int dst_w,
+                                 int tile_rows, const void* cy, const void* iy,
+                                 const void* ydiv, int taps_y, int y_bias, const void* cx,
+                                 const void* ix, const void* xdiv, int taps_x,
+                                 const void* cxr, const void* cxd, const void* win,
+                                 int win_max, int out_shift, const void* rwin,
+                                 const void* iyr, int ring_rows, int ring_pitch, int run,
+                                 void** out) {
+  FusedExec e;
+  const int rc = pack(e, wrap16, relaxed, carry, dst_h, dst_w, tile_rows, cy, iy, ydiv, taps_y,
+                      y_bias, cx, ix, xdiv, taps_x, cxr, cxd, win, win_max, out_shift, rwin,
+                      iyr, ring_rows, ring_pitch, run);
+  return iqo::create(e, rc, out);
+}
+
+// Launches one resize of n_frames frames on `stream`: the executable of
+// iqo_resize_fused_exec_create with the same arguments, made on the stack
+// and launched once.  Allocates nothing; dst is contiguous (n_frames,
+// dst_h, dst_w).  Returns a cudaError_t.
 int iqo_resize_fused(int wrap16, int relaxed, int carry, const void* src,
                      void* dst, int n_frames, long long src_frame_stride,
                      long long src_row_stride, int dst_h, int dst_w,
@@ -429,29 +509,55 @@ int iqo_resize_fused(int wrap16, int relaxed, int carry, const void* src,
                      const void* win, int win_max, int out_shift,
                      const void* rwin, const void* iyr, int ring_rows,
                      int ring_pitch, int run, void* stream) {
-  if (tile_rows < 1 || tile_rows > kTileRows || (carry && tile_rows != kTileRows))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int smem = tile_rows * win_max * static_cast<int>(sizeof(int32_t));
-  const int row_tiles = (dst_h + tile_rows - 1) / tile_rows;
-  int grid_y = row_tiles;
-  if (carry) {
-    smem += ring_rows * ring_pitch;
-    grid_y = (row_tiles + run - 1) / run;
-  }
-  const dim3 grid((dst_w + kTileCols - 1) / kTileCols, grid_y, n_frames);
-  pick(wrap16, relaxed, carry)<<<grid, kThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst),
-      src_frame_stride, src_row_stride, dst_h, dst_w, tile_rows,
-      static_cast<const int32_t*>(cy), static_cast<const int32_t*>(iy),
-      static_cast<const int32_t*>(ydiv), taps_y, y_bias,
-      static_cast<const int32_t*>(cx), static_cast<const int32_t*>(ix),
-      static_cast<const int32_t*>(xdiv), taps_x,
-      static_cast<const float*>(cxr), static_cast<const float*>(cxd),
-      static_cast<const int32_t*>(win), win_max, out_shift,
-      static_cast<const int32_t*>(rwin), static_cast<const int32_t*>(iyr),
-      ring_rows, ring_pitch, run);
-  return static_cast<int>(cudaGetLastError());
+  FusedExec e;
+  const int rc = pack(e, wrap16, relaxed, carry, dst_h, dst_w, tile_rows, cy, iy, ydiv, taps_y,
+                      y_bias, cx, ix, xdiv, taps_x, cxr, cxd, win, win_max, out_shift, rwin,
+                      iyr, ring_rows, ring_pitch, run);
+  if (rc != 0) return rc;
+  return e.launch(src, dst, n_frames, src_frame_stride, src_row_stride,
+                  static_cast<cudaStream_t>(stream));
 }
+
+// Launches the executable `exec` (any iqo_resize_*_exec_create's) on
+// n_frames frames of src into dst, as its iqo_resize_* entry would.
+// Returns a cudaError_t.
+int iqo_exec_launch(const void* exec, const void* src, void* dst, int n_frames,
+                    long long src_frame_stride, long long src_row_stride, void* stream) {
+  return static_cast<const iqo::Exec*>(exec)->launch(
+      src, dst, n_frames, src_frame_stride, src_row_stride, static_cast<cudaStream_t>(stream));
+}
+
+// One YUV420 step of n_frames frames in one call: luma's executable on y
+// into oy, chroma's on U and V into the two halves of ouv (contiguous (2
+// n_frames, dst_h / 2, dst_w / 2): U's frames, then V's).  A lone frame
+// whose U and V share a row stride takes one chroma launch of two frames,
+// the second at the distance from U to V; otherwise U and V take a launch
+// each.  Nothing is copied.  Returns the number of launches, 2 or 3, or
+// minus a cudaError_t.
+int iqo_exec_launch_frame(const void* luma, const void* chroma, int n_frames, const void* y,
+                          long long y_frame_stride, long long y_row_stride, void* oy,
+                          const void* u, long long u_frame_stride, long long u_row_stride,
+                          const void* v, long long v_frame_stride, long long v_row_stride,
+                          void* ouv, void* stream) {
+  const auto* l = static_cast<const iqo::Exec*>(luma);
+  const auto* c = static_cast<const iqo::Exec*>(chroma);
+  const auto s = static_cast<cudaStream_t>(stream);
+  int rc = l->launch(y, oy, n_frames, y_frame_stride, y_row_stride, s);
+  if (rc != 0) return -rc;
+  if (n_frames == 1 && u_row_stride == v_row_stride) {
+    const long long gap = static_cast<long long>(reinterpret_cast<uintptr_t>(v)) -
+                          static_cast<long long>(reinterpret_cast<uintptr_t>(u));
+    rc = c->launch(u, ouv, 2, gap, u_row_stride, s);
+    return rc != 0 ? -rc : 2;
+  }
+  rc = c->launch(u, ouv, n_frames, u_frame_stride, u_row_stride, s);
+  if (rc != 0) return -rc;
+  rc = c->launch(v, static_cast<uint8_t*>(ouv) + n_frames * c->out_frame, n_frames,
+                 v_frame_stride, v_row_stride, s);
+  return rc != 0 ? -rc : 3;
+}
+
+// Frees an executable.  Its tables are the host's and stay.
+void iqo_exec_destroy(void* exec) { delete static_cast<iqo::Exec*>(exec); }
 
 }  // extern "C"

@@ -2,8 +2,10 @@
 // its design and the TPU kernels it replaces are described in
 // resize_tiled.cuh; the relaxed, carry and relaxed carry forms are
 // instantiated in resize_tiled_relaxed.cu, resize_tiled_carry.cu and
-// resize_tiled_relaxed_carry.cu.
+// resize_tiled_relaxed_carry.cu.  Its executable form (exec.cuh) is
+// TiledExec: the record and geometry of Form::configure, launched per call.
 
+#include "exec.cuh"
 #include "resize_tiled.cuh"
 
 namespace iqo_tiled {
@@ -17,11 +19,51 @@ extern template struct Form<true, true>;
 namespace {
 
 using iqo_tiled::Form;
+using iqo_tiled::Kernel;
+using iqo_tiled::TiledArgs;
 
 int set_max_smem(int relaxed, int carry, int bytes) {
   if (relaxed) return carry ? Form<true, true>::set_max_smem(bytes)
                             : Form<true, false>::set_max_smem(bytes);
   return carry ? Form<false, true>::set_max_smem(bytes) : Form<false, false>::set_max_smem(bytes);
+}
+
+struct TiledExec final : iqo::Exec {
+  Kernel kernel = nullptr;
+  dim3 grid;                 // of one frame
+  int smem = 0;
+  TiledArgs a{};             // src, dst and the strides filled in per launch
+
+  int launch(const void* src, void* dst, int n_frames, long long frame_stride,
+             long long row_stride, cudaStream_t stream) const override {
+    if (!iqo::frames_ok(n_frames)) return static_cast<int>(cudaErrorInvalidValue);
+    TiledArgs args = a;
+    args.src = static_cast<const uint8_t*>(src);
+    args.dst = static_cast<uint8_t*>(dst);
+    args.frame_stride = frame_stride;
+    args.row_stride = row_stride;
+    kernel<<<dim3(grid.x, grid.y, n_frames), iqo_tiled::kThreads, smem, stream>>>(args);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// Packs one tiled resize into e: the record of the arguments below and the
+// geometry of its form (relaxed, carry).  Returns a cudaError_t.
+int pack(TiledExec& e, int wrap16, int s8y, int tw, int relaxed, int carry, int src_w,
+         int dst_h, int dst_w, const void* rrec, int rrec_words, const void* crec,
+         int crec_words, int taps_y, int taps_x, int k_rows, int pitch, int margin,
+         int work_pitch, int max_phases, int y_bias, int out_shift, int planes, int run,
+         int slots) {
+  e.a = TiledArgs{nullptr, nullptr, 0, 0, src_w, dst_h, dst_w,
+                  static_cast<const int32_t*>(rrec), static_cast<const int32_t*>(crec),
+                  rrec_words, crec_words, taps_y, taps_x, k_rows, pitch, margin, work_pitch,
+                  max_phases, y_bias, out_shift, planes, run, slots};
+  e.out_frame = static_cast<long long>(dst_h) * dst_w;
+  if (relaxed)
+    return carry ? Form<true, true>::configure(wrap16, s8y, tw, e.a, &e.kernel, &e.grid, &e.smem)
+                 : Form<true, false>::configure(wrap16, s8y, tw, e.a, &e.kernel, &e.grid, &e.smem);
+  return carry ? Form<false, true>::configure(wrap16, s8y, tw, e.a, &e.kernel, &e.grid, &e.smem)
+               : Form<false, false>::configure(wrap16, s8y, tw, e.a, &e.kernel, &e.grid, &e.smem);
 }
 
 }  // namespace
@@ -46,14 +88,31 @@ int iqo_tiled_set_max_smem(int bytes) {
   return 0;
 }
 
-// Launches one tiled resize of n_frames frames on `stream`: the wrap16
-// (Lanczos) or u16 (Area, Linear) instantiation, its Y pass on the tensor
-// cores when s8y is nonzero, tw output columns per block; its relaxed form
-// when relaxed is nonzero (planes: X coefficient planes per phase, 1 or 2),
-// its carry form when carry is nonzero (run row tiles per block, a ring of
-// slots rows; otherwise both are unread).  Allocates nothing; dst is
-// contiguous (n_frames, dst_h, dst_w); source rows are contiguous at any
-// pitch and base address.  Returns a cudaError_t.
+// The executable of one tiled resize: the wrap16 (Lanczos) or u16 (Area,
+// Linear) instantiation, its Y pass on the tensor cores when s8y is nonzero,
+// tw output columns per block; its relaxed form when relaxed is nonzero
+// (planes: X coefficient planes per phase, 1 or 2), its carry form when
+// carry is nonzero (run row tiles per block, a ring of slots rows; otherwise
+// both are unread).  Writes the handle to *out (iqo_exec_launch,
+// iqo_exec_destroy).  Returns a cudaError_t.
+int iqo_resize_tiled_exec_create(int wrap16, int s8y, int tw, int relaxed, int carry,
+                                 int src_w, int dst_h, int dst_w, const void* rrec,
+                                 int rrec_words, const void* crec, int crec_words, int taps_y,
+                                 int taps_x, int k_rows, int pitch, int margin, int work_pitch,
+                                 int max_phases, int y_bias, int out_shift, int planes, int run,
+                                 int slots, void** out) {
+  TiledExec e;
+  const int rc = pack(e, wrap16, s8y, tw, relaxed, carry, src_w, dst_h, dst_w, rrec, rrec_words,
+                      crec, crec_words, taps_y, taps_x, k_rows, pitch, margin, work_pitch,
+                      max_phases, y_bias, out_shift, planes, run, slots);
+  return iqo::create(e, rc, out);
+}
+
+// Launches one tiled resize of n_frames frames on `stream`: the executable
+// of iqo_resize_tiled_exec_create with the same arguments, made on the stack
+// and launched once.  Allocates nothing; dst is contiguous (n_frames,
+// dst_h, dst_w); source rows are contiguous at any pitch and base address.
+// Returns a cudaError_t.
 int iqo_resize_tiled(int wrap16, int s8y, int tw, int relaxed, int carry, const void* src,
                      void* dst, int n_frames, long long src_frame_stride,
                      long long src_row_stride, int src_w, int dst_h, int dst_w,
@@ -62,18 +121,13 @@ int iqo_resize_tiled(int wrap16, int s8y, int tw, int relaxed, int carry, const 
                      int pitch, int margin, int work_pitch, int max_phases,
                      int y_bias, int out_shift, int planes, int run, int slots,
                      void* stream) {
-  const iqo_tiled::TiledArgs a{
-      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), src_frame_stride,
-      src_row_stride, src_w, dst_h, dst_w, static_cast<const int32_t*>(rrec),
-      static_cast<const int32_t*>(crec), rrec_words, crec_words, taps_y, taps_x, k_rows,
-      pitch, margin, work_pitch, max_phases, y_bias, out_shift, planes, run, slots};
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (relaxed) {
-    return carry ? Form<true, true>::launch(wrap16, s8y, tw, a, n_frames, s)
-                 : Form<true, false>::launch(wrap16, s8y, tw, a, n_frames, s);
-  }
-  return carry ? Form<false, true>::launch(wrap16, s8y, tw, a, n_frames, s)
-               : Form<false, false>::launch(wrap16, s8y, tw, a, n_frames, s);
+  TiledExec e;
+  const int rc = pack(e, wrap16, s8y, tw, relaxed, carry, src_w, dst_h, dst_w, rrec, rrec_words,
+                      crec, crec_words, taps_y, taps_x, k_rows, pitch, margin, work_pitch,
+                      max_phases, y_bias, out_shift, planes, run, slots);
+  if (rc != 0) return rc;
+  return e.launch(src, dst, n_frames, src_frame_stride, src_row_stride,
+                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -571,14 +571,17 @@ __global__ void __launch_bounds__(kThreads) resize_tiled_kernel(TiledArgs a) {
 using Kernel = decltype(&resize_tiled_kernel<true, true, 128, false, false>);
 
 // One form of the kernel (exact, relaxed, carry, relaxed carry): its twelve
-// instantiations <kWrap16, kS8Y, TW>, their shared-memory limit and launch.
-// The two members are defined out of the class, so not inline: each form
-// is instantiated in its own translation unit and nowhere else.
+// instantiations <kWrap16, kS8Y, TW>, their shared-memory limit and the
+// launch geometry of one frame (configure: the instantiation for (wrap16,
+// s8y, tw), its grid with gridDim.z left to the launch, and its dynamic
+// shared memory; cudaErrorInvalidValue for a width not in kWidths).  The
+// two members are defined out of the class, so not inline: each form is
+// instantiated in its own translation unit and nowhere else.
 template <bool kRelaxed, bool kCarry>
 struct Form {
   static int set_max_smem(int bytes);
-  static int launch(int wrap16, int s8y, int tw, const TiledArgs& a, int n_frames,
-                    cudaStream_t stream);
+  static int configure(int wrap16, int s8y, int tw, const TiledArgs& a, Kernel* kernel,
+                       dim3* grid, int* smem);
 };
 
 // The instantiation of a form for (wrap16, s8y, tw), or null for a width
@@ -618,18 +621,17 @@ int Form<kRelaxed, kCarry>::set_max_smem(int bytes) {
 }
 
 template <bool kRelaxed, bool kCarry>
-int Form<kRelaxed, kCarry>::launch(int wrap16, int s8y, int tw, const TiledArgs& a,
-                                   int n_frames, cudaStream_t stream) {
-  const Kernel kernel = pick<kRelaxed, kCarry>(wrap16, s8y, tw);
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+int Form<kRelaxed, kCarry>::configure(int wrap16, int s8y, int tw, const TiledArgs& a,
+                                      Kernel* kernel, dim3* grid, int* smem) {
+  *kernel = pick<kRelaxed, kCarry>(wrap16, s8y, tw);
+  if (*kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int ring_rows = kCarry ? a.slots : a.k_rows;
-  const int smem = ring_rows * a.pitch + kRows * a.work_pitch * 2 +
-                   4 * ((kCarry ? 2 : 1) * a.rrec_words + a.crec_words);
+  *smem = ring_rows * a.pitch + kRows * a.work_pitch * 2 +
+          4 * ((kCarry ? 2 : 1) * a.rrec_words + a.crec_words);
   const int row_tiles = (a.dst_h + kRows - 1) / kRows;
-  const dim3 grid((a.dst_w + tw - 1) / tw,
-                  kCarry ? (row_tiles + a.run - 1) / a.run : row_tiles, n_frames);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  *grid = dim3((a.dst_w + tw - 1) / tw, kCarry ? (row_tiles + a.run - 1) / a.run : row_tiles,
+               1);
+  return 0;
 }
 
 }  // namespace iqo_tiled

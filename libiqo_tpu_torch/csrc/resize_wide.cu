@@ -54,6 +54,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "exec.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -298,6 +300,68 @@ Kernel pick(int wrap16, int vec16) {
 
 bool aligned(long long v, int n) { return v % n == 0; }
 
+// The kernel's arguments but the source, the output and the strides.
+struct WideArgs {
+  int src_h, src_w, dst_h, dst_w;
+  const int32_t *cy, *ys, *ydiv;
+  int taps_y, y_bias;
+  const int32_t *cx, *xs, *xdiv;
+  int taps_x;
+  const int32_t* win;
+  int n_ct, tc, tr, ks, group, wp, out_shift;
+};
+
+int load_bytes(const void* src, int n_frames, long long src_frame_stride,
+               long long src_row_stride) {
+  const long long base = static_cast<long long>(reinterpret_cast<uintptr_t>(src));
+  return aligned(base, 16) && aligned(src_row_stride, 16) &&
+                 (n_frames == 1 || aligned(src_frame_stride, 16))
+             ? 16
+             : 1;
+}
+
+// The instantiation of a launch (byte or 16-byte loads) follows the
+// source's alignment, so it is picked per launch.
+struct WideExec final : iqo::Exec {
+  int wrap16 = 0;
+  unsigned blocks = 0;       // of one frame
+  int smem = 0;
+  WideArgs a{};
+
+  int launch(const void* src, void* dst, int n_frames, long long frame_stride,
+             long long row_stride, cudaStream_t stream) const override {
+    if (!iqo::frames_ok(n_frames)) return static_cast<int>(cudaErrorInvalidValue);
+    const WideArgs r = a;
+    const bool vec16 = load_bytes(src, n_frames, frame_stride, row_stride) == 16;
+    pick(wrap16, vec16)<<<dim3(blocks, 1, n_frames), kThreads, smem, stream>>>(
+        static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), frame_stride, row_stride,
+        r.src_h, r.src_w, r.dst_h, r.dst_w, r.cy, r.ys, r.ydiv, r.taps_y, r.y_bias, r.cx, r.xs,
+        r.xdiv, r.taps_x, r.win, r.n_ct, r.tc, r.tr, r.ks, r.group, r.wp, r.out_shift);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// Packs one wide-window resize into e.  Returns a cudaError_t.
+int pack(WideExec& e, int wrap16, int src_h, int src_w, int dst_h, int dst_w, const void* cy,
+         const void* ys, const void* ydiv, int taps_y, int y_bias, const void* cx,
+         const void* xs, const void* xdiv, int taps_x, const void* win, int n_ct, int tc,
+         int tr, int ks, int group, int wp, int out_shift) {
+  if (tc < 1 || tr < 1 || ks < 1 || ks > taps_y || group < 1 || group > 32 ||
+      (group & (group - 1)) != 0 || wp % 4 != 0 || n_ct != (dst_w + tc - 1) / tc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>(n_ct) * ((dst_h + tr - 1) / tr);
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
+  e.a = WideArgs{src_h, src_w, dst_h, dst_w, i32(cy), i32(ys), i32(ydiv), taps_y, y_bias,
+                 i32(cx), i32(xs), i32(xdiv), taps_x, i32(win), n_ct, tc, tr, ks, group, wp,
+                 out_shift};
+  e.wrap16 = wrap16;
+  e.blocks = static_cast<unsigned>(blocks);
+  e.smem = 4 * (tr * (wp + taps_y + 1) + tc * (taps_x + 1));
+  e.out_frame = static_cast<long long>(dst_h) * dst_w;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -307,11 +371,7 @@ extern "C" {
 // aligned, else 1.
 int iqo_wide_load_bytes(const void* src, int n_frames, long long src_frame_stride,
                         long long src_row_stride) {
-  const long long base = static_cast<long long>(reinterpret_cast<uintptr_t>(src));
-  return aligned(base, 16) && aligned(src_row_stride, 16) &&
-                 (n_frames == 1 || aligned(src_frame_stride, 16))
-             ? 16
-             : 1;
+  return load_bytes(src, n_frames, src_frame_stride, src_row_stride);
 }
 
 // Threads a block and work columns a Y item, read by the host to lay out
@@ -334,15 +394,29 @@ int iqo_wide_set_max_smem(int bytes) {
   return 0;
 }
 
-// Launches one resize of n_frames frames on `stream` in tiles of tr x tc
-// outputs over n_ct column tiles (win), ks slices of the Y taps and groups
-// of `group` lanes (a power of two <= 32) an output's X taps; wp is the work
-// tile's row pitch in words, at least 16 * ceil((hi - (lo & ~15)) / 16) of
-// every column tile and a multiple of 4.  The loads are
-// iqo_wide_load_bytes wide.  dst is contiguous (n_frames, dst_h,
-// dst_w); the shared memory, 4 * (tr * (wp + taps_y + 1) + tc * (taps_x +
-// 1)) bytes, must be within the limit set by iqo_wide_set_max_smem.
-// Returns a cudaError_t.
+// The executable of one resize in tiles of tr x tc outputs over n_ct column
+// tiles (win), ks slices of the Y taps and groups of `group` lanes (a power
+// of two <= 32) an output's X taps; wp is the work tile's row pitch in
+// words, at least 16 * ceil((hi - (lo & ~15)) / 16) of every column tile and
+// a multiple of 4.  Each launch's loads are iqo_wide_load_bytes wide on its
+// source.  The shared memory, 4 * (tr * (wp + taps_y + 1) + tc * (taps_x +
+// 1)) bytes, must be within the limit set by iqo_wide_set_max_smem.  Writes
+// the handle to *out.  Returns a cudaError_t.
+int iqo_resize_wide_exec_create(int wrap16, int src_h, int src_w, int dst_h, int dst_w,
+                                const void* cy, const void* ys, const void* ydiv, int taps_y,
+                                int y_bias, const void* cx, const void* xs, const void* xdiv,
+                                int taps_x, const void* win, int n_ct, int tc, int tr, int ks,
+                                int group, int wp, int out_shift, void** out) {
+  WideExec e;
+  const int rc = pack(e, wrap16, src_h, src_w, dst_h, dst_w, cy, ys, ydiv, taps_y, y_bias, cx,
+                      xs, xdiv, taps_x, win, n_ct, tc, tr, ks, group, wp, out_shift);
+  return iqo::create(e, rc, out);
+}
+
+// Launches one resize of n_frames frames on `stream`: the executable of
+// iqo_resize_wide_exec_create with the same arguments, made on the stack
+// and launched once.  dst is contiguous (n_frames, dst_h, dst_w).  Returns
+// a cudaError_t.
 int iqo_resize_wide(int wrap16, const void* src, void* dst, int n_frames,
                     long long src_frame_stride, long long src_row_stride,
                     int src_h, int src_w, int dst_h, int dst_w,
@@ -350,23 +424,12 @@ int iqo_resize_wide(int wrap16, const void* src, void* dst, int n_frames,
                     int y_bias, const void* cx, const void* xs, const void* xdiv,
                     int taps_x, const void* win, int n_ct, int tc, int tr, int ks,
                     int group, int wp, int out_shift, void* stream) {
-  if (tc < 1 || tr < 1 || ks < 1 || ks > taps_y || group < 1 || group > 32 ||
-      (group & (group - 1)) != 0 || wp % 4 != 0 || n_ct != (dst_w + tc - 1) / tc)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec16 =
-      iqo_wide_load_bytes(src, n_frames, src_frame_stride, src_row_stride) == 16;
-  const int smem = 4 * (tr * (wp + taps_y + 1) + tc * (taps_x + 1));
-  const long long blocks = static_cast<long long>(n_ct) * ((dst_h + tr - 1) / tr);
-  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(blocks), 1, n_frames);
-  pick(wrap16, vec16)<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), src_frame_stride,
-      src_row_stride, src_h, src_w, dst_h, dst_w, static_cast<const int32_t*>(cy),
-      static_cast<const int32_t*>(ys), static_cast<const int32_t*>(ydiv), taps_y, y_bias,
-      static_cast<const int32_t*>(cx), static_cast<const int32_t*>(xs),
-      static_cast<const int32_t*>(xdiv), taps_x, static_cast<const int32_t*>(win), n_ct,
-      tc, tr, ks, group, wp, out_shift);
-  return static_cast<int>(cudaGetLastError());
+  WideExec e;
+  const int rc = pack(e, wrap16, src_h, src_w, dst_h, dst_w, cy, ys, ydiv, taps_y, y_bias, cx,
+                      xs, xdiv, taps_x, win, n_ct, tc, tr, ks, group, wp, out_shift);
+  if (rc != 0) return rc;
+  return e.launch(src, dst, n_frames, src_frame_stride, src_row_stride,
+                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -166,6 +166,25 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, i, i, i, i, i, i,            # win, n_ct, tc, tr, ks, group, wp
         i, p]                           # out_shift, stream
     lib.iqo_resize_wide.restype = i
+    # the executables (csrc/exec.cuh): each create takes its iqo_resize_*
+    # entry's arguments but the source, output, frames, strides and stream
+    out = ctypes.POINTER(p)
+    lib.iqo_resize_fused_exec_create.argtypes = [
+        i, i, i, i, i, i, p, p, p, i, i, p, p, p, i, p, p, p, i, i, p, p, i, i, i, out]
+    lib.iqo_resize_fused_exec_create.restype = i
+    lib.iqo_resize_wide_exec_create.argtypes = [
+        i, i, i, i, i, p, p, p, i, i, p, p, p, i, p, i, i, i, i, i, i, i, out]
+    lib.iqo_resize_wide_exec_create.restype = i
+    lib.iqo_exec_launch.argtypes = [p, p, p, i, ll, ll, p]   # exec, src, dst, frames, strides, stream
+    lib.iqo_exec_launch.restype = i
+    lib.iqo_exec_launch_frame.argtypes = [
+        p, p, i,                        # luma, chroma executables, frames
+        p, ll, ll, p,                   # y, its strides, oy
+        p, ll, ll, p, ll, ll, p,        # u, its strides, v, its strides, ouv
+        p]                              # stream
+    lib.iqo_exec_launch_frame.restype = i
+    lib.iqo_exec_destroy.argtypes = [p]
+    lib.iqo_exec_destroy.restype = None
     lib.iqo_wide_set_max_smem.argtypes = [i]
     lib.iqo_wide_set_max_smem.restype = i
     lib.iqo_wide_shape.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
@@ -196,6 +215,10 @@ def bind_tiled(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, i, i,                        # planes (relaxed); run, slots (carry)
         p]                              # stream
     lib.iqo_resize_tiled.restype = i
+    lib.iqo_resize_tiled_exec_create.argtypes = [
+        i, i, i, i, i, i, i, i, p, i, p, i, i, i, i, i, i, i, i, i, i, i, i, i,
+        ctypes.POINTER(p)]              # the same but src, dst, frames, strides, stream
+    lib.iqo_resize_tiled_exec_create.restype = i
     lib.iqo_tiled_set_max_smem.argtypes = [i]
     lib.iqo_tiled_set_max_smem.restype = i
     lib.iqo_tiled_shape.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i), i]

@@ -47,7 +47,8 @@ from . import _build, torch_resize
 __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "VARIANTS", "CarryLayout",
            "KernelOperands", "KernelTables", "TiledLayout", "TiledTables",
            "WideLayout", "WideTables", "carry_layout", "carry_ok",
-           "carry_requested", "kernel_tables", "pack_operands",
+           "carry_requested", "count_launches", "entry_args", "kernel_tables",
+           "pack_operands",
            "relaxed_plane", "reset_launches", "resize_fused", "resize_plain",
            "smem_bytes", "supports_plan", "tile_windows", "tiled_carry_layout",
            "tiled_layout", "tiled_ok", "tiled_tables", "tiled_width",
@@ -1048,51 +1049,60 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(src.device).cuda_stream
+    kind, head, tail = entry_args(ops)
+    rc = getattr(lib, f"iqo_resize_{kind}")(
+        *head, src.data_ptr(), out.data_ptr(), src.shape[0], src.stride(0),
+        src.stride(1), *tail, stream)
+    return _launched(lib, rc, k, out, f"resize_{kind}")
+
+
+def entry_args(ops: KernelOperands) -> tuple[str, tuple, tuple]:
+    """The kernel entry that ``ops``' tables take, ``"tiled"``, ``"wide"``
+    or ``"fused"``, and its arguments but the source, the output, the frame
+    count, the two strides and the stream, split where those go:
+    ``iqo_resize_<kind>(*head, src, dst, frames, frame stride, row stride,
+    *tail, stream)`` launches once (:func:`resize_fused`), and
+    ``iqo_resize_<kind>_exec_create(*head, *tail, &handle)`` packs the same
+    launch once for many (``ops/executable.py``)."""
+    k = ops.tables
+    (h, w), (dh, dw) = ops.plain.src_shape, ops.plain.dst_shape
+    y_bias, out_shift = ops.plain.y_bias, ops.plain.out_shift
     if k.tiled:
         lay = k.layout
-        rc = lib.iqo_resize_tiled(
-            int(k.wrap16), int(lay.s8y), lay.tw, int(lay.relaxed),
-            int(lay.carry), src.data_ptr(), out.data_ptr(), src.shape[0],
-            src.stride(0), src.stride(1), w, dh, dw, k.rrec.data_ptr(),
-            k.rrec.shape[1], k.crec.data_ptr(), k.crec.shape[1], k.taps_y,
-            k.taps_x, lay.k_rows, lay.pitch, lay.margin, lay.work_pitch,
-            lay.max_phases, ops.plain.y_bias, ops.plain.out_shift, lay.planes,
-            lay.run, lay.slots, stream)
-        return _launched(lib, rc, k, out, "resize_tiled")
+        return "tiled", (int(k.wrap16), int(lay.s8y), lay.tw, int(lay.relaxed),
+                         int(lay.carry)), (
+            w, dh, dw, k.rrec.data_ptr(), k.rrec.shape[1], k.crec.data_ptr(),
+            k.crec.shape[1], k.taps_y, k.taps_x, lay.k_rows, lay.pitch, lay.margin,
+            lay.work_pitch, lay.max_phases, y_bias, out_shift, lay.planes, lay.run,
+            lay.slots)
     if k.wide:
         lay = k.layout
-        rc = lib.iqo_resize_wide(
-            int(k.wrap16), src.data_ptr(), out.data_ptr(), src.shape[0],
-            src.stride(0), src.stride(1), h, w, dh, dw, k.cy.data_ptr(),
-            k.ys.data_ptr(), k.ydiv.data_ptr(), lay.taps_y, ops.plain.y_bias,
-            k.cx.data_ptr(), k.xs.data_ptr(), k.xdiv.data_ptr(), lay.taps_x,
-            k.win.data_ptr(), lay.n_ct, lay.tc, lay.tr, lay.ks, lay.group,
-            lay.wp, ops.plain.out_shift, stream)
-        return _launched(lib, rc, k, out, "resize_wide")
-    rc = lib.iqo_resize_fused(
-        int(k.wrap16), int(k.relaxed), int(k.carry), src.data_ptr(),
-        out.data_ptr(),
-        src.shape[0], src.stride(0), src.stride(1), dh, dw, k.rows,
-        k.cy.data_ptr(), k.iy.data_ptr(), k.ydiv.data_ptr(),
-        k.cy.shape[0], ops.plain.y_bias,
-        k.cx.data_ptr(), k.ix.data_ptr(), k.xdiv.data_ptr(),
-        k.cx.shape[0],
-        k.cxr.data_ptr() if k.relaxed else None,
-        k.cxd.data_ptr() if k.cxd.numel() else None,
-        k.win.data_ptr(), k.win_max, ops.plain.out_shift,
-        k.rwin.data_ptr() if k.carry else None,
-        k.iyr.data_ptr() if k.carry else None,
-        k.ring_rows, k.ring_pitch, k.run, stream)
-    return _launched(lib, rc, k, out, "resize_fused")
+        return "wide", (int(k.wrap16),), (
+            h, w, dh, dw, k.cy.data_ptr(), k.ys.data_ptr(), k.ydiv.data_ptr(),
+            lay.taps_y, y_bias, k.cx.data_ptr(), k.xs.data_ptr(), k.xdiv.data_ptr(),
+            lay.taps_x, k.win.data_ptr(), lay.n_ct, lay.tc, lay.tr, lay.ks, lay.group,
+            lay.wp, out_shift)
+    return "fused", (int(k.wrap16), int(k.relaxed), int(k.carry)), (
+        dh, dw, k.rows, k.cy.data_ptr(), k.iy.data_ptr(), k.ydiv.data_ptr(),
+        k.cy.shape[0], y_bias, k.cx.data_ptr(), k.ix.data_ptr(), k.xdiv.data_ptr(),
+        k.cx.shape[0], k.cxr.data_ptr() if k.relaxed else None,
+        k.cxd.data_ptr() if k.cxd.numel() else None, k.win.data_ptr(), k.win_max,
+        out_shift, k.rwin.data_ptr() if k.carry else None,
+        k.iyr.data_ptr() if k.carry else None, k.ring_rows, k.ring_pitch, k.run)
+
+
+def count_launches(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of the instantiation ``name`` to the counts."""
+    global LAUNCHES
+    with _launch_lock:
+        LAUNCHES += n
+        LAUNCHES_BY_VARIANT[name] += n
 
 
 def _launched(lib, rc: int, k, out: torch.Tensor, name: str) -> torch.Tensor:
     """Raise if a launch returned an error, else count it and return out."""
-    global LAUNCHES
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.iqo_error_string(rc).decode()} ({rc})")
-    with _launch_lock:
-        LAUNCHES += 1
-        LAUNCHES_BY_VARIANT[variant(k)] += 1
+    count_launches(variant(k))
     return out

@@ -10,6 +10,9 @@ lone frame of PERF.md section 5, item 2).  Per mode, by CUDA events, the
 slope per frame between two counts of calls over copies one byte apart
 (``tools/_bench.py``):
 
+* ``frame``: ``YUV420Resizer.resize`` (a lone frame) or ``resize_batch``
+  on Y, U and V as tensors of their own, as a user calls them: the
+  executables' one frame call (``ops/executable.launch_frame``);
 * ``full``: luma and chroma (U and V as one batch), ``tools/bench.py``'s call;
 * ``luma``: the luma call alone;
 * ``chroma``: the chroma call alone;
@@ -25,9 +28,10 @@ beside the card's time for the same call, so that a host-bound pace shows.
 The scripts' ``dus`` and ``pad`` terms have no counterpart here: a PyTorch
 call has no loop-carried update to alias, and the kernels read the frame
 in place with no padded copy.  Frame 0 of each batch is held byte for byte
-to the plain path first.  Prints the card's name and power limit, one line
-and one JSON line per batch and mode.  Exits 1 if a check fails, 2 without
-a card.
+to the plain path first, and the ``frame`` mode's whole call too; its rows
+carry ``tools/_bench.guards``' failures (``guards_failed``, empty when every
+guard passes).  Prints the card's name and power limit, one line and one
+JSON line per batch and mode.  Exits 1 if a check fails, 2 without a card.
 """
 
 from __future__ import annotations
@@ -46,11 +50,21 @@ BATCHES = (16, 1)
 COUNTS = {16: (8, 32), 1: (64, 256)}
 QUICK_COUNTS = {16: (2, 6), 1: (16, 64)}
 REPEATS, QUICK_REPEATS = 3, 2
-MODES = ("full", "luma", "chroma", "floor")
+MODES = ("frame", "full", "luma", "chroma", "floor")
+
+
+def frame_call(r, batch: int):
+    """The ``frame`` mode's call of ``(y, u, v)``: ``r.resize`` of one frame
+    (planes without a batch dimension) or ``r.resize_batch``."""
+    from ..yuv import YUV420Frame
+
+    if batch == 1:
+        return lambda x: r.resize(YUV420Frame(*x))
+    return lambda x: r.resize_batch(*x)
 
 
 def calls(r) -> dict:
-    """Each mode's call of ``(y, uv)``."""
+    """Each mode's call of ``(y, uv)`` but ``frame``'s (:func:`frame_call`)."""
     luma, chroma = r._luma, r._chroma
 
     def floor(x):      # fill_ with a Python number: one launch, no copy from the host
@@ -91,17 +105,29 @@ def main(argv=None) -> int:
     planes = [torch.from_numpy(p).cuda()
               for p in _bench.seeded_planes((max(BATCHES), SRC_H, SRC_W))]
     for batch in BATCHES:
-        y, uv = planes[0][:batch], torch.cat([planes[1][:batch], planes[2][:batch]])
+        y, u, v = (p[:batch] for p in planes)
+        uv = torch.cat([u, v])
         _bench.yuv_check(r, plain, y, uv, 0, f"bench_decomp batch {batch}")
-        xs = _bench.copies((y, uv))
+        yuv = (y, u, v) if batch > 1 else (y[0], u[0], v[0])
+        frame = frame_call(r, batch)
+        got, want = frame(yuv), frame_call(plain, batch)(yuv)
+        for i, plane in enumerate("yuv"):
+            _bench.check_equal(f"bench_decomp batch {batch} frame {plane}",
+                               getattr(got, plane) if batch == 1 else got[i],
+                               getattr(want, plane) if batch == 1 else want[i])
+        xs, frame_xs = _bench.copies((y, uv)), _bench.copies(yuv)
         counts = (QUICK_COUNTS if args.quick else COUNTS)[batch]
-        for mode, call in calls(r).items():
-            t = _bench.slope(call, xs, counts, repeats)
+        for mode, call in {"frame": frame, **calls(r)}.items():
+            inputs = frame_xs if mode == "frame" else xs
+            t = _bench.slope(call, inputs, counts, repeats)
             row = {"batch": batch, "mode": mode, "ms_per_frame": t["ms"] / batch,
                    "device_ms_per_call": t["ms"],
-                   "issue_ms_per_call": issue_ms(call, xs, counts[1], repeats),
+                   "issue_ms_per_call": issue_ms(call, inputs, counts[1], repeats),
                    "ms_per_call_with_sync": t["ms_with_sync"], "counts": t["counts"],
                    "card": name, "power_limit": limit}
+            if mode == "frame":
+                row["guards_failed"] = _bench.guards(t["ms"], t["ms_with_sync"],
+                                                     _bench.yuv_bytes(r, batch))
             print(f"batch {batch:2d} {mode:7s}: {row['ms_per_frame']!r} ms/frame on "
                   f"the card; a call {row['device_ms_per_call']!r} ms on the card, "
                   f"{row['issue_ms_per_call']!r} ms issued ({name}, {limit})")

@@ -135,7 +135,8 @@ def main(argv: list[str] | None = None) -> int:
     _ablate.require_card("tiled_ablate")
     card = _harness.card()
     libs = _ablate.load_variants(_ablate.build_variants(
-        "ablate", names, SOURCE, variant_source, [_build.CSRC / u for u in UNITS], UNITS),
+        "ablate", names, SOURCE, variant_source,
+        [_build.CSRC / u for u in (*UNITS, "exec.cuh")], UNITS),
         _load)
     rng = np.random.default_rng(8)
     for tag, algo, kw, sw, sh, dw, dh, batch, form in PLANES:
