@@ -19,9 +19,12 @@ Two main paths, each through the entry points a user calls:
   the tiled kernel's relaxed form, ``wrap16_relaxed_tiled`` and
   ``u16_relaxed_tiled``; and with ``LIBIQO_TPU_CARRY=1`` its row-halo
   carry form (``*_carry_tiled``, ``*_relaxed_carry_tiled``) where the ring
-  fits.  Plans whose band or ring does not fit the tiled kernel's shared
-  memory keep the windowed ``resize_fused`` in the same forms (phases 5b
-  and 12: thumbnail strips and column thumbnails).
+  fits.  The tiled kernel's width walks down to the first that fits (the
+  8K proxy, Lanczos3 7680x4320 -> 960x540, at TW 64).  Plans whose band
+  fits no tiled width take the wide-window kernel (``csrc/resize_wide.cu``),
+  exact and relaxed (phase 5b: the Lanczos3 4K -> 256x144 thumbnail, the
+  4K -> 1920x16 strips, 8K -> 480x270); column thumbnails whose ring does
+  not fit keep the windowed ``resize_fused``'s carry forms (phase 12).
 
 Phases:
 
@@ -46,8 +49,10 @@ Phases:
    libiqo_tpu_torch.tools.card_check``) over its GRADED, STRESS and
    STRESS_GEOMETRIES lists and the port's own WIDE_WINDOW, batch 4 and 2
    on three graded configs: each through its facade on the card and the
-   kernel of ``tiled=False`` == the plain path, == the NumPy oracle on
-   sources of at most ORACLE_MAX_PIXELS pixels; every case on a kernel.
+   kernel of ``tiled=False`` and its twin (the windowed kernel beside the
+   wide-window one) == the plain path, == the NumPy oracle on sources of
+   at most ORACLE_MAX_PIXELS pixels; every case on a kernel; THUMBNAILS
+   too (the bands that fit no tiled width, and the 8K proxy).
    Then the wide-window kernel's path (``csrc/resize_wide.cu``, the plans
    whose window is too wide for 16 rows of the windowed kernel): the facade
    on WIDE_FACADE (Area 8192x4 -> 16x4, the thumbnails Area 4096x4096 ->
@@ -77,16 +82,23 @@ Phases:
    a batch; every plane must equal the plain path; the benchmark CLI's
    default mode, run in this process, must launch the u16_tiled kernel
    twice per cycle.
-   5b. The windowed route: ``YUV420Resizer`` on 4K -> 1920x16 strips
-   (Lanczos3 and Area), whose luma band exceeds the tiled kernel's shared
-   memory: luma launches ``resize_fused``'s wrap16 / u16, chroma the tiled
-   kernel; then relaxed on a Lanczos3 4K -> 256x144 thumbnail and the Area
-   strip: luma ``wrap16_relaxed`` / ``u16_relaxed``, chroma the tiled
-   relaxed form.
+   5b. The thumbnail route (THUMB_FRAMES): ``YUV420Resizer`` on the
+   Lanczos3 4K -> 256x144 thumbnail exact and relaxed, the 4K -> 1920x16
+   strips (Lanczos3 exact, Area exact and relaxed) and Lanczos3 8K ->
+   480x270, whose luma band fits no tiled width: luma launches
+   ``wrap16_wide``, ``wrap16_relaxed_wide``, ``u16_wide`` and
+   ``u16_relaxed_wide``, chroma the tiled kernel; and the 8K proxy,
+   Lanczos3 8K -> 960x540, luma ``wrap16_tiled`` at TW 64.  Launch counts
+   as phase 4, every plane == plain, relaxed luma within 2 LSB of exact;
+   the windowed twin (``tiled=False, wide=False``) on each frame's luma ==
+   the facade, one launch, with every count set to 0 just before; each
+   frame's luma timed in turns on its route, the windowed twin and plain
+   (the proxy also on the wide-window kernel and at TW 32), chroma on its
+   route, beside the bound.
    5c. The executable layer (``ops/executable.py``, the counterpart of the
    JAX package's compiled executables): on every facade route, the main
    paths exact and relaxed, the carry main paths with ``LIBIQO_TPU_CARRY=1``,
-   5b's strips and WIDE_FACADE, each plane's executable == ``resize_fused``
+   5b's 4K thumbnails and WIDE_FACADE, each plane's executable == ``resize_fused``
    on its operands == the plain path, byte for byte, one launch of its
    variant, from an aligned source and one 5 bytes into an odd pitch; each
    frame's ``resize_batch(3)`` and ``resize`` with U and V in place,
@@ -111,8 +123,9 @@ Phases:
    Device times are taken with the card first held busy while the host
    queues every call; the kernel's and the frame's times are also given
    unprimed, at the pace the host issues them.
-8. Both relaxed kernels (the tiled kernel's relaxed form and the windowed
-   ``resize_fused``'s) == relaxed plain, byte for byte, on the full-width
+8. The three relaxed kernels (the tiled kernel's relaxed form, the windowed
+   ``resize_fused``'s and the wide-window kernel's) == relaxed plain, byte
+   for byte, on the full-width
    planes of both main paths and of every ``U16_FRAMES`` frame, then on
    fuzz sets like phases 2-3 (every plan the relaxed form takes) and a plan
    with a residual plane, each also within 3 LSB of the NumPy oracle;
@@ -354,16 +367,22 @@ CARRY_RUN_SWEEP = (1020, 264, 132, 66, 16, 1)
 CARRY_TILED_SWEEP = ((128, 2), (128, 3), (128, 7), (128, 17), (128, 68),
                      (64, 3), (64, 7), (32, 7), (32, 13))
 ORACLE_MAX_PIXELS = 400_000     # numpy_ref only on sources this small
-# (frame, luma variant, chroma variant, precision): YUV420 thumbnails whose
-# luma plane is outside tiled_ok (exact) or tiled_ok(relaxed=True), so it
-# keeps the windowed resize_fused kernel; chroma fits the tiled one
-WINDOWED_FRAMES = (
-    (("lanczos3", 3840, 2160, 1920, 16), "wrap16", "wrap16_tiled", "exact"),
-    (("area", 3840, 2160, 1920, 16), "u16", "u16_tiled", "exact"),
-    (("lanczos3", 3840, 2160, 256, 144), "wrap16_relaxed", "wrap16_relaxed_tiled",
+# (frame, luma variant, chroma variant, precision): the thumbnail route,
+# YUV420 frames whose luma band fits no tiled width (outside tiled_ok, exact
+# or relaxed), so luma takes the wide-window kernel at 16 rows, while chroma
+# fits the tiled one; and the 8K proxy, whose luma fits the tiled kernel only
+# once its width walks down to TW 64
+THUMB_FRAMES = (
+    (("lanczos3", 3840, 2160, 256, 144), "wrap16_wide", "wrap16_tiled", "exact"),
+    (("lanczos3", 3840, 2160, 256, 144), "wrap16_relaxed_wide", "wrap16_relaxed_tiled",
      "relaxed"),
-    (("area", 3840, 2160, 1920, 16), "u16_relaxed", "u16_relaxed_tiled", "relaxed"),
+    (("lanczos3", 3840, 2160, 1920, 16), "wrap16_wide", "wrap16_tiled", "exact"),
+    (("area", 3840, 2160, 1920, 16), "u16_wide", "u16_tiled", "exact"),
+    (("area", 3840, 2160, 1920, 16), "u16_relaxed_wide", "u16_relaxed_tiled", "relaxed"),
+    (("lanczos3", 7680, 4320, 480, 270), "wrap16_wide", "wrap16_tiled", "exact"),
+    (("lanczos3", 7680, 4320, 960, 540), "wrap16_tiled", "wrap16_tiled", "exact"),
 )
+PROXY_TW = 64                   # the 8K proxy's luma width after the walk
 CARRY_PATHS = (                 # (frame, luma variant, chroma variant, precision)
     (("lanczos3", 3840, 2160, 1920, 1080), "wrap16_carry_tiled", "wrap16_tiled",
      "exact"),
@@ -483,6 +502,7 @@ def area_linear_fuzz(rng):
 
 
 MAX_ERR: dict = {}     # variant: largest error against plain and numpy_ref
+LSB_VS_EXACT: dict = {}   # relaxed variant: largest error against the exact output
 
 
 def hold(cr, tag: str, plan, host, oracle=None) -> int:
@@ -665,9 +685,10 @@ REFUSED_PLAIN_CALLS = 2         # the plain path loops over 58112 taps: seconds 
 
 def phase_card_check(cr, build_plan, card: str) -> dict:
     """Phase 3b: the on-card gate's exact sweep (``card_check.exact_sweep``)
-    over GRADED, STRESS, STRESS_GEOMETRIES and the port's WIDE_WINDOW: each
-    through its facade on the card, and the kernel of ``tiled=False``, ==
-    the plain path on the card, == numpy_ref on sources of at most
+    over GRADED, STRESS, STRESS_GEOMETRIES and the port's WIDE_WINDOW and
+    THUMBNAILS: each through its facade on the card, the kernel of
+    ``tiled=False`` and its twin (``card_check.twin``), == the plain path on
+    the card, == numpy_ref on sources of at most
     ORACLE_MAX_PIXELS pixels; every case must run a kernel.  Then the
     wide-window kernel's path: the facade on each WIDE_FACADE plan with
     every count set to 0 just before, one ``*_wide`` launch a call.  Then
@@ -680,15 +701,15 @@ def phase_card_check(cr, build_plan, card: str) -> dict:
     plan, "launches": the path's launches by variant}."""
     t_phase = time.perf_counter()
     rows, fails, skips = card_check.exact_sweep(
-        card_check.Oracle(), card, cases=card_check.GRADED + card_check.STRESS
-        + card_check.STRESS_GEOMETRIES + card_check.WIDE_WINDOW,
+        card_check.Oracle(), card, cases=card_check.REQUIRED,
         oracle_max_pixels=ORACLE_MAX_PIXELS)
     bad = [r for r in rows if r["status"] != "ok"]
     check(not bad and not fails and not skips, f"card_check exact sweep: {bad}")
     print(f"card_check exact sweep: {len(rows)} rows (GRADED, STRESS, "
-          f"STRESS_GEOMETRIES, WIDE_WINDOW, batch 4 and 2 on three graded configs) "
-          f"ok on their kernels: {sorted({r['variant'] for r in rows})}; tiled=False "
-          f"{sorted({r['windowed_variant'] for r in rows if 'windowed_variant' in r})}; "
+          f"STRESS_GEOMETRIES, WIDE_WINDOW, THUMBNAILS, batch 4 and 2 on three graded "
+          f"configs) ok on their kernels: {sorted({r['variant'] for r in rows})}; "
+          f"tiled=False {sorted({r['windowed_variant'] for r in rows if 'windowed_variant' in r})}"
+          f"; their twins {sorted({r['twin_variant'] for r in rows if 'twin_variant' in r})}; "
           f"numpy_ref on {sum(r['oracle'] for r in rows)} of them")
     facades = [(case, card_check.facade(case)) for case in card_check.WIDE_FACADE]
     srcs = [torch.from_numpy(card_check.source(case, 1)).cuda()
@@ -976,24 +997,103 @@ def phase_area_path(cr, yuv, build_plan, benchmark, rng, variant="u16_tiled"):
     return launches, max_err
 
 
-def phase_windowed_path(cr, yuv, build_plan, rng) -> dict:
-    """The windowed ``resize_fused`` route on a user path: YUV420Resizer on
-    WINDOWED_FRAMES, exact and relaxed thumbnails whose luma band is taller
-    than the tiled kernel's shared memory (``tiled_ok`` refuses it, so the
-    plan keeps the windowed kernel); chroma fits and runs tiled.  Counts
-    set to 0 just before each; returns the windowed launches by variant."""
-    launches = {}
-    for frame, luma_v, chroma_v, precision in WINDOWED_FRAMES:
+def phase_thumbnail_path(cr, yuv, build_plan, rng, card: str) -> dict:
+    """Phase 5b, the thumbnail route on a user path: YUV420Resizer on
+    THUMB_FRAMES, exact and relaxed, through ``resize`` and
+    ``resize_batch`` with every count set to 0 just before each
+    (:func:`drive_yuv`): luma on the wide-window kernel where no tiled
+    width takes its band, on the tiled kernel at PROXY_TW for the 8K proxy,
+    chroma tiled; each plane == plain; relaxed luma within RELAXED_LSB of
+    the exact plain output.  Then the windowed twin (``tiled=False,
+    wide=False``) on the frames' luma planes, with every count set to 0 just
+    before, == the facade's output.  Then each frame timed
+    (:func:`time_thumbnail`).  Returns {"launches": the route's launches by
+    variant, "twin": the twin's, "rows": the timed rows}."""
+    launches, twin, rows = {}, {}, []
+    for frame, luma_v, chroma_v, precision in THUMB_FRAMES:
         relaxed = precision == "relaxed"
         (_, luma, _), (_, chroma, _) = yuv_planes(build_plan, *frame)
-        fits = [cr.tiled_ok(p, relaxed) for p in (luma, chroma)]
-        check(fits == [False, True], f"{frame} {precision}: tiled_ok luma, "
-              f"chroma {fits}; expected False, True")
-        by_variant, err, _, _ = drive_yuv(cr, yuv, build_plan, rng, frame,
-                                          luma_v, chroma_v, precision=precision)
-        launches[luma_v] = by_variant[luma_v]
+        k, kc = (cr.kernel_tables(p, relaxed=relaxed) for p in (luma, chroma))
+        check((cr.variant(k), cr.variant(kc)) == (luma_v, chroma_v)
+              and cr.work_rows(luma) == cr.TILE_ROWS
+              and (k.wide or k.layout.tw == PROXY_TW < cr.tiled_width(luma)),
+              f"{frame} {precision}: luma {cr.variant(k)}, chroma {cr.variant(kc)}")
+        by_variant, err, frames, outs = drive_yuv(cr, yuv, build_plan, rng, frame, luma_v,
+                                                  chroma_v, precision=precision)
+        launches[luma_v] = launches.get(luma_v, 0) + by_variant[luma_v]
         MAX_ERR[luma_v] = max(MAX_ERR.get(luma_v, 0), err)
-    return launches
+        y = torch.from_numpy(np.stack([f.y for f in frames])).cuda()
+        got = torch.from_numpy(np.stack([o.y for o in outs])).cuda()
+        if relaxed:
+            lsb = compare(f"{frame} relaxed luma vs exact plain", got,
+                          cr.resize_plain(cr.pack_operands(luma, "cuda"), y), RELAXED_LSB)
+            LSB_VS_EXACT[luma_v] = max(LSB_VS_EXACT.get(luma_v, 0), lsb)
+        walk = cr.pack_operands(luma, "cuda", relaxed=relaxed, tiled=False, wide=False)
+        wgot, counts = card_check.launched(cr, lambda: cr.resize_fused(walk, y))
+        v = cr.variant(walk.tables)
+        check(counts == {v: 1}, f"{frame} {precision}: the twin launched {counts}")
+        MAX_ERR[v] = max(MAX_ERR.get(v, 0), compare(f"{frame} {precision} twin vs facade",
+                                                    wgot, got))
+        twin[v] = twin.get(v, 0) + 1
+        rows.append(time_thumbnail(cr, build_plan, rng, card, frame, relaxed))
+    print(f"thumbnail route: launches {launches}; the windowed twin {twin}")
+    return {"launches": launches, "twin": twin, "rows": rows}
+
+
+
+def time_thumbnail(cr, build_plan, rng, card: str, frame, relaxed: bool) -> dict:
+    """One THUMB_FRAMES frame's planes on the card, in turns: luma on the
+    facade's route, on the windowed twin (``tiled=False, wide=False``) and
+    on the plain path (host-paced); for the 8K proxy also the wide-window
+    kernel and the tiled kernel one width narrower; chroma on its route.
+    Beside the luma plane's and the frame's bound."""
+    method, sw, sh, dw, dh = frame
+    tag = f"{method} {sw}x{sh}->{dw}x{dh} {'relaxed' if relaxed else 'exact'}"
+    ms, planes, variants = {}, [], {}
+    for name, plan, batch in yuv_planes(build_plan, *frame):
+        planes.append((plan, batch))
+        ops = cr.pack_operands(plan, "cuda", relaxed=relaxed)
+        shape = (batch, plan.y.n_src, plan.x.n_src)
+        xs = _harness.perturbed(torch.from_numpy(random_u8(rng, shape)).cuda(),
+                                n_inputs(math.prod(shape)))
+        fns = {"route": lambda t, o=ops: cr.resize_fused(o, t)}
+        variants[name] = cr.variant(ops.tables)
+        if name == "luma":
+            walk = cr.pack_operands(plan, "cuda", relaxed=relaxed, tiled=False, wide=False)
+            fns["windowed"] = lambda t, o=walk: cr.resize_fused(o, t)
+            if ops.tables.tiled:
+                wide = cr.KernelOperands(plain=ops.plain, tables=cr.wide_tables(
+                    plan, "cuda", relaxed=relaxed))
+                tw = cr.TILED_WIDTHS[cr.TILED_WIDTHS.index(ops.tables.layout.tw) + 1]
+                narrow = cr.KernelOperands(plain=ops.plain, tables=cr.tiled_tables(
+                    plan, "cuda", cr.tiled_layout(plan, relaxed, tw)))
+                want = cr.resize_plain(ops, xs[0])
+                for label, o in (("wide", wide), (f"tw{tw}", narrow)):
+                    compare(f"{tag} luma {label} vs plain", cr.resize_fused(o, xs[0]), want)
+                    fns[label] = lambda t, o=o: cr.resize_fused(o, t)
+            fns["plain"] = lambda t, o=ops: cr.resize_plain(o, t)
+        t = in_turns(fns, xs, primed={"plain": False})
+        ms.update({f"{name} {k}": v for k, v in t.items()})
+        del xs
+    torch.cuda.empty_cache()
+    rate = BF16_OPS_PER_S if relaxed else INT8_OPS_PER_S
+    luma_b, luma_o = bound(planes[:1], rate)
+    frame_b, frame_o = bound(planes, rate)
+    row = {"frame": tag, "luma_variant": variants["luma"],
+           "chroma_variant": variants["chroma"], "ms": ms,
+           "frame_ms": ms["luma route"] + ms["chroma route"],
+           "luma_bound_ms": max(luma_b, luma_o),
+           "luma_bound_by": "bytes" if luma_b >= luma_o else "operations",
+           "bound_ms": max(frame_b, frame_o),
+           "bound_by": "bytes" if frame_b >= frame_o else "operations"}
+    print(f"time thumbnail {tag}: luma {variants['luma']} {ms['luma route']!r} ms, "
+          f"windowed twin {ms['luma windowed']!r} ms, plain {ms['luma plain']!r} ms"
+          + "".join(f", {k[5:]} {v!r} ms" for k, v in ms.items()
+                    if k.startswith("luma") and k[5:] not in ("route", "windowed", "plain"))
+          + f"; chroma {variants['chroma']} {ms['chroma route']!r} ms; frame "
+          f"{row['frame_ms']!r} ms; bound luma {row['luma_bound_ms']!r} ms, frame "
+          f"{row['bound_ms']!r} ms ({row['bound_by']}) (in turns; {card})")
+    return row
 
 
 # the executable layer's routes (ops/executable.py): (label, YUV420Resizer
@@ -1005,7 +1105,7 @@ EXEC_FRAMES = (
     ("lanczos main", ("lanczos3", SRC_W, SRC_H, DST_W, DST_H), "relaxed", False),
     ("area main", AREA_MAIN, "relaxed", False),
     *(("carry path", f, p, True) for f, _, _, p in CARRY_PATHS),
-    *(("strip", f, p, False) for f, _, _, p in WINDOWED_FRAMES),
+    *(("thumbnail", f, p, False) for f, _, _, p in THUMB_FRAMES if f[1] <= SRC_W),
 )
 EXEC_BATCHES = (1, 16)          # a lone frame, and tools/bench.py's batch
 EXEC_ISSUE_CALLS = 256          # frames a host-clock issue timing queues
@@ -1303,8 +1403,10 @@ def err_stats(got: torch.Tensor, want: torch.Tensor) -> tuple[int, float]:
 def hold_relaxed(cr, tag: str, plan, host: np.ndarray, oracle=None):
     """Relaxed kernels == relaxed plain on the card, byte for byte, for one
     plan and a (B, h, w) source: the plan's own route (the tiled kernel's
-    relaxed form where ``tiled_ok(plan, relaxed=True)``) and the windowed
-    ``resize_fused`` (``tiled=False``); the first within RELAXED_LSB of the
+    relaxed form where ``tiled_ok(plan, relaxed=True)``, else the
+    wide-window kernel's), the kernel of ``tiled=False`` and its twin
+    (``card_check.twin``: the windowed ``resize_fused`` beside the
+    wide-window kernel's relaxed form); the first within RELAXED_LSB of the
     exact kernel, or with an oracle within RELAXED_ORACLE_LSB of it; flat
     fields 0/128/255 equal to the exact output.  Errors against the plain
     version are noted by variant in MAX_ERR.  Returns the route's variant,
@@ -1319,9 +1421,10 @@ def hold_relaxed(cr, tag: str, plan, host: np.ndarray, oracle=None):
     plain = cr.resize_plain(rel, src)
     plain_err = compare(f"{tag} {v}", got, plain)
     windowed = cr.pack_operands(plan, "cuda", relaxed=True, tiled=False)
-    w = cr.variant(windowed.tables)
-    MAX_ERR[w] = max(MAX_ERR.get(w, 0), compare(
-        f"{tag} {w}", cr.resize_fused(windowed, src), plain))
+    for ops in (windowed, card_check.twin(plan, windowed, relaxed=True)):
+        w = cr.variant(ops.tables)
+        MAX_ERR[w] = max(MAX_ERR.get(w, 0), compare(
+            f"{tag} {w}", cr.resize_fused(ops, src), plain))
     MAX_ERR[v] = max(MAX_ERR.get(v, 0), plain_err)
     if oracle is None:
         want = cr.resize_fused(ex, src)
@@ -1357,7 +1460,8 @@ def phase_relaxed_vs_plain(cr, build_plan, numpy_ref, rng):
             stats = hold_relaxed(cr, tag, plan, host)
             v = note(stats)
             check(v.endswith("_relaxed_tiled"), f"{tag}: relaxed route {v}")
-            print(f"kernel[{v}] and the windowed relaxed kernel == plain: {tag}, "
+            print(f"kernel[{v}], the windowed and the wide-window relaxed kernels "
+                  f"== plain: {tag}, "
                   f"flat fields exact; vs exact max {stats[2]} mean {stats[3]!r} LSB")
     tpu = {row["case"]: row for row in json.loads(
         (ROOT / "scripts" / "check_relaxed_result.json").read_text())}
@@ -1376,7 +1480,8 @@ def phase_relaxed_vs_plain(cr, build_plan, numpy_ref, rng):
                          numpy_ref)
     note(stats)
     print(f"relaxed residual-plane plan {algo}{kw} {sw}x{sh}->{dw}x{dh} "
-          f"({stats[0]}, two X planes): == plain, within {RELAXED_ORACLE_LSB} "
+          f"({stats[0]}, two X planes; the windowed and wide-window twins too): == "
+          f"plain, within {RELAXED_ORACLE_LSB} "
           "LSB of numpy_ref, flat fields exact")
     fuzz = np.random.default_rng(SEED + 1)
     for name, cases in (("lanczos px1-2 fuzz", lanczos_fuzz(fuzz)),
@@ -1393,7 +1498,7 @@ def phase_relaxed_vs_plain(cr, build_plan, numpy_ref, rng):
             note(hold_relaxed(cr, tag, plan, random_u8(fuzz, (2, sh, sw)),
                               numpy_ref))
             n += 1
-        print(f"both relaxed kernels == relaxed plain, within "
+        print(f"the three relaxed kernels == relaxed plain, within "
               f"{RELAXED_ORACLE_LSB} LSB of numpy_ref, flat fields exact, on {n} "
               f"{name} geometries ({refused} refused by "
               f"supports_plan(relaxed=True))")
@@ -3253,7 +3358,7 @@ def main() -> int:
     MAX_ERR["wrap16_tiled"] = max(MAX_ERR["wrap16_tiled"], e)
     launchesu, e = phase_area_path(cuda_resize, yuv, build_plan, benchmark, rng)
     MAX_ERR["u16_tiled"] = max(MAX_ERR["u16_tiled"], e)
-    windowed = phase_windowed_path(cuda_resize, yuv, build_plan, rng)
+    thumbs = phase_thumbnail_path(cuda_resize, yuv, build_plan, rng, smi)
     executables = phase_executables(cuda_resize, yuv, np.random.default_rng(SEED + 5), smi)
     phase_benchmark_cli(smi)
 
@@ -3295,13 +3400,15 @@ def main() -> int:
 
     def wide_entry(wide, v, plan):
         """The wide-window kernel's entry for instantiation ``v``: its
-        launches on the facade's path, its times on ``plan`` beside the
-        walk's, and every plan it took in phase 3b."""
+        launches on the facade's paths (phase 3b's and the thumbnail
+        route's), its times on ``plan`` beside the walk's, every plan it
+        took in phase 3b and the thumbnail frames it ran."""
         mine = [r for r in wide["rows"] if r["variant"] == v]
         t = next(r for r in mine if r["plan"] == plan)
         return {"name": f"resize_wide[{v.split('_')[0]}]", "route": "cuda",
                 "source": "libiqo_tpu_torch/csrc/resize_wide.cu", "replaces": replaces,
-                "launches": wide["launches"][v],
+                "launches": wide["launches"][v] + thumbs["launches"].get(v, 0),
+                "thumbnails": [r for r in thumbs["rows"] if r["luma_variant"] == v],
                 "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": None, "plan": plan,
@@ -3311,6 +3418,21 @@ def main() -> int:
                     "layout")} for r in mine}}
     replaces = "libiqo_tpu/ops/pallas_resize.py:1687"
     replaces_relaxed = "libiqo_tpu/ops/pallas_resize.py:1486"
+
+    def relaxed_wide_entry(v, frame):
+        """The wide-window kernel's relaxed form ``v``: launches on the
+        thumbnail route, times of ``frame``'s luma plane beside the windowed
+        twin's in the same turns, every frame it ran."""
+        mine = [r for r in thumbs["rows"] if r["luma_variant"] == v]
+        t = next(r for r in mine if r["frame"] == frame)
+        return {"name": f"resize_wide[{v.split('_')[0]},relaxed]", "route": "cuda",
+                "source": "libiqo_tpu_torch/csrc/resize_wide.cu",
+                "replaces": replaces_relaxed, "launches": thumbs["launches"][v],
+                "max_abs_err": MAX_ERR[v], "max_lsb_vs_exact": LSB_VS_EXACT[v],
+                "ms": t["ms"]["luma route"], "plain_ms": t["ms"]["luma plain"],
+                "bound_ms": t["luma_bound_ms"], "bound_by": t["luma_bound_by"],
+                "library_ms": None, "windowed_ms": t["ms"]["luma windowed"],
+                "plan": frame + " luma", "frames": mine}
 
     def relaxed_entries(v, launches, plain_err, lsb, t):
         """The tiled relaxed form's entry (launches from its main path) and
@@ -3322,15 +3444,18 @@ def main() -> int:
                   "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                   "bound_by": t["bound_by"], "library_ms": None,
                   "exact_kernel_ms": t["exact_ms"], "exact_kernel": t["exact_kernel"]}
+        twin_note = ("the windowed twin of the timing turns (tiled=False, wide=False): "
+                     "every plan outside tiled_ok takes resize_wide; launches from "
+                     "phase 5b's twin run")
         return [
             {"name": f"resize_tiled[{v},relaxed]", "source": tiled_src,
              "launches": launches, "max_abs_err": plain_err,
              "max_lsb_vs_exact": lsb, "ms": t["ms"], **common,
              "windowed_ms": t["windowed_ms"], "planes": t["planes"]},
             {"name": f"resize_fused[{v},relaxed]", "source": src,
-             "was": "the relaxed route of every plan; now of the plans "
-                    "outside tiled_ok(relaxed=True)",
-             "launches": windowed[f"{v}_relaxed"],
+             "was": "the relaxed route of every plan, then of the plans "
+                    "outside tiled_ok(relaxed=True)", "now": twin_note,
+             "launches": thumbs["twin"][f"{v}_relaxed"],
              "max_abs_err": MAX_ERR[f"{v}_relaxed"], "ms": t["windowed_ms"],
              **common, "tiled_relaxed_ms": t["ms"]}]
 
@@ -3351,15 +3476,20 @@ def main() -> int:
          "bound_by": tu["bound_by"], "library_ms": None,
          "fused_ms": tu["fused_ms"], "yardstick_ms": tu["yardstick_ms"],
          "planes": tu["planes"]},
-        # the windowed kernel: launches from the thumbnail-strip paths whose
-        # luma tiled_ok refuses; ms timed on the main frames, in turns
+        # the windowed kernel: the twin of the timing turns; launches from
+        # phase 5b's twin run on the thumbnail frames' luma; ms timed on the
+        # main frames, in turns; on a facade only where wide_layout refuses
         {"name": "resize_fused[wrap16]", "route": "cuda", "source": src,
-         "replaces": replaces, "launches": windowed["wrap16"],
+         "replaces": replaces, "launches": thumbs["twin"]["wrap16"],
+         "now": "the windowed twin (tiled=False, wide=False); a facade plan reaches it "
+                "only where wide_layout refuses the plan",
          "max_abs_err": max(err16, MAX_ERR["wrap16"]), "ms": t16["fused_ms"],
          "plain_ms": t16["plain_ms"], "bound_ms": t16["bound_ms"],
          "bound_by": t16["bound_by"], "library_ms": None},
         {"name": "resize_fused[u16]", "route": "cuda", "source": src,
-         "replaces": replaces, "launches": windowed["u16"],
+         "replaces": replaces, "launches": thumbs["twin"]["u16"],
+         "now": "the windowed twin (tiled=False, wide=False); a facade plan reaches it "
+                "only where wide_layout refuses the plan (refused_layout_plan)",
          "max_abs_err": max(erru, MAX_ERR["u16"]), "ms": tu["fused_ms"],
          "plain_ms": tu["plain_ms"], "bound_ms": tu["bound_ms"],
          "bound_by": tu["bound_by"], "library_ms": None,
@@ -3371,6 +3501,8 @@ def main() -> int:
         *(wide_entry(wide, v, plan) for v, plan in (
             ("u16_wide", "area 7680x4320->240x135"),
             ("wrap16_wide", "lanczos3 7680x4320->240x135"))),
+        relaxed_wide_entry("wrap16_relaxed_wide", "lanczos3 3840x2160->256x144 relaxed"),
+        relaxed_wide_entry("u16_relaxed_wide", "area 3840x2160->1920x16 relaxed"),
         *relaxed_entries("wrap16", launches16r, plain16r, err16r, t16r),
         *relaxed_entries("u16", launchesur, plainur, errur, tur),
         sharded["wrap16"], sharded["u16"],

@@ -1,18 +1,28 @@
-// The wide-window resize for Hopper (sm_90a): the exact plans whose column
-// windows are too wide for a 16-row work tile of the windowed kernel
-// (cuda_resize.work_rows < 16): Area 8192x4 -> 16x4 (512 X taps, one window
-// of 8192 columns), the thumbnails Area 4096x4096 -> 128x128, 3840x2160 ->
-// 128x72, Area and Lanczos3 7680x4320 -> 240x135, Area 40960x8 -> 1024x8, and
-// with tiled=False Area 8192x2160 -> 256x540 and 4096x2160 -> 128x540.  Byte
-// equal to the windowed kernel and to golden/numpy_ref.py, in two exact
-// instantiations as resize_fused.cu: kWrap16 (Lanczos: int16 work rows,
-// Y-border renormalisation, int32-wrapping X sums, border-column divide) and
-// u16 (Area, Linear: u16 work rows, (sums + half) >> out_shift).
+// The wide-window resize for Hopper (sm_90a): every plan whose source band
+// fits no width of the tiled kernel (resize_tiled.cuh), among them the exact
+// plans whose column windows are too wide for a 16-row work tile of the
+// windowed kernel (cuda_resize.work_rows < 16): Area 8192x4 -> 16x4 (512 X
+// taps, one window of 8192 columns), the thumbnails Area 4096x4096 ->
+// 128x128, 3840x2160 -> 128x72, Area and Lanczos3 7680x4320 -> 240x135, Area
+// 40960x8 -> 1024x8, and the tall-band thumbnails whose 16 rows fit the
+// windowed kernel but whose band fits no tiled width: Lanczos3 3840x2160 ->
+// 256x144, 1920x1080 -> 128x72, 7680x4320 -> 480x270, the 4K -> 1920x16
+// strips.  Byte equal to the windowed kernel and to golden/numpy_ref.py, in
+// the exact instantiations of resize_fused.cu: kWrap16 (Lanczos: int16 work
+// rows, Y-border renormalisation, int32-wrapping X sums, border-column
+// divide) and u16 (Area, Linear: u16 work rows, (sums + half) >> out_shift);
+// and in the relaxed form (kRelaxed, precision="relaxed"), byte equal to the
+// windowed kernel's relaxed form and to torch_resize.resize_relaxed: the
+// same exact Y pass, the work value rounded to bf16, a float32 X pass over
+// the relaxed plane and then the residual plane where the plan has one, tap
+// by tap in order with each product and add rounded on its own, truncated
+// to int32, then the wrap16 epilogue.
 //
 // Replaces the TPU kernel libiqo_tpu/ops/pallas_resize.py _make_padless_fn
 // (pl.pallas_call at :1687) on these plans: K3, the Y pass over byte planes
 // for taps outside s8 (:843-847, 1374-1396), and K4, the X pass over u16
-// work rows (:956-962, 1448-1456), and K1+K2's wrap16 epilogue.
+// work rows (:956-962, 1448-1456), and K1+K2's wrap16 epilogue; relaxed,
+// K7's X scheme (:943-1024, 1486-1505).
 //
 // What bounds it on the H100: the bytes, each source byte read once (2.5-12
 // us for the thumbnails at 3.35 TB/s), and for Lanczos3 8K -> 240x135 about
@@ -47,11 +57,15 @@
 //   met by butterfly shuffles; the epilogue runs once on the complete sum.
 //   uint32 addition is associative mod 2^32, so any split is exact, and each
 //   output's sum stays inside one block: no global atomics, one launch.
+//   Float addition is not associative, so the relaxed form keeps the Y
+//   split (its sums are the exact uint32 ones, rounded once complete) and
+//   runs each output's X taps on one thread (group 1), in tap order.
 // * Intended wraps go through uint32 (signed overflow is undefined in C++);
 //   int16 narrowing, two's-complement reinterpretation and the arithmetic
 //   shift are written out, as in resize_fused.cu.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "exec.cuh"
@@ -163,14 +177,39 @@ __device__ __forceinline__ int32_t work_value(uint32_t acc, int32_t d, int y_bia
   }
 }
 
-// Tables are output-major: cy[i * taps_y + t], cx[j * taps_x + t]; ys/xs
+// The value the work tile holds: the work value, or with kRelaxed its bf16
+// rounding as float32 bits (|w| <= 65280 is exact in float32 first).
+template <bool kWrap16, bool kRelaxed>
+__device__ __forceinline__ int32_t stored(uint32_t acc, int32_t d, int y_bias) {
+  const int32_t w = work_value<kWrap16>(acc, d, y_bias);
+  if constexpr (kRelaxed) {
+    return __float_as_int(__bfloat162float(__float2bfloat16_rn(static_cast<float>(w))));
+  } else {
+    return w;
+  }
+}
+
+// sum_t plane[t] * work[clamp(x0 + t) - lo_al] in float32, in tap order,
+// without contraction, truncated toward zero (resize_fused.cu float_taps).
+__device__ __forceinline__ uint32_t float_taps(const int32_t* plane, const int32_t* wrow,
+                                               int x0, int taps, int src_w, int lo_al) {
+  float acc = 0.0f;
+  for (int t = 0; t < taps; ++t)
+    acc = __fadd_rn(acc, __fmul_rn(__int_as_float(plane[t]),
+                                   __int_as_float(wrow[min(max(x0 + t, 0), src_w - 1) - lo_al])));
+  return static_cast<uint32_t>(__float2int_rz(acc));
+}
+
+// Tables are output-major: cy[i * taps_y + t], cx[j * planes * taps_x + t]
+// (with kRelaxed the planes' float32 bits, each output's relaxed taps then
+// its residual taps where planes is 2); ys/xs
 // the first (unclamped) source row/column of each output row/column, whose
 // taps read clamp(start + t) (taps outside the source are zero in the plan);
 // ydiv/xdiv the border divisors (0 on main outputs; read with kWrap16);
 // win[2 ct], win[2 ct + 1] the source columns [lo, hi) that column tile ct's
 // clamped taps read.  Block b takes row tile b / n_ct and column tile
 // b % n_ct, frame blockIdx.z.
-template <bool kWrap16, int V>
+template <bool kWrap16, int V, bool kRelaxed>
 __global__ void __launch_bounds__(kThreads, 2) resize_wide_kernel(
     const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
     long long src_frame_stride, long long src_row_stride, int src_h, int src_w,
@@ -178,16 +217,17 @@ __global__ void __launch_bounds__(kThreads, 2) resize_wide_kernel(
     const int32_t* __restrict__ cy, const int32_t* __restrict__ ys,
     const int32_t* __restrict__ ydiv, int taps_y, int y_bias,
     const int32_t* __restrict__ cx, const int32_t* __restrict__ xs,
-    const int32_t* __restrict__ xdiv, int taps_x,
+    const int32_t* __restrict__ xdiv, int taps_x, int planes,
     const int32_t* __restrict__ win, int n_ct, int tc, int tr, int ks,
     int group, int wp, int out_shift) {
   // work [tr][wp], then the block's Y table [tr][taps_y], X table
-  // [tc][taps_x], row starts [tr] and column starts [tc]
+  // [tc][planes * taps_x], row starts [tr] and column starts [tc]
   extern __shared__ __align__(16) int32_t smem[];
+  const int xrow = planes * taps_x;
   int32_t* work = smem;
   int32_t* s_cy = work + tr * wp;
   int32_t* s_cx = s_cy + tr * taps_y;
-  int32_t* s_ys = s_cx + tc * taps_x;
+  int32_t* s_ys = s_cx + tc * xrow;
   int32_t* s_xs = s_ys + tr;
 
   const int ct = blockIdx.x % n_ct;
@@ -203,8 +243,8 @@ __global__ void __launch_bounds__(kThreads, 2) resize_wide_kernel(
 
   for (int e = threadIdx.x; e < rows * taps_y; e += kThreads)
     s_cy[e] = __ldg(cy + static_cast<long long>(r0) * taps_y + e);
-  for (int e = threadIdx.x; e < cols * taps_x; e += kThreads)
-    s_cx[e] = __ldg(cx + static_cast<long long>(c0) * taps_x + e);
+  for (int e = threadIdx.x; e < cols * xrow; e += kThreads)
+    s_cx[e] = __ldg(cx + static_cast<long long>(c0) * xrow + e);
   for (int e = threadIdx.x; e < rows; e += kThreads) s_ys[e] = __ldg(ys + r0 + e);
   for (int e = threadIdx.x; e < cols; e += kThreads) s_xs[e] = __ldg(xs + c0 + e);
   if (ks > 1)
@@ -228,10 +268,10 @@ __global__ void __launch_bounds__(kThreads, 2) resize_wide_kernel(
 #pragma unroll
       for (int q = 0; q < 4; ++q)
         reinterpret_cast<int4*>(wrow)[q] = make_int4(
-            work_value<kWrap16>(s[4 * q], d, y_bias),
-            work_value<kWrap16>(s[4 * q + 1], d, y_bias),
-            work_value<kWrap16>(s[4 * q + 2], d, y_bias),
-            work_value<kWrap16>(s[4 * q + 3], d, y_bias));
+            stored<kWrap16, kRelaxed>(s[4 * q], d, y_bias),
+            stored<kWrap16, kRelaxed>(s[4 * q + 1], d, y_bias),
+            stored<kWrap16, kRelaxed>(s[4 * q + 2], d, y_bias),
+            stored<kWrap16, kRelaxed>(s[4 * q + 3], d, y_bias));
     } else {
 #pragma unroll
       for (int k = 0; k < kGroupCols; ++k)
@@ -239,18 +279,20 @@ __global__ void __launch_bounds__(kThreads, 2) resize_wide_kernel(
     }
   }
   __syncthreads();
-  if (kWrap16 && ks > 1) {                 // the wrap and renormalisation, once
+  if ((kWrap16 || kRelaxed) && ks > 1) {  // the wrap, renormalisation and rounding, once
     for (int e = threadIdx.x; e < rows * ng * kGroupCols; e += kThreads) {
       const int r = e / (ng * kGroupCols);
       const int c = e - r * ng * kGroupCols;
       int32_t* p = work + r * wp + c;
-      *p = work_value<kWrap16>(static_cast<uint32_t>(*p), __ldg(ydiv + r0 + r), y_bias);
+      *p = stored<kWrap16, kRelaxed>(static_cast<uint32_t>(*p),
+                                     kWrap16 ? __ldg(ydiv + r0 + r) : 0, y_bias);
     }
     __syncthreads();
   }
 
   // X pass: outputs (row fastest) over groups of `group` lanes, tap t on
-  // lane t % group, the lanes' sums met by butterfly shuffles
+  // lane t % group, the lanes' sums met by butterfly shuffles; with
+  // kRelaxed group is 1 and each thread sums its output's planes in order
   const uint32_t half = 1u << (out_shift - 1);
   const int lane = threadIdx.x & (group - 1);
   const int groups = kThreads / group;
@@ -262,18 +304,23 @@ __global__ void __launch_bounds__(kThreads, 2) resize_wide_kernel(
     uint32_t acc = 0u;
     if (valid) {
       const int32_t* wrow = work + r * wp;
-      const int32_t* cxr = s_cx + jt * taps_x;
+      const int32_t* cxr = s_cx + jt * xrow;
       const int x0 = s_xs[jt];
-      for (int t = lane; t < taps_x; t += group)
-        acc += static_cast<uint32_t>(cxr[t]) *
-               static_cast<uint32_t>(wrow[min(max(x0 + t, 0), src_w - 1) - lo_al]);
+      if constexpr (kRelaxed) {
+        acc = float_taps(cxr, wrow, x0, taps_x, src_w, lo_al);
+        if (planes > 1) acc += float_taps(cxr + taps_x, wrow, x0, taps_x, src_w, lo_al);
+      } else {
+        for (int t = lane; t < taps_x; t += group)
+          acc += static_cast<uint32_t>(cxr[t]) *
+                 static_cast<uint32_t>(wrow[min(max(x0 + t, 0), src_w - 1) - lo_al]);
+      }
     }
     for (int off = group >> 1; off > 0; off >>= 1)
       acc += __shfl_xor_sync(0xFFFFFFFFu, acc, off);
     if (valid && lane == 0) {
       const int j = c0 + jt;
       int32_t v;
-      if constexpr (kWrap16) {
+      if constexpr (kWrap16 || kRelaxed) {
         const int32_t sum = as_i32(acc + half);
         const int32_t d = __ldg(xdiv + j);
         // d is a nonzero multiple of y_bias (>= 2 in magnitude) on border
@@ -288,14 +335,16 @@ __global__ void __launch_bounds__(kThreads, 2) resize_wide_kernel(
   }
 }
 
-using Kernel = decltype(&resize_wide_kernel<true, 16>);
+using Kernel = decltype(&resize_wide_kernel<true, 16, false>);
 
-// The instantiation for (wrap16, 16-byte loads).
-Kernel pick(int wrap16, int vec16) {
-  static const Kernel kernels[4] = {
-      &resize_wide_kernel<false, 1>, &resize_wide_kernel<false, 16>,
-      &resize_wide_kernel<true, 1>, &resize_wide_kernel<true, 16>};
-  return kernels[(wrap16 ? 2 : 0) + (vec16 ? 1 : 0)];
+// The instantiation for (relaxed, wrap16, 16-byte loads).
+Kernel pick(int relaxed, int wrap16, int vec16) {
+  static const Kernel kernels[8] = {
+      &resize_wide_kernel<false, 1, false>, &resize_wide_kernel<false, 16, false>,
+      &resize_wide_kernel<true, 1, false>,  &resize_wide_kernel<true, 16, false>,
+      &resize_wide_kernel<false, 1, true>,  &resize_wide_kernel<false, 16, true>,
+      &resize_wide_kernel<true, 1, true>,   &resize_wide_kernel<true, 16, true>};
+  return kernels[(relaxed ? 4 : 0) + (wrap16 ? 2 : 0) + (vec16 ? 1 : 0)];
 }
 
 bool aligned(long long v, int n) { return v % n == 0; }
@@ -306,7 +355,7 @@ struct WideArgs {
   const int32_t *cy, *ys, *ydiv;
   int taps_y, y_bias;
   const int32_t *cx, *xs, *xdiv;
-  int taps_x;
+  int taps_x, planes;
   const int32_t* win;
   int n_ct, tc, tr, ks, group, wp, out_shift;
 };
@@ -324,6 +373,7 @@ int load_bytes(const void* src, int n_frames, long long src_frame_stride,
 // source's alignment, so it is picked per launch.
 struct WideExec final : iqo::Exec {
   int wrap16 = 0;
+  int relaxed = 0;
   unsigned blocks = 0;       // of one frame
   int smem = 0;
   WideArgs a{};
@@ -333,31 +383,34 @@ struct WideExec final : iqo::Exec {
     if (!iqo::frames_ok(n_frames)) return static_cast<int>(cudaErrorInvalidValue);
     const WideArgs r = a;
     const bool vec16 = load_bytes(src, n_frames, frame_stride, row_stride) == 16;
-    pick(wrap16, vec16)<<<dim3(blocks, 1, n_frames), kThreads, smem, stream>>>(
+    pick(relaxed, wrap16, vec16)<<<dim3(blocks, 1, n_frames), kThreads, smem, stream>>>(
         static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), frame_stride, row_stride,
         r.src_h, r.src_w, r.dst_h, r.dst_w, r.cy, r.ys, r.ydiv, r.taps_y, r.y_bias, r.cx, r.xs,
-        r.xdiv, r.taps_x, r.win, r.n_ct, r.tc, r.tr, r.ks, r.group, r.wp, r.out_shift);
+        r.xdiv, r.taps_x, r.planes, r.win, r.n_ct, r.tc, r.tr, r.ks, r.group, r.wp,
+        r.out_shift);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
 // Packs one wide-window resize into e.  Returns a cudaError_t.
-int pack(WideExec& e, int wrap16, int src_h, int src_w, int dst_h, int dst_w, const void* cy,
-         const void* ys, const void* ydiv, int taps_y, int y_bias, const void* cx,
-         const void* xs, const void* xdiv, int taps_x, const void* win, int n_ct, int tc,
-         int tr, int ks, int group, int wp, int out_shift) {
+int pack(WideExec& e, int wrap16, int relaxed, int src_h, int src_w, int dst_h, int dst_w,
+         const void* cy, const void* ys, const void* ydiv, int taps_y, int y_bias,
+         const void* cx, const void* xs, const void* xdiv, int taps_x, int planes,
+         const void* win, int n_ct, int tc, int tr, int ks, int group, int wp, int out_shift) {
   if (tc < 1 || tr < 1 || ks < 1 || ks > taps_y || group < 1 || group > 32 ||
-      (group & (group - 1)) != 0 || wp % 4 != 0 || n_ct != (dst_w + tc - 1) / tc)
+      (group & (group - 1)) != 0 || wp % 4 != 0 || n_ct != (dst_w + tc - 1) / tc ||
+      (relaxed ? (group != 1 || planes < 1 || planes > 2) : planes != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = static_cast<long long>(n_ct) * ((dst_h + tr - 1) / tr);
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
   e.a = WideArgs{src_h, src_w, dst_h, dst_w, i32(cy), i32(ys), i32(ydiv), taps_y, y_bias,
-                 i32(cx), i32(xs), i32(xdiv), taps_x, i32(win), n_ct, tc, tr, ks, group, wp,
-                 out_shift};
+                 i32(cx), i32(xs), i32(xdiv), taps_x, planes, i32(win), n_ct, tc, tr, ks,
+                 group, wp, out_shift};
   e.wrap16 = wrap16;
+  e.relaxed = relaxed;
   e.blocks = static_cast<unsigned>(blocks);
-  e.smem = 4 * (tr * (wp + taps_y + 1) + tc * (taps_x + 1));
+  e.smem = 4 * (tr * (wp + taps_y + 1) + tc * (planes * taps_x + 1));
   e.out_frame = static_cast<long long>(dst_h) * dst_w;
   return 0;
 }
@@ -382,12 +435,12 @@ int iqo_wide_shape(int* threads, int* group_cols) {
   return 0;
 }
 
-// Raises the four instantiations' dynamic shared-memory limit on the current
-// device to `bytes`.  Returns a cudaError_t.
+// Raises the eight instantiations' dynamic shared-memory limit on the
+// current device to `bytes`.  Returns a cudaError_t.
 int iqo_wide_set_max_smem(int bytes) {
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < 8; ++k) {
     cudaError_t rc = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(pick(k & 2, k & 1)),
+        reinterpret_cast<const void*>(pick(k & 4, k & 2, k & 1)),
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
@@ -398,18 +451,22 @@ int iqo_wide_set_max_smem(int bytes) {
 // tiles (win), ks slices of the Y taps and groups of `group` lanes (a power
 // of two <= 32) an output's X taps; wp is the work tile's row pitch in
 // words, at least 16 * ceil((hi - (lo & ~15)) / 16) of every column tile and
-// a multiple of 4.  Each launch's loads are iqo_wide_load_bytes wide on its
-// source.  The shared memory, 4 * (tr * (wp + taps_y + 1) + tc * (taps_x +
-// 1)) bytes, must be within the limit set by iqo_wide_set_max_smem.  Writes
-// the handle to *out.  Returns a cudaError_t.
-int iqo_resize_wide_exec_create(int wrap16, int src_h, int src_w, int dst_h, int dst_w,
-                                const void* cy, const void* ys, const void* ydiv, int taps_y,
-                                int y_bias, const void* cx, const void* xs, const void* xdiv,
-                                int taps_x, const void* win, int n_ct, int tc, int tr, int ks,
-                                int group, int wp, int out_shift, void** out) {
+// a multiple of 4.  Exact: cx the integer taps, planes 1.  Relaxed: cx the
+// float32 bits of each output's `planes` (1 or 2) planes, group 1.  Each
+// launch's loads are iqo_wide_load_bytes wide on its source.  The shared
+// memory, 4 * (tr * (wp + taps_y + 1) + tc * (planes * taps_x + 1)) bytes,
+// must be within the limit set by iqo_wide_set_max_smem.  Writes the handle
+// to *out.  Returns a cudaError_t.
+int iqo_resize_wide_exec_create(int wrap16, int relaxed, int src_h, int src_w, int dst_h,
+                                int dst_w, const void* cy, const void* ys, const void* ydiv,
+                                int taps_y, int y_bias, const void* cx, const void* xs,
+                                const void* xdiv, int taps_x, int planes, const void* win,
+                                int n_ct, int tc, int tr, int ks, int group, int wp,
+                                int out_shift, void** out) {
   WideExec e;
-  const int rc = pack(e, wrap16, src_h, src_w, dst_h, dst_w, cy, ys, ydiv, taps_y, y_bias, cx,
-                      xs, xdiv, taps_x, win, n_ct, tc, tr, ks, group, wp, out_shift);
+  const int rc = pack(e, wrap16, relaxed, src_h, src_w, dst_h, dst_w, cy, ys, ydiv, taps_y,
+                      y_bias, cx, xs, xdiv, taps_x, planes, win, n_ct, tc, tr, ks, group, wp,
+                      out_shift);
   return iqo::create(e, rc, out);
 }
 
@@ -417,16 +474,17 @@ int iqo_resize_wide_exec_create(int wrap16, int src_h, int src_w, int dst_h, int
 // iqo_resize_wide_exec_create with the same arguments, made on the stack
 // and launched once.  dst is contiguous (n_frames, dst_h, dst_w).  Returns
 // a cudaError_t.
-int iqo_resize_wide(int wrap16, const void* src, void* dst, int n_frames,
+int iqo_resize_wide(int wrap16, int relaxed, const void* src, void* dst, int n_frames,
                     long long src_frame_stride, long long src_row_stride,
                     int src_h, int src_w, int dst_h, int dst_w,
                     const void* cy, const void* ys, const void* ydiv, int taps_y,
                     int y_bias, const void* cx, const void* xs, const void* xdiv,
-                    int taps_x, const void* win, int n_ct, int tc, int tr, int ks,
-                    int group, int wp, int out_shift, void* stream) {
+                    int taps_x, int planes, const void* win, int n_ct, int tc, int tr,
+                    int ks, int group, int wp, int out_shift, void* stream) {
   WideExec e;
-  const int rc = pack(e, wrap16, src_h, src_w, dst_h, dst_w, cy, ys, ydiv, taps_y, y_bias, cx,
-                      xs, xdiv, taps_x, win, n_ct, tc, tr, ks, group, wp, out_shift);
+  const int rc = pack(e, wrap16, relaxed, src_h, src_w, dst_h, dst_w, cy, ys, ydiv, taps_y,
+                      y_bias, cx, xs, xdiv, taps_x, planes, win, n_ct, tc, tr, ks, group, wp,
+                      out_shift);
   if (rc != 0) return rc;
   return e.launch(src, dst, n_frames, src_frame_stride, src_row_stride,
                   static_cast<cudaStream_t>(stream));

@@ -160,9 +160,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p]                              # stream
     lib.iqo_resize_fused.restype = i
     lib.iqo_resize_wide.argtypes = [
-        i, p, p, i, ll, ll, i, i, i, i, # wrap16, src, dst, frames, strides, src, dst shape
+        i, i,                           # wrap16, relaxed: which instantiation
+        p, p, i, ll, ll, i, i, i, i,    # src, dst, frames, strides, src, dst shape
         p, p, p, i, i,                  # cy, ys, ydiv, taps_y, y_bias
-        p, p, p, i,                     # cx, xs, xdiv, taps_x
+        p, p, p, i, i,                  # cx (or the relaxed planes' bits), xs, xdiv, taps_x, planes
         p, i, i, i, i, i, i,            # win, n_ct, tc, tr, ks, group, wp
         i, p]                           # out_shift, stream
     lib.iqo_resize_wide.restype = i
@@ -173,7 +174,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, i, i, i, i, i, p, p, p, i, i, p, p, p, i, p, p, p, i, i, p, p, i, i, i, out]
     lib.iqo_resize_fused_exec_create.restype = i
     lib.iqo_resize_wide_exec_create.argtypes = [
-        i, i, i, i, i, p, p, p, i, i, p, p, p, i, p, i, i, i, i, i, i, i, out]
+        i, i, i, i, i, i, p, p, p, i, i, p, p, p, i, i, p, i, i, i, i, i, i, i, out]
     lib.iqo_resize_wide_exec_create.restype = i
     lib.iqo_exec_launch.argtypes = [p, p, p, i, ll, ll, p]   # exec, src, dst, frames, strides, stream
     lib.iqo_exec_launch.restype = i

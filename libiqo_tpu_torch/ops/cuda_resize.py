@@ -4,26 +4,29 @@ wrapper.
 Three kernels replace the TPU's fused Pallas kernel
 (``libiqo_tpu/ops/pallas_resize.py:_make_padless_fn``).  The tiled kernel
 (``csrc/resize_tiled.cuh``) runs every plan whose band fits its shared
-memory: one block stages its source band and tile records
-(:func:`tiled_layout`) in shared memory, runs the Y pass on s8 ``mma.sync``
-where the merged Y taps fit s8 (else integer multiply-adds), keeps a 16-bit
-work tile and runs the X pass on CUDA cores.  It has four forms, each in a
-``wrap16`` (Lanczos: int16 work rows, border divides) and a ``u16`` (Area,
-Linear: u16 work rows, no borders) instantiation: exact (``*_tiled``, where
-:func:`tiled_ok` holds); relaxed (``*_relaxed_tiled``, ``precision=
-"relaxed"``: the X pass over bf16-rounded work rows and coefficient planes
-in float32, within 2 LSB of the exact output, flat fields exact); the
-row-halo carry form (``*_carry_tiled``, the TPU's ``LIBIQO_TPU_CARRY`` mode,
-opted into with ``LIBIQO_TPU_CARRY=1`` or ``2``: a block walks a run of row
-tiles and keeps their band rows in a ring in shared memory, byte-equal to
-the tiled form, where :func:`tiled_carry_layout` takes the plan); and the
-relaxed carry form (``*_relaxed_carry_tiled``).  The windowed kernel
-(``csrc/resize_fused.cu``) serves the plans whose band does not fit, in the
-same forms (``wrap16``, ``u16``, ``*_relaxed``, ``*_carry`` where
-:func:`carry_ok` holds, ``*_relaxed_carry``), and every plan with
-``tiled=False``, except the exact plans whose window is too wide for its
-16-row work tile: the wide-window kernel (``csrc/resize_wide.cu``,
-``wrap16_wide``, ``u16_wide``, :func:`wide_layout`) takes those.  This module packs a :class:`ResizePlan` into the kernels' operands, decides
+memory at one of its widths (:func:`tiled_layout` walks them down from
+:func:`tiled_width`): one block stages its source band and tile records in
+shared memory, runs the Y pass on s8 ``mma.sync`` where the merged Y taps
+fit s8 (else integer multiply-adds), keeps a 16-bit work tile and runs the
+X pass on CUDA cores.  It has four forms, each in a ``wrap16`` (Lanczos:
+int16 work rows, border divides) and a ``u16`` (Area, Linear: u16 work
+rows, no borders) instantiation: exact (``*_tiled``, where :func:`tiled_ok`
+holds); relaxed (``*_relaxed_tiled``, ``precision="relaxed"``: the X pass
+over bf16-rounded work rows and coefficient planes in float32, within 2 LSB
+of the exact output, flat fields exact); the row-halo carry form
+(``*_carry_tiled``, the TPU's ``LIBIQO_TPU_CARRY`` mode, opted into with
+``LIBIQO_TPU_CARRY=1`` or ``2``: a block walks a run of row tiles and keeps
+their band rows in a ring in shared memory, byte-equal to the tiled form,
+where :func:`tiled_carry_layout` takes the plan); and the relaxed carry
+form (``*_relaxed_carry_tiled``).  The wide-window kernel
+(``csrc/resize_wide.cu``, :func:`wide_layout`) takes every plan that no
+tiled width takes, exact (``wrap16_wide``, ``u16_wide``) and relaxed
+(``*_relaxed_wide``).  The windowed kernel (``csrc/resize_fused.cu``)
+keeps the carry forms where no tiled ring fits (``*_carry`` where
+:func:`carry_ok` holds, ``*_relaxed_carry``), the plans ``wide_layout``
+refuses, and, for timing in turns, ``tiled=False`` on the plans the tiled
+kernel takes and ``wide=False`` (``wrap16``, ``u16``, ``*_relaxed``).
+This module packs a :class:`ResizePlan` into the kernels' operands, decides
 which plans they take (:func:`supports_plan`, :func:`tiled_ok`), and
 launches the one the operands were built for (:func:`resize_fused`).
 :func:`resize_plain` is the same function in plain PyTorch over the same
@@ -83,7 +86,8 @@ VARIANTS = ("wrap16", "u16", "wrap16_relaxed", "u16_relaxed",
             "u16_relaxed_carry", "wrap16_tiled", "u16_tiled",
             "wrap16_relaxed_tiled", "u16_relaxed_tiled", "wrap16_carry_tiled",
             "u16_carry_tiled", "wrap16_relaxed_carry_tiled",
-            "u16_relaxed_carry_tiled", "wrap16_wide", "u16_wide")
+            "u16_relaxed_carry_tiled", "wrap16_wide", "u16_wide",
+            "wrap16_relaxed_wide", "u16_relaxed_wide")
 LAUNCHES = 0              # kernel launches in this process
 LAUNCHES_BY_VARIANT = dict.fromkeys(VARIANTS, 0)   # the same, by instantiation
 _launch_lock = threading.Lock()
@@ -106,10 +110,10 @@ def variant(plan, relaxed: bool = False, carry: bool = False) -> str:
     for, whose name ends in ``_tiled`` for the tiled kernel's and in
     ``_wide`` for the wide-window kernel's."""
     name = "wrap16" if plan.wrap16 else "u16"
-    if getattr(plan, "wide", False):
-        return name + "_wide"
     if getattr(plan, "relaxed", relaxed):
         name += "_relaxed"
+    if getattr(plan, "wide", False):
+        return name + "_wide"
     if getattr(plan, "carry", carry):
         name += "_carry"
     return name + "_tiled" if getattr(plan, "tiled", False) else name
@@ -499,11 +503,25 @@ def tiled_layout(plan: ResizePlan, relaxed: bool = False, tw: int | None = None,
                  run: int = 1) -> TiledLayout:
     """The tiled kernel's layout and tile records for a plan (see
     :class:`TiledLayout`), exact or ``relaxed``, at ``tw`` output columns
-    per block (:func:`tiled_width` by default), and with ``run`` > 1 in the
-    carry form; whether it fits is :func:`tiled_ok`'s question, and
-    whether carry applies :func:`tiled_carry_layout`'s."""
+    per block, and with ``run`` > 1 in the carry form.  By default the
+    width walks down TILED_WIDTHS from :func:`tiled_width` (the widest that
+    fills the card) and takes the first whose layout fits SMEM_BUDGET, the
+    narrowest where none does, as the JAX package's build walks its ranked
+    tile candidates until one builds (``pallas_resize.py:787-796``): a
+    narrower tile has a narrower band.  Whether it fits is
+    :func:`tiled_ok`'s question, and whether carry applies
+    :func:`tiled_carry_layout`'s."""
+    if tw is not None:
+        return _tiled_layout(plan, relaxed, tw, run)
+    for w in TILED_WIDTHS[TILED_WIDTHS.index(tiled_width(plan)):]:
+        layout = _tiled_layout(plan, relaxed, w, run)
+        if _fits(layout):
+            break
+    return layout
+
+
+def _tiled_layout(plan: ResizePlan, relaxed: bool, tw: int, run: int) -> TiledLayout:
     y, x = plan.y, plan.x
-    tw = tiled_width(plan) if tw is None else tw
     rwin = tile_windows(y, TILE_ROWS).astype(np.int64)
     n_rt = len(rwin)
     k_rows = _round_up(int((rwin[:, 1] - rwin[:, 0]).max()), 32)
@@ -595,9 +613,9 @@ def _fits(layout: TiledLayout) -> bool:
 def tiled_ok(plan: ResizePlan, relaxed: bool = False) -> bool:
     """True when the tiled kernel takes a plan, exact or ``relaxed``:
     inside :func:`supports_plan`, and its band, work tile and tile records
-    fit SMEM_BUDGET at the chosen width (:func:`tiled_layout`).  A pure
-    function of the plan; plans where it is False keep the windowed
-    ``resize_fused`` route."""
+    fit SMEM_BUDGET at one of its widths (:func:`tiled_layout`).  A pure
+    function of the plan; plans where it is False take the wide-window
+    kernel (:func:`kernel_tables`)."""
     return supports_plan(plan, relaxed) and _fits(tiled_layout(plan, relaxed))
 
 
@@ -688,7 +706,11 @@ class WideLayout:
     of the Y taps, output row, WIDE_GROUP_COLS work columns from the column
     window's start rounded down to 16 bytes), ``ng`` groups a row at most,
     into a ``tr`` x ``wp`` int32 work tile; its X pass gives each output's
-    taps to ``group`` lanes of a warp."""
+    taps to ``group`` lanes of a warp.  In the ``relaxed`` form the work
+    tile holds bf16-rounded values as float32 bits, each output's X taps
+    are ``planes`` float32 planes (the relaxed plane, and the residual one
+    where the plan has it), and one thread sums them in tap order
+    (``group`` 1)."""
     tc: int                 # output columns a block
     tr: int                 # output rows a block
     ks: int                 # slices of the Y taps
@@ -699,6 +721,8 @@ class WideLayout:
     n_rt: int               # row tiles
     taps_y: int
     taps_x: int
+    relaxed: bool = False
+    planes: int = 1         # X coefficient planes an output
 
     @property
     def n_ct(self) -> int:
@@ -714,7 +738,7 @@ class WideLayout:
         """Bytes of shared memory a block: the work tile, the block's Y and
         X tables and their starts."""
         return 4 * (self.tr * (self.wp + self.taps_y + 1)
-                    + self.tc * (self.taps_x + 1))
+                    + self.tc * (self.planes * self.taps_x + 1))
 
 
 def _wide_groups(win: np.ndarray) -> int:
@@ -731,10 +755,10 @@ def _item_share(items: int) -> float:
 
 def wide_layout(plan: ResizePlan, budget: int = SMEM_BUDGET,
                 blocks: int = WIDE_BLOCKS, tc: int | None = None,
-                tr: int | None = None) -> WideLayout | None:
+                tr: int | None = None, relaxed: bool = False) -> WideLayout | None:
     """The wide-window kernel's layout of a plan (see :class:`WideLayout`),
-    or None where even one output a block does not fit ``budget`` bytes of
-    shared memory.  A pure function of the plan.
+    exact or ``relaxed``, or None where even one output a block does not
+    fit ``budget`` bytes of shared memory.  A pure function of the plan.
 
     The tile: from TILE_ROWS x TILE_COLS (rows capped at the plan's),
     halve the columns and the rows in turn until a frame's grid holds
@@ -747,9 +771,11 @@ def wide_layout(plan: ResizePlan, budget: int = SMEM_BUDGET,
     there); else the fewest slices (at least 4 taps a slice) whose items
     fill the threads' last round to WIDE_ITEM_SHARE, else the best.
     ``group``: the fewest lanes, a power of two up to 32, that give every
-    thread an output's share of taps."""
+    thread an output's share of taps; 1 in the relaxed form, whose float
+    sums must run in tap order."""
     dw, dh = plan.x.n_dst, plan.y.n_dst
     taps_y, taps_x = plan.y.num_coefs, plan.x.num_coefs
+    planes = 1 + (relaxed and _relaxed_planes(plan.x)[1] is not None)
     fixed_c, fixed_r = tc is not None, tr is not None
     tc = TILE_COLS if tc is None else tc
     tr = min(TILE_ROWS, dh) if tr is None else tr
@@ -767,7 +793,7 @@ def wide_layout(plan: ResizePlan, budget: int = SMEM_BUDGET,
         win = tile_windows(plan.x, tc)
         ng = _wide_groups(win)
         wp = ng * WIDE_GROUP_COLS + 4          # rows 4 banks apart
-        room = budget // 4 - tc * (taps_x + 1)
+        room = budget // 4 - tc * (planes * taps_x + 1)
         fit = room // (wp + taps_y + 1) if room > 0 else 0
         if fit >= 1:
             tr = min(tr, fit)
@@ -781,36 +807,43 @@ def wide_layout(plan: ResizePlan, budget: int = SMEM_BUDGET,
     ks = next((k for k, v in enumerate(shares, 1) if v >= WIDE_ITEM_SHARE),
               1 + int(np.argmax(shares)))
     group = 1
-    while group < 32 and tr * tc * group < WIDE_THREADS and group < taps_x:
+    while (not relaxed and group < 32 and tr * tc * group < WIDE_THREADS
+           and group < taps_x):
         group *= 2
     return WideLayout(tc=tc, tr=tr, ks=ks, group=group, ng=ng, wp=wp,
-                      win=win, n_rt=-(-dh // tr), taps_y=taps_y, taps_x=taps_x)
+                      win=win, n_rt=-(-dh // tr), taps_y=taps_y, taps_x=taps_x,
+                      relaxed=relaxed, planes=planes)
 
 
 @dataclasses.dataclass(frozen=True)
 class WideTables:
     """The wide-window kernel's operands, output-major int32 tables on the
-    device, and its layout.  Read-only once built."""
+    device, and its layout; in the relaxed form the X taps are the relaxed
+    planes' float32 bits, and the planes tap-major as well, which the
+    relaxed plain version reads.  Read-only once built."""
     cy: torch.Tensor        # (dst_h, taps_y)
     ys: torch.Tensor        # (dst_h,) first source row, unclamped
     ydiv: torch.Tensor      # (dst_h,) border divisor, 0 on main rows
-    cx: torch.Tensor        # (dst_w, taps_x)
+    cx: torch.Tensor        # (dst_w, planes * taps_x): integer taps, or the planes' bits
     xs: torch.Tensor        # (dst_w,) first source column, unclamped
     xdiv: torch.Tensor      # (dst_w,) deno_x * y_bias, 0 on main columns
     win: torch.Tensor       # (n_col_tiles, 2) source columns [lo, hi)
     layout: WideLayout
     wrap16: bool
+    cxr: torch.Tensor       # (taps_x, dst_w) relaxed plane; empty when exact
+    cxd: torch.Tensor       # (taps_x, dst_w) residual plane, or empty
     relaxed: bool = False
     carry: bool = False
     tiled: bool = False
     wide: bool = True
 
 
-def wide_tables(plan: ResizePlan, device="cpu",
-                layout: WideLayout | None = None) -> WideTables:
-    """The wide-window kernel's tables for an exact plan, at ``layout``
-    (:func:`wide_layout` by default, which must take the plan)."""
-    lay = wide_layout(plan) if layout is None else layout
+def wide_tables(plan: ResizePlan, device="cpu", layout: WideLayout | None = None,
+                relaxed: bool = False) -> WideTables:
+    """The wide-window kernel's tables for a plan, exact or ``relaxed``, at
+    ``layout`` (:func:`wide_layout` by default, which must take the plan;
+    a given layout decides the form)."""
+    lay = wide_layout(plan, relaxed=relaxed) if layout is None else layout
     if lay is None:
         raise ValueError("one output a block does not fit the wide-window "
                          "kernel's shared memory")
@@ -820,11 +853,17 @@ def wide_tables(plan: ResizePlan, device="cpu",
         a = np.ascontiguousarray(np.asarray(a).astype(np.int32))
         return torch.from_numpy(a).to(device)
 
+    cxr, cxd = _relaxed_tensors(plan, lay.relaxed, device)
+    cx = (torch.cat([cxr, cxd]).T.contiguous().view(torch.int32)
+          if lay.relaxed else t(plan.x.coef))
+    if cx.shape[1] != lay.planes * lay.taps_x:
+        raise ValueError(f"{cx.shape[1] // lay.taps_x} X planes, the layout "
+                         f"{lay.planes}")
     return WideTables(
         cy=t(plan.y.coef), ys=t(plan.y.start),
-        ydiv=t(np.where(plan.y.is_border, ydeno, 0)), cx=t(plan.x.coef),
+        ydiv=t(np.where(plan.y.is_border, ydeno, 0)), cx=cx,
         xs=t(plan.x.start), xdiv=t(_x_divisors(plan)), win=t(lay.win),
-        layout=lay, wrap16=plan.wrap16)
+        layout=lay, wrap16=plan.wrap16, cxr=cxr, cxd=cxd, relaxed=lay.relaxed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -882,22 +921,27 @@ def kernel_tables(plan: ResizePlan, device="cpu", relaxed: bool = False,
     default), the tiled kernel's (:func:`tiled_tables`): with ``carry`` its
     carry form's where :func:`tiled_carry_layout` takes the plan; else,
     without a windowed carry (:func:`carry_ok`) to take its place, its
-    plain form's where that layout fits (:func:`tiled_ok`).  Else the
-    wide-window kernel's (:func:`wide_tables`) for an exact plan whose
-    16-row work tile does not fit (:func:`work_rows` < TILE_ROWS) where
-    :func:`wide_layout` takes it and ``wide`` holds (the default); else the
-    windowed ``resize_fused`` form's: the carry form where ``carry`` and
-    :func:`carry_ok` hold, the plain one otherwise (every other plan's with
-    ``tiled=False``, and with ``wide=False`` the wide-window walk's at
-    fewer rows a block)."""
+    plain form's where that layout fits at one of its widths
+    (:func:`tiled_ok`).  Else, without a windowed carry, the wide-window
+    kernel's (:func:`wide_tables`) where :func:`wide_layout` takes the plan
+    and ``wide`` holds (the default): every plan no tiled width takes, and
+    with ``tiled=False`` also the exact plans whose 16-row work tile does
+    not fit (:func:`work_rows` < TILE_ROWS).  Else the windowed
+    ``resize_fused`` form's: the carry form where ``carry`` and
+    :func:`carry_ok` hold, the plain one otherwise (with ``tiled=False`` on
+    the plans the tiled kernel takes, with ``wide=False`` on the others, at
+    fewer rows a block where the 16-row tile does not fit)."""
+    windowed_carry = carry and carry_ok(plan)
     if tiled:
         lay = tiled_carry_layout(plan, relaxed) if carry else None
-        if lay is None and not (carry and carry_ok(plan)):
+        if lay is None and not windowed_carry:
             lay = tiled_layout(plan, relaxed)
         if lay is not None and _fits(lay):
             return tiled_tables(plan, device, lay)
-    if wide and not relaxed and 0 < work_rows(plan) < TILE_ROWS:
-        lay = wide_layout(plan)
+    rows = work_rows(plan)
+    if wide and rows and not windowed_carry and (
+            tiled or rows < TILE_ROWS or not tiled_ok(plan, relaxed)):
+        lay = wide_layout(plan, relaxed=relaxed)
         if lay is not None:
             return wide_tables(plan, device, lay)
     win = tile_windows(plan.x)
@@ -932,14 +976,15 @@ def pack_operands(plan: ResizePlan, device="cpu", relaxed: bool = False,
     """Turn a :class:`ResizePlan` into tensors on ``device``.  Exact: the
     kernel's tables are built only where it can launch, on a CUDA device
     for plans inside :func:`supports_plan`: the tiled kernel's where
-    :func:`tiled_ok` holds, else the wide-window kernel's where the 16-row
-    work tile does not fit, else the windowed ``resize_fused`` form's;
-    ``tiled=False`` builds those of the other two for every plan (to run the
-    kernels side by side), and ``wide=False`` the windowed kernel's
-    wide-window walk in place of the wide-window kernel (to time the two in
-    turns).  ``relaxed=True`` needs ``supports_plan(plan, relaxed=True)``
-    (else ValueError) and builds the relaxed tables, by the same routes, on
-    any device.  ``carry=True`` builds a carry form's tables where one takes
+    :func:`tiled_ok` holds, else the wide-window kernel's where
+    :func:`wide_layout` takes the plan, else the windowed ``resize_fused``
+    form's; ``tiled=False`` builds the windowed kernel's for the plans the
+    tiled kernel takes and the wide-window kernel's for the others (to run
+    the kernels side by side), and ``wide=False`` the windowed kernel's in
+    place of the wide-window kernel (to time the two in turns).
+    ``relaxed=True`` needs ``supports_plan(plan, relaxed=True)`` (else
+    ValueError) and builds the relaxed tables, by the same routes, on any
+    device.  ``carry=True`` builds a carry form's tables where one takes
     the plan (:func:`kernel_tables`)."""
     device = torch.device(device)
     if relaxed:
@@ -947,7 +992,7 @@ def pack_operands(plan: ResizePlan, device="cpu", relaxed: bool = False,
             raise ValueError("plan is outside the relaxed kernel's scope "
                              "(supports_plan(relaxed=True))")
         tables = kernel_tables(plan, device, relaxed=True, carry=carry,
-                               tiled=tiled)
+                               tiled=tiled, wide=wide)
     elif device.type == "cuda" and supports_plan(plan):
         tables = kernel_tables(plan, device, carry=carry, tiled=tiled, wide=wide)
     else:
@@ -1077,11 +1122,11 @@ def entry_args(ops: KernelOperands) -> tuple[str, tuple, tuple]:
             lay.slots)
     if k.wide:
         lay = k.layout
-        return "wide", (int(k.wrap16),), (
+        return "wide", (int(k.wrap16), int(lay.relaxed)), (
             h, w, dh, dw, k.cy.data_ptr(), k.ys.data_ptr(), k.ydiv.data_ptr(),
             lay.taps_y, y_bias, k.cx.data_ptr(), k.xs.data_ptr(), k.xdiv.data_ptr(),
-            lay.taps_x, k.win.data_ptr(), lay.n_ct, lay.tc, lay.tr, lay.ks, lay.group,
-            lay.wp, out_shift)
+            lay.taps_x, lay.planes, k.win.data_ptr(), lay.n_ct, lay.tc, lay.tr, lay.ks,
+            lay.group, lay.wp, out_shift)
     return "fused", (int(k.wrap16), int(k.relaxed), int(k.carry)), (
         dh, dw, k.rows, k.cy.data_ptr(), k.iy.data_ptr(), k.ydiv.data_ptr(),
         k.cy.shape[0], y_bias, k.cx.data_ptr(), k.ix.data_ptr(), k.xdiv.data_ptr(),

@@ -13,19 +13,24 @@ Sweeps, each a function that returns its rows:
 * :func:`exact_sweep`: :data:`GRADED`, :data:`STRESS`,
   :data:`STRESS_GEOMETRIES`, the port's own :data:`WIDE_WINDOW` (windows
   too wide for 16 rows of the windowed kernel, on the wide-window kernel)
-  and ``fuzz_cases(20)`` through the facades on
-  ``cuda`` (``LanczosResizer``/``AreaResizer``/``LinearResizer``), and the
+  and :data:`THUMBNAILS` (bands that fit no tiled width, on the wide-window
+  kernel, and the 8K proxy the tiled width's walk moves), and
+  ``fuzz_cases(20)`` through the facades on
+  ``cuda`` (``LanczosResizer``/``AreaResizer``/``LinearResizer``), the
   kernel of ``pack_operands(..., tiled=False)`` on each (the windowed
-  ``resize_fused``, or the wide-window kernel where the 16-row tile does
-  not fit), both == ``numpy_ref`` == the plain path on the card; batch 4 and 2 on
+  ``resize_fused`` where the tiled kernel takes the plan, else the
+  wide-window kernel) and its twin (:func:`twin`: the other of those two),
+  all == ``numpy_ref`` == the plain path on the card; batch 4 and 2 on
   ``GRADED[0]``, ``[2]`` and ``[4]``.  Each row names the instantiation
   that ran, read from ``cuda_resize.LAUNCHES_BY_VARIANT`` after
-  ``reset_launches()``.  A GRADED, STRESS, STRESS_GEOMETRIES or WIDE_WINDOW case that
+  ``reset_launches()``.  A GRADED, STRESS, STRESS_GEOMETRIES, WIDE_WINDOW or THUMBNAILS case that
   resolves to ``torch`` or launches no kernel is ``FAIL-unsupported``; only
   a fuzz case outside ``supports_plan`` is a skip, with its reason.
 * :func:`relaxed_sweep`: ``precision="relaxed"`` == its plain version (0
   LSB), within 2 LSB of the exact kernel, flat fields 0/128/255 exact, with
-  its error against the oracle; the forced residual plane
+  its error against the oracle, on the facade's route, ``tiled=False`` and
+  its twin, so the wide-window kernel's relaxed form runs on every row
+  (:data:`THUMBNAILS` take it on the facade); the forced residual plane
   (``tpu_check.py:334``) by the port's own ``relaxed_plane`` with the
   column-sum repair stubbed to plain rounding.
 * :func:`carry_sweep`: ``LIBIQO_TPU_CARRY=1``, the tiled carry form and the
@@ -123,6 +128,24 @@ WIDE_WINDOW = [
 # STRESS's 512-tap plan and the WIDE_WINDOW thumbnails; WIDE_TIMED adds the two
 # of WIDE_WINDOW that the JAX package's kernel takes (the facade's route: tiled)
 WIDE_FACADE = [STRESS[8]] + WIDE_WINDOW[2:6]
+# the port's own list: the plans whose band fits no tiled width while 16 rows
+# of the windowed kernel's work tile fit (the wide-window kernel takes them,
+# exact and relaxed), and the 8K proxy that fits only at TW 64 (the tiled
+# width walks down to it)
+THUMBNAILS = [
+    ("lanczos", 3840, 2160, 256, 144, dict(degree=3)),
+    ("lanczos", 1920, 1080, 128, 72, dict(degree=3)),
+    ("lanczos", 3840, 2160, 1920, 16, dict(degree=3)),
+    ("area", 3840, 2160, 1920, 16, {}),
+    ("linear", 3840, 2160, 256, 144, {}),
+    ("lanczos", 7680, 4320, 480, 270, dict(degree=3)),
+    ("lanczos", 7680, 4320, 320, 180, dict(degree=3)),
+    ("lanczos", 7680, 4320, 480, 270, dict(degree=2)),
+    ("lanczos", 7680, 4320, 960, 540, dict(degree=3)),
+]
+# those inside the relaxed scope (the Lanczos3 strip's 810 Y taps are not)
+RELAXED_THUMBNAILS = THUMBNAILS[:2] + THUMBNAILS[3:]
+REQUIRED = GRADED + STRESS + STRESS_GEOMETRIES + WIDE_WINDOW + THUMBNAILS
 WIDE_TIMED = WIDE_FACADE + WIDE_WINDOW[:2]
 BATCHED = (GRADED[0], GRADED[2], GRADED[4])     # batch 4 and 2, tpu_check.py:494
 BATCHES = (4, 2)
@@ -301,14 +324,28 @@ def _status(ok: bool) -> str:
     return "ok" if ok else "FAIL"
 
 
+def twin(plan, ops, relaxed: bool = False):
+    """The other of the two kernels that ``tiled=False`` chooses between,
+    on ``ops``' device: the windowed kernel (``wide=False``) where ``ops``
+    holds the wide-window kernel's tables, else the wide-window kernel's at
+    its own layout (None where ``wide_layout`` refuses the plan)."""
+    from ..ops import cuda_resize as cr
+
+    if ops.tables.wide:
+        return cr.pack_operands(plan, ops.device, relaxed=relaxed, tiled=False, wide=False)
+    lay = cr.wide_layout(plan, relaxed=relaxed)
+    return None if lay is None else cr.KernelOperands(
+        plain=ops.plain, tables=cr.wide_tables(plan, ops.device, lay))
+
+
 def exact_case(case, orc: Oracle, card: str, required: bool,
                oracle_max_pixels: int | None = None, batches=()) -> list[dict]:
     """One case of the exact sweep: its rows (the case, then each batch).
 
-    The facade on ``cuda`` and the kernel of ``tiled=False`` (the windowed
-    kernel, or the wide-window kernel) == the plain path on the card, and
-    == ``numpy_ref`` where the source has at most ``oracle_max_pixels``
-    pixels (every case by default)."""
+    The facade on ``cuda``, the kernel of ``tiled=False`` (the windowed
+    kernel, or the wide-window kernel) and its :func:`twin` == the plain
+    path on the card, and == ``numpy_ref`` where the source has at most
+    ``oracle_max_pixels`` pixels (every case by default)."""
     from ..core.plan import build_plan
     from ..ops import cuda_resize as cr
 
@@ -346,6 +383,12 @@ def exact_case(case, orc: Oracle, card: str, required: bool,
             row["windowed_variant"] = "/".join(wcounts) or None
             errs["windowed_vs_plain"] = max_err(wgot, plain)
             ok = len(wcounts) == 1
+            tops = twin(plan, wops)
+            if tops is not None:
+                tgot, tcounts = launched(cr, lambda: cr.resize_fused(tops, src))
+                row["twin_variant"] = "/".join(tcounts) or None
+                errs["twin_vs_plain"] = max_err(tgot, plain)
+                ok &= len(tcounts) == 1
         if use_oracle:
             want = torch.from_numpy(np.stack([orc.get(case, f) for f in range(b)]))
             errs["vs_oracle"] = max_err(got.cpu(), want)
@@ -362,11 +405,11 @@ def exact_case(case, orc: Oracle, card: str, required: bool,
 def exact_sweep(orc: Oracle, card: str, fuzz: int = 20, cases=None,
                 oracle_max_pixels: int | None = None) -> tuple[list, int, int]:
     """The exact sweep over ``cases`` (GRADED, STRESS, STRESS_GEOMETRIES,
-    WIDE_WINDOW and ``fuzz_cases(fuzz)`` by default; every case but a fuzz
-    case is required): (rows, failures, skips)."""
-    required = {case_name(c) for c in GRADED + STRESS + STRESS_GEOMETRIES + WIDE_WINDOW}
+    WIDE_WINDOW, THUMBNAILS and ``fuzz_cases(fuzz)`` by default; every case
+    but a fuzz case is required): (rows, failures, skips)."""
+    required = {case_name(c) for c in REQUIRED}
     if cases is None:
-        cases = GRADED + STRESS + STRESS_GEOMETRIES + WIDE_WINDOW + fuzz_cases(fuzz)
+        cases = REQUIRED + fuzz_cases(fuzz)
     rows = []
     for case in cases:
         for row in exact_case(case, orc, card, case_name(case) in required,
@@ -413,6 +456,7 @@ def relaxed_case(case, orc: Oracle, card: str, required: bool,
                     "reason": "outside cuda_resize.supports_plan(relaxed=True)"}
         ops = cr.pack_operands(plan, "cuda", relaxed=True)
         wops = cr.pack_operands(plan, "cuda", relaxed=True, tiled=False)
+        tops = twin(plan, wops, relaxed=True)
     finally:
         cr._repaired_bf16 = repair
     t0 = time.perf_counter()
@@ -425,6 +469,7 @@ def relaxed_case(case, orc: Oracle, card: str, required: bool,
     got, counts = launched(cr, lambda: run(src))
     run_s = time.perf_counter() - t0
     wgot, wcounts = launched(cr, lambda: cr.resize_fused(wops, src))
+    tgot, tcounts = launched(cr, lambda: cr.resize_fused(tops, src))
     exact_ops = cr.pack_operands(plan, "cuda")
     exact = cr.resize_fused(exact_ops, src)
     plain = cr.resize_plain(ops, src)
@@ -433,29 +478,33 @@ def relaxed_case(case, orc: Oracle, card: str, required: bool,
     flat_ok = True
     for v in FLAT_VALUES:
         flat = torch.full_like(src, v)
-        flat_ok &= bool(torch.equal(run(flat), cr.resize_plain(exact_ops, flat))
-                        and torch.equal(cr.resize_fused(wops, flat),
-                                        cr.resize_plain(exact_ops, flat)))
+        flat_ok &= all(torch.equal(f(flat), cr.resize_plain(exact_ops, flat)) for f in (
+            run, lambda t: cr.resize_fused(wops, t), lambda t: cr.resize_fused(tops, t)))
     row = {"case": name, "variant": "/".join(counts) or None,
            "windowed_variant": "/".join(wcounts) or None,
+           "twin_variant": "/".join(tcounts) or None,
            "launches": sum(counts.values()),
            "residual_plane": ops.tables.cxd.numel() > 0,
-           "vs_plain": max(max_err(got, plain), max_err(wgot, plain)),
-           "max_lsb_vs_exact": max(max_err(got, exact), max_err(wgot, exact)),
+           "vs_plain": max(max_err(got, plain), max_err(wgot, plain),
+                           max_err(tgot, plain)),
+           "max_lsb_vs_exact": max(max_err(got, exact), max_err(wgot, exact),
+                                   max_err(tgot, exact)),
            "max_lsb_vs_oracle": int(diff.max()), "mean_lsb_vs_oracle":
            float(diff.float().mean()), "flat_ok": flat_ok, "run_s": run_s,
            "card": card}
-    ok = (len(counts) == 1 and len(wcounts) == 1 and "relaxed" in row["variant"]
-          and "relaxed" in row["windowed_variant"] and row["vs_plain"] == 0
+    ok = (len(counts) == 1 and len(wcounts) == 1 and len(tcounts) == 1
+          and all("relaxed" in row[k] for k in ("variant", "windowed_variant", "twin_variant"))
+          and row["vs_plain"] == 0
           and row["max_lsb_vs_exact"] <= RELAXED_LSB and flat_ok
           and (row["residual_plane"] or not residual))
     return {**row, "status": _status(ok)}
 
 
 def relaxed_sweep(orc: Oracle, card: str):
-    """GRADED (required), the px2 draws, ``fuzz_cases(8, seed=20260818)``
-    and the forced residual plane (required): (rows, failures, skips)."""
-    cases = ([(c, True, False) for c in GRADED]
+    """GRADED and RELAXED_THUMBNAILS (required), the px2 draws,
+    ``fuzz_cases(8, seed=20260818)`` and the forced residual plane
+    (required): (rows, failures, skips)."""
+    cases = ([(c, True, False) for c in GRADED + RELAXED_THUMBNAILS]
              + [(c, False, False) for c in RELAXED_PX2 + fuzz_cases(*RELAXED_FUZZ)]
              + [(RELAXED_RESIDUAL, True, True)])
     rows = []
@@ -608,8 +657,7 @@ def main(argv=None) -> int:
         orc = Oracle(pool)
         # every oracle output up front, the largest first, while the card works
         jobs = ([(c, range(1 + max(BATCHES) * (c in BATCHED))) for c in
-                 GRADED + STRESS + STRESS_GEOMETRIES + WIDE_WINDOW
-                 + fuzz_cases(args.fuzz)]
+                 REQUIRED + fuzz_cases(args.fuzz)]
                 + [(c, range(CARRY_BATCH)) for c in CARRY_CASES + fuzz_cases(*CARRY_FUZZ)]
                 + [(c, (0,)) for c in RELAXED_PX2 + fuzz_cases(*RELAXED_FUZZ)
                    + border_cases()]

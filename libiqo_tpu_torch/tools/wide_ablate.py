@@ -1,11 +1,14 @@
 """The wide-window kernel's layout against its neighbours, and against the
 kernels it replaced, on one CUDA card.
 
-    python -m libiqo_tpu_torch.tools.wide_ablate
+    python -m libiqo_tpu_torch.tools.wide_ablate [--thumbnails]
 
 For each plan of ``card_check.WIDE_TIMED`` (the five plans the facade sends
 to the wide-window kernel, ``csrc/resize_wide.cu``, and the two that
-``tiled_ok`` takes, here with ``tiled=False``): the kernel at its own layout
+``tiled_ok`` takes, here with ``tiled=False``), or with ``--thumbnails`` of
+:func:`thumbnails` (the plans of ``card_check.THUMBNAILS`` that the kernel
+takes at 16 rows, whose walk is the windowed kernel's 16-row tile): the
+kernel at its own layout
 (``cuda_resize.wide_layout``) and at each of :func:`variants` (the tile's
 columns or rows doubled or halved, another block target, one Y slice or
 four, a whole warp or one lane an output), each held == the plain path first, then
@@ -55,6 +58,16 @@ def variants(plan, lay) -> dict:
         if group != lay.group:
             out[f"group {group}"] = dataclasses.replace(lay, group=group)
     return {k: v for k, v in out.items() if v is not None and v.smem <= cr.SMEM_BUDGET}
+
+
+def thumbnails() -> list:
+    """``card_check.THUMBNAILS`` whose band fits no tiled width: the ones
+    the facade sends to this kernel at 16 work rows."""
+    from ..core.plan import build_plan
+    from ..ops import cuda_resize as cr
+
+    return [c for c in card_check.THUMBNAILS
+            if not cr.tiled_ok(build_plan(*c[:5], **c[5]))]
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -116,7 +129,10 @@ def measure(case, card: tuple[str, str]) -> dict:
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--thumbnails", action="store_true",
+                    help="the 16-row thumbnails in place of WIDE_TIMED")
+    args = ap.parse_args(argv)
     _bench.require_card("wide_ablate")
     card = _bench.card()
     print(", ".join(card), flush=True)
@@ -125,7 +141,7 @@ def main(argv=None) -> int:
     _build.load()
     for line in ptxas_report(_build.build_log):
         print(f"ptxas {line}")
-    for case in card_check.WIDE_TIMED:
+    for case in thumbnails() if args.thumbnails else card_check.WIDE_TIMED:
         row = measure(case, card)
         ms = row["ms"]
         print(f"{row['case']}: kernel {ms['kernel']!r} ms (tc, tr, ks, group, blocks "

@@ -293,10 +293,11 @@ def test_gate_module_is_walked_for_jax_imports():
 
 def test_committed_result():
     """Where the committed result exists: a passing run on an H100, every
-    GRADED, STRESS, STRESS_GEOMETRIES and WIDE_WINDOW row on a kernel
-    variant (WIDE_WINDOW's ``tiled=False`` rows, and the facade's where
-    ``tiled_ok`` refuses, on the wide-window kernel), relaxed within 2 LSB
-    of exact with flat fields exact."""
+    GRADED, STRESS, STRESS_GEOMETRIES, WIDE_WINDOW and THUMBNAILS row on a
+    kernel variant (WIDE_WINDOW's ``tiled=False`` rows, and the facade's
+    where ``tiled_ok`` refuses, on the wide-window kernel), each with its
+    twin; relaxed within 2 LSB of exact with flat fields exact, the
+    thumbnails on the wide-window kernel's relaxed form."""
     if not card_check.RESULT.exists():
         pytest.skip("no committed card_check_result.json")
     res = json.loads(card_check.RESULT.read_text())
@@ -307,12 +308,16 @@ def test_committed_result():
     assert res["n_cases"] == sum(len(res[k]) for k in
                                  ("results", "relaxed", "carry", "sharded", "border_div"))
     rows = {r["case"]: r for r in res["results"]}
-    for case in (card_check.GRADED + card_check.STRESS + card_check.STRESS_GEOMETRIES
-                 + card_check.WIDE_WINDOW):
+    for case in card_check.REQUIRED:
         row = rows[card_check.case_name(case)]
         assert row["status"] == "ok" and row["route"] == "cuda", row
         assert row["variant"] in cuda_resize.VARIANTS and row["launches"] > 0, row
         assert row["oracle"] and row["vs_oracle"] == 0, row
+        assert row["twin_variant"] in cuda_resize.VARIANTS and row["twin_vs_plain"] == 0, row
+    for case in card_check.THUMBNAILS:
+        row = rows[card_check.case_name(case)]
+        tiled = cuda_resize.tiled_ok(build_plan(*case[:5], **case[5]))
+        assert row["variant"].endswith("_wide") != tiled and row["work_rows"] == 16, row
     wide = ("u16_wide", "wrap16_wide")
     for case in card_check.WIDE_WINDOW:
         row = rows[card_check.case_name(case)]
@@ -322,6 +327,42 @@ def test_committed_result():
     assert rows["area 8192x4->16x4"]["variant"] == "u16_wide"
     for r in res["relaxed"]:
         assert r["status"] == "ok" and r["max_lsb_vs_exact"] <= 2 and r["flat_ok"], r
+        assert "relaxed" in r["twin_variant"], r
+    relaxed = {r["case"]: r for r in res["relaxed"]}
+    for case in card_check.RELAXED_THUMBNAILS[:-1]:
+        assert relaxed[card_check.case_name(case)]["variant"].endswith("_relaxed_wide")
     assert all(r["status"] == "ok" for r in res["border_div"])
     assert all("card" in r for k in ("results", "relaxed", "carry", "sharded", "border_div")
                for r in res[k] if "run_s" in r)
+
+
+@pytest.mark.parametrize("case", card_check.THUMBNAILS, ids=card_check.case_name)
+def test_thumbnails_are_in_scope_on_their_routes(case):
+    """THUMBNAILS: inside supports_plan with a 16-row work tile; the facade's
+    kernel is the wide-window one where no tiled width fits, else the
+    tiled one below its block-count width; the relaxed list is the ones
+    inside the relaxed scope; each is required by the exact sweep."""
+    plan = build_plan(*case[:5], **case[5])
+    assert cuda_resize.supports_plan(plan) and cuda_resize.work_rows(plan) == 16
+    k = cuda_resize.kernel_tables(plan)
+    if cuda_resize.tiled_ok(plan):
+        assert k.tiled and k.layout.tw < cuda_resize.tiled_width(plan)
+    else:
+        assert cuda_resize.variant(k).endswith("_wide")
+    assert (case in card_check.RELAXED_THUMBNAILS) == cuda_resize.supports_plan(
+        plan, relaxed=True)
+    assert case in card_check.REQUIRED
+
+
+def test_twin_is_the_other_kernel():
+    """``twin`` of the ``tiled=False`` tables: the windowed kernel's beside
+    the wide-window kernel's and the other way round, relaxed here on the
+    CPU (relaxed tables build on any device)."""
+    thumb = build_plan("lanczos", 960, 540, 64, 36, degree=3)
+    main = build_plan("lanczos", 640, 360, 320, 180, degree=3)
+    for plan, first, second in ((thumb, "wrap16_relaxed_wide", "wrap16_relaxed"),
+                                (main, "wrap16_relaxed", "wrap16_relaxed_wide")):
+        ops = cuda_resize.pack_operands(plan, relaxed=True, tiled=False)
+        other = card_check.twin(plan, ops, relaxed=True)
+        assert cuda_resize.variant(ops.tables) == first
+        assert cuda_resize.variant(other.tables) == second

@@ -268,9 +268,14 @@ def test_tiled_ok_refuses_over_budget_and_keeps_windowed_route(monkeypatch):
     assert cuda_resize.supports_plan(plan)
     assert not cuda_resize.tiled_ok(plan)
     assert cuda_resize.tiled_layout(plan).smem > cuda_resize.SMEM_BUDGET
+    # no tiled width fits: the wide-window kernel, and with wide=False the
+    # windowed kernel
     tables = cuda_resize.kernel_tables(plan)
-    assert isinstance(tables, cuda_resize.KernelTables)
-    assert cuda_resize.variant(tables) == "wrap16"
+    assert isinstance(tables, cuda_resize.WideTables)
+    assert cuda_resize.variant(tables) == "wrap16_wide"
+    walk = cuda_resize.kernel_tables(plan, wide=False)
+    assert isinstance(walk, cuda_resize.KernelTables)
+    assert cuda_resize.variant(walk) == "wrap16"
     small = build_plan("lanczos", 128, 96, 64, 48, degree=3)
     assert cuda_resize.tiled_ok(small)
     monkeypatch.setattr(cuda_resize, "SMEM_BUDGET",

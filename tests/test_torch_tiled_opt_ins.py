@@ -497,11 +497,14 @@ def test_routes_of_the_opt_ins(monkeypatch):
     area = build_plan("area", 1920, 1080, 640, 360)
     assert v(kt(area, relaxed=True)) == "u16_relaxed_tiled"
     assert v(kt(area, relaxed=True, carry=True)) == "u16_relaxed_tiled"
-    # a strip whose luma band does not fit: the windowed forms
+    # a strip whose luma band fits no tiled width: the wide-window forms,
+    # and with wide=False the windowed ones
     strip = build_plan("lanczos", 3840, 2160, 1920, 16, degree=3)
     assert not cuda_resize.tiled_ok(strip, relaxed=True)
-    assert v(kt(strip, relaxed=True)) == "wrap16_relaxed"
-    assert v(kt(strip, carry=True)) == "wrap16"
+    assert v(kt(strip, relaxed=True)) == "wrap16_relaxed_wide"
+    assert v(kt(strip, carry=True)) == "wrap16_wide"
+    assert v(kt(strip, relaxed=True, wide=False)) == "wrap16_relaxed"
+    assert v(kt(strip, carry=True, wide=False)) == "wrap16"
     # where the tiled carry layout does not fit but carry_ok holds, the
     # windowed carry form takes the plan
     monkeypatch.setattr(cuda_resize, "tiled_carry_layout", lambda *a, **k: None)

@@ -17,12 +17,19 @@ block targets (so that the slices, splits, narrow tiles and shrunk rows
 happen) it equals ``numpy_ref`` and the plain path; at the byte extremes
 it exercises the int16 and int32 wraps and the border divides; and on Area
 8192x4 -> 16x4 it equals the JAX package's Pallas kernel in interpret mode,
-on a Lanczos wide plan its XLA path.  Tolerance 0: the contract is
-byte-exact.
+on a Lanczos wide plan its XLA path, and on 16-row plans that no tiled
+width takes (the thumbnails) both.  Tolerance 0: the contract is
+byte-exact.  Its relaxed form rounds each complete work value to bf16 and
+sums each output's relaxed plane, then its residual plane, in float32 on
+one thread, one rounded product and one rounded add a tap in tap order;
+it equals ``torch_resize.resize_relaxed`` at 0 LSB (the relaxed form's
+contract with its plain version) and is within 2 LSB of the JAX package's
+exact output (the relaxed contract).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -80,11 +87,21 @@ def _loaded(src, lo_al: int, ng: int, align: int, noise) -> np.ndarray:
     return out
 
 
+def _float_taps(plane: np.ndarray, w: np.ndarray) -> int:
+    """sum_t plane[t] * w[t] in float32, one rounded product and one
+    rounded add a tap, in tap order, truncated toward zero, as uint32."""
+    acc = np.float32(0)
+    for c, v in zip(plane, w):
+        acc = np.float32(acc + np.float32(c * v))
+    return int(np.trunc(acc)) & 0xFFFFFFFF
+
+
 def wide_model(plan, lay: cr.WideLayout, src: np.ndarray, align: int = 16,
                seed: int = 0) -> np.ndarray:
     """What ``resize_wide.cu`` computes for one frame, block by block, in
-    its order (see the module docstring); ``align`` is the load width the
-    kernel picks from the source's alignment (16 or 1)."""
+    its order (see the module docstring), in the layout's form, exact or
+    relaxed; ``align`` is the load width the kernel picks from the source's
+    alignment (16 or 1)."""
     noise = np.random.default_rng(seed)
     sh, sw = src.shape
     dh, dw = plan.y.n_dst, plan.x.n_dst
@@ -95,6 +112,11 @@ def wide_model(plan, lay: cr.WideLayout, src: np.ndarray, align: int = 16,
     half = 1 << (plan.out_shift - 1)
     taps_y, taps_x = lay.taps_y, lay.taps_x
     assert lay.wp % 4 == 0 and lay.group & (lay.group - 1) == 0 and lay.group <= 32
+    if lay.relaxed:         # one thread an output; its planes, output-major
+        assert lay.group == 1
+        planes = [p.numpy().T.astype(np.float32) for p in cr.relaxed_plane(plan.x)
+                  if p is not None]
+        assert len(planes) == lay.planes
     assert lay.n_ct == -(-dw // lay.tc) and lay.n_rt == -(-dh // lay.tr)
     out = np.zeros((dh, dw), np.uint8)
     written = np.zeros((dh, dw), np.int64)
@@ -127,6 +149,8 @@ def wide_model(plan, lay: cr.WideLayout, src: np.ndarray, align: int = 16,
                 w = _wrap16(w)
                 if ydiv[i]:
                     w = _wrap16(trunc_div(w * plan.y.bias, np.int64(ydiv[i])))
+            if lay.relaxed:     # bf16 of the exact value, as float32 bits
+                w = cr._bf16(w).astype(np.float32).view(np.int32)
             work[r, :len(w)] = w
         for o in range(lay.tr * lay.tc):
             r, jt = o % lay.tr, o // lay.tr
@@ -135,16 +159,20 @@ def wide_model(plan, lay: cr.WideLayout, src: np.ndarray, align: int = 16,
             j = c0 + jt
             idx = np.clip(xs[j] + np.arange(taps_x), 0, sw - 1) - lo_al
             assert ((idx >= lo - lo_al) & (idx < hi - lo_al)).all()
-            terms = (_u32(cx[j]) * _u32(work[r, idx])) & M32
-            lanes = np.zeros(lay.group, np.uint64)
-            np.add.at(lanes, np.arange(taps_x) % lay.group, terms)
-            lanes &= M32
-            off = lay.group // 2
-            while off:
-                lanes = (lanes + lanes[np.arange(lay.group) ^ off]) & M32
-                off //= 2
-            acc = int(lanes[0])
-            if plan.wrap16:
+            if lay.relaxed:
+                w = work[r, idx].astype(np.int32).view(np.float32)
+                acc = sum(_float_taps(p[j], w) for p in planes) & 0xFFFFFFFF
+            else:
+                terms = (_u32(cx[j]) * _u32(work[r, idx])) & M32
+                lanes = np.zeros(lay.group, np.uint64)
+                np.add.at(lanes, np.arange(taps_x) % lay.group, terms)
+                lanes &= M32
+                off = lay.group // 2
+                while off:
+                    lanes = (lanes + lanes[np.arange(lay.group) ^ off]) & M32
+                    off //= 2
+                acc = int(lanes[0])
+            if plan.wrap16 or lay.relaxed:
                 s = int(_as_i32(acc + half))
                 v = int(_wrap16(trunc_div(np.int64(s), np.int64(xdiv[j])) if xdiv[j]
                                 else s >> plan.out_shift))
@@ -254,14 +282,17 @@ def test_refused_layout_route_of_the_card_run():
 
 def test_old_walk_stays_reachable():
     """``wide=False`` keeps the windowed kernel's wide-window walk, for the
-    timing turns; plans with a 16-row tile never take the new kernel."""
+    timing turns; a plan with a 16-row tile that no tiled width takes now
+    takes the new kernel, and the windowed kernel with ``wide=False``."""
     plan = _plan(FACADE_PLANS[0])
     k = cr.kernel_tables(plan, wide=False)
     assert isinstance(k, cr.KernelTables) and k.rows == cr.work_rows(plan) == 7
     assert cr.variant(k) == "u16"
     narrow = build_plan("lanczos", 3840, 2160, 1920, 16, degree=3)
-    assert cr.work_rows(narrow) == cr.TILE_ROWS
-    assert isinstance(cr.kernel_tables(narrow, tiled=False), cr.KernelTables)
+    assert cr.work_rows(narrow) == cr.TILE_ROWS and not cr.tiled_ok(narrow)
+    assert isinstance(cr.kernel_tables(narrow, tiled=False), cr.WideTables)
+    walk = cr.kernel_tables(narrow, tiled=False, wide=False)
+    assert isinstance(walk, cr.KernelTables) and walk.rows == cr.TILE_ROWS
     for case in card_check.WIDE_WINDOW[:2] + card_check.WIDE_WINDOW[6:]:
         p = _plan(case)
         assert cr.tiled_ok(p) and isinstance(cr.kernel_tables(p), cr.TiledTables)
@@ -274,7 +305,10 @@ def test_relaxed_and_carry_keep_their_kernels():
     assert cr.carry_layout(plan) is None
     assert isinstance(cr.kernel_tables(plan, carry=True), cr.WideTables)
     strip = build_plan("lanczos", 3840, 2160, 256, 144, degree=3)
-    assert isinstance(cr.kernel_tables(strip, relaxed=True, tiled=False), cr.KernelTables)
+    wide = cr.kernel_tables(strip, relaxed=True, tiled=False)
+    assert isinstance(wide, cr.WideTables) and cr.variant(wide) == "wrap16_relaxed_wide"
+    walk = cr.kernel_tables(strip, relaxed=True, tiled=False, wide=False)
+    assert isinstance(walk, cr.KernelTables) and cr.variant(walk) == "wrap16_relaxed"
 
 
 def test_tables_are_output_major():
@@ -402,7 +436,8 @@ def test_model_equals_the_jax_xla_path_on_a_lanczos_wide_plan():
     np.testing.assert_array_equal(wide_model(plan, cr.wide_layout(plan), src), want)
 
 
-@pytest.mark.parametrize("case", card_check.WIDE_TIMED, ids=card_check.case_name)
+@pytest.mark.parametrize("case", card_check.WIDE_TIMED + card_check.THUMBNAILS[:-1],
+                         ids=card_check.case_name)
 def test_ablation_neighbours_fit(case):
     """``tools/wide_ablate.py``'s neighbours of each timed plan's layout fit
     the budget and are layouts the kernel takes; the Y slices are turned
@@ -442,3 +477,137 @@ def test_pitched_rows_take_16_byte_loads_on_card(cuda_device):
         assert torch.equal(got, cr.resize_plain(ops, x))
         np.testing.assert_array_equal(got[0].cpu().numpy(),
                                       numpy_ref.resize_u8(plan, x[0].cpu().numpy()))
+
+
+# ---- 16-row thumbnails and the relaxed form ----------------------------------
+
+# small plans whose 16-row work tile fits the windowed kernel but whose band
+# fits no tiled width (the 4K -> 256x144 thumbnail's 15:1 and the strips'
+# shape, cut down), so that they take this kernel on the facade
+THUMBNAILS = [
+    ("lanczos", 960, 540, 64, 36, dict(degree=3)),      # 15:1, 90 taps both ways
+    ("area", 960, 540, 64, 4, {}),                      # 135 Y taps: slices
+    ("lanczos", 640, 360, 40, 9, dict(degree=3, px_scale=2)),
+]
+
+
+@pytest.mark.parametrize("case", THUMBNAILS, ids=card_check.case_name)
+def test_thumbnails_take_this_kernel_at_16_rows(case):
+    """Their route, exact and relaxed: 16 work rows, no tiled width fits,
+    this kernel's tables in both forms, one thread an output relaxed."""
+    plan = _plan(case)
+    assert cr.work_rows(plan) == cr.TILE_ROWS
+    for relaxed in (False, True):
+        assert cr.supports_plan(plan, relaxed) and not cr.tiled_ok(plan, relaxed)
+        k = cr.kernel_tables(plan, relaxed=relaxed)
+        assert isinstance(k, cr.WideTables) and k.relaxed == relaxed
+        assert (k.layout.group == 1) if relaxed else (k.layout.group >= 1)
+        assert isinstance(cr.kernel_tables(plan, relaxed=relaxed, wide=False), cr.KernelTables)
+
+
+@pytest.mark.parametrize("case", THUMBNAILS, ids=card_check.case_name)
+def test_model_equals_the_jax_package_on_16_row_thumbnails(case):
+    """The exact model under the kernel's own layout == the JAX package's
+    Pallas kernel in interpret mode == its XLA path, on the CPU.
+    Tolerance 0."""
+    import jax
+    from libiqo_tpu.ops.xla_resize import resize_xla
+
+    jplan = jax_build_plan(*case[:5], **case[5])
+    assert pallas_resize.supports_plan(jplan)
+    src = card_check.source(case, 0)
+    fn, ops = pallas_resize.make_resize_fn(jplan, interpret=True)
+    want = np.asarray(jax.jit(fn)(*ops, src))
+    np.testing.assert_array_equal(np.asarray(resize_xla(jplan, src)), want)
+    plan = _plan(case)
+    np.testing.assert_array_equal(wide_model(plan, cr.wide_layout(plan), src), want)
+
+
+# (case, budget, blocks): relaxed plans under reduced budgets and block
+# targets, so that narrow tiles, Y slices (u16 and wrap16) and ragged tiles
+# happen; RELAXED_RESIDUAL's plan carries a residual plane
+RELAXED_MODEL_CASES = [
+    (("area", 512, 96, 16, 3, {}), cr.SMEM_BUDGET, cr.WIDE_BLOCKS),
+    (("area", 512, 1024, 16, 4, {}), cr.SMEM_BUDGET, cr.WIDE_BLOCKS),    # 256 Y taps, ks
+    (("area", 1000, 70, 37, 9, {}), 6000, 40),
+    (("lanczos", 200, 700, 23, 17, dict(degree=3)), 9000, 50),          # 248 Y taps, ks
+    (("lanczos", 600, 400, 37, 21, dict(degree=2)), cr.SMEM_BUDGET, 64),
+    (("lanczos", 300, 200, 23, 17, dict(degree=3, px_scale=2)), 5000, 50),
+    (("linear", 300, 40, 90, 13, {}), 3000, 20),
+    (("lanczos", 90, 60, 180, 120, dict(degree=3)), 8000, 200),         # upscale
+    (("lanczos", 552, 40, 15, 30, dict(degree=4, px_scale=2)), 9000, 30),   # residual
+    (THUMBNAILS[0], cr.SMEM_BUDGET, cr.WIDE_BLOCKS),
+]
+
+
+@pytest.mark.parametrize("case,budget,blocks", RELAXED_MODEL_CASES,
+                         ids=[_ids(c) for c in RELAXED_MODEL_CASES])
+@pytest.mark.parametrize("align", [16, 1])
+def test_relaxed_model_equals_relaxed_plain(case, budget, blocks, align):
+    """The relaxed form's model == ``torch_resize.resize_relaxed`` on the
+    same planes, at 0 LSB, under forced small layouts."""
+    plan = _plan(case)
+    assert cr.supports_plan(plan, relaxed=True)
+    lay = cr.wide_layout(plan, budget=budget, blocks=blocks, relaxed=True)
+    assert lay.relaxed and lay.group == 1 and lay.smem <= budget
+    src = card_check.source(case, 0)
+    ops = cr.pack_operands(plan, relaxed=True)
+    want = cr.resize_plain(ops, torch.from_numpy(src)[None])[0].numpy()
+    np.testing.assert_array_equal(wide_model(plan, lay, src, align), want)
+
+
+def test_relaxed_model_cases_cover_the_form():
+    """Between them: Y slices in both instantiations, a residual plane,
+    narrow and ragged tiles."""
+    plans = [_plan(c) for c, _, _ in RELAXED_MODEL_CASES]
+    lays = [cr.wide_layout(p, budget=b, blocks=n, relaxed=True)
+            for p, (_, b, n) in zip(plans, RELAXED_MODEL_CASES)]
+    assert any(l.ks > 1 and p.wrap16 for p, l in zip(plans, lays))
+    assert any(l.ks > 1 and not p.wrap16 for p, l in zip(plans, lays))
+    assert any(l.planes == 2 for l in lays) and all(l.group == 1 for l in lays)
+    assert any(p.y.n_dst % l.tr and p.x.n_dst % l.tc for p, l in zip(plans, lays))
+    assert all(l.smem == 4 * (l.tr * (l.wp + l.taps_y + 1) + l.tc * (l.planes * l.taps_x + 1))
+               for l in lays)
+
+
+@pytest.mark.parametrize("case", THUMBNAILS, ids=card_check.case_name)
+def test_relaxed_model_within_2_lsb_of_the_jax_package(case):
+    """The relaxed model under its own layout is within 2 LSB of the JAX
+    package's exact XLA output (the relaxed contract); flat fields exact."""
+    from libiqo_tpu.ops.xla_resize import resize_xla
+
+    plan = _plan(case)
+    lay = cr.wide_layout(plan, relaxed=True)
+    src = card_check.source(case, 0)
+    want = np.asarray(resize_xla(jax_build_plan(*case[:5], **case[5]), src))
+    got = wide_model(plan, lay, src)
+    assert int(np.abs(got.astype(np.int64) - want).max()) <= 2
+    for v in (0, 128, 255):
+        flat = np.full_like(src, v)
+        np.testing.assert_array_equal(wide_model(plan, lay, flat), numpy_ref.resize_u8(plan, flat))
+
+
+def test_relaxed_tables_carry_the_planes_output_major():
+    """The kernel's X table in the relaxed form: each output's relaxed taps
+    then its residual taps, as float32 bits; the planes tap-major beside
+    them for the plain version; a relaxed layout's tables only."""
+    case = RELAXED_MODEL_CASES[8][0]
+    plan = _plan(case)
+    k = cr.wide_tables(plan, relaxed=True)
+    cxr, cxd = cr.relaxed_plane(plan.x)
+    assert k.relaxed and k.layout.planes == 2 and cr.variant(k) == "wrap16_relaxed_wide"
+    assert torch.equal(k.cxr, cxr) and torch.equal(k.cxd, cxd)
+    assert k.cx.dtype == torch.int32 and k.cx.shape == (plan.x.n_dst, 2 * plan.x.num_coefs)
+    assert torch.equal(k.cx.view(torch.float32), torch.cat([cxr, cxd]).T)
+    exact = cr.wide_tables(plan)
+    assert not exact.relaxed and exact.cxr.numel() == 0 and cr.variant(exact) == "wrap16_wide"
+    with pytest.raises(ValueError):
+        cr.wide_tables(plan, layout=dataclasses.replace(k.layout, planes=1))
+
+
+def test_ablation_thumbnails_are_the_wide_ones():
+    """``wide_ablate --thumbnails`` runs THUMBNAILS but the 8K proxy, which
+    the tiled kernel takes."""
+    from libiqo_tpu_torch.tools import wide_ablate
+
+    assert wide_ablate.thumbnails() == card_check.THUMBNAILS[:-1]
