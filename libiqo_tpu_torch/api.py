@@ -40,6 +40,10 @@ executable over device operands.
   ``LIBIQO_TPU_CACHE_SIZE`` entries (default 256; 0 disables caching), as
   the JAX package's ``_COMPILED_CACHE``; a resizer remembers its own per
   device and carry choice, so a ``resize`` issues one ctypes call.
+* While the port records (:mod:`.tracing`), a facade's plan build and a
+  resizer's plan checks and digest are ``port.plan`` spans, the tables
+  packed on a cache miss a ``port.tables`` span, and the cache counts
+  ``exec_cache.hit`` and ``exec_cache.miss``.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ import threading
 import numpy as np
 import torch
 
+from . import tracing
 from .core.plan import ResizePlan, build_plan, plan_from_arrays
 from .golden import numpy_ref
 from .ops import cuda_resize, torch_resize
@@ -88,7 +93,9 @@ class _ExecutableCache:
         with self._lock:
             if key in self._entries:
                 self._entries.move_to_end(key)
+                tracing.count("exec_cache.hit")
                 return self._entries[key]
+            tracing.count("exec_cache.miss")
             value = build()
             if self.max_entries > 0:
                 self._entries[key] = value
@@ -140,8 +147,13 @@ def executable_for(plan: ResizePlan, dev: torch.device, relaxed: bool = False,
         carry = cuda_resize.carry_requested()
     key = (digest or _plan_digest(plan), "relaxed" if relaxed else "exact",
            "carry" if carry else "windowed", str(dev))
-    return _CACHE.get(key, lambda: Executable(cuda_resize.pack_operands(
-        plan, dev, relaxed=relaxed, carry=carry)))
+
+    def build() -> Executable:
+        with tracing.span("port.tables"):
+            ops = cuda_resize.pack_operands(plan, dev, relaxed=relaxed, carry=carry)
+        return Executable(ops)
+
+    return _CACHE.get(key, build)
 
 
 def operands_for(plan: ResizePlan, dev: torch.device, relaxed: bool = False,
@@ -187,10 +199,11 @@ class Resizer:
         self._backend = backend
         self._precision = precision
         self._device = resolve_device(device)
-        self._kernel_ok = cuda_resize.supports_plan(plan)
-        self._relaxed_ok = (precision == "relaxed"
-                            and cuda_resize.supports_plan(plan, relaxed=True))
-        self._digest = _plan_digest(plan)
+        with tracing.span("port.plan"):
+            self._kernel_ok = cuda_resize.supports_plan(plan)
+            self._relaxed_ok = (precision == "relaxed"
+                                and cuda_resize.supports_plan(plan, relaxed=True))
+            self._digest = _plan_digest(plan)
         self._bound: dict = {}   # (device, carry) -> (kernel route?, Executable)
 
     @classmethod
@@ -314,6 +327,13 @@ class Resizer:
         return _spawn_warmup(self.warmup, batch)
 
 
+def _plan(algorithm: str, *geometry, **kw) -> ResizePlan:
+    """A facade's :func:`build_plan`, a ``port.plan`` span while the port
+    records."""
+    with tracing.span("port.plan"):
+        return build_plan(algorithm, *geometry, **kw)
+
+
 class LanczosResizer(Resizer):
     """Lanczos resampler (ref: include/libiqo/LanczosResizer.hpp:26-33).
 
@@ -327,8 +347,8 @@ class LanczosResizer(Resizer):
                  backend: str = "auto", precision: str = "exact",
                  device="cuda"):
         super().__init__(
-            build_plan("lanczos", src_w, src_h, dst_w, dst_h,
-                       degree=degree, px_scale=px_scale),
+            _plan("lanczos", src_w, src_h, dst_w, dst_h,
+                  degree=degree, px_scale=px_scale),
             backend, precision, device)
 
 
@@ -339,7 +359,7 @@ class AreaResizer(Resizer):
     def __init__(self, src_w: int, src_h: int, dst_w: int, dst_h: int,
                  backend: str = "auto", precision: str = "exact",
                  device="cuda"):
-        super().__init__(build_plan("area", src_w, src_h, dst_w, dst_h),
+        super().__init__(_plan("area", src_w, src_h, dst_w, dst_h),
                          backend, precision, device)
 
 
@@ -349,5 +369,5 @@ class LinearResizer(Resizer):
     def __init__(self, src_w: int, src_h: int, dst_w: int, dst_h: int,
                  backend: str = "auto", precision: str = "exact",
                  device="cuda"):
-        super().__init__(build_plan("linear", src_w, src_h, dst_w, dst_h),
+        super().__init__(_plan("linear", src_w, src_h, dst_w, dst_h),
                          backend, precision, device)

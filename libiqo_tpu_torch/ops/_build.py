@@ -33,6 +33,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from .. import tracing
 from ..utils.build_root import build_root
 
 __all__ = ["BuildError", "bind_tiled", "build_dir", "build_library",
@@ -228,14 +229,18 @@ def bind_tiled(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use.  Thread-safe."""
+    """The kernel library, built on first use.  Thread-safe.  While the
+    port records, the first load is a ``port.library`` span and a build
+    counts ``library.build``."""
     global _lib, build_seconds, build_log
     with _lock:
         if _lib is None:
-            so = build_dir() / "libiqo_tpu_torch.so"
-            if not so.exists():
-                build_seconds, build_log = build_library(so, sources())
-            _lib = _bind(ctypes.CDLL(str(so)))
+            with tracing.span("port.library"):
+                so = build_dir() / "libiqo_tpu_torch.so"
+                if not so.exists():
+                    tracing.count("library.build")
+                    build_seconds, build_log = build_library(so, sources())
+                _lib = _bind(ctypes.CDLL(str(so)))
         return _lib
 
 

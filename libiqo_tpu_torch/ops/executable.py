@@ -20,9 +20,11 @@ The handle takes the same packing as the one-shot entry
 cannot drift.  It is built on first use, holds no device memory (its tables
 belong to the operands, which it keeps alive) and is freed with the
 executable.  Every launch is counted in ``cuda_resize.LAUNCHES`` and
-``LAUNCHES_BY_VARIANT``.  A failed create or launch raises: nothing falls
-back to another path.  On the CPU an executable runs the kernel's plain
-version, ``cuda_resize.resize_plain``.
+``LAUNCHES_BY_VARIANT``; while the port records (:mod:`..tracing`), each
+ctypes launch is also a ``port.launch`` span with its launches by plane,
+and each handle made a ``port.exec_create`` span.  A failed create or
+launch raises: nothing falls back to another path.  On the CPU an
+executable runs the kernel's plain version, ``cuda_resize.resize_plain``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import weakref
 
 import torch
 
+from .. import tracing
 from . import cuda_resize
 
 __all__ = ["Executable", "launch_frame"]
@@ -93,12 +96,14 @@ class Executable:
             raise ValueError(f"an executable launches on a CUDA device, not {self.device}")
         if self.ops.tables is None:
             raise ValueError("plan is outside the kernel's scope (supports_plan)")
-        lib = cuda_resize._lib_for(self.device)
-        kind, head, tail = cuda_resize.entry_args(self.ops)
-        h = ctypes.c_void_p()
-        rc = getattr(lib, f"iqo_resize_{kind}_exec_create")(*head, *tail, ctypes.byref(h))
+        with tracing.span("port.exec_create"):
+            lib = cuda_resize._lib_for(self.device)
+            kind, head, tail = cuda_resize.entry_args(self.ops)
+            h = ctypes.c_void_p()
+            rc = getattr(lib, f"iqo_resize_{kind}_exec_create")(*head, *tail, ctypes.byref(h))
         if rc != 0:
             raise RuntimeError(f"resize_{kind} executable refused: {_error(lib, rc)}")
+        tracing.count("exec.create")
         weakref.finalize(self, lib.iqo_exec_destroy, h.value)
         self._lib = lib
         self._handle = h.value
@@ -136,8 +141,15 @@ class Executable:
                           dtype=torch.uint8, device=self.device)
         if n == 0:
             return out
-        rc = self._lib.iqo_exec_launch(h, src.data_ptr(), out.data_ptr(), n, fs, rs,
-                                       _stream(self.index))
+        rec = tracing.RECORDING
+        t = rec.begin() if rec is not None else 0
+        rc = -1
+        try:
+            rc = self._lib.iqo_exec_launch(h, src.data_ptr(), out.data_ptr(), n, fs, rs,
+                                           _stream(self.index))
+        finally:
+            if rec is not None:     # one launch, of a plane the executable cannot know
+                rec.launched(t, *(tracing.UNKNOWN_PLANE if rc == 0 else (0, 0)))
         if rc != 0:
             raise RuntimeError(f"{self.variant} launch failed: {_error(self._lib, rc)}")
         cuda_resize.count_launches(self.variant)
@@ -176,9 +188,16 @@ def launch_frame(luma: Executable, chroma: Executable, y: torch.Tensor,
     if n == 0:
         return oy, ouv, ouv
     lib = luma._lib
-    rc = lib.iqo_exec_launch_frame(hl, hc, n, y.data_ptr(), yfs, yrs, oy.data_ptr(),
-                                   u.data_ptr(), ufs, urs, v.data_ptr(), vfs, vrs,
-                                   ouv.data_ptr(), _stream(luma.index))
+    rec = tracing.RECORDING
+    t = rec.begin() if rec is not None else 0
+    rc = -1
+    try:
+        rc = lib.iqo_exec_launch_frame(hl, hc, n, y.data_ptr(), yfs, yrs, oy.data_ptr(),
+                                       u.data_ptr(), ufs, urs, v.data_ptr(), vfs, vrs,
+                                       ouv.data_ptr(), _stream(luma.index))
+    finally:
+        if rec is not None:
+            rec.launched(t, int(rc > 0), max(rc - 1, 0))
     if rc < 0:
         raise RuntimeError(f"YUV420 frame ({luma.variant}, {chroma.variant}) launch "
                            f"failed: {_error(lib, -rc)}")

@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import tracing
 from .api import AreaResizer, LanczosResizer, LinearResizer, Resizer, as_tensor
 from .ops.cuda_resize import carry_requested
 from .ops.executable import launch_frame
@@ -190,10 +191,22 @@ class YUV420Resizer:
         return (self._pad_y(luma.resize(self._slice_y(y))), chroma.resize(u),
                 chroma.resize(v))
 
+    def _call(self, y, u, v):
+        """:meth:`_planes` as one user call: a ``port.frame_call`` span
+        while the port records (:mod:`.tracing`)."""
+        rec = tracing.RECORDING
+        if rec is None:
+            return self._planes(y, u, v)
+        t = rec.begin()
+        try:
+            return self._planes(y, u, v)
+        finally:
+            rec.end("port.frame_call", t)
+
     def resize(self, frame: YUV420Frame) -> YUV420Frame:
-        return YUV420Frame(*self._planes(frame.y, frame.u, frame.v))
+        return YUV420Frame(*self._call(frame.y, frame.u, frame.v))
 
     def resize_batch(self, y, u, v):
         """Batched planes (B, h, w) / (B, h/2, w/2) -> (y, u, v) resized,
         as one frame call."""
-        return self._planes(y, u, v)
+        return self._call(y, u, v)

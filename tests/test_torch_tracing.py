@@ -1,0 +1,271 @@
+"""The port's spans and counters (``libiqo_tpu_torch/tracing.py``): off,
+the facade reads no clock and keeps nothing; on, one ``port.frame_call`` a
+user call with its set-up and launch spans nested under its call number,
+the executable cache's hits and misses, and, on the card, each launch's
+planes and a warm window's creates and builds."""
+
+from __future__ import annotations
+
+import gc
+
+import numpy as np
+import pytest
+import torch
+
+from libiqo_tpu_torch import api, tracing
+from libiqo_tpu_torch.core.plan import build_plan
+from libiqo_tpu_torch.yuv import YUV420Frame, YUV420Resizer
+
+
+@pytest.fixture
+def fresh_cache(monkeypatch):
+    """An empty executable cache of the default size."""
+    monkeypatch.setattr(api, "_CACHE", api._ExecutableCache(api.cache_size({})))
+
+
+@pytest.fixture
+def clock_reads(monkeypatch):
+    """The number of times the tracing module read its clock so far."""
+    reads = [0]
+    real = tracing._clock
+
+    def counted():
+        reads[0] += 1
+        return real()
+    monkeypatch.setattr(tracing, "_clock", counted)
+    return reads
+
+
+def planes(batch=None, w=16, h=12, device="cpu"):
+    lead = () if batch is None else (batch,)
+    g = torch.Generator().manual_seed(w * h + (batch or 0))
+    y, u, v = (torch.randint(0, 256, lead + s, dtype=torch.uint8, generator=g).to(device)
+               for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+    return y, u, v
+
+
+def test_off_facade_calls_read_no_clock_and_keep_nothing(clock_reads, monkeypatch):
+    r = YUV420Resizer("area", 16, 12, 8, 6, device="cpu")
+    done = (object(), object(), object())
+    monkeypatch.setattr(r, "_planes", lambda y, u, v: done)
+    y, u, v = planes(2)
+    frame = YUV420Frame(*planes())
+    r.resize_batch(y, u, v)
+    r.resize(frame)
+    gc.collect()
+    before = len(gc.get_objects())
+    for _ in range(10_000):
+        r.resize_batch(y, u, v)
+        r.resize(frame)
+    after = len(gc.get_objects())
+    assert after - before < 10
+    assert clock_reads[0] == 0 and tracing.RECORDING is None
+
+
+def test_off_whole_route_reads_no_clock(clock_reads, fresh_cache):
+    r = YUV420Resizer("lanczos3", 16, 12, 8, 6, device="cpu")
+    r.resize_batch(*planes(2))
+    r.resize(YUV420Frame(*(p.numpy() for p in planes())))
+    api.LanczosResizer(3, 16, 12, 8, 6, device="cpu").resize(planes()[0])
+    api.Resizer.from_plan(build_plan("area", 16, 12, 8, 6), device="cpu")
+    assert clock_reads[0] == 0
+
+
+def test_on_one_frame_call_a_call_in_order(fresh_cache):
+    r = YUV420Resizer("area", 16, 12, 8, 6, device="cpu")
+    batch, frame = planes(3), YUV420Frame(*planes())
+    host = YUV420Frame(*(p.numpy() for p in planes()))
+    with tracing.record() as rec:
+        for _ in range(5):
+            r.resize_batch(*batch)
+            r.resize(frame)
+        r.resize(host)
+    calls = rec.spans("port.frame_call")
+    assert len(calls) == 11 == rec.calls
+    assert calls[:, 2].tolist() == list(range(1, 12))
+    assert (calls[:, 1] >= calls[:, 0]).all() and (calls[1:, 0] >= calls[:-1, 1]).all()
+    # the first call packed both planes' tables, under its own call number
+    tables = rec.spans("port.tables")
+    assert tables[:, 2].tolist() == [1, 1]
+    assert (tables[:, 0] >= calls[0, 0]).all() and (tables[:, 1] <= calls[0, 1]).all()
+    assert rec.counters == {"exec_cache.miss": 2}
+    assert len(rec.spans("port.launch")) == 0 == len(rec.launch_planes())   # no card
+
+
+def test_first_build_records_plan_and_tables(fresh_cache):
+    with tracing.record() as rec:
+        r = YUV420Resizer("lanczos3", 20, 14, 10, 8, device="cpu")
+        r.resize_batch(*planes(2, 20, 14))
+    plan, tables = rec.spans("port.plan"), rec.spans("port.tables")
+    # luma's and chroma's plan built, then checked and digested, each a call
+    assert plan[:, 2].tolist() == [1, 2, 3, 4]
+    assert tables[:, 2].tolist() == [5, 5]          # inside the first frame call
+    assert (plan[:, 1] > plan[:, 0]).all() and (tables[:, 1] > tables[:, 0]).all()
+    assert (np.diff(plan[:, 0]) > 0).all()
+    with tracing.record() as again:
+        api.Resizer.from_plan(build_plan("area", 16, 12, 8, 6), device="cpu")
+    assert again.spans("port.plan")[:, 2].tolist() == [1]
+
+
+def test_second_resizer_of_a_geometry_hits_the_cache(fresh_cache):
+    YUV420Resizer("area", 16, 12, 8, 6, device="cpu").resize_batch(*planes(2))
+    with tracing.record() as rec:
+        r = YUV420Resizer("area", 16, 12, 8, 6, device="cpu")
+        r.resize_batch(*planes(2))
+        r.resize_batch(*planes(2))                  # bound: no lookup at all
+    assert rec.counters == {"exec_cache.hit": 2}
+    assert len(rec.spans("port.tables")) == 0 and len(rec.spans("port.frame_call")) == 2
+
+
+def test_calls_nest_and_launches_carry_their_planes(clock_reads):
+    with tracing.record() as rec:
+        with tracing.span("port.frame_call"):
+            with tracing.span("port.tables"):
+                pass
+            rec.launched(rec.begin(), 1, 2)
+        rec.launched(rec.begin(), 1, 0)             # a launch of its own: a call
+        tracing.count("exec.create")
+        tracing.count("exec.create", 2)
+    assert rec.spans("port.frame_call")[:, 2].tolist() == [1]
+    assert rec.spans("port.tables")[:, 2].tolist() == [1]
+    assert rec.spans("port.launch")[:, 2].tolist() == [1, 2]
+    assert rec.launch_planes().tolist() == [[1, 2], [1, 0]]
+    assert rec.counters == {"exec.create": 3}
+    assert clock_reads[0] == 8 and tracing.RECORDING is None
+    assert rec.spans("port.plan").shape == (0, 3)
+
+
+def test_one_recording_at_a_time_and_closed_on_error():
+    with pytest.raises(ZeroDivisionError):
+        with tracing.record() as rec:
+            with tracing.span("port.frame_call"):
+                1 / 0
+    assert tracing.RECORDING is None and len(rec.spans("port.frame_call")) == 1
+    with tracing.record():
+        with pytest.raises(RuntimeError):
+            with tracing.record():
+                pass
+    assert tracing.RECORDING is None
+
+
+def test_recorded_spans_leave_nothing_to_collect():
+    with tracing.record() as rec:
+        gc.collect()
+        before = len(gc.get_objects())
+        for _ in range(20_000):
+            with tracing.span("port.frame_call"):
+                rec.launched(rec.begin(), 1, 2)
+        after = len(gc.get_objects())
+    assert after - before < 10
+    assert len(rec.spans("port.frame_call")) == 20_000 == rec.calls
+    assert rec.launch_planes().sum(axis=0).tolist() == [20_000, 40_000]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA CUDA device (a CUDA kernel has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["lanczos3", "area"])
+def test_launches_by_plane_on_the_card(card, method):
+    r = YUV420Resizer(method, 96, 54, 48, 28, device=card)
+    batch = planes(4, 96, 54, card)
+    lone = planes(None, 96, 54, card)
+    with tracing.record() as rec:
+        r.resize_batch(*batch)
+        r.resize(YUV420Frame(*lone))
+        r._luma.resize(lone[0])
+    torch.cuda.synchronize()
+    assert rec.launch_planes().tolist() == [[1, 2], [1, 1], list(tracing.UNKNOWN_PLANE)]
+    launches, calls = rec.spans("port.launch"), rec.spans("port.frame_call")
+    assert launches[:, 2].tolist() == [1, 2, 3] and calls[:, 2].tolist() == [1, 2]
+    assert (launches[:2, 0] >= calls[:, 0]).all() and (launches[:2, 1] <= calls[:, 1]).all()
+
+
+@pytest.mark.cuda
+def test_warm_window_creates_and_builds_nothing(card, fresh_cache):
+    with tracing.record() as first:
+        r = YUV420Resizer("area", 96, 54, 48, 28, device=card)
+        r.resize_batch(*planes(4, 96, 54, card))
+    assert len(first.spans("port.exec_create")) == first.counters.get("exec.create", 0) > 0
+    batch = planes(4, 96, 54, card)
+    with tracing.record() as warm:
+        for _ in range(20):
+            r.resize_batch(*batch)
+        YUV420Resizer("area", 96, 54, 48, 28, device=card).resize_batch(*batch)
+    torch.cuda.synchronize()
+    assert warm.counters.get("exec.create", 0) == 0 == warm.counters.get("library.build", 0)
+    assert warm.counters["exec_cache.hit"] == 2
+    assert len(warm.spans("port.library")) == 0 and len(warm.spans("port.launch")) == 21
+
+
+@pytest.mark.cuda
+def test_a_launch_that_raises_closes_its_span(card, monkeypatch):
+    from libiqo_tpu_torch.ops import executable
+    r = YUV420Resizer("area", 96, 54, 48, 28, device=card)
+    batch = planes(4, 96, 54, card)
+    r.resize_batch(*batch)
+
+    def no_stream(index):
+        raise RuntimeError("no stream")
+    with tracing.record() as rec:
+        with monkeypatch.context() as m:
+            m.setattr(executable, "_stream", no_stream)
+            with pytest.raises(RuntimeError, match="no stream"):
+                r.resize_batch(*batch)
+        r.resize_batch(*batch)
+    torch.cuda.synchronize()
+    assert rec.launch_planes().tolist() == [[0, 0], [1, 2]]
+    assert rec.spans("port.launch")[:, 2].tolist() == [1, 2]
+    assert rec.spans("port.frame_call")[:, 2].tolist() == [1, 2]
+
+
+# the benchmark's two cells: (method, source, output, frames a call)
+CELL_SHAPES = [("lanczos3", (3840, 2160), (1920, 1080), 16), ("area", (1920, 1080), (640, 360), 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method, src, dst, batch", CELL_SHAPES, ids=["batch16", "batch64"])
+def test_recording_cost_on_the_card(card, method, src, dst, batch):
+    """Host ms a ``resize_batch`` call, recording off and on in turns, 6
+    rounds each, two calls in flight as the benchmark's loop keeps them:
+    printed (run with ``-s``).  Each recorded call is one frame call of one
+    luma and two chroma launches."""
+    import time
+    r = YUV420Resizer(method, *src, *dst, device=card)
+    pool = [planes(batch, *src, card) for _ in range(2)]
+    events = [torch.cuda.Event() for _ in range(2)]
+    calls = 1500
+
+    def round_ms():
+        took = 0
+        for k in range(calls):
+            if k >= 2:
+                events[k % 2].synchronize()
+            t = time.perf_counter_ns()
+            r.resize_batch(*pool[k % 2])
+            took += time.perf_counter_ns() - t
+            events[k % 2].record()
+        torch.cuda.synchronize()
+        return took / calls / 1e6
+
+    round_ms()
+    ms = {"off": [], "on": []}
+    for i in range(6):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            if not on:
+                ms["off"].append(round_ms())
+                continue
+            with tracing.record() as rec:
+                ms["on"].append(round_ms())
+            assert len(rec.spans("port.frame_call")) == calls == rec.calls
+            assert rec.launch_planes().tolist() == [[1, 2]] * calls
+    assert tracing.RECORDING is None
+    off, on = (float(np.median(ms[k])) for k in ("off", "on"))
+    print(f"\n{method} {src} -> {dst} x{batch} on {torch.cuda.get_device_name(card)}: host ms a "
+          f"call, median of 6 rounds of {calls}: off {off:.6f}, on {on:.6f}, on - off "
+          f"{on - off:.6f}; rounds off {[round(x, 6) for x in ms['off']]}, "
+          f"on {[round(x, 6) for x in ms['on']]}")
