@@ -536,27 +536,34 @@ TILED_FORMS = {(False, False): "exact", (True, False): "relaxed",
 
 
 def tiled_ptxas(log: str) -> list[str]:
-    """ptxas -v's report for each resize_tiled_kernel instantiation:
-    registers, spills and static shared memory (its band or ring, work tile
-    and records are dynamic shared memory, sized per plan at launch); then,
-    per form, its instantiation count, its source's nvcc wall time and the
-    range of registers and spills."""
+    """ptxas -v's report for each instantiation of the tiled kernel, per
+    tap (resize_tiled_kernel) and of the X window
+    (resize_tiled_window_kernel, the exact and carry forms): registers,
+    spills and static shared memory (its band or ring, work tile and
+    records are dynamic shared memory, sized per plan at launch); then, per
+    form, its instantiation count, its source's nvcc wall time and the range
+    of registers and spills."""
     out, name, forms = [], None, {}
     secs = dict(re.findall(r"nvcc -c (\S+): (\S+) s", log))
     for line in log.splitlines():
-        m = re.search(r"resize_tiled_kernelILb(\d)ELb(\d)ELi(\d+)ELb(\d)ELb(\d)E", line)
+        m = (re.search(r"resize_tiled_kernelILb(\d)ELb(\d)ELi(\d+)ELb(\d)ELb(\d)E", line)
+             or re.search(r"resize_tiled_window_kernelILb(\d)ELb(\d)ELi(\d+)E()Lb(\d)E", line))
         if "Compiling entry function" in line:
-            name = m and tuple(int(v) for v in m.groups())
+            name = m and (*(int(v or 0) for v in m.groups()), "window_kernel" in line)
         elif name and "spill" in line:
             spill = line.split(":", 1)[-1].strip()
         elif name and "registers" in line:
             regs = int(re.search(r"Used (\d+) registers", line)[1])
             smem = re.search(r"(\d+) bytes smem", line)
-            w16, s8, tw, rel, car = name
+            w16, s8, tw, rel, car, window = name
             form = TILED_FORMS[bool(rel), bool(car)]
-            out.append(f"ptxas resize_tiled_kernel<{bool(w16)}, {bool(s8)}, {tw}, "
-                       f"{bool(rel)}, {bool(car)}> (kWrap16, kS8Y, TW, kRelaxed, "
-                       f"kCarry; {form}): {regs} registers, {spill}, "
+            if window:
+                kernel = (f"resize_tiled_window_kernel<{bool(w16)}, {bool(s8)}, {tw}, "
+                          f"{bool(car)}> (kWrap16, kS8Y, TW, kCarry; {form}, X window)")
+            else:
+                kernel = (f"resize_tiled_kernel<{bool(w16)}, {bool(s8)}, {tw}, {bool(rel)}, "
+                          f"{bool(car)}> (kWrap16, kS8Y, TW, kRelaxed, kCarry; {form})")
+            out.append(f"ptxas {kernel}: {regs} registers, {spill}, "
                        f"{smem[1] if smem else 0} bytes static smem")
             forms.setdefault(form, []).append((regs, spill))
             name = None

@@ -47,23 +47,29 @@ struct TiledExec final : iqo::Exec {
   }
 };
 
+// The instantiation of form (relaxed, carry) for (wrap16, s8y, tw) and its
+// geometry for e's record.  Returns a cudaError_t.
+int configure(TiledExec& e, int wrap16, int s8y, int tw, int relaxed, int carry) {
+  if (relaxed)
+    return carry ? Form<true, true>::configure(wrap16, s8y, tw, e.a, &e.kernel, &e.grid, &e.smem)
+                 : Form<true, false>::configure(wrap16, s8y, tw, e.a, &e.kernel, &e.grid, &e.smem);
+  return carry ? Form<false, true>::configure(wrap16, s8y, tw, e.a, &e.kernel, &e.grid, &e.smem)
+               : Form<false, false>::configure(wrap16, s8y, tw, e.a, &e.kernel, &e.grid, &e.smem);
+}
+
 // Packs one tiled resize into e: the record of the arguments below and the
 // geometry of its form (relaxed, carry).  Returns a cudaError_t.
 int pack(TiledExec& e, int wrap16, int s8y, int tw, int relaxed, int carry, int src_w,
          int dst_h, int dst_w, const void* rrec, int rrec_words, const void* crec,
          int crec_words, int taps_y, int taps_x, int k_rows, int pitch, int margin,
          int work_pitch, int max_phases, int y_bias, int out_shift, int planes, int run,
-         int slots) {
+         int slots, int x_step) {
   e.a = TiledArgs{nullptr, nullptr, 0, 0, src_w, dst_h, dst_w,
                   static_cast<const int32_t*>(rrec), static_cast<const int32_t*>(crec),
                   rrec_words, crec_words, taps_y, taps_x, k_rows, pitch, margin, work_pitch,
-                  max_phases, y_bias, out_shift, planes, run, slots};
+                  max_phases, y_bias, out_shift, planes, run, slots, x_step};
   e.out_frame = static_cast<long long>(dst_h) * dst_w;
-  if (relaxed)
-    return carry ? Form<true, true>::configure(wrap16, s8y, tw, e.a, &e.kernel, &e.grid, &e.smem)
-                 : Form<true, false>::configure(wrap16, s8y, tw, e.a, &e.kernel, &e.grid, &e.smem);
-  return carry ? Form<false, true>::configure(wrap16, s8y, tw, e.a, &e.kernel, &e.grid, &e.smem)
-               : Form<false, false>::configure(wrap16, s8y, tw, e.a, &e.kernel, &e.grid, &e.smem);
+  return configure(e, wrap16, s8y, tw, relaxed, carry);
 }
 
 }  // namespace
@@ -78,8 +84,39 @@ int iqo_tiled_shape(int* rows, int* widths, int n) {
   return 3;
 }
 
-// Raises the 48 instantiations' dynamic shared-memory limit on the current
-// device to `bytes` (the four forms, twelve each).  Returns a cudaError_t.
+// The X pass's window form (resize_tiled.cuh, 5b): the most work values a
+// thread's window holds and the largest step between its outputs' first
+// taps, read by the host (cuda_resize.X_WINDOW, X_STEPS).
+void iqo_tiled_x_window(int* values, int* steps) {
+  *values = iqo_tiled::kXWindow;
+  *steps = iqo_tiled::kXSteps;
+}
+
+// What the card makes of one instantiation (wrap16, s8y, tw, relaxed,
+// carry; the X window's when x_step is nonzero) at `smem` bytes of dynamic
+// shared memory: info[0] its registers a thread, info[1] its local memory
+// bytes a thread (spills), info[2] its resident blocks an SM.  Returns a
+// cudaError_t.
+int iqo_tiled_kernel_info(int wrap16, int s8y, int tw, int relaxed, int carry, int x_step,
+                          int smem, int* info) {
+  TiledExec e;
+  e.a.run = 1;
+  e.a.x_step = x_step;
+  const int rc = configure(e, wrap16, s8y, tw, relaxed, carry);
+  if (rc != 0) return rc;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(e.kernel));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], e.kernel, iqo_tiled::kThreads,
+                                                      smem);
+  return static_cast<int>(err);
+}
+
+// Raises the 72 instantiations' dynamic shared-memory limit on the current
+// device to `bytes` (the four forms, twelve per-tap each, and twelve of the X
+// window in the exact and carry forms).  Returns a cudaError_t.
 int iqo_tiled_set_max_smem(int bytes) {
   for (int k = 0; k < 4; ++k) {
     const int rc = set_max_smem(k & 2, k & 1, bytes);
@@ -93,18 +130,19 @@ int iqo_tiled_set_max_smem(int bytes) {
 // tw output columns per block; its relaxed form when relaxed is nonzero
 // (planes: X coefficient planes per phase, 1 or 2), its carry form when
 // carry is nonzero (run row tiles per block, a ring of slots rows; otherwise
-// both are unread).  Writes the handle to *out (iqo_exec_launch,
-// iqo_exec_destroy).  Returns a cudaError_t.
+// both are unread); the X pass's window form at x_step when it is nonzero
+// (exact forms; cuda_resize.tiled_layout).  Writes the handle to *out
+// (iqo_exec_launch, iqo_exec_destroy).  Returns a cudaError_t.
 int iqo_resize_tiled_exec_create(int wrap16, int s8y, int tw, int relaxed, int carry,
                                  int src_w, int dst_h, int dst_w, const void* rrec,
                                  int rrec_words, const void* crec, int crec_words, int taps_y,
                                  int taps_x, int k_rows, int pitch, int margin, int work_pitch,
                                  int max_phases, int y_bias, int out_shift, int planes, int run,
-                                 int slots, void** out) {
+                                 int slots, int x_step, void** out) {
   TiledExec e;
   const int rc = pack(e, wrap16, s8y, tw, relaxed, carry, src_w, dst_h, dst_w, rrec, rrec_words,
                       crec, crec_words, taps_y, taps_x, k_rows, pitch, margin, work_pitch,
-                      max_phases, y_bias, out_shift, planes, run, slots);
+                      max_phases, y_bias, out_shift, planes, run, slots, x_step);
   return iqo::create(e, rc, out);
 }
 
@@ -119,12 +157,12 @@ int iqo_resize_tiled(int wrap16, int s8y, int tw, int relaxed, int carry, const 
                      const void* rrec, int rrec_words, const void* crec,
                      int crec_words, int taps_y, int taps_x, int k_rows,
                      int pitch, int margin, int work_pitch, int max_phases,
-                     int y_bias, int out_shift, int planes, int run, int slots,
+                     int y_bias, int out_shift, int planes, int run, int slots, int x_step,
                      void* stream) {
   TiledExec e;
   const int rc = pack(e, wrap16, s8y, tw, relaxed, carry, src_w, dst_h, dst_w, rrec, rrec_words,
                       crec, crec_words, taps_y, taps_x, k_rows, pitch, margin, work_pitch,
-                      max_phases, y_bias, out_shift, planes, run, slots);
+                      max_phases, y_bias, out_shift, planes, run, slots, x_step);
   if (rc != 0) return rc;
   return e.launch(src, dst, n_frames, src_frame_stride, src_row_stride,
                   static_cast<cudaStream_t>(stream));

@@ -48,18 +48,30 @@
 //    2:1, Linear upscales, px_scale >= 3) run an IMAD Y pass over the same
 //    band, 8 columns a thread.
 // 4. The work tile stays in shared memory at 16 bits (int16 after the wrap
-//    and border renorm, u16 <= 65280), at a pitch of 32 mod 64 columns: a
-//    2:1 X pass reads it without bank conflicts.
+//    and border renorm, u16 <= 65280), at a pitch of 32 mod 64 columns for
+//    the per-tap X pass (16-byte stores of the Y pass) and 36 mod 64 for
+//    the window form (5b; rows 8-byte aligned, two 8-byte stores).
 // 5. X pass on CUDA cores, kernel J's answer: each thread computes TW / 16
-//    outputs of one row, 16 apart (neighbouring lanes take neighbouring
-//    outputs, so a 2:1 pass reads 32 distinct banks; adjacent outputs per
-//    thread would put 4 lanes on a bank), from each output's first tap
-//    (unclamped: in the exact form taps outside the plane have coefficient
-//    0 and read the work tile's margins, whatever they hold) and its
-//    phase's coefficients, one broadcast load per tap where the column tile
-//    has one phase; signed 16-bit loads, uint32 multiply-adds, then the
-//    shared epilogue, whose border divide runs only in column tiles that
-//    have border columns.
+//    outputs of one row from each output's first tap (unclamped: in the
+//    exact form taps outside the plane have coefficient 0 and read the work
+//    tile's margins, whatever they hold) and its phase's coefficients, one
+//    broadcast load per tap where the column tile has one phase; uint32
+//    multiply-adds in tap order, then the shared epilogue, whose border
+//    divide runs only in column tiles that have border columns.
+//    a. Per tap (the relaxed form, and exact plans the window does not
+//       take): the thread's outputs lie 16 apart (neighbouring lanes take
+//       neighbouring outputs, so a 2:1 pass reads 32 distinct banks), one
+//       16-bit load per tap and output, one byte store per output.
+//    b. Window (exact plans whose output starts step by a whole x_step <=
+//       kXSteps source columns, and whose thread windows, x_step (TW/16 - 1)
+//       + taps values, fit kXWindow: cuda_resize.tiled_layout decides): the
+//       thread's outputs are adjacent, so their taps overlap (at 2:1, 10 of
+//       12), and the thread loads their union once as 32-bit words (an odd
+//       start in the first word's high half, in code of its own), takes
+//       each tap's value from its registers, and writes its outputs as one
+//       store.  A warp holds 8 threads of 4 rows each, which with the 36
+//       mod 64 pitch puts at most 2 lanes on a bank.  The window form's
+//       instantiations are kernels of their own, with a register bound.
 // 6. TW (128, 64 or 32) is chosen per plan by the host so that a frame's
 //    grid holds about two blocks per SM; TH is 16, the m16 of the Y dot.
 //
@@ -124,6 +136,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kHead = 4;          // header words of a tile record
 constexpr int kWidths[3] = {128, 64, 32};
+constexpr int kXWindow = 26;      // most work values a thread's X window holds
+constexpr int kXSteps = 3;        // largest step between outputs' starts it takes
 
 __device__ __forceinline__ int32_t wrap16(uint32_t v) {
   return static_cast<int32_t>(v & 0xFFFFu) -
@@ -234,8 +248,8 @@ __device__ __forceinline__ float bf16_value(uint16_t bits) {
 template <bool kWrap16>
 using Work = std::conditional_t<kWrap16, int16_t, uint16_t>;
 
-// Stores 8 work values of row `row`, band columns c .. c + 7, as one
-// 16-byte store.
+// Stores 8 work values of row `row`, band columns c .. c + 7: one 16-byte
+// store where the pitch keeps rows 16-byte aligned, else two 8-byte ones.
 template <bool kWrap16, bool kRelaxed>
 __device__ __forceinline__ void store8(uint16_t* work, int work_pitch, int margin, int row,
                                        int c, const uint32_t (&acc)[8], uint32_t corr,
@@ -243,8 +257,14 @@ __device__ __forceinline__ void store8(uint16_t* work, int work_pitch, int margi
   uint32_t v[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) v[e] = work_bits<kWrap16, kRelaxed>(acc[e] + corr, d, y_bias);
-  *reinterpret_cast<uint4*>(work + row * work_pitch + margin + c) =
-      make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16, v[6] | v[7] << 16);
+  uint16_t* p = work + row * work_pitch + margin + c;
+  if ((work_pitch & 7) == 0) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16, v[6] | v[7] << 16);
+  } else {
+    reinterpret_cast<uint2*>(p)[0] = make_uint2(v[0] | v[1] << 16, v[2] | v[3] << 16);
+    reinterpret_cast<uint2*>(p)[1] = make_uint2(v[4] | v[5] << 16, v[6] | v[7] << 16);
+  }
 }
 
 struct TiledArgs {
@@ -260,6 +280,7 @@ struct TiledArgs {
   int y_bias, out_shift;
   int planes;                 // kRelaxed: X planes per phase (2 with a residual)
   int run, slots;             // kCarry: row tiles per block, ring rows
+  int x_step;                 // the X window's step (1..kXSteps), 0: per tap
 };
 
 // Copies source rows [first, first + n) of the frame, byte columns
@@ -377,81 +398,23 @@ __device__ __forceinline__ bool fill_edges(uint16_t* work, const TiledArgs& a, i
   return true;
 }
 
-// X pass and epilogue of one output row: row `r` of the work tile, outputs
-// l + 16 k of the column tile, written to out[j].
-template <bool kWrap16, int kTW, bool kRelaxed>
-__device__ __forceinline__ void x_pass(const TiledArgs& a, const uint16_t* work,
-                                       const int32_t* crec, int mis, int r, int l, int cols,
-                                       uint8_t* out) {
+// The epilogue of one row's X sums: acc[k] is output j0 + kStride k of the
+// column tile, written to out[j].  With adjacent outputs (kStride 1) the
+// kTW / 16 bytes go out as one store where the address allows it and all
+// of them lie in the plane, else as byte stores.
+template <bool kWrap16, int kTW, bool kRelaxed, int kStride>
+__device__ __forceinline__ void epilogue(const TiledArgs& a, const int32_t* crec,
+                                         const uint32_t (&acc)[kTW / 16], int j0, int cols,
+                                         uint8_t* out) {
   constexpr int kPer = kTW / 16;
-  const int32_t* xs = crec + kHead;
-  const int32_t* ph = xs + kTW;
-  const int32_t* xdiv = ph + kTW;
-  uint32_t acc[kPer];
-  if constexpr (kRelaxed) {
-    const uint16_t* wrow = work + r * a.work_pitch + a.margin + mis;
-    const uint16_t* base[kPer];
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      base[k] = wrow + xs[l + 16 * k];
-      acc[k] = 0;
-    }
-    const float* planes = reinterpret_cast<const float*>(xdiv + kTW);
-    for (int p = 0; p < a.planes; ++p) {
-      const float* cxf = planes + p * a.taps_x * a.max_phases;
-      float f[kPer];
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) f[k] = 0.0f;
-      if (crec[2] == 1) {          // one phase: a broadcast coefficient per tap
-        for (int t = 0; t < a.taps_x; ++t) {
-          const float cf = cxf[t * a.max_phases];
-#pragma unroll
-          for (int k = 0; k < kPer; ++k)
-            f[k] = __fadd_rn(f[k], __fmul_rn(cf, bf16_value(base[k][t])));
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          const float* c = cxf + ph[l + 16 * k];
-          for (int t = 0; t < a.taps_x; ++t)
-            f[k] = __fadd_rn(f[k], __fmul_rn(c[t * a.max_phases], bf16_value(base[k][t])));
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) acc[k] += static_cast<uint32_t>(__float2int_rz(f[k]));
-    }
-  } else {
-    const int32_t* cxu = xdiv + kTW;
-    const Work<kWrap16>* wrow =
-        reinterpret_cast<const Work<kWrap16>*>(work + r * a.work_pitch + a.margin + mis);
-    const Work<kWrap16>* base[kPer];
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      base[k] = wrow + xs[l + 16 * k];
-      acc[k] = 0;
-    }
-    if (crec[2] == 1) {            // one phase: a broadcast coefficient per tap
-      for (int t = 0; t < a.taps_x; ++t) {
-        const uint32_t cf = static_cast<uint32_t>(cxu[t * a.max_phases]);
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) acc[k] += cf * static_cast<uint32_t>(base[k][t]);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        const int32_t* c = cxu + ph[l + 16 * k];
-        for (int t = 0; t < a.taps_x; ++t)
-          acc[k] += static_cast<uint32_t>(c[t * a.max_phases]) * static_cast<uint32_t>(base[k][t]);
-      }
-    }
-  }
+  const int32_t* xdiv = crec + kHead + 2 * kTW;
   const uint32_t half = 1u << (a.out_shift - 1);
   // the tile has border columns (wrap16 plans only; u16 plans have none)
   const bool border = (kWrap16 || kRelaxed) && crec[3] != 0;
+  uint32_t b[kPer];
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
-    const int j = l + 16 * k;
-    if (j >= cols) continue;
+    const int j = j0 + kStride * k;
     int32_t v;
     if constexpr (kWrap16 || kRelaxed) {
       const int32_t s = as_i32(acc[k] + half);
@@ -463,7 +426,183 @@ __device__ __forceinline__ void x_pass(const TiledArgs& a, const uint16_t* work,
     } else {
       v = static_cast<int32_t>((acc[k] + half) >> a.out_shift);
     }
-    out[j] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+    b[k] = static_cast<uint32_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+  }
+  if constexpr (kStride == 1) {
+    uint8_t* p = out + j0;
+    if (j0 + kPer <= cols && (reinterpret_cast<uintptr_t>(p) & (kPer - 1)) == 0) {
+      uint32_t q[(kPer + 3) / 4] = {};
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) q[k / 4] |= b[k] << (8 * (k % 4));
+      if constexpr (kPer == 8) {
+        *reinterpret_cast<uint2*>(p) = make_uint2(q[0], q[1]);
+      } else if constexpr (kPer == 4) {
+        *reinterpret_cast<uint32_t*>(p) = q[0];
+      } else {
+        *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(q[0]);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    if (j0 + kStride * k < cols) out[j0 + kStride * k] = static_cast<uint8_t>(b[k]);
+}
+
+// Work value q of a thread's X window, whose words hold two values each
+// and start kOdd values before it: int16 (kWrap16), sign-extended, or u16.
+template <bool kWrap16, bool kOdd, int kWords>
+__device__ __forceinline__ uint32_t window_value(const uint32_t (&w)[kWords], int q) {
+  const int v = q + (kOdd ? 1 : 0);
+  const uint32_t word = w[v >> 1];
+  if constexpr (kWrap16) {
+    return static_cast<uint32_t>(shift_floor(as_i32((v & 1) ? word : word << 16), 16));
+  } else {
+    return (v & 1) ? word >> 16 : word & 0xFFFFu;
+  }
+}
+
+// The window form of the exact X pass (5b): the sums of outputs j0 ..
+// j0 + kPer - 1, whose first taps lie kStep apart, from the window of
+// kStep (kPer - 1) + taps_x values at the first one's first tap, which lies
+// in the word row[0], in its high half when kOdd.
+template <bool kWrap16, int kTW, int kStep, bool kOdd>
+__device__ __forceinline__ void x_window(const TiledArgs& a, const uint32_t* row,
+                                         const int32_t* crec, int j0,
+                                         uint32_t (&acc)[kTW / 16]) {
+  constexpr int kPer = kTW / 16;
+  constexpr int kTaps = kXWindow - kStep * (kPer - 1);   // most taps a window holds
+  constexpr int kWords = (kXWindow + 2) / 2;
+  constexpr int kOne = kOdd ? 1 : 0;
+  constexpr int kFewest = (kOne + kStep * (kPer - 1) + 2) / 2;   // words of a one-tap window
+  static_assert(kTaps >= 1, "no tap fits the window");
+  const int32_t* cxu = crec + kHead + 3 * kTW;
+  const int nw = (kOne + kStep * (kPer - 1) + a.taps_x + 1) >> 1;
+  uint32_t w[kWords];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    if (i >= kFewest && i >= nw) break;
+    w[i] = row[i];
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) acc[k] = 0;
+  if (crec[2] == 1) {            // one phase: a broadcast coefficient per tap
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t) {
+      if (t >= a.taps_x) break;
+      const uint32_t cf = static_cast<uint32_t>(cxu[t * a.max_phases]);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) acc[k] += cf * window_value<kWrap16, kOdd>(w, kStep * k + t);
+    }
+  } else {                       // each output its phase's coefficients, output by output
+    const int32_t* ph = crec + kHead + kTW;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int32_t* c = cxu + ph[j0 + k];
+#pragma unroll
+      for (int t = 0; t < kTaps; ++t) {
+        if (t >= a.taps_x) break;
+        acc[k] += static_cast<uint32_t>(c[t * a.max_phases]) *
+                  window_value<kWrap16, kOdd>(w, kStep * k + t);
+      }
+    }
+  }
+}
+
+// The window form at step a.x_step, its start's parity read once.
+template <bool kWrap16, int kTW, bool kOdd>
+__device__ __forceinline__ void x_window_at(const TiledArgs& a, const uint32_t* row,
+                                            const int32_t* crec, int j0,
+                                            uint32_t (&acc)[kTW / 16]) {
+  switch (a.x_step) {
+    case 1: x_window<kWrap16, kTW, 1, kOdd>(a, row, crec, j0, acc); break;
+    case 2: x_window<kWrap16, kTW, 2, kOdd>(a, row, crec, j0, acc); break;
+    default: x_window<kWrap16, kTW, kXSteps, kOdd>(a, row, crec, j0, acc); break;
+  }
+}
+
+// X pass and epilogue of one output row: row `r` of the work tile, written
+// to out[j].  The window form (kWindow: exact forms, x_step != 0) computes
+// outputs l (TW / 16) + k, the per-tap form outputs l + 16 k.
+template <bool kWrap16, int kTW, bool kRelaxed, bool kWindow>
+__device__ __forceinline__ void x_pass(const TiledArgs& a, const uint16_t* work,
+                                       const int32_t* crec, int mis, int r, int l, int cols,
+                                       uint8_t* out) {
+  constexpr int kPer = kTW / 16;
+  const int32_t* xs = crec + kHead;
+  uint32_t acc[kPer];
+  if constexpr (kWindow) {
+    const int j0 = l * kPer;
+    const int s0 = a.margin + mis + xs[j0];     // the window's first value in the row
+    const uint32_t* row = reinterpret_cast<const uint32_t*>(work + r * a.work_pitch) + (s0 >> 1);
+    if (s0 & 1) {
+      x_window_at<kWrap16, kTW, true>(a, row, crec, j0, acc);
+    } else {
+      x_window_at<kWrap16, kTW, false>(a, row, crec, j0, acc);
+    }
+    epilogue<kWrap16, kTW, kRelaxed, 1>(a, crec, acc, j0, cols, out);
+  } else {
+    const int32_t* ph = xs + kTW;
+    const int32_t* xdiv = ph + kTW;
+    if constexpr (kRelaxed) {
+      const uint16_t* wrow = work + r * a.work_pitch + a.margin + mis;
+      const uint16_t* base[kPer];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        base[k] = wrow + xs[l + 16 * k];
+        acc[k] = 0;
+      }
+      const float* planes = reinterpret_cast<const float*>(xdiv + kTW);
+      for (int p = 0; p < a.planes; ++p) {
+        const float* cxf = planes + p * a.taps_x * a.max_phases;
+        float f[kPer];
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) f[k] = 0.0f;
+        if (crec[2] == 1) {          // one phase: a broadcast coefficient per tap
+          for (int t = 0; t < a.taps_x; ++t) {
+            const float cf = cxf[t * a.max_phases];
+#pragma unroll
+            for (int k = 0; k < kPer; ++k)
+              f[k] = __fadd_rn(f[k], __fmul_rn(cf, bf16_value(base[k][t])));
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) {
+            const float* c = cxf + ph[l + 16 * k];
+            for (int t = 0; t < a.taps_x; ++t)
+              f[k] = __fadd_rn(f[k], __fmul_rn(c[t * a.max_phases], bf16_value(base[k][t])));
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) acc[k] += static_cast<uint32_t>(__float2int_rz(f[k]));
+      }
+    } else {
+      const int32_t* cxu = xdiv + kTW;
+      const Work<kWrap16>* wrow =
+          reinterpret_cast<const Work<kWrap16>*>(work + r * a.work_pitch + a.margin + mis);
+      const Work<kWrap16>* base[kPer];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        base[k] = wrow + xs[l + 16 * k];
+        acc[k] = 0;
+      }
+      if (crec[2] == 1) {            // one phase: a broadcast coefficient per tap
+        for (int t = 0; t < a.taps_x; ++t) {
+          const uint32_t cf = static_cast<uint32_t>(cxu[t * a.max_phases]);
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) acc[k] += cf * static_cast<uint32_t>(base[k][t]);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          const int32_t* c = cxu + ph[l + 16 * k];
+          for (int t = 0; t < a.taps_x; ++t)
+            acc[k] += static_cast<uint32_t>(c[t * a.max_phases]) *
+                      static_cast<uint32_t>(base[k][t]);
+        }
+      }
+    }
+    epilogue<kWrap16, kTW, kRelaxed, 16>(a, crec, acc, l, cols, out);
   }
 }
 
@@ -475,8 +614,9 @@ __device__ __forceinline__ void x_pass(const TiledArgs& a, const uint16_t* work,
 // [lo, width, phases, border], xs[TW], ph[TW], xdiv[TW], then
 // cxu[taps_x][max_phases] (int32), or with kRelaxed `planes` planes of
 // float32 bits [taps_x][max_phases].
-template <bool kWrap16, bool kS8Y, int kTW, bool kRelaxed, bool kCarry>
-__global__ void __launch_bounds__(kThreads) resize_tiled_kernel(TiledArgs a) {
+template <bool kWrap16, bool kS8Y, int kTW, bool kRelaxed, bool kCarry, bool kWindow>
+__device__ __forceinline__ void tiled_block(const TiledArgs& a) {
+  static_assert(!(kRelaxed && kWindow), "the relaxed form sums per tap");
   // [k_rows or slots][pitch] u8 band | [16][work_pitch] u16 work | column
   // record | row record (two with kCarry)
   extern __shared__ __align__(16) uint8_t smem[];
@@ -510,8 +650,10 @@ __global__ void __launch_bounds__(kThreads) resize_tiled_kernel(TiledArgs a) {
   __syncthreads();
 
   // 3-5. per row tile: Y pass, (relaxed) edge fill, X pass and epilogue of
-  // row tid / 16, outputs (tid % 16) + 16 k
-  const int r = tid >> 4, l = tid & 15;
+  // row r, outputs l + 16 k or, in the window form, l (TW / 16) + k: there
+  // warp w takes rows 4 (w / 2) .. + 3, 8 threads each (5b)
+  const int r = kWindow ? 4 * (tid >> 6) + ((tid >> 3) & 3) : tid >> 4;
+  const int l = kWindow ? 8 * ((tid >> 5) & 1) + (tid & 7) : tid & 15;
   const int c0 = blockIdx.x * kTW;
   const int cols = min(kTW, a.dst_w - c0);
   uint8_t* out = a.dst + static_cast<long long>(blockIdx.z) * a.dst_h * a.dst_w + c0;
@@ -523,8 +665,8 @@ __global__ void __launch_bounds__(kThreads) resize_tiled_kernel(TiledArgs a) {
     }
     const int row = t0 * kRows + r;
     if (row >= a.dst_h) return;
-    x_pass<kWrap16, kTW, kRelaxed>(a, work, crec, mis, r, l, cols,
-                                   out + static_cast<long long>(row) * a.dst_w);
+    x_pass<kWrap16, kTW, kRelaxed, kWindow>(a, work, crec, mis, r, l, cols,
+                                            out + static_cast<long long>(row) * a.dst_w);
   } else {
     // tile t + 1's rows and tile t + 2's, read ahead of the step that
     // copies them
@@ -557,8 +699,8 @@ __global__ void __launch_bounds__(kThreads) resize_tiled_kernel(TiledArgs a) {
       }
       const int row = t * kRows + r;
       if (row < a.dst_h)
-        x_pass<kWrap16, kTW, kRelaxed>(a, work, crec, mis, r, l, cols,
-                                       out + static_cast<long long>(row) * a.dst_w);
+        x_pass<kWrap16, kTW, kRelaxed, kWindow>(a, work, crec, mis, r, l, cols,
+                                                out + static_cast<long long>(row) * a.dst_w);
       cp_async_wait_all();
       __syncthreads();     // tile t + 1's rows landed; the work tile is free
       hi = nhi;
@@ -568,15 +710,37 @@ __global__ void __launch_bounds__(kThreads) resize_tiled_kernel(TiledArgs a) {
   }
 }
 
+// The per-tap instantiations, ptxas free in its registers.
+template <bool kWrap16, bool kS8Y, int kTW, bool kRelaxed, bool kCarry>
+__global__ void __launch_bounds__(kThreads) resize_tiled_kernel(TiledArgs a) {
+  tiled_block<kWrap16, kS8Y, kTW, kRelaxed, kCarry, false>(a);
+}
+
+// The X window's instantiations (exact forms), held to the registers of
+// kWindowBlocks resident blocks an SM, as many as the shared memory of the
+// main plans allows: 5 in the tiled form (Lanczos3 4K -> 1080p: 41 KB a
+// block; at 6, ptxas spills the s8 Y pass of the narrower widths), 4 in the
+// carry form (its ring: 55 KB).  Free, ptxas takes 64 registers: 4 blocks.
+template <bool kCarry>
+constexpr int kWindowBlocks = kCarry ? 4 : 5;
+
+template <bool kWrap16, bool kS8Y, int kTW, bool kCarry>
+__global__ void __launch_bounds__(kThreads, kWindowBlocks<kCarry>)
+    resize_tiled_window_kernel(TiledArgs a) {
+  tiled_block<kWrap16, kS8Y, kTW, false, kCarry, true>(a);
+}
+
 using Kernel = decltype(&resize_tiled_kernel<true, true, 128, false, false>);
 
-// One form of the kernel (exact, relaxed, carry, relaxed carry): its twelve
-// instantiations <kWrap16, kS8Y, TW>, their shared-memory limit and the
-// launch geometry of one frame (configure: the instantiation for (wrap16,
-// s8y, tw), its grid with gridDim.z left to the launch, and its dynamic
-// shared memory; cudaErrorInvalidValue for a width not in kWidths).  The
-// two members are defined out of the class, so not inline: each form is
-// instantiated in its own translation unit and nowhere else.
+// One form of the kernel (exact, relaxed, carry, relaxed carry): its
+// instantiations <kWrap16, kS8Y, TW, kWindow> (twelve per-tap ones, and in
+// the exact forms twelve of the X window besides), their shared-memory
+// limit and the launch geometry of one frame (configure: the instantiation
+// for (wrap16, s8y, tw) and a.x_step, its grid with gridDim.z left to the
+// launch, and its dynamic shared memory; cudaErrorInvalidValue for a width
+// not in kWidths, or a window asked of a relaxed form).  The two members
+// are defined out of the class, so not inline: each form is instantiated in
+// its own translation unit and nowhere else.
 template <bool kRelaxed, bool kCarry>
 struct Form {
   static int set_max_smem(int bytes);
@@ -589,31 +753,49 @@ struct Form {
 // of a template a process-wide unique symbol, so a second build of this
 // library loaded into the same process (tools/tiled_ablate.py loads
 // several) would launch the first one's kernels.
-template <bool kRelaxed, bool kCarry, int kTW>
+template <bool kRelaxed, bool kCarry, int kTW, bool kWindow>
 Kernel pick_w(int wrap16, int s8y) {
-  if (wrap16)
-    return s8y ? &resize_tiled_kernel<true, true, kTW, kRelaxed, kCarry>
-               : &resize_tiled_kernel<true, false, kTW, kRelaxed, kCarry>;
-  return s8y ? &resize_tiled_kernel<false, true, kTW, kRelaxed, kCarry>
-             : &resize_tiled_kernel<false, false, kTW, kRelaxed, kCarry>;
+  if constexpr (kWindow) {
+    if (wrap16)
+      return s8y ? &resize_tiled_window_kernel<true, true, kTW, kCarry>
+                 : &resize_tiled_window_kernel<true, false, kTW, kCarry>;
+    return s8y ? &resize_tiled_window_kernel<false, true, kTW, kCarry>
+               : &resize_tiled_window_kernel<false, false, kTW, kCarry>;
+  } else {
+    if (wrap16)
+      return s8y ? &resize_tiled_kernel<true, true, kTW, kRelaxed, kCarry>
+                 : &resize_tiled_kernel<true, false, kTW, kRelaxed, kCarry>;
+    return s8y ? &resize_tiled_kernel<false, true, kTW, kRelaxed, kCarry>
+               : &resize_tiled_kernel<false, false, kTW, kRelaxed, kCarry>;
+  }
+}
+
+template <bool kRelaxed, bool kCarry, bool kWindow>
+Kernel pick_tw(int wrap16, int s8y, int tw) {
+  switch (tw) {
+    case 128: return pick_w<kRelaxed, kCarry, 128, kWindow>(wrap16, s8y);
+    case 64: return pick_w<kRelaxed, kCarry, 64, kWindow>(wrap16, s8y);
+    case 32: return pick_w<kRelaxed, kCarry, 32, kWindow>(wrap16, s8y);
+    default: return nullptr;
+  }
 }
 
 template <bool kRelaxed, bool kCarry>
-Kernel pick(int wrap16, int s8y, int tw) {
-  switch (tw) {
-    case 128: return pick_w<kRelaxed, kCarry, 128>(wrap16, s8y);
-    case 64: return pick_w<kRelaxed, kCarry, 64>(wrap16, s8y);
-    case 32: return pick_w<kRelaxed, kCarry, 32>(wrap16, s8y);
-    default: return nullptr;
+Kernel pick(int wrap16, int s8y, int tw, bool window) {
+  if constexpr (kRelaxed) {
+    return window ? nullptr : pick_tw<true, kCarry, false>(wrap16, s8y, tw);
+  } else {
+    return window ? pick_tw<false, kCarry, true>(wrap16, s8y, tw)
+                  : pick_tw<false, kCarry, false>(wrap16, s8y, tw);
   }
 }
 
 template <bool kRelaxed, bool kCarry>
 int Form<kRelaxed, kCarry>::set_max_smem(int bytes) {
   for (int tw : kWidths)
-    for (int k = 0; k < 4; ++k) {
+    for (int k = 0; k < (kRelaxed ? 4 : 8); ++k) {
       const cudaError_t rc = cudaFuncSetAttribute(
-          reinterpret_cast<const void*>(pick<kRelaxed, kCarry>(k & 2, k & 1, tw)),
+          reinterpret_cast<const void*>(pick<kRelaxed, kCarry>(k & 2, k & 1, tw, k & 4)),
           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
       if (rc != cudaSuccess) return static_cast<int>(rc);
     }
@@ -623,7 +805,7 @@ int Form<kRelaxed, kCarry>::set_max_smem(int bytes) {
 template <bool kRelaxed, bool kCarry>
 int Form<kRelaxed, kCarry>::configure(int wrap16, int s8y, int tw, const TiledArgs& a,
                                       Kernel* kernel, dim3* grid, int* smem) {
-  *kernel = pick<kRelaxed, kCarry>(wrap16, s8y, tw);
+  *kernel = pick<kRelaxed, kCarry>(wrap16, s8y, tw, a.x_step != 0);
   if (*kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int ring_rows = kCarry ? a.slots : a.k_rows;
   *smem = ring_rows * a.pitch + kRows * a.work_pitch * 2 +

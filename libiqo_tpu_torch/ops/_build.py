@@ -215,16 +215,21 @@ def bind_tiled(lib: ctypes.CDLL) -> ctypes.CDLL:
                                         # work_pitch, max_phases
         i, i,                           # y_bias, out_shift
         i, i, i,                        # planes (relaxed); run, slots (carry)
+        i,                              # x_step (the X pass's window form; 0: per tap)
         p]                              # stream
     lib.iqo_resize_tiled.restype = i
     lib.iqo_resize_tiled_exec_create.argtypes = [
-        i, i, i, i, i, i, i, i, p, i, p, i, i, i, i, i, i, i, i, i, i, i, i, i,
+        i, i, i, i, i, i, i, i, p, i, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i,
         ctypes.POINTER(p)]              # the same but src, dst, frames, strides, stream
     lib.iqo_resize_tiled_exec_create.restype = i
     lib.iqo_tiled_set_max_smem.argtypes = [i]
     lib.iqo_tiled_set_max_smem.restype = i
     lib.iqo_tiled_shape.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i), i]
     lib.iqo_tiled_shape.restype = i
+    lib.iqo_tiled_x_window.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.iqo_tiled_x_window.restype = None
+    lib.iqo_tiled_kernel_info.argtypes = [i, i, i, i, i, i, i, ctypes.POINTER(i)]
+    lib.iqo_tiled_kernel_info.restype = i
     return lib
 
 

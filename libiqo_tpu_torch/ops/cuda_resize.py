@@ -56,7 +56,7 @@ __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "VARIANTS", "CarryLayout",
            "smem_bytes", "supports_plan", "tile_windows", "tiled_carry_layout",
            "tiled_layout", "tiled_ok", "tiled_tables", "tiled_width",
            "variant", "wide_layout", "wide_load_bytes", "wide_tables",
-           "work_rows"]
+           "work_rows", "x_form"]
 
 # Must match kTileRows/kTileCols in csrc/resize_fused.cu (checked at load).
 TILE_ROWS = 16
@@ -74,6 +74,8 @@ RING_ALIGN = 16           # bytes: the ring's row pitch is a multiple
 TILED_WIDTHS = (128, 64, 32)   # output columns per block of the tiled kernel
 TILED_BLOCKS = 264        # blocks a tiled grid aims for: two per SM of 132
 BAND_ALIGN = 128          # bytes: the staged band's row pitch is a multiple
+X_WINDOW = 26             # most work values a thread's X window holds (kXWindow)
+X_STEPS = 3               # largest step between its outputs' first taps (kXSteps)
 # Must match kThreads/kGroupCols in csrc/resize_wide.cu (checked at load).
 WIDE_THREADS = 256        # threads a block of the wide-window kernel
 WIDE_GROUP_COLS = 16      # work columns a Y item: one 16-byte load a tap
@@ -423,13 +425,20 @@ class TiledLayout:
     phase), xdiv (tw), then cxu (taps_x x ``max_phases``, tap-major: the
     tile's distinct X rows), or in the relaxed form ``planes`` such tables
     of float32 bits (the relaxed plane, and the residual plane where the
-    plan has one)."""
+    plan has one).
+
+    The exact X pass takes its window form where ``x_step`` is nonzero
+    (:func:`_x_window`): each thread owns ``tw // 16`` adjacent outputs of
+    one work row, whose first taps lie ``x_step`` apart, and reads the
+    ``x_window`` values from its first output's first tap as 32-bit words;
+    the work tile's pitch is then 36 mod 64 columns and covers every
+    thread's words at any band misalignment."""
     tw: int
     s8y: bool
     k_rows: int             # band rows staged: max rows of a tile, to 32
     pitch: int              # band bytes per row: window + 15, to 128
     margin: int             # work columns left of band column 0
-    work_pitch: int         # work tile columns per row (= 32 mod 64)
+    work_pitch: int         # work tile columns per row (32, or 36 with x_step, mod 64)
     max_phases: int
     rrec: np.ndarray        # (n_row_tiles, rrec_words) int32
     crec: np.ndarray        # (n_col_tiles, crec_words) int32
@@ -439,6 +448,8 @@ class TiledLayout:
     slots: int = 0          # ring rows of the carry form
     fetch: int = 0          # carry: source rows a column tile fetches
     band: int = 0           # ... and without carry
+    x_step: int = 0         # the X window's step between outputs; 0: per tap
+    x_window: int = 0       # ... and its values: x_step (tw // 16 - 1) + taps_x
 
     @property
     def carry(self) -> bool:
@@ -520,6 +531,27 @@ def tiled_layout(plan: ResizePlan, relaxed: bool = False, tw: int | None = None,
     return layout
 
 
+def _x_window(plan: ResizePlan, relaxed: bool, tw: int) -> tuple[int, int]:
+    """(x_step, x_window) of the X pass's window form for a plan at ``tw``,
+    or (0, 0) where it keeps the per-tap form: the window form takes exact
+    plans whose outputs' first taps step by one whole x_step <= X_STEPS
+    inside each thread's ``tw // 16`` outputs (integer downscales, and
+    planes X does not scale) and whose thread window, x_step (tw // 16 -
+    1) + taps values, fits X_WINDOW."""
+    per = tw // TILE_ROWS
+    x = plan.x
+    j = np.arange(x.n_dst)
+    k = j % per
+    d = x.start - x.start[j - k]        # from the thread's first output
+    steps = np.unique(d[k == 1])
+    step = int(steps[0]) if len(steps) else 1
+    window = step * (per - 1) + x.num_coefs
+    if (relaxed or len(steps) > 1 or not 1 <= step <= X_STEPS
+            or (d != step * k).any() or window > X_WINDOW):
+        return 0, 0
+    return step, window
+
+
 def _tiled_layout(plan: ResizePlan, relaxed: bool, tw: int, run: int) -> TiledLayout:
     y, x = plan.y, plan.x
     rwin = tile_windows(y, TILE_ROWS).astype(np.int64)
@@ -583,7 +615,16 @@ def _tiled_layout(plan: ResizePlan, relaxed: bool, tw: int, run: int) -> TiledLa
     pitch = _round_up(int((win[:, 1] - win[:, 0]).max()) + 15, BAND_ALIGN)
     margin = _round_up(max(0, -int(xs.min())), 8)
     need = margin + max(pitch, 15 + max(0, int(xs.max())) + x.num_coefs)
-    work_pitch = _round_up(max(need - 32, 0), 64) + 32
+    x_step, x_window = _x_window(plan, relaxed, tw)
+    skew = 32
+    if x_step:
+        # a thread's words start at its window's first value (at most
+        # margin + 15 + its xs) rounded down to even, and number
+        # (x_window + 2) // 2
+        first = xs.reshape(-1, tw // TILE_ROWS)[:, 0]
+        need = max(need, margin + 15 + max(0, int(first.max())) + x_window + 2)
+        skew = 36
+    work_pitch = _round_up(max(need - skew, 0), 64) + skew
 
     def words(rec):
         rec = np.pad(rec, ((0, 0), (0, -rec.shape[1] % 4)))
@@ -603,7 +644,7 @@ def _tiled_layout(plan: ResizePlan, relaxed: bool, tw: int, run: int) -> TiledLa
                        margin=margin, work_pitch=work_pitch,
                        max_phases=max_phases, rrec=words(rrec),
                        crec=words(crec), relaxed=relaxed, planes=planes,
-                       **carry)
+                       x_step=x_step, x_window=x_window, **carry)
 
 
 def _fits(layout: TiledLayout) -> bool:
@@ -1026,6 +1067,10 @@ def _lib():
         raise RuntimeError(f"tiled kernel rows {rows.value}, widths "
                            f"{tuple(widths[:n])} != host {TILE_ROWS}, "
                            f"{TILED_WIDTHS}")
+    lib.iqo_tiled_x_window(ctypes.byref(rows), ctypes.byref(cols))
+    if (rows.value, cols.value) != (X_WINDOW, X_STEPS):
+        raise RuntimeError(f"tiled X window {rows.value} values, steps to "
+                           f"{cols.value} != host {X_WINDOW}, {X_STEPS}")
     lib.iqo_wide_shape(ctypes.byref(rows), ctypes.byref(cols))
     if (rows.value, cols.value) != (WIDE_THREADS, WIDE_GROUP_COLS):
         raise RuntimeError(f"wide-window kernel {rows.value} threads, "
@@ -1119,7 +1164,7 @@ def entry_args(ops: KernelOperands) -> tuple[str, tuple, tuple]:
             w, dh, dw, k.rrec.data_ptr(), k.rrec.shape[1], k.crec.data_ptr(),
             k.crec.shape[1], k.taps_y, k.taps_x, lay.k_rows, lay.pitch, lay.margin,
             lay.work_pitch, lay.max_phases, y_bias, out_shift, lay.planes, lay.run,
-            lay.slots)
+            lay.slots, lay.x_step)
     if k.wide:
         lay = k.layout
         return "wide", (int(k.wrap16), int(lay.relaxed)), (
@@ -1134,6 +1179,15 @@ def entry_args(ops: KernelOperands) -> tuple[str, tuple, tuple]:
         k.cxd.data_ptr() if k.cxd.numel() else None, k.win.data_ptr(), k.win_max,
         out_shift, k.rwin.data_ptr() if k.carry else None,
         k.iyr.data_ptr() if k.carry else None, k.ring_rows, k.ring_pitch, k.run)
+
+
+def x_form(k) -> str | None:
+    """The X pass that tables ``k`` launch, as the port's counter names it:
+    ``"tiled.x_window"`` or ``"tiled.x_taps"`` for the tiled kernel's
+    (:class:`TiledLayout`), None for another kernel or none."""
+    if k is None or not k.tiled:
+        return None
+    return "tiled.x_window" if k.layout.x_step else "tiled.x_taps"
 
 
 def count_launches(name: str, n: int = 1) -> None:

@@ -22,7 +22,9 @@ belong to the operands, which it keeps alive) and is freed with the
 executable.  Every launch is counted in ``cuda_resize.LAUNCHES`` and
 ``LAUNCHES_BY_VARIANT``; while the port records (:mod:`..tracing`), each
 ctypes launch is also a ``port.launch`` span with its launches by plane,
-and each handle made a ``port.exec_create`` span.  A failed create or
+each tiled launch a count of its X form (``tiled.x_window`` or
+``tiled.x_taps``, :func:`~.cuda_resize.x_form`), and each handle made a
+``port.exec_create`` span.  A failed create or
 launch raises: nothing falls back to another path.  On the CPU an
 executable runs the kernel's plain version, ``cuda_resize.resize_plain``.
 """
@@ -74,6 +76,7 @@ class Executable:
         self.device = ops.device
         self.index = ops.device.index if ops.device.type == "cuda" else -1
         self.variant = None if ops.tables is None else cuda_resize.variant(ops.tables)
+        self.x_form = cuda_resize.x_form(ops.tables)
         self.src_shape = tuple(ops.plain.src_shape)
         self.dst_shape = tuple(ops.plain.dst_shape)
         self._handle = None
@@ -153,6 +156,8 @@ class Executable:
         if rc != 0:
             raise RuntimeError(f"{self.variant} launch failed: {_error(self._lib, rc)}")
         cuda_resize.count_launches(self.variant)
+        if rec is not None and self.x_form:
+            rec.count(self.x_form)
         return out
 
 
@@ -203,4 +208,9 @@ def launch_frame(luma: Executable, chroma: Executable, y: torch.Tensor,
                            f"failed: {_error(lib, -rc)}")
     cuda_resize.count_launches(luma.variant)
     cuda_resize.count_launches(chroma.variant, rc - 1)
+    if rec is not None:
+        if luma.x_form:
+            rec.count(luma.x_form)
+        if chroma.x_form:
+            rec.count(chroma.x_form, rc - 1)
     return (oy, *ouv.unbind(0)) if lone else (oy, ouv[:n], ouv[n:])

@@ -7,8 +7,9 @@ Each variant is the kernel source with text substitutions (:data:`VARIANTS`),
 applied to every form:
 
 * ``kernel``: the source as it is, held byte-equal to the plain path;
-* ``no_x``, ``no_y``, ``no_xy``: the X pass's tap loop, the Y pass's (the s8
-  dot's K loop and the IMAD taps), or both, run zero times;
+* ``no_x``, ``no_y``, ``no_xy``: the X pass's tap loops (per tap and in the
+  window form), the Y pass's (the s8 dot's K loop and the IMAD taps), or
+  both, run zero times;
 * ``no_band``: the band is not staged, nor the carry form's fresh rows (the
   passes read whatever shared memory holds);
 * ``no_store``: the outputs are computed and not written;
@@ -29,7 +30,10 @@ variant's header beside copies of the four ``resize_tiled*.cu`` sources; one
 host queues, min over 5 repeats of back-to-back calls on > 64 MB of distinct
 inputs, and each variant timed twice in the order kernel, variants, variants
 reversed, kernel (min of its two).  Prints one line per plane with the
-card's name and power limit.  Raises without a card.
+card's name and power limit, after a line with what the card makes of the
+plane's instantiation (``iqo_tiled_kernel_info``: registers and local
+memory a thread, resident blocks an SM at the plane's shared memory).
+Raises without a card.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from ..experiments import _harness
 from ..ops import _build, cuda_resize
 from . import _ablate
 
-__all__ = ["PLANES", "VARIANTS", "main", "variant_source"]
+__all__ = ["PLANES", "VARIANTS", "kernel_info", "main", "variant_source"]
 
 SOURCE = _build.CSRC / "resize_tiled.cuh"
 # the translation units that include it: the exact form and the C entry
@@ -54,14 +58,24 @@ SOURCE = _build.CSRC / "resize_tiled.cuh"
 UNITS = ("resize_tiled.cu", "resize_tiled_relaxed.cu", "resize_tiled_carry.cu",
          "resize_tiled_relaxed_carry.cu")
 _X_LOOP = "for (int t = 0; t < a.taps_x; ++t)"
-# the X tap loop's one-phase and per-output forms, integer and float32
-_COUNTS = {_X_LOOP: 4}
-_NO_X = [(_X_LOOP, "for (int t = 0; t < 0; ++t)")]
+_X_WINDOW_LOOP = "for (int t = 0; t < kTaps; ++t)"
+# the per-tap X loop's one-phase and per-output forms, integer and float32,
+# and the window form's one-phase and per-phase loops
+_COUNTS = {_X_LOOP: 4, _X_WINDOW_LOOP: 2}
+_NO_X = [(_X_LOOP, "for (int t = 0; t < 0; ++t)"),
+         (_X_WINDOW_LOOP, "for (int t = 0; t < 0; ++t)")]
 _NO_Y = [("for (int kb = 0; kb < a.k_rows; kb += 32)", "for (int kb = 0; kb < 0; kb += 32)"),
          ("for (int t = 0; t < a.taps_y; ++t)", "for (int t = 0; t < 0; ++t)")]
-_NO_STORE = [("out[j] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));",
-              "if (v == 0x7FFFFFFF) out[j] = 0;")]
-_BOUNDS = "__global__ void __launch_bounds__(kThreads) resize_tiled_kernel"
+# the epilogue's clamp, its one wide store's guard and its byte stores
+_NO_STORE = [("b[k] = static_cast<uint32_t>(v < 0 ? 0 : (v > 255 ? 255 : v));",
+              "b[k] = static_cast<uint32_t>(v);"),
+             ("if (j0 + kPer <= cols && (reinterpret_cast<uintptr_t>(p) & (kPer - 1)) == 0) {",
+              "if (j0 + kPer <= cols && b[0] == 0x7FFFFFFFu) {"),
+             ("if (j0 + kStride * k < cols) out[j0 + kStride * k] = static_cast<uint8_t>(b[k]);",
+              "if (b[k] == 0x7FFFFFFFu) out[j0] = 0;")]
+# the per-tap and the window instantiations' register bounds
+_BOUNDS = ("__launch_bounds__(kThreads) resize_tiled_kernel",
+           "__launch_bounds__(kThreads, kWindowBlocks<kCarry>)")
 # variant: [(text, replacement)], each text found in the source
 VARIANTS = {
     "kernel": [],
@@ -72,13 +86,23 @@ VARIANTS = {
                  "for (int e = threadIdx.x; e < 0; e += kThreads)")],
     "no_store": _NO_STORE,
     "band_only": _NO_X + _NO_Y + _NO_STORE,
-    "regs40": [(_BOUNDS, _BOUNDS.replace("(kThreads)", "(kThreads, 6)"))],
-    "regs32": [(_BOUNDS, _BOUNDS.replace("(kThreads)", "(kThreads, 8)"))],
+    "regs40": [(_BOUNDS[0], "__launch_bounds__(kThreads, 6) resize_tiled_kernel"),
+               (_BOUNDS[1], "__launch_bounds__(kThreads, 6)")],
+    "regs32": [(_BOUNDS[0], "__launch_bounds__(kThreads, 8) resize_tiled_kernel"),
+               (_BOUNDS[1], "__launch_bounds__(kThreads, 8)")],
 }
 # (name, algorithm, kwargs, src_w, src_h, dst_w, dst_h, batch, form): the
-# main paths' planes (U and V as one batch-of-2 call), the IMAD Y pass's,
-# and the relaxed and carry forms on the planes that take them
+# benchmark cells' launches (each plane of a batch of 16 or 64 frames is one
+# launch), the main paths' lone-frame planes (U and V as one batch-of-2
+# call), the IMAD Y pass's, and the relaxed and carry forms on the planes
+# that take them
 PLANES = (
+    ("lanczos3 4K->1080p luma", "lanczos", dict(degree=3), 3840, 2160, 1920, 1080, 16,
+     "exact"),
+    ("lanczos3 4K->1080p px2 chroma", "lanczos", dict(degree=3, px_scale=2),
+     1920, 1080, 960, 540, 16, "exact"),
+    ("area 1080p->360p luma", "area", {}, 1920, 1080, 640, 360, 64, "exact"),
+    ("area 1080p->360p chroma", "area", {}, 960, 540, 320, 180, 64, "exact"),
     ("lanczos3 4K->1080p luma", "lanczos", dict(degree=3), 3840, 2160, 1920, 1080, 1,
      "exact"),
     ("lanczos3 4K->1080p px2 chroma", "lanczos", dict(degree=3, px_scale=2),
@@ -99,8 +123,8 @@ PLANES = (
 def variant_source(name: str, source: str | None = None) -> str:
     """The kernel source with variant ``name``'s substitutions; raises
     ValueError if one of its texts is not in the source as often as
-    expected (once; the X tap loop four times, in its one-phase and
-    per-output forms, integer and relaxed)."""
+    expected (once; the per-tap X loop four times, in its one-phase and
+    per-output forms, integer and relaxed, and the window form's twice)."""
     return _ablate.variant_source(VARIANTS, SOURCE, name, source, _COUNTS)
 
 
@@ -123,11 +147,26 @@ def _launch(lib, ops, src: torch.Tensor) -> torch.Tensor:
         w, dh, dw, k.rrec.data_ptr(), k.rrec.shape[1], k.crec.data_ptr(),
         k.crec.shape[1], k.taps_y, k.taps_x, lay.k_rows, lay.pitch, lay.margin,
         lay.work_pitch, lay.max_phases, ops.plain.y_bias, ops.plain.out_shift,
-        lay.planes, lay.run, lay.slots,
+        lay.planes, lay.run, lay.slots, lay.x_step,
         torch.cuda.current_stream(src.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch failed ({rc})")
     return out
+
+
+def kernel_info(lib, ops) -> str:
+    """What the card makes of the instantiation that ``ops``' tiled tables
+    launch, at their shared memory: registers and local memory bytes a
+    thread (spills show there), resident blocks an SM; and its X form."""
+    k, lay = ops.tables, ops.tables.layout
+    info = (ctypes.c_int * 3)()
+    rc = lib.iqo_tiled_kernel_info(int(k.wrap16), int(lay.s8y), lay.tw, int(lay.relaxed),
+                                   int(lay.carry), lay.x_step, lay.smem, info)
+    if rc != 0:
+        raise RuntimeError(f"kernel info refused (cudaError_t {rc})")
+    form = f"window of {lay.x_window} at step {lay.x_step}" if lay.x_step else "per tap"
+    return (f"{info[0]} registers, {info[1]} local bytes a thread, {info[2]} blocks an SM "
+            f"at {lay.smem} bytes of shared memory; X {form}")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -146,6 +185,7 @@ def main(argv: list[str] | None = None) -> int:
         if not ops.tables.tiled or ops.tables.carry != (form == "carry"):
             raise RuntimeError(f"{tag}: the tiled kernel's {form} form refuses")
         tag = f"{tag} [{cuda_resize.variant(ops.tables)}]"
+        print(f"{tag} ({batch}, {sh}, {sw}): {kernel_info(libs['kernel'], ops)}")
         x = torch.from_numpy(rng.integers(0, 256, (batch, sh, sw), np.uint8)).cuda()
         if not torch.equal(_launch(libs["kernel"], ops, x),
                            cuda_resize.resize_plain(ops, x)):

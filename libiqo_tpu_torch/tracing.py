@@ -37,7 +37,9 @@ Spans (name: where, what):
 
 Counters: ``exec_cache.hit`` and ``exec_cache.miss``
 (``api._ExecutableCache.get``), ``exec.create`` (``Executable._create``),
-``library.build`` (``_build.load`` when it runs nvcc).
+``library.build`` (``_build.load`` when it runs nvcc), ``tiled.x_window``
+and ``tiled.x_taps`` (the tiled kernel's launches by the form of their X
+pass, where ``ops/executable.py`` counts its launches).
 
 One recording at a time, for the process; threads that issue while it is
 open share its call numbers.

@@ -8,11 +8,12 @@ staged band at an arbitrary misalignment, with uninitialised shared memory
 filled with noise; the Y pass as the merged s8 matrix against the band
 rebased by ``^ 0x80`` plus the correction ``128 * sum cy``, or as the
 IMAD taps; the 16-bit work tile; the X pass from each output's unclamped
-first tap and its phase's coefficients; the epilogue.  The model is held
-to ``numpy_ref`` on the kernel-host test's plans and a seeded fuzz of all
-three algorithms, and to the JAX package's Pallas kernel in interpret mode
-on small plans.  Tests marked ``cuda`` run the kernel and skip without a
-card.
+first tap and its phase's coefficients, per tap or, in the window form,
+from each thread's 32-bit words of the work row; the epilogue.  The model
+is held to ``numpy_ref`` on the kernel-host test's plans and a seeded fuzz
+of all three algorithms, and to the JAX package's Pallas kernel in
+interpret mode on small plans.  Tests marked ``cuda`` run the kernel and
+skip without a card.
 """
 
 import inspect
@@ -48,6 +49,44 @@ def _swz(r, c, pitch):
     return r * pitch + ((((c >> 4) ^ (((r >> 2) & 3) << 1))) << 4) + (c & 15)
 
 
+def _x_sums(plan, lay, work, cr, tx, mis, rows, ncol):
+    """The exact X pass's uint32 sums (rows, ncol) of one tile from the
+    16-bit work tile ``work`` and column record ``cr``, as the kernel reads
+    them: per tap, each output's taps at its own unclamped first tap; in
+    the window form, each thread's ``(x_window + 2) // 2`` words from its
+    first value rounded down to even (held inside the work row), its
+    outputs' taps ``x_step`` apart in them."""
+    tw, ml, wp = lay.tw, lay.margin, lay.work_pitch
+    nu = int(cr[2])
+    xs = cr[HEAD:HEAD + tw].astype(np.int64)
+    ph = cr[HEAD + tw:HEAD + 2 * tw]
+    cxu = cr[HEAD + 3 * tw:HEAD + 3 * tw + tx * lay.max_phases]
+    cxu = cxu.reshape(tx, lay.max_phases).astype(np.int64)
+    wv = _wrap16(work) if plan.wrap16 else work
+    if not lay.x_step:
+        idx = ml + mis + xs[:ncol, None] + np.arange(tx)     # (ncol, tx)
+        assert idx.min() >= 0 and idx.max() < wp
+        c = cxu[:, ph[:ncol] if nu > 1 else np.zeros(ncol, np.int64)].T
+        return (wv[:rows][:, idx] * c).sum(axis=2) & 0xFFFFFFFF
+    per, nw = tw // TH, (lay.x_window + 2) // 2
+    s0 = ml + mis + xs[::per]                             # each thread's first value
+    w0 = s0 >> 1
+    assert w0.min() >= 0 and (w0 + nw).max() <= wp // 2   # its words lie in the row
+    words = work[:rows, 0::2] | (work[:rows, 1::2] << 16)
+    win = words[:, w0[:, None] + np.arange(nw)]            # (rows, 16, nw)
+    vals = np.stack([win & 0xFFFF, win >> 16], axis=-1).reshape(rows, TH, 2 * nw)
+    if plan.wrap16:
+        vals = _wrap16(vals)
+    q = ((s0 & 1)[:, None, None] + lay.x_step * np.arange(per)[:, None]
+         + np.arange(tx))                                  # (16, per, tx)
+    assert q.max() < 2 * nw
+    taps = vals[:, np.arange(TH)[:, None, None], q]        # (rows, 16, per, tx)
+    pj = ph.reshape(TH, per) if nu > 1 else np.zeros((TH, per), np.int64)
+    c = cxu[:, pj].transpose(1, 2, 0)                      # (16, per, tx)
+    s = (taps * c).sum(axis=3).reshape(rows, tw)
+    return s[:, :ncol] & 0xFFFFFFFF
+
+
 def _tiled_model(plan, k: cuda_resize.TiledTables, src, mis_of, noise):
     """What resize_tiled.cu computes for one frame; ``mis_of(rt, ct)`` is
     the band's misalignment (the source address's low 4 bits) and
@@ -56,7 +95,7 @@ def _tiled_model(plan, k: cuda_resize.TiledTables, src, mis_of, noise):
     rrec, crec = k.rrec.numpy(), k.crec.numpy()
     tw, pitch, kr, wp, ml = (lay.tw, lay.pitch, lay.k_rows, lay.work_pitch,
                              lay.margin)
-    ty, tx, nu_max = k.taps_y, k.taps_x, lay.max_phases
+    ty, tx = k.taps_y, k.taps_x
     dst_h, dst_w = plan.y.n_dst, plan.x.n_dst
     src_h, src_w = src.shape
     half = 1 << (plan.out_shift - 1)
@@ -67,7 +106,7 @@ def _tiled_model(plan, k: cuda_resize.TiledTables, src, mis_of, noise):
         ydiv = rr[HEAD + TH:HEAD + 2 * TH].astype(np.int64)
         ytab = rr[HEAD + 2 * TH:]
         for ct, cr in enumerate(crec):
-            lo, width, nu = int(cr[0]), int(cr[1]), int(cr[2])
+            lo, width = int(cr[0]), int(cr[1])
             mis = mis_of(rt, ct)
             # the band: byte columns [0, mis + width) are source columns
             # lo - mis + c where they lie in the row; the rest is noise
@@ -104,22 +143,13 @@ def _tiled_model(plan, k: cuda_resize.TiledTables, src, mis_of, noise):
                 d = ydiv != 0
                 w[d] = _wrap16(trunc_div(w[d] * plan.y.bias, ydiv[d, None]))
                 work[:, ml:ml + ncols] = w & 0xFFFF
-                wv = _wrap16(work)
             else:
                 assert acc[:, mis:mis + width].max(initial=0) <= 65280
                 work[:, ml:ml + ncols] = acc & 0xFFFF
-                wv = work
-            xs = cr[HEAD:HEAD + tw].astype(np.int64)
-            ph = cr[HEAD + tw:HEAD + 2 * tw]
             xdiv = cr[HEAD + 2 * tw:HEAD + 3 * tw].astype(np.int64)
-            cxu = cr[HEAD + 3 * tw:HEAD + 3 * tw + tx * nu_max]
-            cxu = cxu.reshape(tx, nu_max).astype(np.int64)
             r0, c0 = rt * TH, ct * tw
             rows, ncol = min(TH, dst_h - r0), min(tw, dst_w - c0)
-            idx = ml + mis + xs[:ncol, None] + np.arange(tx)     # (ncol, tx)
-            assert idx.min() >= 0 and idx.max() < wp
-            c = (cxu[:, :1] if nu == 1 else cxu[:, ph[:ncol]]).T
-            s = (wv[:rows][:, idx] * c).sum(axis=2) & 0xFFFFFFFF
+            s = _x_sums(plan, lay, work, cr, tx, mis, rows, ncol)
             s = (s + half) & 0xFFFFFFFF
             if plan.wrap16:
                 si = s - ((s & 0x80000000) << 1)
@@ -346,9 +376,88 @@ def test_tiled_records_are_int32_words():
     for rec in (lay.rrec, lay.crec):
         assert rec.dtype == np.int32 and rec.shape[1] % 4 == 0
     assert lay.pitch % cuda_resize.BAND_ALIGN == 0
-    assert lay.work_pitch % 64 == 32 and lay.margin % 8 == 0
+    # the window form's pitch (its X pass takes the luma plane)
+    assert lay.x_step == 2 and lay.work_pitch % 64 == 36 and lay.margin % 8 == 0
     assert lay.k_rows % 32 == 0
     assert lay.smem <= cuda_resize.SMEM_BUDGET
+
+
+def _steps(plan, tw):
+    """The steps between the first taps of a thread's adjacent outputs
+    (``tw // 16`` a thread), over every thread of the plan."""
+    per, start = tw // TH, plan.x.start.astype(np.int64)
+    return {int(start[j + 1] - start[j]) for j in range(plan.x.n_dst - 1)
+            if (j + 1) % per}
+
+
+WINDOW_PLANS = {**MAIN_PLANS, **U16_PLANS, **{
+    f"fuzz{i}": dict(algorithm=a, **kw, src_w=sw, src_h=sh, dst_w=dw, dst_h=dh)
+    for i, (a, kw, sw, sh, dw, dh) in enumerate(_fuzz_plans(24, 20261017))}}
+
+
+@pytest.mark.parametrize("name", sorted(WINDOW_PLANS))
+def test_x_window_covers_taps_and_stays_in_the_row(name):
+    """The X pass takes its window form exactly where every thread's
+    outputs start one whole step apart, a step of at most X_STEPS, and the
+    window fits X_WINDOW; there each thread's window holds its outputs'
+    taps and its word loads stay inside the work-tile row at every band
+    misalignment."""
+    plan = build_plan(**WINDOW_PLANS[name])
+    lay = cuda_resize.tiled_layout(plan)
+    per, tx = lay.tw // TH, plan.x.num_coefs
+    steps = _steps(plan, lay.tw)
+    step = steps.pop() if len(steps) == 1 else 0
+    window = step * (per - 1) + tx
+    takes = (not steps and 1 <= step <= cuda_resize.X_STEPS
+             and window <= cuda_resize.X_WINDOW)
+    assert (lay.x_step, lay.x_window) == ((step, window) if takes else (0, 0))
+    if not takes:
+        assert lay.work_pitch % 64 == 32
+        return
+    assert lay.work_pitch % 64 == 36
+    nw = (window + 2) // 2
+    xs = lay.crec[:, HEAD:HEAD + lay.tw].astype(np.int64)
+    for ct in range(len(xs)):
+        cols = min(lay.tw, plan.x.n_dst - ct * lay.tw)
+        for j0 in range(0, lay.tw, per):
+            for mis in range(16):
+                s0 = lay.margin + mis + xs[ct, j0]
+                assert 0 <= s0 >> 1 and (s0 >> 1) + nw <= lay.work_pitch // 2
+                j = np.arange(j0, min(j0 + per, cols))
+                first = lay.margin + mis + xs[ct, j]
+                assert (first >= s0).all() and (first + tx <= s0 + window).all()
+
+
+@pytest.mark.parametrize("kw, tw", [
+    (dict(algorithm="lanczos", src_w=7680, src_h=4320, dst_w=960, dst_h=540, degree=3),
+     64),                                                   # 8:1, 48 taps: 72 values
+    (dict(algorithm="lanczos", src_w=512, src_h=64, dst_w=64, dst_h=8, degree=3), 32),
+    (U16_PLANS["linear4k_luma"], 128),                      # steps of 0 and 1
+], ids=["8k_to_960x540", "lanczos_8to1", "linear_up"])
+def test_plans_past_the_window_keep_the_per_tap_form(kw, tw):
+    plan = build_plan(**kw)
+    lay = cuda_resize.tiled_layout(plan)
+    assert lay.tw == tw and (lay.x_step, lay.x_window) == (0, 0)
+    assert lay.work_pitch % 64 == 32
+
+
+def test_x_window_of_the_main_planes_and_the_relaxed_form():
+    """The benchmark cells' planes take the window (Lanczos3 4K -> 1080p
+    luma 26 values, its px2 chroma 18, Area 1080p -> 360p 6, Area 2:1 16);
+    the relaxed form never does."""
+    windows = {name: cuda_resize.tiled_layout(build_plan(**kw)).x_window
+               for name, kw in {**MAIN_PLANS, **U16_PLANS}.items()}
+    assert windows == {"luma": 26, "chroma": 18, "area360p_luma": 6, "area360p_chroma": 6,
+                       "area1080p": 16, "linear4k_luma": 0, "linear4k_chroma": 0}
+    for kw in MAIN_PLANS.values():
+        lay = cuda_resize.tiled_layout(build_plan(**kw), relaxed=True)
+        assert lay.x_step == 0 and lay.work_pitch % 64 == 32
+    assert cuda_resize.x_form(cuda_resize.kernel_tables(build_plan(**MAIN_PLANS["luma"]))
+                              ) == "tiled.x_window"
+    assert cuda_resize.x_form(cuda_resize.kernel_tables(
+        build_plan(**MAIN_PLANS["luma"]), relaxed=True)) == "tiled.x_taps"
+    assert cuda_resize.x_form(cuda_resize.kernel_tables(
+        build_plan(**MAIN_PLANS["luma"]), tiled=False)) is None
 
 
 @pytest.mark.parametrize("name", sorted(tiled_ablate.VARIANTS))

@@ -37,7 +37,8 @@ from libiqo_tpu_torch.golden import numpy_ref
 from libiqo_tpu_torch.ops import cuda_resize
 
 from test_torch_kernel_host import cuda_device  # noqa: F401
-from test_torch_tiled import HEAD, TH, _fuzz_plans, _swz, _tiled_model, _wrap16
+from test_torch_tiled import (HEAD, TH, _fuzz_plans, _swz, _tiled_model, _wrap16,
+                              _x_sums)
 
 JAX_LSB = 2          # against the JAX package's relaxed kernel (interpret mode)
 BF16_SPECIALS = np.array([0x7F80, 0xFF80, 0x7FC0, 0xFFC1, 0x7F81], np.uint16)
@@ -185,9 +186,7 @@ def _form_model(plan, k: cuda_resize.TiledTables, src, mis_of, rng):
                         s += f.astype(np.int32)
                     s = (s + half) & 0xFFFFFFFF
                 else:
-                    wv = _wrap16(work) if plan.wrap16 else work
-                    c = tab.reshape(tx, nu_max).astype(np.int64)[:, pj].T
-                    s = (wv[:rows][:, idx] * c).sum(axis=2) & 0xFFFFFFFF
+                    s = _x_sums(plan, lay, work, cr, tx, mis, rows, ncol)
                     s = (s + half) & 0xFFFFFFFF
                 if plan.wrap16 or lay.relaxed:
                     si = s - ((s & 0x80000000) << 1)

@@ -6,6 +6,7 @@ planes and a warm window's creates and builds."""
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 
 import numpy as np
@@ -161,6 +162,61 @@ def test_recorded_spans_leave_nothing_to_collect():
     assert rec.launch_planes().sum(axis=0).tolist() == [20_000, 40_000]
 
 
+class _OnCard(torch.Tensor):
+    """A CPU tensor that an executable takes for one on a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+class _Launches:
+    """The C launches of ``ops/executable.py``, done by nothing: a frame
+    call reports one luma launch and two chroma ones (one for a lone
+    frame)."""
+
+    def iqo_exec_launch(self, *args):
+        return 0
+
+    def iqo_exec_launch_frame(self, hl, hc, n, *args):
+        return 3 if n > 1 else 2
+
+
+def _on_card_executable(plan):
+    """A CPU executable of ``plan`` with the tiled kernel's tables, whose
+    launches go to :class:`_Launches`."""
+    from libiqo_tpu_torch.ops import cuda_resize, executable
+    ops = cuda_resize.pack_operands(plan)
+    ex = executable.Executable(dataclasses.replace(ops, tables=cuda_resize.kernel_tables(plan)))
+    ex._handle, ex._lib = 1, _Launches()
+    return ex
+
+
+def test_x_form_counters_count_launches_by_form(monkeypatch):
+    """``tiled.x_window`` and ``tiled.x_taps`` count the tiled kernel's
+    launches by the form of their X pass, where the executables count
+    their launches, and only while a recording is open."""
+    from libiqo_tpu_torch.ops import cuda_resize, executable
+    monkeypatch.setattr(executable, "_stream", lambda index: 0)
+    window = _on_card_executable(build_plan("lanczos", 128, 96, 64, 48, degree=3))
+    taps = _on_card_executable(build_plan("lanczos", 512, 64, 64, 8, degree=3))   # 8:1
+    assert (window.x_form, taps.x_form) == ("tiled.x_window", "tiled.x_taps")
+
+    def on_card(*shape):
+        return torch.zeros(shape, dtype=torch.uint8).as_subclass(_OnCard)
+    y, u = on_card(4, 96, 128), on_card(4, 64, 512)
+    cuda_resize.reset_launches()
+    with tracing.record() as rec:
+        executable.launch_frame(window, taps, y, u, u)          # 1 luma, 2 chroma launches
+        executable.launch_frame(taps, window, u[0], y[0], y[0])  # 1, then U and V as one
+        window(y)
+        taps(u[0])
+    assert rec.counters == {"tiled.x_window": 3, "tiled.x_taps": 4}
+    assert cuda_resize.LAUNCHES == 7 == len(rec.spans("port.launch")) + 3
+    executable.launch_frame(window, taps, y, u, u)               # off: nothing kept
+    assert cuda_resize.LAUNCHES == 10 and tracing.RECORDING is None
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -221,6 +277,27 @@ def test_a_launch_that_raises_closes_its_span(card, monkeypatch):
     assert rec.launch_planes().tolist() == [[0, 0], [1, 2]]
     assert rec.spans("port.launch")[:, 2].tolist() == [1, 2]
     assert rec.spans("port.frame_call")[:, 2].tolist() == [1, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method, src, dst, form", [
+    ("lanczos3", (96, 54), (48, 28), "tiled.x_window"),   # 2:1
+    ("area", (96, 54), (32, 18), "tiled.x_window"),       # 3:1
+    ("lanczos3", (768, 64), (96, 8), "tiled.x_taps"),     # 8:1, 48 luma taps
+    ("linear", (48, 28), (96, 54), "tiled.x_taps"),       # upscale: steps of 0 and 1
+], ids=["lanczos2to1", "area3to1", "lanczos8to1", "linear_up"])
+def test_x_form_counters_on_the_card(card, method, src, dst, form):
+    """On the card the tiled launches of a batch and a lone frame (two of
+    luma, three of chroma) are all counted under both planes' X form."""
+    r = YUV420Resizer(method, *src, *dst, device=card)
+    assert [ex.x_form for ex in r._executables(card.index)] == [form, form]
+    r.resize_batch(*planes(4, *src, card))      # the handles made outside the recording
+    with tracing.record() as rec:
+        r.resize_batch(*planes(4, *src, card))
+        r.resize(YUV420Frame(*planes(None, *src, card)))
+    torch.cuda.synchronize()
+    assert rec.counters == {form: 5}
+    assert int(rec.launch_planes().sum()) == 5
 
 
 # the benchmark's two cells: (method, source, output, frames a call)
