@@ -51,12 +51,12 @@ __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "VARIANTS", "CarryLayout",
            "KernelOperands", "KernelTables", "TiledLayout", "TiledTables",
            "WideLayout", "WideTables", "carry_layout", "carry_ok",
            "carry_requested", "count_launches", "entry_args", "kernel_tables",
-           "pack_operands",
+           "launch_form", "pack_operands",
            "relaxed_plane", "reset_launches", "resize_fused", "resize_plain",
            "smem_bytes", "supports_plan", "tile_windows", "tiled_carry_layout",
            "tiled_layout", "tiled_ok", "tiled_tables", "tiled_width",
            "variant", "wide_layout", "wide_load_bytes", "wide_tables",
-           "work_rows", "x_form"]
+           "work_rows"]
 
 # Must match kTileRows/kTileCols in csrc/resize_fused.cu (checked at load).
 TILE_ROWS = 16
@@ -1181,13 +1181,21 @@ def entry_args(ops: KernelOperands) -> tuple[str, tuple, tuple]:
         k.iyr.data_ptr() if k.carry else None, k.ring_rows, k.ring_pitch, k.run)
 
 
-def x_form(k) -> str | None:
-    """The X pass that tables ``k`` launch, as the port's counter names it:
-    ``"tiled.x_window"`` or ``"tiled.x_taps"`` for the tiled kernel's
-    (:class:`TiledLayout`), None for another kernel or none."""
-    if k is None or not k.tiled:
+def launch_form(k) -> str | None:
+    """The form of the launch that tables ``k`` make, as the port's counter
+    names it: the tiled kernel's X pass, ``"tiled.x_window"`` or
+    ``"tiled.x_taps"`` (:class:`TiledLayout`); the wide-window kernel's Y
+    pass, ``"wide.y_whole"`` where each item sums all of an output row's Y
+    taps (``ks`` 1), or ``"wide.y_sliced"`` where ``ks`` slices meet by
+    shared-memory atomics (:class:`WideLayout`); None for the windowed
+    kernel or none."""
+    if k is None:
         return None
-    return "tiled.x_window" if k.layout.x_step else "tiled.x_taps"
+    if k.tiled:
+        return "tiled.x_window" if k.layout.x_step else "tiled.x_taps"
+    if k.wide:
+        return "wide.y_whole" if k.layout.ks == 1 else "wide.y_sliced"
+    return None
 
 
 def count_launches(name: str, n: int = 1) -> None:

@@ -22,8 +22,9 @@ belong to the operands, which it keeps alive) and is freed with the
 executable.  Every launch is counted in ``cuda_resize.LAUNCHES`` and
 ``LAUNCHES_BY_VARIANT``; while the port records (:mod:`..tracing`), each
 ctypes launch is also a ``port.launch`` span with its launches by plane,
-each tiled launch a count of its X form (``tiled.x_window`` or
-``tiled.x_taps``, :func:`~.cuda_resize.x_form`), and each handle made a
+each tiled or wide-window launch a count of its form (``tiled.x_window``,
+``tiled.x_taps``, ``wide.y_whole`` or ``wide.y_sliced``,
+:func:`~.cuda_resize.launch_form`), and each handle made a
 ``port.exec_create`` span.  A failed create or
 launch raises: nothing falls back to another path.  On the CPU an
 executable runs the kernel's plain version, ``cuda_resize.resize_plain``.
@@ -76,7 +77,7 @@ class Executable:
         self.device = ops.device
         self.index = ops.device.index if ops.device.type == "cuda" else -1
         self.variant = None if ops.tables is None else cuda_resize.variant(ops.tables)
-        self.x_form = cuda_resize.x_form(ops.tables)
+        self.form = cuda_resize.launch_form(ops.tables)
         self.src_shape = tuple(ops.plain.src_shape)
         self.dst_shape = tuple(ops.plain.dst_shape)
         self._handle = None
@@ -156,8 +157,8 @@ class Executable:
         if rc != 0:
             raise RuntimeError(f"{self.variant} launch failed: {_error(self._lib, rc)}")
         cuda_resize.count_launches(self.variant)
-        if rec is not None and self.x_form:
-            rec.count(self.x_form)
+        if rec is not None and self.form:
+            rec.count(self.form)
         return out
 
 
@@ -209,8 +210,8 @@ def launch_frame(luma: Executable, chroma: Executable, y: torch.Tensor,
     cuda_resize.count_launches(luma.variant)
     cuda_resize.count_launches(chroma.variant, rc - 1)
     if rec is not None:
-        if luma.x_form:
-            rec.count(luma.x_form)
-        if chroma.x_form:
-            rec.count(chroma.x_form, rc - 1)
+        if luma.form:
+            rec.count(luma.form)
+        if chroma.form:
+            rec.count(chroma.form, rc - 1)
     return (oy, *ouv.unbind(0)) if lone else (oy, ouv[:n], ouv[n:])

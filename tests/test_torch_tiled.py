@@ -452,11 +452,11 @@ def test_x_window_of_the_main_planes_and_the_relaxed_form():
     for kw in MAIN_PLANS.values():
         lay = cuda_resize.tiled_layout(build_plan(**kw), relaxed=True)
         assert lay.x_step == 0 and lay.work_pitch % 64 == 32
-    assert cuda_resize.x_form(cuda_resize.kernel_tables(build_plan(**MAIN_PLANS["luma"]))
-                              ) == "tiled.x_window"
-    assert cuda_resize.x_form(cuda_resize.kernel_tables(
+    assert cuda_resize.launch_form(cuda_resize.kernel_tables(build_plan(**MAIN_PLANS["luma"]))
+                                   ) == "tiled.x_window"
+    assert cuda_resize.launch_form(cuda_resize.kernel_tables(
         build_plan(**MAIN_PLANS["luma"]), relaxed=True)) == "tiled.x_taps"
-    assert cuda_resize.x_form(cuda_resize.kernel_tables(
+    assert cuda_resize.launch_form(cuda_resize.kernel_tables(
         build_plan(**MAIN_PLANS["luma"]), tiled=False)) is None
 
 

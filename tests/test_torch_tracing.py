@@ -192,6 +192,11 @@ def _on_card_executable(plan):
     return ex
 
 
+def _on_card(*shape):
+    """Zero planes of ``shape`` that an executable takes for ones on a card."""
+    return torch.zeros(shape, dtype=torch.uint8).as_subclass(_OnCard)
+
+
 def test_x_form_counters_count_launches_by_form(monkeypatch):
     """``tiled.x_window`` and ``tiled.x_taps`` count the tiled kernel's
     launches by the form of their X pass, where the executables count
@@ -200,11 +205,8 @@ def test_x_form_counters_count_launches_by_form(monkeypatch):
     monkeypatch.setattr(executable, "_stream", lambda index: 0)
     window = _on_card_executable(build_plan("lanczos", 128, 96, 64, 48, degree=3))
     taps = _on_card_executable(build_plan("lanczos", 512, 64, 64, 8, degree=3))   # 8:1
-    assert (window.x_form, taps.x_form) == ("tiled.x_window", "tiled.x_taps")
-
-    def on_card(*shape):
-        return torch.zeros(shape, dtype=torch.uint8).as_subclass(_OnCard)
-    y, u = on_card(4, 96, 128), on_card(4, 64, 512)
+    assert (window.form, taps.form) == ("tiled.x_window", "tiled.x_taps")
+    y, u = _on_card(4, 96, 128), _on_card(4, 64, 512)
     cuda_resize.reset_launches()
     with tracing.record() as rec:
         executable.launch_frame(window, taps, y, u, u)          # 1 luma, 2 chroma launches
@@ -214,6 +216,56 @@ def test_x_form_counters_count_launches_by_form(monkeypatch):
     assert rec.counters == {"tiled.x_window": 3, "tiled.x_taps": 4}
     assert cuda_resize.LAUNCHES == 7 == len(rec.spans("port.launch")) + 3
     executable.launch_frame(window, taps, y, u, u)               # off: nothing kept
+    assert cuda_resize.LAUNCHES == 10 and tracing.RECORDING is None
+
+
+@pytest.mark.parametrize("case, form", [
+    (("lanczos", 960, 540, 64, 36, {}), "wide.y_whole"),       # 15:1, 90 Y taps: ks 1
+    (("lanczos", 3840, 2160, 256, 144, {}), "wide.y_whole"),   # the 144p rung's luma
+    (("lanczos", 1024, 1080, 64, 8, {}), "wide.y_sliced"),     # 810 Y taps
+    (("lanczos", 3840, 2160, 1920, 16, {}), "wide.y_sliced"),  # the 4K strips
+    (("lanczos", 128, 96, 64, 48, {}), "tiled.x_window"),      # 2:1
+    (("lanczos", 1920, 1080, 128, 72, {"px_scale": 2}), "tiled.x_taps"),   # the rung's chroma
+], ids=["wide_whole", "rung_luma", "wide_sliced", "strips", "tiled_window", "rung_chroma"])
+def test_launch_form_names_each_kernels_form(case, form):
+    """One name a form, for both kernels: the wide-window kernel's by its Y
+    slices (``ks``), the tiled kernel's by its X pass; none for the
+    windowed kernel or no tables."""
+    from libiqo_tpu_torch.ops import cuda_resize
+    algo, sw, sh, dw, dh, kw = case
+    plan = build_plan(algo, sw, sh, dw, dh, degree=3, **kw)
+    k = cuda_resize.kernel_tables(plan)
+    assert cuda_resize.launch_form(k) == form
+    if k.wide:
+        assert (k.layout.ks == 1) == (form == "wide.y_whole")
+    assert cuda_resize.launch_form(cuda_resize.kernel_tables(plan, tiled=False, wide=False)) is None
+    assert cuda_resize.launch_form(None) is None
+
+
+def test_wide_form_counters_count_launches(monkeypatch):
+    """The wide-window kernel's launches are counted by Y form at the same
+    sites as the tiled kernel's: a thumbnail frame call counts its luma
+    under ``wide.y_whole`` once and its chroma under ``tiled.x_taps`` as
+    many times as it launches; without a recording nothing is counted."""
+    from libiqo_tpu_torch.ops import cuda_resize, executable
+    monkeypatch.setattr(executable, "_stream", lambda index: 0)
+    luma = _on_card_executable(build_plan("lanczos", 960, 540, 64, 36, degree=3))
+    chroma = _on_card_executable(build_plan("lanczos", 480, 270, 32, 18, degree=3, px_scale=2))
+    sliced = _on_card_executable(build_plan("lanczos", 1024, 1080, 64, 8, degree=3))
+    assert (luma.form, chroma.form, sliced.form) == ("wide.y_whole", "tiled.x_taps",
+                                                     "wide.y_sliced")
+    y, u = _on_card(4, 540, 960), _on_card(4, 270, 480)
+    cuda_resize.reset_launches()
+    with tracing.record() as rec:
+        executable.launch_frame(luma, chroma, y, u, u)               # 1 luma, 2 chroma
+        executable.launch_frame(luma, chroma, y[0], u[0], u[0])      # 1, then U and V as one
+        sliced(_on_card(2, 1080, 1024))
+    assert rec.counters == {"wide.y_whole": 2, "tiled.x_taps": 3, "wide.y_sliced": 1}
+    assert rec.launch_planes().tolist() == [[1, 2], [1, 1], list(tracing.UNKNOWN_PLANE)]
+    assert cuda_resize.LAUNCHES_BY_VARIANT["wrap16_wide"] == 3
+    executable.launch_frame(luma, chroma, y, u, u)                   # off: nothing kept
+    sliced(_on_card(2, 1080, 1024))
+    assert rec.counters == {"wide.y_whole": 2, "tiled.x_taps": 3, "wide.y_sliced": 1}
     assert cuda_resize.LAUNCHES == 10 and tracing.RECORDING is None
 
 
@@ -290,7 +342,7 @@ def test_x_form_counters_on_the_card(card, method, src, dst, form):
     """On the card the tiled launches of a batch and a lone frame (two of
     luma, three of chroma) are all counted under both planes' X form."""
     r = YUV420Resizer(method, *src, *dst, device=card)
-    assert [ex.x_form for ex in r._executables(card.index)] == [form, form]
+    assert [ex.form for ex in r._executables(card.index)] == [form, form]
     r.resize_batch(*planes(4, *src, card))      # the handles made outside the recording
     with tracing.record() as rec:
         r.resize_batch(*planes(4, *src, card))
@@ -298,6 +350,23 @@ def test_x_form_counters_on_the_card(card, method, src, dst, form):
     torch.cuda.synchronize()
     assert rec.counters == {form: 5}
     assert int(rec.launch_planes().sum()) == 5
+
+
+@pytest.mark.cuda
+def test_thumbnail_frame_call_counts_its_forms_on_the_card(card):
+    """The 144p rung of a 4K ladder: luma on the wide-window kernel with one
+    Y slice, chroma on the tiled kernel's per-tap X pass; a batch call and
+    a lone frame count one ``wide.y_whole`` each and three ``tiled.x_taps``
+    between them."""
+    r = YUV420Resizer("lanczos3", 3840, 2160, 256, 144, device=card)
+    assert [ex.form for ex in r._executables(card.index)] == ["wide.y_whole", "tiled.x_taps"]
+    r.resize_batch(*planes(4, 3840, 2160, card))     # the handles made outside the recording
+    with tracing.record() as rec:
+        r.resize_batch(*planes(4, 3840, 2160, card))
+        r.resize(YUV420Frame(*planes(None, 3840, 2160, card)))
+    torch.cuda.synchronize()
+    assert rec.counters == {"wide.y_whole": 2, "tiled.x_taps": 3}
+    assert rec.launch_planes().tolist() == [[1, 2], [1, 1]]
 
 
 # the benchmark's two cells: (method, source, output, frames a call)
