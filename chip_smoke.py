@@ -57,16 +57,19 @@ Phases:
    whose window is too wide for 16 rows of the windowed kernel): the facade
    on WIDE_FACADE (Area 8192x4 -> 16x4, the thumbnails Area 4096x4096 ->
    128x128, 3840x2160 -> 128x72, Area and Lanczos3 7680x4320 -> 240x135)
-   with every count set to 0 just before, one ``*_wide`` launch a call.
+   with every count set to 0 just before, one launch a call: ``u16_wide``,
+   and ``wrap16_wide_s8`` (the kernel's s8 Y form) for Lanczos3.
    WIDE_PITCHED (widths not a multiple of 16, from rows that start 16-byte
    aligned in a wider pitch) on the kernel's 16-byte loads, which run past
-   each row's end: == plain, == the walk, == the oracle on the small one.
+   each row's end: == plain, == the walk, == the oracle on the small one,
+   == the scalar Y form where the route takes the s8 one.
    WIDE_TIMED (those five and Area 8192x2160 -> 256x540, 4096x2160 ->
    128x540, whose facade takes the tiled kernel) on the wide-window kernel
    == plain, == the windowed walk, also from a source 5 bytes into wider
    rows, each timed in turns with the windowed kernel's wide-window
-   walk (``wide=False``), the facade's route and the plain path, beside its
-   bound.  Then REFUSED_WIDE (Area 4096x232448 -> 16x4, a 952 MB source,
+   walk (``wide=False``), the facade's route and the plain path (and the
+   scalar Y form, ``cuda_resize.wide_tables``, where the kernel takes the
+   s8 one), beside its bound.  Then REFUSED_WIDE (Area 4096x232448 -> 16x4, a 952 MB source,
    whose 58112 Y taps an output ``wide_layout`` refuses) through its facade
    on the windowed kernel's walk, one launch, == the plain path byte for
    byte, the kernel's and the plain path's times; the phase's seconds.
@@ -86,15 +89,17 @@ Phases:
    Lanczos3 4K -> 256x144 thumbnail exact and relaxed, the 4K -> 1920x16
    strips (Lanczos3 exact, Area exact and relaxed) and Lanczos3 8K ->
    480x270, whose luma band fits no tiled width: luma launches
-   ``wrap16_wide``, ``wrap16_relaxed_wide``, ``u16_wide`` and
+   ``wrap16_wide_s8`` (the 256x144 and 480x270 thumbnails), ``wrap16_wide``
+   (the strips), ``wrap16_relaxed_wide``, ``u16_wide`` and
    ``u16_relaxed_wide``, chroma the tiled kernel; and the 8K proxy,
    Lanczos3 8K -> 960x540, luma ``wrap16_tiled`` at TW 64.  Launch counts
    as phase 4, every plane == plain, relaxed luma within 2 LSB of exact;
    the windowed twin (``tiled=False, wide=False``) on each frame's luma ==
    the facade, one launch, with every count set to 0 just before; each
    frame's luma timed in turns on its route, the windowed twin and plain
-   (the proxy also on the wide-window kernel and at TW 32), chroma on its
-   route, beside the bound.
+   (the proxy also on the wide-window kernel and at TW 32, the s8 Y form's
+   frames also on the scalar Y form), chroma on its route, beside the
+   bound.
    5c. The executable layer (``ops/executable.py``, the counterpart of the
    JAX package's compiled executables): on every facade route, the main
    paths exact and relaxed, the carry main paths with ``LIBIQO_TPU_CARRY=1``,
@@ -369,17 +374,18 @@ CARRY_TILED_SWEEP = ((128, 2), (128, 3), (128, 7), (128, 17), (128, 68),
 ORACLE_MAX_PIXELS = 400_000     # numpy_ref only on sources this small
 # (frame, luma variant, chroma variant, precision): the thumbnail route,
 # YUV420 frames whose luma band fits no tiled width (outside tiled_ok, exact
-# or relaxed), so luma takes the wide-window kernel at 16 rows, while chroma
-# fits the tiled one; and the 8K proxy, whose luma fits the tiled kernel only
-# once its width walks down to TW 64
+# or relaxed), so luma takes the wide-window kernel at 16 rows (its s8 Y form
+# where cuda_resize.wide_s8 takes the exact plan), while chroma fits the
+# tiled one; and the 8K proxy, whose luma fits the tiled kernel only once its
+# width walks down to TW 64
 THUMB_FRAMES = (
-    (("lanczos3", 3840, 2160, 256, 144), "wrap16_wide", "wrap16_tiled", "exact"),
+    (("lanczos3", 3840, 2160, 256, 144), "wrap16_wide_s8", "wrap16_tiled", "exact"),
     (("lanczos3", 3840, 2160, 256, 144), "wrap16_relaxed_wide", "wrap16_relaxed_tiled",
      "relaxed"),
     (("lanczos3", 3840, 2160, 1920, 16), "wrap16_wide", "wrap16_tiled", "exact"),
     (("area", 3840, 2160, 1920, 16), "u16_wide", "u16_tiled", "exact"),
     (("area", 3840, 2160, 1920, 16), "u16_relaxed_wide", "u16_relaxed_tiled", "relaxed"),
-    (("lanczos3", 7680, 4320, 480, 270), "wrap16_wide", "wrap16_tiled", "exact"),
+    (("lanczos3", 7680, 4320, 480, 270), "wrap16_wide_s8", "wrap16_tiled", "exact"),
     (("lanczos3", 7680, 4320, 960, 540), "wrap16_tiled", "wrap16_tiled", "exact"),
 )
 PROXY_TW = 64                   # the 8K proxy's luma width after the walk
@@ -698,7 +704,8 @@ def phase_card_check(cr, build_plan, card: str) -> dict:
     the card, == numpy_ref on sources of at most
     ORACLE_MAX_PIXELS pixels; every case must run a kernel.  Then the
     wide-window kernel's path: the facade on each WIDE_FACADE plan with
-    every count set to 0 just before, one ``*_wide`` launch a call.  Then
+    every count set to 0 just before, one launch a call: ``u16_wide`` for
+    Area, ``wrap16_wide_s8`` (the s8 Y form) for Lanczos3.  Then
     WIDE_PITCHED on its 16-byte loads past each row's end (:func:`hold_pitched`).
     Then WIDE_TIMED, each on the wide-window kernel == plain (== numpy_ref on a
     small source, == the windowed walk), also from a source 5 bytes into
@@ -729,10 +736,11 @@ def phase_card_check(cr, build_plan, card: str) -> dict:
         n = dict(cr.LAUNCHES_BY_VARIANT)
         r.resize(x)
         got = {v: c - n[v] for v, c in cr.LAUNCHES_BY_VARIANT.items() if c != n[v]}
-        want = "wrap16_wide" if case[0] == "lanczos" else "u16_wide"
+        want = "wrap16_wide_s8" if case[0] == "lanczos" else "u16_wide"
         check(got == {want: 1}, f"{card_check.case_name(case)}: the facade launched {got}")
     torch.cuda.synchronize()
-    launches = {v: cr.LAUNCHES_BY_VARIANT[v] for v in ("u16_wide", "wrap16_wide")}
+    launches = {v: cr.LAUNCHES_BY_VARIANT[v]
+                for v in ("u16_wide", "wrap16_wide", "wrap16_wide_s8")}
     check(sum(cr.LAUNCHES_BY_VARIANT.values()) == len(card_check.WIDE_FACADE),
           f"wide-window path: {cr.LAUNCHES_BY_VARIANT}")
     print(f"wide-window path: the facade on {len(card_check.WIDE_FACADE)} plans -> "
@@ -797,10 +805,11 @@ def hold_refused(cr, build_plan, card: str) -> dict:
 def hold_pitched(cr, build_plan, case) -> int:
     """One WIDE_PITCHED plan from the first ``src_w`` columns of rows of a
     16-byte aligned pitch 16 past ``src_w`` rounded up to 16, the pitch's
-    tail noise: the wide-window kernel takes 16-byte loads there
-    (``cuda_resize.wide_load_bytes``), its window reaches the row's end, and
-    it == plain (both routes, :func:`hold`; == numpy_ref on a small source)
-    == the windowed walk."""
+    tail noise: the wide-window kernel's scalar Y form takes 16-byte loads
+    there (``cuda_resize.wide_load_bytes``), its window reaches the row's
+    end, and it == plain (both routes, :func:`hold`; == numpy_ref on a small
+    source) == the windowed walk; where the route takes the s8 Y form
+    (byte loads at the row's end), the scalar form == it too."""
     from libiqo_tpu_torch.golden import numpy_ref
 
     alg, sw, sh, dw, dh, kw = case
@@ -808,13 +817,14 @@ def hold_pitched(cr, build_plan, case) -> int:
     plan = build_plan(alg, sw, sh, dw, dh, **kw)
     ops = cr.pack_operands(plan, "cuda", tiled=False)
     walk = cr.pack_operands(plan, "cuda", tiled=False, wide=False)
+    scalar = cr.KernelOperands(plain=ops.plain, tables=cr.wide_tables(plan, "cuda"))
     v = cr.variant(ops.tables)
     pitch = -(-sw // 16) * 16 + 16
     buf = torch.from_numpy(random_u8(np.random.default_rng(sw * sh), (1, sh, pitch))).cuda()
     x = buf[:, :, :sw]
-    check(v.endswith("_wide") and not cr.tiled_ok(plan) and sw % 16
-          and int(ops.tables.layout.win[:, 1].max()) == sw,
-          f"{name}: {v}, window ends at {ops.tables.layout.win[:, 1].max()}")
+    end = int(scalar.tables.layout.win[:, 1].max())
+    check(v in ("u16_wide", "wrap16_wide", "wrap16_wide_s8") and not cr.tiled_ok(plan)
+          and sw % 16 and end == sw, f"{name}: {v}, window ends at {end}")
     check(cr.wide_load_bytes(x) == 16, f"{name}: pitch {pitch} takes "
           f"{cr.wide_load_bytes(x)}-byte loads")
     got, counts = card_check.launched(cr, lambda: cr.resize_fused(ops, x))
@@ -823,9 +833,26 @@ def hold_pitched(cr, build_plan, case) -> int:
     err = hold(cr, f"{name} pitch {pitch}", plan, x, numpy_ref if small else None)
     err = max(err, compare(f"{name} pitch {pitch} walk vs kernel",
                            cr.resize_fused(walk, x), got))
-    print(f"{name} from a pitch of {pitch} bytes: 16-byte loads past the row's end, "
-          f"kernel[{v}] == plain == the walk{' == numpy_ref' if small else ''}")
+    if ops.tables.y_s8:
+        err = max(err, compare(f"{name} pitch {pitch} scalar form vs kernel",
+                               cr.resize_fused(scalar, x), got))
+    loads = ("the scalar Y form's 16-byte loads past the row's end == kernel"
+             if ops.tables.y_s8 else "16-byte loads past the row's end, kernel")
+    print(f"{name} from a pitch of {pitch} bytes: {loads}[{v}] == plain == the walk"
+          f"{' == numpy_ref' if small else ''}")
     return err
+
+
+def wide_shape(cr, k) -> dict:
+    """The layout that the wide-window kernel's tables ``k`` launch: the s8
+    Y form's width, ring, blocks a frame and shared memory, or the scalar
+    form's tile, Y slices, lanes an output, blocks and shared memory."""
+    lay = k.layout
+    if k.y_s8:
+        return {"form": cr.launch_form(k), "tw": lay.tw, "stages": lay.stages,
+                "blocks": lay.blocks, "smem": lay.smem}
+    return {"form": cr.launch_form(k), "tc": lay.tc, "tr": lay.tr, "ks": lay.ks,
+            "group": lay.group, "blocks": lay.blocks, "smem": lay.smem}
 
 
 def time_wide(cr, build_plan, case, card: str) -> dict:
@@ -833,7 +860,9 @@ def time_wide(cr, build_plan, case, card: str) -> dict:
     plain (== numpy_ref on a small source), == the windowed walk, from an
     aligned source and from one 5 bytes into wider rows (byte loads); the
     facade's route (one launch, of this kernel where ``tiled_ok`` refuses);
-    timed in turns with the walk, the route and the plain path."""
+    timed in turns with the walk, the route and the plain path, and where
+    the kernel takes its s8 Y form, with the scalar Y form at its layout
+    (``cuda_resize.wide_tables``)."""
     alg, sw, sh, dw, dh, kw = case
     name = card_check.case_name(case)
     plan = build_plan(alg, sw, sh, dw, dh, **kw)
@@ -841,8 +870,8 @@ def time_wide(cr, build_plan, case, card: str) -> dict:
     check(r.resolved_backend() == "cuda", f"{name}: resolves to {r.resolved_backend()}")
     ops = cr.pack_operands(plan, "cuda", tiled=False)
     walk = cr.pack_operands(plan, "cuda", tiled=False, wide=False)
-    v, lay = cr.variant(ops.tables), ops.tables.layout
-    check(v.endswith("_wide") and walk.tables.rows == cr.work_rows(plan) < cr.TILE_ROWS,
+    v, shape = cr.variant(ops.tables), wide_shape(cr, ops.tables)
+    check(ops.tables.wide and walk.tables.rows == cr.work_rows(plan) < cr.TILE_ROWS,
           f"{name}: {v}, the walk at {walk.tables.rows} rows")
     x = torch.from_numpy(card_check.source(case, 0)).cuda()[None]
     got, counts = card_check.launched(cr, lambda: cr.resize_fused(ops, x))
@@ -866,26 +895,38 @@ def time_wide(cr, build_plan, case, card: str) -> dict:
     facade = not cr.tiled_ok(plan)
     check(len(route_counts) == 1 and sum(route_counts.values()) == 1
           and (v in route_counts) == facade, f"{name}: the facade launched {route_counts}")
+    fns = {"kernel": lambda t: cr.resize_fused(ops, t),
+           "walk": lambda t: cr.resize_fused(walk, t),
+           "route": lambda t: r.resize(t)}
+    scalar = None
+    if ops.tables.y_s8:
+        scalar = cr.KernelOperands(plain=ops.plain, tables=cr.wide_tables(plan, "cuda"))
+        sgot, scounts = card_check.launched(cr, lambda: cr.resize_fused(scalar, x))
+        check(scounts == {cr.variant(scalar.tables): 1}, f"{name}: the scalar form "
+              f"launched {scounts}")
+        err = max(err, compare(f"{name} scalar form vs kernel", sgot, got))
+        fns["scalar"] = lambda t: cr.resize_fused(scalar, t)
+    fns["plain"] = lambda t: cr.resize_plain(ops, t)
     xs = _harness.perturbed(x, min(WIDE_INPUTS, n_inputs(x.numel())))
-    ms = in_turns({"kernel": lambda t: cr.resize_fused(ops, t),
-                   "walk": lambda t: cr.resize_fused(walk, t),
-                   "route": lambda t: r.resize(t),
-                   "plain": lambda t: cr.resize_plain(ops, t)}, xs,
-                  primed={"plain": False})
+    ms = in_turns(fns, xs, primed={"plain": False})
     bytes_ms, ops_ms = bound([(plan, 1)])
-    row = {"plan": name, "variant": v, "facade": facade,
-           "layout": {"tc": lay.tc, "tr": lay.tr, "ks": lay.ks, "group": lay.group,
-                      "blocks": lay.blocks, "smem": lay.smem},
+    row = {"plan": name, "variant": v, "facade": facade, "layout": shape,
+           **({} if scalar is None else {
+               "scalar_variant": cr.variant(scalar.tables), "scalar_ms": ms["scalar"],
+               "scalar_layout": wide_shape(cr, scalar.tables)}),
            "launches": counts[v], "route_variant": "/".join(route_counts),
            "max_abs_err": err, "ms": ms["kernel"], "walk_ms": ms["walk"],
            "walk_rows": walk.tables.rows, "route_ms": ms["route"],
            "plain_ms": ms["plain"], "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     print(f"{name} == plain == the walk{' == numpy_ref' if sw * sh <= ORACLE_MAX_PIXELS else ''}"
-          f", aligned and at +{off} bytes, on kernel[{v}] (tile {lay.tr} x {lay.tc}, "
-          f"{lay.blocks} blocks, {lay.ks} Y slices, {lay.group} lanes an output): kernel "
+          f"{'' if scalar is None else ' == the scalar Y form'}, aligned and at +{off} "
+          f"bytes, on kernel[{v}] ({shape}): kernel "
           f"{ms['kernel']!r} ms, walk ({walk.tables.rows} rows) {ms['walk']!r}, route "
-          f"{row['route_variant']} {ms['route']!r}, plain {ms['plain']!r} (in turns, "
+          f"{row['route_variant']} {ms['route']!r}, "
+          + ("" if scalar is None else f"scalar form {row['scalar_layout']} "
+             f"{ms['scalar']!r}, ")
+          + f"plain {ms['plain']!r} (in turns, "
           f"{len(xs)} inputs), bound {row['bound_ms']!r} ms ({row['bound_by']}) ({card})")
     return row
 
@@ -1052,8 +1093,9 @@ def time_thumbnail(cr, build_plan, rng, card: str, frame, relaxed: bool) -> dict
     """One THUMB_FRAMES frame's planes on the card, in turns: luma on the
     facade's route, on the windowed twin (``tiled=False, wide=False``) and
     on the plain path (host-paced); for the 8K proxy also the wide-window
-    kernel and the tiled kernel one width narrower; chroma on its route.
-    Beside the luma plane's and the frame's bound."""
+    kernel and the tiled kernel one width narrower; where luma takes the
+    wide-window kernel's s8 Y form, also its scalar Y form (``scalar``);
+    chroma on its route.  Beside the luma plane's and the frame's bound."""
     method, sw, sh, dw, dh = frame
     tag = f"{method} {sw}x{sh}->{dw}x{dh} {'relaxed' if relaxed else 'exact'}"
     ms, planes, variants = {}, [], {}
@@ -1068,16 +1110,21 @@ def time_thumbnail(cr, build_plan, rng, card: str, frame, relaxed: bool) -> dict
         if name == "luma":
             walk = cr.pack_operands(plan, "cuda", relaxed=relaxed, tiled=False, wide=False)
             fns["windowed"] = lambda t, o=walk: cr.resize_fused(o, t)
+            others = []
             if ops.tables.tiled:
                 wide = cr.KernelOperands(plain=ops.plain, tables=cr.wide_tables(
                     plan, "cuda", relaxed=relaxed))
                 tw = cr.TILED_WIDTHS[cr.TILED_WIDTHS.index(ops.tables.layout.tw) + 1]
                 narrow = cr.KernelOperands(plain=ops.plain, tables=cr.tiled_tables(
                     plan, "cuda", cr.tiled_layout(plan, relaxed, tw)))
-                want = cr.resize_plain(ops, xs[0])
-                for label, o in (("wide", wide), (f"tw{tw}", narrow)):
-                    compare(f"{tag} luma {label} vs plain", cr.resize_fused(o, xs[0]), want)
-                    fns[label] = lambda t, o=o: cr.resize_fused(o, t)
+                others = [("wide", wide), (f"tw{tw}", narrow)]
+            elif getattr(ops.tables, "y_s8", False):
+                others = [("scalar", cr.KernelOperands(plain=ops.plain,
+                                                       tables=cr.wide_tables(plan, "cuda")))]
+            want = cr.resize_plain(ops, xs[0]) if others else None
+            for label, o in others:
+                compare(f"{tag} luma {label} vs plain", cr.resize_fused(o, xs[0]), want)
+                fns[label] = lambda t, o=o: cr.resize_fused(o, t)
             fns["plain"] = lambda t, o=ops: cr.resize_plain(o, t)
         t = in_turns(fns, xs, primed={"plain": False})
         ms.update({f"{name} {k}": v for k, v in t.items()})
@@ -1279,7 +1326,7 @@ def phase_executables(cr, yuv, rng, card: str) -> dict:
         for case in card_check.WIDE_FACADE:
             res = card_check.facade(case)
             kernel, ex = res._bind(dev)
-            check(kernel and ex.variant.endswith("_wide"), f"{case}: {ex.variant}")
+            check(kernel and ex.ops.tables.wide, f"{case}: {ex.variant}")
             alg, sw, sh, dw, dh, _ = case
             buf = torch.from_numpy(random_u8(rng, (1, sh, sw + pad))).cuda()
             hold_executable(cr, f"wide {case}", ex, buf[..., :sw].contiguous())
@@ -3405,24 +3452,43 @@ def main() -> int:
     src = "libiqo_tpu_torch/csrc/resize_fused.cu"
     tiled_src = "libiqo_tpu_torch/csrc/resize_tiled.cuh"
 
-    def wide_entry(wide, v, plan):
-        """The wide-window kernel's entry for instantiation ``v``: its
-        launches on the facade's paths (phase 3b's and the thumbnail
-        route's), its times on ``plan`` beside the walk's, every plan it
-        took in phase 3b and the thumbnail frames it ran."""
+    def wide_entry(wide, v, name, plan):
+        """The wide-window kernel's entry ``name`` for instantiation ``v``:
+        its launches on the facade's paths (phase 3b's and the thumbnail
+        route's), its times on ``plan`` beside the walk's (and for the s8 Y
+        form the scalar form's at its layout, in the same turns), every
+        plan it took in phase 3b and the thumbnail frames it ran."""
         mine = [r for r in wide["rows"] if r["variant"] == v]
         t = next(r for r in mine if r["plan"] == plan)
-        return {"name": f"resize_wide[{v.split('_')[0]}]", "route": "cuda",
+        keys = ("ms", "walk_ms", "route_ms", "route_variant", "plain_ms", "bound_ms",
+                "layout", "scalar_ms", "scalar_layout")
+        return {"name": name, "route": "cuda",
                 "source": "libiqo_tpu_torch/csrc/resize_wide.cu", "replaces": replaces,
                 "launches": wide["launches"][v] + thumbs["launches"].get(v, 0),
                 "thumbnails": [r for r in thumbs["rows"] if r["luma_variant"] == v],
                 "max_abs_err": max(r["max_abs_err"] for r in mine), "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": None, "plan": plan,
-                "walk_ms": t["walk_ms"],
-                "plans": {r["plan"]: {k: r[k] for k in (
-                    "ms", "walk_ms", "route_ms", "route_variant", "plain_ms", "bound_ms",
-                    "layout")} for r in mine}}
+                "walk_ms": t["walk_ms"], "layout": t["layout"],
+                **{k: t[k] for k in ("scalar_ms", "scalar_layout") if k in t},
+                "plans": {r["plan"]: {k: r[k] for k in keys if k in r} for r in mine}}
+
+    def thumb_wide_entry(v, name, frame):
+        """The wide-window kernel's entry ``name`` for instantiation ``v``
+        where no phase 3b plan launches it: its launches on the thumbnail
+        route (and phase 3b's, if any), its times on ``frame``'s luma plane
+        beside the windowed twin's and the plain path's in the same turns,
+        every thumbnail frame it ran."""
+        mine = [r for r in thumbs["rows"] if r["luma_variant"] == v]
+        t = next(r for r in mine if r["frame"] == frame)
+        return {"name": name, "route": "cuda",
+                "source": "libiqo_tpu_torch/csrc/resize_wide.cu", "replaces": replaces,
+                "launches": thumbs["launches"][v] + wide["launches"].get(v, 0),
+                "max_abs_err": MAX_ERR[v], "ms": t["ms"]["luma route"],
+                "plain_ms": t["ms"]["luma plain"], "bound_ms": t["luma_bound_ms"],
+                "bound_by": t["luma_bound_by"], "library_ms": None,
+                "windowed_ms": t["ms"]["luma windowed"], "plan": frame + " luma",
+                "thumbnails": mine}
     replaces = "libiqo_tpu/ops/pallas_resize.py:1687"
     replaces_relaxed = "libiqo_tpu/ops/pallas_resize.py:1486"
 
@@ -3503,11 +3569,15 @@ def main() -> int:
          "yardstick_ms": tu["yardstick_ms"],
          "wide_window_walk_ms": {r["plan"]: r["walk_ms"] for r in wide["rows"]},
          "refused_layout_plan": wide["refused"]},
-        # the wide-window kernel: launches from the facade on WIDE_FACADE;
-        # ms on the largest plan of its instantiation, every plan under "plans"
-        *(wide_entry(wide, v, plan) for v, plan in (
-            ("u16_wide", "area 7680x4320->240x135"),
-            ("wrap16_wide", "lanczos3 7680x4320->240x135"))),
+        # the wide-window kernel: launches from the facade on WIDE_FACADE and
+        # the thumbnail route; ms on the largest phase 3b plan of its
+        # instantiation, every plan under "plans"; the scalar wrap16 form,
+        # which no phase 3b plan launches, on the 4K strips' luma
+        wide_entry(wide, "u16_wide", "resize_wide[u16]", "area 7680x4320->240x135"),
+        thumb_wide_entry("wrap16_wide", "resize_wide[wrap16]",
+                         "lanczos3 3840x2160->1920x16 exact"),
+        wide_entry(wide, "wrap16_wide_s8", "resize_wide[wrap16_s8]",
+                   "lanczos3 7680x4320->240x135"),
         relaxed_wide_entry("wrap16_relaxed_wide", "lanczos3 3840x2160->256x144 relaxed"),
         relaxed_wide_entry("u16_relaxed_wide", "area 3840x2160->1920x16 relaxed"),
         *relaxed_entries("wrap16", launches16r, plain16r, err16r, t16r),

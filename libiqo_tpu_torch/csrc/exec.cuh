@@ -3,13 +3,13 @@
 // jax.jit per plan; parallel/sharding.py make_yuv_step_fn, one jit for a
 // YUV420 frame's three planes).
 //
-// An iqo_resize_{tiled,wide,fused}_exec_create entry packs everything one
-// launch takes but the frame: the instantiation, the argument record, the
-// grid of one frame, the block and the dynamic shared memory.  The handle is
-// immutable after create; iqo_exec_launch copies the record onto its own
-// stack, fills in the source, the output, the frame count and the two
-// strides, and launches, so two host threads may share a handle.  The
-// iqo_resize_* entries are the same create on the stack plus the same
+// An iqo_resize_{tiled,wide,wide_s8,fused}_exec_create entry packs
+// everything one launch takes but the frame: the instantiation, the argument
+// record, the grid of one frame, the block and the dynamic shared memory.
+// The handle is immutable after create; iqo_exec_launch copies the record
+// onto its own stack, fills in the source, the output, the frame count and
+// the two strides, and launches, so two host threads may share a handle.
+// The iqo_resize_* entries are the same create on the stack plus the same
 // launch: the general path and the executable share one packing.
 // iqo_exec_launch_frame issues a whole YUV420 frame, luma and chroma, in one
 // host call (ops/executable.py).  A handle holds no device memory: the tables

@@ -63,12 +63,47 @@
 // * Intended wraps go through uint32 (signed overflow is undefined in C++);
 //   int16 narrowing, two's-complement reinterpretation and the arithmetic
 //   shift are written out, as in resize_fused.cu.
+//
+// The s8 Y form (resize_wide_kernel_s8y, cuda_resize.wide_s8): exact wrap16
+// plans whose merged Y matrix fits s8, whose source rows each feed 5 or
+// more Y taps, whose bands are at most 1024 rows a row tile and whose frame
+// has at least 66 blocks (the Lanczos3 thumbnails; Area, Lanczos2, the 4K ->
+// 1920x16 strips and 1920x1080 -> 128x72 keep the scalar pass, which was
+// faster there).  The scalar Y
+// pass above issues, per tap and 16 work columns, a dependent 16-byte load,
+// 16 byte permutes and 16 IMADs: at 4K ->
+// 256x144 (90 taps) ~58 M IMADs a frame, ~3.7 us of issue slots on 132 SMs,
+// already above the 2.49 us bytes bound, with 45 % of the threads idle
+// through the pass.  The tiled kernel's s8 Y pass (resize_tiled.cuh) does
+// that work on the tensor cores, but it stages a row tile's whole band, and
+// at 15:1 (320 rows of 640 bytes at TW 32) the band fits no width.  So:
+// * One block computes TH 16 output rows x TW (32 or 16) columns from the
+//   tiled kernel's row and column records (cuda_resize.tiled_layout at TW,
+//   the X pass per tap): A, the row tile's merged 16 x k_rows s8 Y matrix,
+//   and the records stay in shared memory.
+// * The band streams through a ring of `stages` slabs of 32 rows (one
+//   m16n8k32 K step), 16-byte cp.async pieces swizzled as the tiled band
+//   (byte loads at the plane's edges and where the row pitch is not a
+//   multiple of 16); slab k + stages - 1 is copied while slab k feeds the
+//   dot, one barrier a slab.  Its height no longer decides the fit, but a
+//   block streams its slabs in series: a 2176-row band with few blocks (the
+//   strips, 60 a frame) is slower than the scalar pass.
+// * Each warp holds the s32 sums of up to kS8Groups 32-column groups of the
+//   band in registers over the whole stream (B rebased by ^ 0x80); after the
+//   last slab the row's 128 * sum cy is added back in uint32 and the wrap
+//   and the border renormalisation run once, into the 16-bit work tile,
+//   which takes the ring's place.  The X pass is the tiled kernel's per tap.
+// * The host sizes the ring so that two blocks share an SM (cuda_resize.
+//   WIDE_S8_SMEM); the bytes then bound it: the source read once from HBM and
+//   ~1.5x over from L2 (the windows' overlap at TH 16), the dot under 1 us.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "exec.cuh"
+#include "resize_tiled.cuh"
 
 namespace {
 
@@ -335,6 +370,183 @@ __global__ void __launch_bounds__(kThreads, 2) resize_wide_kernel(
   }
 }
 
+// ---- the s8 Y form -----------------------------------------------------
+
+constexpr int kSlab = 32;         // band rows a slab: one mma K step
+constexpr int kS8Groups = 3;      // 32-column groups of the band a warp's sums hold
+constexpr int kS8Cols = 32 * kS8Groups * (kThreads / 32);   // widest band pitch
+constexpr int kMaxStages = 8;     // slabs the ring holds at most
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most n (0 .. kMaxStages - 2) of this thread's cp.async
+// groups are pending.
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 6;" ::: "memory"); break;
+  }
+}
+
+constexpr int kSlabPieces = kSlab * (kS8Cols / 16) / kThreads;   // a thread's pieces of a slab
+
+// This thread's 16-byte pieces of every slab: piece e = tid + kThreads i of
+// a slab's 32 rows x nchunk pieces, as (row << 8) | piece, in increasing
+// order, -1 past the slab.  Every slab has that shape, so they are worked
+// out once a block, not by a division a piece a slab as stage_rows does.
+__device__ __forceinline__ void slab_pieces(int nchunk, int (&mine)[kSlabPieces]) {
+#pragma unroll
+  for (int i = 0; i < kSlabPieces; ++i) {
+    const int e = threadIdx.x + kThreads * i;
+    mine[i] = e < kSlab * nchunk ? (e / nchunk) << 8 | (e % nchunk) : -1;
+  }
+}
+
+// Slab k of a row tile's band, source rows [first + 32 k, end) at most 32,
+// into ring stage k % stages: 16-byte cp.async pieces where `vec` (the row
+// pitch is a multiple of 16) and the piece lies in the row, byte loads of
+// the bytes inside the row otherwise (resize_tiled.cuh stage_rows).
+__device__ __forceinline__ void copy_slab(uint8_t* ring, const iqo_tiled::TiledArgs& a,
+                                          const uint8_t* frame, int k, int stages, int first,
+                                          int end, int c_base, bool vec,
+                                          const int (&mine)[kSlabPieces]) {
+  const int row0 = first + kSlab * k;
+  const int n = min(kSlab, end - row0);
+  const uint8_t* rows = frame + static_cast<long long>(row0) * a.row_stride + c_base;
+  uint8_t* stage = ring + (k % stages) * kSlab * a.pitch;
+#pragma unroll
+  for (int i = 0; i < kSlabPieces; ++i) {
+    const int r = mine[i] >> 8;
+    if (mine[i] < 0 || r >= n) break;
+    const int c = (mine[i] & 0xFF) << 4;
+    const int col = c_base + c;
+    const uint8_t* g = rows + r * a.row_stride + c;
+    uint8_t* s = stage + iqo_tiled::swz(r, c, a.pitch);
+    if (vec && col >= 0 && col + 16 <= a.src_w) {
+      iqo_tiled::cp_async16(s, g);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        if (col + b >= 0 && col + b < a.src_w) s[b] = __ldg(g + b);
+    }
+  }
+}
+
+// Block (column tile x, row tile y, frame z) of the s8 form: the records of
+// resize_tiled.cuh (cuda_resize.TiledLayout: row record with corr, ydiv and
+// A; column record of the per-tap X pass), the band streamed in slabs
+// through a ring of `stages`, then the tiled kernel's epilogue and X pass.
+// Shared memory: [max(ring, 16-bit work tile)] [column record] [row record].
+template <int kTW>
+__global__ void __launch_bounds__(kThreads, 2)
+    resize_wide_kernel_s8y(iqo_tiled::TiledArgs a, int stages) {
+  namespace t = iqo_tiled;
+  extern __shared__ __align__(16) uint8_t s8_smem[];
+  const int region = max(stages * kSlab * a.pitch, t::kRows * a.work_pitch * 2);
+  uint8_t* ring = s8_smem;
+  uint16_t* work = reinterpret_cast<uint16_t*>(s8_smem);   // once the ring is spent
+  int32_t* crec = reinterpret_cast<int32_t*>(s8_smem + region);
+  int32_t* rrec = crec + a.crec_words;
+
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid % 32) / 4, q = tid % 4;
+  const int32_t* grrec = a.rrec + static_cast<long long>(blockIdx.y) * a.rrec_words;
+  const int32_t* gcrec = a.crec + static_cast<long long>(blockIdx.x) * a.crec_words;
+  const int first = __ldg(grrec + 2), end = __ldg(grrec + 3);
+  const int lo = __ldg(gcrec), width = __ldg(gcrec + 1);
+  for (int i = tid; i < a.rrec_words / 4; i += kThreads) t::cp_async16(rrec + 4 * i, grrec + 4 * i);
+  for (int i = tid; i < a.crec_words / 4; i += kThreads) t::cp_async16(crec + 4 * i, gcrec + 4 * i);
+  const uint8_t* frame = a.src + static_cast<long long>(blockIdx.z) * a.frame_stride;
+  const int mis = static_cast<int>(
+      reinterpret_cast<uintptr_t>(frame + static_cast<long long>(first) * a.row_stride + lo) & 15);
+  const bool vec = (a.row_stride & 15) == 0;
+  const int c_base = lo - mis;                  // source column of band column 0
+  const int groups = (mis + width + 31) >> 5;
+  const int slabs = (end - first + kSlab - 1) / kSlab;
+  int mine[kSlabPieces];
+  slab_pieces((mis + width + 15) >> 4, mine);
+
+  // the records ride with slab 0; slabs 1 .. stages - 2 follow, a group each
+  for (int k = 0; k < stages - 1; ++k) {
+    if (k < slabs) copy_slab(ring, a, frame, k, stages, first, end, c_base, vec, mine);
+    cp_async_commit();
+  }
+  const uint8_t* amat = reinterpret_cast<const uint8_t*>(rrec + t::kHead + 2 * t::kRows);
+  const int ka = a.k_rows + 16;
+  int acc[kS8Groups][4][4] = {};
+  for (int k = 0; k < slabs; ++k) {
+    cp_async_wait_pending(stages - 2);          // slab k landed, for this thread
+    __syncthreads();                            // ... for all; slab k - 1's stage is free
+    if (k + stages - 1 < slabs)
+      copy_slab(ring, a, frame, k + stages - 1, stages, first, end, c_base, vec, mine);
+    cp_async_commit();
+    const uint8_t* slab = ring + (k % stages) * kSlab * a.pitch;
+    uint32_t af[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      af[i] = *reinterpret_cast<const uint32_t*>(
+          amat + (g + 8 * (i & 1)) * ka + kSlab * k + 16 * (i >> 1) + 4 * q);
+#pragma unroll
+    for (int i = 0; i < kS8Groups; ++i) {
+      const int grp = warp + t::kWarps * i;
+      if (grp < groups) {
+        uint32_t b[2][4];
+        t::b_frags<false>(slab, a.pitch, 0, q, 8 * grp + g, 0, 0, b);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) t::mma_s8(acc[i][p], af, b[0][p], b[1][p]);
+      }
+    }
+  }
+  t::cp_async_wait_all();
+  __syncthreads();                              // every warp is done with the ring
+
+  // acc[i][p][2 rh + ec]: row g + 8 rh, band column 32 grp + 8 q + 4 ec + p
+  const uint32_t* corr = reinterpret_cast<const uint32_t*>(rrec + t::kHead);
+  const int32_t* ydiv = rrec + t::kHead + t::kRows;
+#pragma unroll
+  for (int i = 0; i < kS8Groups; ++i) {
+    const int grp = warp + t::kWarps * i;
+    if (grp < groups) {
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int row = g + 8 * rh;
+        uint32_t v[8];
+#pragma unroll
+        for (int ec = 0; ec < 2; ++ec)
+#pragma unroll
+          for (int p = 0; p < 4; ++p) v[4 * ec + p] = static_cast<uint32_t>(acc[i][p][2 * rh + ec]);
+        t::store8<true, false>(work, a.work_pitch, a.margin, row, 32 * grp + 8 * q, v,
+                                  corr[row], ydiv[row], a.y_bias);
+      }
+    }
+  }
+  __syncthreads();
+
+  const int r = tid >> 4, l = tid & 15;
+  const int c0 = blockIdx.x * kTW;
+  const int row = blockIdx.y * t::kRows + r;
+  if (row >= a.dst_h) return;
+  uint8_t* out = a.dst + static_cast<long long>(blockIdx.z) * a.dst_h * a.dst_w +
+                 static_cast<long long>(row) * a.dst_w + c0;
+  t::x_pass<true, kTW, false, false>(a, work, crec, mis, r, l, min(kTW, a.dst_w - c0), out);
+}
+
+using S8Kernel = decltype(&resize_wide_kernel_s8y<32>);
+
+// The s8 form's instantiation for tw, or null for a width it is not built
+// for (32 and 16).
+S8Kernel pick_s8(int tw) {
+  if (tw == 32) return &resize_wide_kernel_s8y<32>;
+  if (tw == 16) return &resize_wide_kernel_s8y<16>;
+  return nullptr;
+}
+
 using Kernel = decltype(&resize_wide_kernel<true, 16, false>);
 
 // The instantiation for (relaxed, wrap16, 16-byte loads).
@@ -415,6 +627,51 @@ int pack(WideExec& e, int wrap16, int relaxed, int src_h, int src_w, int dst_h, 
   return 0;
 }
 
+// The s8 form's executable: the instantiation, its record (src, dst and the
+// strides filled in per launch), the ring's stages and one frame's grid.
+struct WideS8Exec final : iqo::Exec {
+  S8Kernel kernel = nullptr;
+  dim3 grid;                 // of one frame
+  int smem = 0;
+  int stages = 0;
+  iqo_tiled::TiledArgs a{};
+
+  int launch(const void* src, void* dst, int n_frames, long long frame_stride,
+             long long row_stride, cudaStream_t stream) const override {
+    if (!iqo::frames_ok(n_frames)) return static_cast<int>(cudaErrorInvalidValue);
+    iqo_tiled::TiledArgs args = a;
+    args.src = static_cast<const uint8_t*>(src);
+    args.dst = static_cast<uint8_t*>(dst);
+    args.frame_stride = frame_stride;
+    args.row_stride = row_stride;
+    kernel<<<dim3(grid.x, grid.y, n_frames), kThreads, smem, stream>>>(args, stages);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// Packs one resize of the s8 form into e.  Returns a cudaError_t.
+int pack_s8(WideS8Exec& e, int tw, int src_w, int dst_h, int dst_w,
+            const void* rrec, int rrec_words, const void* crec, int crec_words, int taps_x,
+            int k_rows, int pitch, int margin, int work_pitch, int max_phases, int y_bias,
+            int out_shift, int stages) {
+  e.kernel = pick_s8(tw);
+  if (e.kernel == nullptr || stages < 2 || stages > kMaxStages || pitch % 128 != 0 ||
+      pitch > kS8Cols || k_rows % kSlab != 0 || rrec_words % 4 != 0 || crec_words % 4 != 0 ||
+      work_pitch % 8 != 0 || (dst_h + iqo_tiled::kRows - 1) / iqo_tiled::kRows > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  e.a = iqo_tiled::TiledArgs{nullptr, nullptr, 0, 0, src_w, dst_h, dst_w,
+                             static_cast<const int32_t*>(rrec),
+                             static_cast<const int32_t*>(crec), rrec_words, crec_words, 0,
+                             taps_x, k_rows, pitch, margin, work_pitch, max_phases, y_bias,
+                             out_shift, 1, 1, 0, 0};
+  e.stages = stages;
+  e.smem = std::max(stages * kSlab * pitch, iqo_tiled::kRows * work_pitch * 2) +
+           4 * (rrec_words + crec_words);
+  e.grid = dim3((dst_w + tw - 1) / tw, (dst_h + iqo_tiled::kRows - 1) / iqo_tiled::kRows, 1);
+  e.out_frame = static_cast<long long>(dst_h) * dst_w;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -435,16 +692,66 @@ int iqo_wide_shape(int* threads, int* group_cols) {
   return 0;
 }
 
-// Raises the eight instantiations' dynamic shared-memory limit on the
-// current device to `bytes`.  Returns a cudaError_t.
+// The s8 form's widest band pitch in bytes and most ring stages, read by
+// the host (cuda_resize.WIDE_S8_COLS, WIDE_S8_MAX_STAGES).
+int iqo_wide_s8_shape(int* cols, int* stages) {
+  *cols = kS8Cols;
+  *stages = kMaxStages;
+  return 0;
+}
+
+// Raises the dynamic shared-memory limit of the eight scalar instantiations
+// and the two of the s8 form on the current device to `bytes`.  Returns a
+// cudaError_t.
 int iqo_wide_set_max_smem(int bytes) {
-  for (int k = 0; k < 8; ++k) {
-    cudaError_t rc = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(pick(k & 4, k & 2, k & 1)),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  for (int k = 0; k < 10; ++k) {
+    const void* f = k < 8 ? reinterpret_cast<const void*>(pick(k & 4, k & 2, k & 1))
+                          : reinterpret_cast<const void*>(pick_s8(k == 8 ? 32 : 16));
+    cudaError_t rc = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   return 0;
+}
+
+// The executable of one resize of a wrap16 (Lanczos) plan on the s8 form at
+// tw (32 or 16) output columns a block, from the records of
+// cuda_resize.tiled_layout at tw with the X pass per tap (row
+// records with A, rrec_words each; column records, crec_words each; k_rows,
+// pitch <= iqo_wide_s8_shape's cols, margin, work_pitch, max_phases as
+// there), the band streamed through a ring of `stages` (2 ..
+// iqo_wide_s8_shape's stages) slabs of 32 rows.  Its shared memory,
+// max(stages * 32 * pitch, 32 * work_pitch) + 4 * (rrec_words + crec_words)
+// bytes, must be within the limit set by iqo_wide_set_max_smem.  Writes the
+// handle to *out.  Returns a cudaError_t.
+int iqo_resize_wide_s8_exec_create(int tw, int src_w, int dst_h, int dst_w,
+                                   const void* rrec, int rrec_words, const void* crec,
+                                   int crec_words, int taps_x, int k_rows, int pitch,
+                                   int margin, int work_pitch, int max_phases, int y_bias,
+                                   int out_shift, int stages, void** out) {
+  WideS8Exec e;
+  const int rc = pack_s8(e, tw, src_w, dst_h, dst_w, rrec, rrec_words, crec,
+                         crec_words, taps_x, k_rows, pitch, margin, work_pitch, max_phases,
+                         y_bias, out_shift, stages);
+  return iqo::create(e, rc, out);
+}
+
+// Launches one resize of n_frames frames on the s8 form: the executable of
+// iqo_resize_wide_s8_exec_create with the same arguments, made on the stack
+// and launched once.  dst is contiguous (n_frames, dst_h, dst_w).  Returns a
+// cudaError_t.
+int iqo_resize_wide_s8(int tw, const void* src, void* dst, int n_frames,
+                       long long src_frame_stride, long long src_row_stride, int src_w,
+                       int dst_h, int dst_w, const void* rrec, int rrec_words,
+                       const void* crec, int crec_words, int taps_x, int k_rows, int pitch,
+                       int margin, int work_pitch, int max_phases, int y_bias, int out_shift,
+                       int stages, void* stream) {
+  WideS8Exec e;
+  const int rc = pack_s8(e, tw, src_w, dst_h, dst_w, rrec, rrec_words, crec,
+                         crec_words, taps_x, k_rows, pitch, margin, work_pitch, max_phases,
+                         y_bias, out_shift, stages);
+  if (rc != 0) return rc;
+  return e.launch(src, dst, n_frames, src_frame_stride, src_row_stride,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // The executable of one resize in tiles of tr x tc outputs over n_ct column

@@ -168,6 +168,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, i, i, i, i, i, i,            # win, n_ct, tc, tr, ks, group, wp
         i, p]                           # out_shift, stream
     lib.iqo_resize_wide.restype = i
+    lib.iqo_resize_wide_s8.argtypes = [
+        i,                              # tw: which instantiation of the s8 form
+        p, p, i, ll, ll, i, i, i,       # src, dst, frames, strides, src_w, dst shape
+        p, i, p, i,                     # row records, words; column records, words
+        i, i, i, i, i, i,               # taps_x, k_rows, pitch, margin, work_pitch, max_phases
+        i, i, i,                        # y_bias, out_shift, stages
+        p]                              # stream
+    lib.iqo_resize_wide_s8.restype = i
     # the executables (csrc/exec.cuh): each create takes its iqo_resize_*
     # entry's arguments but the source, output, frames, strides and stream
     out = ctypes.POINTER(p)
@@ -177,6 +185,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.iqo_resize_wide_exec_create.argtypes = [
         i, i, i, i, i, i, p, p, p, i, i, p, p, p, i, i, p, i, i, i, i, i, i, i, out]
     lib.iqo_resize_wide_exec_create.restype = i
+    lib.iqo_resize_wide_s8_exec_create.argtypes = [
+        i, i, i, i, p, i, p, i, i, i, i, i, i, i, i, i, i, out]
+    lib.iqo_resize_wide_s8_exec_create.restype = i
     lib.iqo_exec_launch.argtypes = [p, p, p, i, ll, ll, p]   # exec, src, dst, frames, strides, stream
     lib.iqo_exec_launch.restype = i
     lib.iqo_exec_launch_frame.argtypes = [
@@ -191,6 +202,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.iqo_wide_set_max_smem.restype = i
     lib.iqo_wide_shape.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.iqo_wide_shape.restype = i
+    lib.iqo_wide_s8_shape.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.iqo_wide_s8_shape.restype = i
     lib.iqo_wide_load_bytes.argtypes = [p, i, ll, ll]   # src, frames, strides
     lib.iqo_wide_load_bytes.restype = i
     bind_tiled(lib)

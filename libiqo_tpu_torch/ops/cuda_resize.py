@@ -21,7 +21,9 @@ where :func:`tiled_carry_layout` takes the plan); and the relaxed carry
 form (``*_relaxed_carry_tiled``).  The wide-window kernel
 (``csrc/resize_wide.cu``, :func:`wide_layout`) takes every plan that no
 tiled width takes, exact (``wrap16_wide``, ``u16_wide``) and relaxed
-(``*_relaxed_wide``).  The windowed kernel (``csrc/resize_fused.cu``)
+(``*_relaxed_wide``), its Y pass in scalar items; and, where
+:func:`wide_s8` takes an exact plan, on s8 ``mma.sync`` over the band
+streamed in slabs (``wrap16_wide_s8``).  The windowed kernel (``csrc/resize_fused.cu``)
 keeps the carry forms where no tiled ring fits (``*_carry`` where
 :func:`carry_ok` holds, ``*_relaxed_carry``), the plans ``wide_layout``
 refuses, and, for timing in turns, ``tiled=False`` on the plans the tiled
@@ -49,14 +51,15 @@ from . import _build, torch_resize
 
 __all__ = ["LAUNCHES", "LAUNCHES_BY_VARIANT", "VARIANTS", "CarryLayout",
            "KernelOperands", "KernelTables", "TiledLayout", "TiledTables",
-           "WideLayout", "WideTables", "carry_layout", "carry_ok",
+           "WideLayout", "WideS8", "WideS8Tables", "WideTables", "carry_layout",
+           "carry_ok",
            "carry_requested", "count_launches", "entry_args", "kernel_tables",
            "launch_form", "pack_operands",
            "relaxed_plane", "reset_launches", "resize_fused", "resize_plain",
            "smem_bytes", "supports_plan", "tile_windows", "tiled_carry_layout",
            "tiled_layout", "tiled_ok", "tiled_tables", "tiled_width",
-           "variant", "wide_layout", "wide_load_bytes", "wide_tables",
-           "work_rows"]
+           "variant", "wide_layout", "wide_load_bytes", "wide_s8", "wide_s8_form",
+           "wide_s8_tables", "wide_tables", "work_rows"]
 
 # Must match kTileRows/kTileCols in csrc/resize_fused.cu (checked at load).
 TILE_ROWS = 16
@@ -82,6 +85,15 @@ WIDE_GROUP_COLS = 16      # work columns a Y item: one 16-byte load a tap
 WIDE_BLOCKS = 264         # blocks a wide-window grid aims for: two per SM of 132
 WIDE_SLICE_TAPS = 128     # Y taps an output row from which the Y pass slices them
 WIDE_ITEM_SHARE = 0.9     # the Y items' least share of the threads' last round
+# Must match kS8Cols/kMaxStages in csrc/resize_wide.cu (checked at load).
+WIDE_S8_COLS = 768        # widest band pitch of the s8 Y form: 8 warps x 3 groups of 32
+WIDE_S8_MAX_STAGES = 8    # slabs of 32 band rows its ring holds at most
+WIDE_S8_MIN_STAGES = 3    # ... and at least: slab k + 2 in flight while slab k is summed
+WIDE_S8_WIDTHS = (32, 16)  # its output columns a block, widest first
+WIDE_S8_SMEM = 115712     # its shared memory a block: two blocks an SM of 228 KB
+WIDE_S8_TAPS_A_ROW = 5    # least Y taps a source row (taps_y * dst_h / src_h) it takes
+WIDE_S8_BAND_ROWS = 1024  # most source rows a row tile's band streams: 32 slabs
+WIDE_S8_MIN_BLOCKS = 66   # least blocks a frame it takes: a lone frame on half of 132 SMs
 
 VARIANTS = ("wrap16", "u16", "wrap16_relaxed", "u16_relaxed",
             "wrap16_carry", "u16_carry", "wrap16_relaxed_carry",
@@ -89,7 +101,7 @@ VARIANTS = ("wrap16", "u16", "wrap16_relaxed", "u16_relaxed",
             "wrap16_relaxed_tiled", "u16_relaxed_tiled", "wrap16_carry_tiled",
             "u16_carry_tiled", "wrap16_relaxed_carry_tiled",
             "u16_relaxed_carry_tiled", "wrap16_wide", "u16_wide",
-            "wrap16_relaxed_wide", "u16_relaxed_wide")
+            "wrap16_relaxed_wide", "u16_relaxed_wide", "wrap16_wide_s8")
 LAUNCHES = 0              # kernel launches in this process
 LAUNCHES_BY_VARIANT = dict.fromkeys(VARIANTS, 0)   # the same, by instantiation
 _launch_lock = threading.Lock()
@@ -108,14 +120,15 @@ def variant(plan, relaxed: bool = False, carry: bool = False) -> str:
     """The kernel instantiation that a plan takes on the windowed
     ``resize_fused``, exact or ``relaxed``, without or with ``carry`` (one
     of :data:`VARIANTS`); given its :class:`KernelTables`,
-    :class:`TiledTables` or :class:`WideTables`, the one they were built
-    for, whose name ends in ``_tiled`` for the tiled kernel's and in
-    ``_wide`` for the wide-window kernel's."""
+    :class:`TiledTables`, :class:`WideTables` or :class:`WideS8Tables`,
+    the one they were built for, whose name ends in ``_tiled`` for the
+    tiled kernel's, in ``_wide`` for the wide-window kernel's scalar Y
+    form and in ``_wide_s8`` for its s8 Y form."""
     name = "wrap16" if plan.wrap16 else "u16"
     if getattr(plan, "relaxed", relaxed):
         name += "_relaxed"
     if getattr(plan, "wide", False):
-        return name + "_wide"
+        return name + ("_wide_s8" if getattr(plan, "y_s8", False) else "_wide")
     if getattr(plan, "carry", carry):
         name += "_carry"
     return name + "_tiled" if getattr(plan, "tiled", False) else name
@@ -552,7 +565,8 @@ def _x_window(plan: ResizePlan, relaxed: bool, tw: int) -> tuple[int, int]:
     return step, window
 
 
-def _tiled_layout(plan: ResizePlan, relaxed: bool, tw: int, run: int) -> TiledLayout:
+def _tiled_layout(plan: ResizePlan, relaxed: bool, tw: int, run: int,
+                  per_tap: bool = False) -> TiledLayout:
     y, x = plan.y, plan.x
     rwin = tile_windows(y, TILE_ROWS).astype(np.int64)
     n_rt = len(rwin)
@@ -615,7 +629,7 @@ def _tiled_layout(plan: ResizePlan, relaxed: bool, tw: int, run: int) -> TiledLa
     pitch = _round_up(int((win[:, 1] - win[:, 0]).max()) + 15, BAND_ALIGN)
     margin = _round_up(max(0, -int(xs.min())), 8)
     need = margin + max(pitch, 15 + max(0, int(xs.max())) + x.num_coefs)
-    x_step, x_window = _x_window(plan, relaxed, tw)
+    x_step, x_window = (0, 0) if per_tap else _x_window(plan, relaxed, tw)
     skew = 32
     if x_step:
         # a thread's words start at its window's first value (at most
@@ -740,6 +754,87 @@ def tiled_tables(plan: ResizePlan, device="cpu",
 
 
 @dataclasses.dataclass(frozen=True)
+class WideS8:
+    """The wide-window kernel's s8 Y form (``resize_wide_kernel_s8y`` in
+    ``csrc/resize_wide.cu``): one block a TILE_ROWS x ``rec.tw`` output
+    tile, from the tiled kernel's records at that width (``rec``,
+    :class:`TiledLayout` with the X pass per tap, whose row records hold
+    the merged s8 Y matrix A), its band streamed through a ring of
+    ``stages`` slabs of 32 rows into the tensor cores' Y dot, the 16-bit
+    work tile in the ring's place, then the per-tap X pass."""
+    rec: TiledLayout
+    stages: int
+
+    @property
+    def tw(self) -> int:
+        return self.rec.tw
+
+    @property
+    def blocks(self) -> int:
+        """Blocks a frame."""
+        return len(self.rec.rrec) * len(self.rec.crec)
+
+    @property
+    def smem(self) -> int:
+        """Bytes of shared memory a block: the ring, or the work tile where
+        it is larger, and the two records."""
+        rec = self.rec
+        return (max(self.stages * 32 * rec.pitch, TILE_ROWS * rec.work_pitch * 2)
+                + 4 * (rec.rrec.shape[1] + rec.crec.shape[1]))
+
+
+def wide_s8_form(plan: ResizePlan, tw: int, stages: int | None = None) -> WideS8 | None:
+    """The s8 Y form of a wrap16 plan at ``tw`` output columns a block (see
+    :class:`WideS8`), whether or not :func:`wide_s8` routes the plan to it;
+    None where it cannot launch: the merged Y matrix does not fit s8
+    (``TiledLayout.s8y``, as the tiled kernel decides it) or the band's
+    pitch passes WIDE_S8_COLS.  ``stages``: by default the most that fit
+    WIDE_S8_SMEM (two blocks an SM), at most WIDE_S8_MAX_STAGES, and None
+    below WIDE_S8_MIN_STAGES; given, any ring of 2 to WIDE_S8_MAX_STAGES
+    slabs whose block fits SMEM_BUDGET."""
+    if not plan.wrap16:
+        return None
+    rec = _tiled_layout(plan, False, tw, 1, per_tap=True)
+    if not rec.s8y or rec.pitch > WIDE_S8_COLS:
+        return None
+    if stages is None:
+        room = WIDE_S8_SMEM - 4 * (rec.rrec.shape[1] + rec.crec.shape[1])
+        form = WideS8(rec, min(WIDE_S8_MAX_STAGES, room // (32 * rec.pitch)))
+        return form if form.stages >= WIDE_S8_MIN_STAGES and form.smem <= WIDE_S8_SMEM else None
+    form = WideS8(rec, stages)
+    return form if 2 <= stages <= WIDE_S8_MAX_STAGES and form.smem <= SMEM_BUDGET else None
+
+
+def wide_s8(plan: ResizePlan) -> WideS8 | None:
+    """The s8 Y form that the route gives an exact plan (see
+    :class:`WideS8`), or None where the plan keeps the scalar Y form.
+
+    It takes wrap16 (Lanczos) plans whose Y taps a source row, taps_y x
+    dst_h / src_h (2 x degree for a Lanczos downscale at px_scale 1), are
+    WIDE_S8_TAPS_A_ROW or more: the scalar form's Y work grows with them,
+    the s8 form streams each source row once whatever they are.  On an H100
+    the s8 form took 0.46-0.96x the scalar form's time on Lanczos3 (6 a
+    row) and 1.03x on Lanczos2 8K -> 480x270 (4); the scalar u16 pass (Area:
+    1 a row, two bytes a multiply) was faster on every Area plan, by
+    1.10-3.37x (PERF.md §6).  A block streams its band's slabs in
+    series, so it takes bands of at most WIDE_S8_BAND_ROWS rows a row tile:
+    the 4K -> 1920x16 strips' 2160 rows took 0.96x at 16 frames a launch
+    but 2.2x a lone frame's time.  For the same reason a lone frame's grid
+    has to cover half the SMs: then the first width of WIDE_S8_WIDTHS at
+    which :func:`wide_s8_form` holds two blocks an SM and a frame has
+    WIDE_S8_MIN_BLOCKS blocks.  A lone 1920x1080 -> 128x72 frame (20 blocks
+    at TW 32, 40 at 16) took 1.75x the best scalar layout's time, though
+    0.46x at 16 frames; 4K -> 256x144 (72 blocks) took 0.90x."""
+    y = plan.y
+    rwin = tile_windows(y, TILE_ROWS)
+    if (not plan.wrap16 or y.num_coefs * y.n_dst < WIDE_S8_TAPS_A_ROW * y.n_src
+            or int((rwin[:, 1] - rwin[:, 0]).max()) > WIDE_S8_BAND_ROWS):
+        return None
+    forms = (wide_s8_form(plan, w) for w in WIDE_S8_WIDTHS)
+    return next((f for f in forms if f is not None and f.blocks >= WIDE_S8_MIN_BLOCKS), None)
+
+
+@dataclasses.dataclass(frozen=True)
 class WideLayout:
     """How the wide-window kernel (``csrc/resize_wide.cu``) walks a plan.
     Block b computes the ``tr`` x ``tc`` outputs of row tile ``b // n_ct``
@@ -861,7 +956,8 @@ class WideTables:
     """The wide-window kernel's operands, output-major int32 tables on the
     device, and its layout; in the relaxed form the X taps are the relaxed
     planes' float32 bits, and the planes tap-major as well, which the
-    relaxed plain version reads.  Read-only once built."""
+    relaxed plain version reads.  The scalar Y form's: the s8 Y form has
+    :class:`WideS8Tables`.  Read-only once built."""
     cy: torch.Tensor        # (dst_h, taps_y)
     ys: torch.Tensor        # (dst_h,) first source row, unclamped
     ydiv: torch.Tensor      # (dst_h,) border divisor, 0 on main rows
@@ -877,6 +973,7 @@ class WideTables:
     carry: bool = False
     tiled: bool = False
     wide: bool = True
+    y_s8: bool = False
 
 
 def wide_tables(plan: ResizePlan, device="cpu", layout: WideLayout | None = None,
@@ -905,6 +1002,36 @@ def wide_tables(plan: ResizePlan, device="cpu", layout: WideLayout | None = None
         ydiv=t(np.where(plan.y.is_border, ydeno, 0)), cx=cx,
         xs=t(plan.x.start), xdiv=t(_x_divisors(plan)), win=t(lay.win),
         layout=lay, wrap16=plan.wrap16, cxr=cxr, cxd=cxd, relaxed=lay.relaxed)
+
+
+@dataclasses.dataclass(frozen=True)
+class WideS8Tables:
+    """The wide-window kernel's s8 Y form's operands: the two record tables
+    of ``layout.rec`` on the device, and its layout.  Exact and wrap16
+    only.  Read-only once built."""
+    rrec: torch.Tensor      # (n_row_tiles, rrec_words) int32
+    crec: torch.Tensor      # (n_col_tiles, crec_words) int32
+    layout: WideS8
+    taps_x: int
+    wrap16: bool = True
+    relaxed: bool = False
+    carry: bool = False
+    tiled: bool = False
+    wide: bool = True
+    y_s8: bool = True
+
+
+def wide_s8_tables(plan: ResizePlan, device="cpu",
+                   form: WideS8 | None = None) -> WideS8Tables:
+    """The s8 Y form's tables for a plan, at ``form`` (:func:`wide_s8` by
+    default, which must take the plan; :func:`wide_s8_form` builds another
+    for a comparison)."""
+    form = wide_s8(plan) if form is None else form
+    if form is None:
+        raise ValueError("the wide-window kernel's s8 Y form does not take the plan")
+    return WideS8Tables(rrec=torch.from_numpy(form.rec.rrec).to(device),
+                        crec=torch.from_numpy(form.rec.crec).to(device), layout=form,
+                        taps_x=plan.x.num_coefs, wrap16=plan.wrap16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -943,7 +1070,7 @@ class KernelOperands:
     holds), relaxed ones on any device, since the relaxed plain version
     reads its planes from them."""
     plain: torch_resize.Operands
-    tables: KernelTables | TiledTables | WideTables | None
+    tables: KernelTables | TiledTables | WideTables | WideS8Tables | None
 
     @property
     def device(self) -> torch.device:
@@ -956,7 +1083,7 @@ class KernelOperands:
 
 def kernel_tables(plan: ResizePlan, device="cpu", relaxed: bool = False,
                   carry: bool = False, tiled: bool = True, wide: bool = True
-                  ) -> KernelTables | TiledTables | WideTables:
+                  ) -> KernelTables | TiledTables | WideTables | WideS8Tables:
     """The kernel's tables for a plan that :func:`supports_plan` takes
     (with the same ``relaxed``), exact or relaxed.  With ``tiled`` (the
     default), the tiled kernel's (:func:`tiled_tables`): with ``carry`` its
@@ -964,8 +1091,10 @@ def kernel_tables(plan: ResizePlan, device="cpu", relaxed: bool = False,
     without a windowed carry (:func:`carry_ok`) to take its place, its
     plain form's where that layout fits at one of its widths
     (:func:`tiled_ok`).  Else, without a windowed carry, the wide-window
-    kernel's (:func:`wide_tables`) where :func:`wide_layout` takes the plan
-    and ``wide`` holds (the default): every plan no tiled width takes, and
+    kernel's where ``wide`` holds (the default), its s8 Y form's
+    (:func:`wide_s8_tables`) where :func:`wide_s8` takes an exact plan,
+    else its scalar form's (:func:`wide_tables`) where :func:`wide_layout`
+    takes the plan: every plan no tiled width takes, and
     with ``tiled=False`` also the exact plans whose 16-row work tile does
     not fit (:func:`work_rows` < TILE_ROWS).  Else the windowed
     ``resize_fused`` form's: the carry form where ``carry`` and
@@ -982,6 +1111,9 @@ def kernel_tables(plan: ResizePlan, device="cpu", relaxed: bool = False,
     rows = work_rows(plan)
     if wide and rows and not windowed_carry and (
             tiled or rows < TILE_ROWS or not tiled_ok(plan, relaxed)):
+        s8 = None if relaxed else wide_s8(plan)
+        if s8 is not None:
+            return wide_s8_tables(plan, device, s8)
         lay = wide_layout(plan, relaxed=relaxed)
         if lay is not None:
             return wide_tables(plan, device, lay)
@@ -1076,6 +1208,11 @@ def _lib():
         raise RuntimeError(f"wide-window kernel {rows.value} threads, "
                            f"{cols.value} columns an item != host "
                            f"{WIDE_THREADS}, {WIDE_GROUP_COLS}")
+    lib.iqo_wide_s8_shape(ctypes.byref(cols), ctypes.byref(rows))
+    if (cols.value, rows.value) != (WIDE_S8_COLS, WIDE_S8_MAX_STAGES):
+        raise RuntimeError(f"wide-window s8 form {cols.value} band columns, "
+                           f"{rows.value} stages != host {WIDE_S8_COLS}, "
+                           f"{WIDE_S8_MAX_STAGES}")
     return lib
 
 
@@ -1109,7 +1246,8 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
 
     Launches the kernel the tables were built for: the tiled kernel
     (``csrc/resize_tiled.cuh``) in its form for :class:`TiledTables`, the
-    wide-window kernel (``csrc/resize_wide.cu``) for :class:`WideTables`,
+    wide-window kernel (``csrc/resize_wide.cu``) for :class:`WideTables`
+    and its s8 Y form for :class:`WideS8Tables`,
     else ``resize_fused`` in its instantiation.  A CPU tensor goes through
     :func:`resize_plain`.  A CUDA tensor launches
     the kernel, or raises: there is no fallback.  Rows may be strided; the
@@ -1148,8 +1286,9 @@ def resize_fused(ops: KernelOperands, src: torch.Tensor) -> torch.Tensor:
 
 def entry_args(ops: KernelOperands) -> tuple[str, tuple, tuple]:
     """The kernel entry that ``ops``' tables take, ``"tiled"``, ``"wide"``
-    or ``"fused"``, and its arguments but the source, the output, the frame
-    count, the two strides and the stream, split where those go:
+    (``"wide_s8"`` for its s8 Y form) or ``"fused"``, and its arguments but
+    the source, the output, the frame count, the two strides and the
+    stream, split where those go:
     ``iqo_resize_<kind>(*head, src, dst, frames, frame stride, row stride,
     *tail, stream)`` launches once (:func:`resize_fused`), and
     ``iqo_resize_<kind>_exec_create(*head, *tail, &handle)`` packs the same
@@ -1165,6 +1304,12 @@ def entry_args(ops: KernelOperands) -> tuple[str, tuple, tuple]:
             k.crec.shape[1], k.taps_y, k.taps_x, lay.k_rows, lay.pitch, lay.margin,
             lay.work_pitch, lay.max_phases, y_bias, out_shift, lay.planes, lay.run,
             lay.slots, lay.x_step)
+    if k.wide and k.y_s8:
+        rec = k.layout.rec
+        return "wide_s8", (rec.tw,), (
+            w, dh, dw, k.rrec.data_ptr(), k.rrec.shape[1], k.crec.data_ptr(),
+            k.crec.shape[1], k.taps_x, rec.k_rows, rec.pitch, rec.margin,
+            rec.work_pitch, rec.max_phases, y_bias, out_shift, k.layout.stages)
     if k.wide:
         lay = k.layout
         return "wide", (int(k.wrap16), int(lay.relaxed)), (
@@ -1185,15 +1330,18 @@ def launch_form(k) -> str | None:
     """The form of the launch that tables ``k`` make, as the port's counter
     names it: the tiled kernel's X pass, ``"tiled.x_window"`` or
     ``"tiled.x_taps"`` (:class:`TiledLayout`); the wide-window kernel's Y
-    pass, ``"wide.y_whole"`` where each item sums all of an output row's Y
-    taps (``ks`` 1), or ``"wide.y_sliced"`` where ``ks`` slices meet by
-    shared-memory atomics (:class:`WideLayout`); None for the windowed
-    kernel or none."""
+    pass, ``"wide.y_s8"`` on the tensor cores over a streamed band
+    (:class:`WideS8Tables`), else ``"wide.y_whole"`` where each item sums all of
+    an output row's Y taps (``ks`` 1), or ``"wide.y_sliced"`` where ``ks``
+    slices meet by shared-memory atomics (:class:`WideLayout`); None for
+    the windowed kernel or none."""
     if k is None:
         return None
     if k.tiled:
         return "tiled.x_window" if k.layout.x_step else "tiled.x_taps"
     if k.wide:
+        if k.y_s8:
+            return "wide.y_s8"
         return "wide.y_whole" if k.layout.ks == 1 else "wide.y_sliced"
     return None
 

@@ -7,9 +7,9 @@ is one jitted function over the three planes
 (``parallel/sharding.py:make_yuv_step_fn``).  Here an :class:`Executable`
 holds a plan's :class:`~.cuda_resize.KernelOperands` on one device and, on
 a CUDA device, a C handle (``csrc/exec.cuh``) built from them once by
-``iqo_resize_{tiled,wide,fused}_exec_create``: the kernel instantiation,
-its argument record, the grid of one frame, the block and the shared
-memory.  A call is then one ctypes call, ``iqo_exec_launch``, with the
+``iqo_resize_{tiled,wide,wide_s8,fused}_exec_create``: the kernel
+instantiation, its argument record, the grid of one frame, the block and
+the shared memory.  A call is then one ctypes call, ``iqo_exec_launch``, with the
 source, the output, the frame count and the strides; :func:`launch_frame`
 issues a whole YUV420 frame, luma and U and V, in one host call
 (``iqo_exec_launch_frame``), with no copy of U and V: three launches, or
@@ -23,7 +23,7 @@ executable.  Every launch is counted in ``cuda_resize.LAUNCHES`` and
 ``LAUNCHES_BY_VARIANT``; while the port records (:mod:`..tracing`), each
 ctypes launch is also a ``port.launch`` span with its launches by plane,
 each tiled or wide-window launch a count of its form (``tiled.x_window``,
-``tiled.x_taps``, ``wide.y_whole`` or ``wide.y_sliced``,
+``tiled.x_taps``, ``wide.y_s8``, ``wide.y_whole`` or ``wide.y_sliced``,
 :func:`~.cuda_resize.launch_form`), and each handle made a
 ``port.exec_create`` span.  A failed create or
 launch raises: nothing falls back to another path.  On the CPU an

@@ -1,22 +1,26 @@
 """The wide-window kernel's layout against its neighbours, and against the
 kernels it replaced, on one CUDA card.
 
-    python -m libiqo_tpu_torch.tools.wide_ablate [--thumbnails]
+    python -m libiqo_tpu_torch.tools.wide_ablate [--thumbnails | --s8] [--batch N]
 
 For each plan of ``card_check.WIDE_TIMED`` (the five plans the facade sends
 to the wide-window kernel, ``csrc/resize_wide.cu``, and the two that
-``tiled_ok`` takes, here with ``tiled=False``), or with ``--thumbnails`` of
+``tiled_ok`` takes, here with ``tiled=False``), with ``--thumbnails`` of
 :func:`thumbnails` (the plans of ``card_check.THUMBNAILS`` that the kernel
-takes at 16 rows, whose walk is the windowed kernel's 16-row tile): the
-kernel at its own layout
-(``cuda_resize.wide_layout``) and at each of :func:`variants` (the tile's
-columns or rows doubled or halved, another block target, one Y slice or
-four, a whole warp or one lane an output), each held == the plain path first, then
-timed in turns with the windowed kernel's wide-window walk
+takes at 16 rows, whose walk is the windowed kernel's 16-row tile), or
+with ``--s8`` of :func:`s8_plans` (those of both lists that its s8 Y form
+takes): the kernel in the form the route gives it (``cuda_resize.wide_s8``,
+else the scalar Y form at ``cuda_resize.wide_layout``), the scalar Y form
+at that layout (``y_imad``, where the route takes the s8 form) and at each
+of :func:`variants` (the tile's columns or
+rows doubled or halved, another block target, one Y slice or four, a whole
+warp or one lane an output), and the s8 form's :func:`s8_variants` (the
+other width, fewer or more ring stages), each held == the plain path
+first, then timed in turns with the windowed kernel's wide-window walk
 (``pack_operands(..., wide=False)``), the facade's route and the plain path
 (host-paced): CUDA events, the card spinning while the host queues, over
 perturbed copies past the 50 MB L2 (at most 64: the small sources' copies
-stay in it).  Prints the card's name and power limit,
+stay in it), of one frame a call or ``--batch`` frames.  Prints the card's name and power limit,
 and one line and one JSON line a plan.  Exits 2 without a card.
 """
 
@@ -28,6 +32,7 @@ import json
 import math
 import sys
 
+import numpy as np
 import torch
 
 from ..experiments import _harness
@@ -38,7 +43,8 @@ MAX_INPUTS = 64          # distinct sources timed at most: small ones stay in th
 
 
 def variants(plan, lay) -> dict:
-    """name: layout, the neighbours of ``lay`` that fit shared memory."""
+    """name: layout, the neighbours of the scalar Y form's layout ``lay``
+    that fit shared memory."""
     from ..ops import cuda_resize as cr
 
     out = {}
@@ -50,6 +56,7 @@ def variants(plan, lay) -> dict:
                 out[name] = v
     for blocks in (cr.WIDE_BLOCKS // 2, cr.WIDE_BLOCKS * 2):
         out[f"blocks {blocks}"] = cr.wide_layout(plan, blocks=blocks)
+    out = {k: v for k, v in out.items() if v is not None}
     if lay.ks > 1:
         out["ks 1"] = dataclasses.replace(lay, ks=1)
     elif lay.taps_y >= 8:            # below WIDE_SLICE_TAPS: what slices would do
@@ -58,6 +65,31 @@ def variants(plan, lay) -> dict:
         if group != lay.group:
             out[f"group {group}"] = dataclasses.replace(lay, group=group)
     return {k: v for k, v in out.items() if v is not None and v.smem <= cr.SMEM_BUDGET}
+
+
+def s8_variants(plan, form) -> dict:
+    """name: ``cuda_resize.WideS8``, the neighbours of the s8 Y form
+    ``form``: the other width of ``WIDE_S8_WIDTHS`` and one ring stage
+    fewer or more, where they fit (``cuda_resize.wide_s8_form``)."""
+    from ..ops import cuda_resize as cr
+
+    out = {}
+    for tw in cr.WIDE_S8_WIDTHS:
+        if tw != form.tw:
+            out[f"s8 tw {tw}"] = cr.wide_s8_form(plan, tw)
+    for n in (form.stages - 1, form.stages + 1):
+        out[f"s8 stages {n}"] = cr.wide_s8_form(plan, form.tw, n)
+    return {k: v for k, v in out.items() if v is not None}
+
+
+def s8_plans() -> list:
+    """The plans of ``card_check.WIDE_TIMED`` and :func:`thumbnails` that
+    the route gives the s8 Y form (``cuda_resize.wide_s8``)."""
+    from ..core.plan import build_plan
+    from ..ops import cuda_resize as cr
+
+    return [c for c in card_check.WIDE_TIMED + thumbnails()
+            if cr.wide_s8(build_plan(*c[:5], **c[5])) is not None]
 
 
 def thumbnails() -> list:
@@ -81,7 +113,7 @@ def ptxas_report(log: str) -> list[str]:
     return out
 
 
-def measure(case, card: tuple[str, str]) -> dict:
+def measure(case, card: tuple[str, str], batch: int = 1) -> dict:
     from ..api import Resizer
     from ..core.plan import build_plan
     from ..ops import cuda_resize as cr
@@ -91,8 +123,9 @@ def measure(case, card: tuple[str, str]) -> dict:
     ops = cr.pack_operands(plan, "cuda", tiled=False)
     walk = cr.pack_operands(plan, "cuda", tiled=False, wide=False)
     route = Resizer.from_plan(plan, device="cuda")
-    lay = ops.tables.layout
-    x = torch.from_numpy(card_check.source(case, 0)).cuda()[None]
+    lay = cr.wide_layout(plan)
+    s8 = ops.tables.layout if ops.tables.y_s8 else None
+    x = torch.from_numpy(np.stack([card_check.source(case, f) for f in range(batch)])).cuda()
     want = cr.resize_plain(ops, x)
     cr.reset_launches()
     _bench.check_equal(f"{card_check.case_name(case)} kernel", cr.resize_fused(ops, x), want)
@@ -104,11 +137,18 @@ def measure(case, card: tuple[str, str]) -> dict:
              "walk": lambda t: cr.resize_fused(walk, t),
              "route": lambda t: route.resize(t)}
     shapes = {}
-    for name, v in variants(plan, lay).items():
-        vops = cr.KernelOperands(plain=ops.plain, tables=cr.wide_tables(plan, "cuda", v))
+    neighbours = variants(plan, lay)
+    if s8 is not None:
+        neighbours = {"y_imad": lay, **neighbours, **s8_variants(plan, s8)}
+    for name, v in neighbours.items():
+        scalar = isinstance(v, cr.WideLayout)
+        tables = (cr.wide_tables(plan, "cuda", v) if scalar
+                  else cr.wide_s8_tables(plan, "cuda", v))
+        vops = cr.KernelOperands(plain=ops.plain, tables=tables)
         _bench.check_equal(f"layout {name}", cr.resize_fused(vops, x), want)
         calls[name] = lambda t, o=vops: cr.resize_fused(o, t)
-        shapes[name] = [v.tc, v.tr, v.ks, v.group, v.blocks]
+        shapes[name] = ([v.tc, v.tr, v.ks, v.group, v.blocks] if scalar
+                        else ["s8", v.tw, v.stages, v.blocks])
     calls["plain"] = lambda t: cr.resize_plain(ops, t)
     n = min(MAX_INPUTS, max(8, math.ceil(_bench.L2_COLD_BYTES / x.numel())))
     xs = _harness.perturbed(x, n)
@@ -116,11 +156,17 @@ def measure(case, card: tuple[str, str]) -> dict:
     for n in list(calls) + list(calls)[::-1]:
         times[n].append(_harness.launches_ms(calls[n], xs, primed=n != "plain"))
     ms = {n: min(t) for n, t in times.items()}
+    scalar = [n for n, v in neighbours.items() if isinstance(v, cr.WideLayout)]
+    if s8 is None:
+        scalar.append("kernel")
+    best = min(scalar, key=ms.get)
     nbytes = _bench.plan_bytes(plan)
     mads = dh * sw * plan.y.num_coefs + dh * dw * plan.x.num_coefs
-    return {"case": card_check.case_name(case), "launched": launched,
+    return {"case": card_check.case_name(case), "batch": batch, "launched": launched,
             "layout": [lay.tc, lay.tr, lay.ks, lay.group, lay.blocks],
-            "smem": lay.smem, "walk_rows": walk.tables.rows, "route": cr.variant(
+            "smem": lay.smem, "form": cr.launch_form(ops.tables),
+            "s8": None if s8 is None else [s8.tw, s8.stages, s8.blocks, s8.smem],
+            "scalar_best": best, "kernel_vs_scalar_best": ms["kernel"] / ms[best], "walk_rows": walk.tables.rows, "route": cr.variant(
                 route._operands(x.device).tables) if route.resolved_backend() == "cuda" else None,
             "ms": ms, "variants": shapes,
             "bound_ms": nbytes / _harness.HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -130,8 +176,12 @@ def measure(case, card: tuple[str, str]) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--thumbnails", action="store_true",
-                    help="the 16-row thumbnails in place of WIDE_TIMED")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--thumbnails", action="store_true",
+                       help="the 16-row thumbnails in place of WIDE_TIMED")
+    which.add_argument("--s8", action="store_true",
+                       help="the plans the s8 Y form takes, in place of WIDE_TIMED")
+    ap.add_argument("--batch", type=int, default=1, help="frames a call")
     args = ap.parse_args(argv)
     _bench.require_card("wide_ablate")
     card = _bench.card()
@@ -141,11 +191,15 @@ def main(argv=None) -> int:
     _build.load()
     for line in ptxas_report(_build.build_log):
         print(f"ptxas {line}")
-    for case in thumbnails() if args.thumbnails else card_check.WIDE_TIMED:
-        row = measure(case, card)
+    cases = (thumbnails() if args.thumbnails else s8_plans() if args.s8
+             else card_check.WIDE_TIMED)
+    for case in cases:
+        row = measure(case, card, args.batch)
         ms = row["ms"]
-        print(f"{row['case']}: kernel {ms['kernel']!r} ms (tc, tr, ks, group, blocks "
-              f"{row['layout']}), walk {ms['walk']!r} ({row['walk_rows']} rows), route "
+        print(f"{row['case']}: kernel {ms['kernel']!r} ms ({row['form']}, s8 (tw, stages, "
+              f"blocks, smem) {row['s8']}; scalar (tc, tr, ks, group, blocks) "
+              f"{row['layout']}, best {row['scalar_best']}: kernel "
+              f"{row['kernel_vs_scalar_best']!r}x), walk {ms['walk']!r} ({row['walk_rows']} rows), route "
               f"{row['route']} {ms['route']!r}, plain {ms['plain']!r}; bound "
               f"{row['bound_ms']!r} (bytes), int32 multiply-adds {row['int32_mad_ms']!r}; "
               + ", ".join(f"{n} {v!r}" for n, v in ms.items()

@@ -39,9 +39,10 @@ Counters: ``exec_cache.hit`` and ``exec_cache.miss``
 (``api._ExecutableCache.get``), ``exec.create`` (``Executable._create``),
 ``library.build`` (``_build.load`` when it runs nvcc), ``tiled.x_window``
 and ``tiled.x_taps`` (the tiled kernel's launches by the form of their X
-pass), ``wide.y_whole`` and ``wide.y_sliced`` (the wide-window kernel's
-launches by the form of their Y pass: all of a row's taps in one item, or
-``ks`` > 1 slices met by shared-memory atomics), each where
+pass), ``wide.y_s8``, ``wide.y_whole`` and ``wide.y_sliced`` (the
+wide-window kernel's launches by the form of their Y pass: s8 ``mma.sync``
+over a band streamed in slabs, all of a row's taps in one item, or ``ks`` >
+1 slices met by shared-memory atomics), each where
 ``ops/executable.py`` counts its launches.
 
 One recording at a time, for the process; threads that issue while it is

@@ -5,7 +5,7 @@ The gate's case lists are the JAX package's own (``scripts/tpu_check.py``,
 ``scripts/stress_geometries.py``); on every case of every list the port's
 kernels take what the JAX package's kernel takes; Area 8192x4 -> 16x4 and
 the other plans whose scope the wide-window walk opened are modelled as
-``resize_wide.cu`` computes them (``test_torch_wide_kernel.wide_model``)
+``resize_wide.cu`` computes them (``test_torch_wide_kernel.route_model``)
 and as ``resize_fused.cu``'s walk does (:func:`walk_model`, the
 ``wide=False`` form kept for the timing turns), against ``numpy_ref``; and
 the committed result, where present, shows a passing run on an H100 with
@@ -29,7 +29,7 @@ from libiqo_tpu_torch.golden import numpy_ref
 from libiqo_tpu_torch.ops import cuda_resize
 from libiqo_tpu_torch.tools import card_check
 
-from test_torch_wide_kernel import wide_model
+from test_torch_wide_kernel import route_model
 
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPTS = ROOT / "scripts"
@@ -207,12 +207,12 @@ def test_wide_window_walk_model_matches_oracle(case):
     assert cuda_resize.smem_bytes(plan) > cuda_resize.SMEM_BUDGET, case
     assert cuda_resize.supports_plan(plan), case
     k = cuda_resize.kernel_tables(plan)
-    assert isinstance(k, cuda_resize.WideTables)
+    assert k.wide
     walk = cuda_resize.kernel_tables(plan, wide=False)
     assert walk.rows == cuda_resize.work_rows(plan) < cuda_resize.TILE_ROWS
     src = card_check.source(case, 0)
     want = numpy_ref.resize_u8(plan, src)
-    np.testing.assert_array_equal(wide_model(plan, k.layout, src), want)
+    np.testing.assert_array_equal(route_model(plan, k, src), want)
     np.testing.assert_array_equal(walk_model(plan, walk, src), want)
     ops = cuda_resize.pack_operands(plan)             # the CPU's plain route
     np.testing.assert_array_equal(
@@ -317,8 +317,9 @@ def test_committed_result():
     for case in card_check.THUMBNAILS:
         row = rows[card_check.case_name(case)]
         tiled = cuda_resize.tiled_ok(build_plan(*case[:5], **case[5]))
-        assert row["variant"].endswith("_wide") != tiled and row["work_rows"] == 16, row
-    wide = ("u16_wide", "wrap16_wide")
+        assert row["variant"].endswith(("_wide", "_wide_s8")) != tiled, row
+        assert row["work_rows"] == 16, row
+    wide = ("u16_wide", "wrap16_wide", "wrap16_wide_s8")
     for case in card_check.WIDE_WINDOW:
         row = rows[card_check.case_name(case)]
         assert row["windowed_variant"] in wide and row["work_rows"] < 16, row
@@ -348,7 +349,7 @@ def test_thumbnails_are_in_scope_on_their_routes(case):
     if cuda_resize.tiled_ok(plan):
         assert k.tiled and k.layout.tw < cuda_resize.tiled_width(plan)
     else:
-        assert cuda_resize.variant(k).endswith("_wide")
+        assert cuda_resize.variant(k).endswith(("_wide", "_wide_s8"))
     assert (case in card_check.RELAXED_THUMBNAILS) == cuda_resize.supports_plan(
         plan, relaxed=True)
     assert case in card_check.REQUIRED

@@ -247,6 +247,7 @@ def test_bindings_take_the_entries_arguments():
     lib = _build._bind(Lib())
     plans = {"tiled": build_plan("lanczos", 64, 48, 32, 24, degree=3),
              "wide": build_plan("area", 8192, 4, 16, 4),
+             "wide_s8": build_plan("lanczos", 3840, 2160, 256, 144, degree=3),
              "fused": build_plan("lanczos", 64, 48, 32, 24, degree=3)}
     for kind, plan in plans.items():
         ops = cuda_resize.KernelOperands(

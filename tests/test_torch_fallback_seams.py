@@ -25,7 +25,7 @@ from libiqo_tpu_torch.ops import cuda_resize
 
 from test_torch_card_check import walk_model
 from test_torch_tiled import _model as tiled_model
-from test_torch_wide_kernel import wide_model
+from test_torch_wide_kernel import route_model
 
 CARD = torch.device("cuda")
 RNG = np.random.default_rng(41)
@@ -141,14 +141,14 @@ def test_supports_plan_equals_buildable(case):
         with pytest.raises(AssertionError):
             walk_model(plan, k, np.zeros((sh, sw), np.uint8))
         return
-    wide = isinstance(k, cuda_resize.WideTables)
+    wide = k.wide
     if sw * sh > 1e6:                       # the full-size frames: tables only
         assert (k.layout.smem if wide else k.rows * k.win_max * 4) <= cuda_resize.SMEM_BUDGET
         return
     src = RNG.integers(0, 256, (sh, sw), np.uint8)
     want = numpy_ref.resize_u8(plan, src)
     model = (tiled_model(plan, src) if cuda_resize.tiled_ok(plan) else
-             wide_model(plan, k.layout, src) if wide else walk_model(plan, k, src))
+             route_model(plan, k, src) if wide else walk_model(plan, k, src))
     np.testing.assert_array_equal(model, want)
     relaxed = cuda_resize.supports_plan(plan, relaxed=True)
     try:

@@ -354,7 +354,7 @@ def test_launch_counts_by_variant_reset():
         "wrap16_carry_tiled": 0, "u16_carry_tiled": 0,
         "wrap16_relaxed_carry_tiled": 0, "u16_relaxed_carry_tiled": 0,
         "wrap16_wide": 0, "u16_wide": 0, "wrap16_relaxed_wide": 0,
-        "u16_relaxed_wide": 0}
+        "u16_relaxed_wide": 0, "wrap16_wide_s8": 0}
 
 
 # -- on the card ------------------------------------------------------------

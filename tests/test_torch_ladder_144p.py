@@ -8,8 +8,8 @@ byte; the port's ``YUV420Resizer`` equals the benchmark's reference, and so
 do the NumPy models of the two kernels the rung takes (the wide-window kernel's luma,
 the tiled kernel's px_scale 2 chroma); a byte changed in the port's output
 fails the benchmark's comparison.  At the published size, without
-resizing: luma takes ``wrap16_wide`` with one Y slice, chroma
-``wrap16_tiled`` at TW 32.
+resizing: luma takes ``wrap16_wide_s8`` (the wide-window kernel's s8 Y
+form at TW 32), chroma ``wrap16_tiled`` at TW 32.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from portbench import check
 from portbench.reference import yuv420
 
 from test_torch_tiled import _model as tiled_model
-from test_torch_wide_kernel import wide_model
+from test_torch_wide_kernel import wide_model, wide_s8_model
 
 GEOMETRIES = [(960, 540, 64, 36), (480, 270, 32, 18), (495, 285, 33, 19)]
 
@@ -89,15 +89,22 @@ def test_port_equals_the_reference(geometry):
 
 
 def test_the_kernels_models_equal_the_reference():
-    """960x540 -> 64x36: luma on the wide-window kernel with one Y slice,
-    its px_scale 2 chroma on the tiled kernel, as at the published size."""
+    """960x540 -> 64x36: luma on the wide-window kernel's s8 Y form at the
+    published size's width and ring (at this size its 6 blocks a frame keep
+    the route on the scalar form, WIDE_S8_MIN_BLOCKS) and on its scalar form
+    with one Y slice, its px_scale 2 chroma on the tiled kernel, as at the
+    published size."""
     luma = build_plan("lanczos", 960, 540, 64, 36, degree=3)
     chroma = build_plan("lanczos", 480, 270, 32, 18, degree=3, px_scale=2)
-    lay = cr.wide_layout(luma)
+    lay, s8 = cr.wide_layout(luma), cr.wide_s8_form(luma, 32)
     assert not cr.tiled_ok(luma) and lay.ks == 1 and cr.tiled_ok(chroma)
+    assert s8.stages == cr.wide_s8(build_plan("lanczos", 3840, 2160, 256, 144,
+                                              degree=3)).stages
     ref = yuv420.Frame("lanczos3", 960, 540, 64, 36)
     for k, (y, u, v) in enumerate(frames(960, 540, seed=11)):
         want_y, want_u, _ = ref(y, u, v)
+        np.testing.assert_array_equal(wide_s8_model(luma, s8, y, offset=5 * k, seed=k),
+                                      want_y)
         np.testing.assert_array_equal(wide_model(luma, lay, y, align=16 if k % 2 else 1, seed=k),
                                       want_y)
         np.testing.assert_array_equal(tiled_model(chroma, u, seed=k), want_u)
@@ -110,11 +117,12 @@ def test_published_size_routes():
     assert (chroma.x.n_src, chroma.y.n_src, chroma.x.n_dst, chroma.y.n_dst) == (1920, 1080,
                                                                                 128, 72)
     lk, ck = cr.kernel_tables(luma), cr.kernel_tables(chroma)
-    assert (cr.variant(lk), cr.variant(ck)) == ("wrap16_wide", "wrap16_tiled")
-    lay = lk.layout
-    assert (lay.tc, lay.tr, lay.ks, lay.group, lay.blocks) == (32, 4, 1, 2, 288)
+    assert (cr.variant(lk), cr.variant(ck)) == ("wrap16_wide_s8", "wrap16_tiled")
+    s8, lay = lk.layout, cr.wide_layout(luma)
+    assert (s8.tw, s8.stages, s8.blocks) == (32, 5, 72)
+    assert (lay.tc, lay.tr, lay.ks, lay.group, lay.blocks) == (32, 4, 1, 2, 288)  # scalar form
     assert ck.layout.tw == 32 == cr.tiled_layout(chroma).tw
-    assert (cr.launch_form(lk), cr.launch_form(ck)) == ("wide.y_whole", "tiled.x_taps")
+    assert (cr.launch_form(lk), cr.launch_form(ck)) == ("wide.y_s8", "tiled.x_taps")
 
 
 def test_a_changed_byte_fails_the_comparison():

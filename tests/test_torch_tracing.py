@@ -182,12 +182,13 @@ class _Launches:
         return 3 if n > 1 else 2
 
 
-def _on_card_executable(plan):
-    """A CPU executable of ``plan`` with the tiled kernel's tables, whose
-    launches go to :class:`_Launches`."""
+def _on_card_executable(plan, relaxed: bool = False):
+    """A CPU executable of ``plan`` with the kernel's tables (exact, or
+    ``relaxed``), whose launches go to :class:`_Launches`."""
     from libiqo_tpu_torch.ops import cuda_resize, executable
     ops = cuda_resize.pack_operands(plan)
-    ex = executable.Executable(dataclasses.replace(ops, tables=cuda_resize.kernel_tables(plan)))
+    ex = executable.Executable(dataclasses.replace(
+        ops, tables=cuda_resize.kernel_tables(plan, relaxed=relaxed)))
     ex._handle, ex._lib = 1, _Launches()
     return ex
 
@@ -219,54 +220,71 @@ def test_x_form_counters_count_launches_by_form(monkeypatch):
     assert cuda_resize.LAUNCHES == 10 and tracing.RECORDING is None
 
 
-@pytest.mark.parametrize("case, form", [
-    (("lanczos", 960, 540, 64, 36, {}), "wide.y_whole"),       # 15:1, 90 Y taps: ks 1
-    (("lanczos", 3840, 2160, 256, 144, {}), "wide.y_whole"),   # the 144p rung's luma
-    (("lanczos", 1024, 1080, 64, 8, {}), "wide.y_sliced"),     # 810 Y taps
-    (("lanczos", 3840, 2160, 1920, 16, {}), "wide.y_sliced"),  # the 4K strips
-    (("lanczos", 128, 96, 64, 48, {}), "tiled.x_window"),      # 2:1
-    (("lanczos", 1920, 1080, 128, 72, {"px_scale": 2}), "tiled.x_taps"),   # the rung's chroma
-], ids=["wide_whole", "rung_luma", "wide_sliced", "strips", "tiled_window", "rung_chroma"])
-def test_launch_form_names_each_kernels_form(case, form):
+@pytest.mark.parametrize("case, relaxed, form", [
+    (("lanczos", 960, 540, 64, 36, {}), True, "wide.y_whole"),   # 15:1, 90 Y taps: ks 1
+    (("lanczos", 3840, 2160, 256, 144, {}), False, "wide.y_s8"),   # the 144p rung's luma
+    (("lanczos", 1024, 1080, 64, 8, {}), False, "wide.y_sliced"),   # 810 Y taps
+    (("area", 960, 540, 64, 4, {}), True, "wide.y_sliced"),      # 135 Y taps
+    (("lanczos", 3840, 2160, 1920, 16, {}), False, "wide.y_sliced"),   # the 4K strips
+    (("lanczos", 128, 96, 64, 48, {}), False, "tiled.x_window"),   # 2:1
+    (("lanczos", 1920, 1080, 128, 72, {"px_scale": 2}), False, "tiled.x_taps"),  # its chroma
+    (("linear", 3840, 2160, 256, 144, {}), False, "wide.y_whole"),  # Y taps past s8
+    (("lanczos", 1920, 1080, 128, 72, {}), False, "wide.y_whole"),  # 20 s8 blocks: too few
+], ids=["wide_whole", "rung_luma", "wide_sliced", "wide_sliced_relaxed", "strips",
+        "tiled_window", "rung_chroma", "wide_whole_exact", "wide_s8_rung_1080p"])
+def test_launch_form_names_each_kernels_form(case, relaxed, form):
     """One name a form, for both kernels: the wide-window kernel's by its Y
+    pass, on the tensor cores (``wide.y_s8``) or in scalar items by their
     slices (``ks``), the tiled kernel's by its X pass; none for the
     windowed kernel or no tables."""
     from libiqo_tpu_torch.ops import cuda_resize
     algo, sw, sh, dw, dh, kw = case
-    plan = build_plan(algo, sw, sh, dw, dh, degree=3, **kw)
-    k = cuda_resize.kernel_tables(plan)
+    plan = build_plan(algo, sw, sh, dw, dh, **({"degree": 3} if algo == "lanczos" else {}),
+                      **kw)
+    k = cuda_resize.kernel_tables(plan, relaxed=relaxed)
     assert cuda_resize.launch_form(k) == form
     if k.wide:
-        assert (k.layout.ks == 1) == (form == "wide.y_whole")
-    assert cuda_resize.launch_form(cuda_resize.kernel_tables(plan, tiled=False, wide=False)) is None
+        assert k.y_s8 == (form == "wide.y_s8")
+        if not k.y_s8:
+            assert (k.layout.ks == 1) == (form == "wide.y_whole")
+    assert cuda_resize.launch_form(
+        cuda_resize.kernel_tables(plan, relaxed=relaxed, tiled=False, wide=False)) is None
     assert cuda_resize.launch_form(None) is None
 
 
 def test_wide_form_counters_count_launches(monkeypatch):
     """The wide-window kernel's launches are counted by Y form at the same
     sites as the tiled kernel's: a thumbnail frame call counts its luma
-    under ``wide.y_whole`` once and its chroma under ``tiled.x_taps`` as
-    many times as it launches; without a recording nothing is counted."""
+    under ``wide.y_s8`` once (``wide.y_whole`` not at all) and its chroma
+    under ``tiled.x_taps`` as many times as it launches; the scalar forms
+    count theirs; without a recording nothing is counted."""
     from libiqo_tpu_torch.ops import cuda_resize, executable
     monkeypatch.setattr(executable, "_stream", lambda index: 0)
-    luma = _on_card_executable(build_plan("lanczos", 960, 540, 64, 36, degree=3))
-    chroma = _on_card_executable(build_plan("lanczos", 480, 270, 32, 18, degree=3, px_scale=2))
+    luma = _on_card_executable(build_plan("lanczos", 3840, 2160, 256, 144, degree=3))
+    chroma = _on_card_executable(build_plan("lanczos", 1920, 1080, 128, 72, degree=3,
+                                            px_scale=2))
     sliced = _on_card_executable(build_plan("lanczos", 1024, 1080, 64, 8, degree=3))
-    assert (luma.form, chroma.form, sliced.form) == ("wide.y_whole", "tiled.x_taps",
-                                                     "wide.y_sliced")
-    y, u = _on_card(4, 540, 960), _on_card(4, 270, 480)
+    sliced_relaxed = _on_card_executable(build_plan("area", 960, 540, 64, 4), relaxed=True)
+    whole = _on_card_executable(build_plan("linear", 3840, 2160, 256, 144))
+    assert (luma.form, chroma.form, sliced.form, sliced_relaxed.form, whole.form) == (
+        "wide.y_s8", "tiled.x_taps", "wide.y_sliced", "wide.y_sliced", "wide.y_whole")
+    y, u = _on_card(4, 2160, 3840), _on_card(4, 1080, 1920)
     cuda_resize.reset_launches()
     with tracing.record() as rec:
         executable.launch_frame(luma, chroma, y, u, u)               # 1 luma, 2 chroma
         executable.launch_frame(luma, chroma, y[0], u[0], u[0])      # 1, then U and V as one
         sliced(_on_card(2, 1080, 1024))
-    assert rec.counters == {"wide.y_whole": 2, "tiled.x_taps": 3, "wide.y_sliced": 1}
-    assert rec.launch_planes().tolist() == [[1, 2], [1, 1], list(tracing.UNKNOWN_PLANE)]
-    assert cuda_resize.LAUNCHES_BY_VARIANT["wrap16_wide"] == 3
+        sliced_relaxed(_on_card(2, 540, 960))
+        whole(_on_card(2160, 3840))
+    want = {"wide.y_s8": 2, "tiled.x_taps": 3, "wide.y_sliced": 2, "wide.y_whole": 1}
+    assert rec.counters == want
+    assert rec.launch_planes().tolist() == [[1, 2], [1, 1]] + [list(tracing.UNKNOWN_PLANE)] * 3
+    assert cuda_resize.LAUNCHES_BY_VARIANT["wrap16_wide_s8"] == 2
+    assert cuda_resize.LAUNCHES_BY_VARIANT["wrap16_wide"] == 1
     executable.launch_frame(luma, chroma, y, u, u)                   # off: nothing kept
     sliced(_on_card(2, 1080, 1024))
-    assert rec.counters == {"wide.y_whole": 2, "tiled.x_taps": 3, "wide.y_sliced": 1}
-    assert cuda_resize.LAUNCHES == 10 and tracing.RECORDING is None
+    assert rec.counters == want
+    assert cuda_resize.LAUNCHES == 12 and tracing.RECORDING is None
 
 
 @pytest.fixture
@@ -354,18 +372,18 @@ def test_x_form_counters_on_the_card(card, method, src, dst, form):
 
 @pytest.mark.cuda
 def test_thumbnail_frame_call_counts_its_forms_on_the_card(card):
-    """The 144p rung of a 4K ladder: luma on the wide-window kernel with one
-    Y slice, chroma on the tiled kernel's per-tap X pass; a batch call and
-    a lone frame count one ``wide.y_whole`` each and three ``tiled.x_taps``
-    between them."""
+    """The 144p rung of a 4K ladder: luma on the wide-window kernel's s8 Y
+    form, chroma on the tiled kernel's per-tap X pass; a batch call and a
+    lone frame count one ``wide.y_s8`` each (``wide.y_whole`` none) and
+    three ``tiled.x_taps`` between them."""
     r = YUV420Resizer("lanczos3", 3840, 2160, 256, 144, device=card)
-    assert [ex.form for ex in r._executables(card.index)] == ["wide.y_whole", "tiled.x_taps"]
+    assert [ex.form for ex in r._executables(card.index)] == ["wide.y_s8", "tiled.x_taps"]
     r.resize_batch(*planes(4, 3840, 2160, card))     # the handles made outside the recording
     with tracing.record() as rec:
         r.resize_batch(*planes(4, 3840, 2160, card))
         r.resize(YUV420Frame(*planes(None, 3840, 2160, card)))
     torch.cuda.synchronize()
-    assert rec.counters == {"wide.y_whole": 2, "tiled.x_taps": 3}
+    assert rec.counters == {"wide.y_s8": 2, "tiled.x_taps": 3}
     assert rec.launch_planes().tolist() == [[1, 2], [1, 1]]
 
 

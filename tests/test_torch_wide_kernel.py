@@ -184,6 +184,98 @@ def wide_model(plan, lay: cr.WideLayout, src: np.ndarray, align: int = 16,
     return out
 
 
+def _swz(r, c, pitch):
+    """The byte offset of band (row r, byte column c) in a slab: 16-byte
+    pieces swizzled by row, as ``resize_tiled.cuh`` ``swz``."""
+    return r * pitch + ((((c >> 4) ^ (((r >> 2) & 3) << 1))) << 4) + (c & 15)
+
+
+def wide_s8_model(plan, s8: cr.WideS8, src: np.ndarray, offset: int = 0,
+                  row_stride: int | None = None, seed: int = 0) -> np.ndarray:
+    """What ``resize_wide_kernel_s8y`` computes for one frame, block by
+    block in its order, from the records it is handed (``s8.rec``): the
+    source's first byte at ``offset`` mod 16 and its rows ``row_stride``
+    bytes apart set each block's misalignment; shared memory starts as
+    noise; slab k of the band (source rows ``first + 32 k`` up to the
+    tile's end, the bytes of each row inside the plane) lands in ring stage
+    ``k % stages`` over whatever the stage held, and the Y dot reads all 32
+    rows of the stage, A (zero past the band) against the bytes rebased by
+    ``^ 0x80``, into s32 sums held to |sum| < 2^31; then ``128 * sum cy``
+    back in uint32, the int16 wrap and border renormalisation into the
+    16-bit work tile over the spent ring, and the per-tap X pass and
+    epilogue of the tiled kernel."""
+    noise = np.random.default_rng(seed)
+    rec = s8.rec
+    th, tw, pitch, kr = cr.TILE_ROWS, rec.tw, rec.pitch, rec.k_rows
+    ml, wp, nph = rec.margin, rec.work_pitch, rec.max_phases
+    sh, sw = src.shape
+    stride = sw if row_stride is None else row_stride
+    dh, dw = plan.y.n_dst, plan.x.n_dst
+    tx, half = plan.x.num_coefs, 1 << (plan.out_shift - 1)
+    assert plan.wrap16 and rec.s8y and not rec.x_step and pitch <= cr.WIDE_S8_COLS
+    assert kr % 32 == 0
+    assert len(rec.rrec) == -(-dh // th) and len(rec.crec) == -(-dw // tw)
+    out = np.zeros((dh, dw), np.uint8)
+    written = np.zeros((dh, dw), np.int64)
+    for rt, rr in enumerate(rec.rrec.astype(np.int64)):
+        first, end = int(rr[2]), int(rr[3])
+        assert rr[0] == first and 0 <= first < end <= sh
+        corr, ydiv = rr[4:4 + th] & M32.astype(np.int64), rr[4 + th:4 + 2 * th]
+        a = rec.rrec[rt, 4 + 2 * th:].view(np.uint8)[:th * (kr + 16)].reshape(th, kr + 16)
+        a = a.view(np.int8).astype(np.int64)
+        assert not a[:, kr:].any()
+        slabs = -(-(end - first) // 32)
+        for ct, cw in enumerate(rec.crec.astype(np.int64)):
+            lo, width = int(cw[0]), int(cw[1])
+            mis = (offset + first * stride + lo) % 16
+            cols = np.arange(32 * -(-(mis + width) // 32))
+            assert len(cols) <= pitch
+            region = noise.integers(0, 256, max(s8.stages * 32 * pitch, 2 * th * wp),
+                                    dtype=np.uint8)
+            acc = np.zeros((th, len(cols)), np.int64)
+            piece = np.arange(16 * -(-(mis + width) // 16))
+            col = lo - mis + piece
+            inside = (col >= 0) & (col < sw)
+            for k in range(slabs):
+                base = (k % s8.stages) * 32 * pitch
+                r = np.arange(min(32, end - first - 32 * k))[:, None]
+                region[base + _swz(r, piece[inside][None], pitch)] = \
+                    src[first + 32 * k + r, col[inside][None]]
+                b = region[base + _swz(np.arange(32)[:, None], cols[None], pitch)]
+                acc += a[:, 32 * k:32 * k + 32] @ (b ^ 0x80).view(np.int8).astype(np.int64)
+            assert np.abs(acc).max(initial=0) < 2**31
+            w = _wrap16((acc + corr[:, None]) & 0xFFFFFFFF)
+            d = ydiv != 0
+            w[d] = _wrap16(trunc_div(w[d] * plan.y.bias, ydiv[d, None]))
+            work = region[:2 * th * wp].view("<u2").reshape(th, wp).astype(np.int64)
+            work[:, ml:ml + len(cols)] = w & 0xFFFF
+            wv = _wrap16(work)
+            r0, c0 = rt * th, ct * tw
+            rows, ncol = min(th, dh - r0), min(tw, dw - c0)
+            xs, ph = cw[4:4 + tw][:ncol], cw[4 + tw:4 + 2 * tw][:ncol]
+            xdiv = cw[4 + 2 * tw:4 + 3 * tw][:ncol]
+            cxu = cw[4 + 3 * tw:4 + 3 * tw + tx * nph].reshape(tx, nph)
+            idx = ml + mis + xs[:, None] + np.arange(tx)
+            assert idx.min() >= 0 and idx.max() < wp
+            c = cxu[:, ph if cw[2] > 1 else np.zeros(ncol, np.int64)].T
+            si = _as_i32(((wv[:rows][:, idx] * c).sum(axis=2) + half) & 0xFFFFFFFF)
+            v = _wrap16(np.where(xdiv != 0, trunc_div(si, np.where(xdiv, xdiv, 1)),
+                                 si >> plan.out_shift))
+            out[r0:r0 + rows, c0:c0 + ncol] = np.clip(v, 0, 255)
+            written[r0:r0 + rows, c0:c0 + ncol] += 1
+    assert (written == 1).all()
+    return out
+
+
+def route_model(plan, k, src: np.ndarray, align: int = 16) -> np.ndarray:
+    """The model of the form the wide-window kernel's tables ``k`` launch:
+    :func:`wide_s8_model` for the s8 Y form's (:class:`WideS8Tables`), else
+    :func:`wide_model`."""
+    if k.y_s8:
+        return wide_s8_model(plan, k.layout, src, offset=0 if align == 16 else 5)
+    return wide_model(plan, k.layout, src, align)
+
+
 def _plan(case):
     alg, sw, sh, dw, dh, kw = case
     return build_plan(alg, sw, sh, dw, dh, **kw)
@@ -213,8 +305,9 @@ def test_schedule_fills_the_card_and_fits(case):
     owner = np.arange(lay.n_ct) * lay.tc // cr.TILE_COLS
     assert (lay.win[:, 0] >= big[owner, 0]).all() and (lay.win[:, 1] <= big[owner, 1]).all()
     k = cr.kernel_tables(plan)
-    assert isinstance(k, cr.WideTables) and cr.variant(k) == ("wrap16_wide" if plan.wrap16
-                                                              else "u16_wide")
+    s8 = cr.wide_s8(plan) is not None
+    assert k.wide and k.y_s8 == s8 and cr.variant(k) == (
+        "wrap16_wide_s8" if s8 else "wrap16_wide" if plan.wrap16 else "u16_wide")
     assert api.Resizer.from_plan(plan, device="cpu")._backend_for(CARD) == "cuda"
 
 
@@ -303,7 +396,7 @@ def test_relaxed_and_carry_keep_their_kernels():
     plan = _plan(FACADE_PLANS[4])
     assert not cr.supports_plan(plan, relaxed=True)
     assert cr.carry_layout(plan) is None
-    assert isinstance(cr.kernel_tables(plan, carry=True), cr.WideTables)
+    assert isinstance(cr.kernel_tables(plan, carry=True), cr.WideS8Tables)
     strip = build_plan("lanczos", 3840, 2160, 256, 144, degree=3)
     wide = cr.kernel_tables(strip, relaxed=True, tiled=False)
     assert isinstance(wide, cr.WideTables) and cr.variant(wide) == "wrap16_relaxed_wide"
@@ -500,8 +593,10 @@ def test_thumbnails_take_this_kernel_at_16_rows(case):
     for relaxed in (False, True):
         assert cr.supports_plan(plan, relaxed) and not cr.tiled_ok(plan, relaxed)
         k = cr.kernel_tables(plan, relaxed=relaxed)
-        assert isinstance(k, cr.WideTables) and k.relaxed == relaxed
-        assert (k.layout.group == 1) if relaxed else (k.layout.group >= 1)
+        assert k.wide and k.relaxed == relaxed
+        assert k.y_s8 == (not relaxed and cr.wide_s8(plan) is not None)
+        if not k.y_s8:
+            assert (k.layout.group == 1) if relaxed else (k.layout.group >= 1)
         assert isinstance(cr.kernel_tables(plan, relaxed=relaxed, wide=False), cr.KernelTables)
 
 
@@ -611,3 +706,225 @@ def test_ablation_thumbnails_are_the_wide_ones():
     from libiqo_tpu_torch.tools import wide_ablate
 
     assert wide_ablate.thumbnails() == card_check.THUMBNAILS[:-1]
+
+
+# ---- the s8 Y form -------------------------------------------------------------
+
+# plans of the s8 Y form, small enough for numpy_ref: the 144p rung's 15:1
+# cut down, the strips' 2176-row band at 960 columns and a 38-slab band (the
+# route keeps both on the scalar form: WIDE_S8_BAND_ROWS), tall bands of 20
+# and 29 slabs, 16:1 and odd sizes, degrees 4 and 5, TW 16
+S8_CASES = [
+    ("lanczos", 960, 540, 64, 36, dict(degree=3)),
+    ("lanczos", 960, 2160, 480, 16, dict(degree=3)),
+    ("lanczos", 300, 1200, 23, 17, dict(degree=3)),
+    ("lanczos", 363, 614, 30, 18, dict(degree=4)),
+    ("lanczos", 1920, 1080, 120, 68, dict(degree=3)),
+    ("lanczos", 1001, 777, 61, 47, dict(degree=3)),
+    ("lanczos", 700, 900, 35, 30, dict(degree=5)),
+    ("lanczos", 1500, 1000, 50, 40, dict(degree=3)),
+    ("lanczos", 640, 2000, 40, 50, dict(degree=4)),
+]
+# (first byte's address mod 16, row stride past the width): aligned; 5 in
+# with a pitch not a multiple of 16 (the byte-load path); 3 in, pitch % 16 0
+PLACES = [(0, 0), (5, 11), (3, 16)]
+
+
+def _s8_form(plan) -> cr.WideS8:
+    """The s8 form of a plan at the widest width it fits, the route's rules
+    aside (as ``wide_ablate`` builds it)."""
+    return next(f for w in cr.WIDE_S8_WIDTHS if (f := cr.wide_s8_form(plan, w)) is not None)
+
+
+@pytest.mark.parametrize("place", PLACES, ids=lambda p: f"at{p[0]}+{p[1]}")
+@pytest.mark.parametrize("case", S8_CASES, ids=card_check.case_name)
+def test_s8_model_equals_oracle_and_plain(case, place):
+    """The s8 form's model, from a source at each placement, == numpy_ref
+    == the plain path.  Tolerance 0."""
+    plan = _plan(case)
+    assert not cr.tiled_ok(plan) and cr.wide_layout(plan) is not None
+    src = card_check.source(case, 0)
+    want = numpy_ref.resize_u8(plan, src)
+    offset, pad = place
+    np.testing.assert_array_equal(
+        wide_s8_model(plan, _s8_form(plan), src, offset, src.shape[1] + pad, seed=offset),
+        want)
+    plain = cr.resize_plain(cr.pack_operands(plan), torch.from_numpy(src)[None])[0]
+    np.testing.assert_array_equal(plain.numpy(), want)
+
+
+@pytest.mark.parametrize("kind", ["ones", "checker", "zeros"])
+@pytest.mark.parametrize("case", S8_CASES, ids=card_check.case_name)
+def test_s8_model_at_byte_extremes(case, kind):
+    """All-255, all-0 and checkerboards through the s8 form: the ^ 0x80
+    rebase at both ends of the byte, the int16 wrap and the border
+    divides, == numpy_ref."""
+    plan = _plan(case)
+    s8 = _s8_form(plan)
+    src = _extreme(kind, (case[2], case[1]))
+    np.testing.assert_array_equal(wide_s8_model(plan, s8, src, offset=7),
+                                  numpy_ref.resize_u8(plan, src))
+
+
+@pytest.mark.parametrize("tw", cr.WIDE_S8_WIDTHS)
+@pytest.mark.parametrize("stages", [2, 3, 4, 7])
+def test_s8_model_over_any_ring(stages, tw):
+    """Bands of 9, 10 and 4 slabs (315, 330 and 100 rows: not multiples of
+    32) through rings of 2-7 stages, each slab over the stale rows of the
+    one the stage held, == numpy_ref."""
+    case = S8_CASES[0]
+    plan = _plan(case)
+    s8 = cr.wide_s8_form(plan, tw, stages)
+    assert s8.stages == stages and s8.tw == tw
+    band = s8.rec.rrec[:, 3] - s8.rec.rrec[:, 2]
+    assert (band % 32).all() and (-(-band // 32) % stages).any()
+    src = card_check.source(case, 1)
+    np.testing.assert_array_equal(wide_s8_model(plan, s8, src, offset=stages),
+                                  numpy_ref.resize_u8(plan, src))
+
+
+@pytest.mark.parametrize("case", [c for c in card_check.WIDE_TIMED + card_check.THUMBNAILS
+                                  if cr.wide_s8(_plan(c)) is not None]
+                         + [card_check.THUMBNAILS[1]], ids=card_check.case_name)
+def test_s8_model_equals_plain_at_full_size(case):
+    """Every plan of the card's lists that the s8 form takes, and 1920x1080
+    -> 128x72, which its grid keeps off the route (WIDE_S8_MIN_BLOCKS), at
+    its size, == the plain path."""
+    plan = _plan(case)
+    src = card_check.source(case, 0)
+    plain = cr.resize_plain(cr.pack_operands(plan), torch.from_numpy(src)[None])[0]
+    np.testing.assert_array_equal(wide_s8_model(plan, cr.wide_s8(plan) or _s8_form(plan),
+                                                src, offset=9), plain.numpy())
+
+
+def test_s8_layout_of_each_plan():
+    """The width, ring and blocks the rule picks (PERF.md §6): TW 32 where
+    the band's pitch fits WIDE_S8_COLS, else 16; the most stages that fit
+    two blocks an SM, at most WIDE_S8_MAX_STAGES."""
+    got = {card_check.case_name(c): (lambda s: (s.tw, s.stages, s.blocks))(
+        cr.wide_s8(_plan(c))) for c in wide_s8_plans()}
+    assert got == {
+        "lanczos3 7680x4320->240x135": (16, 4, 135),
+        "lanczos3 3840x2160->256x144": (32, 5, 72),
+        "lanczos3 7680x4320->480x270": (32, 5, 255),
+        "lanczos3 7680x4320->320x180": (16, 5, 240)}
+
+
+def wide_s8_plans():
+    from libiqo_tpu_torch.tools import wide_ablate
+
+    return wide_ablate.s8_plans()
+
+
+@pytest.mark.parametrize("case", S8_CASES + card_check.THUMBNAILS[:2], ids=card_check.case_name)
+def test_s8_form_fits_two_blocks_an_sm(case):
+    """The s8 form's records are the tiled kernel's at its width with the X
+    pass per tap; its pitch fits the warps' sums, its ring 3-8 slabs, and
+    its block two an SM."""
+    plan = _plan(case)
+    s8 = _s8_form(plan)
+    rec = s8.rec
+    assert rec.s8y and rec.x_step == 0 and rec.pitch <= cr.WIDE_S8_COLS
+    tiled = cr.tiled_layout(plan, tw=s8.tw)
+    assert np.array_equal(rec.rrec, tiled.rrec) and np.array_equal(rec.crec, tiled.crec)
+    assert cr.WIDE_S8_MIN_STAGES <= s8.stages <= cr.WIDE_S8_MAX_STAGES
+    assert s8.smem <= cr.WIDE_S8_SMEM and 2 * (s8.smem + 1024) <= 233472
+    assert s8.smem == max(s8.stages * 32 * rec.pitch, 32 * rec.work_pitch) + 4 * (
+        rec.rrec.shape[1] + rec.crec.shape[1])
+    assert s8.blocks == -(-plan.y.n_dst // cr.TILE_ROWS) * -(-plan.x.n_dst // s8.tw)
+
+
+def test_s8_routes():
+    """The 144p rung's luma takes the s8 form (``wide.y_s8``) on
+    ``wrap16_wide_s8``, its tables the form's records alone; plans whose
+    merged Y does not fit s8 (Linear 4K ->
+    256x144, Area 8192x4 -> 16x4), those under WIDE_S8_TAPS_A_ROW Y taps a
+    source row (Area: 1, Lanczos2: 4, px_scale 2: 2), those whose bands
+    pass WIDE_S8_BAND_ROWS (the 4K -> 1920x16 strips), those whose frame
+    has fewer than WIDE_S8_MIN_BLOCKS blocks at every width (1920x1080 ->
+    128x72) and every relaxed plan keep the scalar form; the rung's chroma
+    keeps the tiled kernel."""
+    rung = build_plan("lanczos", 3840, 2160, 256, 144, degree=3)
+    k = cr.kernel_tables(rung)
+    assert isinstance(k, cr.WideS8Tables) and k.y_s8
+    assert (k.layout.tw, k.layout.stages) == (32, 5)
+    assert (cr.variant(k), cr.launch_form(k)) == ("wrap16_wide_s8", "wide.y_s8")
+    assert torch.equal(k.rrec, torch.from_numpy(k.layout.rec.rrec))
+    assert torch.equal(k.crec, torch.from_numpy(k.layout.rec.crec))
+    assert not any(hasattr(k, f) for f in ("cy", "ys", "cx", "xs", "xdiv", "win"))
+    for case in (("linear", 3840, 2160, 256, 144, {}), ("area", 8192, 4, 16, 4, {})):
+        plan = _plan(case)
+        assert not cr.tiled_layout(plan).s8y
+        k = cr.kernel_tables(plan)
+        assert isinstance(k, cr.WideTables) and not k.y_s8
+        assert cr.launch_form(k) == "wide.y_whole" and cr.variant(k).endswith("_wide")
+    for case in (card_check.WIDE_FACADE[1:4] + card_check.THUMBNAILS[3:4]
+                 + card_check.THUMBNAILS[7:8] + [("lanczos", 640, 360, 40, 9,
+                                                  dict(degree=3, px_scale=2))]):
+        plan = _plan(case)
+        assert cr.tiled_layout(plan).s8y and cr.wide_s8(plan) is None
+        assert plan.y.num_coefs * plan.y.n_dst < cr.WIDE_S8_TAPS_A_ROW * plan.y.n_src
+        k = cr.kernel_tables(plan)
+        assert isinstance(k, cr.WideTables) and not k.y_s8
+        assert cr.launch_form(k) in ("wide.y_whole", "wide.y_sliced")
+    for case in card_check.THUMBNAILS[1:2] + [("lanczos", 960, 540, 64, 36, dict(degree=3))]:
+        plan = _plan(case)
+        forms = [cr.wide_s8_form(plan, w) for w in cr.WIDE_S8_WIDTHS]
+        assert all(f.blocks < cr.WIDE_S8_MIN_BLOCKS for f in forms)
+        k = cr.kernel_tables(plan)
+        assert isinstance(k, cr.WideTables) and cr.launch_form(k) == "wide.y_whole"
+    for case in card_check.THUMBNAILS[2:3] + S8_CASES[1:3]:
+        plan = _plan(case)
+        band = cr.tile_windows(plan.y, cr.TILE_ROWS)
+        assert int((band[:, 1] - band[:, 0]).max()) > cr.WIDE_S8_BAND_ROWS
+        assert cr.wide_s8(plan) is None and cr.wide_s8_form(plan, 32) is not None
+        k = cr.kernel_tables(plan)
+        assert isinstance(k, cr.WideTables) and not k.y_s8
+        assert cr.launch_form(k) in ("wide.y_whole", "wide.y_sliced")
+    for case in card_check.RELAXED_THUMBNAILS[:-1] + [S8_CASES[1]]:
+        plan = _plan(case)
+        if not cr.supports_plan(plan, relaxed=True) or cr.tiled_ok(plan, relaxed=True):
+            continue
+        k = cr.kernel_tables(plan, relaxed=True)
+        assert isinstance(k, cr.WideTables) and k.relaxed and not k.y_s8
+        assert cr.launch_form(k) in ("wide.y_whole", "wide.y_sliced")
+    chroma = build_plan("lanczos", 1920, 1080, 128, 72, degree=3, px_scale=2)
+    assert cr.launch_form(cr.kernel_tables(chroma)) == "tiled.x_taps"
+
+
+def test_s8_form_refuses_what_it_cannot_hold():
+    """None where the merged Y does not fit s8, where no width's band fits
+    the warps' sums (a 4K-wide window at 32 rows), and on a u16 plan; a
+    given ring out of range is refused, one past WIDE_S8_SMEM (one block an
+    SM) taken; the tables of a plan the form cannot take are refused."""
+    linear = build_plan("linear", 3840, 2160, 256, 144)
+    assert cr.wide_s8(linear) is None and cr.wide_s8_form(linear, 32) is None
+    assert cr.wide_s8(build_plan("area", 16384, 64, 8, 4)) is None
+    wide_band = build_plan("lanczos", 16384, 64, 8, 4, degree=3)
+    assert all(cr.wide_s8_form(wide_band, w) is None for w in cr.WIDE_S8_WIDTHS)
+    assert cr.wide_s8_form(build_plan("area", 960, 540, 64, 36), 32) is None
+    rung = build_plan("lanczos", 3840, 2160, 256, 144, degree=3)
+    assert cr.wide_s8_form(rung, 32, 1) is None and cr.wide_s8_form(rung, 32, 9) is None
+    wide = cr.wide_s8_form(rung, 32, 7)                   # 7 slabs of 640 bytes
+    assert cr.WIDE_S8_SMEM < wide.smem <= cr.SMEM_BUDGET
+    with pytest.raises(ValueError):
+        cr.wide_s8_tables(linear)
+
+
+
+def test_ablation_times_the_s8_form_against_the_scalar_form():
+    """``wide_ablate``'s neighbours of the 144p rung: the scalar form's in
+    the scalar form only, the s8 form's at the other width and one ring
+    stage either side; its ``--s8`` plans are those the form takes."""
+    from libiqo_tpu_torch.tools import wide_ablate
+
+    plan = build_plan("lanczos", 3840, 2160, 256, 144, degree=3)
+    lay = cr.wide_layout(plan)
+    assert all(isinstance(v, cr.WideLayout) for v in wide_ablate.variants(plan, lay).values())
+    got = wide_ablate.s8_variants(plan, cr.wide_s8(plan))
+    assert {k: (v.tw, v.stages) for k, v in got.items()} == {
+        "s8 tw 16": (16, 8), "s8 stages 4": (32, 4), "s8 stages 6": (32, 6)}
+    assert all(isinstance(v, cr.WideS8) and v.smem <= cr.SMEM_BUDGET for v in got.values())
+    plans = wide_ablate.s8_plans()
+    assert card_check.THUMBNAILS[0] in plans and card_check.THUMBNAILS[4] not in plans
+    assert card_check.STRESS[8] not in plans

@@ -10,7 +10,7 @@ port's (the JAX plan is built only where the port refuses, which keeps the
 grid cheap); the wide-window plans resolve to ``cuda``, Area 65536x16 ->
 16x16 (windows past 4 rows of shared memory) to ``torch``; the relaxed form
 keeps 16 rows, so a relaxed resizer takes the exact kernel there; and both
-kernels' NumPy models (``test_torch_wide_kernel.wide_model``,
+kernels' NumPy models (``test_torch_wide_kernel.route_model``,
 ``test_torch_card_check.walk_model``) equal ``numpy_ref`` on small plans
 with several column tiles and fewer than 16 rows a block.
 """
@@ -28,7 +28,7 @@ from libiqo_tpu_torch.ops import cuda_resize
 from libiqo_tpu_torch.tools import card_check
 
 from test_torch_card_check import walk_model
-from test_torch_wide_kernel import wide_model
+from test_torch_wide_kernel import route_model
 
 CARD = torch.device("cuda", 0)
 SOURCES = {"8K": (7680, 4320), "4K": (3840, 2160), "4096sq": (4096, 4096)}
@@ -68,7 +68,7 @@ def test_wide_window_plans_resolve_to_the_kernel(case):
     rr = api.Resizer.from_plan(plan, precision="relaxed", device="cpu")
     assert rr._backend_for(CARD) == "cuda"
     k = cuda_resize.kernel_tables(plan, tiled=False)
-    assert isinstance(k, cuda_resize.WideTables) and k.layout.smem <= cuda_resize.SMEM_BUDGET
+    assert k.wide and k.layout.smem <= cuda_resize.SMEM_BUDGET
     walk = cuda_resize.kernel_tables(plan, tiled=False, wide=False)
     assert not walk.tiled and walk.rows == rows
     assert walk.rows * walk.win_max * 4 <= cuda_resize.SMEM_BUDGET
@@ -113,8 +113,8 @@ def test_walk_model_on_several_column_tiles(case):
     want = numpy_ref.resize_u8(plan, src)
     np.testing.assert_array_equal(walk_model(plan, k, src), want)
     wide = cuda_resize.kernel_tables(plan, tiled=False)
-    assert isinstance(wide, cuda_resize.WideTables)
-    np.testing.assert_array_equal(wide_model(plan, wide.layout, src), want)
+    assert wide.wide
+    np.testing.assert_array_equal(route_model(plan, wide, src), want)
     ops = cuda_resize.pack_operands(plan)             # the CPU's plain route
     np.testing.assert_array_equal(
         cuda_resize.resize_fused(ops, torch.from_numpy(src)[None])[0].numpy(), want)
